@@ -1,0 +1,91 @@
+"""SKR query workload generation (paper §7.2).
+
+Queries are generated by sampling a *center object* from the dataset, then a
+rectangle of a given area fraction centered on it, then keywords taken from
+the center object (topped up from the global keyword set):
+
+* UNI -- centers uniformly sampled from the dataset;
+* LAP -- center index from a Laplace distribution (mu=n/2, b=n/10) over the
+  dataset ordered by location (spatially skewed);
+* GAU -- Gaussian (mu=n/2, sigma=100) -- heavily skewed;
+* MIX -- 50/50 UNI + LAP (paper default).
+
+The reference's ``stratified_sample`` (construction-time query sampling)
+comes over with index construction (ROADMAP A.11).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from ..core.types import GeoTextDataset, Workload
+
+DISTRIBUTIONS = ("UNI", "LAP", "GAU", "MIX")
+
+
+def _centers(dist: str, n: int, m: int, rng: np.random.Generator) -> np.ndarray:
+    if dist == "UNI":
+        return rng.integers(0, n, size=m)
+    if dist == "LAP":
+        idx = rng.laplace(loc=n / 2, scale=n / 10, size=m)
+    elif dist == "GAU":
+        idx = rng.normal(loc=n / 2, scale=100.0, size=m)
+    elif dist == "MIX":
+        half = m // 2
+        return np.concatenate([_centers("UNI", n, half, rng), _centers("LAP", n, m - half, rng)])
+    else:
+        raise ValueError(f"unknown distribution {dist!r}")
+    return np.clip(np.round(idx), 0, n - 1).astype(np.int64)
+
+
+def make_workload(
+    dataset: GeoTextDataset,
+    m: int = 200,
+    dist: str = "MIX",
+    region_frac: float = 0.0005,  # paper default region size 0.05% of space
+    n_keywords: int = 5,  # paper default
+    seed: int = 0,
+    spatial_order: bool = True,
+) -> Workload:
+    rng = np.random.default_rng(seed)
+    n = dataset.n
+    # order objects by Hilbert-ish (interleaved) spatial order so index-space
+    # skew (LAP/GAU over indices) is spatial skew, as in the paper's setup
+    if spatial_order:
+        xy = (dataset.locs * 1023).astype(np.int64)
+        code = 0
+        for b in range(10):
+            code = code | (((xy[:, 0] >> b) & 1) << (2 * b)) | (((xy[:, 1] >> b) & 1) << (2 * b + 1))
+        order = np.argsort(code)
+    else:
+        order = np.arange(n)
+    centers = order[_centers(dist, n, m, rng)]
+
+    side = np.sqrt(region_frac)
+    half = side / 2
+    c = dataset.locs[centers]
+    rects = np.stack(
+        [
+            np.clip(c[:, 0] - half, 0, 1),
+            np.clip(c[:, 1] - half, 0, 1),
+            np.clip(c[:, 0] + half, 0, 1),
+            np.clip(c[:, 1] + half, 0, 1),
+        ],
+        axis=1,
+    ).astype(np.float32)
+
+    kw_ids = np.full((m, n_keywords), -1, dtype=np.int32)
+    zipf_pool = dataset.kw_freq / max(dataset.kw_freq.sum(), 1)
+    for i, ci in enumerate(centers):
+        own = dataset.kw_ids[ci][dataset.kw_ids[ci] >= 0]
+        take = own[:n_keywords]
+        kw_ids[i, : take.size] = take
+        extra = n_keywords - take.size
+        if extra > 0:
+            fill = rng.choice(dataset.vocab_size, size=extra, replace=False, p=zipf_pool)
+            kw_ids[i, take.size : take.size + extra] = fill
+        row = np.unique(kw_ids[i][kw_ids[i] >= 0])
+        kw_ids[i, :] = -1
+        kw_ids[i, : row.size] = row
+    return Workload.from_ids(rects, kw_ids, dataset.vocab_size)

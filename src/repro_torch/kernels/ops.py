@@ -1,0 +1,211 @@
+"""Public wrappers around the serving kernels.
+
+A CPU tensor goes to the plain PyTorch version in ``kernels/ref.py``; a
+CUDA tensor launches the hand-written kernel from ``csrc/`` or raises --
+there is no silent fallback. Before a launch the wrappers check device,
+dtype, shape and contiguity, allocate the outputs with ``torch.empty`` and
+launch on PyTorch's current stream.
+
+Bitmaps are ``int32`` tensors holding the bits of the reference's
+``uint32`` words (convert with ``.view(np.int32)`` / ``.view(np.uint32)``,
+never by value). The kernels need no padding: they mask the ragged edges
+themselves.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from . import ref
+from ._build import KERNELS
+
+# sentinel rectangle that intersects nothing under the closed-rect predicate
+# (xlo > xhi): used for query padding in serve.plan
+NEVER_RECT = (2.0, 2.0, -2.0, -2.0)
+
+FUSED_VARIANTS = ("auto", "vmem", "prefetch")
+
+# The query-tile verify kernel keeps BM * T per-slot counts in shared memory.
+_TILE_QUERIES = 8
+_TILE_SHARED_INTS = 8192
+
+
+def compact_leaf_bank_bytes(
+    n_leaves: int, obj_per_leaf: int, n_compact_words: int
+) -> int:
+    """Bytes of the compact fused-verify leaf bank: the obj_x/y/id rows, the
+    one-word signature plane, and the (K, OBJ, Wl) leaf-local bitmap slab."""
+    return int(n_leaves) * int(obj_per_leaf) * (
+        3 * 4 + 4 + int(n_compact_words) * 4
+    )
+
+
+def pack_query_words(q_bm, min_bucket: int = 4):
+    """Pack each query bitmap down to its nonzero words (host-side numpy).
+
+    Returns ``(wids, bits)``: word indices (M, Wp) int32 and the word values
+    (M, Wp) uint32, with Wp the power-of-two bucket of the batch's max
+    nonzero-word count (capped at W). Slots past a query's own count index
+    one of its zero words, so their value is 0 and they can never
+    contribute a bit -- packing is exact: ``OR_w (bm & q) == OR_p (bits &
+    gathered)``. Host-side because Wp sets a shape, and the batch's bitmaps
+    are on the host before the descent starts.
+    """
+    q = np.asarray(q_bm, dtype=np.uint32)
+    M, W = q.shape
+    nnz = int((q != 0).sum(axis=1).max()) if M else 0
+    wp = max(int(nnz), 1)
+    b = max(min_bucket, 1)
+    while b < wp:
+        b *= 2
+    wp = min(b, W)
+    # stable argsort of the "is zero" flag keeps nonzero words first, in
+    # original word order; zero-word slots carry value 0 and are inert
+    order = np.argsort(q == 0, axis=1, kind="stable")
+    wids = order[:, :wp].astype(np.int32)
+    bits = np.take_along_axis(q, wids, axis=1).astype(np.uint32)
+    return wids, bits
+
+
+def remap_query_words(q_bm: torch.Tensor, leaf_terms: torch.Tensor, leaves: torch.Tensor):
+    """Remap query bitmaps into the selected leaves' local vocabularies.
+
+    For each (query, slot), gathers the slot's leaf dictionary
+    (``leaf_terms[leaf]``: global term id per leaf-local bit, ``-1`` pad),
+    pulls each entry's bit out of the query's global bitmap, and re-packs
+    them into ``Wl`` words over leaf-local bit positions. A query term
+    absent from the leaf's dictionary contributes no local bit: no object in
+    that leaf carries it. Dirty leaf ids are clamped like the fused kernels.
+
+    Args are int32 tensors: ``q_bm`` (M, W), ``leaf_terms`` (K, 32*Wl),
+    ``leaves`` (M, T). Returns ``(q_cbm (M, T, Wl) i32, q_sig (M, T) i32)``
+    with ``q_sig`` the OR-fold of the remapped words.
+    """
+    M, W = q_bm.shape
+    K, L = leaf_terms.shape
+    Wl = L // 32
+    safe = leaves.clamp(0, K - 1).long()
+    T = safe.shape[1]
+    terms = leaf_terms[safe]  # (M, T, L) global term per local bit
+    tpos = terms.clamp(0, 32 * W - 1)
+    widx = (tpos >> 5).reshape(M, T * L).long()
+    qw = torch.gather(q_bm, 1, widx).reshape(M, T, L)
+    # arithmetic shift of the int32 view, then & 1: bit 31 comes out as 1
+    bits = (qw >> (tpos & 31)) & 1
+    bits = torch.where(terms >= 0, bits, torch.zeros_like(bits))  # pad bits are inert
+    shifts = torch.arange(32, dtype=torch.int64, device=q_bm.device)
+    # distinct powers of two per word: the int64 sum is the exact OR, an
+    # unsigned word value in [0, 2**32); fold it onto its int32 bit view
+    word = (bits.long().reshape(M, T, Wl, 32) << shifts).sum(dim=-1)
+    q_cbm = torch.where(word >= 2**31, word - 2**32, word).to(torch.int32)
+    q_sig = q_cbm[..., 0]
+    for w in range(1, Wl):
+        q_sig = q_sig | q_cbm[..., w]
+    return q_cbm, q_sig
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: Sequence[int], device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _stream(device: torch.device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def filter_frontier_narrow(q_rects, q_bits, f_codes, f_bm, f_valid, dict_x, dict_y):
+    """(M, F) int8 frontier-survivor matrix on the bandwidth-lean planes:
+    int16 MBR rank codes dequantized through the level's coordinate
+    dictionaries (exact) and packed query word planes from
+    ``pack_query_words``. CUDA tensors run ``csrc/frontier_narrow.cu``."""
+    if q_rects.device.type == "cpu":
+        return ref.frontier_filter_narrow_ref(q_rects, q_bits, f_codes, f_bm, f_valid, dict_x, dict_y)
+    dev = q_rects.device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    M, F = f_valid.shape
+    Wp = q_bits.shape[1]
+    _check("q_rects", q_rects, torch.float32, (M, 4), dev)
+    _check("q_bits", q_bits, torch.int32, (M, Wp), dev)
+    _check("f_codes", f_codes, torch.int16, (M, F, 4), dev)
+    _check("f_bm", f_bm, torch.int32, (M, F, Wp), dev)
+    _check("f_valid", f_valid, torch.int8, (M, F), dev)
+    _check("dict_x", dict_x, torch.float32, (dict_x.shape[0],), dev)
+    _check("dict_y", dict_y, torch.float32, (dict_y.shape[0],), dev)
+    if dict_x.shape[0] == 0 or dict_y.shape[0] == 0:
+        raise ValueError("empty coordinate dictionary")
+    out = torch.empty((M, F), dtype=torch.int8, device=dev)
+    KERNELS["frontier_narrow"](
+        q_rects.data_ptr(), q_bits.data_ptr(), f_codes.data_ptr(), f_bm.data_ptr(),
+        f_valid.data_ptr(), dict_x.data_ptr(), dict_y.data_ptr(), out.data_ptr(),
+        M, F, Wp, dict_x.shape[0], dict_y.shape[0], dev.index, _stream(dev),
+    )
+    return out
+
+
+def fused_gather_verify_compact(
+    q_rects, q_cbm, q_sig, top_leaf, leaf_ok,
+    obj_x, obj_y, obj_cbm, obj_sig, obj_id, variant: str = "auto",
+):
+    """Fused leaf gather + verify on the compact leaf bank.
+
+    Consumes the descent's selected leaves (``top_leaf``/``leaf_ok``), the
+    per-slot remapped query words from ``remap_query_words`` and the
+    snapshot's compact bank. Returns ``(ids, kwv)``: ids (M, T*OBJ) i32
+    matching object ids (``-1`` fill, leaf-slot-major) and kwv (M, T) i32
+    per-slot Eq. 1 ``verified`` counts.
+
+    ``variant`` picks the CUDA kernel (``csrc/fused_verify_compact.cu``):
+    ``"vmem"`` the query-tile kernel, ``"prefetch"`` the (M, T) kernel, and
+    ``"auto"`` the (M, T) kernel -- the TPU's VMEM byte cutoff is no rule on
+    Hopper, and no measured cutoff exists yet. Every variant gives identical
+    outputs; on the CPU all of them run the plain version.
+    """
+    if variant not in FUSED_VARIANTS:
+        raise ValueError(f"unknown fused-verify variant: {variant!r}")
+    if q_rects.device.type == "cpu":
+        return ref.fused_verify_compact_ref(
+            q_rects, q_cbm, q_sig, top_leaf, leaf_ok, obj_x, obj_y, obj_cbm, obj_sig, obj_id
+        )
+    dev = q_rects.device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    M, T = top_leaf.shape
+    K, OBJ = obj_x.shape
+    Wl = obj_cbm.shape[2]
+    _check("q_rects", q_rects, torch.float32, (M, 4), dev)
+    _check("q_cbm", q_cbm, torch.int32, (M, T, Wl), dev)
+    _check("q_sig", q_sig, torch.int32, (M, T), dev)
+    _check("top_leaf", top_leaf, torch.int32, (M, T), dev)
+    _check("leaf_ok", leaf_ok, torch.int8, (M, T), dev)
+    _check("obj_x", obj_x, torch.float32, (K, OBJ), dev)
+    _check("obj_y", obj_y, torch.float32, (K, OBJ), dev)
+    _check("obj_cbm", obj_cbm, torch.int32, (K, OBJ, Wl), dev)
+    _check("obj_sig", obj_sig, torch.int32, (K, OBJ), dev)
+    _check("obj_id", obj_id, torch.int32, (K, OBJ), dev)
+    if K == 0 or OBJ == 0:
+        raise ValueError("empty leaf bank")
+    ids = torch.empty((M, T * OBJ), dtype=torch.int32, device=dev)
+    kwv = torch.empty((M, T), dtype=torch.int32, device=dev)
+    args = (
+        q_rects.data_ptr(), q_cbm.data_ptr(), q_sig.data_ptr(), top_leaf.data_ptr(),
+        leaf_ok.data_ptr(), obj_x.data_ptr(), obj_y.data_ptr(), obj_cbm.data_ptr(),
+        obj_sig.data_ptr(), obj_id.data_ptr(), ids.data_ptr(), kwv.data_ptr(),
+        M, T, K, OBJ, Wl,
+    )
+    if variant == "vmem":
+        bm = max(1, min(_TILE_QUERIES, _TILE_SHARED_INTS // max(T, 1)))
+        if bm * T > _TILE_SHARED_INTS:
+            raise ValueError(f"T={T} leaf slots exceed the query-tile kernel's shared memory")
+        KERNELS["fused_verify_compact_tile"](*args, bm, dev.index, _stream(dev))
+    else:
+        KERNELS["fused_verify_compact_slot"](*args, dev.index, _stream(dev))
+    return ids, kwv

@@ -1,0 +1,120 @@
+"""Plain PyTorch versions of the serving kernels (the kernels' oracles).
+
+Each function has the semantics of the same-named oracle in the JAX
+package's ``kernels/ref.py``. Bitmaps are ``int32`` tensors holding the
+bits of the reference's ``uint32`` words (``.view(np.int32)``), so every
+keyword test is a bitwise AND against zero and no value changes. Nothing
+here does float arithmetic: the results are bit-identical to the reference
+and to the CUDA kernels in ``csrc/``.
+
+``kernels/ops.py`` sends a CPU tensor here; on the card ``chip_smoke.py``
+holds each CUDA kernel against these functions on the same inputs.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def frontier_filter_ref(
+    q_rects: torch.Tensor,  # (M, 4) f32
+    q_bm: torch.Tensor,  # (M, W) i32 bitmap words
+    f_mbrs: torch.Tensor,  # (M, F, 4) f32 -- MBRs gathered at each frontier slot
+    f_bm: torch.Tensor,  # (M, F, W) i32
+    f_valid: torch.Tensor,  # (M, F) int8 (1 = slot holds a real node)
+) -> torch.Tensor:
+    """(M, F) int8: frontier slot survives (MBR intersect AND bitmap AND valid)."""
+    inter = (
+        (q_rects[:, None, 0] <= f_mbrs[:, :, 2])
+        & (f_mbrs[:, :, 0] <= q_rects[:, None, 2])
+        & (q_rects[:, None, 1] <= f_mbrs[:, :, 3])
+        & (f_mbrs[:, :, 1] <= q_rects[:, None, 3])
+    )
+    kw = ((f_bm & q_bm[:, None, :]) != 0).any(dim=-1)
+    return (inter & kw & (f_valid > 0)).to(torch.int8)
+
+
+def frontier_filter_narrow_ref(
+    q_rects: torch.Tensor,  # (M, 4) f32
+    q_bits: torch.Tensor,  # (M, Wp) i32 -- packed nonzero query words
+    f_codes: torch.Tensor,  # (M, F, 4) int16 -- MBR rank codes
+    f_bm: torch.Tensor,  # (M, F, Wp) i32 -- packed node word planes
+    f_valid: torch.Tensor,  # (M, F) int8
+    dict_x: torch.Tensor,  # (Dx,) f32 sorted distinct x coords
+    dict_y: torch.Tensor,  # (Dy,) f32 sorted distinct y coords
+) -> torch.Tensor:
+    """Narrow-plane twin of ``frontier_filter_ref``: dequantize the int16
+    rank codes through the per-level coordinate dictionaries (exact -- every
+    code indexes the f32 value it was built from), then apply the identical
+    intersect/keyword/validity predicate on the packed word planes."""
+    fc = f_codes.long()
+    f_mbrs = torch.stack(
+        [dict_x[fc[:, :, 0]], dict_y[fc[:, :, 1]], dict_x[fc[:, :, 2]], dict_y[fc[:, :, 3]]],
+        dim=-1,
+    )
+    return frontier_filter_ref(q_rects, q_bits, f_mbrs, f_bm, f_valid)
+
+
+def skr_verify_compact_ref(
+    q_rects: torch.Tensor,  # (M, 4) f32
+    q_cbm: torch.Tensor,  # (M, T, Wl) i32 leaf-local remapped query words
+    q_sig: torch.Tensor,  # (M, T) i32 per-(query, slot) signature
+    cand_x: torch.Tensor,  # (M, T*OBJ) f32, leaf-slot-major
+    cand_y: torch.Tensor,  # (M, T*OBJ) f32
+    cand_cbm: torch.Tensor,  # (M, T*OBJ, Wl) i32 compact candidate bitmaps
+    cand_sig: torch.Tensor,  # (M, T*OBJ) i32 candidate signatures
+    cand_valid: torch.Tensor,  # (M, T*OBJ) int8
+) -> torch.Tensor:
+    """(M, T*OBJ) int8: candidate in-rect, keyword-matching on the leaf-local
+    vocabulary (one-word signature AND the ``Wl``-word any-AND), and valid."""
+    T = q_sig.shape[1]
+    OBJ = cand_x.shape[1] // T
+    inr = (
+        (cand_x >= q_rects[:, 0:1])
+        & (cand_x <= q_rects[:, 2:3])
+        & (cand_y >= q_rects[:, 1:2])
+        & (cand_y <= q_rects[:, 3:4])
+    )
+    qc = q_cbm.repeat_interleave(OBJ, dim=1)  # (M, T*OBJ, Wl)
+    qs = q_sig.repeat_interleave(OBJ, dim=1)  # (M, T*OBJ)
+    sig_hit = (cand_sig & qs) != 0
+    kw = sig_hit & ((cand_cbm & qc) != 0).any(dim=-1)
+    return (inr & kw & (cand_valid > 0)).to(torch.int8)
+
+
+def fused_verify_compact_ref(
+    q_rects: torch.Tensor,  # (M, 4) f32
+    q_cbm: torch.Tensor,  # (M, T, Wl) i32 leaf-local remapped query words
+    q_sig: torch.Tensor,  # (M, T) i32
+    top_leaf: torch.Tensor,  # (M, T) int32 selected leaf ids
+    leaf_ok: torch.Tensor,  # (M, T) int8
+    obj_x: torch.Tensor,  # (K, OBJ) f32 leaf object bank
+    obj_y: torch.Tensor,  # (K, OBJ) f32
+    obj_cbm: torch.Tensor,  # (K, OBJ, Wl) i32 compact bitmap slab
+    obj_sig: torch.Tensor,  # (K, OBJ) i32 OR-fold signatures
+    obj_id: torch.Tensor,  # (K, OBJ) int32, -1 pad
+):
+    """Gather the selected leaves' compact blocks (leaf ids clamped to
+    ``[0, K-1]``), then apply ``skr_verify_compact_ref``.
+
+    Returns ``(ids, kwv)``: ids (M, T*OBJ) i32 -- matching object ids in
+    leaf-slot-major order, ``-1`` elsewhere; kwv (M, T) i32 -- per-slot
+    counts of keyword-matching valid candidates, inside the rectangle or
+    not (the Eq. 1 ``verified`` partial sums).
+    """
+    M, T = top_leaf.shape
+    K, OBJ = obj_x.shape
+    safe = top_leaf.clamp(0, K - 1).long()
+    cx = obj_x[safe].reshape(M, -1)  # (M, T*OBJ)
+    cy = obj_y[safe].reshape(M, -1)
+    ccbm = obj_cbm[safe].reshape(M, T * OBJ, -1)
+    csig = obj_sig[safe].reshape(M, -1)
+    cid = obj_id[safe].reshape(M, -1)
+    cval = (cid >= 0) & (leaf_ok > 0).repeat_interleave(OBJ, dim=1)
+    match = skr_verify_compact_ref(
+        q_rects, q_cbm, q_sig, cx, cy, ccbm, csig, cval.to(torch.int8)
+    )
+    ids = torch.where(match > 0, cid, torch.full_like(cid, -1))
+    sig_hit = (csig & q_sig.repeat_interleave(OBJ, dim=1)) != 0
+    kw = sig_hit & ((ccbm & q_cbm.repeat_interleave(OBJ, dim=1)) != 0).any(dim=-1)
+    kwv = (kw & cval).reshape(M, T, OBJ).sum(dim=2, dtype=torch.int32)
+    return ids, kwv

@@ -1,0 +1,142 @@
+"""Plan layer: batch bucketing/padding and the frontier width discipline.
+
+Serving an ``IndexSnapshot`` needs two kinds of planning state that are not
+index data:
+
+* **Batch bucketing.** Incoming query batches are padded to power-of-two
+  buckets with inert pad queries (``pad_queries_to_bucket``), so the set
+  of batch shapes stays logarithmic in the largest batch.
+* **Execution plans.** Each frontier descent runs at per-level expansion
+  widths. ``PlanCache`` owns the monotone per-(path, level) width cache,
+  hands the executor an immutable ``ExecutionPlan`` per descent and absorbs
+  the observed per-level child-count maxima afterwards.
+
+Width discipline:
+
+* ``plan.widths is None`` -- *exact* mode: the descent reads each level's
+  batch-max child count on the host (one sync per level) and the caller
+  grows the cache from those ints. First descent of a path only.
+* ``plan.widths = (w0, w1, ...)`` -- *cached* mode: the descent runs at the
+  cached widths and keeps the per-level maxima on the device; ONE batched
+  device->host fetch checks them all at the end. Overflow (a width was too
+  narrow: children were dropped) triggers an exact retry, so the result is
+  always lossless. Monotone power-of-two growth bounds the retries at
+  log2(level width) per (path, level) for the life of the process.
+"""
+from __future__ import annotations
+
+import dataclasses
+import weakref
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core.query import round_up_bucket
+from ..kernels.ops import NEVER_RECT
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionPlan:
+    """One descent's resolved widths: ``widths=None`` is exact (per-level
+    sync) mode, a tuple is the sync-free cached mode."""
+
+    tag: str
+    widths: Optional[Tuple[int, ...]]
+
+    def pick_width(self, need: torch.Tensor, li: int, needs: List) -> int:
+        """Per-level expansion width: exact mode syncs on the batch max and
+        buckets it; cached mode keeps the max on the device for the single
+        batched overflow check."""
+        if self.widths is None:
+            mx = int(need.max())
+            needs.append(mx)
+            return round_up_bucket(mx)
+        needs.append(need.max())
+        return self.widths[li]
+
+
+class PlanCache:
+    """Monotone per-(path tag, level) frontier expansion widths.
+
+    ``widths`` is a plain dict keyed ``(tag, level) -> int`` (public: tests
+    poison it to exercise the lossless overflow retry).
+    """
+
+    def __init__(self) -> None:
+        self.widths: Dict[Tuple[str, int], int] = {}
+
+    def plan(self, tag: str, n_links: int) -> ExecutionPlan:
+        """Cached-mode plan if every level's width is learned, else exact."""
+        ws = [self.widths.get((tag, li)) for li in range(n_links)]
+        if any(w is None for w in ws):
+            return ExecutionPlan(tag=tag, widths=None)
+        return ExecutionPlan(tag=tag, widths=tuple(ws))  # type: ignore[arg-type]
+
+    def observe(self, tag: str, maxima: Sequence[int]) -> None:
+        """Grow each (tag, level) slot to the bucket of its observed maximum;
+        slots only ever double."""
+        for li, mx in enumerate(maxima):
+            w = round_up_bucket(int(mx))
+            if w > self.widths.get((tag, li), 0):
+                self.widths[(tag, li)] = w
+
+    def check_and_retry(self, plan: ExecutionPlan, needs: Sequence, descend: Callable):
+        """The single batched sync of a cached-width descent: fetch all
+        levels' observed child-count maxima at once; on overflow re-descend
+        in exact mode (``descend(exact_plan)``) and grow the cache either
+        way. Returns the retried descent output, or None when the original
+        descent stands."""
+        if plan.widths is None:
+            self.observe(plan.tag, needs)  # exact descent: needs are host ints
+            return None
+        if needs:
+            maxima = torch.stack(list(needs)).cpu().numpy()
+            if np.any(maxima > np.asarray(plan.widths)):
+                self.observe(plan.tag, maxima)
+                out = descend(ExecutionPlan(tag=plan.tag, widths=None))
+                self.observe(plan.tag, out[-1])
+                return out
+        return None
+
+
+# One PlanCache per live snapshot for callers that pass none, weakly keyed
+# so dropping the snapshot drops its learned widths too.
+_DEFAULT_PLANS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def default_plan_cache(snapshot) -> PlanCache:
+    """The per-snapshot fallback ``PlanCache``, created on first use."""
+    cache = _DEFAULT_PLANS.get(snapshot)
+    if cache is None:
+        cache = PlanCache()
+        _DEFAULT_PLANS[snapshot] = cache
+    return cache
+
+
+def pad_queries_to_bucket(q_rects, q_bm, minimum: int = 8):
+    """Pad an incoming query batch to its power-of-two bucket (host-only).
+
+    Args:
+        q_rects: (m, 4) f32 query rectangles ``(xlo, ylo, xhi, yhi)``.
+        q_bm: (m, W) u32 query keyword bitmaps.
+        minimum: smallest bucket size.
+
+    Returns:
+        ``(rects, bms, m)``: the padded (bucket, 4)/(bucket, W) arrays plus
+        the original batch size for slicing results. Pad queries use
+        never-intersecting rects and empty bitmaps, so they survive no
+        filter and verify nothing.
+    """
+    q_rects = np.asarray(q_rects, np.float32)
+    q_bm = np.asarray(q_bm, np.uint32)
+    m = q_rects.shape[0]
+    bucket = round_up_bucket(m, minimum)
+    if bucket == m:
+        return q_rects, q_bm, m
+    pad = bucket - m
+    rects = np.concatenate(
+        [q_rects, np.tile(np.array([NEVER_RECT], np.float32), (pad, 1))], 0
+    )
+    bms = np.concatenate([q_bm, np.zeros((pad, q_bm.shape[1]), np.uint32)], 0)
+    return rects, bms, m

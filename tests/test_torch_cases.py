@@ -1,0 +1,131 @@
+"""Seeded numpy operands shared by the port's kernel tests; this module holds
+no tests of its own. It imports no JAX, so the CUDA tests that use it also
+run where JAX is not installed.
+
+Bitmaps are made as the reference's ``uint32`` words, about half of them
+zero and many with bit 31 set; ``to_torch`` hands them to the port as their
+``int32`` views.
+"""
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.serve.snapshot import encode_leaf_vocab, encode_mbr_planes
+
+
+def words(rng, *shape):
+    return (rng.integers(0, 2 ** 32, shape, dtype=np.uint32)
+            * rng.integers(0, 2, shape, dtype=np.uint32))
+
+
+def rand_rects(rng, n):
+    lo = rng.uniform(0, 0.8, (n, 2)).astype(np.float32)
+    hi = lo + rng.uniform(0.01, 0.2, (n, 2)).astype(np.float32)
+    return np.concatenate([lo, hi], axis=1)
+
+
+def to_torch(a, device="cpu"):
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def to_numpy(t, like=None):
+    """A port tensor as numpy; int32 bitmaps read back as ``like``'s u32."""
+    a = t.detach().cpu().numpy()
+    if like is not None and np.asarray(like).dtype == np.uint32:
+        a = a.view(np.uint32)
+    return a
+
+
+FRONTIER_ARGS = ("q_rects", "q_bits", "f_codes", "f_bm", "f_valid", "dict_x", "dict_y")
+
+
+def frontier_case(rng, m, f, w):
+    """Narrow-descent operands: rank-coded MBR planes gathered at random
+    frontier slots + packed query word planes, plus the f32/full-width
+    twins ``(q_bm, f_mbrs, f_bm_full)`` for cross-checks."""
+    n = max(2 * f, 4)
+    lo = rng.uniform(0, 1, (n, 2)).astype(np.float32)
+    mbrs = np.concatenate([lo, lo + rng.uniform(0, 0.3, (n, 2)).astype(np.float32)], axis=1)
+    codes, dicts_x, dicts_y = encode_mbr_planes([mbrs])
+    n_bm = words(rng, n, w)
+    qb = words(rng, m, w)
+    wids, bits = ops.pack_query_words(qb)
+    idx = rng.integers(0, n, (m, f))
+    case = dict(
+        q_rects=rand_rects(rng, m),
+        q_bits=bits,
+        f_codes=codes[0][idx],
+        f_bm=n_bm[idx[:, :, None], wids[:, None, :]],
+        f_valid=rng.integers(0, 2, (m, f)).astype(np.int8),
+        dict_x=dicts_x[0],
+        dict_y=dicts_y[0],
+    )
+    return case, (qb, mbrs[idx], n_bm[idx])
+
+
+def clustered_bank(rng, k, obj, w, pool_size=24, max_kw=6):
+    """A leaf bank whose objects draw terms from a small per-leaf pool, so
+    the leaf dictionaries genuinely compress (Wl well below W)."""
+    nbits = 32 * w
+    ob = np.zeros((k, obj, w), np.uint32)
+    for c in range(k):
+        pool = rng.choice(nbits, size=min(pool_size, nbits), replace=False)
+        for o in range(obj):
+            picks = pool[: rng.integers(0, min(max_kw, pool.size) + 1)]
+            np.bitwise_or.at(
+                ob[c, o], picks >> 5, np.uint32(1) << (picks & 31).astype(np.uint32)
+            )
+    return ob
+
+
+def fused_case(rng, m, t, k, obj, w, max_kw=6):
+    """Fused-verify operands: dirty leaf ids (-1 and past K), invalid slots,
+    -1 id pads, a clustered bank and its compact encoding. Objects carry up
+    to ``max_kw`` terms of their leaf's pool, so ``max_kw`` > 32 gives
+    leaf dictionaries past one word (Wl > 1)."""
+    ob = clustered_bank(rng, k, obj, w, pool_size=max(24, max_kw + 8), max_kw=max_kw)
+    lt, cbm, sig = encode_leaf_vocab(ob)
+    assert lt is not None, "clustered pools must never overflow the cap"
+    return dict(
+        q_rects=rand_rects(rng, m),
+        q_bm=words(rng, m, w),
+        top_leaf=rng.integers(-1, k + 2, (m, t)).astype(np.int32),
+        leaf_ok=rng.integers(0, 2, (m, t)).astype(np.int8),
+        obj_x=rng.uniform(0, 1, (k, obj)).astype(np.float32),
+        obj_y=rng.uniform(0, 1, (k, obj)).astype(np.float32),
+        obj_bm=ob,
+        obj_id=np.where(rng.integers(0, 4, (k, obj)) > 0,
+                        rng.integers(0, 10 * k * obj, (k, obj)), -1).astype(np.int32),
+        leaf_terms=lt,
+        obj_cbm=cbm,
+        obj_sig=sig,
+    )
+
+
+def fused_args(case, device="cpu"):
+    """The port's fused-verify operands on ``device``, with the query words
+    remapped by the port's ``remap_query_words``."""
+    t = {k: to_torch(v, device) for k, v in case.items()}
+    q_cbm, q_sig = ops.remap_query_words(t["q_bm"], t["leaf_terms"], t["top_leaf"])
+    return (t["q_rects"], q_cbm, q_sig, t["top_leaf"], t["leaf_ok"], t["obj_x"],
+            t["obj_y"], t["obj_cbm"], t["obj_sig"], t["obj_id"])
+
+
+FRONTIER_SWEEP = [
+    (1, 1, 1),     # degenerate single-slot frontier
+    (5, 37, 3),    # nothing a multiple of a tile
+    (9, 130, 4),   # frontier just past 128 slots
+    (33, 257, 8),  # queries and frontier both off-tile
+    (8, 128, 15),  # the fs-profile word width
+]
+
+FUSED_SWEEP = [  # m, t, k, obj, w, max_kw
+    (1, 1, 1, 1, 1, 6),      # fully degenerate
+    (5, 3, 9, 16, 3, 6),     # nothing tile-aligned
+    (9, 8, 36, 64, 15, 6),   # the fs-profile word width
+    (33, 4, 17, 32, 8, 6),   # queries past the 8-query tile
+    (7, 3, 5, 24, 4, 70),    # leaf dictionaries of up to 70 terms: Wl = 4
+]

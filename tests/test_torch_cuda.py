@@ -1,0 +1,113 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU with ``nvcc`` (the kernels build from
+``src/repro_torch/kernels/csrc`` at first use) and skips elsewhere. The
+file imports no JAX, so it runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+All comparisons are exact: nothing on this path does float arithmetic.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.baselines.conventional import build_grid_index, build_str_rtree  # noqa: E402
+from repro_torch.data.synth import make_dataset  # noqa: E402
+from repro_torch.data.workloads import make_workload  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.launch.wisk_serve import serve_batch  # noqa: E402
+from repro_torch.serve.engine import retrieve_workload  # noqa: E402
+from repro_torch.serve.plan import PlanCache  # noqa: E402
+from repro_torch.serve.snapshot import IndexSnapshot  # noqa: E402
+
+from test_torch_cases import (  # noqa: E402
+    FRONTIER_ARGS, FRONTIER_SWEEP, FUSED_SWEEP, frontier_case, fused_args, fused_case, to_torch,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc; the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _equal(got, want):
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("m,f,w", FRONTIER_SWEEP + [(1024, 64, 8)])
+def test_frontier_narrow_kernel_matches_plain(cuda, m, f, w):
+    case, _ = frontier_case(np.random.default_rng(m * 7919 + f * 31 + w), m, f, w)
+    args = [to_torch(case[k], cuda) for k in FRONTIER_ARGS]
+    before = _build.KERNELS["frontier_narrow"].launches
+    got = ops.filter_frontier_narrow(*args)
+    torch.cuda.synchronize()
+    assert _build.KERNELS["frontier_narrow"].launches == before + 1
+    _equal(got, ref.frontier_filter_narrow_ref(*args))
+
+
+@pytest.mark.parametrize("variant", ["vmem", "prefetch", "auto"])
+@pytest.mark.parametrize("m,t,k,obj,w,max_kw", FUSED_SWEEP + [(1024, 32, 300, 128, 8, 6),
+                                                           (64, 16, 40, 128, 16, 200)])
+def test_fused_verify_kernel_matches_plain(cuda, variant, m, t, k, obj, w, max_kw):
+    case = fused_case(np.random.default_rng(m * 613 + t * 37 + k * 5 + obj + w), m, t, k, obj, w,
+                      max_kw)
+    args = fused_args(case, cuda)
+    name = "fused_verify_compact_tile" if variant == "vmem" else "fused_verify_compact_slot"
+    before = _build.KERNELS[name].launches
+    got = ops.fused_gather_verify_compact(*args, variant=variant)
+    torch.cuda.synchronize()
+    assert _build.KERNELS[name].launches == before + 1
+    _equal(got, ref.fused_verify_compact_ref(*args))
+
+
+def test_wrappers_check_operands(cuda):
+    case, _ = frontier_case(np.random.default_rng(3), 4, 9, 2)
+    args = [to_torch(case[k], cuda) for k in FRONTIER_ARGS]
+    bad = list(args)
+    bad[3] = args[3].to(torch.int64)
+    with pytest.raises(TypeError, match="f_bm"):
+        ops.filter_frontier_narrow(*bad)
+    bad = list(args)
+    bad[2] = args[2].transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.filter_frontier_narrow(*bad)
+    bad = list(args)
+    bad[4] = args[4].cpu()
+    with pytest.raises(ValueError, match="f_valid"):
+        ops.filter_frontier_narrow(*bad)
+    with pytest.raises(ValueError, match="q_rects"):
+        ops.filter_frontier_narrow(args[0][:2], *args[1:])
+
+
+@pytest.mark.parametrize("layout", ["grid", "str"])
+def test_engine_on_the_card_matches_the_plain_path(cuda, layout):
+    """Kernels on the card and the plain versions on the host serve the same
+    index to identical outputs, key for key, and the card run launched both
+    kernels."""
+    ds = make_dataset("sp", n=3000, seed=4)
+    index = build_grid_index(ds, 6) if layout == "grid" else build_str_rtree(ds, 32, 4)
+    wl = make_workload(ds, m=40, dist="MIX", seed=5)
+    host = serve_batch(IndexSnapshot.build(index, ds, device="cpu"), wl.rects, wl.kw_bitmap,
+                       max_leaves=8, plan_cache=PlanCache())
+    snap = IndexSnapshot.build(index, ds)  # default device: the card
+    assert snap.device.type == "cuda"
+    _build.reset_launch_counts()
+    card = serve_batch(snap, wl.rects, wl.kw_bitmap, max_leaves=8, plan_cache=PlanCache())
+    counts = _build.launch_counts()
+    assert counts["frontier_narrow"] == index.height
+    assert counts["fused_verify_compact_slot"] == 1
+    vmem = retrieve_workload(snap, wl, max_leaves=8, plan_cache=PlanCache(), fused_variant="vmem")
+    assert _build.launch_counts()["fused_verify_compact_tile"] == 1
+    for k in host:
+        assert card[k].dtype == host[k].dtype
+        np.testing.assert_array_equal(card[k], host[k], err_msg=k)
+        np.testing.assert_array_equal(vmem[k][: len(wl.rects)], host[k], err_msg=k)
