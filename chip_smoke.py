@@ -6,35 +6,46 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
-then drives the port's main path -- single-device Boolean spatial-keyword
-range (SKR) serving with the engine's default knobs -- on an index of the
-``osm`` synthetic profile at 1,000,000 objects:
+then drives the port's serving paths on an index of the ``osm`` synthetic
+profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
+4096-query MIX workload in 4 batches of 1024:
 
 1. prints the card (``nvidia-smi`` name and power limit) and the build time;
-2. builds the dataset, an STR R-tree (leaf 128, fanout 8) and the
-   device snapshot, and serves the 4096-query MIX workload once in 4
-   batches of 1024 to warm up, learn the frontier widths and capture each
-   kernel's operands at the shapes the main path gives it;
-3. one phase per kernel: holds the kernel against its plain PyTorch
-   version on the card, bit-exact, at those shapes and at ragged edges, and
-   times both (CUDA events);
-4. the main path: serves the 4 batches through ``serve_batch`` (fused
-   verify ``variant="auto"``, the (M, T) kernel), then through
-   ``retrieve(fused_variant="vmem")`` (the query-tile kernel), with the
+2. builds the dataset, the index and the device snapshot; serves the SKR
+   batches and the kNN batches (k = 10, query points at the centres of the
+   MIX rectangles) once each to warm up, learn the frontier widths and
+   capture each kernel's operands at the shapes the path gives it;
+3. SKR main path: serves the batches through ``serve_batch`` (fused verify
+   ``variant="auto"``) and ``retrieve(fused_variant="vmem")``, with the
    launch counts zeroed before and read after each run; checks every output
    key against a run with the kernels swapped for their plain versions, and
    ids / ``nodes_checked`` / ``verified`` against the host oracle
    ``execute_serial`` on 256 queries with no overflow;
-5. profiles one warm batch (``torch.profiler``: device busy and idle
-   share, the largest device and host items);
-6. prints the kernels' JSON line, then the result line.
+4. kNN main path: serves the batches through ``serve_knn_batch`` at k = 10
+   (counts zeroed before, read after), checks every key against its
+   plain-version rerun, ids and ``dist2`` bit for bit against the host
+   oracle ``knn_query`` on 256 queries, and the pruning ratio (m * n_leaf /
+   leaves verified) above 1; then one batch each at k = 1 and k = 100
+   against the oracle, and one batch with ``knn_dtype="bf16"`` against f32;
+5. the f32 descent: the SKR batches and one kNN batch with
+   ``quantized=False`` (counts zeroed before, read after), then one SKR and
+   one kNN batch on the snapshot with its narrow planes stripped (what an
+   overflowing coordinate dictionary gives), all equal to the default runs;
+6. one phase per kernel: holds the kernel against its plain PyTorch
+   version on the card, bit-exact, at the captured shapes and at ragged
+   edges, and times both (CUDA events) beside a bound;
+7. profiles one warm SKR batch and one warm kNN batch (``torch.profiler``:
+   device busy and idle share, the largest device and host items);
+8. prints the kernels' JSON line, then the result line.
 
-Any failure raises and exits non-zero. Without a CUDA device, or outside
-the repository, it exits non-zero and prints no result.
+Every phase prints its seconds. Any failure raises and exits non-zero.
+Without a CUDA device, or outside the repository, it exits non-zero and
+prints no result.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -54,6 +65,8 @@ N_QUERIES = 4096
 BATCH = 1024
 MAX_LEAVES = 32
 N_ORACLE = 256
+K = 10  # neighbours per kNN query on the main path
+K_EDGES = (1, 100)  # one batch each, checked against the host oracle
 SEED = 0
 DEVICE = "cuda:0"
 
@@ -71,6 +84,13 @@ def gpu_line() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    t = time.perf_counter()
+    yield
+    log(f"[phase {name}: {time.perf_counter() - t:.3f} s]")
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 3) -> float:
@@ -103,7 +123,10 @@ def patched(module, **attrs):
 def max_abs_err(a, b) -> float:
     if isinstance(a, tuple):
         return max(max_abs_err(x, y) for x, y in zip(a, b))
-    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+    if not a.numel():
+        return 0.0
+    diff = (a.double() - b.double()).abs()
+    return float(torch.where(a == b, 0.0, diff).max())  # equal infinities differ by 0
 
 
 def assert_same(got, want, what: str) -> None:
@@ -123,33 +146,60 @@ def assert_same(got, want, what: str) -> None:
 def needed_words(hit_words, live):
     """(..., W) mask of the words that decide ``any(hit_words)`` where
     ``live``: the first hit word where there is one, else all of them."""
-    first = torch.nn.functional.one_hot(hit_words.int().argmax(-1), hit_words.shape[-1])
-    return live[..., None] & torch.where(hit_words.any(-1, keepdim=True), first > 0, True)
+    W = hit_words.shape[-1]
+    first = hit_words.to(torch.uint8).argmax(-1, keepdim=True)
+    first = torch.arange(W, device=hit_words.device) == first
+    return live[..., None] & torch.where(hit_words.any(-1, keepdim=True), first, True)
 
 
-def frontier_bound(args):
-    """Valid flags in and survivor bytes out for every (query, slot); codes
-    and their distinct dictionary entries only for valid slots; word-plane
-    words only for valid slots whose rectangle meets the query."""
-    q_rects, q_bits, f_codes, f_bm, f_valid, dict_x, dict_y = args
+def slot_bound(args, narrow: bool, knn: bool):
+    """Bytes and operations of a frontier (``knn=False``) or kNN filter, on
+    the narrow planes (codes + dictionaries) or the f32 full-width ones.
+
+    For every (query, slot): the valid flag in and the result out (int8
+    survivor or f32 distance). The range filter needs a slot's MBR where the
+    slot is valid and its words where the MBR also meets the rectangle; the
+    kNN filter needs the words of every valid slot and the MBR only where
+    they hit. An MBR is 16 bytes, or 8 bytes of codes plus its distinct
+    dictionary entries. Query operands count for queries that need them."""
+    if narrow:
+        q, q_words, f_codes, f_bm, f_valid, dict_x, dict_y = args
+        c = f_codes.long()
+        cx = c[..., 0::2].clamp(0, dict_x.numel() - 1)
+        cy = c[..., 1::2].clamp(0, dict_y.numel() - 1)
+        x, y = dict_x[cx], dict_y[cy]  # (M, F, 2): lo, hi
+    else:
+        q, q_words, f_mbrs, f_bm, f_valid = args
+        x, y = f_mbrs[..., 0::2], f_mbrs[..., 1::2]
     M, F = f_valid.shape
     valid = f_valid > 0
-    c = f_codes.long()
-    cx = c[..., 0::2].clamp(0, dict_x.numel() - 1)
-    cy = c[..., 1::2].clamp(0, dict_y.numel() - 1)
-    x, y, q = dict_x[cx], dict_y[cy], q_rects[:, None, :]
-    inter = (valid & (q[..., 0] <= x[..., 1]) & (x[..., 0] <= q[..., 2])
-             & (q[..., 1] <= y[..., 1]) & (y[..., 0] <= q[..., 3]))
-    need = needed_words((f_bm & q_bits[:, None, :]) != 0, inter)  # (M, F, Wp)
-    n_valid = int(valid.sum())
-    entries = torch.unique(cx[valid]).numel() + torch.unique(cy[valid]).numel()
-    nbytes = (int(valid.any(1).sum()) * 16  # rects of queries with a valid slot
+    hits = (f_bm & q_words[:, None, :]) != 0  # (M, F, W)
+    if knn:
+        need = needed_words(hits, valid)
+        mbr_slots = valid & hits.any(-1)
+        live_q = mbr_slots.any(1)
+        out_bytes, mbr_ops = 4, 11  # 4 subtractions, 4 max, 2 products, 1 sum
+    else:
+        qr = q[:, None, :]
+        inter = (valid & (qr[..., 0] <= x[..., 1]) & (x[..., 0] <= qr[..., 2])
+                 & (qr[..., 1] <= y[..., 1]) & (y[..., 0] <= qr[..., 3]))
+        need = needed_words(hits, inter)
+        mbr_slots = valid
+        live_q = valid.any(1)
+        out_bytes, mbr_ops = 1, 4  # 4 compares
+    n_mbr = int(mbr_slots.sum())
+    if narrow:
+        entries = (torch.unique(cx[mbr_slots]).numel() + torch.unique(cy[mbr_slots]).numel())
+        mbr_bytes = n_mbr * 8 + entries * 4
+    else:
+        mbr_bytes = n_mbr * 16
+    nbytes = (int(live_q.sum()) * q.shape[1] * 4  # rects or points of queries that need them
               + int(need.any(1).sum()) * 4  # query words some slot needs
               + M * F  # f_valid
-              + n_valid * 8 + entries * 4  # codes, dictionary entries
+              + mbr_bytes
               + int(need.sum()) * 4  # word-plane words
-              + M * F)  # out
-    ops = M * F + n_valid * 4 + int(need.sum()) * 2  # valid, rect compares, AND+test
+              + M * F * out_bytes)  # out
+    ops = M * F + n_mbr * mbr_ops + int(need.sum()) * 2  # valid, MBR math, AND+test
     return nbytes, ops
 
 
@@ -192,9 +242,9 @@ def bound_ms(nbytes: int, ops: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def profile_batch(serve_one, warm, plan_cache_cls) -> None:
+def profile_batch(label: str, serve_one, warm, plan_cache_cls) -> None:
     """Where one warm batch's time goes: ``torch.profiler`` over a single
-    ``serve_batch`` call, device time by operation against the host clock."""
+    serving call, device time by operation against the host clock."""
     from torch.profiler import ProfilerActivity, profile
 
     cache = plan_cache_cls()
@@ -212,9 +262,10 @@ def profile_batch(serve_one, warm, plan_cache_cls) -> None:
     on_device = [e for e in events if e.device_type == DeviceType.CUDA]
     dev = lambda e: e.self_device_time_total / 1e3  # noqa: E731
     busy_ms = sum(dev(e) for e in on_device)
-    log(f"profile of one batch (profiler on): wall {wall_ms:.6f} ms, device busy "
+    log(f"profile of one {label} batch (profiler on): wall {wall_ms:.6f} ms, device busy "
         f"{busy_ms:.6f} ms ({100 * busy_ms / wall_ms:.3f} %), "
-        f"device idle {100 - 100 * busy_ms / wall_ms:.3f} %")
+        f"device idle {100 - 100 * busy_ms / wall_ms:.3f} %, "
+        f"{sum(e.count for e in on_device)} device events")
     for e in sorted(on_device, key=dev, reverse=True)[:8]:
         log(f"  device {dev(e):.6f} ms x{e.count}: {e.key[:100]}")
     host = [e for e in events if e.device_type != DeviceType.CUDA]
@@ -223,26 +274,39 @@ def profile_batch(serve_one, warm, plan_cache_cls) -> None:
 
 
 # --------------------------------------------------------- ragged operands
-def ragged_frontier(dev, M=37, F=131, Wp=3, D=61, seed=5):
+def _words(g, *shape):
+    return (g.integers(0, 2 ** 32, shape, dtype=np.uint32)
+            * g.integers(0, 2, shape, dtype=np.uint32)).view(np.int32)
+
+
+def ragged_slots(dev, narrow: bool, knn: bool, M=37, F=131, W=3, D=61, seed=5):
+    """Operands of a frontier (``knn=False``: query rectangles) or kNN
+    filter (query points) at ragged shapes: int16 rank codes into two sorted
+    dictionaries (``narrow``) or the f32 MBRs they decode to, sparse random
+    words, random validity and an all-invalid last row."""
     g = np.random.default_rng(seed)
-    dx = torch.from_numpy(np.sort(g.uniform(0, 1, D)).astype(np.float32)).to(dev)
-    dy = torch.from_numpy(np.sort(g.uniform(0, 1, D)).astype(np.float32)).to(dev)
+    dx = np.sort(g.uniform(0, 1, D)).astype(np.float32)
+    dy = np.sort(g.uniform(0, 1, D)).astype(np.float32)
     lo = g.integers(0, D, (M, F, 2))
     hi = np.minimum(lo + g.integers(0, 8, (M, F, 2)), D - 1)
     codes = np.stack([lo[..., 0], lo[..., 1], hi[..., 0], hi[..., 1]], -1).astype(np.int16)
-    words = lambda *s: (g.integers(0, 2 ** 32, s, dtype=np.uint32)  # noqa: E731
-                        * g.integers(0, 2, s, dtype=np.uint32)).view(np.int32)
     qlo = g.uniform(0, 0.8, (M, 2)).astype(np.float32)
     rects = np.concatenate([qlo, qlo + g.uniform(0.01, 0.3, (M, 2)).astype(np.float32)], 1)
+    valid = g.integers(0, 2, (M, F)).astype(np.int8)
+    if M > 1:
+        valid[-1] = 0
+    q = g.uniform(0, 1, (M, 2)).astype(np.float32) if knn else rects
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    return (t(rects), t(words(M, Wp)), t(codes), t(words(M, F, Wp)),
-            t(g.integers(0, 2, (M, F)).astype(np.int8)), dx, dy)
+    qw, fw = t(_words(g, M, W)), t(_words(g, M, F, W))
+    if narrow:
+        return (t(q), qw, t(codes), fw, t(valid), t(dx), t(dy))
+    mbrs = np.stack([dx[codes[..., 0]], dy[codes[..., 1]], dx[codes[..., 2]], dy[codes[..., 3]]], -1)
+    return (t(q), qw, t(mbrs), fw, t(valid))
 
 
 def ragged_fused(dev, M=13, T=5, K=11, OBJ=37, Wl=2, seed=7):
     g = np.random.default_rng(seed)
-    words = lambda *s: (g.integers(0, 2 ** 32, s, dtype=np.uint32)  # noqa: E731
-                        * g.integers(0, 2, s, dtype=np.uint32)).view(np.int32)
+    words = lambda *s: _words(g, *s)  # noqa: E731
     qlo = g.uniform(0, 0.8, (M, 2)).astype(np.float32)
     rects = np.concatenate([qlo, qlo + g.uniform(0.01, 0.3, (M, 2)).astype(np.float32)], 1)
     cbm = words(K, OBJ, Wl)
@@ -258,6 +322,36 @@ def ragged_fused(dev, M=13, T=5, K=11, OBJ=37, Wl=2, seed=7):
             t(cbm), t(sig), t(oid.astype(np.int32)))
 
 
+def query_points(wl) -> np.ndarray:
+    """kNN query points: the centres of the workload's rectangles."""
+    return np.stack(
+        [(wl.rects[:, 0] + wl.rects[:, 2]) / 2, (wl.rects[:, 1] + wl.rects[:, 3]) / 2], 1
+    ).astype(np.float32)
+
+
+def assert_outputs_equal(got, want, what: str) -> None:
+    """Two serving outputs equal on every key, dtype, shape and value."""
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: keys differ ({sorted(got)} vs {sorted(want)})")
+    for k in want:
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        if g.dtype != w.dtype or g.shape != w.shape or not np.array_equal(g, w):
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def check_knn_oracle(knn_query, index, ds, out, points, bms, rows, k: int, what: str) -> None:
+    """ids and dist2 of ``rows`` bit-equal to the host best-first oracle."""
+    for q in rows:
+        r = knn_query(index, ds, points[q], bms[q], k)
+        row = out["ids"][q]
+        if not np.array_equal(row[row >= 0], r.ids):
+            raise AssertionError(f"{what} query {q}: ids differ from knn_query")
+        if not np.array_equal(out["dist2"][q][: r.ids.size], r.dist2):
+            raise AssertionError(f"{what} query {q}: dist2 differs from knn_query")
+        if (row[r.ids.size:] != -1).any():
+            raise AssertionError(f"{what} query {q}: more ids than knn_query")
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -265,12 +359,12 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.baselines.conventional import build_str_rtree
-    from repro_torch.core.query import execute_serial
+    from repro_torch.core.query import execute_serial, knn_query
     from repro_torch.data.synth import make_dataset
     from repro_torch.data.workloads import make_workload
     from repro_torch.kernels import _build, ops, ref
-    from repro_torch.launch.wisk_serve import serve_batch
-    from repro_torch.serve.engine import retrieve
+    from repro_torch.launch.wisk_serve import serve_batch, serve_knn_batch
+    from repro_torch.serve.engine import retrieve, retrieve_knn
     from repro_torch.serve.plan import PlanCache
     from repro_torch.serve.snapshot import IndexSnapshot
 
@@ -278,23 +372,23 @@ def main() -> int:
     card = gpu_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-    t0 = time.perf_counter()
-    _build.build_all()
-    log(f"kernel build: {time.perf_counter() - t0:.3f} s")
+    with phase("kernel build"):
+        _build.build_all()
     for src, text in sorted(_build.BUILD_LOG.items()):
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {src}: {line.strip()}")
 
     # ---------------------------------------------------- data and index
-    t0 = time.perf_counter()
-    ds = make_dataset(PROFILE, n=N_OBJECTS, seed=SEED)
-    t1 = time.perf_counter()
-    index = build_str_rtree(ds, leaf_size=LEAF_SIZE, fanout=FANOUT)
-    t2 = time.perf_counter()
-    snap = IndexSnapshot.build(index, ds, device=dev)
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
+    with phase("data, index and snapshot"):
+        t0 = time.perf_counter()
+        ds = make_dataset(PROFILE, n=N_OBJECTS, seed=SEED)
+        t1 = time.perf_counter()
+        index = build_str_rtree(ds, leaf_size=LEAF_SIZE, fanout=FANOUT)
+        t2 = time.perf_counter()
+        snap = IndexSnapshot.build(index, ds, device=dev)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
     assert snap.has_narrow_planes, "a level overflowed NARROW_DICT_MAX"
     assert snap.has_compact_bank, "a leaf overflowed LEAF_DICT_MAX"
     log(f"dataset {PROFILE} n={ds.n} W={ds.words} vocab={ds.vocab_size}: {t1 - t0:.3f} s")
@@ -303,9 +397,17 @@ def main() -> int:
         f"OBJ={snap.obj_per_leaf} Wl={snap.n_compact_words} "
         f"dicts={[int(d.numel()) for d in snap.level_dict_x]}")
     wl = make_workload(ds, m=N_QUERIES, dist="MIX", seed=1)
+    points = query_points(wl)
+    bms = wl.kw_bitmap
     batches = [np.arange(i, i + BATCH) for i in range(0, N_QUERIES, BATCH)]
+    n_leaf = index.levels[-1].n
 
-    # ------------------------------- warm-up pass, capturing kernel operands
+    def cached(warm):
+        cache = PlanCache()
+        cache.widths = dict(warm.widths)
+        return cache
+
+    # ------------------------ warm-up passes, capturing kernel operands
     captured = {}
 
     def recorder(key, fn, size_arg):
@@ -317,131 +419,249 @@ def main() -> int:
             return fn(*args, **kw)
         return rec
 
-    warm = PlanCache()
-    t0 = time.perf_counter()
-    with patched(ops,  # sized by f_valid (M, F) and top_leaf (M, T)
-                 filter_frontier_narrow=recorder("frontier", ops.filter_frontier_narrow, 4),
-                 fused_gather_verify_compact=recorder(
-                     "fused", ops.fused_gather_verify_compact, 3)):
+    warm, warm_knn = PlanCache(), PlanCache()
+    with phase("warm-up: SKR and kNN batches"), patched(
+        ops,  # sized by f_valid (M, F) and top_leaf (M, T)
+        filter_frontier_narrow=recorder("frontier_narrow", ops.filter_frontier_narrow, 4),
+        fused_gather_verify_compact=recorder("fused", ops.fused_gather_verify_compact, 3),
+        knn_frontier_dist_narrow=recorder("knn_filter_narrow", ops.knn_frontier_dist_narrow, 4),
+    ):
         for b in batches:
-            serve_batch(snap, wl.rects[b], wl.kw_bitmap[b], MAX_LEAVES, plan_cache=warm)
-    log(f"warm-up pass (learns widths {sorted(warm.widths.items())}): "
-        f"{time.perf_counter() - t0:.3f} s")
+            serve_batch(snap, wl.rects[b], bms[b], MAX_LEAVES, plan_cache=warm)
+        for b in batches:
+            serve_knn_batch(snap, points[b], bms[b], K, plan_cache=warm_knn)
+    log(f"learned widths: SKR {sorted(warm.widths.items())}, "
+        f"kNN {sorted(warm_knn.widths.items())}")
 
-    # ------------------------------------------------------- kernel phases
-    rows = []
-    f_args, fu_args = captured["frontier"], captured["fused"]
-    plain_fused = lambda *a: ref.fused_verify_compact_ref(*a)  # noqa: E731
-    phases = [
-        ("frontier_narrow", "cuda", "src/repro_torch/kernels/csrc/frontier_narrow.cu",
-         "src/repro/kernels/frontier.py:113", f_args,
-         [ragged_frontier(dev), ragged_frontier(dev, M=1, F=1, Wp=1, D=2, seed=9)],
-         ops.filter_frontier_narrow, ref.frontier_filter_narrow_ref, frontier_bound),
-        ("fused_verify_compact_tile", "cuda", "src/repro_torch/kernels/csrc/fused_verify_compact.cu",
-         "src/repro/kernels/fused_verify.py:267", fu_args,
-         [ragged_fused(dev), ragged_fused(dev, M=1, T=1, K=1, OBJ=1, Wl=1, seed=3)],
-         lambda *a: ops.fused_gather_verify_compact(*a, variant="vmem"), plain_fused, fused_bound),
-        ("fused_verify_compact_slot", "cuda", "src/repro_torch/kernels/csrc/fused_verify_compact.cu",
-         "src/repro/kernels/fused_verify.py:345", fu_args,
-         [ragged_fused(dev), ragged_fused(dev, M=1, T=1, K=1, OBJ=1, Wl=1, seed=3)],
-         lambda *a: ops.fused_gather_verify_compact(*a, variant="prefetch"), plain_fused,
-         fused_bound),
-    ]
-    for name, route, source, replaces, args, ragged, kernel, plain, bound in phases:
-        for case in [args, *ragged]:
-            got = kernel(*case)
-            torch.cuda.synchronize()
-            assert_same(got, plain(*case), f"{name} at {[tuple(a.shape) for a in case[:5]]}")
-        err = max_abs_err(kernel(*args), plain(*args))
-        torch.cuda.synchronize()
-        ms = time_ms(lambda: kernel(*args))
-        plain_ms = time_ms(lambda: plain(*args), iters=10)
-        nbytes, nops = bound(args)
-        b_ms, b_by = bound_ms(nbytes, nops)
-        shapes = [tuple(a.shape) for a in args]
-        log(f"phase {name}: bit-exact vs plain at main-path shapes {shapes} and "
-            f"{len(ragged)} ragged cases; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-            f"bound {b_ms:.6f} ms ({b_by}: {nbytes} B, {nops} ops)")
-        rows.append(dict(name=name, route=route, source=source, replaces=replaces,
-                         launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
-
-    # ----------------------------------------------------------- main path
+    # ------------------------------------------------------ SKR main path
     def serve_all(variant=None):
-        cache = PlanCache()
-        cache.widths = dict(warm.widths)
+        cache = cached(warm)
         outs, times = [], []
         for b in batches:
             t = time.perf_counter()
             if variant is None:
-                out = serve_batch(snap, wl.rects[b], wl.kw_bitmap[b], MAX_LEAVES, plan_cache=cache)
+                out = serve_batch(snap, wl.rects[b], bms[b], MAX_LEAVES, plan_cache=cache)
             else:
-                out = retrieve(snap, wl.rects[b], wl.kw_bitmap[b], MAX_LEAVES,
+                out = retrieve(snap, wl.rects[b], bms[b], MAX_LEAVES,
                                plan_cache=cache, fused_variant=variant)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
             outs.append(out)
         return outs, times
 
-    _build.reset_launch_counts()
-    main_out, main_t = serve_all()
-    main_counts = _build.launch_counts()
-    log(f"main path serve_batch x{len(batches)} (auto): batch s {main_t}, launches {main_counts}")
-    _build.reset_launch_counts()
-    vmem_out, vmem_t = serve_all("vmem")
-    vmem_counts = _build.launch_counts()
-    log(f"main path retrieve(fused_variant='vmem') x{len(batches)}: batch s {vmem_t}, "
-        f"launches {vmem_counts}")
-    for key, counts in (("frontier_narrow", main_counts),
-                        ("fused_verify_compact_slot", main_counts),
-                        ("fused_verify_compact_tile", vmem_counts)):
-        if counts[key] <= 0:
-            raise AssertionError(f"the main path never launched {key}")
-    launches = {"frontier_narrow": main_counts["frontier_narrow"],
-                "fused_verify_compact_slot": main_counts["fused_verify_compact_slot"],
-                "fused_verify_compact_tile": vmem_counts["fused_verify_compact_tile"]}
-    for r in rows:
-        r["launches"] = launches[r["name"]]
+    plain_fused = lambda *a: ref.fused_verify_compact_ref(*a)  # noqa: E731
+    launches = {}
+    with phase("SKR main path, plain rerun"):
+        _build.reset_launch_counts()
+        main_out, main_t = serve_all()
+        main_counts = _build.launch_counts()
+        log(f"SKR main path serve_batch x{len(batches)} (auto): batch s {main_t}, "
+            f"launches {main_counts}")
+        _build.reset_launch_counts()
+        vmem_out, vmem_t = serve_all("vmem")
+        vmem_counts = _build.launch_counts()
+        log(f"SKR main path retrieve(fused_variant='vmem') x{len(batches)}: batch s {vmem_t}, "
+            f"launches {vmem_counts}")
+        for key, counts in (("frontier_narrow", main_counts),
+                            ("fused_verify_compact_slot", main_counts),
+                            ("fused_verify_compact_tile", vmem_counts)):
+            if counts[key] <= 0:
+                raise AssertionError(f"the SKR main path never launched {key}")
+            launches[key] = counts[key]
 
-    _build.reset_launch_counts()
-    with patched(ops, filter_frontier_narrow=ref.frontier_filter_narrow_ref,
-                 fused_gather_verify_compact=lambda *a, variant="auto": plain_fused(*a)):
-        plain_out, plain_t = serve_all()
-    if any(_build.launch_counts().values()):
-        raise AssertionError("the plain run launched a kernel")
-    log(f"plain-version run: batch s {plain_t}")
-    for run, outs in (("auto", main_out), ("vmem", vmem_out)):
-        for bi, (got, want) in enumerate(zip(outs, plain_out)):
-            if set(got) != set(want):
-                raise AssertionError(f"{run} batch {bi}: keys differ")
-            for k in want:
-                g, w = np.asarray(got[k]), np.asarray(want[k])
-                if g.dtype != w.dtype or g.shape != w.shape or not np.array_equal(g, w):
-                    raise AssertionError(f"{run} batch {bi}: {k} differs from the plain run")
-    log("main path equals the plain-version run on every key, dtype and shape")
+        _build.reset_launch_counts()
+        with patched(ops, filter_frontier_narrow=ref.frontier_filter_narrow_ref,
+                     fused_gather_verify_compact=lambda *a, variant="auto": plain_fused(*a)):
+            plain_out, plain_t = serve_all()
+        if any(_build.launch_counts().values()):
+            raise AssertionError("the plain run launched a kernel")
+        log(f"SKR plain-version run: batch s {plain_t}")
+        for run, outs in (("auto", main_out), ("vmem", vmem_out)):
+            for bi, (got, want) in enumerate(zip(outs, plain_out)):
+                assert_outputs_equal(got, want, f"SKR {run} batch {bi} vs the plain run")
+        log("SKR main path equals the plain-version run on every key, dtype and shape")
 
     # ---------------------------------------------------------- host oracle
-    cat = {k: np.concatenate([o[k] for o in main_out]) for k in
-           ("ids", "nodes_checked", "verified", "overflow", "counts")}
-    ok = np.flatnonzero(cat["overflow"] == 0)[:N_ORACLE]
-    if ok.size < N_ORACLE:
-        raise AssertionError(f"only {ok.size} queries without overflow")
-    t0 = time.perf_counter()
-    st = execute_serial(index, ds, wl.subset(ok))
-    for j, q in enumerate(ok):
-        row = cat["ids"][q]
-        if not np.array_equal(np.sort(row[row >= 0]), np.sort(st.results[j])):
-            raise AssertionError(f"query {q}: ids differ from execute_serial")
-    if not np.array_equal(cat["nodes_checked"][ok], st.nodes_accessed):
-        raise AssertionError("nodes_checked differs from execute_serial")
-    if not np.array_equal(cat["verified"][ok], st.verified):
-        raise AssertionError("verified differs from execute_serial")
-    log(f"execute_serial oracle on {ok.size} queries with overflow == 0: equal "
-        f"({time.perf_counter() - t0:.3f} s); queries with overflow: "
-        f"{int((cat['overflow'] > 0).sum())} of {N_QUERIES}, results {int(cat['counts'].sum())}")
+    with phase("SKR execute_serial oracle"):
+        cat = {k: np.concatenate([o[k] for o in main_out]) for k in
+               ("ids", "nodes_checked", "verified", "overflow", "counts")}
+        ok = np.flatnonzero(cat["overflow"] == 0)[:N_ORACLE]
+        if ok.size < N_ORACLE:
+            raise AssertionError(f"only {ok.size} queries without overflow")
+        st = execute_serial(index, ds, wl.subset(ok))
+        for j, q in enumerate(ok):
+            row = cat["ids"][q]
+            if not np.array_equal(np.sort(row[row >= 0]), np.sort(st.results[j])):
+                raise AssertionError(f"query {q}: ids differ from execute_serial")
+        if not np.array_equal(cat["nodes_checked"][ok], st.nodes_accessed):
+            raise AssertionError("nodes_checked differs from execute_serial")
+        if not np.array_equal(cat["verified"][ok], st.verified):
+            raise AssertionError("verified differs from execute_serial")
+        log(f"execute_serial oracle on {ok.size} queries with overflow == 0: equal; "
+            f"queries with overflow: {int((cat['overflow'] > 0).sum())} of {N_QUERIES}, "
+            f"results {int(cat['counts'].sum())}")
 
-    profile_batch(lambda cache: serve_batch(snap, wl.rects[batches[0]], wl.kw_bitmap[batches[0]],
-                                            MAX_LEAVES, plan_cache=cache), warm, PlanCache)
+    # ------------------------------------------------------ kNN main path
+    def serve_knn_all(k=K, knn_dtype="f32"):
+        cache = cached(warm_knn)
+        outs, times = [], []
+        for b in batches:
+            t = time.perf_counter()
+            outs.append(serve_knn_batch(snap, points[b], bms[b], k, plan_cache=cache,
+                                        knn_dtype=knn_dtype))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return outs, times
+
+    with phase("kNN main path, plain rerun"):
+        _build.reset_launch_counts()
+        knn_out, knn_t = serve_knn_all()
+        knn_counts = _build.launch_counts()
+        log(f"kNN main path serve_knn_batch(k={K}) x{len(batches)}: batch s {knn_t}, "
+            f"launches {knn_counts}")
+        if knn_counts["knn_filter_narrow"] <= 0:
+            raise AssertionError("the kNN main path never launched knn_filter_narrow")
+        launches["knn_filter_narrow"] = knn_counts["knn_filter_narrow"]
+        _build.reset_launch_counts()
+        with patched(ops, knn_frontier_dist_narrow=ref.knn_filter_narrow_ref):
+            knn_plain, knn_plain_t = serve_knn_all()
+        if any(_build.launch_counts().values()):
+            raise AssertionError("the kNN plain run launched a kernel")
+        log(f"kNN plain-version run: batch s {knn_plain_t}")
+        for bi, (got, want) in enumerate(zip(knn_out, knn_plain)):
+            assert_outputs_equal(got, want, f"kNN batch {bi} vs the plain run")
+        log("kNN main path equals the plain-version run on every key, dtype and shape")
+
+    with phase("kNN knn_query oracle, k = 1 and 100, bf16"):
+        kcat = {k: np.concatenate([o[k] for o in knn_out]) for k in
+                ("ids", "dist2", "leaves_verified", "pruned", "verified")}
+        check_knn_oracle(knn_query, index, ds, kcat, points, bms, range(N_ORACLE), K,
+                         f"kNN k={K}")
+        ratio = N_QUERIES * n_leaf / max(float(kcat["leaves_verified"].sum()), 1.0)
+        if not ratio > 1.0:
+            raise AssertionError(f"the bounded descent did not prune (ratio {ratio})")
+        log(f"knn_query oracle on {N_ORACLE} queries at k={K}: ids and dist2 bit-equal; "
+            f"pruning ratio {ratio:.3f} (m * n_leaf / leaves verified), mean leaves verified "
+            f"{kcat['leaves_verified'].mean():.3f}, objects verified "
+            f"{kcat['verified'].mean():.3f}, slots pruned {kcat['pruned'].mean():.3f}, "
+            f"frontier widths {knn_out[0]['frontier_widths'].tolist()}")
+        b0 = batches[0]
+        for k in K_EDGES:
+            t = time.perf_counter()
+            out = serve_knn_batch(snap, points[b0], bms[b0], k, plan_cache=cached(warm_knn))
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t
+            check_knn_oracle(knn_query, index, ds, out, points[b0], bms[b0], range(N_ORACLE), k,
+                             f"kNN k={k}")
+            log(f"k={k}: one batch {t:.6f} s, ids and dist2 bit-equal to knn_query on "
+                f"{N_ORACLE} queries, frontier widths {out['frontier_widths'].tolist()}")
+        t = time.perf_counter()
+        bf = serve_knn_batch(snap, points[b0], bms[b0], K, plan_cache=cached(warm_knn),
+                             knn_dtype="bf16")
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t
+        for key in ("ids", "dist2"):
+            if not np.array_equal(bf[key], knn_out[0][key]):
+                raise AssertionError(f"knn_dtype='bf16' {key} differs from f32")
+        log(f"knn_dtype='bf16' batch {t:.6f} s: ids and dist2 equal to f32 "
+            f"(knn_dtype_retried={bf['knn_dtype_retried']})")
+
+    # ------------------------------------------------------- f32 descent
+    with phase("f32 descent: quantized=False and stripped snapshot"):
+        _build.reset_launch_counts()
+        with patched(ops, filter_frontier=recorder("frontier_filter", ops.filter_frontier, 4)):
+            cache = cached(warm)
+            f32_t = []
+            for bi, b in enumerate(batches):
+                t = time.perf_counter()
+                out = retrieve(snap, wl.rects[b], bms[b], MAX_LEAVES, plan_cache=cache,
+                               quantized=False)
+                torch.cuda.synchronize()
+                f32_t.append(time.perf_counter() - t)
+                assert_outputs_equal(out, main_out[bi], f"SKR quantized=False batch {bi}")
+        counts = _build.launch_counts()
+        log(f"SKR quantized=False x{len(batches)}: batch s {f32_t}, launches {counts}")
+        if counts["frontier_filter"] <= 0 or counts["frontier_narrow"] != 0:
+            raise AssertionError("the SKR f32 descent did not run on frontier_filter alone")
+        launches["frontier_filter"] = counts["frontier_filter"]
+        _build.reset_launch_counts()
+        with patched(ops, knn_frontier_dist=recorder("knn_filter", ops.knn_frontier_dist, 4)):
+            t = time.perf_counter()
+            out = retrieve_knn(snap, points[b0], bms[b0], K, plan_cache=cached(warm_knn),
+                               quantized=False)
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t
+        assert_outputs_equal(out, knn_out[0], "kNN quantized=False batch 0")
+        counts = _build.launch_counts()
+        log(f"kNN quantized=False: one batch {t:.6f} s, launches {counts}")
+        if counts["knn_filter"] <= 0 or counts["knn_filter_narrow"] != 0:
+            raise AssertionError("the kNN f32 descent did not run on knn_filter alone")
+        launches["knn_filter"] = counts["knn_filter"]
+
+        stripped = dataclasses.replace(snap, level_mbr_codes=[], level_dict_x=[],
+                                       level_dict_y=[])
+        assert not stripped.has_narrow_planes
+        out = retrieve(stripped, wl.rects[b0], bms[b0], MAX_LEAVES, plan_cache=cached(warm))
+        assert_outputs_equal(out, main_out[0], "SKR on the stripped snapshot")
+        out = retrieve_knn(stripped, points[b0], bms[b0], K, plan_cache=cached(warm_knn))
+        assert_outputs_equal(out, knn_out[0], "kNN on the stripped snapshot")
+        log("quantized=False and stripped-snapshot runs equal the default runs on every key")
+
+    # ------------------------------------------------------- kernel phases
+    rows = []
+    csrc = "src/repro_torch/kernels/csrc/"
+    fu_args = captured["fused"]
+    fused_ragged = [ragged_fused(dev), ragged_fused(dev, M=1, T=1, K=1, OBJ=1, Wl=1, seed=3)]
+
+    def slot_phase(name, source, replaces, kernel, plain, narrow, knn):
+        ragged = [ragged_slots(dev, narrow, knn),
+                  ragged_slots(dev, narrow, knn, M=1, F=1, W=1, D=2, seed=9)]
+        return (name, source, replaces, captured[name], ragged, kernel, plain,
+                lambda a: slot_bound(a, narrow, knn))
+
+    phases = [
+        slot_phase("frontier_narrow", csrc + "frontier.cu", "src/repro/kernels/frontier.py:113",
+                   ops.filter_frontier_narrow, ref.frontier_filter_narrow_ref, True, False),
+        ("fused_verify_compact_tile", csrc + "fused_verify_compact.cu",
+         "src/repro/kernels/fused_verify.py:267", fu_args, fused_ragged,
+         lambda *a: ops.fused_gather_verify_compact(*a, variant="vmem"), plain_fused, fused_bound),
+        ("fused_verify_compact_slot", csrc + "fused_verify_compact.cu",
+         "src/repro/kernels/fused_verify.py:345", fu_args, fused_ragged,
+         lambda *a: ops.fused_gather_verify_compact(*a, variant="prefetch"), plain_fused,
+         fused_bound),
+        slot_phase("frontier_filter", csrc + "frontier.cu", "src/repro/kernels/frontier.py:60",
+                   ops.filter_frontier, ref.frontier_filter_ref, False, False),
+        slot_phase("knn_filter_narrow", csrc + "knn_filter.cu",
+                   "src/repro/kernels/knn_filter.py:105",
+                   ops.knn_frontier_dist_narrow, ref.knn_filter_narrow_ref, True, True),
+        slot_phase("knn_filter", csrc + "knn_filter.cu", "src/repro/kernels/knn_filter.py:54",
+                   ops.knn_frontier_dist, ref.knn_filter_ref, False, True),
+    ]
+    with phase("kernel phases"):
+        for name, source, replaces, args, ragged, kernel, plain, bound in phases:
+            for case in [args, *ragged]:
+                got = kernel(*case)
+                torch.cuda.synchronize()
+                assert_same(got, plain(*case), f"{name} at {[tuple(a.shape) for a in case[:5]]}")
+            err = max_abs_err(kernel(*args), plain(*args))
+            torch.cuda.synchronize()
+            ms = time_ms(lambda: kernel(*args))
+            plain_ms = time_ms(lambda: plain(*args), iters=10)
+            nbytes, nops = bound(args)
+            b_ms, b_by = bound_ms(nbytes, nops)
+            shapes = [tuple(a.shape) for a in args]
+            log(f"phase {name}: bit-exact vs plain at main-path shapes {shapes} and "
+                f"{len(ragged)} ragged cases; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+                f"bound {b_ms:.6f} ms ({b_by}: {nbytes} B, {nops} ops)")
+            rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
+                             launches=launches[name], max_abs_err=err, ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+
+    with phase("profiles"):
+        profile_batch("SKR", lambda cache: serve_batch(
+            snap, wl.rects[b0], bms[b0], MAX_LEAVES, plan_cache=cache), warm, PlanCache)
+        profile_batch(f"kNN (k={K})", lambda cache: serve_knn_batch(
+            snap, points[b0], bms[b0], K, plan_cache=cache), warm_knn, PlanCache)
 
     log(f"card: {card}")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,9 +1,16 @@
-"""SKR query helpers and the serial host oracle (paper §3 "Query processing").
+"""Query helpers and the serial host oracles (paper §3 "Query processing").
 
-* ``execute_serial`` -- the paper-faithful traversal: breadth-first descent,
-  per-node MBR + bitmap checks, inverted-file verification at leaves. It is
-  the ground truth the batched serving path (serve/engine.py) is held
-  against, on the host, at any scale.
+* ``execute_serial`` -- the paper-faithful SKR traversal: breadth-first
+  descent, per-node MBR + bitmap checks, inverted-file verification at
+  leaves. It is the ground truth the batched serving path
+  (serve/engine.py ``retrieve``) is held against, on the host, at any scale.
+* ``knn_query`` -- Boolean kNN (paper appendix A): serial best-first search,
+  the ground truth of ``serve.engine.retrieve_knn``. Ties at equal distance
+  break by smallest object id, so the k-set is independent of traversal
+  order. ``knn_level_sync`` is its vectorized host mirror of the device
+  descent (keyword-filtered levels, then a bounded leaf sweep).
+  Distances are float32, computed op by op (``dx*dx + dy*dy``, never a
+  fused multiply-add), which the port's kernels reproduce bit for bit.
 * ``round_up_bucket`` / ``sharded_bucket`` -- the power-of-two width
   discipline shared by the batch padding and the frontier widths.
 * ``padded_child_table`` -- the (n, max_fanout) CSR child table the frontier
@@ -15,6 +22,7 @@ the port keeps its own so it never imports that package.
 from __future__ import annotations
 
 import dataclasses
+import heapq
 from typing import List, Tuple
 
 import numpy as np
@@ -81,6 +89,19 @@ def padded_child_table(level) -> np.ndarray:
     except AttributeError:  # plain classes/namedtuples without __dict__
         pass
     return table
+
+
+def propagate_hits(hit: np.ndarray, child_table: np.ndarray, n_down: int) -> np.ndarray:
+    """(m, n_up) bool hits -> (m, n_down) bool active-children mask: a child
+    is active iff its (unique) parent hit."""
+    m = hit.shape[0]
+    nxt = np.zeros((m, n_down), dtype=bool)
+    for f in range(child_table.shape[1]):
+        col = child_table[:, f]
+        valid = col >= 0
+        if valid.any():
+            nxt[:, col[valid]] |= hit[:, valid]
+    return nxt
 
 
 def _node_match(level, rect, qbm) -> np.ndarray:
@@ -154,3 +175,171 @@ def execute_serial(
         )
     cost = w1 * nodes.astype(np.float64) + w2 * verified.astype(np.float64)
     return QueryStats(nodes_accessed=nodes, verified=verified, results=results, cost=cost)
+
+
+# ---------------------------------------------------------- Boolean kNN
+@dataclasses.dataclass
+class KnnResult:
+    """One query's Boolean kNN answer plus Eq.1-style cost counters.
+
+    ids/dist2 are sorted ascending by (distance, object id). ``ids`` may
+    hold fewer than k entries when fewer objects match the query keywords.
+    """
+
+    ids: np.ndarray  # (k',) int32, k' <= k
+    dist2: np.ndarray  # (k',) float32 squared distances
+    nodes_accessed: int  # nodes popped & examined (MBR dist / bitmap checked)
+    verified: int  # keyword-matching objects whose distance was computed
+
+
+def _mbr_dist2_f32(mbrs: np.ndarray, point: np.ndarray) -> np.ndarray:
+    """Squared point-to-MBR min-distance, float32, op by op -- the same
+    arithmetic as the kNN kernels, so distance ties resolve identically."""
+    mbrs = np.asarray(mbrs, np.float32)
+    point = np.asarray(point, np.float32)
+    dx = np.maximum(np.maximum(mbrs[..., 0] - point[..., 0], point[..., 0] - mbrs[..., 2]), 0.0)
+    dy = np.maximum(np.maximum(mbrs[..., 1] - point[..., 1], point[..., 1] - mbrs[..., 3]), 0.0)
+    return (dx * dx + dy * dy).astype(np.float32)
+
+
+def knn_query(
+    index: WiskIndex,
+    dataset: GeoTextDataset,
+    point: np.ndarray,
+    kw_bitmap: np.ndarray,
+    k: int,
+) -> KnnResult:
+    """Boolean kNN (appendix A): best-first search over the hierarchy.
+
+    Equal-distance objects break ties by smallest object id, so the returned
+    k-set is a pure function of (dataset, query).
+    """
+    empty = KnnResult(
+        ids=np.zeros(0, np.int32), dist2=np.zeros(0, np.float32), nodes_accessed=0, verified=0
+    )
+    if k <= 0 or not np.any(kw_bitmap):
+        return empty
+    point = np.asarray(point, np.float32)
+    heap: List[Tuple[float, int, int, int]] = []  # (dist, tie, level, node)
+    tie = 0
+    root_d = _mbr_dist2_f32(index.levels[0].mbrs, point)
+    for u in range(index.levels[0].n):
+        heapq.heappush(heap, (float(root_d[u]), tie, 0, u))
+        tie += 1
+    # selected objects: a max-heap on (-dist, -oid); its root is the entry to
+    # evict -- the lexicographically largest (dist, oid)
+    out: List[Tuple[float, int]] = []
+    nodes = 0
+    verified = 0
+    clusters = index.clusters
+    while heap:
+        d, _, li, u = heapq.heappop(heap)
+        # strict bound: a node at exactly the k-th distance may still hold an
+        # equal-distance object with a smaller id, so only d > bound stops
+        if len(out) >= k and d > -out[0][0]:
+            break
+        nodes += 1
+        level = index.levels[li]
+        if not np.any(level.bitmaps[u] & kw_bitmap):
+            continue
+        if li == len(index.levels) - 1:
+            ids = clusters.order[clusters.offsets[u] : clusters.offsets[u + 1]]
+            match = np.any(dataset.kw_bitmap[ids] & kw_bitmap[None, :], axis=1)
+            sel = ids[match]
+            verified += int(sel.size)
+            dx = dataset.locs[sel, 0] - point[0]
+            dy = dataset.locs[sel, 1] - point[1]
+            dd_all = (dx * dx + dy * dy).astype(np.float32)
+            for oid, dd in zip(sel, dd_all):
+                key = (-float(dd), -int(oid))
+                if len(out) < k:
+                    heapq.heappush(out, key)
+                elif key > out[0]:  # (dd, oid) < worst (dist, oid) kept
+                    heapq.heapreplace(out, key)
+        else:
+            ch = level.child[level.child_ptr[u] : level.child_ptr[u + 1]]
+            ch_d = _mbr_dist2_f32(index.levels[li + 1].mbrs[ch], point)
+            for c, cd in zip(ch, ch_d):
+                heapq.heappush(heap, (float(cd), tie, li + 1, int(c)))
+                tie += 1
+    out.sort(key=lambda t: (-t[0], -t[1]))  # ascending (dist, oid)
+    return KnnResult(
+        ids=np.array([-oid for _, oid in out], dtype=np.int32),
+        dist2=np.array([-dd for dd, _ in out], dtype=np.float32),
+        nodes_accessed=nodes,
+        verified=verified,
+    )
+
+
+def knn_level_sync(
+    index: WiskIndex,
+    dataset: GeoTextDataset,
+    points: np.ndarray,
+    kw_bitmaps: np.ndarray,
+    k: int,
+) -> dict:
+    """Vectorized distance-bounded Boolean kNN -- the host mirror of the
+    device descent (``serve.engine.retrieve_knn``).
+
+    Descends the levels with keyword-only masks (kNN has no rectangle), then
+    sweeps each query's surviving leaves in ascending squared MBR
+    min-distance, keeping the k best (dist, id) pairs and stopping as soon
+    as the next leaf's min-distance exceeds the current k-th best. Returns a
+    dict shaped like ``retrieve_knn``'s (ids padded with -1).
+    """
+    m = int(np.asarray(points).shape[0])
+    points = np.asarray(points, np.float32)
+    kw_bitmaps = np.asarray(kw_bitmaps, np.uint32)
+    out = dict(
+        ids=np.full((m, max(k, 0)), -1, np.int32),
+        dist2=np.full((m, max(k, 0)), np.inf, np.float32),
+        nodes_checked=np.zeros(m, np.int64),
+        verified=np.zeros(m, np.int64),
+        leaves_verified=np.zeros(m, np.int64),
+        pruned=np.zeros(m, np.int64),
+    )
+    if k <= 0:
+        return out
+    # keyword-filtered level descent (an object's keywords are contained in
+    # every ancestor bitmap, so this never prunes a leaf holding a match)
+    active = np.ones((m, index.levels[0].n), dtype=bool)
+    for li, level in enumerate(index.levels):
+        out["nodes_checked"] += active.sum(axis=1)
+        kw = np.any(level.bitmaps[None, :, :] & kw_bitmaps[:, None, :], axis=2)
+        hit = active & kw
+        if li == len(index.levels) - 1:
+            leaf_hit = hit
+            break
+        active = propagate_hits(hit, padded_child_table(level), index.levels[li + 1].n)
+    leaves = index.levels[-1]
+    d2 = np.where(leaf_hit, _mbr_dist2_f32(leaves.mbrs[None, :, :], points[:, None, :]), np.inf)
+    clusters = index.clusters
+    id_sentinel = np.int64(np.iinfo(np.int32).max)
+    for qi in range(m):
+        order = np.argsort(d2[qi], kind="stable")  # ties: smallest leaf id first
+        best_d = np.full(k, np.inf, np.float32)
+        best_id = np.full(k, id_sentinel, np.int64)
+        for pos, leaf in enumerate(order):
+            dq = d2[qi, leaf]
+            if not np.isfinite(dq):
+                break
+            if dq > best_d[k - 1]:
+                out["pruned"][qi] += int(np.isfinite(d2[qi, order[pos:]]).sum())
+                break
+            ids = clusters.order[clusters.offsets[leaf] : clusters.offsets[leaf + 1]]
+            kwm = np.any(dataset.kw_bitmap[ids] & kw_bitmaps[qi][None, :], axis=1)
+            sel = ids[kwm]
+            out["leaves_verified"][qi] += 1
+            out["verified"][qi] += int(sel.size)
+            if sel.size:
+                dx = dataset.locs[sel, 0] - points[qi, 0]
+                dy = dataset.locs[sel, 1] - points[qi, 1]
+                od = (dx * dx + dy * dy).astype(np.float32)
+                alld = np.concatenate([best_d, od])
+                allid = np.concatenate([best_id, sel.astype(np.int64)])
+                keep = np.lexsort((allid, alld))[:k]
+                best_d, best_id = alld[keep], allid[keep]
+        fin = np.isfinite(best_d)
+        out["ids"][qi] = np.where(fin, best_id, -1).astype(np.int32)
+        out["dist2"][qi] = best_d
+    return out

@@ -6,7 +6,8 @@ includes PyTorch's headers takes minutes. All sources build at once, one
 ``nvcc`` process each, the first time any kernel is launched (or when
 ``build_all`` is called). The libraries go to ``kernels/_build/`` inside
 the checkout (listed in ``.gitignore``), named by a hash of the source and
-the flags, so an edited source never loads a stale library.
+the flags (and the shared ``*.cuh`` headers), so an edited source never
+loads a stale library.
 
 Nothing here runs at import time: this module imports on machines with no
 CUDA toolkit, where only the plain PyTorch versions run.
@@ -49,7 +50,8 @@ def _nvcc() -> str:
 
 def _lib_path(source: str) -> Path:
     src = (CSRC / source).read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    tag = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{tag}.so"
 
 
@@ -129,8 +131,20 @@ KERNELS: Dict[str, CudaKernel] = {
     k.name: k
     for k in (
         CudaKernel(
-            "frontier_narrow", "frontier_narrow.cu", "wisk_frontier_narrow",
+            "frontier_narrow", "frontier.cu", "wisk_frontier_narrow",
             (_P,) * 8 + (_I,) * 6 + (_P,),
+        ),
+        CudaKernel(
+            "frontier_filter", "frontier.cu", "wisk_frontier_filter",
+            (_P,) * 6 + (_I,) * 4 + (_P,),
+        ),
+        CudaKernel(
+            "knn_filter_narrow", "knn_filter.cu", "wisk_knn_filter_narrow",
+            (_P,) * 8 + (_I,) * 6 + (_P,),
+        ),
+        CudaKernel(
+            "knn_filter", "knn_filter.cu", "wisk_knn_filter",
+            (_P,) * 6 + (_I,) * 4 + (_P,),
         ),
         CudaKernel(
             "fused_verify_compact_tile", "fused_verify_compact.cu",

@@ -1,0 +1,81 @@
+// Per-(query, frontier slot) predicates shared by the frontier filters
+// (frontier.cu) and the kNN distance filters (knn_filter.cu).
+//
+// Every function is a plain __device__ inline: the kernels that include this
+// header differ only in how threads map onto slots (one thread per slot on
+// the narrow planes, one warp per slot on the full-width planes) and in what
+// they write (an int8 survivor flag or an f32 squared distance).
+#pragma once
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace wisk {
+
+// The slot's MBR from its four int16 rank codes, dequantized through the
+// level's sorted f32 coordinate dictionaries (exact: each code indexes the
+// value it was built from). The dictionaries (up to 32767 f32 each, so the
+// two together can pass the 227 KB of shared memory) are read through the
+// read-only path; they are small and hot, so L1/L2 keep them. Codes come
+// from the snapshot's encoder and are always in range: the clamp only keeps
+// a malformed code from reading out of bounds.
+__device__ __forceinline__ float4 dequantize_mbr(const int16_t* __restrict__ c,
+                                                 const float* __restrict__ dict_x,
+                                                 const float* __restrict__ dict_y,
+                                                 int Dx, int Dy) {
+  const int cx0 = min(max((int)__ldg(c + 0), 0), Dx - 1);
+  const int cy0 = min(max((int)__ldg(c + 1), 0), Dy - 1);
+  const int cx1 = min(max((int)__ldg(c + 2), 0), Dx - 1);
+  const int cy1 = min(max((int)__ldg(c + 3), 0), Dy - 1);
+  return make_float4(__ldg(dict_x + cx0), __ldg(dict_y + cy0), __ldg(dict_x + cx1),
+                     __ldg(dict_y + cy1));
+}
+
+// The f32 MBR (xlo, ylo, xhi, yhi) of a slot on the full-width planes.
+__device__ __forceinline__ float4 load_mbr(const float* __restrict__ m) {
+  return make_float4(__ldg(m + 0), __ldg(m + 1), __ldg(m + 2), __ldg(m + 3));
+}
+
+// Closed-rectangle intersection of query rect q = (xlo, ylo, xhi, yhi) and
+// an MBR: only compares, so bit-identical to the reference by construction.
+__device__ __forceinline__ bool rect_meets(const float* __restrict__ q, float4 b) {
+  return (__ldg(q + 0) <= b.z) && (b.x <= __ldg(q + 2)) && (__ldg(q + 1) <= b.w) &&
+         (b.y <= __ldg(q + 3));
+}
+
+// Squared min-distance from point (px, py) to a closed MBR. Each product and
+// the sum round to nearest on their own (__fmul_rn / __fadd_rn are never
+// contracted into a fused multiply-add, which nvcc does by default), so the
+// result equals the plain PyTorch version and the host oracle bit for bit.
+__device__ __forceinline__ float mbr_dist2(float px, float py, float4 b) {
+  const float dx = fmaxf(fmaxf(b.x - px, px - b.z), 0.f);
+  const float dy = fmaxf(fmaxf(b.y - py, py - b.w), 0.f);
+  return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+}
+
+// Keyword test by one thread: any of the n words ANDs non-zero with the
+// query's. Stops at the first hit.
+__device__ __forceinline__ bool words_hit_thread(const int32_t* __restrict__ fb,
+                                                 const int32_t* __restrict__ qb, int n) {
+  for (int p = 0; p < n; ++p) {
+    if ((__ldg(fb + p) & __ldg(qb + p)) != 0) return true;
+  }
+  return false;
+}
+
+// Keyword test by a whole warp (all 32 lanes must call it): lane l reads
+// words l, l + 32, ..., so neighbouring lanes read neighbouring words of the
+// slot (coalesced 128-byte rows). Stops after the first 32-word stride that
+// holds a hit. The result is the same on every lane.
+__device__ __forceinline__ bool words_hit_warp(const int32_t* __restrict__ fb,
+                                               const int32_t* __restrict__ qb, int n,
+                                               int lane) {
+  for (int base = 0; base < n; base += 32) {
+    const int p = base + lane;
+    const bool hit = p < n && (__ldg(fb + p) & __ldg(qb + p)) != 0;
+    if (__any_sync(0xffffffffu, hit)) return true;
+  }
+  return false;
+}
+
+}  // namespace wisk

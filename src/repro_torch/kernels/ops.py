@@ -121,19 +121,25 @@ def _stream(device: torch.device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def filter_frontier_narrow(q_rects, q_bits, f_codes, f_bm, f_valid, dict_x, dict_y):
-    """(M, F) int8 frontier-survivor matrix on the bandwidth-lean planes:
-    int16 MBR rank codes dequantized through the level's coordinate
-    dictionaries (exact) and packed query word planes from
-    ``pack_query_words``. CUDA tensors run ``csrc/frontier_narrow.cu``."""
-    if q_rects.device.type == "cpu":
-        return ref.frontier_filter_narrow_ref(q_rects, q_bits, f_codes, f_bm, f_valid, dict_x, dict_y)
-    dev = q_rects.device
+# per slot-filter kernel: the query operand's name and width, the output dtype
+_SLOT_FILTERS = {
+    "frontier_narrow": ("q_rects", 4, torch.int8),
+    "frontier_filter": ("q_rects", 4, torch.int8),
+    "knn_filter_narrow": ("q_pts", 2, torch.float32),
+    "knn_filter": ("q_pts", 2, torch.float32),
+}
+
+
+def _launch_narrow(name, q, q_bits, f_codes, f_bm, f_valid, dict_x, dict_y):
+    """Check the narrow-plane operands of a frontier or kNN filter on the
+    card and launch kernel ``name``; ``q`` is (M, 4) rects or (M, 2) points."""
+    dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
+    q_name, q_cols, out_dtype = _SLOT_FILTERS[name]
     M, F = f_valid.shape
     Wp = q_bits.shape[1]
-    _check("q_rects", q_rects, torch.float32, (M, 4), dev)
+    _check(q_name, q, torch.float32, (M, q_cols), dev)
     _check("q_bits", q_bits, torch.int32, (M, Wp), dev)
     _check("f_codes", f_codes, torch.int16, (M, F, 4), dev)
     _check("f_bm", f_bm, torch.int32, (M, F, Wp), dev)
@@ -142,13 +148,74 @@ def filter_frontier_narrow(q_rects, q_bits, f_codes, f_bm, f_valid, dict_x, dict
     _check("dict_y", dict_y, torch.float32, (dict_y.shape[0],), dev)
     if dict_x.shape[0] == 0 or dict_y.shape[0] == 0:
         raise ValueError("empty coordinate dictionary")
-    out = torch.empty((M, F), dtype=torch.int8, device=dev)
-    KERNELS["frontier_narrow"](
-        q_rects.data_ptr(), q_bits.data_ptr(), f_codes.data_ptr(), f_bm.data_ptr(),
+    out = torch.empty((M, F), dtype=out_dtype, device=dev)
+    KERNELS[name](
+        q.data_ptr(), q_bits.data_ptr(), f_codes.data_ptr(), f_bm.data_ptr(),
         f_valid.data_ptr(), dict_x.data_ptr(), dict_y.data_ptr(), out.data_ptr(),
         M, F, Wp, dict_x.shape[0], dict_y.shape[0], dev.index, _stream(dev),
     )
     return out
+
+
+def _launch_wide(name, q, q_bm, f_mbrs, f_bm, f_valid):
+    """Check the f32 full-width operands of a frontier or kNN filter on the
+    card and launch kernel ``name``; ``q`` is (M, 4) rects or (M, 2) points."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    q_name, q_cols, out_dtype = _SLOT_FILTERS[name]
+    M, F = f_valid.shape
+    W = q_bm.shape[1]
+    _check(q_name, q, torch.float32, (M, q_cols), dev)
+    _check("q_bm", q_bm, torch.int32, (M, W), dev)
+    _check("f_mbrs", f_mbrs, torch.float32, (M, F, 4), dev)
+    _check("f_bm", f_bm, torch.int32, (M, F, W), dev)
+    _check("f_valid", f_valid, torch.int8, (M, F), dev)
+    out = torch.empty((M, F), dtype=out_dtype, device=dev)
+    KERNELS[name](
+        q.data_ptr(), q_bm.data_ptr(), f_mbrs.data_ptr(), f_bm.data_ptr(),
+        f_valid.data_ptr(), out.data_ptr(), M, F, W, dev.index, _stream(dev),
+    )
+    return out
+
+
+def filter_frontier(q_rects, q_bm, f_mbrs, f_bm, f_valid):
+    """(M, F) int8 frontier-survivor matrix on f32 MBRs and full-width
+    bitmap words (the f32 descent: ``quantized=False``, or a snapshot
+    without narrow planes). CUDA tensors run ``csrc/frontier.cu``."""
+    if q_rects.device.type == "cpu":
+        return ref.frontier_filter_ref(q_rects, q_bm, f_mbrs, f_bm, f_valid)
+    return _launch_wide("frontier_filter", q_rects, q_bm, f_mbrs, f_bm, f_valid)
+
+
+def filter_frontier_narrow(q_rects, q_bits, f_codes, f_bm, f_valid, dict_x, dict_y):
+    """(M, F) int8 frontier-survivor matrix on the bandwidth-lean planes:
+    int16 MBR rank codes dequantized through the level's coordinate
+    dictionaries (exact) and packed query word planes from
+    ``pack_query_words``. CUDA tensors run ``csrc/frontier.cu``."""
+    if q_rects.device.type == "cpu":
+        return ref.frontier_filter_narrow_ref(q_rects, q_bits, f_codes, f_bm, f_valid, dict_x, dict_y)
+    return _launch_narrow("frontier_narrow", q_rects, q_bits, f_codes, f_bm, f_valid,
+                          dict_x, dict_y)
+
+
+def knn_frontier_dist(q_pts, q_bm, f_mbrs, f_bm, f_valid):
+    """(M, F) f32 squared point-to-MBR min-distances on f32 MBRs and
+    full-width bitmap words, +inf at invalid or keyword-miss slots. CUDA
+    tensors run ``csrc/knn_filter.cu``."""
+    if q_pts.device.type == "cpu":
+        return ref.knn_filter_ref(q_pts, q_bm, f_mbrs, f_bm, f_valid)
+    return _launch_wide("knn_filter", q_pts, q_bm, f_mbrs, f_bm, f_valid)
+
+
+def knn_frontier_dist_narrow(q_pts, q_bits, f_codes, f_bm, f_valid, dict_x, dict_y):
+    """(M, F) f32 squared point-to-MBR min-distances on the bandwidth-lean
+    planes; bit-identical to ``knn_frontier_dist`` on the dequantized,
+    full-width operands. CUDA tensors run ``csrc/knn_filter.cu``."""
+    if q_pts.device.type == "cpu":
+        return ref.knn_filter_narrow_ref(q_pts, q_bits, f_codes, f_bm, f_valid, dict_x, dict_y)
+    return _launch_narrow("knn_filter_narrow", q_pts, q_bits, f_codes, f_bm, f_valid,
+                          dict_x, dict_y)
 
 
 def fused_gather_verify_compact(

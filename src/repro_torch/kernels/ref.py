@@ -3,9 +3,11 @@
 Each function has the semantics of the same-named oracle in the JAX
 package's ``kernels/ref.py``. Bitmaps are ``int32`` tensors holding the
 bits of the reference's ``uint32`` words (``.view(np.int32)``), so every
-keyword test is a bitwise AND against zero and no value changes. Nothing
-here does float arithmetic: the results are bit-identical to the reference
-and to the CUDA kernels in ``csrc/``.
+keyword test is a bitwise AND against zero and no value changes. The range
+predicates only compare floats; the kNN distances compute ``dx*dx + dy*dy``
+op by op (eager PyTorch never fuses it into a multiply-add), which is the
+reference oracles' and the host ``_mbr_dist2_f32``'s arithmetic and what
+the CUDA kernels in ``csrc/`` reproduce with ``__fmul_rn``/``__fadd_rn``.
 
 ``kernels/ops.py`` sends a CPU tensor here; on the card ``chip_smoke.py``
 holds each CUDA kernel against these functions on the same inputs.
@@ -46,12 +48,50 @@ def frontier_filter_narrow_ref(
     rank codes through the per-level coordinate dictionaries (exact -- every
     code indexes the f32 value it was built from), then apply the identical
     intersect/keyword/validity predicate on the packed word planes."""
+    return frontier_filter_ref(q_rects, q_bits, _dequantize(f_codes, dict_x, dict_y), f_bm, f_valid)
+
+
+def _dequantize(f_codes, dict_x, dict_y):
+    """(M, F, 4) f32 MBRs from int16 rank codes (exact: each code indexes
+    the f32 value it was built from)."""
     fc = f_codes.long()
-    f_mbrs = torch.stack(
+    return torch.stack(
         [dict_x[fc[:, :, 0]], dict_y[fc[:, :, 1]], dict_x[fc[:, :, 2]], dict_y[fc[:, :, 3]]],
         dim=-1,
     )
-    return frontier_filter_ref(q_rects, q_bits, f_mbrs, f_bm, f_valid)
+
+
+def knn_filter_ref(
+    q_pts: torch.Tensor,  # (M, 2) f32
+    q_bm: torch.Tensor,  # (M, W) i32 bitmap words
+    f_mbrs: torch.Tensor,  # (M, F, 4) f32 -- MBRs gathered at each frontier slot
+    f_bm: torch.Tensor,  # (M, F, W) i32
+    f_valid: torch.Tensor,  # (M, F) int8
+) -> torch.Tensor:
+    """(M, F) f32 squared point-to-MBR min-distance; +inf where the slot is
+    invalid or its bitmap shares no bit with the query's."""
+    px = q_pts[:, 0:1]
+    py = q_pts[:, 1:2]
+    zero = torch.zeros((), dtype=torch.float32, device=q_pts.device)
+    dx = torch.maximum(torch.maximum(f_mbrs[:, :, 0] - px, px - f_mbrs[:, :, 2]), zero)
+    dy = torch.maximum(torch.maximum(f_mbrs[:, :, 1] - py, py - f_mbrs[:, :, 3]), zero)
+    d2 = dx * dx + dy * dy
+    kw = ((f_bm & q_bm[:, None, :]) != 0).any(dim=-1)
+    return torch.where(kw & (f_valid > 0), d2, torch.full_like(d2, float("inf")))
+
+
+def knn_filter_narrow_ref(
+    q_pts: torch.Tensor,  # (M, 2) f32
+    q_bits: torch.Tensor,  # (M, Wp) i32 -- packed nonzero query words
+    f_codes: torch.Tensor,  # (M, F, 4) int16 -- MBR rank codes
+    f_bm: torch.Tensor,  # (M, F, Wp) i32 -- packed node word planes
+    f_valid: torch.Tensor,  # (M, F) int8
+    dict_x: torch.Tensor,  # (Dx,) f32
+    dict_y: torch.Tensor,  # (Dy,) f32
+) -> torch.Tensor:
+    """Narrow-plane twin of ``knn_filter_ref`` (exact dictionary
+    dequantization, then identical distance/keyword semantics)."""
+    return knn_filter_ref(q_pts, q_bits, _dequantize(f_codes, dict_x, dict_y), f_bm, f_valid)
 
 
 def skr_verify_compact_ref(

@@ -2,6 +2,7 @@
 
 ``serve_batch`` pads a batch to its power-of-two bucket, runs the frontier
 engine (serve/engine.py) on the snapshot's device and slices the pads off;
+``serve_knn_batch`` does the same for Boolean kNN;
 ``HotQueryCache`` / ``serve_batch_cached`` serve repeated probes from an
 LRU cache; ``MicroBatcher`` coalesces singleton queries into one dispatch.
 Host-side orchestration only, with the behaviour of the JAX package's
@@ -15,10 +16,11 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from ..serve.engine import IndexSnapshot, retrieve
-from ..serve.plan import PlanCache, pad_queries_to_bucket
+from ..serve.engine import IndexSnapshot, retrieve, retrieve_knn
+from ..serve.plan import PlanCache, pad_knn_queries_to_bucket, pad_queries_to_bucket
 
 _PER_QUERY_SKR = ("ids", "counts", "nodes_checked", "nodes_scanned", "verified", "overflow")
+_PER_QUERY_KNN = ("ids", "dist2", "nodes_checked", "verified", "leaves_verified", "pruned")
 
 
 def serve_batch(
@@ -52,6 +54,44 @@ def serve_batch(
         delta=delta, fused=fused, compact=compact,
     )
     return {k: (v[:m] if k in _PER_QUERY_SKR else v) for k, v in out.items()}
+
+
+def serve_knn_batch(
+    snap: IndexSnapshot,
+    points,
+    q_bm,
+    k: int,
+    minimum_bucket: int = 8,
+    plan_cache: Optional[PlanCache] = None,
+    delta=None,
+    knn_dtype: str = "f32",
+    compact: Optional[bool] = None,
+):
+    """Bucketed front door for batched Boolean kNN: pad -> retrieve -> slice.
+
+    Args:
+        snap: the served ``IndexSnapshot``.
+        points: (m, 2) f32 query points in the unit square.
+        q_bm: (m, W) u32 query keyword bitmaps.
+        k: neighbours per query.
+        minimum_bucket: smallest power-of-two batch bucket.
+        plan_cache: frontier width state (None: per-snapshot default).
+        delta: None only (live deltas are ROADMAP A.8).
+        knn_dtype: ``"f32"`` (exact) or ``"bf16"`` -- reduced-precision
+            bounded-sweep pruning with a conservative exact-f32 retry; ids
+            are always identical to f32 (see ``retrieve_knn``).
+        compact: leaf keyword-test width -- None uses the compact leaf bank
+            when available; False forces full width.
+
+    Returns ``retrieve_knn``'s dict: ``ids``/``dist2`` (m, k) ascending by
+    (dist^2, id) with ``-1`` fill, plus the counters, pads sliced off.
+    """
+    pts, bms, m = pad_knn_queries_to_bucket(points, q_bm, minimum_bucket)
+    out = retrieve_knn(
+        snap, pts, bms, k, plan_cache=plan_cache, delta=delta, knn_dtype=knn_dtype,
+        compact=compact,
+    )
+    return {key: (v[:m] if key in _PER_QUERY_KNN else v) for key, v in out.items()}
 
 
 class HotQueryCache:

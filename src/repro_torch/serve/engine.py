@@ -1,33 +1,45 @@
-"""Executor layer: batched SKR retrieval over an ``IndexSnapshot``.
+"""Executor layer: batched SKR and Boolean kNN retrieval over an ``IndexSnapshot``.
 
-The port of the JAX package's ``serve/engine.py`` frontier path on its
-default knobs -- the serving main path:
+The port of the JAX package's ``serve/engine.py`` frontier paths. SKR
+(``retrieve``):
 
 1. ``pack_query_words`` packs each query bitmap to its nonzero words on the
    host (the batch's bitmaps are there before the descent starts).
 2. ``_descend_frontier``: each query carries a padded int32 frontier of
-   candidate node ids. Per level, the int16 MBR rank codes and the packed
-   word planes of the frontier are gathered, the ``frontier_narrow`` CUDA
-   kernel filters them, and the survivors' children are expanded through
-   the CSR child table into the next frontier, compacted with a prefix sum
-   and a scatter. Widths come from the caller's ``PlanCache``.
+   candidate node ids. Per level, ``_filter_level`` gathers the frontier's
+   int16 MBR rank codes and packed word planes and runs the
+   ``frontier_narrow`` CUDA kernel -- or, for ``quantized=False`` or a
+   snapshot without narrow planes (a coordinate dictionary overflowed
+   int16), gathers the f32 MBRs and all W words and runs
+   ``frontier_filter`` (the f32 descent; identical survivors). Survivors'
+   children are expanded through the CSR child table into the next
+   frontier, compacted with a prefix sum and a scatter. Widths come from
+   the caller's ``PlanCache``.
 3. ``_select_leaves_frontier`` keeps up to ``max_leaves`` surviving leaves
    per query, lowest leaf id first (the spill is counted in ``overflow``).
 4. ``_verify_leaves`` remaps the query words into each selected leaf's
    local vocabulary and runs the fused gather+verify CUDA kernel on the
    compact leaf bank.
 
-Every output key and dtype equals the reference's: ``ids``, ``counts``,
-``verified``, ``overflow`` (int32), ``nodes_checked``, ``nodes_scanned``
-(int64) and ``frontier_widths`` (int32). The other knobs of the reference
-(``mode="dense"``, ``quantized=False``, ``compact=False``, ``fused=False``,
-a live ``delta``) and snapshots without narrow planes or a compact bank
-raise ``NotImplementedError``: they need kernels this port does not have
-yet, and the path never routes around the ported ones.
+Boolean kNN (``retrieve_knn``) is a distance-bounded frontier descent:
+a beam-1 probe descends greedily to one leaf and seeds a padded top-kb
+buffer of (dist^2, object id) pairs; the bounded sweep runs the same
+frontier machinery with the ``knn_filter_narrow`` (or, on the f32 descent,
+``knn_filter``) kernel and prunes slots whose squared MBR min-distance
+exceeds the current k-th best; the surviving leaves are verified in
+ascending (distance, leaf id) chunks of four, re-tightening the bound
+after each chunk. The reference runs that chunk loop as one ``lax.scan``;
+here it is a Python loop of tensor operations.
+
+Every output key and dtype equals the reference's. The knobs that need
+kernels this port does not have yet -- SKR ``mode="dense"``,
+``compact=False``, ``fused=False``, a snapshot without a compact bank --
+and a live ``delta`` (both paths) raise ``NotImplementedError`` naming
+their ROADMAP item; the path never routes around the ported kernels.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -39,27 +51,17 @@ from .plan import ExecutionPlan, PlanCache, default_plan_cache
 from .snapshot import IndexSnapshot, to_device
 
 
-def _check_knobs(snap: IndexSnapshot, mode, delta, fused, quantized, compact) -> None:
+def _check_knobs(snap: IndexSnapshot, mode, delta, fused, compact) -> None:
     if mode == "dense":
         raise NotImplementedError("mode='dense' (the dense A/B scan) is not ported: ROADMAP A.6")
     if mode != "frontier":
         raise ValueError(f"unknown retrieve mode {mode!r}")
-    if delta is not None:
-        raise NotImplementedError("live deltas are not ported: ROADMAP A.8")
-    if quantized is False:
-        raise NotImplementedError(
-            "quantized=False (the f32 full-width descent) is not ported: ROADMAP A.6, B.4"
-        )
+    _check_delta(delta)
     if fused is False:
         raise NotImplementedError("fused=False (unfused verify) is not ported: ROADMAP A.6, B.9")
     if compact is False:
         raise NotImplementedError(
             "compact=False (full-width verify) is not ported: ROADMAP A.6, B.5-B.6"
-        )
-    if not snap.has_narrow_planes:
-        raise NotImplementedError(
-            "the snapshot has no narrow MBR planes (a level overflowed NARROW_DICT_MAX); "
-            "the f32 descent is not ported: ROADMAP A.6, B.4"
         )
     if not snap.has_compact_bank:
         raise NotImplementedError(
@@ -68,19 +70,39 @@ def _check_knobs(snap: IndexSnapshot, mode, delta, fused, quantized, compact) ->
         )
 
 
+def _check_delta(delta) -> None:
+    if delta is not None:
+        raise NotImplementedError("live deltas are not ported: ROADMAP A.8")
+
+
 # ------------------------------------------------------------ frontier steps
-def _filter_level(snap: IndexSnapshot, li: int, q_rects, wids, bits, frontier):
-    """Gather the frontier's rank codes and packed word planes, then run the
-    narrow frontier kernel. Returns the (M, F) survivors, the per-query
-    count of real slots, and the clamped frontier used for the gathers."""
-    codes = snap.level_mbr_codes[li]
+def _gather_level(snap: IndexSnapshot, li: int, frontier, words):
+    """The per-slot operands of level ``li`` at the frontier: the narrow
+    planes' int16 codes and packed word planes (``words=(wids, bits)``),
+    or the f32 MBRs and all W words (``words=None``). Returns the
+    (codes or MBRs, word plane, int8 validity, clamped frontier)."""
     valid = frontier >= 0
-    safe = frontier.clamp(0, codes.shape[0] - 1).long()
+    n = snap.level_mbrs[li].shape[0]
+    safe = frontier.clamp(0, n - 1).long()
+    if words is None:
+        return snap.level_mbrs[li][safe], snap.level_bms[li][safe], valid.to(torch.int8), safe
+    wids = words[0]
     f_bm = snap.level_bms[li][safe[:, :, None], wids[:, None, :]]  # (M, F, Wp)
-    surv = ops.filter_frontier_narrow(
-        q_rects, bits, codes[safe], f_bm, valid.to(torch.int8),
-        snap.level_dict_x[li], snap.level_dict_y[li],
-    )
+    return snap.level_mbr_codes[li][safe], f_bm, valid.to(torch.int8), safe
+
+
+def _filter_level(snap: IndexSnapshot, li: int, q_rects, q_bm, words, frontier):
+    """Run the frontier kernel on level ``li``: ``frontier_narrow`` on the
+    narrow planes, ``frontier_filter`` on the f32 descent (identical
+    survivors). Returns the (M, F) survivors, the per-query count of real
+    slots, and the clamped frontier used for the gathers."""
+    planes, f_bm, valid, safe = _gather_level(snap, li, frontier, words)
+    if words is None:
+        surv = ops.filter_frontier(q_rects, q_bm, planes, f_bm, valid)
+    else:
+        surv = ops.filter_frontier_narrow(
+            q_rects, words[1], planes, f_bm, valid, snap.level_dict_x[li], snap.level_dict_y[li],
+        )
     return surv, valid.sum(dim=1, dtype=torch.int32), safe
 
 
@@ -125,8 +147,9 @@ def _root_frontier(snap: IndexSnapshot, M: int) -> torch.Tensor:
     return root[None, :].expand(M, -1).contiguous()
 
 
-def _descend_frontier(snap: IndexSnapshot, q_rects, wids, bits, plan: ExecutionPlan):
-    """The range-query frontier descent on the narrow planes.
+def _descend_frontier(snap: IndexSnapshot, q_rects, q_bm, words, plan: ExecutionPlan):
+    """The range-query frontier descent (narrow planes, or the f32 descent
+    when ``words`` is None).
 
     ``plan.widths=None``: exact mode -- bucket each next frontier on the
     batch's actual occupancy, one host sync per level. ``plan.widths=(...)``:
@@ -141,7 +164,7 @@ def _descend_frontier(snap: IndexSnapshot, q_rects, wids, bits, plan: ExecutionP
     surv = None
     for li in range(snap.n_levels):
         used.append(int(frontier.shape[1]))
-        surv, n_valid, safe = _filter_level(snap, li, q_rects, wids, bits, frontier)
+        surv, n_valid, safe = _filter_level(snap, li, q_rects, q_bm, words, frontier)
         nodes_checked = nodes_checked + n_valid
         if li < snap.n_levels - 1:
             need = torch.where(surv > 0, snap.child_counts[li][safe], 0).sum(dim=1)
@@ -173,6 +196,23 @@ def _host_words(q_bm) -> np.ndarray:
     return np.asarray(q_bm, np.uint32)
 
 
+def _query_tensors(snap: IndexSnapshot, q, q_bm, quantized: Optional[bool]):
+    """The batch on the snapshot's device: ``q`` (rects or points) as f32,
+    the bitmap as its int32 view, and the packed words ``(wids, bits)`` of
+    the narrow descent (None on the f32 descent)."""
+    dev = snap.device
+    words = _host_words(q_bm)
+    if not isinstance(q, torch.Tensor):
+        q = torch.from_numpy(np.ascontiguousarray(q, np.float32))
+    q = q.to(dev, torch.float32).contiguous()
+    packed = None
+    # the narrow descent unless the caller forces the f32 one or the snapshot has no narrow planes
+    if quantized is not False and snap.has_narrow_planes:
+        wids, bits = ops.pack_query_words(words)
+        packed = (to_device(wids, dev).long(), to_device(bits, dev))
+    return q, to_device(words, dev), packed
+
+
 def retrieve(
     snap: IndexSnapshot,
     q_rects,
@@ -192,29 +232,23 @@ def retrieve(
 
     ``q_rects`` (M, 4) f32 and ``q_bm`` (M, W) u32 (numpy, or tensors with
     the bitmap as its int32 view). ``plan_cache`` carries the frontier width
-    state across calls (None: the per-snapshot default). ``fused_variant``
+    state across calls (None: the per-snapshot default). ``quantized=None``
+    descends on the snapshot's narrow planes when it has them; ``False``
+    forces the f32 full-width descent (identical results). ``fused_variant``
     picks the fused verify kernel (None/"auto", "vmem", "prefetch"); every
     variant gives identical results. The remaining knobs accept only their
     defaults (see the module docstring).
     """
-    _check_knobs(snap, mode, delta, fused, quantized, compact)
+    _check_knobs(snap, mode, delta, fused, compact)
     variant = "auto" if fused_variant is None else fused_variant
     if variant not in ops.FUSED_VARIANTS:
         raise ValueError(f"unknown fused-verify variant: {variant!r}")
-    dev = snap.device
-    words = _host_words(q_bm)
-    wids, bits = ops.pack_query_words(words)
-    if not isinstance(q_rects, torch.Tensor):
-        q_rects = torch.from_numpy(np.ascontiguousarray(q_rects, np.float32))
-    q_rects = q_rects.to(dev, torch.float32).contiguous()
-    q_bm_dev = to_device(words, dev)
-    wids = to_device(wids, dev).long()
-    bits = to_device(bits, dev)
+    q_rects, q_bm_dev, words = _query_tensors(snap, q_rects, q_bm, quantized)
     M = q_rects.shape[0]
 
     cache = plan_cache if plan_cache is not None else default_plan_cache(snap)
     plan = cache.plan("skr", snap.n_levels - 1)
-    descend = lambda p: _descend_frontier(snap, q_rects, wids, bits, p)  # noqa: E731
+    descend = lambda p: _descend_frontier(snap, q_rects, q_bm_dev, words, p)  # noqa: E731
     out = descend(plan)
     retried = cache.check_and_retry(plan, out[-1], descend)
     frontier, surv, nodes_checked, used, _ = retried or out
@@ -241,3 +275,324 @@ def retrieve_workload(
     **kw,
 ) -> Dict[str, np.ndarray]:
     return retrieve(snap, workload.rects, workload.kw_bitmap, max_leaves, **kw)
+
+
+# ------------------------------------------------------- kNN (Boolean)
+_ID_SENTINEL = int(np.iinfo(np.int32).max)
+
+# bf16 carries an 8-bit mantissa: rounding a finite f32 distance to bf16
+# perturbs it by at most 2^-9 relative. The retry guard divides by a 2^-6
+# margin -- comfortably conservative -- to lower-bound what the true f32
+# distance of a bf16-pruned node could have been.
+_BF16_RISK_TOL = 2.0 ** -6
+
+KNN_DTYPES = ("f32", "bf16")
+
+
+def _snap_cbank(snap: IndexSnapshot, compact: Optional[bool]):
+    """The snapshot's compact leaf bank as a ``(leaf_terms, obj_cbm,
+    obj_sig)`` triple, or None. ``compact=None`` (auto) uses it whenever the
+    snapshot carries one; ``False`` forces the full-width leaf bank."""
+    if compact is False or not snap.has_compact_bank:
+        return None
+    return (snap.leaf_terms, snap.leaf_obj_cbm, snap.leaf_obj_sig)
+
+
+def _quantize_dist(d, knn_dtype: str):
+    """Round the sweep's f32 squared distances to bf16 (round to nearest
+    even, as the reference) for ``knn_dtype="bf16"``."""
+    if knn_dtype == "bf16":
+        return d.to(torch.bfloat16).to(torch.float32)
+    return d
+
+
+def _sort2(key1, key2):
+    """Sort each row lexicographically on (key1, key2) -- the reference's
+    two-key ``lax.sort`` -- as two stable passes: on key2, then on key1.
+    Returns both keys permuted."""
+    k2, o = torch.sort(key2, dim=1, stable=True)
+    k1, o2 = torch.sort(torch.gather(key1, 1, o), dim=1, stable=True)
+    return k1, torch.gather(k2, 1, o2)
+
+
+def _merge_topk(top_d, top_id, cand_d, cand_id, kb: int):
+    """Merge candidates into the padded top-k buffer: sorted on (dist^2,
+    object id), so equal-distance ties keep the smallest id."""
+    d_s, id_s = _sort2(torch.cat([top_d, cand_d], dim=1), torch.cat([top_id, cand_id], dim=1))
+    return d_s[:, :kb], id_s[:, :kb]
+
+
+def _knn_dist_level(snap: IndexSnapshot, li: int, points, q_bm, words, frontier):
+    """Squared MBR min-distances of level ``li`` at the frontier:
+    ``knn_filter_narrow`` on the narrow planes, ``knn_filter`` on the f32
+    descent (bit-identical distances). Returns the (M, F) distances, the
+    per-query count of real slots, and the clamped frontier."""
+    planes, f_bm, valid, safe = _gather_level(snap, li, frontier, words)
+    if words is None:
+        d = ops.knn_frontier_dist(points, q_bm, planes, f_bm, valid)
+    else:
+        d = ops.knn_frontier_dist_narrow(
+            points, words[1], planes, f_bm, valid, snap.level_dict_x[li], snap.level_dict_y[li],
+        )
+    return d, valid.sum(dim=1, dtype=torch.int32), safe
+
+
+def _probe_children(child_table, cur):
+    safe = cur.clamp(0, child_table.shape[0] - 1).long()
+    return torch.where(cur[:, None] >= 0, child_table[safe], -1)
+
+
+def _probe_select(d, cand):
+    best = torch.argmin(d, dim=1, keepdim=True)  # ties: the first (lowest) slot
+    bd = torch.gather(d, 1, best)[:, 0]
+    nxt = torch.gather(cand, 1, best)[:, 0]
+    return torch.where(torch.isfinite(bd), nxt, -1)
+
+
+def _chunk_kw(q_bm, obj_bm, cbank, leaves2d):
+    """(M, T, OBJ) keyword overlap of each query with the objects of the
+    (M, T) leaves ``leaves2d`` (clamped here). With ``cbank=(leaf_terms,
+    obj_cbm, obj_sig)`` the test runs on the leaf-local compact bank --
+    query words remapped per (query, leaf slot), a one-word signature gating
+    the ``Wl``-word AND -- else on the full-width ``(K, OBJ, W)`` bank; the
+    two are identical."""
+    if cbank is None:
+        safe = leaves2d.clamp(0, obj_bm.shape[0] - 1).long()
+        return ((obj_bm[safe] & q_bm[:, None, None, :]) != 0).any(dim=-1)
+    leaf_terms, obj_cbm, obj_sig = cbank
+    safe = leaves2d.clamp(0, obj_cbm.shape[0] - 1).long()
+    q_cbm, q_sig = ops.remap_query_words(q_bm, leaf_terms, leaves2d)
+    sig_hit = (obj_sig[safe] & q_sig[:, :, None]) != 0
+    return sig_hit & ((obj_cbm[safe] & q_cbm[:, :, None, :]) != 0).any(dim=-1)
+
+
+def _score_leaves(snap: IndexSnapshot, points, q_bm, cbank, leaves2d, live):
+    """Candidates of the (M, T) leaves ``leaves2d`` where ``live`` (M, T):
+    every keyword-matching object's exact f32 squared distance (op by op,
+    as the host oracle) and id, +inf / sentinel elsewhere, flattened to
+    (M, T*OBJ); plus the (M, T, OBJ) validity mask."""
+    M = points.shape[0]
+    safe = leaves2d.clamp(0, snap.leaf_obj_x.shape[0] - 1).long()
+    oid = snap.leaf_obj_id[safe]
+    kw = _chunk_kw(q_bm, snap.leaf_obj_bm, cbank, leaves2d)
+    dx = snap.leaf_obj_x[safe] - points[:, 0, None, None]
+    dy = snap.leaf_obj_y[safe] - points[:, 1, None, None]
+    od2 = dx * dx + dy * dy
+    valid = (oid >= 0) & kw & live[:, :, None]
+    cd = torch.where(valid, od2, float("inf")).reshape(M, -1)
+    cid = torch.where(valid, oid, _ID_SENTINEL).reshape(M, -1)
+    return cd, cid, valid
+
+
+def _knn_probe_verify(snap: IndexSnapshot, points, q_bm, cbank, leaf, top_d, top_id, kb: int):
+    """Verify the probe leaf's object block and seed the top-k buffer."""
+    cd, cid, valid = _score_leaves(snap, points, q_bm, cbank, leaf[:, None], (leaf >= 0)[:, None])
+    top_d, top_id = _merge_topk(top_d, top_id, cd, cid, kb)
+    return top_d, top_id, valid.sum(dim=(1, 2), dtype=torch.int32)
+
+
+def _bound_prune(d, top_d, k: int):
+    """Frontier slots that survive the current k-th-best bound. ``<=`` keeps
+    nodes at exactly the bound: they may hold an equal-distance object with
+    a smaller id."""
+    bound = top_d[:, k - 1]
+    fin = torch.isfinite(d)
+    alive = fin & (d <= bound[:, None])
+    pruned = (fin & ~alive).sum(dim=1, dtype=torch.int32)
+    return alive, pruned
+
+
+def _risk(d, alive):
+    """Per-query minimum of ``d * (1 - tol)`` over the finite slots bounded
+    out: what a bf16-pruned node could at least still hold."""
+    lower = torch.where(torch.isfinite(d) & ~alive, d * (1.0 - _BF16_RISK_TOL), float("inf"))
+    return lower.min(dim=1).values
+
+
+def _knn_leaf_phase(
+    snap: IndexSnapshot, points, q_bm, cbank, leaf_d, frontier, probe_leaf,
+    top_d, top_id, k: int, kb: int, ch: int,
+):
+    """Distance-ordered chunked leaf verification.
+
+    Leaves are sorted ascending by (min-dist, leaf id); each chunk of ``ch``
+    leaves is checked against the bound as tightened by every previous
+    chunk, so later (farther) chunks are usually bounded out entirely. The
+    probe leaf is masked to +inf: its objects are already in the buffer.
+    One Python iteration per chunk, where the reference runs a ``lax.scan``.
+
+    Returns the buffer, the per-query leaves verified / objects verified /
+    leaves bounded out, and the bf16 retry guard's risk over the chunks.
+    """
+    M, F = leaf_d.shape
+    d = torch.where(frontier == probe_leaf[:, None], float("inf"), leaf_d)
+    d_s, leaf_s = _sort2(d, frontier)
+    lv = torch.zeros((M,), dtype=torch.int32, device=d.device)
+    ver, pr = lv.clone(), lv.clone()
+    rm = torch.full((M,), float("inf"), device=d.device)
+    for c in range(0, F, ch):
+        dc, lc = d_s[:, c:c + ch], leaf_s[:, c:c + ch]
+        bound = top_d[:, k - 1]
+        fin = torch.isfinite(dc)
+        active = fin & (dc <= bound[:, None])
+        cd, cid, valid = _score_leaves(snap, points, q_bm, cbank, lc, active)
+        top_d, top_id = _merge_topk(top_d, top_id, cd, cid, kb)
+        lv += active.sum(dim=1, dtype=torch.int32)
+        ver += valid.sum(dim=(1, 2), dtype=torch.int32)
+        pr += (fin & ~active).sum(dim=1, dtype=torch.int32)
+        rm = torch.minimum(rm, _risk(dc, active))
+    return top_d, top_id, lv, ver, pr, rm
+
+
+def _descend_knn(
+    snap: IndexSnapshot, points, q_bm, words, cbank, k: int, kb: int, plan: ExecutionPlan,
+    knn_dtype: str,
+):
+    """Distance-bounded kNN descent (probe -> bounded sweep -> leaf chunks).
+
+    Width discipline is ``_descend_frontier``'s: exact mode syncs per level,
+    cached mode runs sync-free and returns device maxima for the caller's
+    batched overflow check. ``words`` switches the level filters to the
+    narrow planes (bit-identical distances; leaf scoring stays on the exact
+    f32 object bank either way). ``knn_dtype="bf16"`` rounds the sweep's
+    node distances to bf16 before pruning and tracks ``risk``, the minimum
+    conservative lower bound over everything pruned.
+    """
+    M = int(points.shape[0])
+    L = snap.n_levels
+    dev = snap.device
+
+    def dist_level(li, fr):
+        return _knn_dist_level(snap, li, points, q_bm, words, fr)
+
+    top_d = torch.full((M, kb), float("inf"), device=dev)
+    top_id = torch.full((M, kb), _ID_SENTINEL, dtype=torch.int32, device=dev)
+    nodes_checked = torch.zeros((M,), dtype=torch.int32, device=dev)
+    pruned = torch.zeros((M,), dtype=torch.int32, device=dev)
+
+    # probe: beam-1 greedy descent to a leaf seeds the buffer, so the sweep
+    # below starts with a finite bound and can prune before expansion
+    cand = _root_frontier(snap, M)
+    cur = None
+    for li in range(L):
+        if li > 0:
+            cand = _probe_children(snap.child_table[li - 1], cur)
+        d, nv, _ = dist_level(li, cand)
+        nodes_checked = nodes_checked + nv
+        cur = _probe_select(d, cand)
+    probe_leaf = cur
+    top_d, top_id, verified = _knn_probe_verify(
+        snap, points, q_bm, cbank, probe_leaf, top_d, top_id, kb
+    )
+    leaves_verified = (probe_leaf >= 0).to(torch.int32)
+
+    # bounded sweep: full frontier descent, pruning against the k-th best
+    frontier = _root_frontier(snap, M)
+    used: List[int] = []
+    needs: List = []
+    leaf_d = None
+    risk = torch.full((M,), float("inf"), device=dev)
+    for li in range(L):
+        used.append(int(frontier.shape[1]))
+        d, nv, safe = dist_level(li, frontier)
+        d = _quantize_dist(d, knn_dtype)
+        nodes_checked = nodes_checked + nv
+        if li < L - 1:
+            alive, pr = _bound_prune(d, top_d, k)
+            pruned = pruned + pr
+            risk = torch.minimum(risk, _risk(d, alive))
+            need = torch.where(alive, snap.child_counts[li][safe], 0).sum(dim=1)
+            f_next = plan.pick_width(need, li, needs)
+            frontier = _expand_frontier(snap.child_table[li], safe, alive, f_next)
+        else:
+            leaf_d = d
+
+    F = int(frontier.shape[1])
+    ch = 4 if F % 4 == 0 else 1
+    top_d, top_id, lv, ver, pr, rm = _knn_leaf_phase(
+        snap, points, q_bm, cbank, leaf_d, frontier, probe_leaf, top_d, top_id, k, kb, ch,
+    )
+    result = (
+        top_d, top_id, nodes_checked, verified + ver, leaves_verified + lv, pruned + pr,
+        used, torch.minimum(risk, rm),
+    )
+    return result, needs
+
+
+def retrieve_knn(
+    snap: IndexSnapshot,
+    points,
+    q_bm,
+    k: int,
+    min_topk_bucket: int = 8,
+    plan_cache: Optional[PlanCache] = None,
+    delta=None,
+    quantized: Optional[bool] = None,
+    knn_dtype: str = "f32",
+    compact: Optional[bool] = None,
+) -> Dict[str, np.ndarray]:
+    """Batched Boolean kNN on the snapshot's device.
+
+    ``points`` (M, 2) f32 and ``q_bm`` (M, W) u32 (numpy, or tensors with
+    the bitmap as its int32 view). Returns per-query ``ids``/``dist2`` of
+    the exact k nearest keyword-matching objects (ascending (dist^2, id);
+    ``-1``-padded when fewer than k objects match) plus the counters
+    ``nodes_checked``, ``verified`` (keyword-matching objects scored),
+    ``leaves_verified`` (leaf blocks verified), ``pruned`` (keyword-matching
+    frontier slots bounded out) and ``frontier_widths``.
+
+    ``quantized=None`` descends on the snapshot's narrow planes when it has
+    them; ``False`` forces the f32 full-width descent. ``compact=None`` runs
+    every leaf keyword test on the compact leaf bank when the snapshot has
+    one; ``False`` forces the full-width bank. Results are identical every
+    way. ``knn_dtype="bf16"`` prunes the bounded sweep on bf16-rounded node
+    distances and retries the whole batch in exact f32 whenever the tracked
+    risk reaches the final k-th bound; the output gains
+    ``knn_dtype_retried`` and ids always equal the f32 path's. A live
+    ``delta`` is not ported (ROADMAP A.8).
+    """
+    if knn_dtype not in KNN_DTYPES:
+        raise ValueError(f"knn_dtype must be 'f32' or 'bf16', got {knn_dtype!r}")
+    _check_delta(delta)
+    points_t, q_bm_dev, words = _query_tensors(snap, points, q_bm, quantized)
+    M = int(points_t.shape[0])
+    if k <= 0:
+        z = np.zeros(M, np.int64)
+        return dict(
+            ids=np.zeros((M, 0), np.int32), dist2=np.zeros((M, 0), np.float32),
+            nodes_checked=z, verified=z.copy(), leaves_verified=z.copy(),
+            pruned=z.copy(), frontier_widths=np.zeros(0, np.int32),
+        )
+    kb = round_up_bucket(k, min_topk_bucket)
+    cache = plan_cache if plan_cache is not None else default_plan_cache(snap)
+    cbank = _snap_cbank(snap, compact)
+    plan = cache.plan("knn", snap.n_levels - 1)
+    descend = lambda p: _descend_knn(  # noqa: E731
+        snap, points_t, q_bm_dev, words, cbank, k, kb, p, knn_dtype
+    )
+    out = descend(plan)
+    retried = cache.check_and_retry(plan, out[-1], descend)
+    (top_d, top_id, nodes_checked, verified, leaves_verified,
+     pruned, used, risk) = (retried or out)[0]
+    if knn_dtype == "bf16":
+        bound = top_d[:, k - 1]
+        if bool((torch.isfinite(risk) & (risk <= bound)).any()):
+            exact = retrieve_knn(
+                snap, points, q_bm, k, min_topk_bucket=min_topk_bucket,
+                plan_cache=cache, quantized=quantized, knn_dtype="f32", compact=compact,
+            )
+            exact["knn_dtype_retried"] = True
+            return exact
+    ids = torch.where(torch.isfinite(top_d[:, :k]), top_id[:, :k], -1)
+    result = dict(
+        ids=ids.cpu().numpy(),
+        dist2=top_d[:, :k].cpu().numpy(),
+        nodes_checked=nodes_checked.cpu().numpy().astype(np.int64),
+        verified=verified.cpu().numpy().astype(np.int64),
+        leaves_verified=leaves_verified.cpu().numpy().astype(np.int64),
+        pruned=pruned.cpu().numpy().astype(np.int64),
+        frontier_widths=np.asarray(used, np.int32),
+    )
+    if knn_dtype == "bf16":
+        result["knn_dtype_retried"] = False
+    return result

@@ -4,7 +4,8 @@ Serving an ``IndexSnapshot`` needs two kinds of planning state that are not
 index data:
 
 * **Batch bucketing.** Incoming query batches are padded to power-of-two
-  buckets with inert pad queries (``pad_queries_to_bucket``), so the set
+  buckets with inert pad queries (``pad_queries_to_bucket``, and
+  ``pad_knn_queries_to_bucket`` for kNN points), so the set
   of batch shapes stays logarithmic in the largest batch.
 * **Execution plans.** Each frontier descent runs at per-level expansion
   widths. ``PlanCache`` owns the monotone per-(path, level) width cache,
@@ -140,3 +141,30 @@ def pad_queries_to_bucket(q_rects, q_bm, minimum: int = 8):
     )
     bms = np.concatenate([q_bm, np.zeros((pad, q_bm.shape[1]), np.uint32)], 0)
     return rects, bms, m
+
+
+def pad_knn_queries_to_bucket(points, q_bm, minimum: int = 8):
+    """kNN twin of ``pad_queries_to_bucket`` (host-only).
+
+    Args:
+        points: (m, 2) f32 query points; ``q_bm``: (m, W) u32 bitmaps.
+        minimum: smallest bucket size.
+
+    Returns:
+        ``(points, bms, m)`` padded to the bucket, plus the original size.
+
+    Pad queries are inert because their all-zero bitmap fails the keyword
+    AND, so every frontier slot scores +inf: they verify nothing and return
+    all ``-1`` ids. The pad point ``(2.0, 2.0)`` lies outside the unit
+    square, which alone would not exclude it.
+    """
+    points = np.asarray(points, np.float32)
+    q_bm = np.asarray(q_bm, np.uint32)
+    m = points.shape[0]
+    bucket = round_up_bucket(m, minimum)
+    if bucket == m:
+        return points, q_bm, m
+    pad = bucket - m
+    pts = np.concatenate([points, np.full((pad, 2), 2.0, np.float32)], 0)
+    bms = np.concatenate([q_bm, np.zeros((pad, q_bm.shape[1]), np.uint32)], 0)
+    return pts, bms, m

@@ -66,6 +66,26 @@ def frontier_case(rng, m, f, w):
     return case, (qb, mbrs[idx], n_bm[idx])
 
 
+KNN_ARGS = ("q_pts",) + FRONTIER_ARGS[1:]
+
+
+def knn_case(rng, m, f, w):
+    """``frontier_case`` plus query points ``q_pts`` for the kNN filters;
+    with more than one query, the last query's slots are all invalid."""
+    case, wide = frontier_case(rng, m, f, w)
+    case["q_pts"] = rng.uniform(0, 1, (m, 2)).astype(np.float32)
+    if m > 1:
+        case["f_valid"][-1] = 0
+    return case, wide
+
+
+def wide_args(case, wide, q="q_rects"):
+    """The f32 full-width operands ``(q, q_bm, f_mbrs, f_bm, f_valid)`` of
+    a ``frontier_case``/``knn_case``; ``q`` names the query operand."""
+    qb, f_mbrs, f_bm_full = wide
+    return (case[q], qb, f_mbrs, f_bm_full, case["f_valid"])
+
+
 def clustered_bank(rng, k, obj, w, pool_size=24, max_kw=6):
     """A leaf bank whose objects draw terms from a small per-leaf pool, so
     the leaf dictionaries genuinely compress (Wl well below W)."""

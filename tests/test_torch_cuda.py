@@ -6,7 +6,9 @@ file imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-All comparisons are exact: nothing on this path does float arithmetic.
+All comparisons are exact: the range kernels only compare floats, and the
+kNN kernels round each product and the sum on their own (``__fmul_rn``,
+``__fadd_rn``), as eager PyTorch does in the plain versions.
 """
 import numpy as np
 import pytest
@@ -17,13 +19,14 @@ from repro_torch.baselines.conventional import build_grid_index, build_str_rtree
 from repro_torch.data.synth import make_dataset  # noqa: E402
 from repro_torch.data.workloads import make_workload  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
-from repro_torch.launch.wisk_serve import serve_batch  # noqa: E402
-from repro_torch.serve.engine import retrieve_workload  # noqa: E402
+from repro_torch.launch.wisk_serve import serve_batch, serve_knn_batch  # noqa: E402
+from repro_torch.serve.engine import retrieve_knn, retrieve_workload  # noqa: E402
 from repro_torch.serve.plan import PlanCache  # noqa: E402
 from repro_torch.serve.snapshot import IndexSnapshot  # noqa: E402
 
 from test_torch_cases import (  # noqa: E402
-    FRONTIER_ARGS, FRONTIER_SWEEP, FUSED_SWEEP, frontier_case, fused_args, fused_case, to_torch,
+    FRONTIER_ARGS, FRONTIER_SWEEP, FUSED_SWEEP, KNN_ARGS, frontier_case, fused_args, fused_case,
+    knn_case, to_torch, wide_args,
 )
 
 pytestmark = pytest.mark.cuda
@@ -69,6 +72,40 @@ def test_fused_verify_kernel_matches_plain(cuda, variant, m, t, k, obj, w, max_k
     _equal(got, ref.fused_verify_compact_ref(*args))
 
 
+@pytest.mark.parametrize("m,f,w", FRONTIER_SWEEP + [(1024, 64, 8)])
+def test_knn_filter_narrow_kernel_matches_plain(cuda, m, f, w):
+    case, _ = knn_case(np.random.default_rng(m * 7919 + f * 31 + w + 1), m, f, w)
+    args = [to_torch(case[k], cuda) for k in KNN_ARGS]
+    before = _build.KERNELS["knn_filter_narrow"].launches
+    got = ops.knn_frontier_dist_narrow(*args)
+    torch.cuda.synchronize()
+    assert _build.KERNELS["knn_filter_narrow"].launches == before + 1
+    _equal(got, ref.knn_filter_narrow_ref(*args))
+    if m > 1:
+        assert torch.isinf(got[-1]).all()  # the all-invalid row
+
+
+_WIDE = {
+    "frontier_filter": ("q_rects", ops.filter_frontier, ref.frontier_filter_ref),
+    "knn_filter": ("q_pts", ops.knn_frontier_dist, ref.knn_filter_ref),
+}
+
+
+@pytest.mark.parametrize("kernel", list(_WIDE))
+@pytest.mark.parametrize("m,f,w", FRONTIER_SWEEP + [(3, 33, 256), (256, 256, 256)])
+def test_full_width_kernels_match_plain(cuda, kernel, m, f, w):
+    """The f32 descent's kernels (one warp per slot) against their plain
+    versions, W = 1 to the osm profile's 256 words."""
+    q, wrapper, plain = _WIDE[kernel]
+    case, wide = knn_case(np.random.default_rng(m * 7919 + f * 31 + w + 2), m, f, w)
+    args = [to_torch(a, cuda) for a in wide_args(case, wide, q)]
+    before = _build.KERNELS[kernel].launches
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    assert _build.KERNELS[kernel].launches == before + 1
+    _equal(got, plain(*args))
+
+
 def test_wrappers_check_operands(cuda):
     case, _ = frontier_case(np.random.default_rng(3), 4, 9, 2)
     args = [to_torch(case[k], cuda) for k in FRONTIER_ARGS]
@@ -111,3 +148,31 @@ def test_engine_on_the_card_matches_the_plain_path(cuda, layout):
         assert card[k].dtype == host[k].dtype
         np.testing.assert_array_equal(card[k], host[k], err_msg=k)
         np.testing.assert_array_equal(vmem[k][: len(wl.rects)], host[k], err_msg=k)
+
+
+def test_knn_engine_on_the_card_matches_the_plain_path(cuda):
+    """kNN through the front door on the card (narrow and f32 descents) and
+    the SKR f32 descent equal the plain path on the host, key for key, and
+    each run launched its kernels."""
+    ds = make_dataset("sp", n=3000, seed=4)
+    index = build_str_rtree(ds, 32, 4)
+    wl = make_workload(ds, m=40, dist="MIX", seed=5)
+    points = np.stack([(wl.rects[:, 0] + wl.rects[:, 2]) / 2,
+                       (wl.rects[:, 1] + wl.rects[:, 3]) / 2], 1).astype(np.float32)
+    host_snap = IndexSnapshot.build(index, ds, device="cpu")
+    snap = IndexSnapshot.build(index, ds)
+    host = serve_knn_batch(host_snap, points, wl.kw_bitmap, 10, plan_cache=PlanCache())
+    _build.reset_launch_counts()
+    card = serve_knn_batch(snap, points, wl.kw_bitmap, 10, plan_cache=PlanCache())
+    assert _build.launch_counts()["knn_filter_narrow"] >= 2 * index.height
+    wide = retrieve_knn(snap, points, wl.kw_bitmap, 10, plan_cache=PlanCache(), quantized=False)
+    assert _build.launch_counts()["knn_filter"] >= 2 * index.height
+    for k in host:
+        assert card[k].dtype == host[k].dtype
+        np.testing.assert_array_equal(card[k], host[k], err_msg=k)
+        np.testing.assert_array_equal(wide[k][: len(points)], host[k], err_msg=k)
+    skr_host = serve_batch(host_snap, wl.rects, wl.kw_bitmap, max_leaves=8, plan_cache=PlanCache())
+    skr = retrieve_workload(snap, wl, max_leaves=8, plan_cache=PlanCache(), quantized=False)
+    assert _build.launch_counts()["frontier_filter"] == index.height
+    for k in skr_host:
+        np.testing.assert_array_equal(skr[k][: len(points)], skr_host[k], err_msg=k)

@@ -307,7 +307,8 @@ def test_micro_batcher_with_cache_matches_reference(served):
 
 # ------------------------------------------------------ unported knobs
 @pytest.mark.parametrize("knob,item", [
-    (dict(mode="dense"), "A.6"), (dict(delta=object()), "A.8"), (dict(quantized=False), "A.6"),
+    (dict(mode="dense"), "A.6"), (dict(delta=object()), "A.8"),
+    (dict(quantized=False, compact=False), "A.6"),  # the f32 descent is ported, full-width verify not
     (dict(fused=False), "A.6"), (dict(compact=False), "A.6"),
 ])
 def test_unported_knobs_raise(served, knob, item):
@@ -319,12 +320,15 @@ def test_unported_knobs_raise(served, knob, item):
 
 
 @pytest.mark.parametrize("strip", [
-    dict(level_mbr_codes=[], level_dict_x=[], level_dict_y=[]),
+    dict(level_mbr_codes=[], level_dict_x=[], level_dict_y=[],
+         leaf_terms=None, leaf_obj_cbm=None, leaf_obj_sig=None),
     dict(leaf_terms=None, leaf_obj_cbm=None, leaf_obj_sig=None),
 ])
 def test_snapshot_without_narrow_planes_or_compact_bank_raises(served, strip):
-    """A snapshot whose dictionaries overflowed is never served by routing
-    around the ported kernels."""
+    """A snapshot whose leaf dictionaries overflowed is never served by
+    routing around the ported kernels: SKR's full-width verify is not
+    ported. (Without narrow planes alone it takes the f32 descent:
+    tests/test_torch_knn.py.)"""
     snap, _, wl, _, k = served
     _build.reset_launch_counts()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
