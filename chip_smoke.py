@@ -31,12 +31,32 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    ``quantized=False`` (counts zeroed before, read after), then one SKR and
    one kNN batch on the snapshot with its narrow planes stripped (what an
    overflowing coordinate dictionary gives), all equal to the default runs;
-6. one phase per kernel: holds the kernel against its plain PyTorch
-   version on the card, bit-exact, at the captured shapes and at ragged
-   edges, and times both (CUDA events) beside a bound;
-7. profiles one warm SKR batch and one warm kNN batch (``torch.profiler``:
-   device busy and idle share, the largest device and host items);
-8. prints the kernels' JSON line, then the result line.
+6. the verify knobs: one SKR batch each with ``fused=False``,
+   ``compact=False`` (the (M, T) and the query-tile launch),
+   ``fused=False, compact=False`` and on the snapshot with its compact bank
+   stripped (what a leaf dictionary above ``LEAF_DICT_MAX`` gives), each
+   equal to the default run and each launching its verify kernel;
+7. live updates: two ``DeltaLog``s over the snapshot, each taking 10,000
+   inserts (1 % of n, in batches of 1,000) and 5,000 deletes (100 of them
+   buffered inserts). Log A's inserts carry terms of the leaf they route
+   to, so its insert slots stay on the compact words (``compact_ok``);
+   log B's are jittered copies of random objects with their own keywords,
+   which flips ``compact_ok``. Per log: the host time per insert batch,
+   ``slots_per_leaf``, the delta's bytes on the device; a buffer taken
+   before the last insert still gives its earlier answer; the SKR batches
+   through ``serve_batch(delta=...)`` and one kNN batch at k = 10 through
+   ``serve_knn_batch(delta=...)`` (warm, counts zeroed before, read after)
+   equal their plain-version reruns on every key, SKR ids equal
+   ``execute_serial`` and kNN ids and ``dist2`` equal ``knn_query`` on 256
+   queries each, over a cold STR index of ``merged_dataset()``;
+8. one phase per kernel: holds the kernel against its plain PyTorch
+   version on the card, bit-exact, at the captured shapes (for the unfused
+   verify kernels: the delta's insert slots and the knob run) and at
+   ragged edges, and times both (CUDA events) beside a bound;
+9. profiles one warm SKR batch, one warm kNN batch and one warm SKR batch
+   with log B's delta (``torch.profiler``: device busy and idle share, the
+   largest device and host items);
+10. prints the kernels' JSON line, then the result line.
 
 Every phase prints its seconds. Any failure raises and exits non-zero.
 Without a CUDA device, or outside the repository, it exits non-zero and
@@ -66,6 +86,10 @@ BATCH = 1024
 MAX_LEAVES = 32
 N_ORACLE = 256
 K = 10  # neighbours per kNN query on the main path
+N_INSERT = 10_000  # per delta log: 1 % of N_OBJECTS
+INSERT_BATCH = 1_000
+N_DELETE = 5_000  # per delta log, of which
+N_DELETE_BUFFERED = 100  # are buffered inserts
 K_EDGES = (1, 100)  # one batch each, checked against the host oracle
 SEED = 0
 DEVICE = "cuda:0"
@@ -236,6 +260,82 @@ def fused_bound(args):
     return nbytes, ops
 
 
+def fused_wide_bound(args, chunk: int = 32):
+    """``fused_bound`` on the full-width bank: object ids of the selected
+    rows, the words that decide each live object's keyword test (each bank
+    word once, however many queries need it), coordinates of keyword hits,
+    and the query words some object needs. Counted ``chunk`` queries at a
+    time, so the (M, T, OBJ, W) hit plane never exists whole."""
+    q_rects, q_bm, top_leaf, leaf_ok, ox, oy, obm, oid = args
+    M, T = top_leaf.shape
+    K, OBJ = ox.shape
+    W = q_bm.shape[1]
+    leaf = top_leaf.long().clamp(0, K - 1)
+    ok = leaf_ok > 0
+    obj = leaf[..., None] * OBJ + torch.arange(OBJ, device=leaf.device)  # (M, T, OBJ)
+    live = (oid.reshape(-1)[obj] >= 0) & ok[..., None]
+    bank_words = torch.zeros((K * OBJ, W), dtype=torch.int32, device=leaf.device)
+    kw = torch.zeros_like(live)
+    q_need = n_need = 0
+    for m0 in range(0, M, chunk):
+        sl = slice(m0, m0 + chunk)
+        hit = (obm.reshape(-1, W)[obj[sl]] & q_bm[sl, None, None, :]) != 0
+        need = needed_words(hit, live[sl])
+        kw[sl] = live[sl] & hit.any(-1)
+        bank_words.index_put_((obj[sl].reshape(-1),), need.reshape(-1, W).to(torch.int32),
+                              accumulate=True)
+        q_need += int(need.any(2).any(1).sum())
+        n_need += int(need.sum())
+    distinct = lambda idx: torch.unique(idx).numel()  # noqa: E731
+    nbytes = (int(kw.any(-1).any(-1).sum()) * 16  # rects of queries with a hit
+              + q_need * 4  # query words some object needs
+              + M * T * (4 + 1)  # top_leaf, leaf_ok
+              + distinct(leaf[ok]) * OBJ * 4  # obj_id of the selected rows
+              + int((bank_words > 0).sum()) * 4  # obj_bm
+              + distinct(obj[kw]) * 8  # obj_x, obj_y
+              + M * T * OBJ * 4 + M * T * 4)  # ids and kwv written once
+    ops = int(ok.sum()) * OBJ + n_need * 2 + int(kw.sum()) * 4
+    return nbytes, ops
+
+
+def verify_bound(args, compact: bool):
+    """Bytes and operations of an unfused verify (``skr_verify``, or
+    ``skr_verify_compact``) of gathered candidates: every validity flag in
+    and every flag out; of a valid candidate, its signature (compact), its
+    coordinates where the signature passes, and the words that decide its
+    keyword test where it also lies in the rectangle; query rectangles,
+    signatures and words where some candidate needs them."""
+    if compact:
+        q_rects, q_cbm, q_sig, cx, cy, cbm, csig, cval = args
+        T = q_sig.shape[1]
+        obj = cx.shape[1] // T
+        q_words = q_cbm.repeat_interleave(obj, dim=1)
+    else:
+        q_rects, q_bm, cx, cy, cbm, cval = args
+        q_words = q_bm[:, None, :]
+    M, C = cx.shape
+    valid = cval > 0
+    coords = valid & ((csig & q_sig.repeat_interleave(obj, dim=1)) != 0) if compact else valid
+    live = coords & ((cx >= q_rects[:, 0:1]) & (cx <= q_rects[:, 2:3])
+                     & (cy >= q_rects[:, 1:2]) & (cy <= q_rects[:, 3:4]))
+    need = needed_words((cbm & q_words) != 0, live)  # (M, C, W)
+    if compact:
+        q_need = int(need.reshape(M, T, obj, -1).any(2).sum())
+        sig_bytes = int(valid.sum()) * 4 + int(valid.reshape(M, T, obj).any(2).sum()) * 4
+    else:
+        q_need, sig_bytes = int(need.any(1).sum()), 0
+    nbytes = (M * C  # cand_valid
+              + sig_bytes  # cand_sig of valid candidates, q_sig of their slots
+              + int(coords.sum()) * 8  # cand_x, cand_y
+              + int(need.sum()) * 4  # candidate words
+              + int(coords.any(1).sum()) * 16  # rects of queries that need them
+              + q_need * 4  # query words some candidate needs
+              + M * C)  # out
+    ops = M * C + int(valid.sum()) * (2 if compact else 0) + int(coords.sum()) * 4 \
+        + int(need.sum()) * 2
+    return nbytes, ops
+
+
 def bound_ms(nbytes: int, ops: int):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -322,6 +422,45 @@ def ragged_fused(dev, M=13, T=5, K=11, OBJ=37, Wl=2, seed=7):
             t(cbm), t(sig), t(oid.astype(np.int32)))
 
 
+def ragged_fused_wide(dev, M=13, T=5, K=11, OBJ=37, W=3, seed=7):
+    """Full-width fused-verify operands at ragged shapes: dirty leaf ids,
+    invalid slots, -1 id pads."""
+    g = np.random.default_rng(seed)
+    qlo = g.uniform(0, 0.8, (M, 2)).astype(np.float32)
+    rects = np.concatenate([qlo, qlo + g.uniform(0.01, 0.3, (M, 2)).astype(np.float32)], 1)
+    oid = np.where(g.integers(0, 4, (K, OBJ)) > 0, g.integers(0, 10_000, (K, OBJ)), -1)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return (t(rects), t(_words(g, M, W)), t(g.integers(-2, K + 3, (M, T)).astype(np.int32)),
+            t(g.integers(0, 2, (M, T)).astype(np.int8)),
+            t(g.uniform(0, 1, (K, OBJ)).astype(np.float32)),
+            t(g.uniform(0, 1, (K, OBJ)).astype(np.float32)),
+            t(_words(g, K, OBJ, W)), t(oid.astype(np.int32)))
+
+
+def ragged_verify(dev, compact: bool, M=13, T=5, OBJ=37, W=3, seed=11):
+    """Unfused verify operands at ragged shapes: T slots of OBJ candidates
+    (half of them inside their query's rectangle), W (or, compact, Wl)
+    words, random validity and an all-invalid last row."""
+    g = np.random.default_rng(seed)
+    C = T * OBJ
+    qlo = g.uniform(0, 0.8, (M, 2)).astype(np.float32)
+    rects = np.concatenate([qlo, qlo + g.uniform(0.01, 0.3, (M, 2)).astype(np.float32)], 1)
+    inside = g.uniform(0, 1, (2, M, C)).astype(np.float32)
+    cx = np.where(inside[0] < 0.5, rects[:, 0:1] + inside[0] * 2 * (rects[:, 2:3] - rects[:, 0:1]),
+                  g.uniform(0, 1, (M, C))).astype(np.float32)
+    cy = np.where(inside[1] < 0.5, rects[:, 1:2] + inside[1] * 2 * (rects[:, 3:4] - rects[:, 1:2]),
+                  g.uniform(0, 1, (M, C))).astype(np.float32)
+    valid = g.integers(0, 2, (M, C)).astype(np.int8)
+    if M > 1:
+        valid[-1] = 0
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    if not compact:
+        return (t(rects), t(_words(g, M, W)), t(cx), t(cy), t(_words(g, M, C, W)), t(valid))
+    fold = lambda w: np.bitwise_or.reduce(w.view(np.uint32), axis=-1).view(np.int32)  # noqa: E731
+    q_cbm, cbm = _words(g, M, T, W), _words(g, M, C, W)
+    return (t(rects), t(q_cbm), t(fold(q_cbm)), t(cx), t(cy), t(cbm), t(fold(cbm)), t(valid))
+
+
 def query_points(wl) -> np.ndarray:
     """kNN query points: the centres of the workload's rectangles."""
     return np.stack(
@@ -361,9 +500,10 @@ def main() -> int:
     from repro_torch.baselines.conventional import build_str_rtree
     from repro_torch.core.query import execute_serial, knn_query
     from repro_torch.data.synth import make_dataset
-    from repro_torch.data.workloads import make_workload
+    from repro_torch.data.workloads import make_update_stream, make_workload
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.launch.wisk_serve import serve_batch, serve_knn_batch
+    from repro_torch.serve.delta import DeltaLog
     from repro_torch.serve.engine import retrieve, retrieve_knn
     from repro_torch.serve.plan import PlanCache
     from repro_torch.serve.snapshot import IndexSnapshot
@@ -607,6 +747,169 @@ def main() -> int:
         assert_outputs_equal(out, knn_out[0], "kNN on the stripped snapshot")
         log("quantized=False and stripped-snapshot runs equal the default runs on every key")
 
+    # ------------------------------------------------------- verify knobs
+    # one batch per knob, equal to the default run; each kernel's operands
+    # captured at the shapes the knob gives it
+    knob_launches = {}
+    no_cbank = dataclasses.replace(snap, leaf_terms=None, leaf_obj_cbm=None, leaf_obj_sig=None)
+    knobs = [  # (label, snapshot, retrieve knobs, kernels the run must launch)
+        ("fused=False", snap, dict(fused=False), ("skr_verify_compact",)),
+        ("compact=False", snap, dict(compact=False), ("fused_verify_slot",)),
+        ("compact=False, fused_variant='vmem'", snap, dict(compact=False, fused_variant="vmem"),
+         ("fused_verify_tile",)),
+        ("fused=False, compact=False", snap, dict(fused=False, compact=False), ("skr_verify",)),
+        ("no compact bank", no_cbank, {}, ("fused_verify_slot",)),
+    ]
+    with phase("verify knobs"), patched(
+        ops,  # sized by top_leaf (M, T) and cand_x (M, C)
+        fused_gather_verify=recorder("fused_wide", ops.fused_gather_verify, 2),
+        verify_candidates=recorder("skr_verify/knob", ops.verify_candidates, 2),
+        verify_candidates_compact=recorder("skr_verify_compact/knob",
+                                           ops.verify_candidates_compact, 3),
+    ):
+        for label, snap_k, kw, kernels in knobs:
+            _build.reset_launch_counts()
+            t = time.perf_counter()
+            out = retrieve(snap_k, wl.rects[b0], bms[b0], MAX_LEAVES, plan_cache=cached(warm), **kw)
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t
+            counts = _build.launch_counts()
+            assert_outputs_equal(out, main_out[0], f"SKR {label}")
+            for name in kernels:
+                if counts[name] <= 0:
+                    raise AssertionError(f"SKR {label} never launched {name}")
+                knob_launches.setdefault(name, counts[name])
+            log(f"SKR {label}: one batch {t:.6f} s, equal to the default run on every key; "
+                f"launches {counts}")
+    del no_cbank
+
+    # -------------------------------------------------------- live updates
+    leaf_mbrs = index.levels[-1].mbrs
+    leaf_terms = snap.leaf_terms.cpu().numpy()
+    plain_ops = dict(
+        filter_frontier=ref.frontier_filter_ref,
+        fused_gather_verify_compact=lambda *a, variant="auto": plain_fused(*a),
+        verify_candidates=ref.skr_verify_ref,
+        verify_candidates_compact=ref.skr_verify_compact_ref,
+        knn_frontier_dist=ref.knn_filter_ref,
+    )
+    delta_launches = {}
+    delta_bufs = {}
+
+    def live_updates(label, own_leaf_terms, jitter, seed, verify_kernel, capture):
+        """One DeltaLog: N_INSERT inserts in batches, N_DELETE deletes, the
+        SKR batches and one kNN batch against their plain reruns and the
+        host oracles over a cold index of the merged data."""
+        rng = np.random.default_rng(seed)
+        leaf_vocab = (leaf_mbrs, leaf_terms) if own_leaf_terms else ()
+        dlog = DeltaLog(index, ds, snap)
+        t_ins, new_ids = [], []
+        n_batches = N_INSERT // INSERT_BATCH
+        probe = None
+        for i in range(n_batches):
+            locs, kw = make_update_stream(ds, INSERT_BATCH, rng, jitter, *leaf_vocab)
+            if i == n_batches - 1:  # deletes, then a buffer handed out before the last insert
+                dels = np.concatenate([
+                    rng.choice(ds.n, N_DELETE - N_DELETE_BUFFERED, replace=False),
+                    rng.choice(np.concatenate(new_ids), N_DELETE_BUFFERED, replace=False)])
+                if dlog.delete(dels) != N_DELETE:
+                    raise AssertionError(f"log {label}: not every delete took")
+                old = dlog.buffer
+                probe = serve_batch(snap, wl.rects[b0], bms[b0], MAX_LEAVES, plan_cache=PlanCache(),
+                                    delta=old)
+            t = time.perf_counter()
+            new_ids.append(dlog.insert(locs, kw))
+            torch.cuda.synchronize()
+            t_ins.append(time.perf_counter() - t)
+        buf = dlog.buffer
+        again = serve_batch(snap, wl.rects[b0], bms[b0], MAX_LEAVES, plan_cache=PlanCache(),
+                            delta=old)
+        assert_outputs_equal(again, probe, f"log {label}: the buffer taken before the last insert")
+        if dlog.compact_ok != own_leaf_terms:
+            raise AssertionError(f"log {label}: compact_ok is {dlog.compact_ok}")
+        if buf.n_buffered() != N_INSERT - N_DELETE_BUFFERED or buf.n_deleted() != \
+                N_DELETE - N_DELETE_BUFFERED:
+            raise AssertionError(f"log {label}: buffered/deleted counts are off")
+        log(f"log {label}: {N_INSERT} inserts in batches of {INSERT_BATCH}, host s per batch "
+            f"{t_ins} (mean {1e3 * np.mean(t_ins):.3f} ms per {INSERT_BATCH}); {N_DELETE} deletes "
+            f"({N_DELETE_BUFFERED} buffered); slots_per_leaf={buf.slots_per_leaf} "
+            f"compact_ok={dlog.compact_ok}; delta on the device {buf.nbytes()} B; the buffer "
+            f"taken before the last insert still gives its earlier answer")
+
+        skr_cache, knn_cache = PlanCache(), PlanCache()
+
+        def serve_skr(cache):
+            outs, times = [], []
+            for b in batches:
+                t = time.perf_counter()
+                outs.append(serve_batch(snap, wl.rects[b], bms[b], MAX_LEAVES, plan_cache=cache,
+                                        delta=buf))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+            return outs, times
+
+        def serve_knn(cache):
+            t = time.perf_counter()
+            out = serve_knn_batch(snap, points[b0], bms[b0], K, plan_cache=cache, delta=buf)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t
+
+        serve_skr(skr_cache)  # warm-up: learns the widened descent's widths
+        serve_knn(knn_cache)
+        _build.reset_launch_counts()
+        with patched(ops, **{capture[0]: recorder(capture[1], getattr(ops, capture[0]),
+                                                  capture[2])}):
+            skr_out, skr_t = serve_skr(cached(skr_cache))
+        skr_counts = _build.launch_counts()
+        _build.reset_launch_counts()
+        knn_d, knn_dt = serve_knn(cached(knn_cache))
+        knn_counts = _build.launch_counts()
+        log(f"log {label} SKR serve_batch(delta) x{len(batches)}: batch s {skr_t}, launches "
+            f"{skr_counts}")
+        log(f"log {label} kNN serve_knn_batch(k={K}, delta): one batch {knn_dt:.6f} s, launches "
+            f"{knn_counts}")
+        for name in ("frontier_filter", "fused_verify_compact_slot", verify_kernel):
+            if skr_counts[name] <= 0:
+                raise AssertionError(f"log {label}: SKR never launched {name}")
+        if skr_counts["frontier_narrow"] or knn_counts["knn_filter_narrow"]:
+            raise AssertionError(f"log {label}: a delta descent ran on the narrow planes")
+        if knn_counts["knn_filter"] <= 0:
+            raise AssertionError(f"log {label}: kNN never launched knn_filter")
+        delta_launches[verify_kernel] = skr_counts[verify_kernel]
+        _build.reset_launch_counts()
+        with patched(ops, **plain_ops):
+            plain_skr, _ = serve_skr(cached(skr_cache))
+            plain_knn, _ = serve_knn(cached(knn_cache))
+        if any(_build.launch_counts().values()):
+            raise AssertionError(f"log {label}: the plain run launched a kernel")
+        for bi, (got, want) in enumerate(zip(skr_out, plain_skr)):
+            assert_outputs_equal(got, want, f"log {label} SKR batch {bi} vs the plain run")
+        assert_outputs_equal(knn_d, plain_knn, f"log {label} kNN vs the plain run")
+
+        merged = dlog.merged_dataset()
+        cold = build_str_rtree(merged, leaf_size=LEAF_SIZE, fanout=FANOUT)
+        cat = {k: np.concatenate([o[k] for o in skr_out]) for k in ("ids", "overflow")}
+        ok = np.flatnonzero(cat["overflow"] == 0)[:N_ORACLE]
+        if ok.size < N_ORACLE:
+            raise AssertionError(f"log {label}: only {ok.size} queries without overflow")
+        st = execute_serial(cold, merged, wl.subset(ok))
+        for j, q in enumerate(ok):
+            row = cat["ids"][q]
+            if not np.array_equal(np.sort(row[row >= 0]), np.sort(st.results[j])):
+                raise AssertionError(f"log {label} query {q}: ids differ from execute_serial")
+        check_knn_oracle(knn_query, cold, merged, knn_d, points[b0], bms[b0], range(N_ORACLE), K,
+                         f"log {label} kNN")
+        log(f"log {label}: every key equals the plain-version run; SKR ids equal execute_serial "
+            f"and kNN ids and dist2 equal knn_query on {N_ORACLE} queries each, over a cold "
+            f"STR index of the {merged.n} merged objects")
+        delta_bufs[label] = buf
+
+    with phase("live updates"):
+        live_updates("A", True, 1e-3, 21, "skr_verify_compact",
+                     ("verify_candidates_compact", "skr_verify_compact/delta", 3))
+        live_updates("B", False, 0.05, 22, "skr_verify",
+                     ("verify_candidates", "skr_verify/delta", 2))
+
     # ------------------------------------------------------- kernel phases
     rows = []
     csrc = "src/repro_torch/kernels/csrc/"
@@ -616,17 +919,25 @@ def main() -> int:
     def slot_phase(name, source, replaces, kernel, plain, narrow, knn):
         ragged = [ragged_slots(dev, narrow, knn),
                   ragged_slots(dev, narrow, knn, M=1, F=1, W=1, D=2, seed=9)]
-        return (name, source, replaces, captured[name], ragged, kernel, plain,
+        return (name, source, replaces, [captured[name]], ragged, kernel, plain,
                 lambda a: slot_bound(a, narrow, knn))
+
+    wide_ragged = [ragged_fused_wide(dev), ragged_fused_wide(dev, W=1, seed=8)]
+
+    def verify_phase(name, replaces, kernel, plain, compact):
+        ragged = [ragged_verify(dev, compact), ragged_verify(dev, compact, W=1, seed=12)]
+        cases = [captured[f"{name}/delta"], captured[f"{name}/knob"]]
+        return (name, csrc + "skr_verify.cu", replaces, cases, ragged, kernel, plain,
+                lambda a: verify_bound(a, compact))
 
     phases = [
         slot_phase("frontier_narrow", csrc + "frontier.cu", "src/repro/kernels/frontier.py:113",
                    ops.filter_frontier_narrow, ref.frontier_filter_narrow_ref, True, False),
         ("fused_verify_compact_tile", csrc + "fused_verify_compact.cu",
-         "src/repro/kernels/fused_verify.py:267", fu_args, fused_ragged,
+         "src/repro/kernels/fused_verify.py:267", [fu_args], fused_ragged,
          lambda *a: ops.fused_gather_verify_compact(*a, variant="vmem"), plain_fused, fused_bound),
         ("fused_verify_compact_slot", csrc + "fused_verify_compact.cu",
-         "src/repro/kernels/fused_verify.py:345", fu_args, fused_ragged,
+         "src/repro/kernels/fused_verify.py:345", [fu_args], fused_ragged,
          lambda *a: ops.fused_gather_verify_compact(*a, variant="prefetch"), plain_fused,
          fused_bound),
         slot_phase("frontier_filter", csrc + "frontier.cu", "src/repro/kernels/frontier.py:60",
@@ -636,32 +947,58 @@ def main() -> int:
                    ops.knn_frontier_dist_narrow, ref.knn_filter_narrow_ref, True, True),
         slot_phase("knn_filter", csrc + "knn_filter.cu", "src/repro/kernels/knn_filter.py:54",
                    ops.knn_frontier_dist, ref.knn_filter_ref, False, True),
+        ("fused_verify_tile", csrc + "fused_verify.cu", "src/repro/kernels/fused_verify.py:107",
+         [captured["fused_wide"]], wide_ragged,
+         lambda *a: ops.fused_gather_verify(*a, variant="vmem"), ref.fused_verify_ref,
+         fused_wide_bound),
+        ("fused_verify_slot", csrc + "fused_verify.cu", "src/repro/kernels/fused_verify.py:176",
+         [captured["fused_wide"]], wide_ragged,
+         lambda *a: ops.fused_gather_verify(*a, variant="prefetch"), ref.fused_verify_ref,
+         fused_wide_bound),
+        verify_phase("skr_verify_compact", "src/repro/kernels/skr_verify.py:94",
+                     ops.verify_candidates_compact, ref.skr_verify_compact_ref, True),
+        verify_phase("skr_verify", "src/repro/kernels/skr_verify.py:39",
+                     ops.verify_candidates, ref.skr_verify_ref, False),
     ]
+    launches.update(knob_launches)
+    launches.update(delta_launches)
     with phase("kernel phases"):
-        for name, source, replaces, args, ragged, kernel, plain, bound in phases:
-            for case in [args, *ragged]:
+        # the first captured case is the row's; later ones (the verify
+        # knobs' shapes) are checked and timed the same way and logged
+        for name, source, replaces, cases, ragged, kernel, plain, bound in phases:
+            for case in [*cases, *ragged]:
                 got = kernel(*case)
                 torch.cuda.synchronize()
                 assert_same(got, plain(*case), f"{name} at {[tuple(a.shape) for a in case[:5]]}")
-            err = max_abs_err(kernel(*args), plain(*args))
-            torch.cuda.synchronize()
-            ms = time_ms(lambda: kernel(*args))
-            plain_ms = time_ms(lambda: plain(*args), iters=10)
-            nbytes, nops = bound(args)
-            b_ms, b_by = bound_ms(nbytes, nops)
-            shapes = [tuple(a.shape) for a in args]
-            log(f"phase {name}: bit-exact vs plain at main-path shapes {shapes} and "
-                f"{len(ragged)} ragged cases; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-                f"bound {b_ms:.6f} ms ({b_by}: {nbytes} B, {nops} ops)")
-            rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                             launches=launches[name], max_abs_err=err, ms=ms,
-                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+            for ci, args in enumerate(cases):
+                err = max_abs_err(kernel(*args), plain(*args))
+                torch.cuda.synchronize()
+                ms = time_ms(lambda: kernel(*args))
+                plain_ms = time_ms(lambda: plain(*args), iters=10)
+                nbytes, nops = bound(args)
+                b_ms, b_by = bound_ms(nbytes, nops)
+                shapes = [tuple(a.shape) for a in args]
+                log(f"phase {name}: bit-exact vs plain at main-path shapes {shapes} and "
+                    f"{len(ragged)} ragged cases; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+                    f"bound {b_ms:.6f} ms ({b_by}: {nbytes} B, {nops} ops)")
+                if ci == 0:
+                    rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
+                                     launches=launches[name], max_abs_err=err, ms=ms,
+                                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                     library_ms=None))
+    captured.clear()
 
     with phase("profiles"):
         profile_batch("SKR", lambda cache: serve_batch(
             snap, wl.rects[b0], bms[b0], MAX_LEAVES, plan_cache=cache), warm, PlanCache)
         profile_batch(f"kNN (k={K})", lambda cache: serve_knn_batch(
             snap, points[b0], bms[b0], K, plan_cache=cache), warm_knn, PlanCache)
+        warm_delta = PlanCache()
+        serve_batch(snap, wl.rects[b0], bms[b0], MAX_LEAVES, plan_cache=warm_delta,
+                    delta=delta_bufs["B"])
+        profile_batch("SKR with log B's delta", lambda cache: serve_batch(
+            snap, wl.rects[b0], bms[b0], MAX_LEAVES, plan_cache=cache, delta=delta_bufs["B"]),
+            warm_delta, PlanCache)
 
     log(f"card: {card}")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -10,8 +10,10 @@ the center object (topped up from the global keyword set):
 * GAU -- Gaussian (mu=n/2, sigma=100) -- heavily skewed;
 * MIX -- 50/50 UNI + LAP (paper default).
 
-The reference's ``stratified_sample`` (construction-time query sampling)
-comes over with index construction (ROADMAP A.11).
+``make_update_stream`` makes live-update traffic for serve/delta.py:
+inserts near existing objects. The reference's ``stratified_sample``
+(construction-time query sampling) comes over with index construction
+(ROADMAP A.11).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..core.query import _mbr_dist2_f32
 from ..core.types import GeoTextDataset, Workload
 
 DISTRIBUTIONS = ("UNI", "LAP", "GAU", "MIX")
@@ -89,3 +92,32 @@ def make_workload(
         kw_ids[i, :] = -1
         kw_ids[i, : row.size] = row
     return Workload.from_ids(rects, kw_ids, dataset.vocab_size)
+
+
+def make_update_stream(
+    dataset: GeoTextDataset,
+    n: int,
+    rng: np.random.Generator,
+    jitter: float,
+    leaf_mbrs: Optional[np.ndarray] = None,
+    leaf_terms: Optional[np.ndarray] = None,
+):
+    """``(locs, kw_ids)`` of ``n`` inserts: random objects' locations moved
+    by N(0, ``jitter``), clipped to the unit square, each with its source
+    object's keywords -- a new shop near an old one, a repost. With
+    ``leaf_mbrs``/``leaf_terms`` (an index's leaf MBRs and a snapshot's
+    leaf dictionaries) each insert instead carries as many terms as its
+    source, drawn from the dictionary of the leaf ``DeltaLog.insert`` will
+    route it to (the same argmin), so every buffered term stays inside its
+    leaf's vocabulary and the delta keeps its compact insert slots."""
+    src = rng.choice(dataset.n, n)
+    locs = np.clip(dataset.locs[src] + rng.normal(0, jitter, (n, 2)), 0, 1).astype(np.float32)
+    kw = dataset.kw_ids[src].copy()
+    if leaf_terms is not None:
+        leaf = np.argmin(_mbr_dist2_f32(leaf_mbrs[None], locs[:, None]), axis=1)
+        for i, lf in enumerate(leaf):
+            terms = leaf_terms[lf][leaf_terms[lf] >= 0]
+            k = min(max(int((kw[i] >= 0).sum()), 1), terms.size)
+            kw[i] = -1
+            kw[i, :k] = rng.choice(terms, k, replace=False)
+    return locs, kw

@@ -126,6 +126,7 @@ class CudaKernel:
 
 
 _FUSED_ARGS = (_P,) * 12 + (_I,) * 5
+_WIDE_FUSED_ARGS = (_P,) * 10 + (_I,) * 5
 
 KERNELS: Dict[str, CudaKernel] = {
     k.name: k
@@ -153,6 +154,22 @@ KERNELS: Dict[str, CudaKernel] = {
         CudaKernel(
             "fused_verify_compact_slot", "fused_verify_compact.cu",
             "wisk_fused_verify_compact_slot", _FUSED_ARGS + (_I, _P),
+        ),
+        CudaKernel(
+            "fused_verify_tile", "fused_verify.cu", "wisk_fused_verify_tile",
+            _WIDE_FUSED_ARGS + (_I, _I, _P),
+        ),
+        CudaKernel(
+            "fused_verify_slot", "fused_verify.cu", "wisk_fused_verify_slot",
+            _WIDE_FUSED_ARGS + (_I, _P),
+        ),
+        CudaKernel(
+            "skr_verify_compact", "skr_verify.cu", "wisk_skr_verify_compact",
+            (_P,) * 9 + (_I,) * 5 + (_P,),
+        ),
+        CudaKernel(
+            "skr_verify", "skr_verify.cu", "wisk_skr_verify",
+            (_P,) * 7 + (_I,) * 4 + (_P,),
         ),
     )
 }

@@ -7,7 +7,8 @@
 //   src/repro/kernels/fused_verify.py::fused_verify_prefetch_compact  -> the
 //     (M, T) kernel below (variant="prefetch", and "auto"): one block per
 //     (query, slot), its threads striding over the leaf row's objects.
-// Oracle: kernels/ref.py fused_verify_compact_ref in this package.
+// Oracle: kernels/ref.py fused_verify_compact_ref in this package. The
+// full-width twins are in fused_verify.cu.
 //
 // Both launches share one __device__ predicate per object: gather the
 // object of leaf clamp(top_leaf[m, t], 0, K-1) (the clamp of
@@ -34,8 +35,7 @@
 // This is the simple version that is right first: no shared-memory staging
 // of the rows, no vector loads, no TMA. The outputs are bit-identical to the
 // reference: only floats are compared and counts are integer sums.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "slot_predicates.cuh"
 
 namespace {
 
@@ -81,14 +81,8 @@ __device__ __forceinline__ int verify_object(const Bank& b, int64_t m,
       }
     }
   }
-  bool inr = false;
-  if (kw) {
-    const float* q = b.q_rects + m * 4;
-    const float cx = __ldg(b.obj_x + obj);
-    const float cy = __ldg(b.obj_y + obj);
-    inr = cx >= __ldg(q + 0) && cx <= __ldg(q + 2) && cy >= __ldg(q + 1) &&
-          cy <= __ldg(q + 3);
-  }
+  const bool inr = kw && wisk::point_in_rect(b.q_rects + m * 4, __ldg(b.obj_x + obj),
+                                             __ldg(b.obj_y + obj));
   b.ids[pair * b.OBJ + o] = inr ? cid : -1;
   return kw ? 1 : 0;
 }

@@ -1,10 +1,11 @@
-// Per-(query, frontier slot) predicates shared by the frontier filters
-// (frontier.cu) and the kNN distance filters (knn_filter.cu).
+// Predicates shared by the port's kernels: the frontier filters
+// (frontier.cu), the kNN distance filters (knn_filter.cu), and the verify
+// kernels (skr_verify.cu, fused_verify.cu, fused_verify_compact.cu).
 //
 // Every function is a plain __device__ inline: the kernels that include this
-// header differ only in how threads map onto slots (one thread per slot on
-// the narrow planes, one warp per slot on the full-width planes) and in what
-// they write (an int8 survivor flag or an f32 squared distance).
+// header differ only in how threads map onto slots or candidates (one thread
+// each on the narrow and compact planes, one warp each at full width) and in
+// what they write (an int8 flag, an object id or an f32 squared distance).
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
@@ -43,6 +44,12 @@ __device__ __forceinline__ bool rect_meets(const float* __restrict__ q, float4 b
          (b.y <= __ldg(q + 3));
 }
 
+// A point inside the closed query rectangle q = (xlo, ylo, xhi, yhi): the
+// verify stages' test, compares only.
+__device__ __forceinline__ bool point_in_rect(const float* __restrict__ q, float x, float y) {
+  return x >= __ldg(q + 0) && x <= __ldg(q + 2) && y >= __ldg(q + 1) && y <= __ldg(q + 3);
+}
+
 // Squared min-distance from point (px, py) to a closed MBR. Each product and
 // the sum round to nearest on their own (__fmul_rn / __fadd_rn are never
 // contracted into a fused multiply-add, which nvcc does by default), so the
@@ -66,16 +73,34 @@ __device__ __forceinline__ bool words_hit_thread(const int32_t* __restrict__ fb,
 // Keyword test by a whole warp (all 32 lanes must call it): lane l reads
 // words l, l + 32, ..., so neighbouring lanes read neighbouring words of the
 // slot (coalesced 128-byte rows). Stops after the first 32-word stride that
-// holds a hit. The result is the same on every lane.
+// holds a hit. The result is the same on every lane. With kStaged the
+// query's words `qb` lie in shared memory (staged by the block with
+// stage_words), else in global memory.
+template <bool kStaged = false>
 __device__ __forceinline__ bool words_hit_warp(const int32_t* __restrict__ fb,
                                                const int32_t* __restrict__ qb, int n,
                                                int lane) {
   for (int base = 0; base < n; base += 32) {
     const int p = base + lane;
-    const bool hit = p < n && (__ldg(fb + p) & __ldg(qb + p)) != 0;
+    bool hit = false;
+    if (p < n) {
+      int32_t q;
+      if constexpr (kStaged) {
+        q = qb[p];
+      } else {
+        q = __ldg(qb + p);
+      }
+      hit = (__ldg(fb + p) & q) != 0;
+    }
     if (__any_sync(0xffffffffu, hit)) return true;
   }
   return false;
+}
+
+// Copy a query's n words into shared memory, every thread of the block
+// taking part; the caller synchronises before reading them.
+__device__ __forceinline__ void stage_words(int32_t* s, const int32_t* __restrict__ g, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = __ldg(g + i);
 }
 
 }  // namespace wisk

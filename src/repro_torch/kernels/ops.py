@@ -27,9 +27,19 @@ NEVER_RECT = (2.0, 2.0, -2.0, -2.0)
 
 FUSED_VARIANTS = ("auto", "vmem", "prefetch")
 
-# The query-tile verify kernel keeps BM * T per-slot counts in shared memory.
+# The verify kernels keep per-block state in dynamic shared memory, at most
+# _SHARED_INTS ints (32 KiB, inside the 48 KB a block takes without opting
+# in): a query-tile kernel up to _TILE_QUERIES queries' per-slot counts (and,
+# at full width, their W staged words); the other full-width kernels one
+# query's W words.
 _TILE_QUERIES = 8
-_TILE_SHARED_INTS = 8192
+_SHARED_INTS = 8192
+
+
+def leaf_bank_bytes(n_leaves: int, obj_per_leaf: int, n_words: int) -> int:
+    """Bytes of the full-width fused-verify leaf bank: the obj_x/y/id rows
+    and the (K, OBJ, W) bitmap slab."""
+    return int(n_leaves) * int(obj_per_leaf) * (3 * 4 + int(n_words) * 4)
 
 
 def compact_leaf_bank_bytes(
@@ -269,10 +279,134 @@ def fused_gather_verify_compact(
         M, T, K, OBJ, Wl,
     )
     if variant == "vmem":
-        bm = max(1, min(_TILE_QUERIES, _TILE_SHARED_INTS // max(T, 1)))
-        if bm * T > _TILE_SHARED_INTS:
-            raise ValueError(f"T={T} leaf slots exceed the query-tile kernel's shared memory")
-        KERNELS["fused_verify_compact_tile"](*args, bm, dev.index, _stream(dev))
+        KERNELS["fused_verify_compact_tile"](*args, _tile_queries(T), dev.index, _stream(dev))
     else:
         KERNELS["fused_verify_compact_slot"](*args, dev.index, _stream(dev))
     return ids, kwv
+
+
+def _tile_queries(ints_per_query: int) -> int:
+    """Queries per block of a query-tile verify kernel that keeps
+    ``ints_per_query`` ints of shared memory per query."""
+    bm = max(1, min(_TILE_QUERIES, _SHARED_INTS // max(ints_per_query, 1)))
+    if bm * ints_per_query > _SHARED_INTS:
+        raise ValueError(
+            f"{ints_per_query} shared ints per query exceed the query-tile kernel's shared memory"
+        )
+    return bm
+
+
+def _check_staged_words(W: int) -> None:
+    if W > _SHARED_INTS:
+        raise ValueError(f"W={W} query words exceed the verify kernel's shared memory")
+
+
+def fused_gather_verify(
+    q_rects, q_bm, top_leaf, leaf_ok, obj_x, obj_y, obj_bm, obj_id, variant: str = "auto",
+):
+    """Fused leaf gather + verify on the full-width leaf bank: the twin of
+    ``fused_gather_verify_compact`` that tests all W words of the query's
+    global bitmap, with no signature. Serves ``compact=False`` and a
+    snapshot without a compact bank. Returns the same ``(ids, kwv)``.
+
+    ``variant`` picks the CUDA kernel (``csrc/fused_verify.cu``): ``"vmem"``
+    the query-tile kernel, ``"prefetch"`` and ``"auto"`` the (M, T) kernel,
+    as for the compact bank. On the CPU every variant runs the plain
+    version.
+    """
+    if variant not in FUSED_VARIANTS:
+        raise ValueError(f"unknown fused-verify variant: {variant!r}")
+    if q_rects.device.type == "cpu":
+        return ref.fused_verify_ref(q_rects, q_bm, top_leaf, leaf_ok, obj_x, obj_y, obj_bm, obj_id)
+    dev = q_rects.device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    M, T = top_leaf.shape
+    K, OBJ = obj_x.shape
+    W = q_bm.shape[1]
+    _check("q_rects", q_rects, torch.float32, (M, 4), dev)
+    _check("q_bm", q_bm, torch.int32, (M, W), dev)
+    _check("top_leaf", top_leaf, torch.int32, (M, T), dev)
+    _check("leaf_ok", leaf_ok, torch.int8, (M, T), dev)
+    _check("obj_x", obj_x, torch.float32, (K, OBJ), dev)
+    _check("obj_y", obj_y, torch.float32, (K, OBJ), dev)
+    _check("obj_bm", obj_bm, torch.int32, (K, OBJ, W), dev)
+    _check("obj_id", obj_id, torch.int32, (K, OBJ), dev)
+    if K == 0 or OBJ == 0:
+        raise ValueError("empty leaf bank")
+    ids = torch.empty((M, T * OBJ), dtype=torch.int32, device=dev)
+    kwv = torch.empty((M, T), dtype=torch.int32, device=dev)
+    args = (
+        q_rects.data_ptr(), q_bm.data_ptr(), top_leaf.data_ptr(), leaf_ok.data_ptr(),
+        obj_x.data_ptr(), obj_y.data_ptr(), obj_bm.data_ptr(), obj_id.data_ptr(),
+        ids.data_ptr(), kwv.data_ptr(), M, T, K, OBJ, W,
+    )
+    if variant == "vmem":
+        KERNELS["fused_verify_tile"](*args, _tile_queries(W + T), dev.index, _stream(dev))
+    else:
+        _check_staged_words(W)
+        KERNELS["fused_verify_slot"](*args, dev.index, _stream(dev))
+    return ids, kwv
+
+
+def verify_candidates(q_rects, q_bm, cand_x, cand_y, cand_bm, cand_valid):
+    """(M, C) int8 unfused verify of gathered candidates on all W words:
+    in the closed rectangle, keyword-matching and valid. CUDA tensors run
+    ``csrc/skr_verify.cu`` (one warp per candidate)."""
+    if q_rects.device.type == "cpu":
+        return ref.skr_verify_ref(q_rects, q_bm, cand_x, cand_y, cand_bm, cand_valid)
+    dev = q_rects.device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    M, C = cand_x.shape
+    W = q_bm.shape[1]
+    _check("q_rects", q_rects, torch.float32, (M, 4), dev)
+    _check("q_bm", q_bm, torch.int32, (M, W), dev)
+    _check("cand_x", cand_x, torch.float32, (M, C), dev)
+    _check("cand_y", cand_y, torch.float32, (M, C), dev)
+    _check("cand_bm", cand_bm, torch.int32, (M, C, W), dev)
+    _check("cand_valid", cand_valid, torch.int8, (M, C), dev)
+    _check_staged_words(W)
+    out = torch.empty((M, C), dtype=torch.int8, device=dev)
+    KERNELS["skr_verify"](
+        q_rects.data_ptr(), q_bm.data_ptr(), cand_x.data_ptr(), cand_y.data_ptr(),
+        cand_bm.data_ptr(), cand_valid.data_ptr(), out.data_ptr(), M, C, W,
+        dev.index, _stream(dev),
+    )
+    return out
+
+
+def verify_candidates_compact(q_rects, q_cbm, q_sig, cand_x, cand_y, cand_cbm, cand_sig,
+                              cand_valid):
+    """(M, T*OBJ) int8 unfused verify on the compact leaf vocabulary.
+    Candidates are leaf-slot-major, T slots of OBJ each (OBJ is derived as
+    ``C // T``: ``slots_per_leaf`` for a delta's insert slots), because the
+    remapped query words ``q_cbm``/``q_sig`` differ per slot. CUDA tensors
+    run ``csrc/skr_verify.cu`` (one thread per candidate)."""
+    if q_rects.device.type == "cpu":
+        return ref.skr_verify_compact_ref(
+            q_rects, q_cbm, q_sig, cand_x, cand_y, cand_cbm, cand_sig, cand_valid
+        )
+    dev = q_rects.device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    M, T = q_sig.shape
+    C = cand_x.shape[1]
+    Wl = q_cbm.shape[2]
+    if T == 0 or C % T:
+        raise ValueError(f"{C} candidates do not split into T={T} leaf slots")
+    _check("q_rects", q_rects, torch.float32, (M, 4), dev)
+    _check("q_cbm", q_cbm, torch.int32, (M, T, Wl), dev)
+    _check("q_sig", q_sig, torch.int32, (M, T), dev)
+    _check("cand_x", cand_x, torch.float32, (M, C), dev)
+    _check("cand_y", cand_y, torch.float32, (M, C), dev)
+    _check("cand_cbm", cand_cbm, torch.int32, (M, C, Wl), dev)
+    _check("cand_sig", cand_sig, torch.int32, (M, C), dev)
+    _check("cand_valid", cand_valid, torch.int8, (M, C), dev)
+    out = torch.empty((M, C), dtype=torch.int8, device=dev)
+    KERNELS["skr_verify_compact"](
+        q_rects.data_ptr(), q_cbm.data_ptr(), q_sig.data_ptr(), cand_x.data_ptr(),
+        cand_y.data_ptr(), cand_cbm.data_ptr(), cand_sig.data_ptr(), cand_valid.data_ptr(),
+        out.data_ptr(), M, T, C // T, Wl, dev.index, _stream(dev),
+    )
+    return out

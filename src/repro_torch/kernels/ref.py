@@ -94,6 +94,58 @@ def knn_filter_narrow_ref(
     return knn_filter_ref(q_pts, q_bits, _dequantize(f_codes, dict_x, dict_y), f_bm, f_valid)
 
 
+def _in_rect(q_rects: torch.Tensor, cand_x: torch.Tensor, cand_y: torch.Tensor) -> torch.Tensor:
+    """(M, C) bool: candidate point inside its query's closed rectangle."""
+    return (
+        (cand_x >= q_rects[:, 0:1])
+        & (cand_x <= q_rects[:, 2:3])
+        & (cand_y >= q_rects[:, 1:2])
+        & (cand_y <= q_rects[:, 3:4])
+    )
+
+
+def skr_verify_ref(
+    q_rects: torch.Tensor,  # (M, 4) f32
+    q_bm: torch.Tensor,  # (M, W) i32 bitmap words
+    cand_x: torch.Tensor,  # (M, C) f32
+    cand_y: torch.Tensor,  # (M, C) f32
+    cand_bm: torch.Tensor,  # (M, C, W) i32
+    cand_valid: torch.Tensor,  # (M, C) int8 (1 = real candidate)
+) -> torch.Tensor:
+    """(M, C) int8: candidate in-rect, keyword-matching on all W words, and valid."""
+    kw = ((cand_bm & q_bm[:, None, :]) != 0).any(dim=-1)
+    return (_in_rect(q_rects, cand_x, cand_y) & kw & (cand_valid > 0)).to(torch.int8)
+
+
+def fused_verify_ref(
+    q_rects: torch.Tensor,  # (M, 4) f32
+    q_bm: torch.Tensor,  # (M, W) i32
+    top_leaf: torch.Tensor,  # (M, T) int32 selected leaf ids
+    leaf_ok: torch.Tensor,  # (M, T) int8
+    obj_x: torch.Tensor,  # (K, OBJ) f32 leaf object bank
+    obj_y: torch.Tensor,  # (K, OBJ) f32
+    obj_bm: torch.Tensor,  # (K, OBJ, W) i32 full-width bitmap slab
+    obj_id: torch.Tensor,  # (K, OBJ) int32, -1 pad
+):
+    """Gather the selected leaves' full-width blocks (leaf ids clamped to
+    ``[0, K-1]``), then apply ``skr_verify_ref``. Returns ``(ids, kwv)`` as
+    ``fused_verify_compact_ref`` does: kwv counts keyword-matching valid
+    candidates per slot, inside the rectangle or not."""
+    M, T = top_leaf.shape
+    K, OBJ = obj_x.shape
+    safe = top_leaf.clamp(0, K - 1).long()
+    cx = obj_x[safe].reshape(M, -1)
+    cy = obj_y[safe].reshape(M, -1)
+    cbm = obj_bm[safe].reshape(M, T * OBJ, -1)
+    cid = obj_id[safe].reshape(M, -1)
+    cval = (cid >= 0) & (leaf_ok > 0).repeat_interleave(OBJ, dim=1)
+    match = skr_verify_ref(q_rects, q_bm, cx, cy, cbm, cval.to(torch.int8))
+    ids = torch.where(match > 0, cid, torch.full_like(cid, -1))
+    kw = ((cbm & q_bm[:, None, :]) != 0).any(dim=-1)
+    kwv = (kw & cval).reshape(M, T, OBJ).sum(dim=2, dtype=torch.int32)
+    return ids, kwv
+
+
 def skr_verify_compact_ref(
     q_rects: torch.Tensor,  # (M, 4) f32
     q_cbm: torch.Tensor,  # (M, T, Wl) i32 leaf-local remapped query words
@@ -108,17 +160,11 @@ def skr_verify_compact_ref(
     vocabulary (one-word signature AND the ``Wl``-word any-AND), and valid."""
     T = q_sig.shape[1]
     OBJ = cand_x.shape[1] // T
-    inr = (
-        (cand_x >= q_rects[:, 0:1])
-        & (cand_x <= q_rects[:, 2:3])
-        & (cand_y >= q_rects[:, 1:2])
-        & (cand_y <= q_rects[:, 3:4])
-    )
     qc = q_cbm.repeat_interleave(OBJ, dim=1)  # (M, T*OBJ, Wl)
     qs = q_sig.repeat_interleave(OBJ, dim=1)  # (M, T*OBJ)
     sig_hit = (cand_sig & qs) != 0
     kw = sig_hit & ((cand_cbm & qc) != 0).any(dim=-1)
-    return (inr & kw & (cand_valid > 0)).to(torch.int8)
+    return (_in_rect(q_rects, cand_x, cand_y) & kw & (cand_valid > 0)).to(torch.int8)
 
 
 def fused_verify_compact_ref(

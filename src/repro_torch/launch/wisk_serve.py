@@ -2,12 +2,14 @@
 
 ``serve_batch`` pads a batch to its power-of-two bucket, runs the frontier
 engine (serve/engine.py) on the snapshot's device and slices the pads off;
-``serve_knn_batch`` does the same for Boolean kNN;
+``serve_knn_batch`` does the same for Boolean kNN; both take an optional
+live ``DeltaBuffer`` (serve/delta.py);
 ``HotQueryCache`` / ``serve_batch_cached`` serve repeated probes from an
 LRU cache; ``MicroBatcher`` coalesces singleton queries into one dispatch.
 Host-side orchestration only, with the behaviour of the JAX package's
 ``launch/wisk_serve.py`` single-device front door. The multi-device
-regimes are ROADMAP A.10.
+regimes are ROADMAP A.10; ``ServingGeneration``/``LiveIndex`` (rebuild
+swaps, subscriptions) wait for construction and subscriptions (A.9, A.11).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from ..serve.delta import DeltaBuffer
 from ..serve.engine import IndexSnapshot, retrieve, retrieve_knn
 from ..serve.plan import PlanCache, pad_knn_queries_to_bucket, pad_queries_to_bucket
 
@@ -31,7 +34,7 @@ def serve_batch(
     mode: str = "frontier",
     minimum_bucket: int = 8,
     plan_cache: Optional[PlanCache] = None,
-    delta=None,
+    delta: Optional[DeltaBuffer] = None,
     fused: Optional[bool] = None,
     compact: Optional[bool] = None,
 ):
@@ -42,9 +45,12 @@ def serve_batch(
         q_rects: (m, 4) f32 query rectangles ``(xlo, ylo, xhi, yhi)``.
         q_bm: (m, W) u32 query keyword bitmaps.
         max_leaves: per-query verification capacity (spill -> ``overflow``).
-        mode, delta, fused, compact: as in ``retrieve`` (defaults only).
+        mode, fused, compact: as in ``retrieve`` (``mode="dense"`` is not
+            ported).
         minimum_bucket: smallest power-of-two batch bucket.
         plan_cache: frontier width state (None: per-snapshot default).
+        delta: optional ``DeltaBuffer`` of buffered inserts and deletes,
+            merged on the fly.
 
     Returns ``retrieve``'s dict with the pad queries sliced off.
     """
@@ -63,7 +69,7 @@ def serve_knn_batch(
     k: int,
     minimum_bucket: int = 8,
     plan_cache: Optional[PlanCache] = None,
-    delta=None,
+    delta: Optional[DeltaBuffer] = None,
     knn_dtype: str = "f32",
     compact: Optional[bool] = None,
 ):
@@ -76,7 +82,7 @@ def serve_knn_batch(
         k: neighbours per query.
         minimum_bucket: smallest power-of-two batch bucket.
         plan_cache: frontier width state (None: per-snapshot default).
-        delta: None only (live deltas are ROADMAP A.8).
+        delta: optional ``DeltaBuffer`` merged on the fly.
         knn_dtype: ``"f32"`` (exact) or ``"bf16"`` -- reduced-precision
             bounded-sweep pruning with a conservative exact-f32 retry; ids
             are always identical to f32 (see ``retrieve_knn``).
@@ -156,7 +162,9 @@ def serve_batch_cached(
 
     Runs ONE ``serve_batch`` over the misses, fills the cache with their
     per-query rows, and reassembles the batch in submission order. Adds a
-    ``cached`` (m,) bool mask. ``ids`` rows are padded to the batch's widest
+    ``cached`` (m,) bool mask. ``serve_kw`` (``delta`` included) goes to
+    ``serve_batch``; the caller invalidates the cache whenever the served
+    state changes. ``ids`` rows are padded to the batch's widest
     capacity with ``-1``.
     """
     rects = np.asarray(q_rects, np.float32).reshape(-1, 4)

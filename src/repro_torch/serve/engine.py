@@ -8,18 +8,21 @@ The port of the JAX package's ``serve/engine.py`` frontier paths. SKR
 2. ``_descend_frontier``: each query carries a padded int32 frontier of
    candidate node ids. Per level, ``_filter_level`` gathers the frontier's
    int16 MBR rank codes and packed word planes and runs the
-   ``frontier_narrow`` CUDA kernel -- or, for ``quantized=False`` or a
+   ``frontier_narrow`` CUDA kernel -- or, for ``quantized=False``, a
    snapshot without narrow planes (a coordinate dictionary overflowed
-   int16), gathers the f32 MBRs and all W words and runs
+   int16) or a live delta, gathers the f32 MBRs and all W words and runs
    ``frontier_filter`` (the f32 descent; identical survivors). Survivors'
    children are expanded through the CSR child table into the next
    frontier, compacted with a prefix sum and a scatter. Widths come from
    the caller's ``PlanCache``.
 3. ``_select_leaves_frontier`` keeps up to ``max_leaves`` surviving leaves
    per query, lowest leaf id first (the spill is counted in ``overflow``).
-4. ``_verify_leaves`` remaps the query words into each selected leaf's
-   local vocabulary and runs the fused gather+verify CUDA kernel on the
-   compact leaf bank.
+4. ``_verify_leaves`` verifies the selected leaves. By default
+   (``fused=None``) one fused gather+verify kernel runs on the compact leaf
+   bank (query words remapped into each leaf's vocabulary), or on the
+   full-width bank for ``compact=False`` or a snapshot without a compact
+   bank. ``fused=False`` gathers the candidates first and runs the unfused
+   ``skr_verify_compact`` / ``skr_verify`` kernels (the A/B baseline).
 
 Boolean kNN (``retrieve_knn``) is a distance-bounded frontier descent:
 a beam-1 probe descends greedily to one leaf and seeds a padded top-kb
@@ -31,11 +34,20 @@ ascending (distance, leaf id) chunks of four, re-tightening the bound
 after each chunk. The reference runs that chunk loop as one ``lax.scan``;
 here it is a Python loop of tensor operations.
 
-Every output key and dtype equals the reference's. The knobs that need
-kernels this port does not have yet -- SKR ``mode="dense"``,
-``compact=False``, ``fused=False``, a snapshot without a compact bank --
-and a live ``delta`` (both paths) raise ``NotImplementedError`` naming
-their ROADMAP item; the path never routes around the ported kernels.
+Live updates: both paths take an optional ``delta`` (serve/delta.py
+``DeltaBuffer``). The descents then filter against its insert-widened
+level arrays (always the f32 descent: the widened MBRs are not in the
+snapshot's coordinate dictionaries), deleted snapshot objects are masked
+out of verification and the kNN top-k, and each selected leaf's
+insert-buffer slots are verified beside its object block: on the compact
+words while the delta carries them, else on all W words. SKR ids are
+(M, T*OBJ + T*B) with a delta: the base blocks first, then the insert
+slots, leaf-slot-major.
+
+Every output key and dtype equals the reference's. ``mode="dense"`` (the
+dense A/B scan) needs a kernel this port does not have yet and raises
+``NotImplementedError`` naming its ROADMAP items; the path never routes
+around the ported kernels.
 """
 from __future__ import annotations
 
@@ -47,56 +59,67 @@ import torch
 from ..core.query import round_up_bucket  # noqa: F401  (re-export, as in the reference)
 from ..core.types import Workload
 from ..kernels import ops
+from .delta import DeltaBuffer
 from .plan import ExecutionPlan, PlanCache, default_plan_cache
 from .snapshot import IndexSnapshot, to_device
 
 
-def _check_knobs(snap: IndexSnapshot, mode, delta, fused, compact) -> None:
+def _check_knobs(snap: IndexSnapshot, mode, delta) -> None:
     if mode == "dense":
-        raise NotImplementedError("mode='dense' (the dense A/B scan) is not ported: ROADMAP A.6")
+        raise NotImplementedError(
+            "mode='dense' (the dense A/B scan and its skr_filter kernel) is not ported: "
+            "ROADMAP A.6, B.12"
+        )
     if mode != "frontier":
         raise ValueError(f"unknown retrieve mode {mode!r}")
-    _check_delta(delta)
-    if fused is False:
-        raise NotImplementedError("fused=False (unfused verify) is not ported: ROADMAP A.6, B.9")
-    if compact is False:
-        raise NotImplementedError(
-            "compact=False (full-width verify) is not ported: ROADMAP A.6, B.5-B.6"
-        )
-    if not snap.has_compact_bank:
-        raise NotImplementedError(
-            "the snapshot has no compact leaf bank (a leaf overflowed LEAF_DICT_MAX); "
-            "full-width verify is not ported: ROADMAP A.6, B.5-B.6"
-        )
+    _check_delta(snap, delta)
 
 
-def _check_delta(delta) -> None:
+def _check_delta(snap: IndexSnapshot, delta) -> None:
+    """A live delta must be a ``DeltaBuffer`` over this snapshot, on its device."""
+    if delta is None:
+        return
+    if not isinstance(delta, DeltaBuffer):
+        raise TypeError(f"delta must be a DeltaBuffer or None, got {type(delta).__name__}")
+    if delta.device != snap.device:
+        raise ValueError(f"the delta is on {delta.device}, the snapshot on {snap.device}")
+    if delta.n_levels != snap.n_levels or delta.ins_id.shape[0] != snap.n_leaves:
+        raise ValueError("the delta was not made over this snapshot")
+
+
+def _level_arrays(snap: IndexSnapshot, delta: Optional[DeltaBuffer], li: int):
+    """The (mbrs, bitmaps) a descent filters level ``li`` against: the
+    delta's insert-widened arrays when a delta is live, else the frozen
+    snapshot arrays."""
     if delta is not None:
-        raise NotImplementedError("live deltas are not ported: ROADMAP A.8")
+        return delta.aug_mbrs[li], delta.aug_bms[li]
+    return snap.level_mbrs[li], snap.level_bms[li]
 
 
 # ------------------------------------------------------------ frontier steps
-def _gather_level(snap: IndexSnapshot, li: int, frontier, words):
+def _gather_level(snap: IndexSnapshot, li: int, frontier, words, delta):
     """The per-slot operands of level ``li`` at the frontier: the narrow
     planes' int16 codes and packed word planes (``words=(wids, bits)``),
-    or the f32 MBRs and all W words (``words=None``). Returns the
-    (codes or MBRs, word plane, int8 validity, clamped frontier)."""
+    or the f32 MBRs and all W words (``words=None``; the delta's widened
+    arrays when one is live). Returns the (codes or MBRs, word plane, int8
+    validity, clamped frontier)."""
     valid = frontier >= 0
     n = snap.level_mbrs[li].shape[0]
     safe = frontier.clamp(0, n - 1).long()
     if words is None:
-        return snap.level_mbrs[li][safe], snap.level_bms[li][safe], valid.to(torch.int8), safe
+        mbrs, bms = _level_arrays(snap, delta, li)
+        return mbrs[safe], bms[safe], valid.to(torch.int8), safe
     wids = words[0]
     f_bm = snap.level_bms[li][safe[:, :, None], wids[:, None, :]]  # (M, F, Wp)
     return snap.level_mbr_codes[li][safe], f_bm, valid.to(torch.int8), safe
 
 
-def _filter_level(snap: IndexSnapshot, li: int, q_rects, q_bm, words, frontier):
+def _filter_level(snap: IndexSnapshot, li: int, q_rects, q_bm, words, frontier, delta):
     """Run the frontier kernel on level ``li``: ``frontier_narrow`` on the
     narrow planes, ``frontier_filter`` on the f32 descent (identical
     survivors). Returns the (M, F) survivors, the per-query count of real
     slots, and the clamped frontier used for the gathers."""
-    planes, f_bm, valid, safe = _gather_level(snap, li, frontier, words)
+    planes, f_bm, valid, safe = _gather_level(snap, li, frontier, words, delta)
     if words is None:
         surv = ops.filter_frontier(q_rects, q_bm, planes, f_bm, valid)
     else:
@@ -147,9 +170,9 @@ def _root_frontier(snap: IndexSnapshot, M: int) -> torch.Tensor:
     return root[None, :].expand(M, -1).contiguous()
 
 
-def _descend_frontier(snap: IndexSnapshot, q_rects, q_bm, words, plan: ExecutionPlan):
+def _descend_frontier(snap: IndexSnapshot, q_rects, q_bm, words, plan: ExecutionPlan, delta):
     """The range-query frontier descent (narrow planes, or the f32 descent
-    when ``words`` is None).
+    when ``words`` is None; ``delta`` swaps in the widened level arrays).
 
     ``plan.widths=None``: exact mode -- bucket each next frontier on the
     batch's actual occupancy, one host sync per level. ``plan.widths=(...)``:
@@ -164,7 +187,7 @@ def _descend_frontier(snap: IndexSnapshot, q_rects, q_bm, words, plan: Execution
     surv = None
     for li in range(snap.n_levels):
         used.append(int(frontier.shape[1]))
-        surv, n_valid, safe = _filter_level(snap, li, q_rects, q_bm, words, frontier)
+        surv, n_valid, safe = _filter_level(snap, li, q_rects, q_bm, words, frontier, delta)
         nodes_checked = nodes_checked + n_valid
         if li < snap.n_levels - 1:
             need = torch.where(surv > 0, snap.child_counts[li][safe], 0).sum(dim=1)
@@ -173,17 +196,141 @@ def _descend_frontier(snap: IndexSnapshot, q_rects, q_bm, words, plan: Execution
     return frontier, surv, nodes_checked, used, needs
 
 
-def _verify_leaves(snap: IndexSnapshot, q_rects, q_bm, top_leaf, leaf_ok, variant: str):
-    """Remap the query words into the selected leaves' vocabularies, then
-    gather + verify the leaves' compact blocks in one kernel."""
-    q_cbm, q_sig = ops.remap_query_words(q_bm, snap.leaf_terms, top_leaf)
-    ids, kwv = ops.fused_gather_verify_compact(
-        q_rects, q_cbm, q_sig, top_leaf, leaf_ok.to(torch.int8),
-        snap.leaf_obj_x, snap.leaf_obj_y, snap.leaf_obj_cbm, snap.leaf_obj_sig,
-        snap.leaf_obj_id, variant=variant,
-    )
-    counts = (ids >= 0).sum(dim=1, dtype=torch.int32)
-    return ids, counts, kwv.sum(dim=1, dtype=torch.int32)
+def _snap_cbank(snap: IndexSnapshot, compact: Optional[bool]):
+    """The snapshot's compact leaf bank as a ``(leaf_terms, obj_cbm,
+    obj_sig)`` triple, or None. ``compact=None`` (auto) uses it whenever the
+    snapshot carries one; ``False`` forces the full-width leaf bank."""
+    if compact is False or not snap.has_compact_bank:
+        return None
+    return (snap.leaf_terms, snap.leaf_obj_cbm, snap.leaf_obj_sig)
+
+
+def _count(mask) -> torch.Tensor:
+    """(M,) int32 row sums of a boolean or int8 (M, C) mask."""
+    return mask.to(torch.int32).sum(dim=1, dtype=torch.int32)
+
+
+def _kw_full(cand_bm, q_bm):
+    """(M, C) keyword test of gathered candidates on all W words."""
+    return ((cand_bm & q_bm[:, None, :]) != 0).any(dim=-1)
+
+
+def _kw_compact(cand_cbm, cand_sig, q_cbm, q_sig, per_slot: int):
+    """(M, T*per_slot) keyword test of leaf-slot-major candidates on the
+    compact words: the signature AND the ``Wl``-word test, against the
+    query words of each candidate's slot."""
+    sig_hit = (cand_sig & q_sig.repeat_interleave(per_slot, dim=1)) != 0
+    return sig_hit & ((cand_cbm & q_cbm.repeat_interleave(per_slot, dim=1)) != 0).any(dim=-1)
+
+
+def _verify_delta_slots(q_rects, q_bm, top_leaf, leaf_ok, delta: DeltaBuffer, q_cbm, q_sig):
+    """Verify the selected leaves' insert-buffer slots: through
+    ``skr_verify_compact`` when the compact bank is in play (``q_cbm``) and
+    the delta carries remapped insert bitmaps (exact: ``DeltaLog`` drops
+    them at the first out-of-dictionary term), else through the full-width
+    ``skr_verify``. Returns ``(ids (M, T*B), counts, kw_scanned)`` for the
+    insert slots alone."""
+    M = q_rects.shape[0]
+    B = delta.slots_per_leaf
+    tl = top_leaf.long()
+    ix = delta.ins_x[tl].reshape(M, -1)
+    iy = delta.ins_y[tl].reshape(M, -1)
+    iid = delta.ins_id[tl].reshape(M, -1)
+    ival = (iid >= 0) & leaf_ok.repeat_interleave(B, dim=1)
+    if q_cbm is not None and delta.ins_cbm is not None:
+        Wl = delta.ins_cbm.shape[2]
+        icbm = delta.ins_cbm[tl].reshape(M, -1, Wl)
+        isig = delta.ins_sig[tl].reshape(M, -1)
+        match = ops.verify_candidates_compact(
+            q_rects, q_cbm, q_sig, ix, iy, icbm, isig, ival.to(torch.int8)
+        )
+        kw = _kw_compact(icbm, isig, q_cbm, q_sig, B)
+    else:
+        ibm = delta.ins_bm[tl].reshape(M, -1, q_bm.shape[1])
+        match = ops.verify_candidates(q_rects, q_bm, ix, iy, ibm, ival.to(torch.int8))
+        kw = _kw_full(ibm, q_bm)
+    ids = torch.where(match > 0, iid, -1)
+    return ids, _count(match), _count(kw & ival)
+
+
+def _verify_leaves(
+    snap: IndexSnapshot, q_rects, q_bm, top_leaf, leaf_ok, delta, fused, variant: str, compact,
+):
+    """Verify the selected leaves; returns ``(ids, counts, verified)``.
+
+    ``fused`` (None or True): one fused gather+verify kernel on the base
+    leaf blocks -- the compact bank when ``compact`` allows and the
+    snapshot has one, else the full-width bank -- on an id bank masked by
+    ``base_alive`` when a delta is live, then ``_verify_delta_slots`` on
+    the insert slots. ``fused=False``: the unfused A/B baseline -- the
+    candidates are gathered first; on the compact bank the base blocks and
+    the insert slots go through ``skr_verify_compact`` in two calls, at
+    full width the concatenated [base, insert] candidates through
+    ``skr_verify`` in one. Candidate order is [base blocks T*OBJ, insert
+    slots T*B], leaf-slot-major, in every combination, and every
+    combination gives identical outputs.
+    """
+    cbank = _snap_cbank(snap, compact)
+    q_cbm = q_sig = None
+    if cbank is not None:
+        q_cbm, q_sig = ops.remap_query_words(q_bm, cbank[0], top_leaf)
+    M = q_rects.shape[0]
+    if fused is not False:
+        base_id = snap.leaf_obj_id
+        if delta is not None:  # deleted objects become pad slots
+            base_id = base_id.masked_fill(delta.base_alive == 0, -1)
+        ok8 = leaf_ok.to(torch.int8)
+        if cbank is not None:
+            ids, kwv = ops.fused_gather_verify_compact(
+                q_rects, q_cbm, q_sig, top_leaf, ok8,
+                snap.leaf_obj_x, snap.leaf_obj_y, cbank[1], cbank[2], base_id, variant=variant,
+            )
+        else:
+            ids, kwv = ops.fused_gather_verify(
+                q_rects, q_bm, top_leaf, ok8,
+                snap.leaf_obj_x, snap.leaf_obj_y, snap.leaf_obj_bm, base_id, variant=variant,
+            )
+        counts = _count(ids >= 0)
+        verified = kwv.sum(dim=1, dtype=torch.int32)
+    else:
+        OBJ = snap.obj_per_leaf
+        tl = top_leaf.long()
+        cx = snap.leaf_obj_x[tl].reshape(M, -1)
+        cy = snap.leaf_obj_y[tl].reshape(M, -1)
+        cid = snap.leaf_obj_id[tl].reshape(M, -1)
+        cval = (cid >= 0) & leaf_ok.repeat_interleave(OBJ, dim=1)
+        if delta is not None:
+            cval = cval & (delta.base_alive[tl].reshape(M, -1) > 0)
+        if cbank is None:  # full width: base and insert slots in one call
+            cbm = snap.leaf_obj_bm[tl].reshape(M, -1, q_bm.shape[1])
+            if delta is not None:
+                B = delta.slots_per_leaf
+                iid = delta.ins_id[tl].reshape(M, -1)
+                cx = torch.cat([cx, delta.ins_x[tl].reshape(M, -1)], dim=1)
+                cy = torch.cat([cy, delta.ins_y[tl].reshape(M, -1)], dim=1)
+                cbm = torch.cat([cbm, delta.ins_bm[tl].reshape(M, -1, q_bm.shape[1])], dim=1)
+                cid = torch.cat([cid, iid], dim=1)
+                cval = torch.cat([cval, (iid >= 0) & leaf_ok.repeat_interleave(B, dim=1)], dim=1)
+            match = ops.verify_candidates(q_rects, q_bm, cx, cy, cbm, cval.to(torch.int8))
+            verified = _count(_kw_full(cbm, q_bm) & cval)
+            return torch.where(match > 0, cid, -1), _count(match), verified
+        Wl = cbank[1].shape[2]
+        ccbm = cbank[1][tl].reshape(M, -1, Wl)
+        csig = cbank[2][tl].reshape(M, -1)
+        match = ops.verify_candidates_compact(
+            q_rects, q_cbm, q_sig, cx, cy, ccbm, csig, cval.to(torch.int8)
+        )
+        ids = torch.where(match > 0, cid, -1)
+        counts = _count(match)
+        verified = _count(_kw_compact(ccbm, csig, q_cbm, q_sig, OBJ) & cval)
+    if delta is not None:
+        d_ids, d_counts, d_kw = _verify_delta_slots(
+            q_rects, q_bm, top_leaf, leaf_ok, delta, q_cbm, q_sig
+        )
+        ids = torch.cat([ids, d_ids], dim=1)
+        counts = counts + d_counts
+        verified = verified + d_kw
+    return ids, counts, verified
 
 
 def _host_words(q_bm) -> np.ndarray:
@@ -196,7 +343,7 @@ def _host_words(q_bm) -> np.ndarray:
     return np.asarray(q_bm, np.uint32)
 
 
-def _query_tensors(snap: IndexSnapshot, q, q_bm, quantized: Optional[bool]):
+def _query_tensors(snap: IndexSnapshot, q, q_bm, quantized: Optional[bool], delta):
     """The batch on the snapshot's device: ``q`` (rects or points) as f32,
     the bitmap as its int32 view, and the packed words ``(wids, bits)`` of
     the narrow descent (None on the f32 descent)."""
@@ -206,8 +353,9 @@ def _query_tensors(snap: IndexSnapshot, q, q_bm, quantized: Optional[bool]):
         q = torch.from_numpy(np.ascontiguousarray(q, np.float32))
     q = q.to(dev, torch.float32).contiguous()
     packed = None
-    # the narrow descent unless the caller forces the f32 one or the snapshot has no narrow planes
-    if quantized is not False and snap.has_narrow_planes:
+    # the narrow descent unless the caller forces the f32 one, the snapshot
+    # has no narrow planes, or a live delta widened MBRs past the dictionaries
+    if quantized is not False and delta is None and snap.has_narrow_planes:
         wids, bits = ops.pack_query_words(words)
         packed = (to_device(wids, dev).long(), to_device(bits, dev))
     return q, to_device(words, dev), packed
@@ -220,7 +368,7 @@ def retrieve(
     max_leaves: int = 32,
     mode: str = "frontier",
     plan_cache: Optional[PlanCache] = None,
-    delta=None,
+    delta: Optional[DeltaBuffer] = None,
     fused: Optional[bool] = None,
     quantized: Optional[bool] = None,
     fused_variant: Optional[str] = None,
@@ -232,23 +380,26 @@ def retrieve(
 
     ``q_rects`` (M, 4) f32 and ``q_bm`` (M, W) u32 (numpy, or tensors with
     the bitmap as its int32 view). ``plan_cache`` carries the frontier width
-    state across calls (None: the per-snapshot default). ``quantized=None``
-    descends on the snapshot's narrow planes when it has them; ``False``
-    forces the f32 full-width descent (identical results). ``fused_variant``
-    picks the fused verify kernel (None/"auto", "vmem", "prefetch"); every
-    variant gives identical results. The remaining knobs accept only their
-    defaults (see the module docstring).
+    state across calls (None: the per-snapshot default). ``delta`` (a
+    ``DeltaBuffer`` over this snapshot) merges buffered inserts and deletes
+    on the fly. ``quantized=None`` descends on the snapshot's narrow planes
+    when it has them and no delta is live; ``False`` forces the f32
+    full-width descent. ``fused=False`` forces the unfused verify (the A/B
+    baseline); ``compact=False`` verifies on the full-width leaf bank;
+    ``fused_variant`` picks the fused verify kernel (None/"auto", "vmem",
+    "prefetch"). Every combination gives identical results. ``mode`` is
+    ``"frontier"``; ``"dense"`` is not ported (see the module docstring).
     """
-    _check_knobs(snap, mode, delta, fused, compact)
+    _check_knobs(snap, mode, delta)
     variant = "auto" if fused_variant is None else fused_variant
     if variant not in ops.FUSED_VARIANTS:
         raise ValueError(f"unknown fused-verify variant: {variant!r}")
-    q_rects, q_bm_dev, words = _query_tensors(snap, q_rects, q_bm, quantized)
+    q_rects, q_bm_dev, words = _query_tensors(snap, q_rects, q_bm, quantized, delta)
     M = q_rects.shape[0]
 
     cache = plan_cache if plan_cache is not None else default_plan_cache(snap)
     plan = cache.plan("skr", snap.n_levels - 1)
-    descend = lambda p: _descend_frontier(snap, q_rects, q_bm_dev, words, p)  # noqa: E731
+    descend = lambda p: _descend_frontier(snap, q_rects, q_bm_dev, words, p, delta)  # noqa: E731
     out = descend(plan)
     retried = cache.check_and_retry(plan, out[-1], descend)
     frontier, surv, nodes_checked, used, _ = retried or out
@@ -256,7 +407,9 @@ def retrieve(
     n_leaf = snap.n_leaves
     take = min(max_leaves, n_leaf, int(frontier.shape[1]))
     top_leaf, leaf_ok, overflow = _select_leaves_frontier(frontier, surv, take, n_leaf)
-    ids, counts, verified = _verify_leaves(snap, q_rects, q_bm_dev, top_leaf, leaf_ok, variant)
+    ids, counts, verified = _verify_leaves(
+        snap, q_rects, q_bm_dev, top_leaf, leaf_ok, delta, fused, variant, compact
+    )
     return dict(
         ids=ids.cpu().numpy(),
         counts=counts.cpu().numpy(),
@@ -289,15 +442,6 @@ _BF16_RISK_TOL = 2.0 ** -6
 KNN_DTYPES = ("f32", "bf16")
 
 
-def _snap_cbank(snap: IndexSnapshot, compact: Optional[bool]):
-    """The snapshot's compact leaf bank as a ``(leaf_terms, obj_cbm,
-    obj_sig)`` triple, or None. ``compact=None`` (auto) uses it whenever the
-    snapshot carries one; ``False`` forces the full-width leaf bank."""
-    if compact is False or not snap.has_compact_bank:
-        return None
-    return (snap.leaf_terms, snap.leaf_obj_cbm, snap.leaf_obj_sig)
-
-
 def _quantize_dist(d, knn_dtype: str):
     """Round the sweep's f32 squared distances to bf16 (round to nearest
     even, as the reference) for ``knn_dtype="bf16"``."""
@@ -322,12 +466,13 @@ def _merge_topk(top_d, top_id, cand_d, cand_id, kb: int):
     return d_s[:, :kb], id_s[:, :kb]
 
 
-def _knn_dist_level(snap: IndexSnapshot, li: int, points, q_bm, words, frontier):
+def _knn_dist_level(snap: IndexSnapshot, li: int, points, q_bm, words, frontier, delta):
     """Squared MBR min-distances of level ``li`` at the frontier:
     ``knn_filter_narrow`` on the narrow planes, ``knn_filter`` on the f32
-    descent (bit-identical distances). Returns the (M, F) distances, the
-    per-query count of real slots, and the clamped frontier."""
-    planes, f_bm, valid, safe = _gather_level(snap, li, frontier, words)
+    descent (bit-identical distances; the delta's widened arrays when one is
+    live). Returns the (M, F) distances, the per-query count of real slots,
+    and the clamped frontier."""
+    planes, f_bm, valid, safe = _gather_level(snap, li, frontier, words, delta)
     if words is None:
         d = ops.knn_frontier_dist(points, q_bm, planes, f_bm, valid)
     else:
@@ -349,44 +494,69 @@ def _probe_select(d, cand):
     return torch.where(torch.isfinite(bd), nxt, -1)
 
 
-def _chunk_kw(q_bm, obj_bm, cbank, leaves2d):
-    """(M, T, OBJ) keyword overlap of each query with the objects of the
-    (M, T) leaves ``leaves2d`` (clamped here). With ``cbank=(leaf_terms,
+def _chunk_kw(q_bm, obj_bm, delta, cbank, leaves2d):
+    """Keyword overlap of each query with the objects of the (M, T) leaves
+    ``leaves2d`` (clamped here): ``(kw (M, T, OBJ), ikw (M, T, B) or
+    None)``, ``ikw`` for the delta's insert slots. With ``cbank=(leaf_terms,
     obj_cbm, obj_sig)`` the test runs on the leaf-local compact bank --
     query words remapped per (query, leaf slot), a one-word signature gating
     the ``Wl``-word AND -- else on the full-width ``(K, OBJ, W)`` bank; the
-    two are identical."""
+    two are identical. Insert slots use the delta's remapped ``ins_cbm``
+    when the compact bank is in play and the delta carries it, else the
+    full-width ``ins_bm``."""
+    full = lambda bank, safe: ((bank[safe] & q_bm[:, None, None, :]) != 0).any(dim=-1)  # noqa: E731
     if cbank is None:
         safe = leaves2d.clamp(0, obj_bm.shape[0] - 1).long()
-        return ((obj_bm[safe] & q_bm[:, None, None, :]) != 0).any(dim=-1)
+        return full(obj_bm, safe), (None if delta is None else full(delta.ins_bm, safe))
     leaf_terms, obj_cbm, obj_sig = cbank
     safe = leaves2d.clamp(0, obj_cbm.shape[0] - 1).long()
     q_cbm, q_sig = ops.remap_query_words(q_bm, leaf_terms, leaves2d)
-    sig_hit = (obj_sig[safe] & q_sig[:, :, None]) != 0
-    return sig_hit & ((obj_cbm[safe] & q_cbm[:, :, None, :]) != 0).any(dim=-1)
+
+    def compact(cbm, sig):
+        sig_hit = (sig[safe] & q_sig[:, :, None]) != 0
+        return sig_hit & ((cbm[safe] & q_cbm[:, :, None, :]) != 0).any(dim=-1)
+
+    kw = compact(obj_cbm, obj_sig)
+    if delta is None:
+        return kw, None
+    if delta.ins_cbm is not None:
+        return kw, compact(delta.ins_cbm, delta.ins_sig)
+    return kw, full(delta.ins_bm, safe)
 
 
-def _score_leaves(snap: IndexSnapshot, points, q_bm, cbank, leaves2d, live):
+def _score_leaves(snap: IndexSnapshot, points, q_bm, delta, cbank, leaves2d, live):
     """Candidates of the (M, T) leaves ``leaves2d`` where ``live`` (M, T):
     every keyword-matching object's exact f32 squared distance (op by op,
     as the host oracle) and id, +inf / sentinel elsewhere, flattened to
-    (M, T*OBJ); plus the (M, T, OBJ) validity mask."""
+    (M, T*(OBJ+B)); plus the validity mask. With a live delta each leaf's
+    insert slots follow its object block and deleted objects never match."""
     M = points.shape[0]
     safe = leaves2d.clamp(0, snap.leaf_obj_x.shape[0] - 1).long()
-    oid = snap.leaf_obj_id[safe]
-    kw = _chunk_kw(q_bm, snap.leaf_obj_bm, cbank, leaves2d)
-    dx = snap.leaf_obj_x[safe] - points[:, 0, None, None]
-    dy = snap.leaf_obj_y[safe] - points[:, 1, None, None]
+    ox, oy, oid = snap.leaf_obj_x[safe], snap.leaf_obj_y[safe], snap.leaf_obj_id[safe]
+    kw, ikw = _chunk_kw(q_bm, snap.leaf_obj_bm, delta, cbank, leaves2d)
+    ok = oid >= 0
+    if delta is not None:
+        iid = delta.ins_id[safe]
+        ok = torch.cat([ok & (delta.base_alive[safe] > 0), iid >= 0], dim=2)
+        ox = torch.cat([ox, delta.ins_x[safe]], dim=2)
+        oy = torch.cat([oy, delta.ins_y[safe]], dim=2)
+        oid = torch.cat([oid, iid], dim=2)
+        kw = torch.cat([kw, ikw], dim=2)
+    dx = ox - points[:, 0, None, None]
+    dy = oy - points[:, 1, None, None]
     od2 = dx * dx + dy * dy
-    valid = (oid >= 0) & kw & live[:, :, None]
+    valid = ok & kw & live[:, :, None]
     cd = torch.where(valid, od2, float("inf")).reshape(M, -1)
     cid = torch.where(valid, oid, _ID_SENTINEL).reshape(M, -1)
     return cd, cid, valid
 
 
-def _knn_probe_verify(snap: IndexSnapshot, points, q_bm, cbank, leaf, top_d, top_id, kb: int):
-    """Verify the probe leaf's object block and seed the top-k buffer."""
-    cd, cid, valid = _score_leaves(snap, points, q_bm, cbank, leaf[:, None], (leaf >= 0)[:, None])
+def _knn_probe_verify(snap: IndexSnapshot, points, q_bm, delta, cbank, leaf, top_d, top_id,
+                      kb: int):
+    """Verify the probe leaf's object block (and insert slots) and seed the
+    top-k buffer."""
+    cd, cid, valid = _score_leaves(snap, points, q_bm, delta, cbank, leaf[:, None],
+                                   (leaf >= 0)[:, None])
     top_d, top_id = _merge_topk(top_d, top_id, cd, cid, kb)
     return top_d, top_id, valid.sum(dim=(1, 2), dtype=torch.int32)
 
@@ -410,7 +580,7 @@ def _risk(d, alive):
 
 
 def _knn_leaf_phase(
-    snap: IndexSnapshot, points, q_bm, cbank, leaf_d, frontier, probe_leaf,
+    snap: IndexSnapshot, points, q_bm, delta, cbank, leaf_d, frontier, probe_leaf,
     top_d, top_id, k: int, kb: int, ch: int,
 ):
     """Distance-ordered chunked leaf verification.
@@ -420,6 +590,8 @@ def _knn_leaf_phase(
     chunk, so later (farther) chunks are usually bounded out entirely. The
     probe leaf is masked to +inf: its objects are already in the buffer.
     One Python iteration per chunk, where the reference runs a ``lax.scan``.
+    With a live delta each chunk leaf's insert slots are verified beside its
+    object block, and deleted objects stay out of the merge.
 
     Returns the buffer, the per-query leaves verified / objects verified /
     leaves bounded out, and the bf16 retry guard's risk over the chunks.
@@ -435,7 +607,7 @@ def _knn_leaf_phase(
         bound = top_d[:, k - 1]
         fin = torch.isfinite(dc)
         active = fin & (dc <= bound[:, None])
-        cd, cid, valid = _score_leaves(snap, points, q_bm, cbank, lc, active)
+        cd, cid, valid = _score_leaves(snap, points, q_bm, delta, cbank, lc, active)
         top_d, top_id = _merge_topk(top_d, top_id, cd, cid, kb)
         lv += active.sum(dim=1, dtype=torch.int32)
         ver += valid.sum(dim=(1, 2), dtype=torch.int32)
@@ -445,8 +617,8 @@ def _knn_leaf_phase(
 
 
 def _descend_knn(
-    snap: IndexSnapshot, points, q_bm, words, cbank, k: int, kb: int, plan: ExecutionPlan,
-    knn_dtype: str,
+    snap: IndexSnapshot, points, q_bm, words, delta, cbank, k: int, kb: int,
+    plan: ExecutionPlan, knn_dtype: str,
 ):
     """Distance-bounded kNN descent (probe -> bounded sweep -> leaf chunks).
 
@@ -454,7 +626,9 @@ def _descend_knn(
     cached mode runs sync-free and returns device maxima for the caller's
     batched overflow check. ``words`` switches the level filters to the
     narrow planes (bit-identical distances; leaf scoring stays on the exact
-    f32 object bank either way). ``knn_dtype="bf16"`` rounds the sweep's
+    f32 object bank either way). ``delta`` swaps in the widened level
+    arrays and merges insert slots and deletes into the probe and the leaf
+    chunks. ``knn_dtype="bf16"`` rounds the sweep's
     node distances to bf16 before pruning and tracks ``risk``, the minimum
     conservative lower bound over everything pruned.
     """
@@ -463,7 +637,7 @@ def _descend_knn(
     dev = snap.device
 
     def dist_level(li, fr):
-        return _knn_dist_level(snap, li, points, q_bm, words, fr)
+        return _knn_dist_level(snap, li, points, q_bm, words, fr, delta)
 
     top_d = torch.full((M, kb), float("inf"), device=dev)
     top_id = torch.full((M, kb), _ID_SENTINEL, dtype=torch.int32, device=dev)
@@ -482,7 +656,7 @@ def _descend_knn(
         cur = _probe_select(d, cand)
     probe_leaf = cur
     top_d, top_id, verified = _knn_probe_verify(
-        snap, points, q_bm, cbank, probe_leaf, top_d, top_id, kb
+        snap, points, q_bm, delta, cbank, probe_leaf, top_d, top_id, kb
     )
     leaves_verified = (probe_leaf >= 0).to(torch.int32)
 
@@ -510,7 +684,8 @@ def _descend_knn(
     F = int(frontier.shape[1])
     ch = 4 if F % 4 == 0 else 1
     top_d, top_id, lv, ver, pr, rm = _knn_leaf_phase(
-        snap, points, q_bm, cbank, leaf_d, frontier, probe_leaf, top_d, top_id, k, kb, ch,
+        snap, points, q_bm, delta, cbank, leaf_d, frontier, probe_leaf, top_d, top_id, k, kb,
+        ch,
     )
     result = (
         top_d, top_id, nodes_checked, verified + ver, leaves_verified + lv, pruned + pr,
@@ -526,7 +701,7 @@ def retrieve_knn(
     k: int,
     min_topk_bucket: int = 8,
     plan_cache: Optional[PlanCache] = None,
-    delta=None,
+    delta: Optional[DeltaBuffer] = None,
     quantized: Optional[bool] = None,
     knn_dtype: str = "f32",
     compact: Optional[bool] = None,
@@ -541,20 +716,21 @@ def retrieve_knn(
     ``leaves_verified`` (leaf blocks verified), ``pruned`` (keyword-matching
     frontier slots bounded out) and ``frontier_widths``.
 
-    ``quantized=None`` descends on the snapshot's narrow planes when it has
-    them; ``False`` forces the f32 full-width descent. ``compact=None`` runs
+    ``delta`` (a ``DeltaBuffer`` over this snapshot) merges buffered
+    inserts and deletes on the fly. ``quantized=None`` descends on the
+    snapshot's narrow planes when it has them and no delta is live;
+    ``False`` forces the f32 full-width descent. ``compact=None`` runs
     every leaf keyword test on the compact leaf bank when the snapshot has
     one; ``False`` forces the full-width bank. Results are identical every
     way. ``knn_dtype="bf16"`` prunes the bounded sweep on bf16-rounded node
     distances and retries the whole batch in exact f32 whenever the tracked
     risk reaches the final k-th bound; the output gains
-    ``knn_dtype_retried`` and ids always equal the f32 path's. A live
-    ``delta`` is not ported (ROADMAP A.8).
+    ``knn_dtype_retried`` and ids always equal the f32 path's.
     """
     if knn_dtype not in KNN_DTYPES:
         raise ValueError(f"knn_dtype must be 'f32' or 'bf16', got {knn_dtype!r}")
-    _check_delta(delta)
-    points_t, q_bm_dev, words = _query_tensors(snap, points, q_bm, quantized)
+    _check_delta(snap, delta)
+    points_t, q_bm_dev, words = _query_tensors(snap, points, q_bm, quantized, delta)
     M = int(points_t.shape[0])
     if k <= 0:
         z = np.zeros(M, np.int64)
@@ -568,7 +744,7 @@ def retrieve_knn(
     cbank = _snap_cbank(snap, compact)
     plan = cache.plan("knn", snap.n_levels - 1)
     descend = lambda p: _descend_knn(  # noqa: E731
-        snap, points_t, q_bm_dev, words, cbank, k, kb, p, knn_dtype
+        snap, points_t, q_bm_dev, words, delta, cbank, k, kb, p, knn_dtype
     )
     out = descend(plan)
     retried = cache.check_and_retry(plan, out[-1], descend)
@@ -579,7 +755,8 @@ def retrieve_knn(
         if bool((torch.isfinite(risk) & (risk <= bound)).any()):
             exact = retrieve_knn(
                 snap, points, q_bm, k, min_topk_bucket=min_topk_bucket,
-                plan_cache=cache, quantized=quantized, knn_dtype="f32", compact=compact,
+                plan_cache=cache, delta=delta, quantized=quantized, knn_dtype="f32",
+                compact=compact,
             )
             exact["knn_dtype_retried"] = True
             return exact

@@ -134,6 +134,62 @@ def fused_args(case, device="cpu"):
             t["obj_y"], t["obj_cbm"], t["obj_sig"], t["obj_id"])
 
 
+def fused_wide_args(case, device="cpu"):
+    """The port's full-width fused-verify operands on ``device``."""
+    return tuple(to_torch(case[k], device) for k in (
+        "q_rects", "q_bm", "top_leaf", "leaf_ok", "obj_x", "obj_y", "obj_bm", "obj_id"))
+
+
+def _points_near(rng, rects, n):
+    """(m, n) x and y: half inside each query's rectangle (some exactly on
+    its closed edges), half anywhere in the unit square."""
+    m = rects.shape[0]
+    u = rng.uniform(0, 1, (2, m, n)).astype(np.float32)
+    x = np.where(u[0] < 0.5, rects[:, 0:1] + u[0] * 2 * (rects[:, 2:3] - rects[:, 0:1]),
+                 rng.uniform(0, 1, (m, n))).astype(np.float32)
+    y = np.where(u[1] < 0.5, rects[:, 1:2] + u[1] * 2 * (rects[:, 3:4] - rects[:, 1:2]),
+                 rng.uniform(0, 1, (m, n))).astype(np.float32)
+    edge = rng.integers(0, 8, (m, n)) == 0
+    x = np.where(edge, np.broadcast_to(rects[:, 2:3], (m, n)), x)
+    y = np.where(rng.integers(0, 8, (m, n)) == 0, np.broadcast_to(rects[:, 1:2], (m, n)), y)
+    return x, y
+
+
+VERIFY_ARGS = ("q_rects", "q_bm", "cand_x", "cand_y", "cand_bm", "cand_valid")
+
+
+def verify_case(rng, m, c, w):
+    """``skr_verify`` operands: (m, c) gathered candidates near the query
+    rectangles, sparse random words, random validity and an all-invalid
+    last row."""
+    rects = rand_rects(rng, m)
+    x, y = _points_near(rng, rects, c)
+    valid = rng.integers(0, 2, (m, c)).astype(np.int8)
+    if m > 1:
+        valid[-1] = 0
+    return dict(q_rects=rects, q_bm=words(rng, m, w), cand_x=x, cand_y=y,
+                cand_bm=words(rng, m, c, w), cand_valid=valid)
+
+
+VERIFY_COMPACT_ARGS = ("q_rects", "q_cbm", "q_sig", "cand_x", "cand_y", "cand_cbm", "cand_sig",
+                       "cand_valid")
+
+
+def verify_compact_case(rng, m, t, obj, wl):
+    """``skr_verify_compact`` operands: T slots of OBJ leaf-slot-major
+    candidates, per-slot query words and their OR-fold signatures."""
+    rects = rand_rects(rng, m)
+    x, y = _points_near(rng, rects, t * obj)
+    q_cbm = words(rng, m, t, wl)
+    cand_cbm = words(rng, m, t * obj, wl)
+    valid = rng.integers(0, 2, (m, t * obj)).astype(np.int8)
+    if m > 1:
+        valid[-1] = 0
+    return dict(q_rects=rects, q_cbm=q_cbm, q_sig=np.bitwise_or.reduce(q_cbm, axis=-1),
+                cand_x=x, cand_y=y, cand_cbm=cand_cbm,
+                cand_sig=np.bitwise_or.reduce(cand_cbm, axis=-1), cand_valid=valid)
+
+
 FRONTIER_SWEEP = [
     (1, 1, 1),     # degenerate single-slot frontier
     (5, 37, 3),    # nothing a multiple of a tile
@@ -148,4 +204,20 @@ FUSED_SWEEP = [  # m, t, k, obj, w, max_kw
     (9, 8, 36, 64, 15, 6),   # the fs-profile word width
     (33, 4, 17, 32, 8, 6),   # queries past the 8-query tile
     (7, 3, 5, 24, 4, 70),    # leaf dictionaries of up to 70 terms: Wl = 4
+]
+
+VERIFY_SWEEP = [  # m, c, w
+    (1, 1, 1),       # degenerate
+    (5, 37, 3),      # nothing a multiple of a warp or a block
+    (13, 185, 1),    # one word: T = 5 slots of OBJ = 37
+    (9, 130, 4),     # candidates just past one block's 128
+    (33, 257, 40),   # words past one 32-word warp stride
+]
+
+VERIFY_COMPACT_SWEEP = [  # m, t, obj, wl
+    (1, 1, 1, 1),
+    (5, 3, 16, 1),
+    (13, 5, 37, 2),  # the ragged edge of the smoke
+    (9, 8, 8, 4),    # OBJ = 8: delta insert slots at MIN_SLOTS_PER_LEAF
+    (33, 4, 32, 3),
 ]

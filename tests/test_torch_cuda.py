@@ -6,9 +6,9 @@ file imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-All comparisons are exact: the range kernels only compare floats, and the
-kNN kernels round each product and the sum on their own (``__fmul_rn``,
-``__fadd_rn``), as eager PyTorch does in the plain versions.
+All comparisons are exact: the range and verify kernels only compare
+floats, and the kNN kernels round each product and the sum on their own
+(``__fmul_rn``, ``__fadd_rn``), as eager PyTorch does in the plain versions.
 """
 import numpy as np
 import pytest
@@ -17,16 +17,19 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.baselines.conventional import build_grid_index, build_str_rtree  # noqa: E402
 from repro_torch.data.synth import make_dataset  # noqa: E402
-from repro_torch.data.workloads import make_workload  # noqa: E402
+from repro_torch.data.workloads import make_update_stream, make_workload  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.launch.wisk_serve import serve_batch, serve_knn_batch  # noqa: E402
 from repro_torch.serve.engine import retrieve_knn, retrieve_workload  # noqa: E402
 from repro_torch.serve.plan import PlanCache  # noqa: E402
 from repro_torch.serve.snapshot import IndexSnapshot  # noqa: E402
 
+from repro_torch.serve.delta import DeltaLog  # noqa: E402
+
 from test_torch_cases import (  # noqa: E402
-    FRONTIER_ARGS, FRONTIER_SWEEP, FUSED_SWEEP, KNN_ARGS, frontier_case, fused_args, fused_case,
-    knn_case, to_torch, wide_args,
+    FRONTIER_ARGS, FRONTIER_SWEEP, FUSED_SWEEP, KNN_ARGS, VERIFY_ARGS, VERIFY_COMPACT_ARGS,
+    VERIFY_COMPACT_SWEEP, VERIFY_SWEEP, frontier_case, fused_args, fused_case, fused_wide_args,
+    knn_case, to_torch, verify_case, verify_compact_case, wide_args,
 )
 
 pytestmark = pytest.mark.cuda
@@ -106,6 +109,75 @@ def test_full_width_kernels_match_plain(cuda, kernel, m, f, w):
     _equal(got, plain(*args))
 
 
+@pytest.mark.parametrize("variant", ["vmem", "prefetch", "auto"])
+@pytest.mark.parametrize("m,t,k,obj,w,max_kw", FUSED_SWEEP + [(13, 5, 11, 37, 3, 6),
+                                                           (64, 16, 40, 128, 256, 6)])
+def test_full_width_fused_verify_kernel_matches_plain(cuda, variant, m, t, k, obj, w, max_kw):
+    case = fused_case(np.random.default_rng(m * 613 + t * 37 + k * 5 + obj + w + 3), m, t, k, obj,
+                      w, max_kw)
+    args = fused_wide_args(case, cuda)
+    name = "fused_verify_tile" if variant == "vmem" else "fused_verify_slot"
+    before = _build.KERNELS[name].launches
+    got = ops.fused_gather_verify(*args, variant=variant)
+    torch.cuda.synchronize()
+    assert _build.KERNELS[name].launches == before + 1
+    _equal(got, ref.fused_verify_ref(*args))
+
+
+@pytest.mark.parametrize("m,c,w", VERIFY_SWEEP + [(64, 4352, 256)])
+def test_skr_verify_kernel_matches_plain(cuda, m, c, w):
+    case = verify_case(np.random.default_rng(m * 7919 + c * 31 + w), m, c, w)
+    args = [to_torch(case[k], cuda) for k in VERIFY_ARGS]
+    before = _build.KERNELS["skr_verify"].launches
+    got = ops.verify_candidates(*args)
+    torch.cuda.synchronize()
+    assert _build.KERNELS["skr_verify"].launches == before + 1
+    _equal(got, ref.skr_verify_ref(*args))
+
+
+@pytest.mark.parametrize("m,t,obj,wl", VERIFY_COMPACT_SWEEP + [(1024, 32, 128, 4)])
+def test_skr_verify_compact_kernel_matches_plain(cuda, m, t, obj, wl):
+    case = verify_compact_case(np.random.default_rng(m * 7919 + t * 31 + obj + wl), m, t, obj, wl)
+    args = [to_torch(case[k], cuda) for k in VERIFY_COMPACT_ARGS]
+    before = _build.KERNELS["skr_verify_compact"].launches
+    got = ops.verify_candidates_compact(*args)
+    torch.cuda.synchronize()
+    assert _build.KERNELS["skr_verify_compact"].launches == before + 1
+    _equal(got, ref.skr_verify_compact_ref(*args))
+
+
+def test_verify_wrappers_check_operands(cuda):
+    case = verify_case(np.random.default_rng(5), 4, 9, 2)
+    args = [to_torch(case[k], cuda) for k in VERIFY_ARGS]
+    bad = list(args)
+    bad[4] = args[4][:, :, :1].contiguous()
+    with pytest.raises(ValueError, match="cand_bm"):
+        ops.verify_candidates(*bad)
+    bad = list(args)
+    bad[5] = args[5].to(torch.int32)
+    with pytest.raises(TypeError, match="cand_valid"):
+        ops.verify_candidates(*bad)
+    comp = verify_compact_case(np.random.default_rng(6), 4, 3, 5, 2)
+    cargs = [to_torch(comp[k], cuda) for k in VERIFY_COMPACT_ARGS]
+    with pytest.raises(ValueError, match="leaf slots"):  # 14 candidates over T = 3 slots
+        ops.verify_candidates_compact(*cargs[:3], *(a[:, :-1].contiguous() for a in cargs[3:]))
+    bad = list(cargs)
+    bad[2] = cargs[2].cpu()
+    with pytest.raises(ValueError, match="q_sig"):
+        ops.verify_candidates_compact(*bad)
+    fcase = fused_case(np.random.default_rng(7), 3, 2, 4, 8, 2)
+    fargs = list(fused_wide_args(fcase, cuda))
+    fargs[6] = fargs[6].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="obj_bm"):
+        ops.fused_gather_verify(*fargs)
+    fargs = list(fused_wide_args(fcase, cuda))
+    with pytest.raises(ValueError, match="variant"):
+        ops.fused_gather_verify(*fargs, variant="tiled")
+    fargs[1] = fargs[1][:, :1].contiguous()
+    with pytest.raises(ValueError, match="obj_bm"):
+        ops.fused_gather_verify(*fargs)
+
+
 def test_wrappers_check_operands(cuda):
     case, _ = frontier_case(np.random.default_rng(3), 4, 9, 2)
     args = [to_torch(case[k], cuda) for k in FRONTIER_ARGS]
@@ -176,3 +248,61 @@ def test_knn_engine_on_the_card_matches_the_plain_path(cuda):
     assert _build.launch_counts()["frontier_filter"] == index.height
     for k in skr_host:
         np.testing.assert_array_equal(skr[k][: len(points)], skr_host[k], err_msg=k)
+
+
+def _delta_log(index, ds, snap, own_leaf_terms, seed=3):
+    """60 inserts near random objects, then 40 base and 2 buffered deletes."""
+    log = DeltaLog(index, ds, snap)
+    rng = np.random.default_rng(seed)
+    vocab = (index.levels[-1].mbrs, snap.leaf_terms.cpu().numpy()) if own_leaf_terms else ()
+    locs, kw = make_update_stream(ds, 60, rng, 0.01, *vocab)
+    new = log.insert(locs, kw)
+    log.delete(list(rng.choice(ds.n, 40, replace=False)) + [int(new[0]), int(new[-1])])
+    return log
+
+
+@pytest.mark.parametrize("own_leaf_terms", [True, False])
+def test_delta_engine_on_the_card_matches_the_plain_path(cuda, own_leaf_terms):
+    """The same updates on the card and on the host: every verify knob and
+    kNN serve identical outputs, and each card run launched its verify
+    kernels -- the delta's insert slots on the compact words while every
+    inserted term lies in its leaf's dictionary, else at full width."""
+    ds = make_dataset("sp", n=3000, seed=4)
+    index = build_str_rtree(ds, 32, 4)
+    wl = make_workload(ds, m=40, dist="MIX", seed=5)
+    points = np.stack([(wl.rects[:, 0] + wl.rects[:, 2]) / 2,
+                       (wl.rects[:, 1] + wl.rects[:, 3]) / 2], 1).astype(np.float32)
+    host_snap = IndexSnapshot.build(index, ds, device="cpu")
+    snap = IndexSnapshot.build(index, ds)
+    host_log = _delta_log(index, ds, host_snap, own_leaf_terms)
+    log = _delta_log(index, ds, snap, own_leaf_terms)
+    assert log.compact_ok == host_log.compact_ok == own_leaf_terms
+    delta_kernel = "skr_verify_compact" if own_leaf_terms else "skr_verify"
+    for kw, kernels in (
+        (dict(), ("frontier_filter", "fused_verify_compact_slot", delta_kernel)),
+        (dict(fused=False), ("skr_verify_compact", delta_kernel)),
+        (dict(compact=False), ("fused_verify_slot", "skr_verify")),
+        (dict(compact=False, fused_variant="vmem"), ("fused_verify_tile", "skr_verify")),
+        (dict(compact=False, fused=False), ("skr_verify",)),
+    ):
+        host = retrieve_workload(host_snap, wl, max_leaves=8, plan_cache=PlanCache(),
+                                 delta=host_log.buffer, **kw)
+        _build.reset_launch_counts()
+        card = retrieve_workload(snap, wl, max_leaves=8, plan_cache=PlanCache(), delta=log.buffer,
+                                 **kw)
+        counts = _build.launch_counts()
+        assert counts["frontier_narrow"] == 0
+        for name in kernels:
+            assert counts[name] >= 1, (kw, name, counts)
+        for k in host:
+            assert card[k].dtype == host[k].dtype
+            np.testing.assert_array_equal(card[k], host[k], err_msg=f"{kw} {k}")
+    host = serve_knn_batch(host_snap, points, wl.kw_bitmap, 10, plan_cache=PlanCache(),
+                           delta=host_log.buffer)
+    _build.reset_launch_counts()
+    card = serve_knn_batch(snap, points, wl.kw_bitmap, 10, plan_cache=PlanCache(),
+                           delta=log.buffer)
+    assert _build.launch_counts()["knn_filter"] >= 2 * index.height
+    assert _build.launch_counts()["knn_filter_narrow"] == 0
+    for k in host:
+        np.testing.assert_array_equal(card[k], host[k], err_msg=k)

@@ -289,10 +289,12 @@ def test_serve_knn_batch_pads_and_empty_keywords_match_reference(layout):
 
 
 def test_knn_live_delta_raises(layout):
+    """Live deltas are served (tests/test_torch_delta.py); a delta that is
+    not a ``DeltaBuffer`` raises."""
     L = layout
-    with pytest.raises(NotImplementedError, match="A.8"):
+    with pytest.raises(TypeError, match="DeltaBuffer"):
         retrieve_knn(L["snap"], L["points"], L["bms"], 3, delta=object())
-    with pytest.raises(NotImplementedError, match="A.8"):
+    with pytest.raises(TypeError, match="DeltaBuffer"):
         serve_knn_batch(L["snap"], L["points"], L["bms"], 3, delta=object())
 
 

@@ -306,12 +306,11 @@ def test_micro_batcher_with_cache_matches_reference(served):
 
 
 # ------------------------------------------------------ unported knobs
-@pytest.mark.parametrize("knob,item", [
-    (dict(mode="dense"), "A.6"), (dict(delta=object()), "A.8"),
-    (dict(quantized=False, compact=False), "A.6"),  # the f32 descent is ported, full-width verify not
-    (dict(fused=False), "A.6"), (dict(compact=False), "A.6"),
-])
+@pytest.mark.parametrize("knob,item", [(dict(mode="dense"), "A.6, B.12")])
 def test_unported_knobs_raise(served, knob, item):
+    """Only the dense A/B scan is left unported; it names its ROADMAP items.
+    (The verify knobs and live deltas are held against the reference in
+    tests/test_torch_verify.py and tests/test_torch_delta.py.)"""
     snap, _, wl, _, k = served
     with pytest.raises(NotImplementedError, match=item):
         retrieve_workload(snap, wl, max_leaves=k, **knob)
@@ -325,14 +324,21 @@ def test_unported_knobs_raise(served, knob, item):
     dict(leaf_terms=None, leaf_obj_cbm=None, leaf_obj_sig=None),
 ])
 def test_snapshot_without_narrow_planes_or_compact_bank_raises(served, strip):
-    """A snapshot whose leaf dictionaries overflowed is never served by
-    routing around the ported kernels: SKR's full-width verify is not
-    ported. (Without narrow planes alone it takes the f32 descent:
-    tests/test_torch_knn.py.)"""
-    snap, _, wl, _, k = served
+    """A snapshot whose leaf dictionaries overflowed (and, in the first case,
+    whose coordinate dictionaries did too) no longer raises: it serves
+    through the full-width fused verify, to the reference's outputs and
+    the full snapshot's, and never launches a kernel on the CPU."""
+    snap, jsnap, wl, jwl, k = served
+    stripped = dataclasses.replace(snap, **strip)
+    jstripped = dataclasses.replace(jsnap, **strip)
+    assert not stripped.has_compact_bank and not jstripped.has_compact_bank
     _build.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_batch(dataclasses.replace(snap, **strip), wl.rects, wl.kw_bitmap, max_leaves=k)
+    got = serve_batch(stripped, wl.rects, wl.kw_bitmap, max_leaves=k, plan_cache=PlanCache())
+    assert not any(_build.launch_counts().values())
+    _assert_same_output(got, serve_batch(snap, wl.rects, wl.kw_bitmap, max_leaves=k,
+                                         plan_cache=PlanCache()))
+    _assert_same_output(got, jserve.serve_batch(jstripped, jwl.rects, jwl.kw_bitmap, max_leaves=k,
+                                                plan_cache=JPlanCache()))
 
 
 def test_pad_queries_to_bucket_matches_reference():
