@@ -49,14 +49,36 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    equal their plain-version reruns on every key, SKR ids equal
    ``execute_serial`` and kNN ids and ``dist2`` equal ``knn_query`` on 256
    queries each, over a cold STR index of ``merged_dataset()``;
-8. one phase per kernel: holds the kernel against its plain PyTorch
-   version on the card, bit-exact, at the captured shapes (for the unfused
-   verify kernels: the delta's insert slots and the knob run) and at
-   ragged edges, and times both (CUDA events) beside a bound;
-9. profiles one warm SKR batch, one warm kNN batch and one warm SKR batch
-   with log B's delta (``torch.profiler``: device busy and idle share, the
-   largest device and host items);
-10. prints the kernels' JSON line, then the result line.
+8. the dense A/B scan: the snapshot is built with ``dense=True`` (its
+   child matrices); the SKR batches through ``serve_batch(mode="dense")``
+   (counts zeroed before, read after) and one batch with log A's delta,
+   each equal on every key to its plain-version rerun, with the frontier
+   run's ``overflow`` and result sets, ``nodes_scanned`` at or above the
+   frontier's, and ids equal to ``execute_serial`` on the 256 oracle
+   queries;
+9. standing subscriptions: 100,000 subscriptions with the rectangles and
+   keywords of a MIX workload (seed 2) in a ``SubscriptionIndex`` on the
+   card; log A's 10,000 inserts arrive in batches of 1,000 through a
+   ``DeltaLog`` and ``match_arrivals`` in the same step; after the fifth
+   batch 10,000 subscriptions leave and 10,000 new ones take their slots;
+   ``pump`` afterwards queues nothing, a twin index driven by ``pump``
+   alone drains the identical stream, a rerun with the kernel swapped for
+   its plain version gives the same stream pair for pair, and on a seeded
+   sample of 256 subscriptions the stream equals ``SubscriptionOracle``'s
+   replay;
+10. the CDF-MLP bank: ``cdf_bank_forward`` of a seeded bank of
+   1->16->16->16->1 MLPs, two per ``osm`` keyword held by at least 0.1 % of
+   the objects, at every object's x coordinate, against the chunked plain
+   version to ``atol=2e-6``;
+11. one phase per kernel (13): holds the kernel against its plain PyTorch
+   version on the card -- bit-exact, the CDF bank to ``atol=2e-6`` -- at
+   the captured shapes (for the unfused verify kernels: the delta's insert
+   slots and the knob run) and at ragged edges, and times both (CUDA
+   events) beside a bound;
+12. profiles one warm SKR batch, one warm kNN batch, one warm dense-scan
+   batch and one warm SKR batch with log B's delta (``torch.profiler``:
+   device busy and idle share, the largest device and host items);
+13. prints the kernels' JSON line, then the result line.
 
 Every phase prints its seconds. Any failure raises and exits non-zero.
 Without a CUDA device, or outside the repository, it exits non-zero and
@@ -91,6 +113,12 @@ INSERT_BATCH = 1_000
 N_DELETE = 5_000  # per delta log, of which
 N_DELETE_BUFFERED = 100  # are buffered inserts
 K_EDGES = (1, 100)  # one batch each, checked against the host oracle
+N_SUBS = 100_000  # standing subscriptions
+N_SUB_CHURN = 10_000  # leave after the fifth arrival batch, then as many join
+N_SUB_SAMPLE = 256  # subscriptions held against the host oracle
+CDF_HIDDEN = 16
+CDF_HIGH_FRAC = 0.001  # keywords at or above this share of objects get an MLP (x and y)
+CDF_ATOL = 2e-6
 SEED = 0
 DEVICE = "cuda:0"
 
@@ -153,12 +181,22 @@ def max_abs_err(a, b) -> float:
     return float(torch.where(a == b, 0.0, diff).max())  # equal infinities differ by 0
 
 
-def assert_same(got, want, what: str) -> None:
+def assert_same(got, want, what: str, atol: float = 0.0) -> None:
+    """Kernel output equal to the plain version's: bit for bit, or within
+    ``atol`` where one is given."""
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     for g, w in zip(got, want):
-        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+        same = torch.equal(g, w) if atol == 0 else bool(
+            torch.allclose(g, w, atol=atol, rtol=0))
+        if g.dtype != w.dtype or g.shape != w.shape or not same:
             raise AssertionError(f"{what}: kernel disagrees with its plain version")
+
+
+def shapes(case):
+    """The shapes of a kernel's operands (a dict of weights counts as one)."""
+    return [{k: tuple(v.shape) for k, v in a.items()} if isinstance(a, dict) else tuple(a.shape)
+            for a in case]
 
 
 # ------------------------------------------------------------------ bounds
@@ -336,6 +374,77 @@ def verify_bound(args, compact: bool):
     return nbytes, ops
 
 
+def filter_bound(args, chunk: int = 32):
+    """Bytes and operations of the dense filter (``skr_filter``): every
+    query rectangle and node MBR in and every flag out; the words that
+    decide a pair whose rectangles meet (each node word once, however many
+    queries need it) and the query words some pair needs. Counted ``chunk``
+    queries at a time, so the (M, K, W) hit plane never exists whole."""
+    q_rects, q_bm, n_mbrs, n_bm = args
+    M, W = q_bm.shape
+    K = n_mbrs.shape[0]
+    node_words = torch.zeros((K, W), dtype=torch.bool, device=q_bm.device)
+    q_need = n_need = n_meet = 0
+    for m0 in range(0, M, chunk):
+        qr = q_rects[m0:m0 + chunk, None, :]
+        meet = ((qr[..., 0] <= n_mbrs[:, 2]) & (n_mbrs[:, 0] <= qr[..., 2])
+                & (qr[..., 1] <= n_mbrs[:, 3]) & (n_mbrs[:, 1] <= qr[..., 3]))  # (c, K)
+        need = needed_words((q_bm[m0:m0 + chunk, None, :] & n_bm) != 0, meet)  # (c, K, W)
+        node_words |= need.any(0)
+        q_need += int(need.any(1).sum())
+        n_need += int(need.sum())
+        n_meet += int(meet.sum())
+    nbytes = M * 16 + K * 16 + q_need * 4 + int(node_words.sum()) * 4 + M * K
+    ops = M * K * 4 + n_need * 2
+    return nbytes, ops
+
+
+def sub_bound(args, chunk: int = 16):
+    """Bytes and operations of ``sub_match`` on its packed operands: every
+    object point and subscription rectangle in and every flag out; the
+    signatures of objects and subscriptions with a pair inside the
+    rectangle; of the pairs that also pass the signature test, the packed
+    object words and the subscription words (each once) that decide them."""
+    o_pts, o_wids, o_bits, o_sig, s_rects, s_bm, s_sig = args
+    N, Wp = o_wids.shape
+    S, W = s_bm.shape
+    sub_words = torch.zeros(S * W, dtype=torch.bool, device=s_bm.device)
+    s_in = torch.zeros(S, dtype=torch.bool, device=s_bm.device)
+    o_in = o_need = n_need = n_in = 0
+    s_cols = torch.arange(S, device=s_bm.device)[None, :, None] * W
+    for n0 in range(0, N, chunk):
+        x, y = o_pts[n0:n0 + chunk, 0:1], o_pts[n0:n0 + chunk, 1:2]
+        inr = (x >= s_rects[:, 0]) & (x <= s_rects[:, 2]) & (y >= s_rects[:, 1]) & (y <= s_rects[:, 3])
+        live = inr & ((o_sig[n0:n0 + chunk, None] & s_sig[None, :]) != 0)  # (c, S)
+        wid = o_wids[n0:n0 + chunk].long()  # (c, Wp)
+        g = s_bm.t()[wid]  # (c, Wp, S)
+        hits = ((g & o_bits[n0:n0 + chunk, :, None]) != 0).transpose(1, 2)  # (c, S, Wp)
+        need = needed_words(hits, live)
+        sub_words[(s_cols + wid[:, None, :])[need]] = True
+        s_in |= inr.any(0)
+        o_in += int(inr.any(1).sum())
+        o_need += int(need.any(1).sum())
+        n_need += int(need.sum())
+        n_in += int(inr.sum())
+    nbytes = (N * 8 + S * 16  # points, rectangles
+              + o_in * 4 + int(s_in.sum()) * 4  # signatures where a pair is in the rectangle
+              + o_need * 8  # packed word ids and values some pair needs
+              + int(sub_words.sum()) * 4  # subscription words
+              + N * S)  # out
+    ops = N * S * 4 + n_in * 2 + n_need * 2
+    return nbytes, ops
+
+
+def cdf_bound(args):
+    """Bytes (the points and the weights in, the (N, B) CDF plane out) and
+    flops (2 N B (H + 2 H^2 + H)) of the CDF-MLP bank."""
+    params, x = args
+    B, _, H = params["w0"].shape
+    N = x.shape[0]
+    nbytes = N * 4 + sum(t.numel() for t in params.values()) * 4 + N * B * 4
+    return nbytes, 2 * N * B * (H + 2 * H * H + H)
+
+
 def bound_ms(nbytes: int, ops: int):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -461,6 +570,67 @@ def ragged_verify(dev, compact: bool, M=13, T=5, OBJ=37, W=3, seed=11):
     return (t(rects), t(q_cbm), t(fold(q_cbm)), t(cx), t(cy), t(cbm), t(fold(cbm)), t(valid))
 
 
+def _rects(g, n):
+    lo = g.uniform(0, 0.8, (n, 2)).astype(np.float32)
+    return np.concatenate([lo, lo + g.uniform(0.01, 0.3, (n, 2)).astype(np.float32)], 1)
+
+
+def ragged_filter(dev, never_rect, M=37, K=131, W=3, seed=13):
+    """Dense-filter operands at ragged shapes: a ``NEVER_RECT`` node, a node
+    and a query with empty bitmaps, a zero-area query on a node's corner."""
+    g = np.random.default_rng(seed)
+    q_rects, n_mbrs = _rects(g, M), _rects(g, K)
+    q_bm, n_bm = _words(g, M, W), _words(g, K, W)
+    if K > 1:
+        n_mbrs[0] = never_rect
+        n_bm[-1] = 0
+    if M > 1:
+        q_bm[-1] = 0
+        q_rects[0] = np.concatenate([n_mbrs[K // 2, 2:], n_mbrs[K // 2, 2:]])
+        q_bm[0] = n_bm[K // 2]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return (t(q_rects), t(q_bm), t(n_mbrs), t(n_bm))
+
+
+def ragged_sub(dev, ops, N=37, S=131, W=3, seed=17):
+    """``sub_match`` operands at ragged shapes, packed as
+    ``match_subscriptions`` packs them: ``NEVER_RECT`` and zero-area
+    subscriptions, empty bitmaps on both sides, points on rectangle edges."""
+    g = np.random.default_rng(seed)
+    s_rects = _rects(g, S)
+    s_bm = _words(g, S, W).view(np.uint32)
+    o_bm = _words(g, N, W).view(np.uint32)
+    pts = g.uniform(0, 1, (N, 2)).astype(np.float32)
+    if S > 2:
+        s_rects[0] = ops.NEVER_RECT
+        s_rects[1, 2:] = s_rects[1, :2]  # zero area
+        s_bm[2] = 0
+    if N > 2:
+        pts[0] = s_rects[S // 2, 2:]  # a corner
+        pts[1] = s_rects[min(1, S - 1), :2]
+        o_bm[2] = 0
+    wids, bits = ops.pack_query_words(o_bm)
+    fold = lambda w: np.bitwise_or.reduce(w, axis=1).view(np.int32)  # noqa: E731
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return (t(pts), t(wids), t(bits.view(np.int32)), t(fold(o_bm)), t(s_rects),
+            t(s_bm.view(np.int32)), t(fold(s_bm)))
+
+
+def cdf_bank(dev, B, H, gen, x=None, N=1001):
+    """``(params, x)``: a bank of B MLPs 1->H->H->H->1 at ``mlp_init``'s He
+    scale (weights N(0, 2/fan_in)) with biases N(0, 0.1^2), all drawn from
+    ``gen``; ``x`` defaults to N uniform points."""
+    dims = dict(w0=(B, 1, H), b0=(B, H), w1=(B, H, H), b1=(B, H), w2=(B, H, H), b2=(B, H),
+                w3=(B, H, 1), b3=(B, 1))
+    params = {}
+    for k, shape in dims.items():
+        scale = (2.0 / shape[1]) ** 0.5 if k[0] == "w" else 0.1
+        params[k] = (torch.randn(shape, generator=gen) * scale).to(dev)
+    if x is None:
+        x = torch.rand(N, generator=gen).to(dev)
+    return params, x
+
+
 def query_points(wl) -> np.ndarray:
     """kNN query points: the centres of the workload's rectangles."""
     return np.stack(
@@ -498,7 +668,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.baselines.conventional import build_str_rtree
-    from repro_torch.core.query import execute_serial, knn_query
+    from repro_torch.core.query import SubscriptionOracle, execute_serial, knn_query
     from repro_torch.data.synth import make_dataset
     from repro_torch.data.workloads import make_update_stream, make_workload
     from repro_torch.kernels import _build, ops, ref
@@ -507,7 +677,12 @@ def main() -> int:
     from repro_torch.serve.engine import retrieve, retrieve_knn
     from repro_torch.serve.plan import PlanCache
     from repro_torch.serve.snapshot import IndexSnapshot
+    from repro_torch.serve.subscribe import SubscriptionIndex
 
+    # the plain versions' matrix products in full f32 (TF32 would be what
+    # the CDF comparison measured); cdf_mlp_ref also enforces it itself
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
     dev = torch.device(DEVICE)
     card = gpu_line()
     log(f"card: {card}")
@@ -526,14 +701,15 @@ def main() -> int:
         t1 = time.perf_counter()
         index = build_str_rtree(ds, leaf_size=LEAF_SIZE, fanout=FANOUT)
         t2 = time.perf_counter()
-        snap = IndexSnapshot.build(index, ds, device=dev)
+        snap = IndexSnapshot.build(index, ds, device=dev, dense=True)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
     assert snap.has_narrow_planes, "a level overflowed NARROW_DICT_MAX"
     assert snap.has_compact_bank, "a leaf overflowed LEAF_DICT_MAX"
     log(f"dataset {PROFILE} n={ds.n} W={ds.words} vocab={ds.vocab_size}: {t1 - t0:.3f} s")
     log(f"str-rtree levels={[l.n for l in index.levels]}: {t2 - t1:.3f} s")
-    log(f"snapshot: {t3 - t2:.3f} s, {snap.nbytes()} B on the device, "
+    log(f"snapshot (dense=True): {t3 - t2:.3f} s, {snap.nbytes()} B on the device, of which "
+        f"{sum(m.numel() for m in snap.child_matrix)} B of dense child matrices; "
         f"OBJ={snap.obj_per_leaf} Wl={snap.n_compact_words} "
         f"dicts={[int(d.numel()) for d in snap.level_dict_x]}")
     wl = make_workload(ds, m=N_QUERIES, dist="MIX", seed=1)
@@ -637,6 +813,7 @@ def main() -> int:
             raise AssertionError("nodes_checked differs from execute_serial")
         if not np.array_equal(cat["verified"][ok], st.verified):
             raise AssertionError("verified differs from execute_serial")
+        oracle_ok, oracle_st = ok, st
         log(f"execute_serial oracle on {ok.size} queries with overflow == 0: equal; "
             f"queries with overflow: {int((cat['overflow'] > 0).sum())} of {N_QUERIES}, "
             f"results {int(cat['counts'].sum())}")
@@ -795,6 +972,7 @@ def main() -> int:
     )
     delta_launches = {}
     delta_bufs = {}
+    delta_skr = {}  # label -> the SKR batches served with the log's delta
 
     def live_updates(label, own_leaf_terms, jitter, seed, verify_kernel, capture):
         """One DeltaLog: N_INSERT inserts in batches, N_DELETE deletes, the
@@ -903,12 +1081,207 @@ def main() -> int:
             f"and kNN ids and dist2 equal knn_query on {N_ORACLE} queries each, over a cold "
             f"STR index of the {merged.n} merged objects")
         delta_bufs[label] = buf
+        delta_skr[label] = skr_out
 
     with phase("live updates"):
         live_updates("A", True, 1e-3, 21, "skr_verify_compact",
                      ("verify_candidates_compact", "skr_verify_compact/delta", 3))
         live_updates("B", False, 0.05, 22, "skr_verify",
                      ("verify_candidates", "skr_verify/delta", 2))
+
+    # ------------------------------------------------------ dense A/B scan
+    def sorted_sets(out):
+        return [np.sort(row[row >= 0]) for row in out["ids"]]
+
+    def same_sets(got, want, what):
+        if not np.array_equal(got["overflow"], want["overflow"]):
+            raise AssertionError(f"{what}: overflow differs from the frontier run")
+        for q, (a, b) in enumerate(zip(sorted_sets(got), sorted_sets(want))):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{what} query {q}: result set differs from the frontier run")
+
+    plain_dense_ops = dict(
+        filter_pairs=ref.skr_filter_ref,
+        fused_gather_verify_compact=lambda *a, variant="auto": plain_fused(*a),
+        verify_candidates=ref.skr_verify_ref,
+        verify_candidates_compact=ref.skr_verify_compact_ref,
+    )
+    with phase("dense A/B scan"):
+        _build.reset_launch_counts()
+        dense_out, dense_t = [], []
+        with patched(ops, filter_pairs=recorder("skr_filter", ops.filter_pairs, 2)):
+            for b in batches:
+                t = time.perf_counter()
+                dense_out.append(serve_batch(snap, wl.rects[b], bms[b], MAX_LEAVES, mode="dense"))
+                torch.cuda.synchronize()
+                dense_t.append(time.perf_counter() - t)
+        counts = _build.launch_counts()
+        if counts["skr_filter"] != snap.n_levels * len(batches) or counts["frontier_narrow"]:
+            raise AssertionError(f"the dense scan did not run skr_filter once per level: {counts}")
+        launches["skr_filter"] = counts["skr_filter"]
+        log(f"dense serve_batch(mode='dense') x{len(batches)}: batch s {dense_t}, skr_filter "
+            f"launches per batch {counts['skr_filter'] // len(batches)}, launches {counts}")
+        _build.reset_launch_counts()
+        with patched(ops, **plain_dense_ops):
+            dense_plain = [serve_batch(snap, wl.rects[b], bms[b], MAX_LEAVES, mode="dense")
+                           for b in batches]
+        if any(_build.launch_counts().values()):
+            raise AssertionError("the dense plain run launched a kernel")
+        for bi, (got, want) in enumerate(zip(dense_out, dense_plain)):
+            assert_outputs_equal(got, want, f"dense batch {bi} vs the plain run")
+            same_sets(got, main_out[bi], f"dense batch {bi}")
+            if (got["nodes_scanned"] < main_out[bi]["nodes_scanned"]).any():
+                raise AssertionError(f"dense batch {bi}: nodes_scanned below the frontier's")
+        dcat = np.concatenate([o["ids"] for o in dense_out])
+        for j, q in enumerate(oracle_ok):
+            row = dcat[q]
+            if not np.array_equal(np.sort(row[row >= 0]), np.sort(oracle_st.results[j])):
+                raise AssertionError(f"dense query {q}: ids differ from execute_serial")
+        t = time.perf_counter()
+        dense_delta = serve_batch(snap, wl.rects[b0], bms[b0], MAX_LEAVES, mode="dense",
+                                  delta=delta_bufs["A"])
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t
+        with patched(ops, **plain_dense_ops):
+            want = serve_batch(snap, wl.rects[b0], bms[b0], MAX_LEAVES, mode="dense",
+                               delta=delta_bufs["A"])
+        assert_outputs_equal(dense_delta, want, "dense batch with log A's delta vs the plain run")
+        same_sets(dense_delta, delta_skr["A"][0], "dense batch with log A's delta")
+        log(f"dense scan: every key equals the plain-version run; overflow and result sets equal "
+            f"the frontier run's; nodes_scanned {int(dense_out[0]['nodes_scanned'][0])} vs the "
+            f"frontier's {int(main_out[0]['nodes_scanned'].max())} at most; ids equal "
+            f"execute_serial on {oracle_ok.size} queries; with log A's delta one batch {t:.6f} s, "
+            f"equal to its plain rerun and to the frontier's result sets")
+
+    # ------------------------------------------------ standing subscriptions
+    def subscription_stream(arrivals=None, dlog=None, twin=None):
+        """One run of the subscription schedule. With ``dlog`` the arrivals
+        are log A's insert batches, inserted into ``dlog`` and matched in
+        the same step (``twin``, if given, pumps the log after each batch);
+        else the recorded ``arrivals`` are replayed. Returns the index, the
+        arrival batches, the unsubscribed ids and the match times."""
+        idx = SubscriptionIndex(ds.vocab_size, device=dev)
+        indexes = [idx] + ([twin] if twin is not None else [])
+        for i in indexes:
+            for r, kw in zip(subs_wl.rects, subs_wl.kw_ids):
+                i.subscribe(r, kw)
+        rng = np.random.default_rng(21)
+        leaf_vocab = (leaf_mbrs, leaf_terms)
+        batches_in, gone, t_match = [], None, []
+        for bi in range(N_INSERT // INSERT_BATCH):
+            if dlog is not None:
+                locs, kw = make_update_stream(ds, INSERT_BATCH, rng, 1e-3, *leaf_vocab)
+                ids = dlog.insert(locs, kw)
+                batches_in.append((ids, locs, kw))
+            else:
+                ids, locs, kw = arrivals[bi]
+            t = time.perf_counter()
+            idx.match_arrivals(ids, locs, kw_ids=kw)
+            torch.cuda.synchronize()
+            t_match.append(time.perf_counter() - t)
+            if twin is not None:
+                twin.pump(dlog)
+            if bi == 4:  # churn: 10,000 leave, 10,000 join into their slots
+                gone = np.random.default_rng(23).choice(N_SUBS, N_SUB_CHURN, replace=False)
+                for i in indexes:
+                    for sid in gone:
+                        i.unsubscribe(int(sid))
+                    for r, kw in zip(churn_wl.rects, churn_wl.kw_ids):
+                        i.subscribe(r, kw)
+        return idx, batches_in, gone, t_match
+
+    with phase("standing subscriptions"):
+        t = time.perf_counter()
+        subs_wl = make_workload(ds, m=N_SUBS, dist="MIX", seed=2)
+        churn_wl = make_workload(ds, m=N_SUB_CHURN, dist="MIX", seed=3)
+        log(f"subscription rectangles and keywords (MIX workloads of {N_SUBS} and "
+            f"{N_SUB_CHURN}): {time.perf_counter() - t:.3f} s")
+        dlog = DeltaLog(index, ds, snap)
+        twin = SubscriptionIndex(ds.vocab_size, device=dev)
+        _build.reset_launch_counts()
+        with patched(ops, sub_match=recorder("sub_match", ops.sub_match, 5)):
+            sub_idx, arrivals, gone, t_match = subscription_stream(dlog=dlog, twin=twin)
+        counts = _build.launch_counts()
+        if counts["sub_match"] <= 0:
+            raise AssertionError("the subscription stream never launched sub_match")
+        launches["sub_match"] = counts["sub_match"]
+        if sub_idx.n_live != N_SUBS or sub_idx.n_slots != twin.n_slots:
+            raise AssertionError("the block's live or slot count is off after the churn")
+        if sub_idx.pump(dlog) != 0:
+            raise AssertionError("pump after match_arrivals queued notifications")
+        stream = sub_idx.drain()
+        if not np.array_equal(stream, twin.drain()):
+            raise AssertionError("the pump-only twin drained another stream")
+        if sub_idx.drain().shape != (0, 2):
+            raise AssertionError("a second drain was not empty")
+        blk = sub_idx.block()
+        log(f"subscriptions: {N_SUBS} in {sub_idx.n_slots} slots, block {blk.nbytes()} B on the "
+            f"device; {N_INSERT} arrivals in batches of {INSERT_BATCH}: match_arrivals host ms per "
+            f"batch {[round(1e3 * t, 3) for t in t_match]} (mean {1e3 * np.mean(t_match):.3f}); "
+            f"{stream.shape[0]} notifications; sub_match launches {counts['sub_match']} (both "
+            f"indexes); pump afterwards queued nothing; the pump-only twin drained the same stream")
+        _build.reset_launch_counts()
+        with patched(ops, sub_match=ref.sub_match_packed_ref):
+            plain_idx, _, _, _ = subscription_stream(arrivals=arrivals)
+        if any(_build.launch_counts().values()):
+            raise AssertionError("the plain subscription run launched a kernel")
+        if not np.array_equal(plain_idx.drain(), stream):
+            raise AssertionError("the stream differs from the plain-version run")
+        del plain_idx, twin
+        # the oracle replay on a seeded sample: half of it among the
+        # subscriptions that were notified, half uniform over all of them
+        rng = np.random.default_rng(29)
+        notified = np.unique(stream[:, 1])
+        half = min(N_SUB_SAMPLE // 2, notified.size)
+        sample = np.union1d(rng.choice(notified, half, replace=False),
+                            rng.choice(N_SUBS + N_SUB_CHURN, N_SUB_SAMPLE - half, replace=False))
+        rects = np.concatenate([subs_wl.rects, churn_wl.rects])
+        kws = np.concatenate([subs_wl.kw_ids, churn_wl.kw_ids])
+        oracle, to_oracle = SubscriptionOracle(), {}
+        gone_set = set(int(g) for g in gone)
+        for sid in sample[sample < N_SUBS]:
+            to_oracle[int(sid)] = oracle.subscribe(rects[sid], kws[sid])
+        for bi, (ids, locs, kw) in enumerate(arrivals):
+            oracle.arrive(ids, locs, kw)
+            if bi == 4:
+                for sid in sorted(gone_set & set(to_oracle)):
+                    oracle.unsubscribe(to_oracle[sid])
+                for sid in sample[sample >= N_SUBS]:
+                    to_oracle[int(sid)] = oracle.subscribe(rects[sid], kws[sid])
+        keep = np.isin(stream[:, 1], sample)
+        mapped = np.stack([stream[keep, 0], [to_oracle[int(s)] for s in stream[keep, 1]]], 1)
+        want = oracle.drain()
+        if not np.array_equal(mapped.reshape(-1, 2), want):
+            raise AssertionError("the sampled stream differs from SubscriptionOracle's replay")
+        log(f"subscriptions: every notification equals the plain-version run pair for pair; on "
+            f"{sample.size} sampled subscriptions ({half} of them notified) the {want.shape[0]} "
+            f"notifications equal SubscriptionOracle's replay")
+        del dlog, blk
+
+    # -------------------------------------------------------- the CDF bank
+    with phase("CDF bank"):
+        kw_counts = np.bincount(ds.kw_ids[ds.kw_ids >= 0], minlength=ds.vocab_size)
+        n_high = int(((kw_counts / ds.n >= CDF_HIGH_FRAC) & (kw_counts >= 4)).sum())
+        gen = torch.Generator().manual_seed(SEED)
+        x_all = torch.from_numpy(np.ascontiguousarray(ds.locs[:, 0])).to(dev)
+        cdf_args = cdf_bank(dev, 2 * n_high, CDF_HIDDEN, gen, x=x_all)
+        _build.reset_launch_counts()
+        t = time.perf_counter()
+        cdf_out = ops.cdf_bank_forward(*cdf_args)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t
+        launches["cdf_mlp_bank"] = _build.launch_counts()["cdf_mlp_bank"]
+        if launches["cdf_mlp_bank"] != 1:
+            raise AssertionError("cdf_bank_forward did not launch cdf_mlp_bank once")
+        err = max_abs_err(cdf_out, ref.cdf_mlp_ref(*cdf_args))
+        if not err <= CDF_ATOL or not torch.isfinite(cdf_out).all():
+            raise AssertionError(f"the CDF bank is off its plain version by {err}")
+        captured["cdf_mlp_bank"] = cdf_args
+        log(f"CDF bank: {n_high} keywords on at least {100 * CDF_HIGH_FRAC} % of the objects, "
+            f"B={2 * n_high} MLPs of H={CDF_HIDDEN} at N={ds.n} points: {t:.6f} s, output "
+            f"{tuple(cdf_out.shape)}, max abs err vs the chunked plain version {err:.3e} "
+            f"(atol {CDF_ATOL})")
+        del cdf_out
 
     # ------------------------------------------------------- kernel phases
     rows = []
@@ -959,17 +1332,32 @@ def main() -> int:
                      ops.verify_candidates_compact, ref.skr_verify_compact_ref, True),
         verify_phase("skr_verify", "src/repro/kernels/skr_verify.py:39",
                      ops.verify_candidates, ref.skr_verify_ref, False),
+        ("sub_match", csrc + "sub_match.cu", "src/repro/kernels/sub_match.py:67",
+         [captured["sub_match"]],
+         [ragged_sub(dev, ops), ragged_sub(dev, ops, N=1, S=1, W=1, seed=18)],
+         ops.sub_match, ref.sub_match_packed_ref, sub_bound),
+        ("skr_filter", csrc + "skr_filter.cu", "src/repro/kernels/skr_filter.py:44",
+         [captured["skr_filter"]],
+         [ragged_filter(dev, ops.NEVER_RECT), ragged_filter(dev, ops.NEVER_RECT, M=1, K=1, W=1,
+                                                             seed=14)],
+         ops.filter_pairs, ref.skr_filter_ref, filter_bound),
+        ("cdf_mlp_bank", csrc + "cdf_mlp.cu", "src/repro/kernels/cdf_mlp.py:42",
+         [captured["cdf_mlp_bank"]],
+         [cdf_bank(dev, 5, CDF_HIDDEN, gen), cdf_bank(dev, 3, 8, gen, N=4099)],
+         ops.cdf_bank_forward, ref.cdf_mlp_ref, cdf_bound),
     ]
+    atols = {"cdf_mlp_bank": CDF_ATOL}  # every other kernel is held bit for bit
     launches.update(knob_launches)
     launches.update(delta_launches)
     with phase("kernel phases"):
         # the first captured case is the row's; later ones (the verify
         # knobs' shapes) are checked and timed the same way and logged
         for name, source, replaces, cases, ragged, kernel, plain, bound in phases:
+            atol = atols.get(name, 0.0)
             for case in [*cases, *ragged]:
                 got = kernel(*case)
                 torch.cuda.synchronize()
-                assert_same(got, plain(*case), f"{name} at {[tuple(a.shape) for a in case[:5]]}")
+                assert_same(got, plain(*case), f"{name} at {shapes(case)[:5]}", atol)
             for ci, args in enumerate(cases):
                 err = max_abs_err(kernel(*args), plain(*args))
                 torch.cuda.synchronize()
@@ -977,8 +1365,8 @@ def main() -> int:
                 plain_ms = time_ms(lambda: plain(*args), iters=10)
                 nbytes, nops = bound(args)
                 b_ms, b_by = bound_ms(nbytes, nops)
-                shapes = [tuple(a.shape) for a in args]
-                log(f"phase {name}: bit-exact vs plain at main-path shapes {shapes} and "
+                agree = "bit-exact" if atol == 0 else f"within atol {atol} (max {err:.3e})"
+                log(f"phase {name}: {agree} vs plain at main-path shapes {shapes(args)} and "
                     f"{len(ragged)} ragged cases; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
                     f"bound {b_ms:.6f} ms ({b_by}: {nbytes} B, {nops} ops)")
                 if ci == 0:
@@ -993,6 +1381,8 @@ def main() -> int:
             snap, wl.rects[b0], bms[b0], MAX_LEAVES, plan_cache=cache), warm, PlanCache)
         profile_batch(f"kNN (k={K})", lambda cache: serve_knn_batch(
             snap, points[b0], bms[b0], K, plan_cache=cache), warm_knn, PlanCache)
+        profile_batch("dense SKR", lambda cache: serve_batch(
+            snap, wl.rects[b0], bms[b0], MAX_LEAVES, mode="dense"), warm, PlanCache)
         warm_delta = PlanCache()
         serve_batch(snap, wl.rects[b0], bms[b0], MAX_LEAVES, plan_cache=warm_delta,
                     delta=delta_bufs["B"])

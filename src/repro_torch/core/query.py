@@ -11,6 +11,10 @@
   descent (keyword-filtered levels, then a bounded leaf sweep).
   Distances are float32, computed op by op (``dx*dx + dy*dy``, never a
   fused multiply-add), which the port's kernels reproduce bit for bit.
+* ``match_subscriptions_bruteforce`` / ``SubscriptionOracle`` -- the
+  ground truth of standing-subscription matching (serve/subscribe.py): set
+  semantics per (object, subscription) pair, no bitmaps, and a replay of a
+  subscribe / unsubscribe / arrive / drain schedule.
 * ``round_up_bucket`` / ``sharded_bucket`` -- the power-of-two width
   discipline shared by the batch padding and the frontier widths.
 * ``padded_child_table`` -- the (n, max_fanout) CSR child table the frontier
@@ -43,6 +47,98 @@ class QueryStats:
     @property
     def total_cost(self) -> float:
         return float(self.cost.sum())
+
+
+# --------------------------------------- continuous-filter matching ground truth
+def match_subscriptions_bruteforce(
+    obj_locs: np.ndarray,  # (N, 2) f32 arriving object points
+    obj_kw_ids: np.ndarray,  # (N, max_kw) i32 keyword id lists, -1 padded
+    sub_rects: np.ndarray,  # (S, 4) f32 subscription rects
+    sub_kw_ids,  # length-S sequence of keyword id lists (-1s ignored)
+) -> np.ndarray:
+    """(N, S) bool ground-truth continuous-filter match matrix.
+
+    The brute-force host oracle for the pub-sub subsystem (DESIGN.md §8):
+    pure set semantics -- object keywords as python sets, closed-rect
+    containment per pair -- with none of the bitmap/packing/signature
+    machinery the device path uses, so a shared-representation bug cannot
+    hide. Empty keyword sets (either side) match nothing, the same Boolean
+    contract as an empty SKR query.
+    """
+    obj_locs = np.asarray(obj_locs, np.float32).reshape(-1, 2)
+    obj_kw_ids = np.asarray(obj_kw_ids, np.int64).reshape(obj_locs.shape[0], -1)
+    sub_rects = np.asarray(sub_rects, np.float32).reshape(-1, 4)
+    out = np.zeros((obj_locs.shape[0], sub_rects.shape[0]), bool)
+    osets = [set(int(t) for t in row if t >= 0) for row in obj_kw_ids]
+    for s, rect in enumerate(sub_rects):
+        kset = set(int(t) for t in np.atleast_1d(np.asarray(sub_kw_ids[s])) if t >= 0)
+        if not kset:
+            continue
+        for i, (x, y) in enumerate(obj_locs):
+            if rect[0] <= x <= rect[2] and rect[1] <= y <= rect[3] and osets[i] & kset:
+                out[i, s] = True
+    return out
+
+
+class SubscriptionOracle:
+    """Ground-truth replay of a continuous-query event schedule (§8).
+
+    The host twin of ``serve.subscribe.SubscriptionIndex``: the same event
+    API (subscribe / unsubscribe / arrivals / drain) driven entirely by
+    ``match_subscriptions_bruteforce``, with the same id-assignment scheme
+    (dense monotonic subscription ids) so notification streams compare
+    verbatim. Stream semantics: a subscription sees exactly the objects
+    that arrive while it is live -- no retroactive delivery, no delivery
+    after unsubscribe, and deleting an object never retracts an already
+    emitted notification. Notifications are (object_id, subscription_id)
+    pairs in canonical (object id, subscription id) order per arrival
+    batch; ``drain()`` empties the queue (exactly-once)."""
+
+    def __init__(self) -> None:
+        self._subs = {}  # sub_id -> (rect, kw_ids)
+        self._next_sub = 0
+        self._pending: List[Tuple[int, int]] = []
+        self.emitted_total = 0
+        self.matched_total = 0
+
+    def subscribe(self, rect, kw_ids) -> int:
+        sid = self._next_sub
+        self._next_sub += 1
+        self._subs[sid] = (
+            np.asarray(rect, np.float32).reshape(4),
+            np.asarray(kw_ids, np.int64).reshape(-1),
+        )
+        return sid
+
+    def unsubscribe(self, sub_id: int) -> bool:
+        return self._subs.pop(int(sub_id), None) is not None
+
+    def arrive(self, ids, locs, kw_ids) -> int:
+        """Match one arrival batch against the live subscriptions; queue the
+        resulting notifications. Returns how many were queued."""
+        ids = np.asarray(ids, np.int64).reshape(-1)
+        if ids.size == 0 or not self._subs:
+            return 0
+        sids = sorted(self._subs)
+        mat = match_subscriptions_bruteforce(
+            locs, kw_ids,
+            np.stack([self._subs[s][0] for s in sids]),
+            [self._subs[s][1] for s in sids],
+        )
+        order = np.argsort(ids, kind="stable")
+        n0 = len(self._pending)
+        for i in order:
+            for j in np.nonzero(mat[i])[0]:
+                self._pending.append((int(ids[i]), int(sids[j])))
+        n_new = len(self._pending) - n0
+        self.matched_total += n_new
+        return n_new
+
+    def drain(self) -> np.ndarray:
+        out = np.asarray(self._pending, np.int64).reshape(-1, 2)
+        self._pending = []
+        self.emitted_total += out.shape[0]
+        return out
 
 
 # ------------------------------------------------------- CSR / frontier helpers

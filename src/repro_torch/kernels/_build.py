@@ -171,6 +171,18 @@ KERNELS: Dict[str, CudaKernel] = {
             "skr_verify", "skr_verify.cu", "wisk_skr_verify",
             (_P,) * 7 + (_I,) * 4 + (_P,),
         ),
+        CudaKernel(
+            "skr_filter", "skr_filter.cu", "wisk_skr_filter",
+            (_P,) * 5 + (_I,) * 4 + (_P,),
+        ),
+        CudaKernel(
+            "sub_match", "sub_match.cu", "wisk_sub_match",
+            (_P,) * 8 + (_I,) * 6 + (_P,),
+        ),
+        CudaKernel(
+            "cdf_mlp_bank", "cdf_mlp.cu", "wisk_cdf_mlp",
+            (_P,) * 10 + (_I,) * 4 + (_P,),
+        ),
     )
 }
 

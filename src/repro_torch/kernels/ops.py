@@ -13,11 +13,12 @@ themselves.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
 
+from .. import resolve_device
 from . import ref
 from ._build import KERNELS
 
@@ -27,13 +28,17 @@ NEVER_RECT = (2.0, 2.0, -2.0, -2.0)
 
 FUSED_VARIANTS = ("auto", "vmem", "prefetch")
 
-# The verify kernels keep per-block state in dynamic shared memory, at most
-# _SHARED_INTS ints (32 KiB, inside the 48 KB a block takes without opting
-# in): a query-tile kernel up to _TILE_QUERIES queries' per-slot counts (and,
-# at full width, their W staged words); the other full-width kernels one
-# query's W words.
+# The verify, dense-filter and match kernels keep per-block state in dynamic
+# shared memory, at most _SHARED_INTS ints (32 KiB, inside the 48 KB a block
+# takes without opting in): a query-tile kernel up to _TILE_QUERIES queries'
+# per-slot counts (and, at full width, their W staged words); the dense
+# filter _TILE_QUERIES queries' W words; the other full-width kernels one
+# query's W words; sub_match up to _SUB_MATCH_OBJECTS objects' packed words.
 _TILE_QUERIES = 8
 _SHARED_INTS = 8192
+_SUB_MATCH_OBJECTS = 32
+# CUDA's limit on a launch grid's second dimension
+_MAX_GRID_Y = 65535
 
 
 def leaf_bank_bytes(n_leaves: int, obj_per_leaf: int, n_words: int) -> int:
@@ -50,6 +55,25 @@ def compact_leaf_bank_bytes(
     return int(n_leaves) * int(obj_per_leaf) * (
         3 * 4 + 4 + int(n_compact_words) * 4
     )
+
+
+def host_words(bm) -> np.ndarray:
+    """Bitmap words on the host as ``uint32`` numpy: an int32 tensor is read
+    as the bit view it is, anything else goes through ``np.asarray``."""
+    if isinstance(bm, torch.Tensor):
+        if bm.dtype != torch.int32:
+            raise TypeError(f"bitmap tensors are int32 bit views, got {bm.dtype}")
+        return bm.detach().cpu().numpy().view(np.uint32)
+    return np.asarray(bm, np.uint32)
+
+
+def padded_tile_len(n: int, tile: int = 128) -> int:
+    """Slots the reference's tiled kernels touch for a length-``n`` operand
+    dimension: they block by ``min(tile, n)`` and pad up to a multiple of it.
+    The dense path's ``nodes_scanned`` reports these widths, as the
+    reference does, although the CUDA kernels take ragged shapes."""
+    t = min(tile, max(int(n), 1))
+    return -(-int(n) // t) * t
 
 
 def pack_query_words(q_bm, min_bucket: int = 4):
@@ -408,5 +432,153 @@ def verify_candidates_compact(q_rects, q_cbm, q_sig, cand_x, cand_y, cand_cbm, c
         q_rects.data_ptr(), q_cbm.data_ptr(), q_sig.data_ptr(), cand_x.data_ptr(),
         cand_y.data_ptr(), cand_cbm.data_ptr(), cand_sig.data_ptr(), cand_valid.data_ptr(),
         out.data_ptr(), M, T, C // T, Wl, dev.index, _stream(dev),
+    )
+    return out
+
+
+def filter_pairs(q_rects, q_bm, n_mbrs, n_bm):
+    """(M, K) int8 relevance of every query against every node of one level:
+    the closed rectangle meets the node's MBR and the bitmaps share a bit
+    (the dense A/B scan). CUDA tensors run ``csrc/skr_filter.cu``."""
+    if q_rects.device.type == "cpu":
+        return ref.skr_filter_ref(q_rects, q_bm, n_mbrs, n_bm)
+    dev = q_rects.device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    M, W = q_bm.shape
+    K = n_mbrs.shape[0]
+    _check("q_rects", q_rects, torch.float32, (M, 4), dev)
+    _check("q_bm", q_bm, torch.int32, (M, W), dev)
+    _check("n_mbrs", n_mbrs, torch.float32, (K, 4), dev)
+    _check("n_bm", n_bm, torch.int32, (K, W), dev)
+    _check_staged_words(_TILE_QUERIES * W)
+    if -(-M // _TILE_QUERIES) > _MAX_GRID_Y:
+        raise ValueError(f"M={M} queries exceed the filter kernel's grid")
+    out = torch.empty((M, K), dtype=torch.int8, device=dev)
+    KERNELS["skr_filter"](
+        q_rects.data_ptr(), q_bm.data_ptr(), n_mbrs.data_ptr(), n_bm.data_ptr(),
+        out.data_ptr(), M, K, W, dev.index, _stream(dev),
+    )
+    return out
+
+
+def sub_match(o_pts, o_wids, o_bits, o_sig, s_rects, s_bm, s_sig):
+    """(N, S) int8 subscription match matrix on the kernel's own operands:
+    object points, packed nonzero words (``pack_query_words``) and OR-fold
+    signatures against the block's rectangles, words and signatures. CUDA
+    tensors run ``csrc/sub_match.cu``."""
+    if o_pts.device.type == "cpu":
+        return ref.sub_match_packed_ref(o_pts, o_wids, o_bits, o_sig, s_rects, s_bm, s_sig)
+    dev = o_pts.device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    N, Wp = o_wids.shape
+    S, W = s_bm.shape
+    _check("o_pts", o_pts, torch.float32, (N, 2), dev)
+    _check("o_wids", o_wids, torch.int32, (N, Wp), dev)
+    _check("o_bits", o_bits, torch.int32, (N, Wp), dev)
+    _check("o_sig", o_sig, torch.int32, (N,), dev)
+    _check("s_rects", s_rects, torch.float32, (S, 4), dev)
+    _check("s_bm", s_bm, torch.int32, (S, W), dev)
+    _check("s_sig", s_sig, torch.int32, (S,), dev)
+    if W == 0:
+        raise ValueError("subscription bitmaps have no words")
+    per_obj = 3 + 2 * Wp
+    if per_obj > _SHARED_INTS:
+        raise ValueError(f"Wp={Wp} packed words exceed the match kernel's shared memory")
+    objs = min(_SUB_MATCH_OBJECTS, _SHARED_INTS // per_obj)
+    if -(-N // objs) > _MAX_GRID_Y:
+        raise ValueError(f"N={N} objects exceed the match kernel's grid")
+    out = torch.empty((N, S), dtype=torch.int8, device=dev)
+    KERNELS["sub_match"](
+        o_pts.data_ptr(), o_wids.data_ptr(), o_bits.data_ptr(), o_sig.data_ptr(),
+        s_rects.data_ptr(), s_bm.data_ptr(), s_sig.data_ptr(), out.data_ptr(),
+        N, S, Wp, W, objs, dev.index, _stream(dev),
+    )
+    return out
+
+
+def _or_fold(bm: torch.Tensor) -> torch.Tensor:
+    """(n,) int32 OR of each row's words."""
+    sig = bm[:, 0].clone()
+    for w in range(1, bm.shape[1]):
+        sig |= bm[:, w]
+    return sig
+
+
+def match_subscriptions(obj_pts, obj_bm, sub_rects, sub_bm, sub_sig=None):
+    """(N, S) int8 continuous-filter match matrix on the block's device.
+
+    ``obj_pts`` (N, 2) and ``obj_bm`` (N, W) are the arriving objects on the
+    host (the bitmaps as u32 numpy, or an int32 tensor): their bitmaps are
+    packed to their nonzero words here with ``pack_query_words``, as the
+    reference does, and folded into one-word signatures. ``sub_rects``
+    (S, 4) f32, ``sub_bm`` (S, W) int32 and ``sub_sig`` (S,) int32 are the
+    compiled subscription block; ``sub_sig`` is folded from ``sub_bm`` when
+    not given. Padding is inert: an object with no keyword has a zero
+    signature, an empty slot carries ``NEVER_RECT`` and a zero bitmap.
+    """
+    dev = sub_rects.device
+    pts = np.asarray(obj_pts, np.float32).reshape(-1, 2)
+    words = host_words(obj_bm).reshape(pts.shape[0], -1)
+    N, S = pts.shape[0], sub_rects.shape[0]
+    if N == 0 or S == 0:
+        return torch.zeros((N, S), dtype=torch.int8, device=dev)
+    wids, bits = pack_query_words(words)
+    o_sig = np.bitwise_or.reduce(words, axis=1)
+    if sub_sig is None:
+        sub_sig = _or_fold(sub_bm)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return sub_match(up(pts), up(wids), up(bits.view(np.int32)), up(o_sig.view(np.int32)),
+                     sub_rects, sub_bm, sub_sig)
+
+
+CDF_PARAMS = ("w0", "b0", "w1", "b1", "w2", "b2", "w3", "b3")
+# hidden widths the CUDA kernel is instantiated for, and points per block
+CDF_HIDDEN_WIDTHS = (4, 8, 16, 32)
+_CDF_POINTS_PER_BLOCK = 2048
+
+
+def cdf_params_from_reference(params: Mapping[str, object], device=None) -> Dict[str, torch.Tensor]:
+    """The port's CDF bank from the JAX package's ``CDFBank.nn_params``: a
+    mapping of ``w0`` (B,1,H) ... ``b3`` (B,1) arrays (numpy, or anything
+    ``np.asarray`` takes) to contiguous f32 tensors on ``device`` (``cuda``
+    unless the caller passes another). The bank must have three hidden
+    layers, as ``build_cdf_bank(..., n_hidden_layers=3)`` makes it: the
+    default two-layer bank has no ``w3`` and is not this function's input.
+    """
+    missing = [k for k in CDF_PARAMS if k not in params]
+    if missing or len(params) != len(CDF_PARAMS):
+        raise ValueError(
+            f"a CDF bank of 1->H->H->H->1 MLPs needs exactly {CDF_PARAMS}, got "
+            f"{sorted(params)} (build_cdf_bank(..., n_hidden_layers=3))"
+        )
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(np.ascontiguousarray(np.asarray(params[k], np.float32))).to(dev)
+            for k in CDF_PARAMS}
+
+
+def cdf_bank_forward(params: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """(N, B) f32 CDF values of the whole MLP bank at the points ``x`` (N,).
+    CUDA tensors run ``csrc/cdf_mlp.cu`` (hidden widths ``CDF_HIDDEN_WIDTHS``)."""
+    if x.device.type == "cpu":
+        return ref.cdf_mlp_ref(params, x)
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    B, _, H = params["w0"].shape
+    N = x.shape[0]
+    _check("x", x, torch.float32, (N,), dev)
+    for name, shape in (("w0", (B, 1, H)), ("b0", (B, H)), ("w1", (B, H, H)), ("b1", (B, H)),
+                        ("w2", (B, H, H)), ("b2", (B, H)), ("w3", (B, H, 1)), ("b3", (B, 1))):
+        _check(name, params[name], torch.float32, shape, dev)
+    if H not in CDF_HIDDEN_WIDTHS:
+        raise ValueError(f"hidden width H={H} is not one of the kernel's {CDF_HIDDEN_WIDTHS}")
+    if -(-N // _CDF_POINTS_PER_BLOCK) > _MAX_GRID_Y:
+        raise ValueError(f"N={N} points exceed the CDF kernel's grid")
+    out = torch.empty((N, B), dtype=torch.float32, device=dev)
+    KERNELS["cdf_mlp_bank"](
+        x.data_ptr(), *(params[k].data_ptr() for k in CDF_PARAMS), out.data_ptr(),
+        N, B, H, dev.index, _stream(dev),
     )
     return out

@@ -9,12 +9,31 @@ op by op (eager PyTorch never fuses it into a multiply-add), which is the
 reference oracles' and the host ``_mbr_dist2_f32``'s arithmetic and what
 the CUDA kernels in ``csrc/`` reproduce with ``__fmul_rn``/``__fadd_rn``.
 
+The dense cross products (``skr_filter_ref``, ``sub_match_ref``,
+``sub_match_packed_ref``) and the CDF bank (``cdf_mlp_ref``) work in chunks
+of queries, objects or points: whole, their (M, K, W) and (N, S, W) AND
+planes and (N, B, H) activations would take many GB at serving shapes.
+
 ``kernels/ops.py`` sends a CPU tensor here; on the card ``chip_smoke.py``
 holds each CUDA kernel against these functions on the same inputs.
 """
 from __future__ import annotations
 
+import contextlib
+from typing import Dict
+
 import torch
+
+# elements of the largest intermediate a chunked plain version makes at once
+_CHUNK_ELEMS = 1 << 26
+
+
+def _row_chunks(n_rows: int, elems_per_row: int):
+    """Slices of at most ``_CHUNK_ELEMS // elems_per_row`` rows (at least one)
+    covering ``range(n_rows)``."""
+    step = max(1, _CHUNK_ELEMS // max(int(elems_per_row), 1))
+    for r0 in range(0, n_rows, step):
+        yield slice(r0, min(r0 + step, n_rows))
 
 
 def frontier_filter_ref(
@@ -204,3 +223,117 @@ def fused_verify_compact_ref(
     kw = sig_hit & ((ccbm & q_cbm.repeat_interleave(OBJ, dim=1)) != 0).any(dim=-1)
     kwv = (kw & cval).reshape(M, T, OBJ).sum(dim=2, dtype=torch.int32)
     return ids, kwv
+
+
+def skr_filter_ref(
+    q_rects: torch.Tensor,  # (M, 4) f32
+    q_bm: torch.Tensor,  # (M, W) i32 bitmap words
+    n_mbrs: torch.Tensor,  # (K, 4) f32 node MBRs
+    n_bm: torch.Tensor,  # (K, W) i32 node bitmaps
+) -> torch.Tensor:
+    """(M, K) int8: query rect intersects node MBR AND bitmaps share a bit
+    (the dense A/B scan's relevance matrix), a chunk of queries at a time."""
+    M, K, W = q_rects.shape[0], n_mbrs.shape[0], n_bm.shape[1]
+    out = torch.empty((M, K), dtype=torch.int8, device=q_rects.device)
+    for sl in _row_chunks(M, K * W):
+        qr, qb = q_rects[sl], q_bm[sl]
+        inter = (
+            (qr[:, None, 0] <= n_mbrs[None, :, 2])
+            & (n_mbrs[None, :, 0] <= qr[:, None, 2])
+            & (qr[:, None, 1] <= n_mbrs[None, :, 3])
+            & (n_mbrs[None, :, 1] <= qr[:, None, 3])
+        )
+        kw = ((qb[:, None, :] & n_bm[None, :, :]) != 0).any(dim=-1)
+        out[sl] = (inter & kw).to(torch.int8)
+    return out
+
+
+def _in_sub_rects(o_pts: torch.Tensor, s_rects: torch.Tensor) -> torch.Tensor:
+    """(N, S) bool: object point inside the closed subscription rectangle."""
+    x = o_pts[:, 0:1]
+    y = o_pts[:, 1:2]
+    return (
+        (x >= s_rects[None, :, 0])
+        & (x <= s_rects[None, :, 2])
+        & (y >= s_rects[None, :, 1])
+        & (y <= s_rects[None, :, 3])
+    )
+
+
+def sub_match_ref(
+    o_pts: torch.Tensor,  # (N, 2) f32 arriving object points
+    o_bm: torch.Tensor,  # (N, W) i32 full-width object bitmaps
+    s_rects: torch.Tensor,  # (S, 4) f32 subscription rects
+    s_bm: torch.Tensor,  # (S, W) i32 subscription bitmaps
+) -> torch.Tensor:
+    """(N, S) int8: object point inside sub rect AND bitmaps share a bit.
+
+    The full-width oracle of the ``sub_match`` kernel. Padding is inert: a
+    zero bitmap on either side fails the keyword test, a ``NEVER_RECT``
+    subscription contains no point."""
+    N, S, W = o_pts.shape[0], s_rects.shape[0], s_bm.shape[1]
+    out = torch.empty((N, S), dtype=torch.int8, device=o_pts.device)
+    for sl in _row_chunks(N, S * W):
+        kw = ((o_bm[sl, None, :] & s_bm[None, :, :]) != 0).any(dim=-1)
+        out[sl] = (_in_sub_rects(o_pts[sl], s_rects) & kw).to(torch.int8)
+    return out
+
+
+def sub_match_packed_ref(
+    o_pts: torch.Tensor,  # (N, 2) f32
+    o_wids: torch.Tensor,  # (N, Wp) i32 packed word ids (ops.pack_query_words)
+    o_bits: torch.Tensor,  # (N, Wp) i32 packed word values
+    o_sig: torch.Tensor,  # (N,) i32 OR-fold object signatures
+    s_rects: torch.Tensor,  # (S, 4) f32
+    s_bm: torch.Tensor,  # (S, W) i32
+    s_sig: torch.Tensor,  # (S,) i32 OR-fold subscription signatures
+) -> torch.Tensor:
+    """The ``sub_match`` kernel's own operands: point-in-rect AND the
+    signature prefilter AND each object's packed words against the
+    subscriptions' words gathered at those word ids. Equal to
+    ``sub_match_ref`` on the full-width bitmaps the packing came from."""
+    N, S, Wp = o_pts.shape[0], s_rects.shape[0], o_wids.shape[1]
+    out = torch.empty((N, S), dtype=torch.int8, device=o_pts.device)
+    s_words = s_bm.t()  # (W, S) word-major view
+    for sl in _row_chunks(N, S * Wp):
+        sig = (o_sig[sl, None] & s_sig[None, :]) != 0
+        g = s_words[o_wids[sl].long()]  # (n, Wp, S)
+        kw = ((g & o_bits[sl, :, None]) != 0).any(dim=1)
+        out[sl] = (_in_sub_rects(o_pts[sl], s_rects) & sig & kw).to(torch.int8)
+    return out
+
+
+@contextlib.contextmanager
+def _full_f32_matmul():
+    """Matrix products in full float32 on the card (no TF32) while inside;
+    the caller's setting comes back afterwards."""
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(old)
+
+
+def cdf_mlp_ref(params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """Evaluate a bank of B CDF MLPs (1 -> H -> H -> H -> 1, ReLU, sigmoid
+    head) at N points, a chunk of points at a time, in full float32.
+
+    params: w0 (B,1,H) b0 (B,H) w1 (B,H,H) b1 (B,H) w2 (B,H,H) b2 (B,H)
+            w3 (B,H,1) b3 (B,1), all f32
+    x: (N,) f32 -> out (N, B) f32 in [0, 1]
+    """
+    B, _, H = params["w0"].shape
+    N = x.shape[0]
+    out = torch.empty((N, B), dtype=torch.float32, device=x.device)
+    with _full_f32_matmul():
+        for sl in _row_chunks(N, B * H):
+            h = x[sl, None, None] * params["w0"][None, :, 0, :] + params["b0"][None]
+            h = torch.relu(h)
+            h = torch.einsum("nbh,bhj->nbj", h, params["w1"]) + params["b1"][None]
+            h = torch.relu(h)
+            h = torch.einsum("nbh,bhj->nbj", h, params["w2"]) + params["b2"][None]
+            h = torch.relu(h)
+            o = torch.einsum("nbh,bho->nbo", h, params["w3"]) + params["b3"][None]
+            out[sl] = torch.sigmoid(o[..., 0])
+    return out

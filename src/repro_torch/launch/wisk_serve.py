@@ -1,7 +1,8 @@
 """Single-device serving front door for the port.
 
-``serve_batch`` pads a batch to its power-of-two bucket, runs the frontier
-engine (serve/engine.py) on the snapshot's device and slices the pads off;
+``serve_batch`` pads a batch to its power-of-two bucket, runs the SKR
+engine (serve/engine.py; the frontier descent, or with ``mode="dense"`` the
+dense A/B scan) on the snapshot's device and slices the pads off;
 ``serve_knn_batch`` does the same for Boolean kNN; both take an optional
 live ``DeltaBuffer`` (serve/delta.py);
 ``HotQueryCache`` / ``serve_batch_cached`` serve repeated probes from an
@@ -9,7 +10,8 @@ LRU cache; ``MicroBatcher`` coalesces singleton queries into one dispatch.
 Host-side orchestration only, with the behaviour of the JAX package's
 ``launch/wisk_serve.py`` single-device front door. The multi-device
 regimes are ROADMAP A.10; ``ServingGeneration``/``LiveIndex`` (rebuild
-swaps, subscriptions) wait for construction and subscriptions (A.9, A.11).
+swaps that feed standing subscriptions, serve/subscribe.py) wait for the
+construction port (A.9, A.11).
 """
 from __future__ import annotations
 
@@ -45,8 +47,8 @@ def serve_batch(
         q_rects: (m, 4) f32 query rectangles ``(xlo, ylo, xhi, yhi)``.
         q_bm: (m, W) u32 query keyword bitmaps.
         max_leaves: per-query verification capacity (spill -> ``overflow``).
-        mode, fused, compact: as in ``retrieve`` (``mode="dense"`` is not
-            ported).
+        mode, fused, compact: as in ``retrieve`` (``mode="dense"`` needs a
+            snapshot built with ``dense=True``).
         minimum_bucket: smallest power-of-two batch bucket.
         plan_cache: frontier width state (None: per-snapshot default).
         delta: optional ``DeltaBuffer`` of buffered inserts and deletes,

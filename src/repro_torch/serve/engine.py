@@ -44,10 +44,14 @@ words while the delta carries them, else on all W words. SKR ids are
 (M, T*OBJ + T*B) with a delta: the base blocks first, then the insert
 slots, leaf-slot-major.
 
-Every output key and dtype equals the reference's. ``mode="dense"`` (the
-dense A/B scan) needs a kernel this port does not have yet and raises
-``NotImplementedError`` naming its ROADMAP items; the path never routes
-around the ported kernels.
+``mode="dense"`` is the dense A/B scan: every level is scored whole
+against every query by the ``skr_filter`` kernel (``ops.filter_pairs``),
+the hits are masked by the parents' hits pushed down through the
+snapshot's dense child matrices (``IndexSnapshot.build(..., dense=True)``),
+and up to ``max_leaves`` hit leaves per query, smallest leaf id first, go
+to the same verify stage; a live delta swaps in its widened level arrays.
+
+Every output key and dtype equals the reference's.
 """
 from __future__ import annotations
 
@@ -65,12 +69,7 @@ from .snapshot import IndexSnapshot, to_device
 
 
 def _check_knobs(snap: IndexSnapshot, mode, delta) -> None:
-    if mode == "dense":
-        raise NotImplementedError(
-            "mode='dense' (the dense A/B scan and its skr_filter kernel) is not ported: "
-            "ROADMAP A.6, B.12"
-        )
-    if mode != "frontier":
+    if mode not in ("frontier", "dense"):
         raise ValueError(f"unknown retrieve mode {mode!r}")
     _check_delta(snap, delta)
 
@@ -333,22 +332,12 @@ def _verify_leaves(
     return ids, counts, verified
 
 
-def _host_words(q_bm) -> np.ndarray:
-    """The batch's u32 bitmap words on the host (an int32 tensor is read as
-    the bit view it is)."""
-    if isinstance(q_bm, torch.Tensor):
-        if q_bm.dtype != torch.int32:
-            raise TypeError(f"bitmap tensors are int32 bit views, got {q_bm.dtype}")
-        return q_bm.detach().cpu().numpy().view(np.uint32)
-    return np.asarray(q_bm, np.uint32)
-
-
 def _query_tensors(snap: IndexSnapshot, q, q_bm, quantized: Optional[bool], delta):
     """The batch on the snapshot's device: ``q`` (rects or points) as f32,
     the bitmap as its int32 view, and the packed words ``(wids, bits)`` of
     the narrow descent (None on the f32 descent)."""
     dev = snap.device
-    words = _host_words(q_bm)
+    words = ops.host_words(q_bm)
     if not isinstance(q, torch.Tensor):
         q = torch.from_numpy(np.ascontiguousarray(q, np.float32))
     q = q.to(dev, torch.float32).contiguous()
@@ -359,6 +348,52 @@ def _query_tensors(snap: IndexSnapshot, q, q_bm, quantized: Optional[bool], delt
         wids, bits = ops.pack_query_words(words)
         packed = (to_device(wids, dev).long(), to_device(bits, dev))
     return q, to_device(words, dev), packed
+
+
+# ---------------------------------------------------------------- dense path
+def _retrieve_dense(
+    snap: IndexSnapshot, q_rects, q_bm, max_leaves: int, delta, fused, variant: str, compact,
+) -> Dict[str, np.ndarray]:
+    """The dense A/B scan: ``filter_pairs`` on every whole level, hits
+    pushed down to the children through the dense child matrices, up to
+    ``max_leaves`` hit leaves per query (smallest leaf id first), then
+    ``_verify_leaves``."""
+    if len(snap.child_matrix) != snap.n_levels - 1:
+        raise ValueError("dense mode needs IndexSnapshot.build(..., dense=True)")
+    M = q_rects.shape[0]
+    active = torch.ones((M, snap.level_mbrs[0].shape[0]), dtype=torch.bool, device=snap.device)
+    nodes_checked = torch.zeros((M,), dtype=torch.int32, device=snap.device)
+    for li in range(snap.n_levels):
+        mbrs, bms = _level_arrays(snap, delta, li)
+        rel = ops.filter_pairs(q_rects, q_bm, mbrs, bms)
+        nodes_checked = nodes_checked + _count(active)
+        hit = (rel > 0) & active
+        if li < snap.n_levels - 1:
+            # each child has one parent, so the product is 0 or 1: exact in
+            # f32 (CUDA has no int8 matrix product)
+            active = (hit.to(torch.float32) @ snap.child_matrix[li].to(torch.float32)) > 0
+    score = hit.to(torch.int32)
+    take = min(max_leaves, score.shape[1])
+    # a stable descending sort of the 0/1 scores: the hit leaves in
+    # ascending id, then the misses in ascending id (lax.top_k's tie order)
+    top_val, top_leaf = torch.sort(score, dim=1, descending=True, stable=True)
+    top_val, top_leaf = top_val[:, :take], top_leaf[:, :take].to(torch.int32).contiguous()
+    leaf_ok = top_val > 0
+    overflow = (score.sum(dim=1, dtype=torch.int32) - take).clamp_min(0)
+    ids, counts, verified = _verify_leaves(
+        snap, q_rects, q_bm, top_leaf, leaf_ok, delta, fused, variant, compact
+    )
+    return dict(
+        ids=ids.cpu().numpy(),
+        counts=counts.cpu().numpy(),
+        nodes_checked=nodes_checked.cpu().numpy().astype(np.int64),
+        # the widths the reference's tiled filter scores, as it reports them
+        nodes_scanned=np.full(
+            (M,), sum(ops.padded_tile_len(int(m.shape[0])) for m in snap.level_mbrs), np.int64
+        ),
+        verified=verified.cpu().numpy(),
+        overflow=overflow.cpu().numpy(),
+    )
 
 
 def retrieve(
@@ -388,12 +423,18 @@ def retrieve(
     baseline); ``compact=False`` verifies on the full-width leaf bank;
     ``fused_variant`` picks the fused verify kernel (None/"auto", "vmem",
     "prefetch"). Every combination gives identical results. ``mode`` is
-    ``"frontier"``; ``"dense"`` is not ported (see the module docstring).
+    ``"frontier"`` (the sparse descent) or ``"dense"`` (the dense A/B scan
+    on whole levels, which needs ``IndexSnapshot.build(..., dense=True)``;
+    it honours ``delta``, ``fused``, ``compact`` and ``fused_variant``, and
+    has no narrow descent to pick with ``quantized``).
     """
     _check_knobs(snap, mode, delta)
     variant = "auto" if fused_variant is None else fused_variant
     if variant not in ops.FUSED_VARIANTS:
         raise ValueError(f"unknown fused-verify variant: {variant!r}")
+    if mode == "dense":
+        q_rects, q_bm_dev, _ = _query_tensors(snap, q_rects, q_bm, False, delta)
+        return _retrieve_dense(snap, q_rects, q_bm_dev, max_leaves, delta, fused, variant, compact)
     q_rects, q_bm_dev, words = _query_tensors(snap, q_rects, q_bm, quantized, delta)
     M = q_rects.shape[0]
 

@@ -3,10 +3,10 @@
 ``IndexSnapshot`` holds every tensor the frontier executor (serve/engine.py)
 touches -- per-level MBRs and keyword bitmaps, CSR child tables, the padded
 per-leaf object blocks, the int16 rank-coded MBR planes with their
-coordinate dictionaries, and the compact leaf-local verify bank. It is the
-port of the JAX package's ``serve/snapshot.py:IndexSnapshot`` for one
-device, field for field; the dense child matrices of the A/B dense path
-are not built (ROADMAP A.6).
+coordinate dictionaries, the compact leaf-local verify bank and, when built
+with ``dense=True``, the dense child matrices of the A/B dense scan. It is
+the port of the JAX package's ``serve/snapshot.py:IndexSnapshot`` for one
+device, field for field.
 
 Bitmaps live on the device as ``int32`` tensors holding the bits of the
 reference's ``uint32`` words: the conversion is ``.view(np.int32)`` on the
@@ -128,13 +128,13 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-# the snapshot's tensor fields, in the JAX package's field order (its dense
-# ``child_matrix`` excepted)
+# the snapshot's tensor fields, in the JAX package's field order
 ARRAY_FIELDS = (
     "level_mbrs",
     "level_bms",
     "child_table",
     "child_counts",
+    "child_matrix",
     "leaf_obj_x",
     "leaf_obj_y",
     "leaf_obj_bm",
@@ -159,6 +159,7 @@ class IndexSnapshot:
     level_bms: List[torch.Tensor]  # per level: (n, W) i32
     child_table: List[torch.Tensor]  # per non-leaf level: (n_up, max_fanout) i32, -1 pad
     child_counts: List[torch.Tensor]  # (n_up,) i32
+    child_matrix: List[torch.Tensor]  # per non-leaf level: (n_up, n_down) i8; [] unless dense
     leaf_obj_x: torch.Tensor  # (K, OBJ) f32 padded per-leaf object blocks
     leaf_obj_y: torch.Tensor
     leaf_obj_bm: torch.Tensor  # (K, OBJ, W) i32 full-width bank (field parity)
@@ -220,18 +221,27 @@ class IndexSnapshot:
         return total
 
     @staticmethod
-    def build(index: WiskIndex, dataset: GeoTextDataset, device=None) -> "IndexSnapshot":
+    def build(
+        index: WiskIndex, dataset: GeoTextDataset, device=None, dense: bool = False
+    ) -> "IndexSnapshot":
         """Freeze a host-side ``WiskIndex`` onto ``device`` (``cuda`` unless
         the caller passes another; raises when CUDA is absent).
 
         Leaf object blocks are padded to the power-of-two bucket of the
         largest cluster (``obj_per_leaf``), object ids ``-1``-padded.
+        ``dense=True`` also builds the (n_up, n_down) int8 child matrix of
+        every non-leaf level, which only ``retrieve(mode="dense")`` reads.
         """
         dev = resolve_device(device)
-        child_table, child_counts = [], []
-        for l in index.levels[:-1]:
+        child_table, child_counts, child_matrix = [], [], []
+        for li, l in enumerate(index.levels[:-1]):
             child_table.append(padded_child_table(l))
-            child_counts.append(np.diff(l.child_ptr).astype(np.int32))
+            counts = np.diff(l.child_ptr).astype(np.int32)
+            child_counts.append(counts)
+            if dense:
+                m = np.zeros((l.n, index.levels[li + 1].n), np.int8)
+                m[np.repeat(np.arange(l.n), counts), l.child[: l.child_ptr[-1]]] = 1
+                child_matrix.append(m)
         clusters = index.clusters
         sizes = np.diff(clusters.offsets)
         OBJ = round_up_bucket(int(sizes.max()))
@@ -254,6 +264,7 @@ class IndexSnapshot:
             level_bms=[l.bitmaps for l in index.levels],
             child_table=child_table,
             child_counts=child_counts,
+            child_matrix=child_matrix,
             leaf_obj_x=ox,
             leaf_obj_y=oy,
             leaf_obj_bm=obm,
@@ -275,8 +286,7 @@ class IndexSnapshot:
         name of its ``_ARRAY_FIELDS`` to ``np.asarray`` of the field (a list
         of arrays for per-level fields, None for an absent compact bank).
         Plays the role a weight converter plays for a model: both packages
-        then serve the same index. The dense ``child_matrix`` is not carried
-        (the dense path is not ported)."""
+        then serve the same index."""
         dev = resolve_device(device)
         kw = {}
         for name in ARRAY_FIELDS:

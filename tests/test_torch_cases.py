@@ -221,3 +221,102 @@ VERIFY_COMPACT_SWEEP = [  # m, t, obj, wl
     (9, 8, 8, 4),    # OBJ = 8: delta insert slots at MIN_SLOTS_PER_LEAF
     (33, 4, 32, 3),
 ]
+
+
+# ------------------------------------------------- the dense A/B filter
+FILTER_ARGS = ("q_rects", "q_bm", "n_mbrs", "n_bm")
+
+
+def filter_case(rng, m, k, w):
+    """``skr_filter`` operands: query rectangles against node MBRs of one
+    level, sparse words, and the degenerate rows where the sizes allow: a
+    ``NEVER_RECT`` node, a node and a query with all-zero bitmaps, and a
+    zero-area query rectangle on a node's corner."""
+    n_mbrs = rand_rects(rng, k)
+    case = dict(q_rects=rand_rects(rng, m), q_bm=words(rng, m, w), n_mbrs=n_mbrs,
+                n_bm=words(rng, k, w))
+    if k > 1:
+        case["n_mbrs"][0] = ops.NEVER_RECT
+        case["n_bm"][-1] = 0
+    if m > 1:
+        case["q_bm"][-1] = 0
+        corner = n_mbrs[k // 2, 2:]
+        case["q_rects"][0] = np.concatenate([corner, corner])
+        case["q_bm"][0] = case["n_bm"][k // 2]
+    return case
+
+
+FILTER_SWEEP = [  # m, k, w
+    (1, 1, 1),       # degenerate
+    (5, 37, 3),      # nothing a multiple of a tile
+    (13, 130, 4),    # nodes just past 128
+    (33, 257, 8),    # queries past the 8-query tile, nodes past a 256 strip
+    (9, 300, 256),   # the osm profile's word width
+]
+
+
+# ------------------------------------------------- standing subscriptions
+def rand_sub_rect(rng):
+    c = rng.random(2)
+    h = rng.random(2) * 0.35
+    return np.concatenate([np.maximum(c - h, 0), np.minimum(c + h, 1)]).astype(np.float32)
+
+
+def rand_kw(rng, v, lo=0, hi=4):
+    """A -1-padded keyword id list of ``lo`` to ``hi - 1`` distinct ids."""
+    k = rng.integers(lo, hi)
+    kw = np.full(max(hi, 1), -1, np.int64)
+    if k:
+        kw[:k] = rng.choice(v, size=k, replace=False)
+    return kw
+
+
+def sub_case(rng, n, s, v):
+    """Subscriptions and arriving objects with adversarial members: an empty
+    keyword set, a zero-area rect and the whole unit square among the
+    subscriptions; objects without keywords, one on a rectangle's corner and
+    one on the zero-area rect. Returns ``(locs, obj_kw, rects, sub_kw)``
+    with ``sub_kw`` an (s, 4) -1-padded array."""
+    rects = np.stack([rand_sub_rect(rng) for _ in range(s)])
+    kws = np.stack([rand_kw(rng, v, lo=1) for _ in range(s)])
+    if s >= 3:
+        kws[0][:] = -1
+        pt = rng.random(2).astype(np.float32)
+        rects[1] = np.concatenate([pt, pt])
+        rects[2] = (0.0, 0.0, 1.0, 1.0)
+    locs = rng.random((n, 2)).astype(np.float32)
+    okw = np.stack([rand_kw(rng, v) for _ in range(n)])
+    locs[0] = rects[0][:2]
+    if s >= 2:
+        locs[min(1, n - 1)] = rects[1][:2]
+    return locs, okw, rects, kws
+
+
+SUB_SWEEP = [  # seed, n, s, v
+    (0, 1, 1, 7),        # a single pair
+    (1, 7, 5, 33),       # ragged everywhere
+    (2, 40, 13, 64),     # ragged against every block size
+    (3, 130, 129, 200),  # past a tile on both axes
+    (4, 37, 300, 8192),  # the osm vocabulary: W = 256 words, subscriptions past a block
+]
+
+
+# ----------------------------------------------------------- the CDF bank
+CDF_SWEEP = [  # n, b, h
+    (1, 1, 16),
+    (65, 23, 16),
+    (301, 64, 16),
+    (256, 130, 8),
+    (77, 5, 32),
+]
+
+
+def cdf_params(rng, b, h):
+    """A bank of ``b`` random 1->h->h->h->1 MLPs as f64 numpy arrays, at the
+    scales of the reference's own kernel test."""
+    return {
+        "w0": rng.normal(0, 1, (b, 1, h)), "b0": rng.normal(0, 1, (b, h)),
+        "w1": rng.normal(0, 0.5, (b, h, h)), "b1": rng.normal(0, 0.5, (b, h)),
+        "w2": rng.normal(0, 0.5, (b, h, h)), "b2": rng.normal(0, 0.5, (b, h)),
+        "w3": rng.normal(0, 0.5, (b, h, 1)), "b3": rng.normal(0, 0.5, (b, 1)),
+    }

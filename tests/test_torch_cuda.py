@@ -6,9 +6,12 @@ file imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-All comparisons are exact: the range and verify kernels only compare
-floats, and the kNN kernels round each product and the sum on their own
-(``__fmul_rn``, ``__fadd_rn``), as eager PyTorch does in the plain versions.
+All comparisons but one are exact: the range, verify, dense-filter and
+subscription kernels only compare floats and AND words, and the kNN kernels
+round each product and the sum on their own (``__fmul_rn``, ``__fadd_rn``),
+as eager PyTorch does in the plain versions. The CDF-MLP bank sums its
+products in another order than the plain version's matrix products and is
+held to ``atol=2e-6`` on outputs in [0, 1], the reference's own tolerance.
 """
 import numpy as np
 import pytest
@@ -24,12 +27,15 @@ from repro_torch.serve.engine import retrieve_knn, retrieve_workload  # noqa: E4
 from repro_torch.serve.plan import PlanCache  # noqa: E402
 from repro_torch.serve.snapshot import IndexSnapshot  # noqa: E402
 
+from repro_torch.core.types import ids_to_bitmap  # noqa: E402
 from repro_torch.serve.delta import DeltaLog  # noqa: E402
+from repro_torch.serve.subscribe import SubscriptionIndex  # noqa: E402
 
 from test_torch_cases import (  # noqa: E402
-    FRONTIER_ARGS, FRONTIER_SWEEP, FUSED_SWEEP, KNN_ARGS, VERIFY_ARGS, VERIFY_COMPACT_ARGS,
-    VERIFY_COMPACT_SWEEP, VERIFY_SWEEP, frontier_case, fused_args, fused_case, fused_wide_args,
-    knn_case, to_torch, verify_case, verify_compact_case, wide_args,
+    CDF_SWEEP, FILTER_ARGS, FILTER_SWEEP, FRONTIER_ARGS, FRONTIER_SWEEP, FUSED_SWEEP, KNN_ARGS,
+    SUB_SWEEP, VERIFY_ARGS, VERIFY_COMPACT_ARGS, VERIFY_COMPACT_SWEEP, VERIFY_SWEEP, cdf_params,
+    filter_case, frontier_case, fused_args, fused_case, fused_wide_args, knn_case, rand_kw,
+    rand_sub_rect, sub_case, to_torch, verify_case, verify_compact_case, wide_args,
 )
 
 pytestmark = pytest.mark.cuda
@@ -306,3 +312,120 @@ def test_delta_engine_on_the_card_matches_the_plain_path(cuda, own_leaf_terms):
     assert _build.launch_counts()["knn_filter_narrow"] == 0
     for k in host:
         np.testing.assert_array_equal(card[k], host[k], err_msg=k)
+
+
+@pytest.mark.parametrize("m,k,w", FILTER_SWEEP + [(1024, 991, 256), (70, 7832, 3)])
+def test_skr_filter_kernel_matches_plain(cuda, m, k, w):
+    case = filter_case(np.random.default_rng(m * 7919 + k * 31 + w), m, k, w)
+    args = [to_torch(case[a], cuda) for a in FILTER_ARGS]
+    before = _build.KERNELS["skr_filter"].launches
+    got = ops.filter_pairs(*args)
+    torch.cuda.synchronize()
+    assert _build.KERNELS["skr_filter"].launches == before + 1
+    _equal(got, ref.skr_filter_ref(*args))
+
+
+@pytest.mark.parametrize("seed,n,s,v", SUB_SWEEP + [(5, 1000, 4099, 8192)])
+def test_sub_match_kernel_matches_plain(cuda, seed, n, s, v):
+    """The kernel on the packed operands against the packed plain version,
+    the full-width plain version and the host run of the same wrapper."""
+    locs, okw, rects, kws = sub_case(np.random.default_rng(seed), n, s, v)
+    obm = ids_to_bitmap(okw.astype(np.int32), v)
+    sbm = ids_to_bitmap(kws.astype(np.int32), v)
+    before = _build.KERNELS["sub_match"].launches
+    got = ops.match_subscriptions(locs, obm, to_torch(rects, cuda), to_torch(sbm, cuda))
+    torch.cuda.synchronize()
+    assert _build.KERNELS["sub_match"].launches == before + 1
+    _equal(got.cpu(), ops.match_subscriptions(locs, obm, to_torch(rects), to_torch(sbm)))
+    _equal(got, ref.sub_match_ref(*(to_torch(a, cuda) for a in (locs, obm, rects, sbm))))
+
+
+@pytest.mark.parametrize("n,b,h", CDF_SWEEP + [(100_000, 37, 16), (4099, 3, 4)])
+def test_cdf_mlp_kernel_matches_plain(cuda, n, b, h):
+    rng = np.random.default_rng(n + b + h)
+    params = ops.cdf_params_from_reference(cdf_params(rng, b, h))
+    assert params["w0"].device.type == "cuda"
+    x = torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32)).to(cuda)
+    before = _build.KERNELS["cdf_mlp_bank"].launches
+    got = ops.cdf_bank_forward(params, x)
+    torch.cuda.synchronize()
+    assert _build.KERNELS["cdf_mlp_bank"].launches == before + 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == (n, b)
+    torch.testing.assert_close(got, ref.cdf_mlp_ref(params, x), atol=2e-6, rtol=0)
+
+
+def test_new_wrappers_check_operands(cuda):
+    case = filter_case(np.random.default_rng(2), 4, 9, 2)
+    args = [to_torch(case[a], cuda) for a in FILTER_ARGS]
+    with pytest.raises(ValueError, match="n_bm"):
+        ops.filter_pairs(*args[:3], args[3][:, :1].contiguous())
+    with pytest.raises(ValueError, match="words exceed"):
+        wide = torch.zeros((4, 2048), dtype=torch.int32, device=cuda)
+        ops.filter_pairs(args[0], wide, args[2], torch.zeros((9, 2048), dtype=torch.int32,
+                                                             device=cuda))
+    params = ops.cdf_params_from_reference(cdf_params(np.random.default_rng(3), 2, 12))
+    with pytest.raises(ValueError, match="hidden width"):
+        ops.cdf_bank_forward(params, torch.zeros(5, device=cuda))
+    params = ops.cdf_params_from_reference(cdf_params(np.random.default_rng(3), 2, 8))
+    with pytest.raises(TypeError, match="x"):
+        ops.cdf_bank_forward(params, torch.zeros(5, dtype=torch.float64, device=cuda))
+
+
+def test_dense_engine_on_the_card_matches_the_plain_path(cuda):
+    """The dense scan (one ``skr_filter`` launch per level) through the
+    front door on the card, with and without a delta, equals the host."""
+    ds = make_dataset("sp", n=3000, seed=4)
+    index = build_str_rtree(ds, 32, 4)
+    wl = make_workload(ds, m=40, dist="MIX", seed=5)
+    host_snap = IndexSnapshot.build(index, ds, device="cpu", dense=True)
+    snap = IndexSnapshot.build(index, ds, dense=True)
+    host = serve_batch(host_snap, wl.rects, wl.kw_bitmap, max_leaves=8, mode="dense")
+    _build.reset_launch_counts()
+    card = serve_batch(snap, wl.rects, wl.kw_bitmap, max_leaves=8, mode="dense")
+    counts = _build.launch_counts()
+    assert counts["skr_filter"] == index.height and counts["frontier_narrow"] == 0
+    assert counts["fused_verify_compact_slot"] == 1
+    for k in host:
+        assert card[k].dtype == host[k].dtype
+        np.testing.assert_array_equal(card[k], host[k], err_msg=k)
+    host_log = _delta_log(index, ds, host_snap, True)
+    log = _delta_log(index, ds, snap, True)
+    host = retrieve_workload(host_snap, wl, max_leaves=8, mode="dense", delta=host_log.buffer)
+    card = retrieve_workload(snap, wl, max_leaves=8, mode="dense", delta=log.buffer)
+    for k in host:
+        np.testing.assert_array_equal(card[k], host[k], err_msg=k)
+
+
+def test_subscription_index_on_the_card_matches_the_host(cuda):
+    """Subscription churn and arrivals through a ``DeltaLog`` on the card
+    (``match_arrivals`` and ``pump``) give the host's stream, and the card
+    runs launched ``sub_match``."""
+    ds = make_dataset("sp", n=3000, seed=4)
+    index = build_str_rtree(ds, 32, 4)
+    rng = np.random.default_rng(9)
+    idx, host = SubscriptionIndex(ds.vocab_size), SubscriptionIndex(ds.vocab_size, device="cpu")
+    pumped = SubscriptionIndex(ds.vocab_size)
+    assert idx.block().rects.device.type == "cuda"
+    log = DeltaLog(index, ds, IndexSnapshot.build(index, ds))
+    subs = [(rand_sub_rect(rng), rand_kw(rng, ds.vocab_size, lo=1)) for _ in range(300)]
+    subs += [((0.0, 0.0, 1.0, 1.0), [int(np.argmax(ds.kw_freq))])]
+    for r, kw in subs:
+        for i in (idx, host, pumped):
+            i.subscribe(r, kw)
+    _build.reset_launch_counts()
+    for step in range(4):
+        locs, kw = make_update_stream(ds, 50, rng, 0.02)
+        ids = log.insert(locs, kw)
+        idx.match_arrivals(ids, locs, kw_ids=kw)
+        host.match_arrivals(ids, locs, kw_ids=kw)
+        pumped.pump(log)
+        if step == 1:
+            for sid in range(0, 300, 7):
+                for i in (idx, host, pumped):
+                    i.unsubscribe(sid)
+    assert _build.launch_counts()["sub_match"] == 8
+    got = idx.drain()
+    assert got.shape[0] > 0
+    np.testing.assert_array_equal(got, host.drain())
+    np.testing.assert_array_equal(got, pumped.drain())
+    assert idx.pump(log) == 0

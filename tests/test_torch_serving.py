@@ -306,14 +306,18 @@ def test_micro_batcher_with_cache_matches_reference(served):
 
 
 # ------------------------------------------------------ unported knobs
-@pytest.mark.parametrize("knob,item", [(dict(mode="dense"), "A.6, B.12")])
-def test_unported_knobs_raise(served, knob, item):
-    """Only the dense A/B scan is left unported; it names its ROADMAP items.
-    (The verify knobs and live deltas are held against the reference in
+@pytest.mark.parametrize("knob,match", [(dict(mode="dense"), "dense=True")])
+def test_unported_knobs_raise(served, knob, match):
+    """Every knob is ported now. The dense A/B scan on a snapshot built
+    without ``dense=True`` raises the reference's ``ValueError``, and an
+    unknown mode raises too. (The dense scan is held against the reference
+    in tests/test_torch_dense.py, the verify knobs and live deltas in
     tests/test_torch_verify.py and tests/test_torch_delta.py.)"""
-    snap, _, wl, _, k = served
-    with pytest.raises(NotImplementedError, match=item):
+    snap, jsnap, wl, jwl, k = served
+    with pytest.raises(ValueError, match=match):
         retrieve_workload(snap, wl, max_leaves=k, **knob)
+    with pytest.raises(ValueError, match=match):
+        jretrieve_workload(jsnap, jwl, max_leaves=k, **knob)
     with pytest.raises(ValueError, match="mode"):
         retrieve_workload(snap, wl, mode="sparse")
 
