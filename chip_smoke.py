@@ -28,9 +28,11 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    leaves verified) above 1; then one batch each at k = 1 and k = 100
    against the oracle, and one batch with ``knn_dtype="bf16"`` against f32;
 5. the f32 descent: the SKR batches and one kNN batch with
-   ``quantized=False`` (counts zeroed before, read after), then one SKR and
-   one kNN batch on the snapshot with its narrow planes stripped (what an
-   overflowing coordinate dictionary gives), all equal to the default runs;
+   ``quantized=False`` (counts zeroed before, read after; the kNN batch on
+   ``knn_level_dist`` alone, its peak device memory below one (M, F, W)
+   word plane), then one SKR and one kNN batch on the snapshot with its
+   narrow planes stripped (what an overflowing coordinate dictionary
+   gives), all equal to the default runs;
 6. the verify knobs: one SKR batch each with ``fused=False``,
    ``compact=False`` (the (M, T) and the query-tile launch),
    ``fused=False, compact=False`` and on the snapshot with its compact bank
@@ -74,7 +76,10 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    version on the card -- bit-exact, the CDF bank to ``atol=2e-6`` -- at
    the captured shapes (for the unfused verify kernels: the delta's insert
    slots and the knob run) and at ragged edges, and times both (CUDA
-   events) beside a bound;
+   events) beside a bound; then times the (M, F, W) gather the f32 kNN
+   descent no longer makes, and holds ``knn_frontier_dist`` (gathered
+   operands, the same kernel) and the query-tile verify without packed
+   words against their plain versions;
 12. profiles one warm SKR batch, one warm kNN batch, one warm dense-scan
    batch and one warm SKR batch with log B's delta (``torch.profiler``:
    device busy and idle share, the largest device and host items);
@@ -194,24 +199,27 @@ def assert_same(got, want, what: str, atol: float = 0.0) -> None:
 
 
 def shapes(case):
-    """The shapes of a kernel's operands (a dict of weights counts as one)."""
-    return [{k: tuple(v.shape) for k, v in a.items()} if isinstance(a, dict) else tuple(a.shape)
-            for a in case]
+    """The shapes of a kernel's operands (a dict of weights counts as one, a
+    tuple of tensors as a list of shapes)."""
+    return [{k: tuple(v.shape) for k, v in a.items()} if isinstance(a, dict)
+            else shapes(a) if isinstance(a, tuple) else tuple(a.shape) for a in case]
 
 
 # ------------------------------------------------------------------ bounds
 # Both bounds count what these operands need, each byte once: a dense plane
 # the result depends on everywhere is read whole, a gathered or conditional
 # one only where the data makes the result depend on it. A word scan that
-# finds a hit needs one word (the hit proves it), one that finds none needs
-# every word.
-def needed_words(hit_words, live):
+# finds a hit needs one word (the hit proves it); one that finds none needs
+# the words where the query's word is nonzero, since no other word can hit.
+def needed_words(hit_words, live, q_nonzero):
     """(..., W) mask of the words that decide ``any(hit_words)`` where
-    ``live``: the first hit word where there is one, else all of them."""
+    ``live``: the first hit word where there is one, else the words where
+    ``q_nonzero`` (a mask broadcast to ``hit_words``: the query's word is
+    nonzero) holds."""
     W = hit_words.shape[-1]
     first = hit_words.to(torch.uint8).argmax(-1, keepdim=True)
     first = torch.arange(W, device=hit_words.device) == first
-    return live[..., None] & torch.where(hit_words.any(-1, keepdim=True), first, True)
+    return live[..., None] & torch.where(hit_words.any(-1, keepdim=True), first, q_nonzero)
 
 
 def slot_bound(args, narrow: bool, knn: bool):
@@ -236,8 +244,9 @@ def slot_bound(args, narrow: bool, knn: bool):
     M, F = f_valid.shape
     valid = f_valid > 0
     hits = (f_bm & q_words[:, None, :]) != 0  # (M, F, W)
+    q_nz = (q_words != 0)[:, None, :]
     if knn:
-        need = needed_words(hits, valid)
+        need = needed_words(hits, valid, q_nz)
         mbr_slots = valid & hits.any(-1)
         live_q = mbr_slots.any(1)
         out_bytes, mbr_ops = 4, 11  # 4 subtractions, 4 max, 2 products, 1 sum
@@ -245,7 +254,7 @@ def slot_bound(args, narrow: bool, knn: bool):
         qr = q[:, None, :]
         inter = (valid & (qr[..., 0] <= x[..., 1]) & (x[..., 0] <= qr[..., 2])
                  & (qr[..., 1] <= y[..., 1]) & (y[..., 0] <= qr[..., 3]))
-        need = needed_words(hits, inter)
+        need = needed_words(hits, inter, q_nz)
         mbr_slots = valid
         live_q = valid.any(1)
         out_bytes, mbr_ops = 1, 4  # 4 compares
@@ -265,6 +274,32 @@ def slot_bound(args, narrow: bool, knn: bool):
     return nbytes, ops
 
 
+def level_bound(args):
+    """Bytes and operations of ``knn_level_dist``: every frontier id in and
+    every distance out; of a valid slot, the node words at the query's
+    packed words that decide its keyword test (each node word once, however
+    many queries need it), and the node's MBR where it hits; query points
+    and (id, value) word pairs where some slot needs them."""
+    q_pts, wids, bits, mbrs, bms, frontier = args
+    M, F = frontier.shape
+    N, W = bms.shape
+    valid = frontier >= 0
+    node = frontier.long().clamp(0, N - 1)
+    word = node[..., None] * W + wids.long()[:, None, :]  # (M, F, Wp)
+    hits = (bms.reshape(-1)[word] & bits[:, None, :]) != 0
+    need = needed_words(hits, valid, (bits != 0)[:, None, :])
+    hit = valid & hits.any(-1)
+    distinct = lambda idx: torch.unique(idx).numel()  # noqa: E731
+    nbytes = (int(hit.any(1).sum()) * 8  # points of queries with a hit
+              + int(need.any(1).sum()) * 8  # word pairs some slot needs
+              + M * F * 4  # frontier
+              + distinct(node[hit]) * 16  # MBRs of nodes that hit
+              + distinct(word[need]) * 4  # node words
+              + M * F * 4)  # out
+    ops = M * F + int(hit.sum()) * 11 + int(need.sum()) * 2  # id test, MBR math, AND+test
+    return nbytes, ops
+
+
 def fused_bound(args):
     """Leaf ids and flags in, ids and counts out for every (query, slot);
     of the selected leaf rows (each bank element once): object ids of leaves
@@ -280,7 +315,7 @@ def fused_bound(args):
     live = (oid.reshape(-1)[obj] >= 0) & ok[..., None]
     sig = live & ((osig.reshape(-1)[obj] & q_sig[..., None]) != 0)
     hit = (ocbm.reshape(-1, Wl)[obj] & q_cbm[:, :, None, :]) != 0  # (M, T, OBJ, Wl)
-    need = needed_words(hit, sig)
+    need = needed_words(hit, sig, (q_cbm != 0)[:, :, None, :])
     kw = sig & hit.any(-1)
     word = obj[..., None] * Wl + torch.arange(Wl, device=leaf.device)
     distinct = lambda idx: torch.unique(idx).numel()  # noqa: E731
@@ -318,7 +353,7 @@ def fused_wide_bound(args, chunk: int = 32):
     for m0 in range(0, M, chunk):
         sl = slice(m0, m0 + chunk)
         hit = (obm.reshape(-1, W)[obj[sl]] & q_bm[sl, None, None, :]) != 0
-        need = needed_words(hit, live[sl])
+        need = needed_words(hit, live[sl], (q_bm[sl] != 0)[:, None, None, :])
         kw[sl] = live[sl] & hit.any(-1)
         bank_words.index_put_((obj[sl].reshape(-1),), need.reshape(-1, W).to(torch.int32),
                               accumulate=True)
@@ -356,7 +391,7 @@ def verify_bound(args, compact: bool):
     coords = valid & ((csig & q_sig.repeat_interleave(obj, dim=1)) != 0) if compact else valid
     live = coords & ((cx >= q_rects[:, 0:1]) & (cx <= q_rects[:, 2:3])
                      & (cy >= q_rects[:, 1:2]) & (cy <= q_rects[:, 3:4]))
-    need = needed_words((cbm & q_words) != 0, live)  # (M, C, W)
+    need = needed_words((cbm & q_words) != 0, live, q_words != 0)  # (M, C, W)
     if compact:
         q_need = int(need.reshape(M, T, obj, -1).any(2).sum())
         sig_bytes = int(valid.sum()) * 4 + int(valid.reshape(M, T, obj).any(2).sum()) * 4
@@ -389,7 +424,8 @@ def filter_bound(args, chunk: int = 32):
         qr = q_rects[m0:m0 + chunk, None, :]
         meet = ((qr[..., 0] <= n_mbrs[:, 2]) & (n_mbrs[:, 0] <= qr[..., 2])
                 & (qr[..., 1] <= n_mbrs[:, 3]) & (n_mbrs[:, 1] <= qr[..., 3]))  # (c, K)
-        need = needed_words((q_bm[m0:m0 + chunk, None, :] & n_bm) != 0, meet)  # (c, K, W)
+        qb = q_bm[m0:m0 + chunk, None, :]
+        need = needed_words((qb & n_bm) != 0, meet, qb != 0)  # (c, K, W)
         node_words |= need.any(0)
         q_need += int(need.any(1).sum())
         n_need += int(need.sum())
@@ -419,7 +455,7 @@ def sub_bound(args, chunk: int = 16):
         wid = o_wids[n0:n0 + chunk].long()  # (c, Wp)
         g = s_bm.t()[wid]  # (c, Wp, S)
         hits = ((g & o_bits[n0:n0 + chunk, :, None]) != 0).transpose(1, 2)  # (c, S, Wp)
-        need = needed_words(hits, live)
+        need = needed_words(hits, live, (o_bits[n0:n0 + chunk] != 0)[:, None, :])
         sub_words[(s_cols + wid[:, None, :])[need]] = True
         s_in |= inr.any(0)
         o_in += int(inr.any(1).sum())
@@ -531,19 +567,66 @@ def ragged_fused(dev, M=13, T=5, K=11, OBJ=37, Wl=2, seed=7):
             t(cbm), t(sig), t(oid.astype(np.int32)))
 
 
-def ragged_fused_wide(dev, M=13, T=5, K=11, OBJ=37, W=3, seed=7):
-    """Full-width fused-verify operands at ragged shapes: dirty leaf ids,
-    invalid slots, -1 id pads."""
+def _terms(g, n, W, pool, lo, hi):
+    """(n, W) u32 bitmaps of ``lo`` to ``hi - 1`` terms each from ``pool``."""
+    bm = np.zeros((n, W), np.uint32)
+    for r in range(n):
+        picks = g.choice(pool, size=min(int(g.integers(lo, hi)), pool.size), replace=False)
+        np.bitwise_or.at(bm[r], picks >> 5, np.uint32(1) << (picks & 31).astype(np.uint32))
+    return bm
+
+
+def _query_words(g, ops, M, W, pool, sparse):
+    """Query bitmaps -- dense random words (Wp = W at small W), or up to
+    three pool terms each (Wp below W at wide W) -- the first query with no
+    nonzero word, and their packing as int32 tensors' arrays."""
+    q_bm = _words(g, M, W).view(np.uint32) if not sparse else _terms(g, M, W, pool, 1, 4)
+    if M > 1:
+        q_bm[0] = 0
+    wids, bits = ops.pack_query_words(q_bm)
+    return q_bm.view(np.int32), wids, bits.view(np.int32)
+
+
+def ragged_fused_wide(dev, ops, M=13, T=5, K=11, OBJ=37, W=3, sparse=False, seed=7):
+    """Full-width fused-verify operands at ragged shapes, and the queries'
+    packed words as a last ``(wids, bits)`` operand: dirty leaf ids, invalid
+    slots, -1 id pads, a ``NEVER_RECT`` query and one with no nonzero word
+    (with sparse queries, the bank's objects share their term pool)."""
     g = np.random.default_rng(seed)
     qlo = g.uniform(0, 0.8, (M, 2)).astype(np.float32)
     rects = np.concatenate([qlo, qlo + g.uniform(0.01, 0.3, (M, 2)).astype(np.float32)], 1)
+    if M > 1:
+        rects[-1] = ops.NEVER_RECT
     oid = np.where(g.integers(0, 4, (K, OBJ)) > 0, g.integers(0, 10_000, (K, OBJ)), -1)
+    pool = g.choice(32 * W, size=min(32 * W, 24), replace=False)
+    q_bm, wids, bits = _query_words(g, ops, M, W, pool, sparse)
+    obj_bm = (_terms(g, K * OBJ, W, pool, 0, 5).reshape(K, OBJ, W).view(np.int32) if sparse
+              else _words(g, K, OBJ, W))
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    return (t(rects), t(_words(g, M, W)), t(g.integers(-2, K + 3, (M, T)).astype(np.int32)),
+    return (t(rects), t(q_bm), t(g.integers(-2, K + 3, (M, T)).astype(np.int32)),
             t(g.integers(0, 2, (M, T)).astype(np.int8)),
             t(g.uniform(0, 1, (K, OBJ)).astype(np.float32)),
             t(g.uniform(0, 1, (K, OBJ)).astype(np.float32)),
-            t(_words(g, K, OBJ, W)), t(oid.astype(np.int32)))
+            t(obj_bm), t(oid.astype(np.int32)), (t(wids), t(bits)))
+
+
+def ragged_level(dev, ops, M=37, F=131, N=53, W=3, sparse=False, seed=19):
+    """``knn_level_dist`` operands at ragged shapes: one level of N nodes
+    with a few pool terms each, an (M, F) frontier with -1 pads, dirty ids
+    past N - 1 and a last row of padding only, and packed query words
+    (``_query_words``)."""
+    g = np.random.default_rng(seed)
+    pool = g.choice(32 * W, size=min(32 * W, 48), replace=False)
+    _, wids, bits = _query_words(g, ops, M, W, pool, sparse)
+    lo = g.uniform(0, 1, (N, 2)).astype(np.float32)
+    mbrs = np.concatenate([lo, lo + g.uniform(0, 0.3, (N, 2)).astype(np.float32)], 1)
+    frontier = g.integers(0, N + 3, (M, F)).astype(np.int32)
+    frontier[g.uniform(0, 1, (M, F)) < 0.3] = -1
+    if M > 1:
+        frontier[-1] = -1
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return (t(g.uniform(0, 1, (M, 2)).astype(np.float32)), t(wids), t(bits), t(mbrs),
+            t(_terms(g, N, W, pool, 0, 7).view(np.int32)), t(frontier))
 
 
 def ragged_verify(dev, compact: bool, M=13, T=5, OBJ=37, W=3, seed=11):
@@ -726,12 +809,13 @@ def main() -> int:
     # ------------------------ warm-up passes, capturing kernel operands
     captured = {}
 
-    def recorder(key, fn, size_arg):
-        """Pass calls through to ``fn``, keeping the largest call's operands."""
+    def recorder(key, fn, size_arg, kw_keys=()):
+        """Pass calls through to ``fn``, keeping the largest call's operands
+        (the keyword arguments ``kw_keys`` appended to the positional ones)."""
         def rec(*args, **kw):
             prev = captured.get(key)
             if prev is None or args[size_arg].numel() > prev[size_arg].numel():
-                captured[key] = args
+                captured[key] = args + tuple(kw.get(k) for k in kw_keys)
             return fn(*args, **kw)
         return rec
 
@@ -902,18 +986,28 @@ def main() -> int:
             raise AssertionError("the SKR f32 descent did not run on frontier_filter alone")
         launches["frontier_filter"] = counts["frontier_filter"]
         _build.reset_launch_counts()
-        with patched(ops, knn_frontier_dist=recorder("knn_filter", ops.knn_frontier_dist, 4)):
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with patched(ops, knn_level_dist=recorder("knn_level_dist", ops.knn_level_dist, 5)):
             t = time.perf_counter()
             out = retrieve_knn(snap, points[b0], bms[b0], K, plan_cache=cached(warm_knn),
                                quantized=False)
             torch.cuda.synchronize()
             t = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() - mem0
         assert_outputs_equal(out, knn_out[0], "kNN quantized=False batch 0")
         counts = _build.launch_counts()
-        log(f"kNN quantized=False: one batch {t:.6f} s, launches {counts}")
-        if counts["knn_filter"] <= 0 or counts["knn_filter_narrow"] != 0:
-            raise AssertionError("the kNN f32 descent did not run on knn_filter alone")
-        launches["knn_filter"] = counts["knn_filter"]
+        fr = captured["knn_level_dist"][5]
+        plane = fr.numel() * snap.level_bms[-1].shape[1] * 4
+        log(f"kNN quantized=False: one batch {t:.6f} s, peak device memory above the start "
+            f"{peak} B (an (M, F, W) word plane at the widest level would be {plane} B), "
+            f"launches {counts}")
+        if counts["knn_level_dist"] <= 0 or counts["knn_filter_narrow"] != 0:
+            raise AssertionError("the kNN f32 descent did not run on knn_level_dist alone")
+        if peak >= plane:
+            raise AssertionError("the kNN f32 descent allocated an (M, F, W) word plane")
+        launches["knn_level_dist"] = counts["knn_level_dist"]
 
         stripped = dataclasses.replace(snap, level_mbr_codes=[], level_dict_x=[],
                                        level_dict_y=[])
@@ -939,7 +1033,7 @@ def main() -> int:
     ]
     with phase("verify knobs"), patched(
         ops,  # sized by top_leaf (M, T) and cand_x (M, C)
-        fused_gather_verify=recorder("fused_wide", ops.fused_gather_verify, 2),
+        fused_gather_verify=recorder("fused_wide", ops.fused_gather_verify, 2, ("q_words",)),
         verify_candidates=recorder("skr_verify/knob", ops.verify_candidates, 2),
         verify_candidates_compact=recorder("skr_verify_compact/knob",
                                            ops.verify_candidates_compact, 3),
@@ -968,7 +1062,7 @@ def main() -> int:
         fused_gather_verify_compact=lambda *a, variant="auto": plain_fused(*a),
         verify_candidates=ref.skr_verify_ref,
         verify_candidates_compact=ref.skr_verify_compact_ref,
-        knn_frontier_dist=ref.knn_filter_ref,
+        knn_level_dist=ref.knn_level_dist_ref,
     )
     delta_launches = {}
     delta_bufs = {}
@@ -1051,8 +1145,8 @@ def main() -> int:
                 raise AssertionError(f"log {label}: SKR never launched {name}")
         if skr_counts["frontier_narrow"] or knn_counts["knn_filter_narrow"]:
             raise AssertionError(f"log {label}: a delta descent ran on the narrow planes")
-        if knn_counts["knn_filter"] <= 0:
-            raise AssertionError(f"log {label}: kNN never launched knn_filter")
+        if knn_counts["knn_level_dist"] <= 0:
+            raise AssertionError(f"log {label}: kNN never launched knn_level_dist")
         delta_launches[verify_kernel] = skr_counts[verify_kernel]
         _build.reset_launch_counts()
         with patched(ops, **plain_ops):
@@ -1295,7 +1389,12 @@ def main() -> int:
         return (name, source, replaces, [captured[name]], ragged, kernel, plain,
                 lambda a: slot_bound(a, narrow, knn))
 
-    wide_ragged = [ragged_fused_wide(dev), ragged_fused_wide(dev, W=1, seed=8)]
+    # the full-width fused verify's operands end with the packed query words
+    wide_ragged = [ragged_fused_wide(dev, ops), ragged_fused_wide(dev, ops, W=1, seed=8),
+                   ragged_fused_wide(dev, ops, M=9, T=7, K=13, OBJ=45, W=40, sparse=True,
+                                     seed=9)]
+    level_ragged = [ragged_level(dev, ops), ragged_level(dev, ops, M=1, F=1, N=1, W=1, seed=20),
+                    ragged_level(dev, ops, M=9, F=300, N=200, W=64, sparse=True, seed=21)]
 
     def verify_phase(name, replaces, kernel, plain, compact):
         ragged = [ragged_verify(dev, compact), ragged_verify(dev, compact, W=1, seed=12)]
@@ -1318,16 +1417,18 @@ def main() -> int:
         slot_phase("knn_filter_narrow", csrc + "knn_filter.cu",
                    "src/repro/kernels/knn_filter.py:105",
                    ops.knn_frontier_dist_narrow, ref.knn_filter_narrow_ref, True, True),
-        slot_phase("knn_filter", csrc + "knn_filter.cu", "src/repro/kernels/knn_filter.py:54",
-                   ops.knn_frontier_dist, ref.knn_filter_ref, False, True),
+        ("knn_level_dist", csrc + "knn_filter.cu", "src/repro/kernels/knn_filter.py:54",
+         [captured["knn_level_dist"]], level_ragged, ops.knn_level_dist, ref.knn_level_dist_ref,
+         level_bound),
         ("fused_verify_tile", csrc + "fused_verify.cu", "src/repro/kernels/fused_verify.py:107",
          [captured["fused_wide"]], wide_ragged,
-         lambda *a: ops.fused_gather_verify(*a, variant="vmem"), ref.fused_verify_ref,
-         fused_wide_bound),
+         lambda *a: ops.fused_gather_verify(*a[:8], variant="vmem", q_words=a[8]),
+         lambda *a: ref.fused_verify_packed_ref(a[0], *a[8], *a[2:8]),
+         lambda a: fused_wide_bound(a[:8])),
         ("fused_verify_slot", csrc + "fused_verify.cu", "src/repro/kernels/fused_verify.py:176",
          [captured["fused_wide"]], wide_ragged,
-         lambda *a: ops.fused_gather_verify(*a, variant="prefetch"), ref.fused_verify_ref,
-         fused_wide_bound),
+         lambda *a: ops.fused_gather_verify(*a[:8], variant="prefetch"),
+         lambda *a: ref.fused_verify_ref(*a[:8]), lambda a: fused_wide_bound(a[:8])),
         verify_phase("skr_verify_compact", "src/repro/kernels/skr_verify.py:94",
                      ops.verify_candidates_compact, ref.skr_verify_compact_ref, True),
         verify_phase("skr_verify", "src/repro/kernels/skr_verify.py:39",
@@ -1374,6 +1475,43 @@ def main() -> int:
                                      launches=launches[name], max_abs_err=err, ms=ms,
                                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                                      library_ms=None))
+
+    with phase("the other entries of the redesigned kernels"):
+        # the gather the f32 kNN descent no longer makes: the (M, F, W) word
+        # plane at the captured leaf frontier, as the one indexing op it was
+        q_pts, wids, bits, mbrs, lbms, fr = captured["knn_level_dist"]
+        safe = fr.clamp(0, lbms.shape[0] - 1).long()
+        gather_ms = time_ms(lambda: lbms[safe], iters=10)
+        log(f"the removed gather level_bms[safe] at {tuple(fr.shape)} x W={lbms.shape[1]} "
+            f"({fr.numel() * lbms.shape[1] * 4} B): {gather_ms:.6f} ms")
+        del safe
+        # knn_frontier_dist's gathered operands run the same kernel: bit-exact
+        # against knn_filter_ref at ragged shapes and at the first 64 captured
+        # queries, where it also equals knn_level_dist's rows
+        m = min(64, fr.shape[0])
+        sl = fr[:m].clamp(0, lbms.shape[0] - 1).long()
+        q_head = torch.zeros((m, lbms.shape[1]), dtype=torch.int32, device=dev).scatter_(
+            1, wids[:m].long(), bits[:m])  # every word of the first m queries
+        head = (q_pts[:m].contiguous(), q_head, mbrs[sl], lbms[sl], (fr[:m] >= 0).to(torch.int8))
+        gathered = [ragged_slots(dev, False, True),
+                    ragged_slots(dev, False, True, M=1, F=1, W=1, D=2, seed=9), head]
+        for case in gathered:
+            got = ops.knn_frontier_dist(*case)
+            torch.cuda.synchronize()
+            assert_same(got, ref.knn_filter_ref(*case), f"knn_frontier_dist at {shapes(case)}")
+        assert_same(got, ops.knn_level_dist(q_pts[:m].contiguous(), wids[:m].contiguous(),
+                                            bits[:m].contiguous(), mbrs, lbms,
+                                            fr[:m].contiguous()), "knn_frontier_dist vs level")
+        del head, gathered, sl, got
+        # the tile launch without packed words takes all W words, ids arange(W)
+        for case in [captured["fused_wide"], *wide_ragged]:
+            got = ops.fused_gather_verify(*case[:8], variant="vmem")
+            torch.cuda.synchronize()
+            assert_same(got, ref.fused_verify_ref(*case[:8]),
+                        f"fused_verify_tile on q_bm at {shapes(case[:8])}")
+        log("knn_frontier_dist (gathered operands, through knn_level_dist) and the query-tile "
+            "verify on q_bm: bit-exact against their plain versions at the captured and ragged "
+            "shapes")
     captured.clear()
 
     with phase("profiles"):

@@ -144,8 +144,8 @@ KERNELS: Dict[str, CudaKernel] = {
             (_P,) * 8 + (_I,) * 6 + (_P,),
         ),
         CudaKernel(
-            "knn_filter", "knn_filter.cu", "wisk_knn_filter",
-            (_P,) * 6 + (_I,) * 4 + (_P,),
+            "knn_level_dist", "knn_filter.cu", "wisk_knn_level_dist",
+            (_P,) * 7 + (_I,) * 6 + (_P,),
         ),
         CudaKernel(
             "fused_verify_compact_tile", "fused_verify_compact.cu",
@@ -157,7 +157,7 @@ KERNELS: Dict[str, CudaKernel] = {
         ),
         CudaKernel(
             "fused_verify_tile", "fused_verify.cu", "wisk_fused_verify_tile",
-            _WIDE_FUSED_ARGS + (_I, _I, _P),
+            (_P,) * 11 + (_I,) * 9 + (_P,),
         ),
         CudaKernel(
             "fused_verify_slot", "fused_verify.cu", "wisk_fused_verify_slot",

@@ -2,39 +2,51 @@
 //
 // Replaces two TPU kernels (rows 5 and 6 of the port's kernel table):
 //   src/repro/kernels/fused_verify.py::fused_verify          -> the query-tile
-//     kernel below (variant="vmem"): one block per BM queries, looping over
-//     the T selected leaf slots of each query;
+//     kernel below (variant="vmem"): one block per BM queries x TC selected
+//     leaf slots, one thread per object;
 //   src/repro/kernels/fused_verify.py::fused_verify_prefetch -> the (M, T)
 //     kernel below (variant="prefetch", and "auto"): one block per (query,
 //     slot), its warps striding over the leaf row's objects.
 // They serve compact=False, a snapshot without a compact bank (a leaf
 // dictionary above LEAF_DICT_MAX), and the base blocks of a live delta over
-// such a snapshot. Oracle: kernels/ref.py fused_verify_ref. The compact
-// twins are in fused_verify_compact.cu.
+// such a snapshot. Oracles: kernels/ref.py fused_verify_ref, and
+// fused_verify_packed_ref on the tile kernel's packed query words. The
+// compact twins are in fused_verify_compact.cu.
 //
-// Both launches share one __device__ predicate per object, run by one warp:
-// gather the object of leaf clamp(top_leaf[m, t], 0, K-1) (the clamp of
-// fused_verify.py:86 and :197), then
+// Both launches compute, per object of leaf clamp(top_leaf[m, t], 0, K-1)
+// (the clamp of fused_verify.py:86 and :197),
 //   valid = obj_id >= 0 AND leaf_ok[m, t] > 0,
-//   kw    = any(obj_bm[w] & q_bm[m, w]) over all W words,
+//   kw    = any(obj_bm[w] & q_bm[m, w]) over the words,
 //   inr   = the point lies in the closed query rectangle,
 // and write ids[m, t*OBJ + o] = obj_id if inr & kw & valid else -1. The
 // per-slot count kwv[m, t] sums kw & valid -- keyword hits outside the
 // rectangle included (fused_verify.py:103, :172): it is the Eq. 1
-// ``verified`` count. So the word loop runs for every valid object and the
+// ``verified`` count. So the word test runs for every valid object and the
 // rectangle test must not gate it; the rectangle is read only for keyword
 // hits.
 //
-// What bounds it on the H100: bytes. At the osm profile an object's row is
-// W = 256 words (1 KiB), and a row with no hit is read whole; the work per
-// byte is one AND. Each block stages its queries' W words in shared memory
-// once (1 KiB a query), so the loop reads only the bank from device memory.
-// The warp's lanes read neighbouring words of the row (coalesced 128-byte
-// rows) and stop at the first 32-word stride that holds a hit.
+// What bounds them on the H100: bytes. At the osm profile an object's row
+// is W = 256 words (1 KiB); the work per byte is one AND.
+//   - The tile kernel reads a row only at the query's packed words
+//     (ops.pack_query_words: at most Wp, the batch's largest count of
+//     nonzero query words, 8 for the 5-keyword MIX queries), since no other
+//     word can hit, and stops at the first hit: a miss costs a few 32-byte
+//     sectors, not 1 KiB. Each block stages its BM queries' (id, value) word
+//     pairs (2 * BM * Wp ints, so W does not cap the tile), their TC slots'
+//     leaf rows and their counts in shared memory. The grid is query tiles
+//     x slot chunks -- 1024 blocks at M = 1024, T = 32, several per SM --
+//     and neighbouring threads take neighbouring objects of one leaf row,
+//     so the object ids, coordinates and output ids are read and written
+//     coalesced. kwv is summed with shared-memory atomics and written once
+//     by the block that owns the (query, slot) pair.
+//   - The (M, T) kernel keeps its first design: the query's W words staged
+//     in shared memory, one warp per object, lanes on neighbouring words of
+//     the row (coalesced 128-byte rows), stopping at the first 32-word
+//     stride that holds a hit, so a row with no hit is read whole.
 //
-// This is the simple version that is right first: no vector loads, no TMA,
-// no restriction to the query's nonzero words. The outputs are bit-identical
-// to the reference: only floats are compared and counts are integer sums.
+// This is the simple version that is right first: no vector loads, no TMA.
+// The outputs are bit-identical to the reference: only floats are compared
+// and counts are integer sums.
 #include "slot_predicates.cuh"
 
 namespace {
@@ -44,7 +56,9 @@ constexpr int kWarpsPerBlock = kThreads / 32;
 
 struct Bank {
   const float* q_rects;      // (M, 4)
-  const int32_t* q_bm;       // (M, W)
+  const int32_t* q_bm;       // (M, W): the (M, T) kernel's query words
+  const int32_t* q_wids;     // (M, Wp): the tile kernel's packed word ids
+  const int32_t* q_bits;     // (M, Wp): ... and their values
   const int32_t* top_leaf;   // (M, T)
   const int8_t* leaf_ok;     // (M, T)
   const float* obj_x;        // (K, OBJ)
@@ -53,7 +67,7 @@ struct Bank {
   const int32_t* obj_id;     // (K, OBJ)
   int32_t* ids;              // (M, T * OBJ)
   int32_t* kwv;              // (M, T)
-  int M, T, K, OBJ, W;
+  int M, T, K, OBJ, W, Wp;
 };
 
 // The leaf row a (query, slot) pair reads: dirty ids clamp like the reference.
@@ -79,37 +93,55 @@ __device__ __forceinline__ int verify_object(const Bank& b, const int32_t* s_q,
   return kw ? 1 : 0;
 }
 
-// variant="vmem": one block per tile of BM queries. Shared memory holds the
-// tile's query words (BM * W ints) and its per-slot counts (BM * T ints),
-// written once at the end.
-__global__ void fused_verify_wide_tile_kernel(Bank b, int BM) {
+// variant="vmem": one block per tile of BM queries (grid x) and TC slots
+// (grid y), one thread per object. Shared memory holds the tile's packed
+// query words (2 * BM * Wp ints), its slots' leaf rows (-1 where leaf_ok
+// is 0) and its per-slot counts (BM * TC ints each).
+__global__ void fused_verify_wide_tile_kernel(Bank b, int BM, int TC) {
   extern __shared__ int32_t s_mem[];
   const int64_t m0 = (int64_t)blockIdx.x * BM;
+  const int t0 = blockIdx.y * TC;
   const int rows = (int)min((int64_t)BM, (int64_t)b.M - m0);
-  int32_t* s_q = s_mem;                            // (rows, W)
-  int* s_kwv = s_mem + (int64_t)BM * b.W;          // (rows, T)
-  wisk::stage_words(s_q, b.q_bm + m0 * b.W, rows * b.W);
-  const int n_cnt = rows * b.T;
-  for (int i = threadIdx.x; i < n_cnt; i += blockDim.x) s_kwv[i] = 0;
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int64_t per_q = (int64_t)b.T * b.OBJ;
-  const int64_t total = rows * per_q;
-  for (int64_t i = threadIdx.x >> 5; i < total; i += kWarpsPerBlock) {
-    const int r = (int)(i / per_q);
-    const int64_t j = i - r * per_q;
-    const int t = (int)(j / b.OBJ);
-    const int o = (int)(j - (int64_t)t * b.OBJ);
-    const int64_t m = m0 + r;
-    const int64_t pair = m * b.T + t;
-    if (verify_object(b, s_q + (int64_t)r * b.W, m, pair, leaf_row(b, pair), o, lane) &&
-        lane == 0) {
-      atomicAdd(&s_kwv[r * b.T + t], 1);
-    }
+  const int cols = min(TC, b.T - t0);
+  const int n_pairs = rows * cols;  // local pair l = r * cols + c
+  int32_t* s_wid = s_mem;                      // (rows, Wp)
+  int32_t* s_bit = s_wid + BM * b.Wp;          // (rows, Wp)
+  int32_t* s_leaf = s_bit + BM * b.Wp;         // (n_pairs,)
+  int* s_kwv = s_leaf + BM * TC;               // (n_pairs,)
+  wisk::stage_packed_words(s_wid, s_bit, b.q_wids + m0 * b.Wp, b.q_bits + m0 * b.Wp,
+                           rows * b.Wp, b.W);
+  for (int l = threadIdx.x; l < n_pairs; l += blockDim.x) {
+    const int64_t pair = (m0 + l / cols) * b.T + t0 + l % cols;
+    const int leaf = min(max(__ldg(b.top_leaf + pair), 0), b.K - 1);
+    s_leaf[l] = __ldg(b.leaf_ok + pair) > 0 ? leaf : -1;
+    s_kwv[l] = 0;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < n_cnt; i += blockDim.x) {
-    b.kwv[m0 * b.T + i] = s_kwv[i];
+  const int total = n_pairs * b.OBJ;  // the wrapper keeps BM * TC * OBJ in range
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int l = i / b.OBJ;
+    const int o = i - l * b.OBJ;
+    const int r = l / cols;
+    const int64_t m = m0 + r;
+    const int64_t pair = m * b.T + t0 + (l - r * cols);
+    int32_t out = -1;
+    if (s_leaf[l] >= 0) {
+      const int64_t obj = (int64_t)s_leaf[l] * b.OBJ + o;
+      const int32_t cid = __ldg(b.obj_id + obj);
+      if (cid >= 0 && wisk::packed_words_hit(b.obj_bm + obj * b.W, s_wid + r * b.Wp,
+                                              s_bit + r * b.Wp, b.Wp)) {
+        atomicAdd(&s_kwv[l], 1);
+        if (wisk::point_in_rect(b.q_rects + m * 4, __ldg(b.obj_x + obj),
+                                __ldg(b.obj_y + obj))) {
+          out = cid;
+        }
+      }
+    }
+    b.ids[pair * b.OBJ + o] = out;
+  }
+  __syncthreads();
+  for (int l = threadIdx.x; l < n_pairs; l += blockDim.x) {
+    b.kwv[(m0 + l / cols) * b.T + t0 + l % cols] = s_kwv[l];
   }
 }
 
@@ -138,13 +170,16 @@ __global__ void fused_verify_wide_slot_kernel(Bank b) {
   }
 }
 
-Bank make_bank(const void* q_rects, const void* q_bm, const void* top_leaf,
-               const void* leaf_ok, const void* obj_x, const void* obj_y,
-               const void* obj_bm, const void* obj_id, void* ids, void* kwv,
-               int M, int T, int K, int OBJ, int W) {
+Bank make_bank(const void* q_rects, const void* q_bm, const void* q_wids,
+               const void* q_bits, const void* top_leaf, const void* leaf_ok,
+               const void* obj_x, const void* obj_y, const void* obj_bm,
+               const void* obj_id, void* ids, void* kwv, int M, int T, int K,
+               int OBJ, int W, int Wp) {
   Bank b;
   b.q_rects = (const float*)q_rects;
   b.q_bm = (const int32_t*)q_bm;
+  b.q_wids = (const int32_t*)q_wids;
+  b.q_bits = (const int32_t*)q_bits;
   b.top_leaf = (const int32_t*)top_leaf;
   b.leaf_ok = (const int8_t*)leaf_ok;
   b.obj_x = (const float*)obj_x;
@@ -158,6 +193,7 @@ Bank make_bank(const void* q_rects, const void* q_bm, const void* top_leaf,
   b.K = K;
   b.OBJ = OBJ;
   b.W = W;
+  b.Wp = Wp;
   return b;
 }
 
@@ -168,21 +204,23 @@ extern "C" {
 // Both entry points launch on `stream` (PyTorch's current stream) and
 // return cudaGetLastError(); the Python wrapper raises on anything but 0.
 // The wrapper keeps the dynamic shared memory at or below 32 KiB, inside
-// the default 48 KB a block may take without opting in.
-int wisk_fused_verify_tile(const void* q_rects, const void* q_bm,
-                           const void* top_leaf, const void* leaf_ok,
-                           const void* obj_x, const void* obj_y,
-                           const void* obj_bm, const void* obj_id, void* ids,
-                           void* kwv, int M, int T, int K, int OBJ, int W,
-                           int BM, int device, void* stream) {
+// the default 48 KB a block may take without opting in, and T / TC within
+// the grid's second dimension.
+int wisk_fused_verify_tile(const void* q_rects, const void* q_wids,
+                           const void* q_bits, const void* top_leaf,
+                           const void* leaf_ok, const void* obj_x,
+                           const void* obj_y, const void* obj_bm,
+                           const void* obj_id, void* ids, void* kwv, int M,
+                           int T, int K, int OBJ, int W, int Wp, int BM, int TC,
+                           int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (M > 0 && T > 0) {
-    Bank b = make_bank(q_rects, q_bm, top_leaf, leaf_ok, obj_x, obj_y, obj_bm,
-                       obj_id, ids, kwv, M, T, K, OBJ, W);
-    const unsigned blocks = (unsigned)((M + BM - 1) / BM);
-    const size_t smem = (size_t)BM * (W + T) * sizeof(int32_t);
-    fused_verify_wide_tile_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(b, BM);
+    Bank b = make_bank(q_rects, nullptr, q_wids, q_bits, top_leaf, leaf_ok, obj_x,
+                       obj_y, obj_bm, obj_id, ids, kwv, M, T, K, OBJ, W, Wp);
+    const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((T + TC - 1) / TC));
+    const size_t smem = (size_t)(2 * BM * Wp + 2 * BM * TC) * sizeof(int32_t);
+    fused_verify_wide_tile_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(b, BM, TC);
   }
   return (int)cudaGetLastError();
 }
@@ -196,8 +234,8 @@ int wisk_fused_verify_slot(const void* q_rects, const void* q_bm,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (M > 0 && T > 0) {
-    Bank b = make_bank(q_rects, q_bm, top_leaf, leaf_ok, obj_x, obj_y, obj_bm,
-                       obj_id, ids, kwv, M, T, K, OBJ, W);
+    Bank b = make_bank(q_rects, q_bm, nullptr, nullptr, top_leaf, leaf_ok, obj_x,
+                       obj_y, obj_bm, obj_id, ids, kwv, M, T, K, OBJ, W, 0);
     const int warps = OBJ < 1 ? 1 : (OBJ < kWarpsPerBlock ? OBJ : kWarpsPerBlock);
     const int threads = 32 * warps;
     const size_t smem = (size_t)W * sizeof(int32_t);

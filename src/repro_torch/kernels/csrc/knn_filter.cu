@@ -3,10 +3,11 @@
 // Replaces two TPU kernels (rows 7 and 8 of the port's kernel table):
 //   src/repro/kernels/knn_filter.py::knn_filter_narrow -> wisk_knn_filter_narrow
 //     (int16 MBR rank codes + packed query word planes, the default descent);
-//   src/repro/kernels/knn_filter.py::knn_filter        -> wisk_knn_filter
-//     (f32 MBRs + all W bitmap words: quantized=False, or a snapshot without
-//     narrow planes).
-// Oracles: kernels/ref.py knn_filter_narrow_ref / knn_filter_ref.
+//   src/repro/kernels/knn_filter.py::knn_filter        -> wisk_knn_level_dist
+//     (f32 MBRs and full-width bitmap words: quantized=False, a snapshot
+//     without narrow planes, or a live delta's widened level arrays).
+// Oracles: kernels/ref.py knn_filter_narrow_ref / knn_level_dist_ref (which
+// equals knn_filter_ref on the gathered planes).
 //
 // Both share one predicate and one distance (slot_predicates.cuh): for each
 // (query point m, frontier slot f), out = the squared min-distance from the
@@ -18,24 +19,28 @@
 // a*a + b*b under -O3), so the distances equal the plain PyTorch version
 // and the host oracle core/query.py _mbr_dist2_f32 bit for bit.
 //
-// What bounds them on the H100: bytes. Per slot about ten flops against
-// 16 bytes of MBR (or 8 of codes plus dictionary reads) and up to W words.
-//   - Narrow: Wp words per slot (a few), one thread per (query, slot); the
-//     dictionaries are read through the read-only path, the codes only for
-//     slots whose words hit.
-//   - Full width: W = 256 words per slot at the osm profile. One warp per
-//     slot, lanes on neighbouring words (coalesced 128-byte rows), stopping
-//     at the first 32-word stride that holds a hit; the MBR is read only when
-//     the keyword test passes.
+// What bounds them on the H100: bytes. Per slot about ten flops against an
+// MBR of 16 bytes (or 8 of codes plus dictionary reads) and the words.
+//   - Narrow: the caller gathers the (M, F, Wp) packed word plane and the
+//     codes; one thread per (query, slot) reads them, the dictionaries
+//     through the read-only path, the codes only for slots whose words hit.
+//   - Full width (wisk_knn_level_dist): the kernel gathers for itself from
+//     the level arrays, so no (M, F, W) plane is ever made (8.6 GB at the
+//     leaf level of a 1024-query batch, F = 8192, W = 256). Only a word
+//     where the query's word is nonzero can hit, so a slot reads at most the
+//     query's Wp packed words (ops.pack_query_words) of its node's row,
+//     stopping at the first hit, and its MBR only after a hit; a padding
+//     slot (id -1, most of a wide frontier) reads nothing past its id. What
+//     is left is the (M, F) ids in and distances out, read and written
+//     coalesced, and the scattered 4-byte word reads of valid slots.
 //
-// This is the simple version that is right first: no shared-memory staging,
-// no vector loads.
+// This is the simple version that is right first: no vector loads, and the
+// scattered word reads go one sector each through L1/L2.
 #include "slot_predicates.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarpsPerBlock = kThreads / 32;
 
 __global__ void knn_narrow_kernel(
     const float* __restrict__ q_pts,       // (M, 2)
@@ -59,25 +64,39 @@ __global__ void knn_narrow_kernel(
   out[slot] = d;
 }
 
-__global__ void knn_filter_kernel(
-    const float* __restrict__ q_pts,       // (M, 2)
-    const int32_t* __restrict__ q_bm,      // (M, W)
-    const float* __restrict__ f_mbrs,      // (M, F, 4)
-    const int32_t* __restrict__ f_bm,      // (M, F, W)
-    const int8_t* __restrict__ f_valid,    // (M, F)
-    float* __restrict__ out,               // (M, F)
-    int M, int F, int W) {
-  const int lane = threadIdx.x & 31;
-  const int64_t slot = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (slot >= (int64_t)M * F) return;  // warp-uniform: the whole warp leaves
-  const int64_t m = slot / F;
+// One thread per (query m, frontier slot f): blocks of consecutive slots of
+// one query, so neighbouring threads read neighbouring frontier ids and
+// write neighbouring distances. The block stages query m's packed words;
+// a slot reads level_bms[node, wid] for them, stopping at the first hit,
+// and its MBR only after a hit.
+__global__ void knn_level_kernel(
+    const float* __restrict__ q_pts,         // (M, 2)
+    const int32_t* __restrict__ q_wids,      // (M, Wp) word ids
+    const int32_t* __restrict__ q_bits,      // (M, Wp) word values
+    const float* __restrict__ level_mbrs,    // (N, 4)
+    const int32_t* __restrict__ level_bms,   // (N, W)
+    const int32_t* __restrict__ frontier,    // (M, F), -1 = empty slot
+    float* __restrict__ out,                 // (M, F)
+    int F, int Wp, int N, int W, int chunks) {
+  extern __shared__ int32_t s_words[];  // word ids (Wp), then values (Wp)
+  int32_t* s_wid = s_words;
+  int32_t* s_bit = s_words + Wp;
+  const int64_t m = blockIdx.x / chunks;
+  const int f = (int)(blockIdx.x % chunks) * blockDim.x + threadIdx.x;
+  wisk::stage_packed_words(s_wid, s_bit, q_wids + m * Wp, q_bits + m * Wp, Wp, W);
+  __syncthreads();
+  if (f >= F) return;
+  const int64_t slot = m * F + f;
+  const int32_t id = __ldg(frontier + slot);
   float d = INFINITY;
-  if (__ldg(f_valid + slot) > 0 &&
-      wisk::words_hit_warp(f_bm + slot * W, q_bm + m * W, W, lane)) {
-    d = wisk::mbr_dist2(__ldg(q_pts + m * 2), __ldg(q_pts + m * 2 + 1),
-                        wisk::load_mbr(f_mbrs + slot * 4));
+  if (id >= 0) {
+    const int64_t node = min(id, N - 1);  // dirty ids clamp like the gather
+    if (wisk::packed_words_hit(level_bms + node * W, s_wid, s_bit, Wp)) {
+      d = wisk::mbr_dist2(__ldg(q_pts + m * 2), __ldg(q_pts + m * 2 + 1),
+                          wisk::load_mbr(level_mbrs + node * 4));
+    }
   }
-  if (lane == 0) out[slot] = d;
+  out[slot] = d;
 }
 
 unsigned grid_for(int64_t n, int per_block) {
@@ -107,17 +126,23 @@ int wisk_knn_filter_narrow(const void* q_pts, const void* q_bits,
   return (int)cudaGetLastError();
 }
 
-int wisk_knn_filter(const void* q_pts, const void* q_bm, const void* f_mbrs,
-                    const void* f_bm, const void* f_valid, void* out, int M,
-                    int F, int W, int device, void* stream) {
+// The block size follows F (a multiple of 32, at most kThreads), so the
+// narrow frontiers near the root do not idle most of a block.
+int wisk_knn_level_dist(const void* q_pts, const void* q_wids, const void* q_bits,
+                        const void* level_mbrs, const void* level_bms,
+                        const void* frontier, void* out, int M, int F, int Wp,
+                        int N, int W, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int64_t n = (int64_t)M * F;
-  if (n > 0) {
-    knn_filter_kernel<<<grid_for(n, kWarpsPerBlock), kThreads, 0,
-                        (cudaStream_t)stream>>>(
-        (const float*)q_pts, (const int32_t*)q_bm, (const float*)f_mbrs,
-        (const int32_t*)f_bm, (const int8_t*)f_valid, (float*)out, M, F, W);
+  if ((int64_t)M * F > 0) {
+    const int threads = F >= kThreads ? kThreads : ((F + 31) / 32) * 32;
+    const int chunks = (F + threads - 1) / threads;
+    const size_t smem = 2 * (size_t)Wp * sizeof(int32_t);
+    knn_level_kernel<<<(unsigned)((int64_t)M * chunks), threads, smem,
+                       (cudaStream_t)stream>>>(
+        (const float*)q_pts, (const int32_t*)q_wids, (const int32_t*)q_bits,
+        (const float*)level_mbrs, (const int32_t*)level_bms,
+        (const int32_t*)frontier, (float*)out, F, Wp, N, W, chunks);
   }
   return (int)cudaGetLastError();
 }

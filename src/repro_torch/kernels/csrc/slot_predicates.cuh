@@ -4,7 +4,8 @@
 //
 // Every function is a plain __device__ inline: the kernels that include this
 // header differ only in how threads map onto slots or candidates (one thread
-// each on the narrow and compact planes, one warp each at full width) and in
+// each on the narrow and compact planes and where a full-width row is read
+// at the query's packed words, one warp each where it is read whole) and in
 // what they write (an int8 flag, an object id or an f32 squared distance).
 #pragma once
 #include <cuda_runtime.h>
@@ -101,6 +102,34 @@ __device__ __forceinline__ bool words_hit_warp(const int32_t* __restrict__ fb,
 // taking part; the caller synchronises before reading them.
 __device__ __forceinline__ void stage_words(int32_t* s, const int32_t* __restrict__ g, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = __ldg(g + i);
+}
+
+// Copy n packed query words -- word ids `g_wids` and values `g_bits`, as
+// ops.pack_query_words makes them -- into shared memory, every thread of
+// the block taking part; the caller synchronises before reading them. The
+// ids index a W-word row: packed ids are in range, and the clamp only keeps
+// a malformed one from reading out of bounds.
+__device__ __forceinline__ void stage_packed_words(int32_t* s_wid, int32_t* s_bit,
+                                                   const int32_t* __restrict__ g_wids,
+                                                   const int32_t* __restrict__ g_bits,
+                                                   int n, int W) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    s_wid[i] = min(max(__ldg(g_wids + i), 0), W - 1);
+    s_bit[i] = __ldg(g_bits + i);
+  }
+}
+
+// Keyword test by one thread on a full-width row, reading only the words
+// where the query's packed word (staged by stage_packed_words) is nonzero:
+// no other word can hit. Stops at the first hit.
+__device__ __forceinline__ bool packed_words_hit(const int32_t* __restrict__ row,
+                                                 const int32_t* s_wid, const int32_t* s_bit,
+                                                 int n) {
+  for (int p = 0; p < n; ++p) {
+    const int32_t q = s_bit[p];
+    if (q != 0 && (__ldg(row + s_wid[p]) & q) != 0) return true;
+  }
+  return false;
 }
 
 }  // namespace wisk

@@ -28,13 +28,17 @@ NEVER_RECT = (2.0, 2.0, -2.0, -2.0)
 
 FUSED_VARIANTS = ("auto", "vmem", "prefetch")
 
-# The verify, dense-filter and match kernels keep per-block state in dynamic
-# shared memory, at most _SHARED_INTS ints (32 KiB, inside the 48 KB a block
-# takes without opting in): a query-tile kernel up to _TILE_QUERIES queries'
-# per-slot counts (and, at full width, their W staged words); the dense
-# filter _TILE_QUERIES queries' W words; the other full-width kernels one
-# query's W words; sub_match up to _SUB_MATCH_OBJECTS objects' packed words.
+# The verify, dense-filter, kNN and match kernels keep per-block state in
+# dynamic shared memory, at most _SHARED_INTS ints (32 KiB, inside the 48 KB
+# a block takes without opting in): a query-tile kernel up to _TILE_QUERIES
+# queries' per-slot counts (the compact one for all T slots; the full-width
+# one for its _TILE_SLOTS slots, with their leaf rows and the queries'
+# packed (word id, value) pairs, 2 * Wp ints a query, whatever W is); the
+# dense filter _TILE_QUERIES queries' W words; the (M, T) full-width verify
+# and skr_verify one query's W words; the full-width kNN filter one query's
+# packed pairs; sub_match up to _SUB_MATCH_OBJECTS objects' packed words.
 _TILE_QUERIES = 8
+_TILE_SLOTS = 4
 _SHARED_INTS = 8192
 _SUB_MATCH_OBJECTS = 32
 # CUDA's limit on a launch grid's second dimension
@@ -155,12 +159,11 @@ def _stream(device: torch.device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-# per slot-filter kernel: the query operand's name and width, the output dtype
+# per narrow slot-filter kernel: the query operand's name and width, the
+# output dtype
 _SLOT_FILTERS = {
     "frontier_narrow": ("q_rects", 4, torch.int8),
-    "frontier_filter": ("q_rects", 4, torch.int8),
     "knn_filter_narrow": ("q_pts", 2, torch.float32),
-    "knn_filter": ("q_pts", 2, torch.float32),
 }
 
 
@@ -191,35 +194,28 @@ def _launch_narrow(name, q, q_bits, f_codes, f_bm, f_valid, dict_x, dict_y):
     return out
 
 
-def _launch_wide(name, q, q_bm, f_mbrs, f_bm, f_valid):
-    """Check the f32 full-width operands of a frontier or kNN filter on the
-    card and launch kernel ``name``; ``q`` is (M, 4) rects or (M, 2) points."""
-    dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    q_name, q_cols, out_dtype = _SLOT_FILTERS[name]
-    M, F = f_valid.shape
-    W = q_bm.shape[1]
-    _check(q_name, q, torch.float32, (M, q_cols), dev)
-    _check("q_bm", q_bm, torch.int32, (M, W), dev)
-    _check("f_mbrs", f_mbrs, torch.float32, (M, F, 4), dev)
-    _check("f_bm", f_bm, torch.int32, (M, F, W), dev)
-    _check("f_valid", f_valid, torch.int8, (M, F), dev)
-    out = torch.empty((M, F), dtype=out_dtype, device=dev)
-    KERNELS[name](
-        q.data_ptr(), q_bm.data_ptr(), f_mbrs.data_ptr(), f_bm.data_ptr(),
-        f_valid.data_ptr(), out.data_ptr(), M, F, W, dev.index, _stream(dev),
-    )
-    return out
-
-
 def filter_frontier(q_rects, q_bm, f_mbrs, f_bm, f_valid):
     """(M, F) int8 frontier-survivor matrix on f32 MBRs and full-width
     bitmap words (the f32 descent: ``quantized=False``, or a snapshot
     without narrow planes). CUDA tensors run ``csrc/frontier.cu``."""
     if q_rects.device.type == "cpu":
         return ref.frontier_filter_ref(q_rects, q_bm, f_mbrs, f_bm, f_valid)
-    return _launch_wide("frontier_filter", q_rects, q_bm, f_mbrs, f_bm, f_valid)
+    dev = q_rects.device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    M, F = f_valid.shape
+    W = q_bm.shape[1]
+    _check("q_rects", q_rects, torch.float32, (M, 4), dev)
+    _check("q_bm", q_bm, torch.int32, (M, W), dev)
+    _check("f_mbrs", f_mbrs, torch.float32, (M, F, 4), dev)
+    _check("f_bm", f_bm, torch.int32, (M, F, W), dev)
+    _check("f_valid", f_valid, torch.int8, (M, F), dev)
+    out = torch.empty((M, F), dtype=torch.int8, device=dev)
+    KERNELS["frontier_filter"](
+        q_rects.data_ptr(), q_bm.data_ptr(), f_mbrs.data_ptr(), f_bm.data_ptr(),
+        f_valid.data_ptr(), out.data_ptr(), M, F, W, dev.index, _stream(dev),
+    )
+    return out
 
 
 def filter_frontier_narrow(q_rects, q_bits, f_codes, f_bm, f_valid, dict_x, dict_y):
@@ -235,11 +231,70 @@ def filter_frontier_narrow(q_rects, q_bits, f_codes, f_bm, f_valid, dict_x, dict
 
 def knn_frontier_dist(q_pts, q_bm, f_mbrs, f_bm, f_valid):
     """(M, F) f32 squared point-to-MBR min-distances on f32 MBRs and
-    full-width bitmap words, +inf at invalid or keyword-miss slots. CUDA
-    tensors run ``csrc/knn_filter.cu``."""
+    full-width bitmap words gathered at each slot (the TPU kernel's
+    operands), +inf at invalid or keyword-miss slots. CUDA tensors run
+    ``knn_level_dist``'s kernel on the planes taken as one level of M*F
+    nodes: slot (m, f) is node m*F + f where valid, else -1, and the query
+    words are all W words, ids ``arange(W)`` -- exact, and no host sync."""
     if q_pts.device.type == "cpu":
         return ref.knn_filter_ref(q_pts, q_bm, f_mbrs, f_bm, f_valid)
-    return _launch_wide("knn_filter", q_pts, q_bm, f_mbrs, f_bm, f_valid)
+    dev = q_pts.device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    M, F = f_valid.shape
+    W = q_bm.shape[1]
+    _check("q_bm", q_bm, torch.int32, (M, W), dev)
+    _check("f_mbrs", f_mbrs, torch.float32, (M, F, 4), dev)
+    _check("f_bm", f_bm, torch.int32, (M, F, W), dev)
+    _check("f_valid", f_valid, torch.int8, (M, F), dev)
+    if M * F >= 2 ** 31:
+        raise ValueError(f"M*F={M * F} slots exceed the kNN filter's int32 node ids")
+    slots = torch.arange(M * F, dtype=torch.int32, device=dev).reshape(M, F)
+    frontier = torch.where(f_valid > 0, slots, -1)
+    wids = torch.arange(W, dtype=torch.int32, device=dev).expand(M, W).contiguous()
+    return _launch_level(q_pts, wids, q_bm, f_mbrs.reshape(M * F, 4),
+                         f_bm.reshape(M * F, W), frontier)
+
+
+def knn_level_dist(q_pts, q_wids, q_bits, level_mbrs, level_bms, frontier):
+    """(M, F) f32 squared point-to-MBR min-distances of one level's nodes at
+    the frontier (int32 node ids, -1 = empty slot; ids clamped to the
+    level), +inf at empty or keyword-miss slots, from the level's f32 MBRs
+    (N, 4) and full-width bitmaps (N, W), read only at each query's packed
+    words ``(q_wids, q_bits)`` from ``pack_query_words``. The f32 kNN
+    descent's filter: no (M, F, W) plane is made. CUDA tensors run
+    ``csrc/knn_filter.cu``, which gathers for itself."""
+    if q_pts.device.type == "cpu":
+        return ref.knn_level_dist_ref(q_pts, q_wids, q_bits, level_mbrs, level_bms, frontier)
+    return _launch_level(q_pts, q_wids, q_bits, level_mbrs, level_bms, frontier)
+
+
+def _launch_level(q_pts, q_wids, q_bits, level_mbrs, level_bms, frontier):
+    dev = q_pts.device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    M, F = frontier.shape
+    Wp = q_wids.shape[1]
+    N, W = level_bms.shape
+    _check("q_pts", q_pts, torch.float32, (M, 2), dev)
+    _check("q_wids", q_wids, torch.int32, (M, Wp), dev)
+    _check("q_bits", q_bits, torch.int32, (M, Wp), dev)
+    _check("level_mbrs", level_mbrs, torch.float32, (N, 4), dev)
+    _check("level_bms", level_bms, torch.int32, (N, W), dev)
+    _check("frontier", frontier, torch.int32, (M, F), dev)
+    if M * F and (N == 0 or W == 0):
+        raise ValueError("empty level")
+    if 2 * Wp > _SHARED_INTS:
+        raise ValueError(f"Wp={Wp} packed words exceed the kNN filter's shared memory")
+    if M * -(-F // 256) >= 2 ** 31:
+        raise ValueError(f"M={M}, F={F} exceed the kNN filter's grid")
+    out = torch.empty((M, F), dtype=torch.float32, device=dev)
+    KERNELS["knn_level_dist"](
+        q_pts.data_ptr(), q_wids.data_ptr(), q_bits.data_ptr(), level_mbrs.data_ptr(),
+        level_bms.data_ptr(), frontier.data_ptr(), out.data_ptr(), M, F, Wp, N, W,
+        dev.index, _stream(dev),
+    )
+    return out
 
 
 def knn_frontier_dist_narrow(q_pts, q_bits, f_codes, f_bm, f_valid, dict_x, dict_y):
@@ -327,20 +382,28 @@ def _check_staged_words(W: int) -> None:
 
 def fused_gather_verify(
     q_rects, q_bm, top_leaf, leaf_ok, obj_x, obj_y, obj_bm, obj_id, variant: str = "auto",
+    q_words=None,
 ):
     """Fused leaf gather + verify on the full-width leaf bank: the twin of
-    ``fused_gather_verify_compact`` that tests all W words of the query's
-    global bitmap, with no signature. Serves ``compact=False`` and a
-    snapshot without a compact bank. Returns the same ``(ids, kwv)``.
+    ``fused_gather_verify_compact`` that tests the query's global bitmap
+    words, with no signature. Serves ``compact=False`` and a snapshot
+    without a compact bank. Returns the same ``(ids, kwv)``.
 
     ``variant`` picks the CUDA kernel (``csrc/fused_verify.cu``): ``"vmem"``
     the query-tile kernel, ``"prefetch"`` and ``"auto"`` the (M, T) kernel,
-    as for the compact bank. On the CPU every variant runs the plain
-    version.
+    as for the compact bank. ``q_words=(wids, bits)``, the batch's
+    ``pack_query_words`` as (M, Wp) int32 tensors, lets the tile kernel read
+    each row only at the query's nonzero words; without it the tile kernel
+    takes ``wids = arange(W)``, ``bits = q_bm`` (exact either way). The
+    (M, T) kernel reads ``q_bm``. On the CPU every variant runs the plain
+    version (on the packed words when they are given).
     """
     if variant not in FUSED_VARIANTS:
         raise ValueError(f"unknown fused-verify variant: {variant!r}")
     if q_rects.device.type == "cpu":
+        if q_words is not None:
+            return ref.fused_verify_packed_ref(q_rects, *q_words, top_leaf, leaf_ok, obj_x,
+                                               obj_y, obj_bm, obj_id)
         return ref.fused_verify_ref(q_rects, q_bm, top_leaf, leaf_ok, obj_x, obj_y, obj_bm, obj_id)
     dev = q_rects.device
     if dev.type != "cuda":
@@ -360,16 +423,26 @@ def fused_gather_verify(
         raise ValueError("empty leaf bank")
     ids = torch.empty((M, T * OBJ), dtype=torch.int32, device=dev)
     kwv = torch.empty((M, T), dtype=torch.int32, device=dev)
-    args = (
-        q_rects.data_ptr(), q_bm.data_ptr(), top_leaf.data_ptr(), leaf_ok.data_ptr(),
-        obj_x.data_ptr(), obj_y.data_ptr(), obj_bm.data_ptr(), obj_id.data_ptr(),
-        ids.data_ptr(), kwv.data_ptr(), M, T, K, OBJ, W,
-    )
+    tail = (top_leaf.data_ptr(), leaf_ok.data_ptr(), obj_x.data_ptr(), obj_y.data_ptr(),
+            obj_bm.data_ptr(), obj_id.data_ptr(), ids.data_ptr(), kwv.data_ptr(),
+            M, T, K, OBJ, W)
     if variant == "vmem":
-        KERNELS["fused_verify_tile"](*args, _tile_queries(W + T), dev.index, _stream(dev))
+        if q_words is None:
+            q_words = (torch.arange(W, dtype=torch.int32, device=dev).expand(M, W).contiguous(),
+                       q_bm)
+        wids, bits = q_words
+        Wp = wids.shape[1]
+        _check("q_wids", wids, torch.int32, (M, Wp), dev)
+        _check("q_bits", bits, torch.int32, (M, Wp), dev)
+        bm = _tile_queries(2 * Wp + 2 * _TILE_SLOTS)
+        if bm * _TILE_SLOTS * OBJ >= 2 ** 31 or -(-T // _TILE_SLOTS) > _MAX_GRID_Y:
+            raise ValueError(f"T={T}, OBJ={OBJ} exceed the query-tile kernel's grid")
+        KERNELS["fused_verify_tile"](q_rects.data_ptr(), wids.data_ptr(), bits.data_ptr(), *tail,
+                                     Wp, bm, _TILE_SLOTS, dev.index, _stream(dev))
     else:
         _check_staged_words(W)
-        KERNELS["fused_verify_slot"](*args, dev.index, _stream(dev))
+        KERNELS["fused_verify_slot"](q_rects.data_ptr(), q_bm.data_ptr(), *tail, dev.index,
+                                     _stream(dev))
     return ids, kwv
 
 

@@ -99,6 +99,23 @@ def knn_filter_ref(
     return torch.where(kw & (f_valid > 0), d2, torch.full_like(d2, float("inf")))
 
 
+def knn_level_dist_ref(
+    q_pts: torch.Tensor,  # (M, 2) f32
+    q_wids: torch.Tensor,  # (M, Wp) i32 -- packed query word ids
+    q_bits: torch.Tensor,  # (M, Wp) i32 -- packed query word values
+    level_mbrs: torch.Tensor,  # (N, 4) f32 -- one level's MBRs
+    level_bms: torch.Tensor,  # (N, W) i32 -- one level's bitmaps
+    frontier: torch.Tensor,  # (M, F) i32 node ids, -1 = empty slot
+) -> torch.Tensor:
+    """``knn_filter_ref`` on the level arrays gathered at the frontier (node
+    ids clamped to ``[0, N-1]``; slots with id -1 invalid), the bitmaps only
+    at the query's packed words. Exact by ``pack_query_words``' argument:
+    ``OR_w (bm & q) == OR_p (bits & gathered)``."""
+    safe = frontier.clamp(0, level_mbrs.shape[0] - 1).long()
+    f_bm = level_bms[safe[:, :, None], q_wids.long()[:, None, :]]  # (M, F, Wp)
+    return knn_filter_ref(q_pts, q_bits, level_mbrs[safe], f_bm, (frontier >= 0).to(torch.int8))
+
+
 def knn_filter_narrow_ref(
     q_pts: torch.Tensor,  # (M, 2) f32
     q_bits: torch.Tensor,  # (M, Wp) i32 -- packed nonzero query words
@@ -136,6 +153,24 @@ def skr_verify_ref(
     return (_in_rect(q_rects, cand_x, cand_y) & kw & (cand_valid > 0)).to(torch.int8)
 
 
+def _fused_verify_gathered(q_rects, q_words, cbm, top_leaf, leaf_ok, obj_x, obj_y, obj_id):
+    """The fused verify on the selected leaves' word plane ``cbm`` (M,
+    T*OBJ, n), already gathered at the n words that ``q_words`` (M, n)
+    holds. Returns ``(ids, kwv)``."""
+    M, T = top_leaf.shape
+    K, OBJ = obj_x.shape
+    safe = top_leaf.clamp(0, K - 1).long()
+    cx = obj_x[safe].reshape(M, -1)
+    cy = obj_y[safe].reshape(M, -1)
+    cid = obj_id[safe].reshape(M, -1)
+    cval = (cid >= 0) & (leaf_ok > 0).repeat_interleave(OBJ, dim=1)
+    match = skr_verify_ref(q_rects, q_words, cx, cy, cbm, cval.to(torch.int8))
+    ids = torch.where(match > 0, cid, torch.full_like(cid, -1))
+    kw = ((cbm & q_words[:, None, :]) != 0).any(dim=-1)
+    kwv = (kw & cval).reshape(M, T, OBJ).sum(dim=2, dtype=torch.int32)
+    return ids, kwv
+
+
 def fused_verify_ref(
     q_rects: torch.Tensor,  # (M, 4) f32
     q_bm: torch.Tensor,  # (M, W) i32
@@ -151,18 +186,33 @@ def fused_verify_ref(
     ``fused_verify_compact_ref`` does: kwv counts keyword-matching valid
     candidates per slot, inside the rectangle or not."""
     M, T = top_leaf.shape
+    safe = top_leaf.clamp(0, obj_x.shape[0] - 1).long()
+    cbm = obj_bm[safe].reshape(M, -1, obj_bm.shape[2])
+    return _fused_verify_gathered(q_rects, q_bm, cbm, top_leaf, leaf_ok, obj_x, obj_y, obj_id)
+
+
+def fused_verify_packed_ref(
+    q_rects: torch.Tensor,  # (M, 4) f32
+    q_wids: torch.Tensor,  # (M, Wp) i32 -- packed query word ids
+    q_bits: torch.Tensor,  # (M, Wp) i32 -- packed query word values
+    top_leaf: torch.Tensor,  # (M, T) int32 selected leaf ids
+    leaf_ok: torch.Tensor,  # (M, T) int8
+    obj_x: torch.Tensor,  # (K, OBJ) f32 leaf object bank
+    obj_y: torch.Tensor,  # (K, OBJ) f32
+    obj_bm: torch.Tensor,  # (K, OBJ, W) i32 full-width bitmap slab
+    obj_id: torch.Tensor,  # (K, OBJ) int32, -1 pad
+):
+    """``fused_verify_ref`` with the selected blocks' bitmaps read only at
+    each query's packed words (``pack_query_words``): equal to it on the
+    full-width bitmap the packing came from."""
+    M, T = top_leaf.shape
     K, OBJ = obj_x.shape
     safe = top_leaf.clamp(0, K - 1).long()
-    cx = obj_x[safe].reshape(M, -1)
-    cy = obj_y[safe].reshape(M, -1)
-    cbm = obj_bm[safe].reshape(M, T * OBJ, -1)
-    cid = obj_id[safe].reshape(M, -1)
-    cval = (cid >= 0) & (leaf_ok > 0).repeat_interleave(OBJ, dim=1)
-    match = skr_verify_ref(q_rects, q_bm, cx, cy, cbm, cval.to(torch.int8))
-    ids = torch.where(match > 0, cid, torch.full_like(cid, -1))
-    kw = ((cbm & q_bm[:, None, :]) != 0).any(dim=-1)
-    kwv = (kw & cval).reshape(M, T, OBJ).sum(dim=2, dtype=torch.int32)
-    return ids, kwv
+    objs = torch.arange(OBJ, device=obj_bm.device)
+    cbm = obj_bm[safe[:, :, None, None], objs[None, None, :, None],
+                 q_wids.long()[:, None, None, :]]  # (M, T, OBJ, Wp)
+    return _fused_verify_gathered(q_rects, q_bits, cbm.reshape(M, T * OBJ, -1), top_leaf,
+                                  leaf_ok, obj_x, obj_y, obj_id)
 
 
 def skr_verify_compact_ref(

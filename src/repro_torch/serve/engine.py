@@ -4,7 +4,8 @@ The port of the JAX package's ``serve/engine.py`` frontier paths. SKR
 (``retrieve``):
 
 1. ``pack_query_words`` packs each query bitmap to its nonzero words on the
-   host (the batch's bitmaps are there before the descent starts).
+   host (the batch's bitmaps are there before the descent starts), for the
+   narrow descent and the full-width fused verify's query-tile launch.
 2. ``_descend_frontier``: each query carries a padded int32 frontier of
    candidate node ids. Per level, ``_filter_level`` gathers the frontier's
    int16 MBR rank codes and packed word planes and runs the
@@ -21,17 +22,19 @@ The port of the JAX package's ``serve/engine.py`` frontier paths. SKR
    (``fused=None``) one fused gather+verify kernel runs on the compact leaf
    bank (query words remapped into each leaf's vocabulary), or on the
    full-width bank for ``compact=False`` or a snapshot without a compact
-   bank. ``fused=False`` gathers the candidates first and runs the unfused
+   bank (its query-tile launch reading each row only at the query's packed
+   words). ``fused=False`` gathers the candidates first and runs the unfused
    ``skr_verify_compact`` / ``skr_verify`` kernels (the A/B baseline).
 
 Boolean kNN (``retrieve_knn``) is a distance-bounded frontier descent:
 a beam-1 probe descends greedily to one leaf and seeds a padded top-kb
 buffer of (dist^2, object id) pairs; the bounded sweep runs the same
-frontier machinery with the ``knn_filter_narrow`` (or, on the f32 descent,
-``knn_filter``) kernel and prunes slots whose squared MBR min-distance
-exceeds the current k-th best; the surviving leaves are verified in
-ascending (distance, leaf id) chunks of four, re-tightening the bound
-after each chunk. The reference runs that chunk loop as one ``lax.scan``;
+frontier machinery with the ``knn_filter_narrow`` kernel (or, on the f32
+descent, ``knn_level_dist``, which reads the level's MBRs and its node
+words at the query's packed words itself) and prunes slots whose squared
+MBR min-distance exceeds the current k-th best; the surviving leaves are
+verified in ascending (distance, leaf id) chunks of four, re-tightening
+the bound after each chunk. The reference runs that chunk loop as one ``lax.scan``;
 here it is a Python loop of tensor operations.
 
 Live updates: both paths take an optional ``delta`` (serve/delta.py
@@ -96,34 +99,39 @@ def _level_arrays(snap: IndexSnapshot, delta: Optional[DeltaBuffer], li: int):
 
 
 # ------------------------------------------------------------ frontier steps
-def _gather_level(snap: IndexSnapshot, li: int, frontier, words, delta):
-    """The per-slot operands of level ``li`` at the frontier: the narrow
-    planes' int16 codes and packed word planes (``words=(wids, bits)``),
-    or the f32 MBRs and all W words (``words=None``; the delta's widened
-    arrays when one is live). Returns the (codes or MBRs, word plane, int8
-    validity, clamped frontier)."""
-    valid = frontier >= 0
-    n = snap.level_mbrs[li].shape[0]
-    safe = frontier.clamp(0, n - 1).long()
-    if words is None:
+def _clamped(snap: IndexSnapshot, li: int, frontier):
+    """The frontier's node ids clamped into level ``li`` (int64, for
+    gathers) and the mask of its real (non -1) slots."""
+    return frontier.clamp(0, snap.level_mbrs[li].shape[0] - 1).long(), frontier >= 0
+
+
+def _gather_level(snap: IndexSnapshot, li: int, safe, words, narrow: bool, delta):
+    """The per-slot operands of level ``li`` at the clamped frontier
+    ``safe``: the narrow planes' int16 codes and the node words at the
+    packed query word ids (``words=(wids, bits)``), or, on the f32 descent
+    (``narrow=False``), the f32 MBRs and all W words (the delta's widened
+    arrays when one is live)."""
+    if not narrow:
         mbrs, bms = _level_arrays(snap, delta, li)
-        return mbrs[safe], bms[safe], valid.to(torch.int8), safe
-    wids = words[0]
-    f_bm = snap.level_bms[li][safe[:, :, None], wids[:, None, :]]  # (M, F, Wp)
-    return snap.level_mbr_codes[li][safe], f_bm, valid.to(torch.int8), safe
+        return mbrs[safe], bms[safe]
+    f_bm = snap.level_bms[li][safe[:, :, None], words[0].long()[:, None, :]]  # (M, F, Wp)
+    return snap.level_mbr_codes[li][safe], f_bm
 
 
-def _filter_level(snap: IndexSnapshot, li: int, q_rects, q_bm, words, frontier, delta):
+def _filter_level(snap: IndexSnapshot, li: int, q_rects, q_bm, words, narrow: bool, frontier,
+                  delta):
     """Run the frontier kernel on level ``li``: ``frontier_narrow`` on the
     narrow planes, ``frontier_filter`` on the f32 descent (identical
     survivors). Returns the (M, F) survivors, the per-query count of real
     slots, and the clamped frontier used for the gathers."""
-    planes, f_bm, valid, safe = _gather_level(snap, li, frontier, words, delta)
-    if words is None:
-        surv = ops.filter_frontier(q_rects, q_bm, planes, f_bm, valid)
+    safe, valid = _clamped(snap, li, frontier)
+    planes, f_bm = _gather_level(snap, li, safe, words, narrow, delta)
+    valid8 = valid.to(torch.int8)
+    if not narrow:
+        surv = ops.filter_frontier(q_rects, q_bm, planes, f_bm, valid8)
     else:
         surv = ops.filter_frontier_narrow(
-            q_rects, words[1], planes, f_bm, valid, snap.level_dict_x[li], snap.level_dict_y[li],
+            q_rects, words[1], planes, f_bm, valid8, snap.level_dict_x[li], snap.level_dict_y[li],
         )
     return surv, valid.sum(dim=1, dtype=torch.int32), safe
 
@@ -169,9 +177,11 @@ def _root_frontier(snap: IndexSnapshot, M: int) -> torch.Tensor:
     return root[None, :].expand(M, -1).contiguous()
 
 
-def _descend_frontier(snap: IndexSnapshot, q_rects, q_bm, words, plan: ExecutionPlan, delta):
-    """The range-query frontier descent (narrow planes, or the f32 descent
-    when ``words`` is None; ``delta`` swaps in the widened level arrays).
+def _descend_frontier(snap: IndexSnapshot, q_rects, q_bm, words, narrow: bool,
+                      plan: ExecutionPlan, delta):
+    """The range-query frontier descent (on the narrow planes, or the f32
+    descent for ``narrow=False``; ``delta`` swaps in the widened level
+    arrays).
 
     ``plan.widths=None``: exact mode -- bucket each next frontier on the
     batch's actual occupancy, one host sync per level. ``plan.widths=(...)``:
@@ -186,7 +196,8 @@ def _descend_frontier(snap: IndexSnapshot, q_rects, q_bm, words, plan: Execution
     surv = None
     for li in range(snap.n_levels):
         used.append(int(frontier.shape[1]))
-        surv, n_valid, safe = _filter_level(snap, li, q_rects, q_bm, words, frontier, delta)
+        surv, n_valid, safe = _filter_level(snap, li, q_rects, q_bm, words, narrow, frontier,
+                                            delta)
         nodes_checked = nodes_checked + n_valid
         if li < snap.n_levels - 1:
             need = torch.where(surv > 0, snap.child_counts[li][safe], 0).sum(dim=1)
@@ -253,7 +264,8 @@ def _verify_delta_slots(q_rects, q_bm, top_leaf, leaf_ok, delta: DeltaBuffer, q_
 
 
 def _verify_leaves(
-    snap: IndexSnapshot, q_rects, q_bm, top_leaf, leaf_ok, delta, fused, variant: str, compact,
+    snap: IndexSnapshot, q_rects, q_bm, words, top_leaf, leaf_ok, delta, fused, variant: str,
+    compact,
 ):
     """Verify the selected leaves; returns ``(ids, counts, verified)``.
 
@@ -267,7 +279,9 @@ def _verify_leaves(
     full width the concatenated [base, insert] candidates through
     ``skr_verify`` in one. Candidate order is [base blocks T*OBJ, insert
     slots T*B], leaf-slot-major, in every combination, and every
-    combination gives identical outputs.
+    combination gives identical outputs. ``words`` are the batch's packed
+    query words, which the full-width fused verify's query-tile launch
+    reads rows at (None where it does not run: ``_tile_reads_words``).
     """
     cbank = _snap_cbank(snap, compact)
     q_cbm = q_sig = None
@@ -288,6 +302,7 @@ def _verify_leaves(
             ids, kwv = ops.fused_gather_verify(
                 q_rects, q_bm, top_leaf, ok8,
                 snap.leaf_obj_x, snap.leaf_obj_y, snap.leaf_obj_bm, base_id, variant=variant,
+                q_words=words,
             )
         counts = _count(ids >= 0)
         verified = kwv.sum(dim=1, dtype=torch.int32)
@@ -332,27 +347,42 @@ def _verify_leaves(
     return ids, counts, verified
 
 
-def _query_tensors(snap: IndexSnapshot, q, q_bm, quantized: Optional[bool], delta):
+def _query_tensors(snap: IndexSnapshot, q, q_bm, pack: bool):
     """The batch on the snapshot's device: ``q`` (rects or points) as f32,
-    the bitmap as its int32 view, and the packed words ``(wids, bits)`` of
-    the narrow descent (None on the f32 descent)."""
+    the bitmap as its int32 view, and with ``pack`` its packed words
+    ``(wids, bits)`` as (M, Wp) int32 (else None). Packing runs on the host,
+    where the bitmaps are before the descent starts, because Wp sets a
+    shape; it costs host time, so only a batch whose kernels read the packed
+    words packs them."""
     dev = snap.device
     words = ops.host_words(q_bm)
     if not isinstance(q, torch.Tensor):
         q = torch.from_numpy(np.ascontiguousarray(q, np.float32))
     q = q.to(dev, torch.float32).contiguous()
     packed = None
-    # the narrow descent unless the caller forces the f32 one, the snapshot
-    # has no narrow planes, or a live delta widened MBRs past the dictionaries
-    if quantized is not False and delta is None and snap.has_narrow_planes:
+    if pack:
         wids, bits = ops.pack_query_words(words)
-        packed = (to_device(wids, dev).long(), to_device(bits, dev))
+        packed = (to_device(wids, dev), to_device(bits, dev))
     return q, to_device(words, dev), packed
+
+
+def _narrow_descent(snap: IndexSnapshot, quantized: Optional[bool], delta) -> bool:
+    """Whether the descent runs on the narrow planes: unless the caller
+    forces the f32 one, the snapshot has no narrow planes, or a live delta
+    widened MBRs past the dictionaries."""
+    return quantized is not False and delta is None and snap.has_narrow_planes
+
+
+def _tile_reads_words(snap: IndexSnapshot, fused, variant: str, compact) -> bool:
+    """Whether verification runs the full-width fused verify's query-tile
+    launch, the one verify kernel that reads the packed query words."""
+    return fused is not False and variant == "vmem" and _snap_cbank(snap, compact) is None
 
 
 # ---------------------------------------------------------------- dense path
 def _retrieve_dense(
-    snap: IndexSnapshot, q_rects, q_bm, max_leaves: int, delta, fused, variant: str, compact,
+    snap: IndexSnapshot, q_rects, q_bm, words, max_leaves: int, delta, fused, variant: str,
+    compact,
 ) -> Dict[str, np.ndarray]:
     """The dense A/B scan: ``filter_pairs`` on every whole level, hits
     pushed down to the children through the dense child matrices, up to
@@ -381,7 +411,7 @@ def _retrieve_dense(
     leaf_ok = top_val > 0
     overflow = (score.sum(dim=1, dtype=torch.int32) - take).clamp_min(0)
     ids, counts, verified = _verify_leaves(
-        snap, q_rects, q_bm, top_leaf, leaf_ok, delta, fused, variant, compact
+        snap, q_rects, q_bm, words, top_leaf, leaf_ok, delta, fused, variant, compact
     )
     return dict(
         ids=ids.cpu().numpy(),
@@ -433,14 +463,22 @@ def retrieve(
     if variant not in ops.FUSED_VARIANTS:
         raise ValueError(f"unknown fused-verify variant: {variant!r}")
     if mode == "dense":
-        q_rects, q_bm_dev, _ = _query_tensors(snap, q_rects, q_bm, False, delta)
-        return _retrieve_dense(snap, q_rects, q_bm_dev, max_leaves, delta, fused, variant, compact)
-    q_rects, q_bm_dev, words = _query_tensors(snap, q_rects, q_bm, quantized, delta)
+        q_rects, q_bm_dev, words = _query_tensors(
+            snap, q_rects, q_bm, _tile_reads_words(snap, fused, variant, compact)
+        )
+        return _retrieve_dense(snap, q_rects, q_bm_dev, words, max_leaves, delta, fused, variant,
+                               compact)
+    narrow = _narrow_descent(snap, quantized, delta)
+    q_rects, q_bm_dev, words = _query_tensors(
+        snap, q_rects, q_bm, narrow or _tile_reads_words(snap, fused, variant, compact)
+    )
     M = q_rects.shape[0]
 
     cache = plan_cache if plan_cache is not None else default_plan_cache(snap)
     plan = cache.plan("skr", snap.n_levels - 1)
-    descend = lambda p: _descend_frontier(snap, q_rects, q_bm_dev, words, p, delta)  # noqa: E731
+    descend = lambda p: _descend_frontier(  # noqa: E731
+        snap, q_rects, q_bm_dev, words, narrow, p, delta
+    )
     out = descend(plan)
     retried = cache.check_and_retry(plan, out[-1], descend)
     frontier, surv, nodes_checked, used, _ = retried or out
@@ -449,7 +487,7 @@ def retrieve(
     take = min(max_leaves, n_leaf, int(frontier.shape[1]))
     top_leaf, leaf_ok, overflow = _select_leaves_frontier(frontier, surv, take, n_leaf)
     ids, counts, verified = _verify_leaves(
-        snap, q_rects, q_bm_dev, top_leaf, leaf_ok, delta, fused, variant, compact
+        snap, q_rects, q_bm_dev, words, top_leaf, leaf_ok, delta, fused, variant, compact
     )
     return dict(
         ids=ids.cpu().numpy(),
@@ -507,19 +545,23 @@ def _merge_topk(top_d, top_id, cand_d, cand_id, kb: int):
     return d_s[:, :kb], id_s[:, :kb]
 
 
-def _knn_dist_level(snap: IndexSnapshot, li: int, points, q_bm, words, frontier, delta):
+def _knn_dist_level(snap: IndexSnapshot, li: int, points, words, narrow: bool, frontier, delta):
     """Squared MBR min-distances of level ``li`` at the frontier:
-    ``knn_filter_narrow`` on the narrow planes, ``knn_filter`` on the f32
-    descent (bit-identical distances; the delta's widened arrays when one is
-    live). Returns the (M, F) distances, the per-query count of real slots,
-    and the clamped frontier."""
-    planes, f_bm, valid, safe = _gather_level(snap, li, frontier, words, delta)
-    if words is None:
-        d = ops.knn_frontier_dist(points, q_bm, planes, f_bm, valid)
-    else:
+    ``knn_filter_narrow`` on the gathered narrow planes, or on the f32
+    descent ``knn_level_dist``, which reads the level arrays (the delta's
+    widened ones when one is live) at the frontier itself, so no (M, F, W)
+    plane is made (bit-identical distances). Returns the (M, F) distances,
+    the per-query count of real slots, and the clamped frontier."""
+    safe, valid = _clamped(snap, li, frontier)
+    if narrow:
+        codes, f_bm = _gather_level(snap, li, safe, words, narrow, delta)
         d = ops.knn_frontier_dist_narrow(
-            points, words[1], planes, f_bm, valid, snap.level_dict_x[li], snap.level_dict_y[li],
+            points, words[1], codes, f_bm, valid.to(torch.int8), snap.level_dict_x[li],
+            snap.level_dict_y[li],
         )
+    else:
+        mbrs, bms = _level_arrays(snap, delta, li)
+        d = ops.knn_level_dist(points, words[0], words[1], mbrs, bms, frontier)
     return d, valid.sum(dim=1, dtype=torch.int32), safe
 
 
@@ -658,16 +700,17 @@ def _knn_leaf_phase(
 
 
 def _descend_knn(
-    snap: IndexSnapshot, points, q_bm, words, delta, cbank, k: int, kb: int,
+    snap: IndexSnapshot, points, q_bm, words, narrow: bool, delta, cbank, k: int, kb: int,
     plan: ExecutionPlan, knn_dtype: str,
 ):
     """Distance-bounded kNN descent (probe -> bounded sweep -> leaf chunks).
 
     Width discipline is ``_descend_frontier``'s: exact mode syncs per level,
     cached mode runs sync-free and returns device maxima for the caller's
-    batched overflow check. ``words`` switches the level filters to the
+    batched overflow check. ``narrow`` switches the level filters to the
     narrow planes (bit-identical distances; leaf scoring stays on the exact
-    f32 object bank either way). ``delta`` swaps in the widened level
+    f32 object bank either way); both read node words at the packed query
+    words ``words``. ``delta`` swaps in the widened level
     arrays and merges insert slots and deletes into the probe and the leaf
     chunks. ``knn_dtype="bf16"`` rounds the sweep's
     node distances to bf16 before pruning and tracks ``risk``, the minimum
@@ -678,7 +721,7 @@ def _descend_knn(
     dev = snap.device
 
     def dist_level(li, fr):
-        return _knn_dist_level(snap, li, points, q_bm, words, fr, delta)
+        return _knn_dist_level(snap, li, points, words, narrow, fr, delta)
 
     top_d = torch.full((M, kb), float("inf"), device=dev)
     top_id = torch.full((M, kb), _ID_SENTINEL, dtype=torch.int32, device=dev)
@@ -771,7 +814,9 @@ def retrieve_knn(
     if knn_dtype not in KNN_DTYPES:
         raise ValueError(f"knn_dtype must be 'f32' or 'bf16', got {knn_dtype!r}")
     _check_delta(snap, delta)
-    points_t, q_bm_dev, words = _query_tensors(snap, points, q_bm, quantized, delta)
+    # both descents read the node words at the packed query words
+    points_t, q_bm_dev, words = _query_tensors(snap, points, q_bm, True)
+    narrow = _narrow_descent(snap, quantized, delta)
     M = int(points_t.shape[0])
     if k <= 0:
         z = np.zeros(M, np.int64)
@@ -785,7 +830,7 @@ def retrieve_knn(
     cbank = _snap_cbank(snap, compact)
     plan = cache.plan("knn", snap.n_levels - 1)
     descend = lambda p: _descend_knn(  # noqa: E731
-        snap, points_t, q_bm_dev, words, delta, cbank, k, kb, p, knn_dtype
+        snap, points_t, q_bm_dev, words, narrow, delta, cbank, k, kb, p, knn_dtype
     )
     out = descend(plan)
     retried = cache.check_and_retry(plan, out[-1], descend)

@@ -155,6 +155,68 @@ def _points_near(rng, rects, n):
     return x, y
 
 
+# ------------------------------------- packed query words (pack_query_words)
+def term_bitmaps(rng, n, w, pool, lo, hi):
+    """(n, w) u32 bitmaps, each row with ``lo`` to ``hi - 1`` terms drawn
+    from ``pool`` (term ids below 32 * w): sparse rows that share terms."""
+    bm = np.zeros((n, w), np.uint32)
+    for r in range(n):
+        picks = rng.choice(pool, size=min(int(rng.integers(lo, hi)), pool.size), replace=False)
+        np.bitwise_or.at(bm[r], picks >> 5, np.uint32(1) << (picks & 31).astype(np.uint32))
+    return bm
+
+
+def packed_words(q_bm, device="cpu"):
+    """The (wids, bits) int32 tensors ``pack_query_words`` makes of ``q_bm``."""
+    wids, bits = ops.pack_query_words(q_bm)
+    return to_torch(wids, device), to_torch(bits, device)
+
+
+LEVEL_ARGS = ("q_pts", "q_wids", "q_bits", "level_mbrs", "level_bms", "frontier")
+
+
+def level_case(rng, m, f, n, w, q_terms=None):
+    """``knn_level_dist`` operands: one level of ``n`` nodes with sparse
+    bitmaps over a shared term pool, an (m, f) frontier of node ids with
+    -1 pads and dirty ids past n - 1 (clamped), and query points with the
+    queries' words packed. Queries carry random dense words, or up to
+    ``q_terms`` pool terms each (MIX-like: Wp below W at wide W). With more
+    than one query, the first has no nonzero word and the last a frontier
+    of padding only."""
+    pool = rng.choice(32 * w, size=min(32 * w, 48), replace=False)
+    q_bm = words(rng, m, w) if q_terms is None else term_bitmaps(rng, m, w, pool, 1, q_terms + 1)
+    frontier = rng.integers(0, n + 3, (m, f)).astype(np.int32)
+    frontier[rng.uniform(0, 1, (m, f)) < 0.3] = -1
+    if m > 1:
+        q_bm[0] = 0
+        frontier[-1] = -1
+    wids, bits = ops.pack_query_words(q_bm)
+    lo = rng.uniform(0, 1, (n, 2)).astype(np.float32)
+    return dict(
+        q_pts=rng.uniform(0, 1, (m, 2)).astype(np.float32), q_bm=q_bm, q_wids=wids, q_bits=bits,
+        level_mbrs=np.concatenate([lo, lo + rng.uniform(0, 0.3, (n, 2)).astype(np.float32)], 1),
+        level_bms=term_bitmaps(rng, n, w, pool, 0, 7), frontier=frontier,
+    )
+
+
+def gathered_level(case):
+    """The TPU kernel's operands ``(q_pts, q_bm, f_mbrs, f_bm, f_valid)`` of
+    a ``level_case``: the level arrays gathered at the clamped frontier."""
+    fr = case["frontier"]
+    safe = np.clip(fr, 0, case["level_mbrs"].shape[0] - 1)
+    return (case["q_pts"], case["q_bm"], case["level_mbrs"][safe], case["level_bms"][safe],
+            (fr >= 0).astype(np.int8))
+
+
+LEVEL_SWEEP = [  # m, f, n, w, q_terms
+    (1, 1, 1, 1, None),       # degenerate: one slot, W = Wp = 1
+    (5, 37, 23, 3, None),     # nothing a multiple of a warp; Wp = W = 3
+    (9, 130, 300, 40, None),  # dense query words: Wp = 32 past the 4-word bucket
+    (33, 257, 64, 256, 5),    # MIX-like at the osm width: Wp = 8 of W = 256
+    (4, 64, 50, 8, 2),        # two terms a query: Wp = 4 with zero padding words
+]
+
+
 VERIFY_ARGS = ("q_rects", "q_bm", "cand_x", "cand_y", "cand_bm", "cand_valid")
 
 

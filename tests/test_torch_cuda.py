@@ -33,9 +33,10 @@ from repro_torch.serve.subscribe import SubscriptionIndex  # noqa: E402
 
 from test_torch_cases import (  # noqa: E402
     CDF_SWEEP, FILTER_ARGS, FILTER_SWEEP, FRONTIER_ARGS, FRONTIER_SWEEP, FUSED_SWEEP, KNN_ARGS,
-    SUB_SWEEP, VERIFY_ARGS, VERIFY_COMPACT_ARGS, VERIFY_COMPACT_SWEEP, VERIFY_SWEEP, cdf_params,
-    filter_case, frontier_case, fused_args, fused_case, fused_wide_args, knn_case, rand_kw,
-    rand_sub_rect, sub_case, to_torch, verify_case, verify_compact_case, wide_args,
+    LEVEL_ARGS, LEVEL_SWEEP, SUB_SWEEP, VERIFY_ARGS, VERIFY_COMPACT_ARGS, VERIFY_COMPACT_SWEEP,
+    VERIFY_SWEEP, cdf_params, filter_case, frontier_case, fused_args, fused_case,
+    fused_wide_args, knn_case, level_case, packed_words, rand_kw, rand_sub_rect, sub_case,
+    term_bitmaps, to_torch, verify_case, verify_compact_case, wide_args,
 )
 
 pytestmark = pytest.mark.cuda
@@ -94,25 +95,70 @@ def test_knn_filter_narrow_kernel_matches_plain(cuda, m, f, w):
         assert torch.isinf(got[-1]).all()  # the all-invalid row
 
 
-_WIDE = {
-    "frontier_filter": ("q_rects", ops.filter_frontier, ref.frontier_filter_ref),
-    "knn_filter": ("q_pts", ops.knn_frontier_dist, ref.knn_filter_ref),
+_WIDE = {  # query operand, wrapper, plain version, the kernel it launches
+    "frontier_filter": ("q_rects", ops.filter_frontier, ref.frontier_filter_ref,
+                        "frontier_filter"),
+    "knn_filter": ("q_pts", ops.knn_frontier_dist, ref.knn_filter_ref, "knn_level_dist"),
 }
 
 
 @pytest.mark.parametrize("kernel", list(_WIDE))
 @pytest.mark.parametrize("m,f,w", FRONTIER_SWEEP + [(3, 33, 256), (256, 256, 256)])
 def test_full_width_kernels_match_plain(cuda, kernel, m, f, w):
-    """The f32 descent's kernels (one warp per slot) against their plain
-    versions, W = 1 to the osm profile's 256 words."""
-    q, wrapper, plain = _WIDE[kernel]
+    """The f32 descent's filters on gathered planes against their plain
+    versions, W = 1 to the osm profile's 256 words: the frontier filter (one
+    warp per slot), and knn_frontier_dist through knn_level_dist's kernel
+    (the planes as one level of M*F nodes, all W query words)."""
+    q, wrapper, plain, name = _WIDE[kernel]
     case, wide = knn_case(np.random.default_rng(m * 7919 + f * 31 + w + 2), m, f, w)
     args = [to_torch(a, cuda) for a in wide_args(case, wide, q)]
-    before = _build.KERNELS[kernel].launches
+    before = _build.KERNELS[name].launches
     got = wrapper(*args)
     torch.cuda.synchronize()
-    assert _build.KERNELS[kernel].launches == before + 1
+    assert _build.KERNELS[name].launches == before + 1
     _equal(got, plain(*args))
+
+
+@pytest.mark.parametrize("m,f,n,w,q_terms", LEVEL_SWEEP + [
+    (37, 131, 53, 3, None),       # M and F off every block size; Wp = W
+    (3, 257, 9, 1, None),         # W = Wp = 1
+    (256, 2048, 1000, 256, 5),    # MIX-like queries at the osm width: Wp = 8
+    (64, 8192, 7832, 256, 5),     # the leaf level's frontier width
+])
+def test_knn_level_dist_kernel_matches_plain(cuda, m, f, n, w, q_terms):
+    """The f32 kNN descent's filter (one thread per slot, the gather inside
+    the kernel, the query's packed words only) against its plain version:
+    padding and dirty ids, a query with no nonzero word, a frontier of
+    padding only, and an all-padding batch."""
+    case = level_case(np.random.default_rng(m * 7919 + f * 31 + n + w), m, f, n, w, q_terms)
+    args = [to_torch(case[k], cuda) for k in LEVEL_ARGS]
+    before = _build.KERNELS["knn_level_dist"].launches
+    got = ops.knn_level_dist(*args)
+    torch.cuda.synchronize()
+    assert _build.KERNELS["knn_level_dist"].launches == before + 1
+    _equal(got, ref.knn_level_dist_ref(*args))
+    if m > 1:
+        assert torch.isinf(got[0]).all() and torch.isinf(got[-1]).all()
+        assert torch.isfinite(got).any()
+    args[5] = torch.full_like(args[5], -1)
+    assert torch.isinf(ops.knn_level_dist(*args)).all()
+
+
+def test_knn_level_dist_checks_operands(cuda):
+    case = level_case(np.random.default_rng(4), 4, 9, 5, 2)
+    args = [to_torch(case[k], cuda) for k in LEVEL_ARGS]
+    bad = list(args)
+    bad[5] = args[5].long()
+    with pytest.raises(TypeError, match="frontier"):
+        ops.knn_level_dist(*bad)
+    bad = list(args)
+    bad[2] = args[2][:, :1].contiguous()
+    with pytest.raises(ValueError, match="q_bits"):
+        ops.knn_level_dist(*bad)
+    bad = list(args)
+    bad[4] = args[4].cpu()
+    with pytest.raises(ValueError, match="level_bms"):
+        ops.knn_level_dist(*bad)
 
 
 @pytest.mark.parametrize("variant", ["vmem", "prefetch", "auto"])
@@ -128,6 +174,37 @@ def test_full_width_fused_verify_kernel_matches_plain(cuda, variant, m, t, k, ob
     torch.cuda.synchronize()
     assert _build.KERNELS[name].launches == before + 1
     _equal(got, ref.fused_verify_ref(*args))
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("m,t,k,obj,w,max_kw", FUSED_SWEEP + [(13, 5, 11, 37, 3, 6),
+                                                           (9, 7, 13, 45, 40, 6),
+                                                           (64, 16, 40, 128, 256, 6),
+                                                           (1024, 32, 300, 128, 256, 6)])
+def test_fused_verify_tile_on_packed_words_matches_plain(cuda, m, t, k, obj, w, max_kw, sparse):
+    """The redesigned query-tile launch (query tiles x slot chunks, one
+    thread per object, rows read at the packed words) against its plain
+    versions: dirty leaf ids, invalid slots, a NEVER_RECT query, a query
+    with no nonzero word, Wp = 1 up to Wp = W, T and OBJ off the tiles."""
+    rng = np.random.default_rng(m * 613 + t * 37 + k * 5 + obj + w + 17)
+    case = fused_case(rng, m, t, k, obj, w, max_kw)
+    if sparse:  # up to three of the bank's terms a query: Wp well below W
+        held = np.flatnonzero(np.unpackbits(np.bitwise_or.reduce(
+            case["obj_bm"].reshape(-1, w), axis=0).view(np.uint8), bitorder="little"))
+        case["q_bm"] = term_bitmaps(rng, m, w, held, 1, 4)
+    if m > 1:
+        case["q_bm"][0] = 0
+        case["q_rects"][-1] = ops.NEVER_RECT
+    args = fused_wide_args(case, cuda)
+    q_words = packed_words(case["q_bm"], cuda)
+    before = _build.KERNELS["fused_verify_tile"].launches
+    got = ops.fused_gather_verify(*args, variant="vmem", q_words=q_words)
+    torch.cuda.synchronize()
+    assert _build.KERNELS["fused_verify_tile"].launches == before + 1
+    _equal(got, ref.fused_verify_packed_ref(args[0], *q_words, *args[2:]))
+    _equal(got, ref.fused_verify_ref(*args))
+    if m > 1:
+        assert not got[1][0].any() and not (got[0][-1] >= 0).any()
 
 
 @pytest.mark.parametrize("m,c,w", VERIFY_SWEEP + [(64, 4352, 256)])
@@ -182,6 +259,12 @@ def test_verify_wrappers_check_operands(cuda):
     fargs[1] = fargs[1][:, :1].contiguous()
     with pytest.raises(ValueError, match="obj_bm"):
         ops.fused_gather_verify(*fargs)
+    fargs = list(fused_wide_args(fcase, cuda))
+    wids, bits = packed_words(fcase["q_bm"], cuda)
+    with pytest.raises(ValueError, match="q_bits"):
+        ops.fused_gather_verify(*fargs, variant="vmem", q_words=(wids, bits[:1].contiguous()))
+    with pytest.raises(TypeError, match="q_wids"):
+        ops.fused_gather_verify(*fargs, variant="vmem", q_words=(wids.long(), bits))
 
 
 def test_wrappers_check_operands(cuda):
@@ -243,8 +326,10 @@ def test_knn_engine_on_the_card_matches_the_plain_path(cuda):
     _build.reset_launch_counts()
     card = serve_knn_batch(snap, points, wl.kw_bitmap, 10, plan_cache=PlanCache())
     assert _build.launch_counts()["knn_filter_narrow"] >= 2 * index.height
+    narrow = _build.launch_counts()["knn_filter_narrow"]
     wide = retrieve_knn(snap, points, wl.kw_bitmap, 10, plan_cache=PlanCache(), quantized=False)
-    assert _build.launch_counts()["knn_filter"] >= 2 * index.height
+    assert _build.launch_counts()["knn_level_dist"] >= 2 * index.height
+    assert _build.launch_counts()["knn_filter_narrow"] == narrow
     for k in host:
         assert card[k].dtype == host[k].dtype
         np.testing.assert_array_equal(card[k], host[k], err_msg=k)
@@ -308,7 +393,7 @@ def test_delta_engine_on_the_card_matches_the_plain_path(cuda, own_leaf_terms):
     _build.reset_launch_counts()
     card = serve_knn_batch(snap, points, wl.kw_bitmap, 10, plan_cache=PlanCache(),
                            delta=log.buffer)
-    assert _build.launch_counts()["knn_filter"] >= 2 * index.height
+    assert _build.launch_counts()["knn_level_dist"] >= 2 * index.height
     assert _build.launch_counts()["knn_filter_narrow"] == 0
     for k in host:
         np.testing.assert_array_equal(card[k], host[k], err_msg=k)
