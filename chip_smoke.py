@@ -22,7 +22,9 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    ids / ``nodes_checked`` / ``verified`` against the host oracle
    ``execute_serial`` on 256 queries with no overflow;
 4. kNN main path: serves the batches through ``serve_knn_batch`` at k = 10
-   (counts zeroed before, read after), checks every key against its
+   (counts zeroed before, read after; the narrow descent on
+   ``knn_level_dist_narrow``, with the engine's per-slot gather and the
+   gathered-plane wrapper refused), checks every key against its
    plain-version rerun, ids and ``dist2`` bit for bit against the host
    oracle ``knn_query`` on 256 queries, and the pruning ratio (m * n_leaf /
    leaves verified) above 1; then one batch each at k = 1 and k = 100
@@ -77,9 +79,12 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    the captured shapes (for the unfused verify kernels: the delta's insert
    slots and the knob run) and at ragged edges, and times both (CUDA
    events) beside a bound; then times the (M, F, W) gather the f32 kNN
-   descent no longer makes, and holds ``knn_frontier_dist`` (gathered
-   operands, the same kernel) and the query-tile verify without packed
-   words against their plain versions;
+   descent no longer makes, and holds ``knn_frontier_dist(_narrow)``
+   (gathered operands, the level kernels) and the query-tile verify without
+   packed words against their plain versions; then times the engine's
+   operand gathers (``_gather_level``) at the captured shapes: rows 1 and 4,
+   which run them, and row 7's, which the narrow kNN descent no longer
+   makes;
 12. profiles one warm SKR batch, one warm kNN batch, one warm dense-scan
    batch and one warm SKR batch with log B's delta (``torch.profiler``:
    device busy and idle share, the largest device and host items);
@@ -222,16 +227,15 @@ def needed_words(hit_words, live, q_nonzero):
     return live[..., None] & torch.where(hit_words.any(-1, keepdim=True), first, q_nonzero)
 
 
-def slot_bound(args, narrow: bool, knn: bool):
-    """Bytes and operations of a frontier (``knn=False``) or kNN filter, on
-    the narrow planes (codes + dictionaries) or the f32 full-width ones.
+def slot_bound(args, narrow: bool):
+    """Bytes and operations of a frontier filter, on the narrow planes
+    (codes + dictionaries) or the f32 full-width ones.
 
-    For every (query, slot): the valid flag in and the result out (int8
-    survivor or f32 distance). The range filter needs a slot's MBR where the
-    slot is valid and its words where the MBR also meets the rectangle; the
-    kNN filter needs the words of every valid slot and the MBR only where
-    they hit. An MBR is 16 bytes, or 8 bytes of codes plus its distinct
-    dictionary entries. Query operands count for queries that need them."""
+    For every (query, slot): the valid flag in and the int8 survivor out.
+    The filter needs a slot's MBR where the slot is valid and its words
+    where the MBR also meets the rectangle. An MBR is 16 bytes, or 8 bytes
+    of codes plus its distinct dictionary entries. Query operands count for
+    queries that need them."""
     if narrow:
         q, q_words, f_codes, f_bm, f_valid, dict_x, dict_y = args
         c = f_codes.long()
@@ -244,43 +248,38 @@ def slot_bound(args, narrow: bool, knn: bool):
     M, F = f_valid.shape
     valid = f_valid > 0
     hits = (f_bm & q_words[:, None, :]) != 0  # (M, F, W)
-    q_nz = (q_words != 0)[:, None, :]
-    if knn:
-        need = needed_words(hits, valid, q_nz)
-        mbr_slots = valid & hits.any(-1)
-        live_q = mbr_slots.any(1)
-        out_bytes, mbr_ops = 4, 11  # 4 subtractions, 4 max, 2 products, 1 sum
-    else:
-        qr = q[:, None, :]
-        inter = (valid & (qr[..., 0] <= x[..., 1]) & (x[..., 0] <= qr[..., 2])
-                 & (qr[..., 1] <= y[..., 1]) & (y[..., 0] <= qr[..., 3]))
-        need = needed_words(hits, inter, q_nz)
-        mbr_slots = valid
-        live_q = valid.any(1)
-        out_bytes, mbr_ops = 1, 4  # 4 compares
-    n_mbr = int(mbr_slots.sum())
+    qr = q[:, None, :]
+    inter = (valid & (qr[..., 0] <= x[..., 1]) & (x[..., 0] <= qr[..., 2])
+             & (qr[..., 1] <= y[..., 1]) & (y[..., 0] <= qr[..., 3]))
+    need = needed_words(hits, inter, (q_words != 0)[:, None, :])
+    n_mbr = int(valid.sum())
     if narrow:
-        entries = (torch.unique(cx[mbr_slots]).numel() + torch.unique(cy[mbr_slots]).numel())
+        entries = (torch.unique(cx[valid]).numel() + torch.unique(cy[valid]).numel())
         mbr_bytes = n_mbr * 8 + entries * 4
     else:
         mbr_bytes = n_mbr * 16
-    nbytes = (int(live_q.sum()) * q.shape[1] * 4  # rects or points of queries that need them
+    nbytes = (int(valid.any(1).sum()) * 16  # rects of queries that need them
               + int(need.any(1).sum()) * 4  # query words some slot needs
               + M * F  # f_valid
               + mbr_bytes
               + int(need.sum()) * 4  # word-plane words
-              + M * F * out_bytes)  # out
-    ops = M * F + n_mbr * mbr_ops + int(need.sum()) * 2  # valid, MBR math, AND+test
+              + M * F)  # out
+    ops = M * F + n_mbr * 4 + int(need.sum()) * 2  # valid, 4 compares, AND+test
     return nbytes, ops
 
 
-def level_bound(args):
-    """Bytes and operations of ``knn_level_dist``: every frontier id in and
-    every distance out; of a valid slot, the node words at the query's
-    packed words that decide its keyword test (each node word once, however
-    many queries need it), and the node's MBR where it hits; query points
-    and (id, value) word pairs where some slot needs them."""
-    q_pts, wids, bits, mbrs, bms, frontier = args
+def level_bound(args, narrow: bool = False):
+    """Bytes and operations of ``knn_level_dist`` (or, ``narrow``,
+    ``knn_level_dist_narrow``): every frontier id in and every distance
+    out; of a valid slot, the node words at the query's packed words that
+    decide its keyword test (each node word once, however many queries need
+    it), and the node's MBR where it hits -- 16 bytes, or 8 bytes of codes
+    and the distinct dictionary entries they read; query points and (id,
+    value) word pairs where some slot needs them."""
+    if narrow:
+        q_pts, wids, bits, codes, bms, frontier, dict_x, dict_y = args
+    else:
+        q_pts, wids, bits, mbrs, bms, frontier = args
     M, F = frontier.shape
     N, W = bms.shape
     valid = frontier >= 0
@@ -290,10 +289,18 @@ def level_bound(args):
     need = needed_words(hits, valid, (bits != 0)[:, None, :])
     hit = valid & hits.any(-1)
     distinct = lambda idx: torch.unique(idx).numel()  # noqa: E731
+    hit_nodes = torch.unique(node[hit])
+    if narrow:
+        c = codes[hit_nodes].long()
+        mbr_bytes = (hit_nodes.numel() * 8
+                     + distinct(c[:, 0::2].clamp(0, dict_x.numel() - 1)) * 4
+                     + distinct(c[:, 1::2].clamp(0, dict_y.numel() - 1)) * 4)
+    else:
+        mbr_bytes = hit_nodes.numel() * 16
     nbytes = (int(hit.any(1).sum()) * 8  # points of queries with a hit
               + int(need.any(1).sum()) * 8  # word pairs some slot needs
               + M * F * 4  # frontier
-              + distinct(node[hit]) * 16  # MBRs of nodes that hit
+              + mbr_bytes  # MBRs (codes and dictionary entries) of nodes that hit
               + distinct(word[need]) * 4  # node words
               + M * F * 4)  # out
     ops = M * F + int(hit.sum()) * 11 + int(need.sum()) * 2  # id test, MBR math, AND+test
@@ -610,11 +617,13 @@ def ragged_fused_wide(dev, ops, M=13, T=5, K=11, OBJ=37, W=3, sparse=False, seed
             t(obj_bm), t(oid.astype(np.int32)), (t(wids), t(bits)))
 
 
-def ragged_level(dev, ops, M=37, F=131, N=53, W=3, sparse=False, seed=19):
+def ragged_level(dev, ops, M=37, F=131, N=53, W=3, sparse=False, seed=19, D=None):
     """``knn_level_dist`` operands at ragged shapes: one level of N nodes
     with a few pool terms each, an (M, F) frontier with -1 pads, dirty ids
     past N - 1 and a last row of padding only, and packed query words
-    (``_query_words``)."""
+    (``_query_words``). With ``D``, ``knn_level_dist_narrow``'s: the MBRs
+    as int16 rank codes into two sorted dictionaries of D entries, which
+    come last."""
     g = np.random.default_rng(seed)
     pool = g.choice(32 * W, size=min(32 * W, 48), replace=False)
     _, wids, bits = _query_words(g, ops, M, W, pool, sparse)
@@ -625,8 +634,15 @@ def ragged_level(dev, ops, M=37, F=131, N=53, W=3, sparse=False, seed=19):
     if M > 1:
         frontier[-1] = -1
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    return (t(g.uniform(0, 1, (M, 2)).astype(np.float32)), t(wids), t(bits), t(mbrs),
-            t(_terms(g, N, W, pool, 0, 7).view(np.int32)), t(frontier))
+    pts, bms = g.uniform(0, 1, (M, 2)).astype(np.float32), _terms(g, N, W, pool, 0, 7)
+    if D is None:
+        return (t(pts), t(wids), t(bits), t(mbrs), t(bms.view(np.int32)), t(frontier))
+    dx, dy = (np.sort(g.uniform(0, 1, D)).astype(np.float32) for _ in range(2))
+    c_lo = g.integers(0, D, (N, 2))
+    c_hi = np.minimum(c_lo + g.integers(0, 8, (N, 2)), D - 1)
+    codes = np.stack([c_lo[:, 0], c_lo[:, 1], c_hi[:, 0], c_hi[:, 1]], -1).astype(np.int16)
+    return (t(pts), t(wids), t(bits), t(codes), t(bms.view(np.int32)), t(frontier), t(dx),
+            t(dy))
 
 
 def ragged_verify(dev, compact: bool, M=13, T=5, OBJ=37, W=3, seed=11):
@@ -756,6 +772,7 @@ def main() -> int:
     from repro_torch.data.workloads import make_update_stream, make_workload
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.launch.wisk_serve import serve_batch, serve_knn_batch
+    from repro_torch.serve import engine
     from repro_torch.serve.delta import DeltaLog
     from repro_torch.serve.engine import retrieve, retrieve_knn
     from repro_torch.serve.plan import PlanCache
@@ -821,11 +838,12 @@ def main() -> int:
 
     warm, warm_knn = PlanCache(), PlanCache()
     with phase("warm-up: SKR and kNN batches"), patched(
-        ops,  # sized by f_valid (M, F) and top_leaf (M, T)
+        ops,  # sized by f_valid (M, F), top_leaf (M, T) and the frontier (M, F)
         filter_frontier_narrow=recorder("frontier_narrow", ops.filter_frontier_narrow, 4),
         fused_gather_verify_compact=recorder("fused", ops.fused_gather_verify_compact, 3),
-        knn_frontier_dist_narrow=recorder("knn_filter_narrow", ops.knn_frontier_dist_narrow, 4),
-    ):
+        knn_level_dist_narrow=recorder("knn_level_dist_narrow", ops.knn_level_dist_narrow, 5),
+    ), patched(engine,  # sized by the clamped frontier (M, F)
+               _gather_level=recorder("gather/frontier_narrow", engine._gather_level, 2)):
         for b in batches:
             serve_batch(snap, wl.rects[b], bms[b], MAX_LEAVES, plan_cache=warm)
         for b in batches:
@@ -914,17 +932,26 @@ def main() -> int:
             times.append(time.perf_counter() - t)
         return outs, times
 
+    def refuse(what):
+        def fail(*a, **kw):
+            raise AssertionError(f"the kNN narrow path called {what}")
+        return fail
+
     with phase("kNN main path, plain rerun"):
         _build.reset_launch_counts()
-        knn_out, knn_t = serve_knn_all()
+        # no per-slot planes: the engine's gather (an (M, F, Wp) word and an
+        # (M, F, 4) code plane) and the gathered-plane wrapper must not run
+        with patched(engine, _gather_level=refuse("_gather_level")), \
+                patched(ops, knn_frontier_dist_narrow=refuse("knn_frontier_dist_narrow")):
+            knn_out, knn_t = serve_knn_all()
         knn_counts = _build.launch_counts()
         log(f"kNN main path serve_knn_batch(k={K}) x{len(batches)}: batch s {knn_t}, "
-            f"launches {knn_counts}")
-        if knn_counts["knn_filter_narrow"] <= 0:
-            raise AssertionError("the kNN main path never launched knn_filter_narrow")
-        launches["knn_filter_narrow"] = knn_counts["knn_filter_narrow"]
+            f"launches {knn_counts}; no per-slot plane gathered")
+        if knn_counts["knn_level_dist_narrow"] <= 0:
+            raise AssertionError("the kNN main path never launched knn_level_dist_narrow")
+        launches["knn_level_dist_narrow"] = knn_counts["knn_level_dist_narrow"]
         _build.reset_launch_counts()
-        with patched(ops, knn_frontier_dist_narrow=ref.knn_filter_narrow_ref):
+        with patched(ops, knn_level_dist_narrow=ref.knn_level_dist_narrow_ref):
             knn_plain, knn_plain_t = serve_knn_all()
         if any(_build.launch_counts().values()):
             raise AssertionError("the kNN plain run launched a kernel")
@@ -1003,7 +1030,7 @@ def main() -> int:
         log(f"kNN quantized=False: one batch {t:.6f} s, peak device memory above the start "
             f"{peak} B (an (M, F, W) word plane at the widest level would be {plane} B), "
             f"launches {counts}")
-        if counts["knn_level_dist"] <= 0 or counts["knn_filter_narrow"] != 0:
+        if counts["knn_level_dist"] <= 0 or counts["knn_level_dist_narrow"] != 0:
             raise AssertionError("the kNN f32 descent did not run on knn_level_dist alone")
         if peak >= plane:
             raise AssertionError("the kNN f32 descent allocated an (M, F, W) word plane")
@@ -1130,7 +1157,9 @@ def main() -> int:
         serve_knn(knn_cache)
         _build.reset_launch_counts()
         with patched(ops, **{capture[0]: recorder(capture[1], getattr(ops, capture[0]),
-                                                  capture[2])}):
+                                                  capture[2])}), \
+                patched(engine, _gather_level=recorder("gather/frontier_filter",
+                                                       engine._gather_level, 2)):
             skr_out, skr_t = serve_skr(cached(skr_cache))
         skr_counts = _build.launch_counts()
         _build.reset_launch_counts()
@@ -1143,7 +1172,7 @@ def main() -> int:
         for name in ("frontier_filter", "fused_verify_compact_slot", verify_kernel):
             if skr_counts[name] <= 0:
                 raise AssertionError(f"log {label}: SKR never launched {name}")
-        if skr_counts["frontier_narrow"] or knn_counts["knn_filter_narrow"]:
+        if skr_counts["frontier_narrow"] or knn_counts["knn_level_dist_narrow"]:
             raise AssertionError(f"log {label}: a delta descent ran on the narrow planes")
         if knn_counts["knn_level_dist"] <= 0:
             raise AssertionError(f"log {label}: kNN never launched knn_level_dist")
@@ -1383,11 +1412,11 @@ def main() -> int:
     fu_args = captured["fused"]
     fused_ragged = [ragged_fused(dev), ragged_fused(dev, M=1, T=1, K=1, OBJ=1, Wl=1, seed=3)]
 
-    def slot_phase(name, source, replaces, kernel, plain, narrow, knn):
-        ragged = [ragged_slots(dev, narrow, knn),
-                  ragged_slots(dev, narrow, knn, M=1, F=1, W=1, D=2, seed=9)]
+    def slot_phase(name, source, replaces, kernel, plain, narrow):
+        ragged = [ragged_slots(dev, narrow, False),
+                  ragged_slots(dev, narrow, False, M=1, F=1, W=1, D=2, seed=9)]
         return (name, source, replaces, [captured[name]], ragged, kernel, plain,
-                lambda a: slot_bound(a, narrow, knn))
+                lambda a: slot_bound(a, narrow))
 
     # the full-width fused verify's operands end with the packed query words
     wide_ragged = [ragged_fused_wide(dev, ops), ragged_fused_wide(dev, ops, W=1, seed=8),
@@ -1395,6 +1424,14 @@ def main() -> int:
                                      seed=9)]
     level_ragged = [ragged_level(dev, ops), ragged_level(dev, ops, M=1, F=1, N=1, W=1, seed=20),
                     ragged_level(dev, ops, M=9, F=300, N=200, W=64, sparse=True, seed=21)]
+    # the narrow level's: Wp = W with dirty ids, a padding row and a query
+    # with no nonzero word; N = 1 with one-entry dictionaries; Wp below W;
+    # an all-padding frontier
+    narrow_ragged = [ragged_level(dev, ops, D=61, seed=22),
+                     ragged_level(dev, ops, M=1, F=1, N=1, W=1, D=1, seed=23),
+                     ragged_level(dev, ops, M=9, F=300, N=200, W=64, sparse=True, D=150, seed=24)]
+    pad = narrow_ragged[0]
+    narrow_ragged.append(pad[:5] + (torch.full_like(pad[5], -1),) + pad[6:])
 
     def verify_phase(name, replaces, kernel, plain, compact):
         ragged = [ragged_verify(dev, compact), ragged_verify(dev, compact, W=1, seed=12)]
@@ -1404,7 +1441,7 @@ def main() -> int:
 
     phases = [
         slot_phase("frontier_narrow", csrc + "frontier.cu", "src/repro/kernels/frontier.py:113",
-                   ops.filter_frontier_narrow, ref.frontier_filter_narrow_ref, True, False),
+                   ops.filter_frontier_narrow, ref.frontier_filter_narrow_ref, True),
         ("fused_verify_compact_tile", csrc + "fused_verify_compact.cu",
          "src/repro/kernels/fused_verify.py:267", [fu_args], fused_ragged,
          lambda *a: ops.fused_gather_verify_compact(*a, variant="vmem"), plain_fused, fused_bound),
@@ -1413,10 +1450,10 @@ def main() -> int:
          lambda *a: ops.fused_gather_verify_compact(*a, variant="prefetch"), plain_fused,
          fused_bound),
         slot_phase("frontier_filter", csrc + "frontier.cu", "src/repro/kernels/frontier.py:60",
-                   ops.filter_frontier, ref.frontier_filter_ref, False, False),
-        slot_phase("knn_filter_narrow", csrc + "knn_filter.cu",
-                   "src/repro/kernels/knn_filter.py:105",
-                   ops.knn_frontier_dist_narrow, ref.knn_filter_narrow_ref, True, True),
+                   ops.filter_frontier, ref.frontier_filter_ref, False),
+        ("knn_level_dist_narrow", csrc + "knn_filter.cu", "src/repro/kernels/knn_filter.py:105",
+         [captured["knn_level_dist_narrow"]], narrow_ragged, ops.knn_level_dist_narrow,
+         ref.knn_level_dist_narrow_ref, lambda a: level_bound(a, narrow=True)),
         ("knn_level_dist", csrc + "knn_filter.cu", "src/repro/kernels/knn_filter.py:54",
          [captured["knn_level_dist"]], level_ragged, ops.knn_level_dist, ref.knn_level_dist_ref,
          level_bound),
@@ -1503,15 +1540,55 @@ def main() -> int:
                                             bits[:m].contiguous(), mbrs, lbms,
                                             fr[:m].contiguous()), "knn_frontier_dist vs level")
         del head, gathered, sl, got
+        # knn_frontier_dist_narrow's gathered planes run knn_level_dist_narrow's
+        # kernel: bit-exact against knn_filter_narrow_ref at ragged shapes and
+        # at the first 64 captured queries, where it also equals the level rows
+        q_pts, wids, bits, codes, lbms, fr, dict_x, dict_y = captured["knn_level_dist_narrow"]
+        m = min(64, fr.shape[0])
+        sl = fr[:m].clamp(0, lbms.shape[0] - 1).long()
+        head = (q_pts[:m].contiguous(), bits[:m].contiguous(), codes[sl],
+                lbms[sl[:, :, None], wids[:m].long()[:, None, :]], (fr[:m] >= 0).to(torch.int8),
+                dict_x, dict_y)
+        gathered = [ragged_slots(dev, True, True),
+                    ragged_slots(dev, True, True, M=1, F=1, W=1, D=2, seed=9), head]
+        for case in gathered:
+            got = ops.knn_frontier_dist_narrow(*case)
+            torch.cuda.synchronize()
+            assert_same(got, ref.knn_filter_narrow_ref(*case),
+                        f"knn_frontier_dist_narrow at {shapes(case)}")
+        assert_same(got, ops.knn_level_dist_narrow(
+            q_pts[:m].contiguous(), wids[:m].contiguous(), bits[:m].contiguous(), codes, lbms,
+            fr[:m].contiguous(), dict_x, dict_y), "knn_frontier_dist_narrow vs level")
+        del head, gathered, sl, got
         # the tile launch without packed words takes all W words, ids arange(W)
         for case in [captured["fused_wide"], *wide_ragged]:
             got = ops.fused_gather_verify(*case[:8], variant="vmem")
             torch.cuda.synchronize()
             assert_same(got, ref.fused_verify_ref(*case[:8]),
                         f"fused_verify_tile on q_bm at {shapes(case[:8])}")
-        log("knn_frontier_dist (gathered operands, through knn_level_dist) and the query-tile "
-            "verify on q_bm: bit-exact against their plain versions at the captured and ragged "
-            "shapes")
+        log("knn_frontier_dist and knn_frontier_dist_narrow (gathered operands, through the "
+            "level kernels) and the query-tile verify on q_bm: bit-exact against their plain "
+            "versions at the captured and ragged shapes")
+
+    with phase("operand gathers"):
+        # engine._gather_level at the captured shapes: rows 1 (the narrow SKR
+        # descent) and 4 (the f32 descent of a delta SKR batch) still run it;
+        # row 7's is the gather the narrow kNN descent no longer makes
+        li = next(i for i, c in enumerate(snap.level_mbr_codes)
+                  if c.data_ptr() == codes.data_ptr())
+        gathers = {
+            "frontier_narrow": captured["gather/frontier_narrow"],
+            "frontier_filter": captured["gather/frontier_filter"],
+            "knn_level_dist_narrow (no longer made)": (
+                snap, li, fr.clamp(0, lbms.shape[0] - 1).long(), (wids, bits), True, None),
+        }
+        for row, args in gathers.items():
+            planes = engine._gather_level(*args)
+            nbytes = sum(p.numel() * p.element_size() for p in planes)
+            g_ms = time_ms(lambda: engine._gather_level(*args), iters=10)
+            log(f"operand gather of {row}: level {args[1]}, frontier {tuple(args[2].shape)}, "
+                f"planes {[tuple(p.shape) for p in planes]} ({nbytes} B): {g_ms:.6f} ms")
+        del planes, gathers
     captured.clear()
 
     with phase("profiles"):

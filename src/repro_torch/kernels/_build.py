@@ -140,8 +140,8 @@ KERNELS: Dict[str, CudaKernel] = {
             (_P,) * 6 + (_I,) * 4 + (_P,),
         ),
         CudaKernel(
-            "knn_filter_narrow", "knn_filter.cu", "wisk_knn_filter_narrow",
-            (_P,) * 8 + (_I,) * 6 + (_P,),
+            "knn_level_dist_narrow", "knn_filter.cu", "wisk_knn_level_dist_narrow",
+            (_P,) * 9 + (_I,) * 8 + (_P,),
         ),
         CudaKernel(
             "knn_level_dist", "knn_filter.cu", "wisk_knn_level_dist",

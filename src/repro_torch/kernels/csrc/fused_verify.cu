@@ -6,7 +6,7 @@
 //     leaf slots, one thread per object;
 //   src/repro/kernels/fused_verify.py::fused_verify_prefetch -> the (M, T)
 //     kernel below (variant="prefetch", and "auto"): one block per (query,
-//     slot), its warps striding over the leaf row's objects.
+//     slot), one thread per object of the leaf row.
 // They serve compact=False, a snapshot without a compact bank (a leaf
 // dictionary above LEAF_DICT_MAX), and the base blocks of a live delta over
 // such a snapshot. Oracles: kernels/ref.py fused_verify_ref, and
@@ -30,19 +30,33 @@
 //   - The tile kernel reads a row only at the query's packed words
 //     (ops.pack_query_words: at most Wp, the batch's largest count of
 //     nonzero query words, 8 for the 5-keyword MIX queries), since no other
-//     word can hit, and stops at the first hit: a miss costs a few 32-byte
-//     sectors, not 1 KiB. Each block stages its BM queries' (id, value) word
-//     pairs (2 * BM * Wp ints, so W does not cap the tile), their TC slots'
-//     leaf rows and their counts in shared memory. The grid is query tiles
+//     word can hit, its loads issued together (wisk::pairs_hit), and stops
+//     after a hit: a miss costs a few 32-byte sectors, not 1 KiB. Each block
+//     stages its BM queries' (id, value) word pairs (2 * BM * Wp ints, so W
+//     does not cap the tile), their TC slots' leaf rows and their counts in
+//     shared memory. The grid is query tiles
 //     x slot chunks -- 1024 blocks at M = 1024, T = 32, several per SM --
 //     and neighbouring threads take neighbouring objects of one leaf row,
 //     so the object ids, coordinates and output ids are read and written
 //     coalesced. kwv is summed with shared-memory atomics and written once
 //     by the block that owns the (query, slot) pair.
-//   - The (M, T) kernel keeps its first design: the query's W words staged
-//     in shared memory, one warp per object, lanes on neighbouring words of
-//     the row (coalesced 128-byte rows), stopping at the first 32-word
-//     stride that holds a hit, so a row with no hit is read whole.
+//   - The (M, T) kernel keeps the TPU kernel's decomposition, one block per
+//     (query, slot), with one thread per object: neighbouring threads read
+//     neighbouring object ids and coordinates and write neighbouring ids,
+//     and kwv is a warp-shuffle and shared-memory sum written once. The
+//     block compacts query m's W words into (word id, value) pairs of its
+//     nonzero words in shared memory (warp ballots and prefix counts, no
+//     atomics; rounds of kRoundWords words, so W is not capped), and each
+//     thread tests its object's row only at those ids. A miss needs every
+//     nonzero word, so the word loads of a group of pairs are issued as
+//     independent loads (wisk::pairs_hit) rather than as a load-then-branch
+//     chain; a hit stops after its group. The rectangle and coordinates
+//     are read only after a hit. A leaf_ok = 0 slot writes -1s and a zero
+//     count and reads nothing else.
+//     Each word read is one scattered 32-byte sector (neighbouring objects'
+//     rows are 1 KiB apart), where the bound counts its 4 bytes: at the
+//     osm main path, where most objects miss against 5 keywords, the word
+//     reads move up to 8x the bytes the bound counts for them.
 //
 // This is the simple version that is right first: no vector loads, no TMA.
 // The outputs are bit-identical to the reference: only floats are compared
@@ -53,6 +67,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarpsPerBlock = kThreads / 32;
+// query words the (M, T) kernel compacts per round: at most 16 KB of pairs
+constexpr int kRoundWords = 2048;
 
 struct Bank {
   const float* q_rects;      // (M, 4)
@@ -75,22 +91,6 @@ __device__ __forceinline__ int64_t leaf_row(const Bank& b, int64_t pair) {
   int leaf = __ldg(b.top_leaf + pair);
   leaf = min(max(leaf, 0), b.K - 1);
   return (int64_t)leaf * b.OBJ;
-}
-
-// One object, by a whole warp (every branch is warp-uniform). `s_q` holds
-// query m's W words in shared memory. Lane 0 writes the id slot; returns 1
-// on every lane when the object counts toward kwv (kw & valid).
-__device__ __forceinline__ int verify_object(const Bank& b, const int32_t* s_q,
-                                             int64_t m, int64_t pair, int64_t row,
-                                             int o, int lane) {
-  const int64_t obj = row + o;
-  const int32_t cid = __ldg(b.obj_id + obj);
-  const bool valid = cid >= 0 && __ldg(b.leaf_ok + pair) > 0;
-  const bool kw = valid && wisk::words_hit_warp<true>(b.obj_bm + obj * b.W, s_q, b.W, lane);
-  const bool inr = kw && wisk::point_in_rect(b.q_rects + m * 4, __ldg(b.obj_x + obj),
-                                             __ldg(b.obj_y + obj));
-  if (lane == 0) b.ids[pair * b.OBJ + o] = inr ? cid : -1;
-  return kw ? 1 : 0;
 }
 
 // variant="vmem": one block per tile of BM queries (grid x) and TC slots
@@ -128,8 +128,8 @@ __global__ void fused_verify_wide_tile_kernel(Bank b, int BM, int TC) {
     if (s_leaf[l] >= 0) {
       const int64_t obj = (int64_t)s_leaf[l] * b.OBJ + o;
       const int32_t cid = __ldg(b.obj_id + obj);
-      if (cid >= 0 && wisk::packed_words_hit(b.obj_bm + obj * b.W, s_wid + r * b.Wp,
-                                              s_bit + r * b.Wp, b.Wp)) {
+      if (cid >= 0 && wisk::pairs_hit(b.obj_bm + obj * b.W, s_wid + r * b.Wp, s_bit + r * b.Wp,
+                                       b.Wp)) {
         atomicAdd(&s_kwv[l], 1);
         if (wisk::point_in_rect(b.q_rects + m * 4, __ldg(b.obj_x + obj),
                                 __ldg(b.obj_y + obj))) {
@@ -145,27 +145,101 @@ __global__ void fused_verify_wide_tile_kernel(Bank b, int BM, int TC) {
   }
 }
 
-// variant="prefetch": one block per (query, slot); the block reduces kwv.
-__global__ void fused_verify_wide_slot_kernel(Bank b) {
-  extern __shared__ int32_t s_q[];  // (W,) query m's words
-  __shared__ int s_warp[kWarpsPerBlock];
-  const int64_t pair = blockIdx.x;
-  const int64_t m = pair / b.T;
-  const int64_t row = leaf_row(b, pair);
-  wisk::stage_words(s_q, b.q_bm + m * b.W, b.W);
-  __syncthreads();
+// Compact the n words q[w0 .. w0 + n) into (word id, value) pairs of the
+// nonzero ones, in word order, at s_wid / s_bit; every thread of the block
+// (a multiple of 32) takes part, and every thread gets the count. Each warp
+// owns a slice of the words: a first pass counts its nonzero words with
+// ballots, and after the counts are shared a second pass writes its pairs
+// after the pairs of the warps before it -- a prefix count, no atomics.
+__device__ int compact_words(int32_t* s_wid, int32_t* s_bit, int* s_cnt,
+                             const int32_t* __restrict__ q, int w0, int n) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int n_warps = blockDim.x >> 5;
-  int local = 0;
-  for (int o = warp; o < b.OBJ; o += n_warps) {
-    local += verify_object(b, s_q, m, pair, row, o, lane);
+  const int span = (n + 32 * n_warps - 1) / (32 * n_warps) * 32;  // words per warp
+  const int lo = min(warp * span, n);
+  const int hi = min(lo + span, n);
+  int cnt = 0;
+  for (int base = lo; base < hi; base += 32) {  // warp-uniform trip count
+    const int p = base + lane;
+    cnt += __popc(__ballot_sync(0xffffffffu, p < hi && __ldg(q + w0 + p) != 0));
   }
-  if (lane == 0) s_warp[warp] = local;
+  if (lane == 0) s_cnt[warp] = cnt;
+  __syncthreads();
+  int off = 0, total = 0;
+  for (int w = 0; w < n_warps; ++w) {
+    off += w < warp ? s_cnt[w] : 0;
+    total += s_cnt[w];
+  }
+  for (int base = lo; base < hi; base += 32) {
+    const int p = base + lane;
+    const int32_t v = p < hi ? __ldg(q + w0 + p) : 0;
+    const unsigned nz = __ballot_sync(0xffffffffu, v != 0);
+    if (v != 0) {
+      const int at = off + __popc(nz & ((1u << lane) - 1u));
+      s_wid[at] = w0 + p;
+      s_bit[at] = v;
+    }
+    off += __popc(nz);
+  }
+  __syncthreads();
+  return total;
+}
+
+// variant="prefetch": one block per (query, slot), one thread per object
+// (threads stride over the row when OBJ exceeds the block). The query's
+// nonzero words are compacted once (or once per round and object pass when
+// W exceeds kRoundWords); the block reduces kwv.
+__global__ void fused_verify_wide_slot_kernel(Bank b) {
+  extern __shared__ int32_t s_mem[];  // (round,) word ids, then (round,) values
+  __shared__ int s_cnt[kWarpsPerBlock];
+  __shared__ int s_sum[kWarpsPerBlock];
+  const int64_t pair = blockIdx.x;
+  const int64_t m = pair / b.T;
+  int32_t* ids = b.ids + pair * b.OBJ;
+  if (__ldg(b.leaf_ok + pair) <= 0) {  // the whole block: nothing is valid
+    for (int o = threadIdx.x; o < b.OBJ; o += blockDim.x) ids[o] = -1;
+    if (threadIdx.x == 0) b.kwv[pair] = 0;
+    return;
+  }
+  const int round = min(b.W, kRoundWords);
+  int32_t* s_wid = s_mem;
+  int32_t* s_bit = s_mem + round;
+  const int32_t* q = b.q_bm + m * b.W;
+  const int64_t row = leaf_row(b, pair);
+  const int rounds = (b.W + kRoundWords - 1) / kRoundWords;
+  int n = 0;
+  int local = 0;
+  for (int o0 = 0; o0 < b.OBJ; o0 += blockDim.x) {  // block-uniform trip count
+    const int o = o0 + threadIdx.x;
+    const int64_t obj = row + o;
+    const int32_t cid = o < b.OBJ ? __ldg(b.obj_id + obj) : -1;
+    bool kw = false;
+    for (int r = 0; r < rounds; ++r) {
+      if (rounds > 1 || o0 == 0) {
+        if (r > 0 || o0 > 0) __syncthreads();  // the last pairs are read
+        const int w0 = r * kRoundWords;
+        n = compact_words(s_wid, s_bit, s_cnt, q, w0, min(kRoundWords, b.W - w0));
+      }
+      if (cid >= 0 && !kw) kw = wisk::pairs_hit(b.obj_bm + obj * b.W, s_wid, s_bit, n);
+    }
+    if (o < b.OBJ) {
+      int32_t out = -1;
+      if (kw) {
+        ++local;
+        if (wisk::point_in_rect(b.q_rects + m * 4, __ldg(b.obj_x + obj), __ldg(b.obj_y + obj))) {
+          out = cid;
+        }
+      }
+      ids[o] = out;
+    }
+  }
+  for (int d = 16; d > 0; d >>= 1) local += __shfl_down_sync(0xffffffffu, local, d);
+  if ((threadIdx.x & 31) == 0) s_sum[threadIdx.x >> 5] = local;
   __syncthreads();
   if (threadIdx.x == 0) {
     int sum = 0;
-    for (int w = 0; w < n_warps; ++w) sum += s_warp[w];
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) sum += s_sum[w];
     b.kwv[pair] = sum;
   }
 }
@@ -203,9 +277,10 @@ extern "C" {
 
 // Both entry points launch on `stream` (PyTorch's current stream) and
 // return cudaGetLastError(); the Python wrapper raises on anything but 0.
-// The wrapper keeps the dynamic shared memory at or below 32 KiB, inside
-// the default 48 KB a block may take without opting in, and T / TC within
-// the grid's second dimension.
+// The tile kernel's wrapper keeps its dynamic shared memory at or below
+// 32 KiB, inside the default 48 KB a block may take without opting in, and
+// T / TC within the grid's second dimension; the (M, T) kernel takes at
+// most 16 KiB of pairs, whatever W is.
 int wisk_fused_verify_tile(const void* q_rects, const void* q_wids,
                            const void* q_bits, const void* top_leaf,
                            const void* leaf_ok, const void* obj_x,
@@ -236,11 +311,10 @@ int wisk_fused_verify_slot(const void* q_rects, const void* q_bm,
   if (M > 0 && T > 0) {
     Bank b = make_bank(q_rects, q_bm, nullptr, nullptr, top_leaf, leaf_ok, obj_x,
                        obj_y, obj_bm, obj_id, ids, kwv, M, T, K, OBJ, W, 0);
-    const int warps = OBJ < 1 ? 1 : (OBJ < kWarpsPerBlock ? OBJ : kWarpsPerBlock);
-    const int threads = 32 * warps;
-    const size_t smem = (size_t)W * sizeof(int32_t);
+    const int threads = OBJ >= kThreads ? kThreads : ((OBJ + 31) / 32) * 32;
+    const size_t smem = 2 * (size_t)min(W, kRoundWords) * sizeof(int32_t);
     fused_verify_wide_slot_kernel<<<(unsigned)((int64_t)M * T), threads, smem,
-                               (cudaStream_t)stream>>>(b);
+                                    (cudaStream_t)stream>>>(b);
   }
   return (int)cudaGetLastError();
 }

@@ -5,8 +5,9 @@
 // Every function is a plain __device__ inline: the kernels that include this
 // header differ only in how threads map onto slots or candidates (one thread
 // each on the narrow and compact planes and where a full-width row is read
-// at the query's packed words, one warp each where it is read whole) and in
-// what they write (an int8 flag, an object id or an f32 squared distance).
+// at the query's packed or compacted words, one warp each where it is read
+// whole) and in what they write (an int8 flag, an object id or an f32
+// squared distance).
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
@@ -119,15 +120,25 @@ __device__ __forceinline__ void stage_packed_words(int32_t* s_wid, int32_t* s_bi
   }
 }
 
-// Keyword test by one thread on a full-width row, reading only the words
-// where the query's packed word (staged by stage_packed_words) is nonzero:
-// no other word can hit. Stops at the first hit.
-__device__ __forceinline__ bool packed_words_hit(const int32_t* __restrict__ row,
-                                                 const int32_t* s_wid, const int32_t* s_bit,
-                                                 int n) {
-  for (int p = 0; p < n; ++p) {
-    const int32_t q = s_bit[p];
-    if (q != 0 && (__ldg(row + s_wid[p]) & q) != 0) return true;
+// Keyword test by one thread on a full-width row at n (word id, value)
+// pairs in shared memory -- the query's nonzero words, compacted in the
+// kernel, or its packed words, whose zero padding values are skipped: no
+// other word can hit. A miss needs every pair, so the loads of a group of
+// kGroup pairs are issued together (no branch between a load and the next)
+// and tested once, a memory round trip per group rather than per word; a
+// hit stops after its group. The ids index the row: compacted and packed
+// ids are in range.
+template <int kGroup = 8>
+__device__ __forceinline__ bool pairs_hit(const int32_t* __restrict__ row,
+                                          const int32_t* s_wid, const int32_t* s_bit, int n) {
+  for (int p = 0; p < n; p += kGroup) {
+    int32_t acc = 0;
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      const int32_t q = p + j < n ? s_bit[p + j] : 0;
+      if (q != 0) acc |= __ldg(row + s_wid[p + j]) & q;
+    }
+    if (acc != 0) return true;
   }
   return false;
 }

@@ -34,9 +34,11 @@ FUSED_VARIANTS = ("auto", "vmem", "prefetch")
 # queries' per-slot counts (the compact one for all T slots; the full-width
 # one for its _TILE_SLOTS slots, with their leaf rows and the queries'
 # packed (word id, value) pairs, 2 * Wp ints a query, whatever W is); the
-# dense filter _TILE_QUERIES queries' W words; the (M, T) full-width verify
-# and skr_verify one query's W words; the full-width kNN filter one query's
-# packed pairs; sub_match up to _SUB_MATCH_OBJECTS objects' packed words.
+# dense filter _TILE_QUERIES queries' W words; skr_verify one query's W
+# words; the kNN level filters one query's packed pairs; sub_match up to
+# _SUB_MATCH_OBJECTS objects' packed words. The (M, T) full-width verify
+# compacts a query's nonzero words in rounds of at most 16 KiB of pairs,
+# whatever W is.
 _TILE_QUERIES = 8
 _TILE_SLOTS = 4
 _SHARED_INTS = 8192
@@ -159,41 +161,6 @@ def _stream(device: torch.device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-# per narrow slot-filter kernel: the query operand's name and width, the
-# output dtype
-_SLOT_FILTERS = {
-    "frontier_narrow": ("q_rects", 4, torch.int8),
-    "knn_filter_narrow": ("q_pts", 2, torch.float32),
-}
-
-
-def _launch_narrow(name, q, q_bits, f_codes, f_bm, f_valid, dict_x, dict_y):
-    """Check the narrow-plane operands of a frontier or kNN filter on the
-    card and launch kernel ``name``; ``q`` is (M, 4) rects or (M, 2) points."""
-    dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    q_name, q_cols, out_dtype = _SLOT_FILTERS[name]
-    M, F = f_valid.shape
-    Wp = q_bits.shape[1]
-    _check(q_name, q, torch.float32, (M, q_cols), dev)
-    _check("q_bits", q_bits, torch.int32, (M, Wp), dev)
-    _check("f_codes", f_codes, torch.int16, (M, F, 4), dev)
-    _check("f_bm", f_bm, torch.int32, (M, F, Wp), dev)
-    _check("f_valid", f_valid, torch.int8, (M, F), dev)
-    _check("dict_x", dict_x, torch.float32, (dict_x.shape[0],), dev)
-    _check("dict_y", dict_y, torch.float32, (dict_y.shape[0],), dev)
-    if dict_x.shape[0] == 0 or dict_y.shape[0] == 0:
-        raise ValueError("empty coordinate dictionary")
-    out = torch.empty((M, F), dtype=out_dtype, device=dev)
-    KERNELS[name](
-        q.data_ptr(), q_bits.data_ptr(), f_codes.data_ptr(), f_bm.data_ptr(),
-        f_valid.data_ptr(), dict_x.data_ptr(), dict_y.data_ptr(), out.data_ptr(),
-        M, F, Wp, dict_x.shape[0], dict_y.shape[0], dev.index, _stream(dev),
-    )
-    return out
-
-
 def filter_frontier(q_rects, q_bm, f_mbrs, f_bm, f_valid):
     """(M, F) int8 frontier-survivor matrix on f32 MBRs and full-width
     bitmap words (the f32 descent: ``quantized=False``, or a snapshot
@@ -225,8 +192,46 @@ def filter_frontier_narrow(q_rects, q_bits, f_codes, f_bm, f_valid, dict_x, dict
     ``pack_query_words``. CUDA tensors run ``csrc/frontier.cu``."""
     if q_rects.device.type == "cpu":
         return ref.frontier_filter_narrow_ref(q_rects, q_bits, f_codes, f_bm, f_valid, dict_x, dict_y)
-    return _launch_narrow("frontier_narrow", q_rects, q_bits, f_codes, f_bm, f_valid,
-                          dict_x, dict_y)
+    dev = q_rects.device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    M, F = f_valid.shape
+    Wp = q_bits.shape[1]
+    _check("q_rects", q_rects, torch.float32, (M, 4), dev)
+    _check("q_bits", q_bits, torch.int32, (M, Wp), dev)
+    _check("f_codes", f_codes, torch.int16, (M, F, 4), dev)
+    _check("f_bm", f_bm, torch.int32, (M, F, Wp), dev)
+    _check("f_valid", f_valid, torch.int8, (M, F), dev)
+    _check_dicts(dict_x, dict_y, dev)
+    out = torch.empty((M, F), dtype=torch.int8, device=dev)
+    KERNELS["frontier_narrow"](
+        q_rects.data_ptr(), q_bits.data_ptr(), f_codes.data_ptr(), f_bm.data_ptr(),
+        f_valid.data_ptr(), dict_x.data_ptr(), dict_y.data_ptr(), out.data_ptr(),
+        M, F, Wp, dict_x.shape[0], dict_y.shape[0], dev.index, _stream(dev),
+    )
+    return out
+
+
+def _check_dicts(dict_x, dict_y, dev) -> None:
+    _check("dict_x", dict_x, torch.float32, (dict_x.shape[0],), dev)
+    _check("dict_y", dict_y, torch.float32, (dict_y.shape[0],), dev)
+    if dict_x.shape[0] == 0 or dict_y.shape[0] == 0:
+        raise ValueError("empty coordinate dictionary")
+
+
+def _as_level(f_valid, f_bm):
+    """Gathered (M, F, ...) planes read as one level of M*F nodes: the
+    frontier (slot (m, f) is node m*F + f where valid, else -1) and all
+    the planes' Wp words, ids ``arange(Wp)`` for every query."""
+    M, F = f_valid.shape
+    Wp = f_bm.shape[2]
+    if M * F >= 2 ** 31:
+        raise ValueError(f"M*F={M * F} slots exceed the kNN filter's int32 node ids")
+    dev = f_valid.device
+    slots = torch.arange(M * F, dtype=torch.int32, device=dev).reshape(M, F)
+    frontier = torch.where(f_valid > 0, slots, -1)
+    wids = torch.arange(Wp, dtype=torch.int32, device=dev).expand(M, Wp).contiguous()
+    return frontier, wids
 
 
 def knn_frontier_dist(q_pts, q_bm, f_mbrs, f_bm, f_valid):
@@ -234,8 +239,8 @@ def knn_frontier_dist(q_pts, q_bm, f_mbrs, f_bm, f_valid):
     full-width bitmap words gathered at each slot (the TPU kernel's
     operands), +inf at invalid or keyword-miss slots. CUDA tensors run
     ``knn_level_dist``'s kernel on the planes taken as one level of M*F
-    nodes: slot (m, f) is node m*F + f where valid, else -1, and the query
-    words are all W words, ids ``arange(W)`` -- exact, and no host sync."""
+    nodes (``_as_level``; the query words are all W words) -- exact, and no
+    host sync."""
     if q_pts.device.type == "cpu":
         return ref.knn_filter_ref(q_pts, q_bm, f_mbrs, f_bm, f_valid)
     dev = q_pts.device
@@ -247,13 +252,9 @@ def knn_frontier_dist(q_pts, q_bm, f_mbrs, f_bm, f_valid):
     _check("f_mbrs", f_mbrs, torch.float32, (M, F, 4), dev)
     _check("f_bm", f_bm, torch.int32, (M, F, W), dev)
     _check("f_valid", f_valid, torch.int8, (M, F), dev)
-    if M * F >= 2 ** 31:
-        raise ValueError(f"M*F={M * F} slots exceed the kNN filter's int32 node ids")
-    slots = torch.arange(M * F, dtype=torch.int32, device=dev).reshape(M, F)
-    frontier = torch.where(f_valid > 0, slots, -1)
-    wids = torch.arange(W, dtype=torch.int32, device=dev).expand(M, W).contiguous()
-    return _launch_level(q_pts, wids, q_bm, f_mbrs.reshape(M * F, 4),
-                         f_bm.reshape(M * F, W), frontier)
+    frontier, wids = _as_level(f_valid, f_bm)
+    return knn_level_dist(q_pts, wids, q_bm, f_mbrs.reshape(M * F, 4), f_bm.reshape(M * F, W),
+                          frontier)
 
 
 def knn_level_dist(q_pts, q_wids, q_bits, level_mbrs, level_bms, frontier):
@@ -266,28 +267,8 @@ def knn_level_dist(q_pts, q_wids, q_bits, level_mbrs, level_bms, frontier):
     ``csrc/knn_filter.cu``, which gathers for itself."""
     if q_pts.device.type == "cpu":
         return ref.knn_level_dist_ref(q_pts, q_wids, q_bits, level_mbrs, level_bms, frontier)
-    return _launch_level(q_pts, q_wids, q_bits, level_mbrs, level_bms, frontier)
-
-
-def _launch_level(q_pts, q_wids, q_bits, level_mbrs, level_bms, frontier):
-    dev = q_pts.device
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    M, F = frontier.shape
-    Wp = q_wids.shape[1]
-    N, W = level_bms.shape
-    _check("q_pts", q_pts, torch.float32, (M, 2), dev)
-    _check("q_wids", q_wids, torch.int32, (M, Wp), dev)
-    _check("q_bits", q_bits, torch.int32, (M, Wp), dev)
+    dev, (M, F, Wp, N, W) = _check_level(q_pts, q_wids, q_bits, level_bms, frontier)
     _check("level_mbrs", level_mbrs, torch.float32, (N, 4), dev)
-    _check("level_bms", level_bms, torch.int32, (N, W), dev)
-    _check("frontier", frontier, torch.int32, (M, F), dev)
-    if M * F and (N == 0 or W == 0):
-        raise ValueError("empty level")
-    if 2 * Wp > _SHARED_INTS:
-        raise ValueError(f"Wp={Wp} packed words exceed the kNN filter's shared memory")
-    if M * -(-F // 256) >= 2 ** 31:
-        raise ValueError(f"M={M}, F={F} exceed the kNN filter's grid")
     out = torch.empty((M, F), dtype=torch.float32, device=dev)
     KERNELS["knn_level_dist"](
         q_pts.data_ptr(), q_wids.data_ptr(), q_bits.data_ptr(), level_mbrs.data_ptr(),
@@ -297,14 +278,74 @@ def _launch_level(q_pts, q_wids, q_bits, level_mbrs, level_bms, frontier):
     return out
 
 
+def knn_level_dist_narrow(q_pts, q_wids, q_bits, level_codes, level_bms, frontier, dict_x,
+                          dict_y):
+    """``knn_level_dist`` on the level's bandwidth-lean planes: its (N, 4)
+    int16 MBR rank codes, decoded through its coordinate dictionaries
+    ``dict_x``/``dict_y`` (exact; codes clamped to them), and its (N, W)
+    bitmaps read at the packed words. Bit-identical to ``knn_level_dist``
+    on the f32 MBRs the codes came from. The narrow kNN descent's filter:
+    no (M, F, Wp) word plane or (M, F, 4) code plane is made. CUDA tensors
+    run ``csrc/knn_filter.cu``, which gathers for itself."""
+    if q_pts.device.type == "cpu":
+        return ref.knn_level_dist_narrow_ref(q_pts, q_wids, q_bits, level_codes, level_bms,
+                                             frontier, dict_x, dict_y)
+    dev, (M, F, Wp, N, W) = _check_level(q_pts, q_wids, q_bits, level_bms, frontier)
+    _check("level_codes", level_codes, torch.int16, (N, 4), dev)
+    _check_dicts(dict_x, dict_y, dev)
+    out = torch.empty((M, F), dtype=torch.float32, device=dev)
+    KERNELS["knn_level_dist_narrow"](
+        q_pts.data_ptr(), q_wids.data_ptr(), q_bits.data_ptr(), level_codes.data_ptr(),
+        level_bms.data_ptr(), frontier.data_ptr(), dict_x.data_ptr(), dict_y.data_ptr(),
+        out.data_ptr(), M, F, Wp, N, W, dict_x.shape[0], dict_y.shape[0], dev.index,
+        _stream(dev),
+    )
+    return out
+
+
+def _check_level(q_pts, q_wids, q_bits, level_bms, frontier):
+    """Check the operands both level kernels take; returns the device and
+    ``(M, F, Wp, N, W)``."""
+    dev = q_pts.device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    M, F = frontier.shape
+    Wp = q_wids.shape[1]
+    N, W = level_bms.shape
+    _check("q_pts", q_pts, torch.float32, (M, 2), dev)
+    _check("q_wids", q_wids, torch.int32, (M, Wp), dev)
+    _check("q_bits", q_bits, torch.int32, (M, Wp), dev)
+    _check("level_bms", level_bms, torch.int32, (N, W), dev)
+    _check("frontier", frontier, torch.int32, (M, F), dev)
+    if M * F and (N == 0 or W == 0):
+        raise ValueError("empty level")
+    if 2 * Wp > _SHARED_INTS:
+        raise ValueError(f"Wp={Wp} packed words exceed the kNN filter's shared memory")
+    if M * -(-F // 256) >= 2 ** 31:
+        raise ValueError(f"M={M}, F={F} exceed the kNN filter's grid")
+    return dev, (M, F, Wp, N, W)
+
+
 def knn_frontier_dist_narrow(q_pts, q_bits, f_codes, f_bm, f_valid, dict_x, dict_y):
     """(M, F) f32 squared point-to-MBR min-distances on the bandwidth-lean
-    planes; bit-identical to ``knn_frontier_dist`` on the dequantized,
-    full-width operands. CUDA tensors run ``csrc/knn_filter.cu``."""
+    planes gathered at each slot (the TPU kernel's operands); bit-identical
+    to ``knn_frontier_dist`` on the dequantized, full-width operands. CUDA
+    tensors run ``knn_level_dist_narrow``'s kernel on the planes taken as
+    one level of M*F nodes (``_as_level``)."""
     if q_pts.device.type == "cpu":
         return ref.knn_filter_narrow_ref(q_pts, q_bits, f_codes, f_bm, f_valid, dict_x, dict_y)
-    return _launch_narrow("knn_filter_narrow", q_pts, q_bits, f_codes, f_bm, f_valid,
-                          dict_x, dict_y)
+    dev = q_pts.device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    M, F = f_valid.shape
+    Wp = q_bits.shape[1]
+    _check("q_bits", q_bits, torch.int32, (M, Wp), dev)
+    _check("f_codes", f_codes, torch.int16, (M, F, 4), dev)
+    _check("f_bm", f_bm, torch.int32, (M, F, Wp), dev)
+    _check("f_valid", f_valid, torch.int8, (M, F), dev)
+    frontier, wids = _as_level(f_valid, f_bm)
+    return knn_level_dist_narrow(q_pts, wids, q_bits, f_codes.reshape(M * F, 4),
+                                 f_bm.reshape(M * F, Wp), frontier, dict_x, dict_y)
 
 
 def fused_gather_verify_compact(
@@ -395,8 +436,9 @@ def fused_gather_verify(
     ``pack_query_words`` as (M, Wp) int32 tensors, lets the tile kernel read
     each row only at the query's nonzero words; without it the tile kernel
     takes ``wids = arange(W)``, ``bits = q_bm`` (exact either way). The
-    (M, T) kernel reads ``q_bm``. On the CPU every variant runs the plain
-    version (on the packed words when they are given).
+    (M, T) kernel reads ``q_bm`` and compacts each query's nonzero words
+    itself. On the CPU every variant runs the plain version (on the packed
+    words when they are given).
     """
     if variant not in FUSED_VARIANTS:
         raise ValueError(f"unknown fused-verify variant: {variant!r}")
@@ -440,7 +482,6 @@ def fused_gather_verify(
         KERNELS["fused_verify_tile"](q_rects.data_ptr(), wids.data_ptr(), bits.data_ptr(), *tail,
                                      Wp, bm, _TILE_SLOTS, dev.index, _stream(dev))
     else:
-        _check_staged_words(W)
         KERNELS["fused_verify_slot"](q_rects.data_ptr(), q_bm.data_ptr(), *tail, dev.index,
                                      _stream(dev))
     return ids, kwv

@@ -72,10 +72,14 @@ def frontier_filter_narrow_ref(
 
 def _dequantize(f_codes, dict_x, dict_y):
     """(M, F, 4) f32 MBRs from int16 rank codes (exact: each code indexes
-    the f32 value it was built from)."""
+    the f32 value it was built from). Codes clamp to the dictionaries, as
+    the CUDA kernels' ``dequantize_mbr`` does; the snapshot's encoder never
+    emits one out of range."""
     fc = f_codes.long()
+    cx = fc[:, :, 0::2].clamp(0, dict_x.shape[0] - 1)
+    cy = fc[:, :, 1::2].clamp(0, dict_y.shape[0] - 1)
     return torch.stack(
-        [dict_x[fc[:, :, 0]], dict_y[fc[:, :, 1]], dict_x[fc[:, :, 2]], dict_y[fc[:, :, 3]]],
+        [dict_x[cx[:, :, 0]], dict_y[cy[:, :, 0]], dict_x[cx[:, :, 1]], dict_y[cy[:, :, 1]]],
         dim=-1,
     )
 
@@ -111,9 +115,32 @@ def knn_level_dist_ref(
     ids clamped to ``[0, N-1]``; slots with id -1 invalid), the bitmaps only
     at the query's packed words. Exact by ``pack_query_words``' argument:
     ``OR_w (bm & q) == OR_p (bits & gathered)``."""
-    safe = frontier.clamp(0, level_mbrs.shape[0] - 1).long()
-    f_bm = level_bms[safe[:, :, None], q_wids.long()[:, None, :]]  # (M, F, Wp)
-    return knn_filter_ref(q_pts, q_bits, level_mbrs[safe], f_bm, (frontier >= 0).to(torch.int8))
+    safe, f_bm, valid = _at_frontier(level_bms, q_wids, frontier)
+    return knn_filter_ref(q_pts, q_bits, level_mbrs[safe], f_bm, valid)
+
+
+def knn_level_dist_narrow_ref(
+    q_pts: torch.Tensor,  # (M, 2) f32
+    q_wids: torch.Tensor,  # (M, Wp) i32 -- packed query word ids
+    q_bits: torch.Tensor,  # (M, Wp) i32 -- packed query word values
+    level_codes: torch.Tensor,  # (N, 4) int16 -- one level's MBR rank codes
+    level_bms: torch.Tensor,  # (N, W) i32 -- one level's bitmaps
+    frontier: torch.Tensor,  # (M, F) i32 node ids, -1 = empty slot
+    dict_x: torch.Tensor,  # (Dx,) f32 -- the level's coordinate dictionaries
+    dict_y: torch.Tensor,  # (Dy,) f32
+) -> torch.Tensor:
+    """``knn_filter_narrow_ref`` on the level's narrow planes gathered at
+    the frontier, as ``knn_level_dist_ref`` gathers the f32 ones."""
+    safe, f_bm, valid = _at_frontier(level_bms, q_wids, frontier)
+    return knn_filter_narrow_ref(q_pts, q_bits, level_codes[safe], f_bm, valid, dict_x, dict_y)
+
+
+def _at_frontier(level_bms, q_wids, frontier):
+    """The frontier's node ids clamped to the level (int64), the node words
+    at the query's packed words (M, F, Wp), and the int8 mask of real slots."""
+    safe = frontier.clamp(0, level_bms.shape[0] - 1).long()
+    f_bm = level_bms[safe[:, :, None], q_wids.long()[:, None, :]]
+    return safe, f_bm, (frontier >= 0).to(torch.int8)
 
 
 def knn_filter_narrow_ref(

@@ -29,13 +29,14 @@ The port of the JAX package's ``serve/engine.py`` frontier paths. SKR
 Boolean kNN (``retrieve_knn``) is a distance-bounded frontier descent:
 a beam-1 probe descends greedily to one leaf and seeds a padded top-kb
 buffer of (dist^2, object id) pairs; the bounded sweep runs the same
-frontier machinery with the ``knn_filter_narrow`` kernel (or, on the f32
-descent, ``knn_level_dist``, which reads the level's MBRs and its node
-words at the query's packed words itself) and prunes slots whose squared
-MBR min-distance exceeds the current k-th best; the surviving leaves are
-verified in ascending (distance, leaf id) chunks of four, re-tightening
-the bound after each chunk. The reference runs that chunk loop as one ``lax.scan``;
-here it is a Python loop of tensor operations.
+frontier machinery with the ``knn_level_dist_narrow`` kernel (or, on the
+f32 descent, ``knn_level_dist``), which reads the level's MBR codes (or
+MBRs) and its node words at the query's packed words itself, and prunes
+slots whose squared MBR min-distance exceeds the current k-th best; the
+surviving leaves are verified in ascending (distance, leaf id) chunks of
+four, re-tightening the bound after each chunk. The reference runs that
+chunk loop as one ``lax.scan``; here it is a Python loop of tensor
+operations.
 
 Live updates: both paths take an optional ``delta`` (serve/delta.py
 ``DeltaBuffer``). The descents then filter against its insert-widened
@@ -106,11 +107,12 @@ def _clamped(snap: IndexSnapshot, li: int, frontier):
 
 
 def _gather_level(snap: IndexSnapshot, li: int, safe, words, narrow: bool, delta):
-    """The per-slot operands of level ``li`` at the clamped frontier
-    ``safe``: the narrow planes' int16 codes and the node words at the
-    packed query word ids (``words=(wids, bits)``), or, on the f32 descent
-    (``narrow=False``), the f32 MBRs and all W words (the delta's widened
-    arrays when one is live)."""
+    """The range filters' per-slot operands of level ``li`` at the clamped
+    frontier ``safe``: the narrow planes' int16 codes and the node words at
+    the packed query word ids (``words=(wids, bits)``), or, on the f32
+    descent (``narrow=False``), the f32 MBRs and all W words (the delta's
+    widened arrays when one is live). The kNN filters gather for
+    themselves."""
     if not narrow:
         mbrs, bms = _level_arrays(snap, delta, li)
         return mbrs[safe], bms[safe]
@@ -547,17 +549,17 @@ def _merge_topk(top_d, top_id, cand_d, cand_id, kb: int):
 
 def _knn_dist_level(snap: IndexSnapshot, li: int, points, words, narrow: bool, frontier, delta):
     """Squared MBR min-distances of level ``li`` at the frontier:
-    ``knn_filter_narrow`` on the gathered narrow planes, or on the f32
-    descent ``knn_level_dist``, which reads the level arrays (the delta's
-    widened ones when one is live) at the frontier itself, so no (M, F, W)
-    plane is made (bit-identical distances). Returns the (M, F) distances,
-    the per-query count of real slots, and the clamped frontier."""
+    ``knn_level_dist_narrow`` on the level's narrow planes, or on the f32
+    descent ``knn_level_dist`` on its f32 MBRs (the delta's widened arrays
+    when one is live). Both read the level at the frontier themselves, so
+    no per-slot plane is made (bit-identical distances). Returns the (M, F)
+    distances, the per-query count of real slots, and the clamped
+    frontier."""
     safe, valid = _clamped(snap, li, frontier)
     if narrow:
-        codes, f_bm = _gather_level(snap, li, safe, words, narrow, delta)
-        d = ops.knn_frontier_dist_narrow(
-            points, words[1], codes, f_bm, valid.to(torch.int8), snap.level_dict_x[li],
-            snap.level_dict_y[li],
+        d = ops.knn_level_dist_narrow(
+            points, words[0], words[1], snap.level_mbr_codes[li], snap.level_bms[li], frontier,
+            snap.level_dict_x[li], snap.level_dict_y[li],
         )
     else:
         mbrs, bms = _level_arrays(snap, delta, li)

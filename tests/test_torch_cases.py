@@ -208,6 +208,44 @@ def gathered_level(case):
             (fr >= 0).astype(np.int8))
 
 
+LEVEL_NARROW_ARGS = ("q_pts", "q_wids", "q_bits", "level_codes", "level_bms", "frontier",
+                     "dict_x", "dict_y")
+
+
+def level_narrow_case(rng, m, f, n, w, q_terms=None, single=False):
+    """``knn_level_dist_narrow`` operands: a ``level_case`` with its MBRs
+    rank-coded by the snapshot's ``encode_mbr_planes`` (lossless, so
+    ``level_mbrs`` stays the f32 twin of the codes). ``single`` gives every
+    node one degenerate MBR: dictionaries of one entry each."""
+    case = level_case(rng, m, f, n, w, q_terms)
+    if single:
+        case["level_mbrs"][:] = case["level_mbrs"][0, [0, 1, 0, 1]]
+    codes, dicts_x, dicts_y = encode_mbr_planes([case["level_mbrs"]])
+    case.update(level_codes=codes[0], dict_x=dicts_x[0], dict_y=dicts_y[0])
+    return case
+
+
+def gathered_level_narrow(case):
+    """The TPU kernel's narrow operands ``(q_pts, q_bits, f_codes, f_bm,
+    f_valid, dict_x, dict_y)`` of a ``level_narrow_case``: the codes and the
+    node words at the packed word ids gathered at the clamped frontier."""
+    fr = case["frontier"]
+    safe = np.clip(fr, 0, case["level_codes"].shape[0] - 1)
+    f_bm = case["level_bms"][safe[:, :, None], case["q_wids"][:, None, :]]
+    return (case["q_pts"], case["q_bits"], case["level_codes"][safe], f_bm,
+            (fr >= 0).astype(np.int8), case["dict_x"], case["dict_y"])
+
+
+LEVEL_NARROW_SWEEP = [  # m, f, n, w, q_terms, single
+    (1, 1, 1, 1, None, True),       # N = 1, W = Wp = 1, one-entry dictionaries
+    (5, 37, 23, 3, None, False),    # nothing a multiple of a warp; Wp = W = 3
+    (9, 130, 300, 40, None, False),  # dense query words: Wp = 32 past the 4-word bucket
+    (33, 257, 64, 256, 5, False),   # MIX-like at the osm width: Wp = 8 of W = 256
+    (4, 64, 50, 8, 2, False),       # two terms a query: Wp = 4 with zero padding words
+    (6, 40, 17, 4, None, True),     # several nodes on one point: one-entry dictionaries
+]
+
+
 LEVEL_SWEEP = [  # m, f, n, w, q_terms
     (1, 1, 1, 1, None),       # degenerate: one slot, W = Wp = 1
     (5, 37, 23, 3, None),     # nothing a multiple of a warp; Wp = W = 3

@@ -33,10 +33,11 @@ from repro_torch.serve.subscribe import SubscriptionIndex  # noqa: E402
 
 from test_torch_cases import (  # noqa: E402
     CDF_SWEEP, FILTER_ARGS, FILTER_SWEEP, FRONTIER_ARGS, FRONTIER_SWEEP, FUSED_SWEEP, KNN_ARGS,
-    LEVEL_ARGS, LEVEL_SWEEP, SUB_SWEEP, VERIFY_ARGS, VERIFY_COMPACT_ARGS, VERIFY_COMPACT_SWEEP,
-    VERIFY_SWEEP, cdf_params, filter_case, frontier_case, fused_args, fused_case,
-    fused_wide_args, knn_case, level_case, packed_words, rand_kw, rand_sub_rect, sub_case,
-    term_bitmaps, to_torch, verify_case, verify_compact_case, wide_args,
+    LEVEL_ARGS, LEVEL_NARROW_ARGS, LEVEL_NARROW_SWEEP, LEVEL_SWEEP, SUB_SWEEP, VERIFY_ARGS,
+    VERIFY_COMPACT_ARGS, VERIFY_COMPACT_SWEEP, VERIFY_SWEEP, cdf_params, filter_case,
+    frontier_case, fused_args, fused_case, fused_wide_args, knn_case, level_case,
+    level_narrow_case, packed_words, rand_kw, rand_sub_rect, sub_case, term_bitmaps, to_torch,
+    verify_case, verify_compact_case, wide_args,
 )
 
 pytestmark = pytest.mark.cuda
@@ -86,10 +87,10 @@ def test_fused_verify_kernel_matches_plain(cuda, variant, m, t, k, obj, w, max_k
 def test_knn_filter_narrow_kernel_matches_plain(cuda, m, f, w):
     case, _ = knn_case(np.random.default_rng(m * 7919 + f * 31 + w + 1), m, f, w)
     args = [to_torch(case[k], cuda) for k in KNN_ARGS]
-    before = _build.KERNELS["knn_filter_narrow"].launches
+    before = _build.KERNELS["knn_level_dist_narrow"].launches
     got = ops.knn_frontier_dist_narrow(*args)
     torch.cuda.synchronize()
-    assert _build.KERNELS["knn_filter_narrow"].launches == before + 1
+    assert _build.KERNELS["knn_level_dist_narrow"].launches == before + 1
     _equal(got, ref.knn_filter_narrow_ref(*args))
     if m > 1:
         assert torch.isinf(got[-1]).all()  # the all-invalid row
@@ -144,6 +145,52 @@ def test_knn_level_dist_kernel_matches_plain(cuda, m, f, n, w, q_terms):
     assert torch.isinf(ops.knn_level_dist(*args)).all()
 
 
+@pytest.mark.parametrize("m,f,n,w,q_terms,single", LEVEL_NARROW_SWEEP + [
+    (37, 131, 53, 3, None, False),     # M and F off every block size; Wp = W
+    (3, 257, 9, 1, None, True),        # W = Wp = 1, one-entry dictionaries
+    (256, 2048, 1000, 256, 5, False),  # MIX-like queries at the osm width: Wp = 8
+    (64, 8192, 7832, 256, 5, False),   # the leaf level's frontier width
+])
+def test_knn_level_dist_narrow_kernel_matches_plain(cuda, m, f, n, w, q_terms, single):
+    """The narrow kNN descent's filter (one thread per slot, the codes, the
+    dictionaries and the node words read inside the kernel at the query's
+    packed words) against its plain version and, bit for bit, against the
+    f32 level kernel on the MBRs the codes came from: padding and dirty ids,
+    a query with no nonzero word, a frontier of padding only, one-entry
+    dictionaries, and an all-padding batch."""
+    case = level_narrow_case(np.random.default_rng(m * 7919 + f * 31 + n + w + 3), m, f, n, w,
+                             q_terms, single)
+    args = [to_torch(case[k], cuda) for k in LEVEL_NARROW_ARGS]
+    before = _build.KERNELS["knn_level_dist_narrow"].launches
+    got = ops.knn_level_dist_narrow(*args)
+    torch.cuda.synchronize()
+    assert _build.KERNELS["knn_level_dist_narrow"].launches == before + 1
+    _equal(got, ref.knn_level_dist_narrow_ref(*args))
+    _equal(got, ops.knn_level_dist(*(to_torch(case[k], cuda) for k in LEVEL_ARGS)))
+    if m > 1:
+        assert torch.isinf(got[0]).all() and torch.isinf(got[-1]).all()
+        assert torch.isfinite(got).any()
+    args[5] = torch.full_like(args[5], -1)
+    assert torch.isinf(ops.knn_level_dist_narrow(*args)).all()
+
+
+def test_knn_level_dist_narrow_checks_operands(cuda):
+    case = level_narrow_case(np.random.default_rng(4), 4, 9, 5, 2)
+    args = [to_torch(case[k], cuda) for k in LEVEL_NARROW_ARGS]
+    bad = list(args)
+    bad[3] = args[3].to(torch.int32)
+    with pytest.raises(TypeError, match="level_codes"):
+        ops.knn_level_dist_narrow(*bad)
+    bad = list(args)
+    bad[6] = args[6][:0]
+    with pytest.raises(ValueError, match="empty coordinate dictionary"):
+        ops.knn_level_dist_narrow(*bad)
+    bad = list(args)
+    bad[7] = args[7].cpu()
+    with pytest.raises(ValueError, match="dict_y"):
+        ops.knn_level_dist_narrow(*bad)
+
+
 def test_knn_level_dist_checks_operands(cuda):
     case = level_case(np.random.default_rng(4), 4, 9, 5, 2)
     args = [to_torch(case[k], cuda) for k in LEVEL_ARGS]
@@ -174,6 +221,42 @@ def test_full_width_fused_verify_kernel_matches_plain(cuda, variant, m, t, k, ob
     torch.cuda.synchronize()
     assert _build.KERNELS[name].launches == before + 1
     _equal(got, ref.fused_verify_ref(*args))
+
+
+@pytest.mark.parametrize("m,t,k,obj,w,max_kw", FUSED_SWEEP + [
+    (13, 5, 11, 1, 1, 6),         # W = 1, one object a leaf
+    (13, 5, 11, 37, 3, 6),        # W = 3, OBJ below the block
+    (9, 7, 13, 200, 8, 6),        # OBJ above a warp multiple of it: 224 threads
+    (5, 3, 7, 300, 16, 6),        # OBJ above the block: threads stride over the row
+    (64, 16, 40, 128, 256, 6),    # the osm width
+    (3, 2, 4, 37, 8192, 6),       # W at the wrapper's shared-memory ints: four rounds
+    (4, 3, 5, 300, 2500, 6),      # two rounds of words and two passes over the row
+    (1024, 32, 300, 128, 256, 6),  # the main path's M, T, OBJ and W
+])
+def test_fused_verify_slot_kernel_matches_plain(cuda, m, t, k, obj, w, max_kw):
+    """The redesigned (M, T) launch (a block per (query, slot), a thread
+    per object, the query's nonzero words compacted in the block) against
+    its plain version: dirty leaf ids, invalid slots, -1 id pads, a query
+    with no nonzero word, a NEVER_RECT query, and leaf_ok all 0."""
+    rng = np.random.default_rng(m * 613 + t * 37 + k * 5 + obj + w + 29)
+    case = fused_case(rng, m, t, k, obj, w, max_kw)
+    case["top_leaf"].flat[0] = -1  # dirty leaf ids, clamped
+    case["top_leaf"].flat[-1] = k + 1
+    if m > 1:
+        case["q_bm"][0] = 0
+        case["q_rects"][-1] = ops.NEVER_RECT
+    args = list(fused_wide_args(case, cuda))
+    before = _build.KERNELS["fused_verify_slot"].launches
+    got = ops.fused_gather_verify(*args, variant="prefetch")
+    torch.cuda.synchronize()
+    assert _build.KERNELS["fused_verify_slot"].launches == before + 1
+    _equal(got, ref.fused_verify_ref(*args))
+    if m > 1:
+        assert not got[1][0].any() and not (got[0][0] >= 0).any()
+        assert not (got[0][-1] >= 0).any()
+    args[3] = torch.zeros_like(args[3])  # leaf_ok all 0
+    ids, kwv = ops.fused_gather_verify(*args, variant="auto")
+    assert (ids == -1).all() and not kwv.any()
 
 
 @pytest.mark.parametrize("sparse", [False, True])
@@ -325,11 +408,11 @@ def test_knn_engine_on_the_card_matches_the_plain_path(cuda):
     host = serve_knn_batch(host_snap, points, wl.kw_bitmap, 10, plan_cache=PlanCache())
     _build.reset_launch_counts()
     card = serve_knn_batch(snap, points, wl.kw_bitmap, 10, plan_cache=PlanCache())
-    assert _build.launch_counts()["knn_filter_narrow"] >= 2 * index.height
-    narrow = _build.launch_counts()["knn_filter_narrow"]
+    assert _build.launch_counts()["knn_level_dist_narrow"] >= 2 * index.height
+    narrow = _build.launch_counts()["knn_level_dist_narrow"]
     wide = retrieve_knn(snap, points, wl.kw_bitmap, 10, plan_cache=PlanCache(), quantized=False)
     assert _build.launch_counts()["knn_level_dist"] >= 2 * index.height
-    assert _build.launch_counts()["knn_filter_narrow"] == narrow
+    assert _build.launch_counts()["knn_level_dist_narrow"] == narrow
     for k in host:
         assert card[k].dtype == host[k].dtype
         np.testing.assert_array_equal(card[k], host[k], err_msg=k)
@@ -394,7 +477,7 @@ def test_delta_engine_on_the_card_matches_the_plain_path(cuda, own_leaf_terms):
     card = serve_knn_batch(snap, points, wl.kw_bitmap, 10, plan_cache=PlanCache(),
                            delta=log.buffer)
     assert _build.launch_counts()["knn_level_dist"] >= 2 * index.height
-    assert _build.launch_counts()["knn_filter_narrow"] == 0
+    assert _build.launch_counts()["knn_level_dist_narrow"] == 0
     for k in host:
         np.testing.assert_array_equal(card[k], host[k], err_msg=k)
 

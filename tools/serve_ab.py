@@ -16,6 +16,8 @@ times each batch (host clock after ``torch.cuda.synchronize``) of:
 * SKR ``serve_batch`` (the narrow descent, the compact fused verify);
 * SKR ``retrieve(compact=False, fused_variant="vmem")`` (the full-width
   fused verify's query-tile launch);
+* SKR ``retrieve(compact=False)`` (``variant="auto"``: the full-width
+  fused verify's (M, T) launch);
 * kNN ``serve_knn_batch`` at k = 10 (the narrow descent);
 * kNN ``retrieve_knn(quantized=False)`` (the f32 descent);
 * kNN ``serve_knn_batch(delta=...)`` over a ``DeltaLog`` of 10,000 inserts
@@ -90,6 +92,8 @@ def main() -> int:
         "skr": lambda b, c: serve_batch(snap, wl.rects[b], bms[b], 32, plan_cache=c),
         "skr_full_width_vmem": lambda b, c: retrieve(snap, wl.rects[b], bms[b], 32, plan_cache=c,
                                                      compact=False, fused_variant="vmem"),
+        "skr_full_width": lambda b, c: retrieve(snap, wl.rects[b], bms[b], 32, plan_cache=c,
+                                                compact=False),
         "knn": lambda b, c: serve_knn_batch(snap, points[b], bms[b], K, plan_cache=c),
         "knn_f32": lambda b, c: retrieve_knn(snap, points[b], bms[b], K, plan_cache=c,
                                              quantized=False),
