@@ -17,20 +17,23 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    capture each kernel's operands at the shapes the path gives it;
 3. SKR main path: serves the batches through ``serve_batch`` (fused verify
    ``variant="auto"``) and ``retrieve(fused_variant="vmem")``, with the
-   launch counts zeroed before and read after each run; checks every output
+   launch counts zeroed before and read after each run (the descent on
+   ``frontier_level_narrow``, once per level, with the gathered-plane
+   frontier wrappers refused, as on every descent); checks every output
    key against a run with the kernels swapped for their plain versions, and
    ids / ``nodes_checked`` / ``verified`` against the host oracle
    ``execute_serial`` on 256 queries with no overflow;
 4. kNN main path: serves the batches through ``serve_knn_batch`` at k = 10
    (counts zeroed before, read after; the narrow descent on
-   ``knn_level_dist_narrow``, with the engine's per-slot gather and the
-   gathered-plane wrapper refused), checks every key against its
+   ``knn_level_dist_narrow``, with the gathered-plane wrappers refused),
+   checks every key against its
    plain-version rerun, ids and ``dist2`` bit for bit against the host
    oracle ``knn_query`` on 256 queries, and the pruning ratio (m * n_leaf /
    leaves verified) above 1; then one batch each at k = 1 and k = 100
    against the oracle, and one batch with ``knn_dtype="bf16"`` against f32;
 5. the f32 descent: the SKR batches and one kNN batch with
-   ``quantized=False`` (counts zeroed before, read after; the kNN batch on
+   ``quantized=False`` (counts zeroed before, read after; the SKR batches
+   on ``frontier_level`` once per level, the kNN batch on
    ``knn_level_dist`` alone, its peak device memory below one (M, F, W)
    word plane), then one SKR and one kNN batch on the snapshot with its
    narrow planes stripped (what an overflowing coordinate dictionary
@@ -49,8 +52,9 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    ``slots_per_leaf``, the delta's bytes on the device; a buffer taken
    before the last insert still gives its earlier answer; the SKR batches
    through ``serve_batch(delta=...)`` and one kNN batch at k = 10 through
-   ``serve_knn_batch(delta=...)`` (warm, counts zeroed before, read after)
-   equal their plain-version reruns on every key, SKR ids equal
+   ``serve_knn_batch(delta=...)`` (warm, counts zeroed before, read after;
+   the SKR descent on ``frontier_level`` once per level) equal their
+   plain-version reruns on every key, SKR ids equal
    ``execute_serial`` and kNN ids and ``dist2`` equal ``knn_query`` on 256
    queries each, over a cold STR index of ``merged_dataset()``;
 8. the dense A/B scan: the snapshot is built with ``dense=True`` (its
@@ -79,12 +83,12 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    the captured shapes (for the unfused verify kernels: the delta's insert
    slots and the knob run) and at ragged edges, and times both (CUDA
    events) beside a bound; then times the (M, F, W) gather the f32 kNN
-   descent no longer makes, and holds ``knn_frontier_dist(_narrow)``
-   (gathered operands, the level kernels) and the query-tile verify without
-   packed words against their plain versions; then times the engine's
-   operand gathers (``_gather_level``) at the captured shapes: rows 1 and 4,
-   which run them, and row 7's, which the narrow kNN descent no longer
-   makes;
+   descent no longer makes, and holds ``knn_frontier_dist(_narrow)`` and
+   ``filter_frontier(_narrow)`` (gathered operands, through the level
+   kernels) and the query-tile verify without packed words against their
+   plain versions; then times, at the captured shapes, the per-slot planes
+   the engine no longer gathers for rows 1, 4 and 7, and the host packing
+   the SKR batch no longer makes;
 12. profiles one warm SKR batch, one warm kNN batch, one warm dense-scan
    batch and one warm SKR batch with log B's delta (``torch.profiler``:
    device busy and idle share, the largest device and host items);
@@ -227,44 +231,56 @@ def needed_words(hit_words, live, q_nonzero):
     return live[..., None] & torch.where(hit_words.any(-1, keepdim=True), first, q_nonzero)
 
 
-def slot_bound(args, narrow: bool):
-    """Bytes and operations of a frontier filter, on the narrow planes
-    (codes + dictionaries) or the f32 full-width ones.
-
-    For every (query, slot): the valid flag in and the int8 survivor out.
-    The filter needs a slot's MBR where the slot is valid and its words
-    where the MBR also meets the rectangle. An MBR is 16 bytes, or 8 bytes
-    of codes plus its distinct dictionary entries. Query operands count for
-    queries that need them."""
+def slot_bound(args, narrow: bool, chunk: int = 32):
+    """Bytes and operations of ``frontier_level`` (or, ``narrow``,
+    ``frontier_level_narrow``): every frontier id in and every flag out; of
+    a valid slot, its node's MBR -- 16 bytes, or 8 bytes of codes and the
+    distinct dictionary entries they read -- each node once, however many
+    queries need it; of a slot whose MBR also meets the query's rectangle,
+    the node words that decide its keyword test (each node word once); the
+    rectangles of queries with a valid slot; and the W words of each query
+    with a slot that meets, which the kernel reads whole to find its nonzero
+    words. Counted ``chunk`` queries at a time, so the (M, F, W) hit plane
+    never exists whole."""
     if narrow:
-        q, q_words, f_codes, f_bm, f_valid, dict_x, dict_y = args
-        c = f_codes.long()
-        cx = c[..., 0::2].clamp(0, dict_x.numel() - 1)
-        cy = c[..., 1::2].clamp(0, dict_y.numel() - 1)
-        x, y = dict_x[cx], dict_y[cy]  # (M, F, 2): lo, hi
+        q_rects, q_bm, codes, bms, frontier, dict_x, dict_y = args
+        c = codes.long()
+        cx = c[:, 0::2].clamp(0, dict_x.numel() - 1)
+        cy = c[:, 1::2].clamp(0, dict_y.numel() - 1)
+        x, y = dict_x[cx], dict_y[cy]  # (N, 2): lo, hi
     else:
-        q, q_words, f_mbrs, f_bm, f_valid = args
-        x, y = f_mbrs[..., 0::2], f_mbrs[..., 1::2]
-    M, F = f_valid.shape
-    valid = f_valid > 0
-    hits = (f_bm & q_words[:, None, :]) != 0  # (M, F, W)
-    qr = q[:, None, :]
-    inter = (valid & (qr[..., 0] <= x[..., 1]) & (x[..., 0] <= qr[..., 2])
-             & (qr[..., 1] <= y[..., 1]) & (y[..., 0] <= qr[..., 3]))
-    need = needed_words(hits, inter, (q_words != 0)[:, None, :])
-    n_mbr = int(valid.sum())
+        q_rects, q_bm, mbrs, bms, frontier = args
+        x, y = mbrs[:, 0::2], mbrs[:, 1::2]
+    M, F = frontier.shape
+    N, W = bms.shape
+    valid = frontier >= 0
+    node = frontier.long().clamp(0, N - 1)
+    qr = q_rects[:, None, :]
+    nx, ny = x[node], y[node]  # (M, F, 2)
+    meet = (valid & (qr[..., 0] <= nx[..., 1]) & (nx[..., 0] <= qr[..., 2])
+            & (qr[..., 1] <= ny[..., 1]) & (ny[..., 0] <= qr[..., 3]))
+    node_words = torch.zeros(N * W, dtype=torch.bool, device=bms.device)
+    n_need = 0
+    cols = torch.arange(W, device=bms.device)
+    for m0 in range(0, M, chunk):
+        sl = slice(m0, m0 + chunk)
+        qb = q_bm[sl, None, :]
+        need = needed_words((bms[node[sl]] & qb) != 0, meet[sl], qb != 0)  # (c, F, W)
+        node_words[(node[sl, :, None] * W + cols)[need]] = True
+        n_need += int(need.sum())
+    mbr_nodes = torch.unique(node[valid])
     if narrow:
-        entries = (torch.unique(cx[valid]).numel() + torch.unique(cy[valid]).numel())
-        mbr_bytes = n_mbr * 8 + entries * 4
+        mbr_bytes = (mbr_nodes.numel() * 8 + torch.unique(cx[mbr_nodes]).numel() * 4
+                     + torch.unique(cy[mbr_nodes]).numel() * 4)
     else:
-        mbr_bytes = n_mbr * 16
-    nbytes = (int(valid.any(1).sum()) * 16  # rects of queries that need them
-              + int(need.any(1).sum()) * 4  # query words some slot needs
-              + M * F  # f_valid
-              + mbr_bytes
-              + int(need.sum()) * 4  # word-plane words
+        mbr_bytes = mbr_nodes.numel() * 16
+    nbytes = (M * F * 4  # frontier
+              + int(valid.any(1).sum()) * 16  # rectangles of queries with a valid slot
+              + mbr_bytes  # MBRs (codes and dictionary entries) of valid slots' nodes
+              + int(meet.any(1).sum()) * W * 4  # query words, read whole to compact them
+              + int(node_words.sum()) * 4  # node words
               + M * F)  # out
-    ops = M * F + n_mbr * 4 + int(need.sum()) * 2  # valid, 4 compares, AND+test
+    ops = M * F + int(valid.sum()) * 4 + n_need * 2  # id test, 4 compares, AND+test
     return nbytes, ops
 
 
@@ -645,6 +661,42 @@ def ragged_level(dev, ops, M=37, F=131, N=53, W=3, sparse=False, seed=19, D=None
             t(dy))
 
 
+def ragged_frontier_level(dev, ops, M=37, F=131, N=53, W=3, sparse=False, seed=31, D=None):
+    """``frontier_level`` operands at ragged shapes: query rectangles (the
+    second ``NEVER_RECT``, which meets nothing) and bitmaps
+    (``_query_words``: the first with no nonzero word), one level of N nodes
+    with a few pool terms each, and an (M, F) frontier with -1 pads, dirty
+    ids past N - 1 and a last row of padding only. The term pool lies in the
+    last 100 words, so past 2,048 words (one compaction round) the nodes'
+    terms fall on both sides of a round's edge. With ``D``,
+    ``frontier_level_narrow``'s: the MBRs as int16 rank codes into two
+    sorted dictionaries of D entries, which come last."""
+    g = np.random.default_rng(seed)
+    lo_word = max(0, W - 100)
+    pool = 32 * lo_word + g.choice(32 * (W - lo_word), size=min(32 * (W - lo_word), 48),
+                                   replace=False)
+    q_bm, _, _ = _query_words(g, ops, M, W, pool, sparse)
+    rects = _rects(g, M)
+    rects[:, 2:] += np.float32(0.1)
+    if M > 2:
+        rects[1] = ops.NEVER_RECT
+    frontier = g.integers(0, N + 3, (M, F)).astype(np.int32)
+    frontier[g.uniform(0, 1, (M, F)) < 0.3] = -1
+    if M > 1:
+        frontier[-1] = -1
+    bms = _terms(g, N, W, pool, 0, 7).view(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    if D is None:
+        lo = g.uniform(0, 1, (N, 2)).astype(np.float32)
+        mbrs = np.concatenate([lo, lo + g.uniform(0, 0.3, (N, 2)).astype(np.float32)], 1)
+        return (t(rects), t(q_bm), t(mbrs), t(bms), t(frontier))
+    dx, dy = (np.sort(g.uniform(0, 1, D)).astype(np.float32) for _ in range(2))
+    c_lo = g.integers(0, D, (N, 2))
+    c_hi = np.minimum(c_lo + g.integers(0, 8, (N, 2)), D - 1)
+    codes = np.stack([c_lo[:, 0], c_lo[:, 1], c_hi[:, 0], c_hi[:, 1]], -1).astype(np.int16)
+    return (t(rects), t(q_bm), t(codes), t(bms), t(frontier), t(dx), t(dy))
+
+
 def ragged_verify(dev, compact: bool, M=13, T=5, OBJ=37, W=3, seed=11):
     """Unfused verify operands at ragged shapes: T slots of OBJ candidates
     (half of them inside their query's rectangle), W (or, compact, Wl)
@@ -772,7 +824,6 @@ def main() -> int:
     from repro_torch.data.workloads import make_update_stream, make_workload
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.launch.wisk_serve import serve_batch, serve_knn_batch
-    from repro_torch.serve import engine
     from repro_torch.serve.delta import DeltaLog
     from repro_torch.serve.engine import retrieve, retrieve_knn
     from repro_torch.serve.plan import PlanCache
@@ -828,22 +879,23 @@ def main() -> int:
 
     def recorder(key, fn, size_arg, kw_keys=()):
         """Pass calls through to ``fn``, keeping the largest call's operands
-        (the keyword arguments ``kw_keys`` appended to the positional ones)."""
+        (the keyword arguments ``kw_keys`` appended to the positional ones;
+        only calls that pass them all count)."""
         def rec(*args, **kw):
             prev = captured.get(key)
-            if prev is None or args[size_arg].numel() > prev[size_arg].numel():
-                captured[key] = args + tuple(kw.get(k) for k in kw_keys)
+            given = all(kw.get(k) is not None for k in kw_keys)
+            if given and (prev is None or args[size_arg].numel() > prev[size_arg].numel()):
+                captured[key] = args + tuple(kw[k] for k in kw_keys)
             return fn(*args, **kw)
         return rec
 
     warm, warm_knn = PlanCache(), PlanCache()
     with phase("warm-up: SKR and kNN batches"), patched(
-        ops,  # sized by f_valid (M, F), top_leaf (M, T) and the frontier (M, F)
-        filter_frontier_narrow=recorder("frontier_narrow", ops.filter_frontier_narrow, 4),
+        ops,  # sized by the frontier (M, F) and top_leaf (M, T)
+        frontier_level_narrow=recorder("frontier_level_narrow", ops.frontier_level_narrow, 4),
         fused_gather_verify_compact=recorder("fused", ops.fused_gather_verify_compact, 3),
         knn_level_dist_narrow=recorder("knn_level_dist_narrow", ops.knn_level_dist_narrow, 5),
-    ), patched(engine,  # sized by the clamped frontier (M, F)
-               _gather_level=recorder("gather/frontier_narrow", engine._gather_level, 2)):
+    ):
         for b in batches:
             serve_batch(snap, wl.rects[b], bms[b], MAX_LEAVES, plan_cache=warm)
         for b in batches:
@@ -867,20 +919,40 @@ def main() -> int:
             outs.append(out)
         return outs, times
 
+    def refuse(what):
+        def fail(*a, **kw):
+            raise AssertionError(f"a level-form descent called {what}")
+        return fail
+
+    # no per-slot planes on any descent: the range filters' gathered-plane
+    # wrappers (the TPU kernels' operands) must not run
+    no_slot_planes = dict(filter_frontier=refuse("filter_frontier"),
+                          filter_frontier_narrow=refuse("filter_frontier_narrow"))
+
+    def check_descent(counts, name, what):
+        """The descent ran ``name`` once per level of every batch, and the
+        other frontier filter never."""
+        other = "frontier_level" if name == "frontier_level_narrow" else "frontier_level_narrow"
+        if counts[name] != snap.n_levels * len(batches) or counts[other]:
+            raise AssertionError(f"{what} did not launch {name} once per level: {counts}")
+
     plain_fused = lambda *a: ref.fused_verify_compact_ref(*a)  # noqa: E731
     launches = {}
     with phase("SKR main path, plain rerun"):
         _build.reset_launch_counts()
-        main_out, main_t = serve_all()
-        main_counts = _build.launch_counts()
-        log(f"SKR main path serve_batch x{len(batches)} (auto): batch s {main_t}, "
-            f"launches {main_counts}")
-        _build.reset_launch_counts()
-        vmem_out, vmem_t = serve_all("vmem")
-        vmem_counts = _build.launch_counts()
+        with patched(ops, **no_slot_planes):
+            main_out, main_t = serve_all()
+            main_counts = _build.launch_counts()
+            log(f"SKR main path serve_batch x{len(batches)} (auto): batch s {main_t}, "
+                f"launches {main_counts}; no per-slot plane gathered")
+            _build.reset_launch_counts()
+            vmem_out, vmem_t = serve_all("vmem")
+            vmem_counts = _build.launch_counts()
         log(f"SKR main path retrieve(fused_variant='vmem') x{len(batches)}: batch s {vmem_t}, "
             f"launches {vmem_counts}")
-        for key, counts in (("frontier_narrow", main_counts),
+        check_descent(main_counts, "frontier_level_narrow", "the SKR main path")
+        check_descent(vmem_counts, "frontier_level_narrow", "the SKR vmem run")
+        for key, counts in (("frontier_level_narrow", main_counts),
                             ("fused_verify_compact_slot", main_counts),
                             ("fused_verify_compact_tile", vmem_counts)):
             if counts[key] <= 0:
@@ -888,7 +960,7 @@ def main() -> int:
             launches[key] = counts[key]
 
         _build.reset_launch_counts()
-        with patched(ops, filter_frontier_narrow=ref.frontier_filter_narrow_ref,
+        with patched(ops, frontier_level_narrow=ref.frontier_level_narrow_ref,
                      fused_gather_verify_compact=lambda *a, variant="auto": plain_fused(*a)):
             plain_out, plain_t = serve_all()
         if any(_build.launch_counts().values()):
@@ -932,17 +1004,11 @@ def main() -> int:
             times.append(time.perf_counter() - t)
         return outs, times
 
-    def refuse(what):
-        def fail(*a, **kw):
-            raise AssertionError(f"the kNN narrow path called {what}")
-        return fail
-
     with phase("kNN main path, plain rerun"):
         _build.reset_launch_counts()
-        # no per-slot planes: the engine's gather (an (M, F, Wp) word and an
-        # (M, F, 4) code plane) and the gathered-plane wrapper must not run
-        with patched(engine, _gather_level=refuse("_gather_level")), \
-                patched(ops, knn_frontier_dist_narrow=refuse("knn_frontier_dist_narrow")):
+        # no per-slot planes: the gathered-plane wrappers must not run
+        with patched(ops, knn_frontier_dist_narrow=refuse("knn_frontier_dist_narrow"),
+                     **no_slot_planes):
             knn_out, knn_t = serve_knn_all()
         knn_counts = _build.launch_counts()
         log(f"kNN main path serve_knn_batch(k={K}) x{len(batches)}: batch s {knn_t}, "
@@ -997,7 +1063,8 @@ def main() -> int:
     # ------------------------------------------------------- f32 descent
     with phase("f32 descent: quantized=False and stripped snapshot"):
         _build.reset_launch_counts()
-        with patched(ops, filter_frontier=recorder("frontier_filter", ops.filter_frontier, 4)):
+        with patched(ops, frontier_level=recorder("frontier_level/f32", ops.frontier_level, 4),
+                     **no_slot_planes):
             cache = cached(warm)
             f32_t = []
             for bi, b in enumerate(batches):
@@ -1009,9 +1076,7 @@ def main() -> int:
                 assert_outputs_equal(out, main_out[bi], f"SKR quantized=False batch {bi}")
         counts = _build.launch_counts()
         log(f"SKR quantized=False x{len(batches)}: batch s {f32_t}, launches {counts}")
-        if counts["frontier_filter"] <= 0 or counts["frontier_narrow"] != 0:
-            raise AssertionError("the SKR f32 descent did not run on frontier_filter alone")
-        launches["frontier_filter"] = counts["frontier_filter"]
+        check_descent(counts, "frontier_level", "the SKR f32 descent")
         _build.reset_launch_counts()
         torch.cuda.synchronize()
         mem0 = torch.cuda.memory_allocated()
@@ -1085,7 +1150,7 @@ def main() -> int:
     leaf_mbrs = index.levels[-1].mbrs
     leaf_terms = snap.leaf_terms.cpu().numpy()
     plain_ops = dict(
-        filter_frontier=ref.frontier_filter_ref,
+        frontier_level=ref.frontier_level_ref,
         fused_gather_verify_compact=lambda *a, variant="auto": plain_fused(*a),
         verify_candidates=ref.skr_verify_ref,
         verify_candidates_compact=ref.skr_verify_compact_ref,
@@ -1156,10 +1221,10 @@ def main() -> int:
         serve_skr(skr_cache)  # warm-up: learns the widened descent's widths
         serve_knn(knn_cache)
         _build.reset_launch_counts()
-        with patched(ops, **{capture[0]: recorder(capture[1], getattr(ops, capture[0]),
-                                                  capture[2])}), \
-                patched(engine, _gather_level=recorder("gather/frontier_filter",
-                                                       engine._gather_level, 2)):
+        with patched(ops, frontier_level=recorder(f"frontier_level/log {label}",
+                                                  ops.frontier_level, 4),
+                     **{capture[0]: recorder(capture[1], getattr(ops, capture[0]), capture[2])},
+                     **no_slot_planes):
             skr_out, skr_t = serve_skr(cached(skr_cache))
         skr_counts = _build.launch_counts()
         _build.reset_launch_counts()
@@ -1169,14 +1234,16 @@ def main() -> int:
             f"{skr_counts}")
         log(f"log {label} kNN serve_knn_batch(k={K}, delta): one batch {knn_dt:.6f} s, launches "
             f"{knn_counts}")
-        for name in ("frontier_filter", "fused_verify_compact_slot", verify_kernel):
+        check_descent(skr_counts, "frontier_level", f"log {label} SKR")
+        for name in ("fused_verify_compact_slot", verify_kernel):
             if skr_counts[name] <= 0:
                 raise AssertionError(f"log {label}: SKR never launched {name}")
-        if skr_counts["frontier_narrow"] or knn_counts["knn_level_dist_narrow"]:
+        if knn_counts["knn_level_dist_narrow"]:
             raise AssertionError(f"log {label}: a delta descent ran on the narrow planes")
         if knn_counts["knn_level_dist"] <= 0:
             raise AssertionError(f"log {label}: kNN never launched knn_level_dist")
         delta_launches[verify_kernel] = skr_counts[verify_kernel]
+        delta_launches["frontier_level"] = skr_counts["frontier_level"]  # log B's is the row's
         _build.reset_launch_counts()
         with patched(ops, **plain_ops):
             plain_skr, _ = serve_skr(cached(skr_cache))
@@ -1239,7 +1306,7 @@ def main() -> int:
                 torch.cuda.synchronize()
                 dense_t.append(time.perf_counter() - t)
         counts = _build.launch_counts()
-        if counts["skr_filter"] != snap.n_levels * len(batches) or counts["frontier_narrow"]:
+        if counts["skr_filter"] != snap.n_levels * len(batches) or counts["frontier_level_narrow"]:
             raise AssertionError(f"the dense scan did not run skr_filter once per level: {counts}")
         launches["skr_filter"] = counts["skr_filter"]
         log(f"dense serve_batch(mode='dense') x{len(batches)}: batch s {dense_t}, skr_filter "
@@ -1412,10 +1479,21 @@ def main() -> int:
     fu_args = captured["fused"]
     fused_ragged = [ragged_fused(dev), ragged_fused(dev, M=1, T=1, K=1, OBJ=1, Wl=1, seed=3)]
 
-    def slot_phase(name, source, replaces, kernel, plain, narrow):
-        ragged = [ragged_slots(dev, narrow, False),
-                  ragged_slots(dev, narrow, False, M=1, F=1, W=1, D=2, seed=9)]
-        return (name, source, replaces, [captured[name]], ragged, kernel, plain,
+    def slot_phase(name, replaces, cases, kernel, plain, narrow):
+        # dirty ids, a padding row, a query with no nonzero word and one
+        # whose rectangle meets nothing, sizes off every block; N = W = 1
+        # (with one-entry dictionaries); W = 64 with sparse queries; W past
+        # one compaction round with terms on both sides of its edge; an
+        # all-padding frontier
+        d = lambda n: n if narrow else None  # noqa: E731
+        ragged = [ragged_frontier_level(dev, ops, D=d(61)),
+                  ragged_frontier_level(dev, ops, M=1, F=1, N=1, W=1, D=d(1), seed=32),
+                  ragged_frontier_level(dev, ops, M=9, F=300, N=200, W=64, sparse=True,
+                                        D=d(150), seed=33),
+                  ragged_frontier_level(dev, ops, M=5, F=40, N=30, W=2100, D=d(40), seed=34)]
+        pad = ragged[0]
+        ragged.append(pad[:4] + (torch.full_like(pad[4], -1),) + pad[5:])
+        return (name, csrc + "frontier.cu", replaces, cases, ragged, kernel, plain,
                 lambda a: slot_bound(a, narrow))
 
     # the full-width fused verify's operands end with the packed query words
@@ -1440,8 +1518,9 @@ def main() -> int:
                 lambda a: verify_bound(a, compact))
 
     phases = [
-        slot_phase("frontier_narrow", csrc + "frontier.cu", "src/repro/kernels/frontier.py:113",
-                   ops.filter_frontier_narrow, ref.frontier_filter_narrow_ref, True),
+        slot_phase("frontier_level_narrow", "src/repro/kernels/frontier.py:113",
+                   [captured["frontier_level_narrow"]], ops.frontier_level_narrow,
+                   ref.frontier_level_narrow_ref, True),
         ("fused_verify_compact_tile", csrc + "fused_verify_compact.cu",
          "src/repro/kernels/fused_verify.py:267", [fu_args], fused_ragged,
          lambda *a: ops.fused_gather_verify_compact(*a, variant="vmem"), plain_fused, fused_bound),
@@ -1449,8 +1528,10 @@ def main() -> int:
          "src/repro/kernels/fused_verify.py:345", [fu_args], fused_ragged,
          lambda *a: ops.fused_gather_verify_compact(*a, variant="prefetch"), plain_fused,
          fused_bound),
-        slot_phase("frontier_filter", csrc + "frontier.cu", "src/repro/kernels/frontier.py:60",
-                   ops.filter_frontier, ref.frontier_filter_ref, False),
+        slot_phase("frontier_level", "src/repro/kernels/frontier.py:60",
+                   [captured["frontier_level/log B"], captured["frontier_level/f32"],
+                    captured["frontier_level/log A"]],
+                   ops.frontier_level, ref.frontier_level_ref, False),
         ("knn_level_dist_narrow", csrc + "knn_filter.cu", "src/repro/kernels/knn_filter.py:105",
          [captured["knn_level_dist_narrow"]], narrow_ragged, ops.knn_level_dist_narrow,
          ref.knn_level_dist_narrow_ref, lambda a: level_bound(a, narrow=True)),
@@ -1566,28 +1647,79 @@ def main() -> int:
             torch.cuda.synchronize()
             assert_same(got, ref.fused_verify_ref(*case[:8]),
                         f"fused_verify_tile on q_bm at {shapes(case[:8])}")
-        log("knn_frontier_dist and knn_frontier_dist_narrow (gathered operands, through the "
-            "level kernels) and the query-tile verify on q_bm: bit-exact against their plain "
-            "versions at the captured and ragged shapes")
+        # filter_frontier(_narrow)'s gathered planes run the frontier level
+        # kernels: bit-exact against frontier_filter(_narrow)_ref at ragged
+        # shapes and at the first 64 captured queries, where they also equal
+        # the level rows
+        for key, narrow in (("frontier_level/log B", False), ("frontier_level_narrow", True)):
+            level = captured[key]
+            q_rects, q_bm, mbr, lbms, fr = level[:5]
+            m = min(64, fr.shape[0])
+            sl = fr[:m].clamp(0, lbms.shape[0] - 1).long()
+            valid = (fr[:m] >= 0).to(torch.int8)
+            if narrow:
+                wids, bits = ops.pack_query_words(ops.host_words(q_bm[:m]))
+                wids, bits = torch.from_numpy(wids).to(dev), torch.from_numpy(bits.view(np.int32)).to(dev)
+                head = (q_rects[:m].contiguous(), bits, mbr[sl],
+                        lbms[sl[:, :, None], wids.long()[:, None, :]], valid, *level[5:])
+                wrapper, plain = ops.filter_frontier_narrow, ref.frontier_filter_narrow_ref
+            else:
+                head = (q_rects[:m].contiguous(), q_bm[:m].contiguous(), mbr[sl], lbms[sl], valid)
+                wrapper, plain = ops.filter_frontier, ref.frontier_filter_ref
+            gathered = [ragged_slots(dev, narrow, False),
+                        ragged_slots(dev, narrow, False, M=1, F=1, W=1, D=2, seed=9), head]
+            for case in gathered:
+                got = wrapper(*case)
+                torch.cuda.synchronize()
+                assert_same(got, plain(*case), f"{wrapper.__name__} at {shapes(case)}")
+            rows_m = (q_rects[:m].contiguous(), q_bm[:m].contiguous(), mbr, lbms,
+                      fr[:m].contiguous(), *level[5:])
+            level_fn = ops.frontier_level_narrow if narrow else ops.frontier_level
+            assert_same(got, level_fn(*rows_m), f"{wrapper.__name__} vs level")
+            del head, gathered, sl, got
+        log("knn_frontier_dist, knn_frontier_dist_narrow, filter_frontier and "
+            "filter_frontier_narrow (gathered operands, through the level kernels) and the "
+            "query-tile verify on q_bm: bit-exact against their plain versions at the captured "
+            "and ragged shapes")
 
     with phase("operand gathers"):
-        # engine._gather_level at the captured shapes: rows 1 (the narrow SKR
-        # descent) and 4 (the f32 descent of a delta SKR batch) still run it;
-        # row 7's is the gather the narrow kNN descent no longer makes
-        li = next(i for i, c in enumerate(snap.level_mbr_codes)
-                  if c.data_ptr() == codes.data_ptr())
+        # the per-slot planes the engine gathered before rows 1, 4 and 7
+        # read the level themselves, timed at the captured shapes as the
+        # indexing ops that made them: row 1's codes and node words at the
+        # packed word ids (the narrow SKR descent), row 4's f32 MBRs and all
+        # W words (log B's delta SKR batch), row 7's codes and node words
+        # (the narrow kNN descent); and the host packing the SKR batch no
+        # longer makes
+        def narrow_planes(codes, lbms, fr, wids):
+            safe = fr.clamp(0, lbms.shape[0] - 1).long()
+            return codes[safe], lbms[safe[:, :, None], wids.long()[:, None, :]]
+
+        def wide_planes(mbrs, lbms, fr):
+            safe = fr.clamp(0, lbms.shape[0] - 1).long()
+            return mbrs[safe], lbms[safe]
+
+        q_rects, q_bm, codes1, lbms1, fr1 = captured["frontier_level_narrow"][:5]
+        host_bm = ops.host_words(q_bm)
+        t = time.perf_counter()
+        for _ in range(5):
+            wids1, _ = ops.pack_query_words(host_bm)
+        pack_ms = (time.perf_counter() - t) * 1e3 / 5
+        wids1 = torch.from_numpy(wids1).to(dev)
+        _, _, mbrs4, lbms4, fr4 = captured["frontier_level/log B"]
+        _, wids7, _, codes7, lbms7, fr7 = captured["knn_level_dist_narrow"][:6]
         gathers = {
-            "frontier_narrow": captured["gather/frontier_narrow"],
-            "frontier_filter": captured["gather/frontier_filter"],
-            "knn_level_dist_narrow (no longer made)": (
-                snap, li, fr.clamp(0, lbms.shape[0] - 1).long(), (wids, bits), True, None),
+            "frontier_level_narrow (row 1)": lambda: narrow_planes(codes1, lbms1, fr1, wids1),
+            "frontier_level (row 4)": lambda: wide_planes(mbrs4, lbms4, fr4),
+            "knn_level_dist_narrow (row 7)": lambda: narrow_planes(codes7, lbms7, fr7, wids7),
         }
-        for row, args in gathers.items():
-            planes = engine._gather_level(*args)
+        for row, gather in gathers.items():
+            planes = gather()
             nbytes = sum(p.numel() * p.element_size() for p in planes)
-            g_ms = time_ms(lambda: engine._gather_level(*args), iters=10)
-            log(f"operand gather of {row}: level {args[1]}, frontier {tuple(args[2].shape)}, "
-                f"planes {[tuple(p.shape) for p in planes]} ({nbytes} B): {g_ms:.6f} ms")
+            g_ms = time_ms(gather, iters=10)
+            log(f"operand gather no longer made for {row}: planes "
+                f"{[tuple(p.shape) for p in planes]} ({nbytes} B): {g_ms:.6f} ms")
+        log(f"host packing no longer made for the SKR batch: pack_query_words of "
+            f"{tuple(host_bm.shape)} words, host clock, mean of 5: {pack_ms:.6f} ms")
         del planes, gathers
     captured.clear()
 

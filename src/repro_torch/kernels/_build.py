@@ -132,12 +132,12 @@ KERNELS: Dict[str, CudaKernel] = {
     k.name: k
     for k in (
         CudaKernel(
-            "frontier_narrow", "frontier.cu", "wisk_frontier_narrow",
-            (_P,) * 8 + (_I,) * 6 + (_P,),
+            "frontier_level_narrow", "frontier.cu", "wisk_frontier_level_narrow",
+            (_P,) * 8 + (_I,) * 7 + (_P,),
         ),
         CudaKernel(
-            "frontier_filter", "frontier.cu", "wisk_frontier_filter",
-            (_P,) * 6 + (_I,) * 4 + (_P,),
+            "frontier_level", "frontier.cu", "wisk_frontier_level",
+            (_P,) * 6 + (_I,) * 5 + (_P,),
         ),
         CudaKernel(
             "knn_level_dist_narrow", "knn_filter.cu", "wisk_knn_level_dist_narrow",

@@ -67,8 +67,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarpsPerBlock = kThreads / 32;
-// query words the (M, T) kernel compacts per round: at most 16 KB of pairs
-constexpr int kRoundWords = 2048;
+using wisk::kRoundWords;
 
 struct Bank {
   const float* q_rects;      // (M, 4)
@@ -145,47 +144,6 @@ __global__ void fused_verify_wide_tile_kernel(Bank b, int BM, int TC) {
   }
 }
 
-// Compact the n words q[w0 .. w0 + n) into (word id, value) pairs of the
-// nonzero ones, in word order, at s_wid / s_bit; every thread of the block
-// (a multiple of 32) takes part, and every thread gets the count. Each warp
-// owns a slice of the words: a first pass counts its nonzero words with
-// ballots, and after the counts are shared a second pass writes its pairs
-// after the pairs of the warps before it -- a prefix count, no atomics.
-__device__ int compact_words(int32_t* s_wid, int32_t* s_bit, int* s_cnt,
-                             const int32_t* __restrict__ q, int w0, int n) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const int span = (n + 32 * n_warps - 1) / (32 * n_warps) * 32;  // words per warp
-  const int lo = min(warp * span, n);
-  const int hi = min(lo + span, n);
-  int cnt = 0;
-  for (int base = lo; base < hi; base += 32) {  // warp-uniform trip count
-    const int p = base + lane;
-    cnt += __popc(__ballot_sync(0xffffffffu, p < hi && __ldg(q + w0 + p) != 0));
-  }
-  if (lane == 0) s_cnt[warp] = cnt;
-  __syncthreads();
-  int off = 0, total = 0;
-  for (int w = 0; w < n_warps; ++w) {
-    off += w < warp ? s_cnt[w] : 0;
-    total += s_cnt[w];
-  }
-  for (int base = lo; base < hi; base += 32) {
-    const int p = base + lane;
-    const int32_t v = p < hi ? __ldg(q + w0 + p) : 0;
-    const unsigned nz = __ballot_sync(0xffffffffu, v != 0);
-    if (v != 0) {
-      const int at = off + __popc(nz & ((1u << lane) - 1u));
-      s_wid[at] = w0 + p;
-      s_bit[at] = v;
-    }
-    off += __popc(nz);
-  }
-  __syncthreads();
-  return total;
-}
-
 // variant="prefetch": one block per (query, slot), one thread per object
 // (threads stride over the row when OBJ exceeds the block). The query's
 // nonzero words are compacted once (or once per round and object pass when
@@ -219,7 +177,7 @@ __global__ void fused_verify_wide_slot_kernel(Bank b) {
       if (rounds > 1 || o0 == 0) {
         if (r > 0 || o0 > 0) __syncthreads();  // the last pairs are read
         const int w0 = r * kRoundWords;
-        n = compact_words(s_wid, s_bit, s_cnt, q, w0, min(kRoundWords, b.W - w0));
+        n = wisk::compact_words(s_wid, s_bit, s_cnt, q, w0, min(kRoundWords, b.W - w0));
       }
       if (cid >= 0 && !kw) kw = wisk::pairs_hit(b.obj_bm + obj * b.W, s_wid, s_bit, n);
     }

@@ -63,7 +63,7 @@ __global__ void skr_verify_kernel(
     bool hit = false;
     if (__ldg(cand_valid + cand) > 0 &&
         wisk::point_in_rect(q, __ldg(cand_x + cand), __ldg(cand_y + cand))) {
-      hit = wisk::words_hit_warp<true>(cand_bm + cand * W, s_q, W, lane);
+      hit = wisk::words_hit_warp(cand_bm + cand * W, s_q, W, lane);
     }
     if (lane == 0) out[cand] = hit ? 1 : 0;
   }

@@ -1,13 +1,15 @@
 // Predicates shared by the port's kernels: the frontier filters
 // (frontier.cu), the kNN distance filters (knn_filter.cu), and the verify
-// kernels (skr_verify.cu, fused_verify.cu, fused_verify_compact.cu).
+// kernels (skr_verify.cu, fused_verify.cu, fused_verify_compact.cu); and the
+// block-wide compaction of a query's nonzero words that the frontier
+// filters and the (M, T) full-width verify share.
 //
 // Every function is a plain __device__ inline: the kernels that include this
 // header differ only in how threads map onto slots or candidates (one thread
-// each on the narrow and compact planes and where a full-width row is read
-// at the query's packed or compacted words, one warp each where it is read
-// whole) and in what they write (an int8 flag, an object id or an f32
-// squared distance).
+// each on the compact planes and where a full-width row is read at the
+// query's packed or compacted words, one warp each where it is read whole)
+// and in what they write (an int8 flag, an object id or an f32 squared
+// distance).
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
@@ -72,28 +74,16 @@ __device__ __forceinline__ bool words_hit_thread(const int32_t* __restrict__ fb,
   return false;
 }
 
-// Keyword test by a whole warp (all 32 lanes must call it): lane l reads
+// Keyword test by a whole warp (all 32 lanes must call it) against the
+// query's words `qb`, staged in shared memory (stage_words): lane l reads
 // words l, l + 32, ..., so neighbouring lanes read neighbouring words of the
-// slot (coalesced 128-byte rows). Stops after the first 32-word stride that
-// holds a hit. The result is the same on every lane. With kStaged the
-// query's words `qb` lie in shared memory (staged by the block with
-// stage_words), else in global memory.
-template <bool kStaged = false>
+// row (coalesced 128-byte rows). Stops after the first 32-word stride that
+// holds a hit. The result is the same on every lane.
 __device__ __forceinline__ bool words_hit_warp(const int32_t* __restrict__ fb,
-                                               const int32_t* __restrict__ qb, int n,
-                                               int lane) {
+                                               const int32_t* qb, int n, int lane) {
   for (int base = 0; base < n; base += 32) {
     const int p = base + lane;
-    bool hit = false;
-    if (p < n) {
-      int32_t q;
-      if constexpr (kStaged) {
-        q = qb[p];
-      } else {
-        q = __ldg(qb + p);
-      }
-      hit = (__ldg(fb + p) & q) != 0;
-    }
+    const bool hit = p < n && (__ldg(fb + p) & qb[p]) != 0;
     if (__any_sync(0xffffffffu, hit)) return true;
   }
   return false;
@@ -141,6 +131,52 @@ __device__ __forceinline__ bool pairs_hit(const int32_t* __restrict__ row,
     if (acc != 0) return true;
   }
   return false;
+}
+
+// Query words a block compacts per round (compact_words): at most 16 KB of
+// (word id, value) pairs in shared memory, whatever W is.
+constexpr int kRoundWords = 2048;
+
+// Compact the n words q[w0 .. w0 + n) into (word id, value) pairs of the
+// nonzero ones, in word order, at s_wid / s_bit; every thread of the block
+// (a multiple of 32) takes part, and every thread gets the count. Each warp
+// owns a slice of the words: a first pass counts its nonzero words with
+// ballots, and after the counts are shared (``s_cnt``, one int per warp) a
+// second pass writes its pairs after the pairs of the warps before it -- a
+// prefix count, no atomics. The pairs feed pairs_hit.
+__device__ inline int compact_words(int32_t* s_wid, int32_t* s_bit, int* s_cnt,
+                                    const int32_t* __restrict__ q, int w0, int n) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int span = (n + 32 * n_warps - 1) / (32 * n_warps) * 32;  // words per warp
+  const int lo = min(warp * span, n);
+  const int hi = min(lo + span, n);
+  int cnt = 0;
+  for (int base = lo; base < hi; base += 32) {  // warp-uniform trip count
+    const int p = base + lane;
+    cnt += __popc(__ballot_sync(0xffffffffu, p < hi && __ldg(q + w0 + p) != 0));
+  }
+  if (lane == 0) s_cnt[warp] = cnt;
+  __syncthreads();
+  int off = 0, total = 0;
+  for (int w = 0; w < n_warps; ++w) {
+    off += w < warp ? s_cnt[w] : 0;
+    total += s_cnt[w];
+  }
+  for (int base = lo; base < hi; base += 32) {
+    const int p = base + lane;
+    const int32_t v = p < hi ? __ldg(q + w0 + p) : 0;
+    const unsigned nz = __ballot_sync(0xffffffffu, v != 0);
+    if (v != 0) {
+      const int at = off + __popc(nz & ((1u << lane) - 1u));
+      s_wid[at] = w0 + p;
+      s_bit[at] = v;
+    }
+    off += __popc(nz);
+  }
+  __syncthreads();
+  return total;
 }
 
 }  // namespace wisk

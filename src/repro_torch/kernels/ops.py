@@ -163,8 +163,9 @@ def _stream(device: torch.device):
 
 def filter_frontier(q_rects, q_bm, f_mbrs, f_bm, f_valid):
     """(M, F) int8 frontier-survivor matrix on f32 MBRs and full-width
-    bitmap words (the f32 descent: ``quantized=False``, or a snapshot
-    without narrow planes). CUDA tensors run ``csrc/frontier.cu``."""
+    bitmap words gathered at each slot (the TPU kernel's operands). CUDA
+    tensors run ``frontier_level``'s kernel on the planes taken as one level
+    of M*F nodes (``_as_level``) -- exact, and no host sync."""
     if q_rects.device.type == "cpu":
         return ref.frontier_filter_ref(q_rects, q_bm, f_mbrs, f_bm, f_valid)
     dev = q_rects.device
@@ -172,24 +173,22 @@ def filter_frontier(q_rects, q_bm, f_mbrs, f_bm, f_valid):
         raise ValueError(f"no kernel for device {dev}")
     M, F = f_valid.shape
     W = q_bm.shape[1]
-    _check("q_rects", q_rects, torch.float32, (M, 4), dev)
-    _check("q_bm", q_bm, torch.int32, (M, W), dev)
     _check("f_mbrs", f_mbrs, torch.float32, (M, F, 4), dev)
     _check("f_bm", f_bm, torch.int32, (M, F, W), dev)
     _check("f_valid", f_valid, torch.int8, (M, F), dev)
-    out = torch.empty((M, F), dtype=torch.int8, device=dev)
-    KERNELS["frontier_filter"](
-        q_rects.data_ptr(), q_bm.data_ptr(), f_mbrs.data_ptr(), f_bm.data_ptr(),
-        f_valid.data_ptr(), out.data_ptr(), M, F, W, dev.index, _stream(dev),
-    )
-    return out
+    frontier, _ = _as_level(f_valid, f_bm)
+    return frontier_level(q_rects, q_bm, f_mbrs.reshape(M * F, 4), f_bm.reshape(M * F, W),
+                          frontier)
 
 
 def filter_frontier_narrow(q_rects, q_bits, f_codes, f_bm, f_valid, dict_x, dict_y):
-    """(M, F) int8 frontier-survivor matrix on the bandwidth-lean planes:
-    int16 MBR rank codes dequantized through the level's coordinate
-    dictionaries (exact) and packed query word planes from
-    ``pack_query_words``. CUDA tensors run ``csrc/frontier.cu``."""
+    """(M, F) int8 frontier-survivor matrix on the bandwidth-lean planes
+    gathered at each slot (the TPU kernel's operands): int16 MBR rank codes
+    dequantized through the level's coordinate dictionaries (exact) and
+    packed query word planes from ``pack_query_words``. CUDA tensors run
+    ``frontier_level_narrow``'s kernel on the planes taken as one level of
+    M*F nodes (``_as_level``), the packed ``q_bits`` as the (M, Wp)
+    bitmap."""
     if q_rects.device.type == "cpu":
         return ref.frontier_filter_narrow_ref(q_rects, q_bits, f_codes, f_bm, f_valid, dict_x, dict_y)
     dev = q_rects.device
@@ -197,19 +196,75 @@ def filter_frontier_narrow(q_rects, q_bits, f_codes, f_bm, f_valid, dict_x, dict
         raise ValueError(f"no kernel for device {dev}")
     M, F = f_valid.shape
     Wp = q_bits.shape[1]
-    _check("q_rects", q_rects, torch.float32, (M, 4), dev)
-    _check("q_bits", q_bits, torch.int32, (M, Wp), dev)
     _check("f_codes", f_codes, torch.int16, (M, F, 4), dev)
     _check("f_bm", f_bm, torch.int32, (M, F, Wp), dev)
     _check("f_valid", f_valid, torch.int8, (M, F), dev)
-    _check_dicts(dict_x, dict_y, dev)
+    frontier, _ = _as_level(f_valid, f_bm)
+    return frontier_level_narrow(q_rects, q_bits, f_codes.reshape(M * F, 4),
+                                 f_bm.reshape(M * F, Wp), frontier, dict_x, dict_y)
+
+
+def frontier_level(q_rects, q_bm, level_mbrs, level_bms, frontier):
+    """(M, F) int8 survivors of one level's nodes at the frontier (int32
+    node ids, -1 = empty slot; ids clamped to the level): the node's f32
+    MBR (N, 4) meets the query's closed rectangle and one of its bitmap
+    words (N, W) ANDs non-zero with the query's ``q_bm`` (M, W). The f32
+    range descent's filter (``quantized=False``, a snapshot without narrow
+    planes, or a delta's widened ``aug_mbrs``/``aug_bms``): no (M, F, W)
+    plane is made. CUDA tensors run ``csrc/frontier.cu``, which reads the
+    level itself and the node words only at the query's nonzero words."""
+    if q_rects.device.type == "cpu":
+        return ref.frontier_level_ref(q_rects, q_bm, level_mbrs, level_bms, frontier)
+    dev, (M, F, N, W) = _check_frontier_level(q_rects, q_bm, level_bms, frontier)
+    _check("level_mbrs", level_mbrs, torch.float32, (N, 4), dev)
     out = torch.empty((M, F), dtype=torch.int8, device=dev)
-    KERNELS["frontier_narrow"](
-        q_rects.data_ptr(), q_bits.data_ptr(), f_codes.data_ptr(), f_bm.data_ptr(),
-        f_valid.data_ptr(), dict_x.data_ptr(), dict_y.data_ptr(), out.data_ptr(),
-        M, F, Wp, dict_x.shape[0], dict_y.shape[0], dev.index, _stream(dev),
+    KERNELS["frontier_level"](
+        q_rects.data_ptr(), q_bm.data_ptr(), level_mbrs.data_ptr(), level_bms.data_ptr(),
+        frontier.data_ptr(), out.data_ptr(), M, F, N, W, dev.index, _stream(dev),
     )
     return out
+
+
+def frontier_level_narrow(q_rects, q_bm, level_codes, level_bms, frontier, dict_x, dict_y):
+    """``frontier_level`` on the level's bandwidth-lean planes: its (N, 4)
+    int16 MBR rank codes, decoded through its coordinate dictionaries
+    ``dict_x``/``dict_y`` (exact; codes clamped to them). Bit-identical to
+    ``frontier_level`` on the f32 MBRs the codes came from. The default
+    range descent's filter: no (M, F, Wp) word plane or (M, F, 4) code
+    plane is made, and the query words need no packing on the host. CUDA
+    tensors run ``csrc/frontier.cu``, which reads the level itself."""
+    if q_rects.device.type == "cpu":
+        return ref.frontier_level_narrow_ref(q_rects, q_bm, level_codes, level_bms, frontier,
+                                             dict_x, dict_y)
+    dev, (M, F, N, W) = _check_frontier_level(q_rects, q_bm, level_bms, frontier)
+    _check("level_codes", level_codes, torch.int16, (N, 4), dev)
+    _check_dicts(dict_x, dict_y, dev)
+    out = torch.empty((M, F), dtype=torch.int8, device=dev)
+    KERNELS["frontier_level_narrow"](
+        q_rects.data_ptr(), q_bm.data_ptr(), level_codes.data_ptr(), level_bms.data_ptr(),
+        frontier.data_ptr(), dict_x.data_ptr(), dict_y.data_ptr(), out.data_ptr(), M, F, N, W,
+        dict_x.shape[0], dict_y.shape[0], dev.index, _stream(dev),
+    )
+    return out
+
+
+def _check_frontier_level(q_rects, q_bm, level_bms, frontier):
+    """Check the operands both frontier level kernels take; returns the
+    device and ``(M, F, N, W)``."""
+    dev = q_rects.device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    M, F = frontier.shape
+    N, W = level_bms.shape
+    _check("q_rects", q_rects, torch.float32, (M, 4), dev)
+    _check("q_bm", q_bm, torch.int32, (M, W), dev)
+    _check("level_bms", level_bms, torch.int32, (N, W), dev)
+    _check("frontier", frontier, torch.int32, (M, F), dev)
+    if M * F and (N == 0 or W == 0):
+        raise ValueError("empty level")
+    if M * -(-F // 256) >= 2 ** 31:
+        raise ValueError(f"M={M}, F={F} exceed the frontier filter's grid")
+    return dev, (M, F, N, W)
 
 
 def _check_dicts(dict_x, dict_y, dev) -> None:
@@ -226,7 +281,7 @@ def _as_level(f_valid, f_bm):
     M, F = f_valid.shape
     Wp = f_bm.shape[2]
     if M * F >= 2 ** 31:
-        raise ValueError(f"M*F={M * F} slots exceed the kNN filter's int32 node ids")
+        raise ValueError(f"M*F={M * F} slots exceed the level kernels' int32 node ids")
     dev = f_valid.device
     slots = torch.arange(M * F, dtype=torch.int32, device=dev).reshape(M, F)
     frontier = torch.where(f_valid > 0, slots, -1)

@@ -70,6 +70,36 @@ def frontier_filter_narrow_ref(
     return frontier_filter_ref(q_rects, q_bits, _dequantize(f_codes, dict_x, dict_y), f_bm, f_valid)
 
 
+def frontier_level_ref(
+    q_rects: torch.Tensor,  # (M, 4) f32
+    q_bm: torch.Tensor,  # (M, W) i32 bitmap words
+    level_mbrs: torch.Tensor,  # (N, 4) f32 -- one level's MBRs
+    level_bms: torch.Tensor,  # (N, W) i32 -- one level's bitmaps
+    frontier: torch.Tensor,  # (M, F) i32 node ids, -1 = empty slot
+) -> torch.Tensor:
+    """``frontier_filter_ref`` on the level arrays gathered at the frontier
+    (node ids clamped to ``[0, N-1]``; slots with id -1 invalid)."""
+    safe = frontier.clamp(0, level_bms.shape[0] - 1).long()
+    return frontier_filter_ref(q_rects, q_bm, level_mbrs[safe], level_bms[safe],
+                               (frontier >= 0).to(torch.int8))
+
+
+def frontier_level_narrow_ref(
+    q_rects: torch.Tensor,  # (M, 4) f32
+    q_bm: torch.Tensor,  # (M, W) i32 bitmap words
+    level_codes: torch.Tensor,  # (N, 4) int16 -- one level's MBR rank codes
+    level_bms: torch.Tensor,  # (N, W) i32 -- one level's bitmaps
+    frontier: torch.Tensor,  # (M, F) i32 node ids, -1 = empty slot
+    dict_x: torch.Tensor,  # (Dx,) f32 -- the level's coordinate dictionaries
+    dict_y: torch.Tensor,  # (Dy,) f32
+) -> torch.Tensor:
+    """``frontier_filter_narrow_ref`` on the level's narrow planes gathered
+    at the frontier, as ``frontier_level_ref`` gathers the f32 ones."""
+    safe = frontier.clamp(0, level_bms.shape[0] - 1).long()
+    return frontier_filter_narrow_ref(q_rects, q_bm, level_codes[safe], level_bms[safe],
+                                      (frontier >= 0).to(torch.int8), dict_x, dict_y)
+
+
 def _dequantize(f_codes, dict_x, dict_y):
     """(M, F, 4) f32 MBRs from int16 rank codes (exact: each code indexes
     the f32 value it was built from). Codes clamp to the dictionaries, as

@@ -4,18 +4,20 @@ The port of the JAX package's ``serve/engine.py`` frontier paths. SKR
 (``retrieve``):
 
 1. ``pack_query_words`` packs each query bitmap to its nonzero words on the
-   host (the batch's bitmaps are there before the descent starts), for the
-   narrow descent and the full-width fused verify's query-tile launch.
+   host (the batch's bitmaps are there before the descent starts), only
+   for the full-width fused verify's query-tile launch.
 2. ``_descend_frontier``: each query carries a padded int32 frontier of
-   candidate node ids. Per level, ``_filter_level`` gathers the frontier's
-   int16 MBR rank codes and packed word planes and runs the
-   ``frontier_narrow`` CUDA kernel -- or, for ``quantized=False``, a
-   snapshot without narrow planes (a coordinate dictionary overflowed
-   int16) or a live delta, gathers the f32 MBRs and all W words and runs
-   ``frontier_filter`` (the f32 descent; identical survivors). Survivors'
-   children are expanded through the CSR child table into the next
-   frontier, compacted with a prefix sum and a scatter. Widths come from
-   the caller's ``PlanCache``.
+   candidate node ids. Per level, ``_filter_level`` runs the
+   ``frontier_level_narrow`` CUDA kernel on the level's int16 MBR rank
+   codes, coordinate dictionaries and bitmaps -- or, for
+   ``quantized=False``, a snapshot without narrow planes (a coordinate
+   dictionary overflowed int16) or a live delta, ``frontier_level`` on its
+   f32 MBRs (the f32 descent; identical survivors). Both read the level at
+   the frontier themselves, the node words only at the query's nonzero
+   words, which the kernel compacts from the (M, W) bitmap: no per-slot
+   plane is made. Survivors' children are expanded through the CSR child
+   table into the next frontier, compacted with a prefix sum and a
+   scatter. Widths come from the caller's ``PlanCache``.
 3. ``_select_leaves_frontier`` keeps up to ``max_leaves`` surviving leaves
    per query, lowest leaf id first (the spill is counted in ``overflow``).
 4. ``_verify_leaves`` verifies the selected leaves. By default
@@ -106,35 +108,22 @@ def _clamped(snap: IndexSnapshot, li: int, frontier):
     return frontier.clamp(0, snap.level_mbrs[li].shape[0] - 1).long(), frontier >= 0
 
 
-def _gather_level(snap: IndexSnapshot, li: int, safe, words, narrow: bool, delta):
-    """The range filters' per-slot operands of level ``li`` at the clamped
-    frontier ``safe``: the narrow planes' int16 codes and the node words at
-    the packed query word ids (``words=(wids, bits)``), or, on the f32
-    descent (``narrow=False``), the f32 MBRs and all W words (the delta's
-    widened arrays when one is live). The kNN filters gather for
-    themselves."""
-    if not narrow:
-        mbrs, bms = _level_arrays(snap, delta, li)
-        return mbrs[safe], bms[safe]
-    f_bm = snap.level_bms[li][safe[:, :, None], words[0].long()[:, None, :]]  # (M, F, Wp)
-    return snap.level_mbr_codes[li][safe], f_bm
-
-
-def _filter_level(snap: IndexSnapshot, li: int, q_rects, q_bm, words, narrow: bool, frontier,
-                  delta):
-    """Run the frontier kernel on level ``li``: ``frontier_narrow`` on the
-    narrow planes, ``frontier_filter`` on the f32 descent (identical
-    survivors). Returns the (M, F) survivors, the per-query count of real
-    slots, and the clamped frontier used for the gathers."""
+def _filter_level(snap: IndexSnapshot, li: int, q_rects, q_bm, narrow: bool, frontier, delta):
+    """Run the frontier filter on level ``li``: ``frontier_level_narrow`` on
+    the level's narrow planes, or on the f32 descent ``frontier_level`` on
+    its f32 MBRs (the delta's widened arrays when one is live). Both read
+    the level at the frontier themselves, so no per-slot plane is made
+    (identical survivors). Returns the (M, F) survivors, the per-query count
+    of real slots, and the clamped frontier."""
     safe, valid = _clamped(snap, li, frontier)
-    planes, f_bm = _gather_level(snap, li, safe, words, narrow, delta)
-    valid8 = valid.to(torch.int8)
-    if not narrow:
-        surv = ops.filter_frontier(q_rects, q_bm, planes, f_bm, valid8)
-    else:
-        surv = ops.filter_frontier_narrow(
-            q_rects, words[1], planes, f_bm, valid8, snap.level_dict_x[li], snap.level_dict_y[li],
+    if narrow:
+        surv = ops.frontier_level_narrow(
+            q_rects, q_bm, snap.level_mbr_codes[li], snap.level_bms[li], frontier,
+            snap.level_dict_x[li], snap.level_dict_y[li],
         )
+    else:
+        mbrs, bms = _level_arrays(snap, delta, li)
+        surv = ops.frontier_level(q_rects, q_bm, mbrs, bms, frontier)
     return surv, valid.sum(dim=1, dtype=torch.int32), safe
 
 
@@ -179,8 +168,8 @@ def _root_frontier(snap: IndexSnapshot, M: int) -> torch.Tensor:
     return root[None, :].expand(M, -1).contiguous()
 
 
-def _descend_frontier(snap: IndexSnapshot, q_rects, q_bm, words, narrow: bool,
-                      plan: ExecutionPlan, delta):
+def _descend_frontier(snap: IndexSnapshot, q_rects, q_bm, narrow: bool, plan: ExecutionPlan,
+                      delta):
     """The range-query frontier descent (on the narrow planes, or the f32
     descent for ``narrow=False``; ``delta`` swaps in the widened level
     arrays).
@@ -198,8 +187,7 @@ def _descend_frontier(snap: IndexSnapshot, q_rects, q_bm, words, narrow: bool,
     surv = None
     for li in range(snap.n_levels):
         used.append(int(frontier.shape[1]))
-        surv, n_valid, safe = _filter_level(snap, li, q_rects, q_bm, words, narrow, frontier,
-                                            delta)
+        surv, n_valid, safe = _filter_level(snap, li, q_rects, q_bm, narrow, frontier, delta)
         nodes_checked = nodes_checked + n_valid
         if li < snap.n_levels - 1:
             need = torch.where(surv > 0, snap.child_counts[li][safe], 0).sum(dim=1)
@@ -464,22 +452,20 @@ def retrieve(
     variant = "auto" if fused_variant is None else fused_variant
     if variant not in ops.FUSED_VARIANTS:
         raise ValueError(f"unknown fused-verify variant: {variant!r}")
+    # only the full-width fused verify's query-tile launch reads packed words
+    q_rects, q_bm_dev, words = _query_tensors(
+        snap, q_rects, q_bm, _tile_reads_words(snap, fused, variant, compact)
+    )
     if mode == "dense":
-        q_rects, q_bm_dev, words = _query_tensors(
-            snap, q_rects, q_bm, _tile_reads_words(snap, fused, variant, compact)
-        )
         return _retrieve_dense(snap, q_rects, q_bm_dev, words, max_leaves, delta, fused, variant,
                                compact)
     narrow = _narrow_descent(snap, quantized, delta)
-    q_rects, q_bm_dev, words = _query_tensors(
-        snap, q_rects, q_bm, narrow or _tile_reads_words(snap, fused, variant, compact)
-    )
     M = q_rects.shape[0]
 
     cache = plan_cache if plan_cache is not None else default_plan_cache(snap)
     plan = cache.plan("skr", snap.n_levels - 1)
     descend = lambda p: _descend_frontier(  # noqa: E731
-        snap, q_rects, q_bm_dev, words, narrow, p, delta
+        snap, q_rects, q_bm_dev, narrow, p, delta
     )
     out = descend(plan)
     retried = cache.check_and_retry(plan, out[-1], descend)

@@ -236,6 +236,62 @@ def gathered_level_narrow(case):
             (fr >= 0).astype(np.int8), case["dict_x"], case["dict_y"])
 
 
+FRONTIER_LEVEL_ARGS = ("q_rects", "q_bm", "level_mbrs", "level_bms", "frontier")
+FRONTIER_LEVEL_NARROW_ARGS = ("q_rects", "q_bm", "level_codes", "level_bms", "frontier",
+                              "dict_x", "dict_y")
+
+
+def frontier_level_case(rng, m, f, n, w, q_terms=None, single=False):
+    """``frontier_level(_narrow)`` operands: a ``level_narrow_case`` (dirty
+    ids, -1 pads, with more than one query a first query with no nonzero
+    word and a last frontier of padding only) with query rectangles. With
+    more than two queries the second rectangle is ``NEVER_RECT`` (it meets
+    nothing); the third covers every node whose MBR is a point (``single``).
+    Past 2,048 words (one round of the kernels' word compaction) the nodes'
+    terms lie in the last 100 words, on both sides of the round's edge."""
+    case = level_narrow_case(rng, m, f, n, w, q_terms, single)
+    if w > 2048:  # past one compaction round: node terms on both sides of its edge
+        pool = 32 * (w - 100) + rng.choice(3200, size=48, replace=False)
+        case["level_bms"] = term_bitmaps(rng, n, w, pool, 0, 7)
+    rects = rand_rects(rng, m)
+    rects[:, 2:] += np.float32(0.1)  # wider than rand_rects: more slots meet
+    if m > 2:
+        rects[1] = ops.NEVER_RECT
+        rects[2] = (-1.0, -1.0, 2.0, 2.0)
+    case["q_rects"] = rects
+    return case
+
+
+def gathered_frontier_level(case):
+    """The TPU kernels' operands of a ``frontier_level_case``, gathered at
+    the clamped frontier: the f32 ``(q_rects, q_bm, f_mbrs, f_bm, f_valid)``
+    (all W words) and the narrow ``(q_rects, q_bits, f_codes, f_bm, f_valid,
+    dict_x, dict_y)`` (the node words at the packed word ids)."""
+    fr = case["frontier"]
+    safe = np.clip(fr, 0, case["level_mbrs"].shape[0] - 1)
+    valid = (fr >= 0).astype(np.int8)
+    wide = (case["q_rects"], case["q_bm"], case["level_mbrs"][safe], case["level_bms"][safe],
+            valid)
+    f_bm = case["level_bms"][safe[:, :, None], case["q_wids"][:, None, :]]
+    narrow = (case["q_rects"], case["q_bits"], case["level_codes"][safe], f_bm, valid,
+              case["dict_x"], case["dict_y"])
+    return wide, narrow
+
+
+FRONTIER_LEVEL_SWEEP = [  # m, f, n, w, q_terms, single
+    (1, 1, 1, 1, None, True),       # N = 1, W = 1, one-entry dictionaries
+    (5, 37, 23, 3, None, False),    # nothing a multiple of a warp; W = 3
+    (3, 257, 9, 1, None, False),    # W = 1, F one past a block of 256
+    (9, 130, 300, 40, None, False),  # dense query words: 32 nonzero of 40
+    (33, 257, 64, 256, 5, False),   # MIX-like at the osm width: 5 terms of W = 256
+    (6, 40, 17, 4, None, True),     # several nodes on one point: one-entry dictionaries
+]
+
+
+# W past one compaction round, dense query words
+FRONTIER_LEVEL_ROUNDS = (6, 300, 40, 2100, None, False)
+
+
 LEVEL_NARROW_SWEEP = [  # m, f, n, w, q_terms, single
     (1, 1, 1, 1, None, True),       # N = 1, W = Wp = 1, one-entry dictionaries
     (5, 37, 23, 3, None, False),    # nothing a multiple of a warp; Wp = W = 3

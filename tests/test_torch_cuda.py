@@ -32,12 +32,13 @@ from repro_torch.serve.delta import DeltaLog  # noqa: E402
 from repro_torch.serve.subscribe import SubscriptionIndex  # noqa: E402
 
 from test_torch_cases import (  # noqa: E402
-    CDF_SWEEP, FILTER_ARGS, FILTER_SWEEP, FRONTIER_ARGS, FRONTIER_SWEEP, FUSED_SWEEP, KNN_ARGS,
+    CDF_SWEEP, FILTER_ARGS, FILTER_SWEEP, FRONTIER_ARGS, FRONTIER_LEVEL_ARGS,
+    FRONTIER_LEVEL_NARROW_ARGS, FRONTIER_LEVEL_SWEEP, FRONTIER_SWEEP, FUSED_SWEEP, KNN_ARGS,
     LEVEL_ARGS, LEVEL_NARROW_ARGS, LEVEL_NARROW_SWEEP, LEVEL_SWEEP, SUB_SWEEP, VERIFY_ARGS,
     VERIFY_COMPACT_ARGS, VERIFY_COMPACT_SWEEP, VERIFY_SWEEP, cdf_params, filter_case,
-    frontier_case, fused_args, fused_case, fused_wide_args, knn_case, level_case,
-    level_narrow_case, packed_words, rand_kw, rand_sub_rect, sub_case, term_bitmaps, to_torch,
-    verify_case, verify_compact_case, wide_args,
+    FRONTIER_LEVEL_ROUNDS, frontier_case, frontier_level_case, fused_args, fused_case,
+    fused_wide_args, knn_case, level_case, level_narrow_case, packed_words, rand_kw,
+    rand_sub_rect, sub_case, term_bitmaps, to_torch, verify_case, verify_compact_case, wide_args,
 )
 
 pytestmark = pytest.mark.cuda
@@ -61,10 +62,10 @@ def _equal(got, want):
 def test_frontier_narrow_kernel_matches_plain(cuda, m, f, w):
     case, _ = frontier_case(np.random.default_rng(m * 7919 + f * 31 + w), m, f, w)
     args = [to_torch(case[k], cuda) for k in FRONTIER_ARGS]
-    before = _build.KERNELS["frontier_narrow"].launches
+    before = _build.KERNELS["frontier_level_narrow"].launches
     got = ops.filter_frontier_narrow(*args)
     torch.cuda.synchronize()
-    assert _build.KERNELS["frontier_narrow"].launches == before + 1
+    assert _build.KERNELS["frontier_level_narrow"].launches == before + 1
     _equal(got, ref.frontier_filter_narrow_ref(*args))
 
 
@@ -98,7 +99,7 @@ def test_knn_filter_narrow_kernel_matches_plain(cuda, m, f, w):
 
 _WIDE = {  # query operand, wrapper, plain version, the kernel it launches
     "frontier_filter": ("q_rects", ops.filter_frontier, ref.frontier_filter_ref,
-                        "frontier_filter"),
+                        "frontier_level"),
     "knn_filter": ("q_pts", ops.knn_frontier_dist, ref.knn_filter_ref, "knn_level_dist"),
 }
 
@@ -107,8 +108,8 @@ _WIDE = {  # query operand, wrapper, plain version, the kernel it launches
 @pytest.mark.parametrize("m,f,w", FRONTIER_SWEEP + [(3, 33, 256), (256, 256, 256)])
 def test_full_width_kernels_match_plain(cuda, kernel, m, f, w):
     """The f32 descent's filters on gathered planes against their plain
-    versions, W = 1 to the osm profile's 256 words: the frontier filter (one
-    warp per slot), and knn_frontier_dist through knn_level_dist's kernel
+    versions, W = 1 to the osm profile's 256 words: filter_frontier through
+    frontier_level's kernel and knn_frontier_dist through knn_level_dist's
     (the planes as one level of M*F nodes, all W query words)."""
     q, wrapper, plain, name = _WIDE[kernel]
     case, wide = knn_case(np.random.default_rng(m * 7919 + f * 31 + w + 2), m, f, w)
@@ -206,6 +207,74 @@ def test_knn_level_dist_checks_operands(cuda):
     bad[4] = args[4].cpu()
     with pytest.raises(ValueError, match="level_bms"):
         ops.knn_level_dist(*bad)
+
+
+_FRONTIER_LEVEL_CARD = [  # m, f, n, w, q_terms, single
+    (37, 131, 53, 3, None, False),     # M and F off every block size, W = 3
+    (64, 256, 7832, 256, 5, False),    # the leaf level's shape at the osm width
+    (1024, 64, 991, 256, 5, False),    # a full batch at a narrow level
+    FRONTIER_LEVEL_ROUNDS,             # W past one compaction round of 2,048 words
+]
+
+
+@pytest.mark.parametrize("narrow", [False, True])
+@pytest.mark.parametrize("m,f,n,w,q_terms,single", FRONTIER_LEVEL_SWEEP + _FRONTIER_LEVEL_CARD)
+def test_frontier_level_kernels_match_plain(cuda, m, f, n, w, q_terms, single, narrow):
+    """The range descent's filters (one thread per slot, the level read
+    inside the kernel, the node words at the query's nonzero words that
+    the block compacts) against their plain versions, and the two
+    instances against each other on the MBRs the codes came from: padding
+    and dirty ids, a query with no nonzero word and one whose rectangle
+    meets nothing, a frontier of padding only, one-entry dictionaries, W of
+    1 to 2,100, and an all-padding batch."""
+    case = frontier_level_case(np.random.default_rng(m * 7919 + f * 31 + n + w + 11), m, f, n,
+                               w, q_terms, single)
+    name = "frontier_level_narrow" if narrow else "frontier_level"
+    keys = FRONTIER_LEVEL_NARROW_ARGS if narrow else FRONTIER_LEVEL_ARGS
+    wrapper = getattr(ops, name)
+    plain = ref.frontier_level_narrow_ref if narrow else ref.frontier_level_ref
+    args = [to_torch(case[k], cuda) for k in keys]
+    before = _build.KERNELS[name].launches
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    assert _build.KERNELS[name].launches == before + 1
+    _equal(got, plain(*args))
+    other = (ops.frontier_level(*(to_torch(case[k], cuda) for k in FRONTIER_LEVEL_ARGS)) if narrow
+             else ops.frontier_level_narrow(*(to_torch(case[k], cuda)
+                                              for k in FRONTIER_LEVEL_NARROW_ARGS)))
+    _equal(got, other)
+    if m > 2:
+        assert not got[0].any() and not got[1].any() and not got[-1].any()
+    if w > 1 and n > 1:
+        assert got.any()
+    args[4] = torch.full_like(args[4], -1)
+    assert not wrapper(*args).any()
+
+
+def test_frontier_level_checks_operands(cuda):
+    case = frontier_level_case(np.random.default_rng(4), 4, 9, 5, 2)
+    args = [to_torch(case[k], cuda) for k in FRONTIER_LEVEL_NARROW_ARGS]
+    bad = list(args)
+    bad[2] = args[2].to(torch.int32)
+    with pytest.raises(TypeError, match="level_codes"):
+        ops.frontier_level_narrow(*bad)
+    bad = list(args)
+    bad[5] = args[5][:0]
+    with pytest.raises(ValueError, match="empty coordinate dictionary"):
+        ops.frontier_level_narrow(*bad)
+    wargs = [to_torch(case[k], cuda) for k in FRONTIER_LEVEL_ARGS]
+    bad = list(wargs)
+    bad[4] = wargs[4].long()
+    with pytest.raises(TypeError, match="frontier"):
+        ops.frontier_level(*bad)
+    bad = list(wargs)
+    bad[1] = wargs[1][:, :1].contiguous()
+    with pytest.raises(ValueError, match="q_bm"):
+        ops.frontier_level(*bad)
+    bad = list(wargs)
+    bad[3] = wargs[3].cpu()
+    with pytest.raises(ValueError, match="level_bms"):
+        ops.frontier_level(*bad)
 
 
 @pytest.mark.parametrize("variant", ["vmem", "prefetch", "auto"])
@@ -384,7 +453,7 @@ def test_engine_on_the_card_matches_the_plain_path(cuda, layout):
     _build.reset_launch_counts()
     card = serve_batch(snap, wl.rects, wl.kw_bitmap, max_leaves=8, plan_cache=PlanCache())
     counts = _build.launch_counts()
-    assert counts["frontier_narrow"] == index.height
+    assert counts["frontier_level_narrow"] == index.height and counts["frontier_level"] == 0
     assert counts["fused_verify_compact_slot"] == 1
     vmem = retrieve_workload(snap, wl, max_leaves=8, plan_cache=PlanCache(), fused_variant="vmem")
     assert _build.launch_counts()["fused_verify_compact_tile"] == 1
@@ -419,7 +488,7 @@ def test_knn_engine_on_the_card_matches_the_plain_path(cuda):
         np.testing.assert_array_equal(wide[k][: len(points)], host[k], err_msg=k)
     skr_host = serve_batch(host_snap, wl.rects, wl.kw_bitmap, max_leaves=8, plan_cache=PlanCache())
     skr = retrieve_workload(snap, wl, max_leaves=8, plan_cache=PlanCache(), quantized=False)
-    assert _build.launch_counts()["frontier_filter"] == index.height
+    assert _build.launch_counts()["frontier_level"] == index.height
     for k in skr_host:
         np.testing.assert_array_equal(skr[k][: len(points)], skr_host[k], err_msg=k)
 
@@ -453,7 +522,7 @@ def test_delta_engine_on_the_card_matches_the_plain_path(cuda, own_leaf_terms):
     assert log.compact_ok == host_log.compact_ok == own_leaf_terms
     delta_kernel = "skr_verify_compact" if own_leaf_terms else "skr_verify"
     for kw, kernels in (
-        (dict(), ("frontier_filter", "fused_verify_compact_slot", delta_kernel)),
+        (dict(), ("frontier_level", "fused_verify_compact_slot", delta_kernel)),
         (dict(fused=False), ("skr_verify_compact", delta_kernel)),
         (dict(compact=False), ("fused_verify_slot", "skr_verify")),
         (dict(compact=False, fused_variant="vmem"), ("fused_verify_tile", "skr_verify")),
@@ -465,7 +534,7 @@ def test_delta_engine_on_the_card_matches_the_plain_path(cuda, own_leaf_terms):
         card = retrieve_workload(snap, wl, max_leaves=8, plan_cache=PlanCache(), delta=log.buffer,
                                  **kw)
         counts = _build.launch_counts()
-        assert counts["frontier_narrow"] == 0
+        assert counts["frontier_level_narrow"] == 0 and counts["frontier_level"] == index.height
         for name in kernels:
             assert counts[name] >= 1, (kw, name, counts)
         for k in host:
@@ -551,7 +620,7 @@ def test_dense_engine_on_the_card_matches_the_plain_path(cuda):
     _build.reset_launch_counts()
     card = serve_batch(snap, wl.rects, wl.kw_bitmap, max_leaves=8, mode="dense")
     counts = _build.launch_counts()
-    assert counts["skr_filter"] == index.height and counts["frontier_narrow"] == 0
+    assert counts["skr_filter"] == index.height and counts["frontier_level_narrow"] == 0
     assert counts["fused_verify_compact_slot"] == 1
     for k in host:
         assert card[k].dtype == host[k].dtype

@@ -33,7 +33,6 @@ from repro.serve import engine as jengine  # noqa: E402
 from repro.serve.plan import PlanCache as JPlanCache  # noqa: E402
 from repro_torch.core.query import knn_query  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
-from repro_torch.serve import engine  # noqa: E402
 from repro_torch.serve.engine import retrieve_knn  # noqa: E402
 from repro_torch.serve.plan import PlanCache  # noqa: E402
 
@@ -149,8 +148,8 @@ def test_narrow_level_bound_counts_codes_and_dictionary_entries():
 def _spy_narrow_level(monkeypatch):
     """Route ``ops.knn_level_dist_narrow`` through operand checks a CUDA
     launch would make (dtype, shape, contiguity), counting the calls, and
-    make every other kNN filter, and the engine's gather of per-slot planes,
-    fail if the narrow descent calls them."""
+    make every other kNN filter, and the range filters on per-slot planes
+    gathered at the frontier, fail if the narrow descent calls them."""
     calls = []
     real = ops.knn_level_dist_narrow
 
@@ -176,9 +175,9 @@ def _spy_narrow_level(monkeypatch):
         raise AssertionError("the narrow kNN descent gathered per-slot planes")
 
     monkeypatch.setattr(ops, "knn_level_dist_narrow", spy)
-    for name in ("knn_frontier_dist_narrow", "knn_frontier_dist", "knn_level_dist"):
+    for name in ("knn_frontier_dist_narrow", "knn_frontier_dist", "knn_level_dist",
+                 "filter_frontier_narrow", "filter_frontier"):
         monkeypatch.setattr(ops, name, refuse)
-    monkeypatch.setattr(engine, "_gather_level", refuse)
     return calls
 
 

@@ -18,11 +18,12 @@ times each batch (host clock after ``torch.cuda.synchronize``) of:
   fused verify's query-tile launch);
 * SKR ``retrieve(compact=False)`` (``variant="auto"``: the full-width
   fused verify's (M, T) launch);
+* SKR ``retrieve(quantized=False)`` (the f32 descent);
+* SKR ``serve_batch(delta=...)`` and kNN ``serve_knn_batch(delta=...)``
+  over a ``DeltaLog`` of 10,000 inserts with their own keywords and 5,000
+  deletes (the f32 descents on the widened level arrays);
 * kNN ``serve_knn_batch`` at k = 10 (the narrow descent);
-* kNN ``retrieve_knn(quantized=False)`` (the f32 descent);
-* kNN ``serve_knn_batch(delta=...)`` over a ``DeltaLog`` of 10,000 inserts
-  with their own keywords and 5,000 deletes (the f32 descent on the
-  widened level arrays).
+* kNN ``retrieve_knn(quantized=False)`` (the f32 descent).
 
 It uses only entry points every tree of the port since its kNN and delta
 slices has, checks nothing (``chip_smoke.py`` does), and prints the card
@@ -94,6 +95,10 @@ def main() -> int:
                                                      compact=False, fused_variant="vmem"),
         "skr_full_width": lambda b, c: retrieve(snap, wl.rects[b], bms[b], 32, plan_cache=c,
                                                 compact=False),
+        "skr_f32": lambda b, c: retrieve(snap, wl.rects[b], bms[b], 32, plan_cache=c,
+                                         quantized=False),
+        "skr_delta": lambda b, c: serve_batch(snap, wl.rects[b], bms[b], 32, plan_cache=c,
+                                              delta=buf),
         "knn": lambda b, c: serve_knn_batch(snap, points[b], bms[b], K, plan_cache=c),
         "knn_f32": lambda b, c: retrieve_knn(snap, points[b], bms[b], K, plan_cache=c,
                                              quantized=False),
