@@ -53,10 +53,15 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    before the last insert still gives its earlier answer; the SKR batches
    through ``serve_batch(delta=...)`` and one kNN batch at k = 10 through
    ``serve_knn_batch(delta=...)`` (warm, counts zeroed before, read after;
-   the SKR descent on ``frontier_level`` once per level) equal their
-   plain-version reruns on every key, SKR ids equal
-   ``execute_serial`` and kNN ids and ``dist2`` equal ``knn_query`` on 256
-   queries each, over a cold STR index of ``merged_dataset()``;
+   the SKR descent on ``frontier_level`` once per level, the insert slots
+   through the slot entry that reads the delta's buffers, log A's
+   ``skr_verify_slots_compact`` and log B's ``skr_verify_slots``, once a
+   batch, and no gathered verify entry) equal their plain-version reruns on
+   every key, SKR ids equal ``execute_serial`` and kNN ids and ``dist2``
+   equal ``knn_query`` on 256 queries each, over a cold STR index of
+   ``merged_dataset()``; then log B's warm delta SKR batch holds its peak
+   device memory above its start below one (M, T*B, W) int32 plane of its
+   insert slots;
 8. the dense A/B scan: the snapshot is built with ``dense=True`` (its
    child matrices); the SKR batches through ``serve_batch(mode="dense")``
    (counts zeroed before, read after) and one batch with log A's delta,
@@ -80,18 +85,22 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    version to ``atol=2e-6``;
 11. one phase per kernel (13): holds the kernel against its plain PyTorch
    version on the card -- bit-exact, the CDF bank to ``atol=2e-6`` -- at
-   the captured shapes (for the unfused verify kernels: the delta's insert
-   slots and the knob run) and at ragged edges, and times both (CUDA
-   events) beside a bound; then times the (M, F, W) gather the f32 kNN
-   descent no longer makes, and holds ``knn_frontier_dist(_narrow)`` and
+   the captured shapes (rows 9 and 10: the slot entries at logs A's and
+   B's insert slots) and at ragged edges, and times both (CUDA events)
+   beside a bound; then times the (M, F, W) gather the f32 kNN descent no
+   longer makes, and holds ``knn_frontier_dist(_narrow)`` and
    ``filter_frontier(_narrow)`` (gathered operands, through the level
-   kernels) and the query-tile verify without packed words against their
-   plain versions; then times, at the captured shapes, the per-slot planes
-   the engine no longer gathers for rows 1, 4 and 7, and the host packing
-   the SKR batch no longer makes;
+   kernels), the query-tile verify without packed words and the unfused
+   verify's gathered entries (ids and both counts; at the knob shapes,
+   timed) against their plain versions; then times, at the captured
+   shapes, the per-slot planes the engine no longer gathers for rows 1, 4,
+   7, 9 and 10, the keyword recounts of rows 9 and 10, the host packing the
+   SKR batch no longer makes, and ``remap_query_words``, the per-slot query
+   words rows 2 and 3 take;
 12. profiles one warm SKR batch, one warm kNN batch, one warm dense-scan
-   batch and one warm SKR batch with log B's delta (``torch.profiler``:
-   device busy and idle share, the largest device and host items);
+   batch and one warm SKR batch each with log B's and log A's deltas
+   (``torch.profiler``: device busy and idle share, the largest device and
+   host items);
 13. prints the kernels' JSON line, then the result line.
 
 Every phase prints its seconds. Any failure raises and exits non-zero.
@@ -395,12 +404,16 @@ def fused_wide_bound(args, chunk: int = 32):
 
 
 def verify_bound(args, compact: bool):
-    """Bytes and operations of an unfused verify (``skr_verify``, or
-    ``skr_verify_compact``) of gathered candidates: every validity flag in
-    and every flag out; of a valid candidate, its signature (compact), its
-    coordinates where the signature passes, and the words that decide its
-    keyword test where it also lies in the rectangle; query rectangles,
-    signatures and words where some candidate needs them."""
+    """Bytes and operations of an unfused verify (``verify_candidates``, or
+    ``verify_candidates_compact``) of gathered candidates: every validity
+    flag in and every flag out; of a valid candidate, its signature
+    (compact), its coordinates where the signature passes, and the words
+    that decide its keyword test where it also lies in the rectangle; query
+    rectangles, signatures and words where some candidate needs them. The
+    counted entries (``verify_candidates_counted``, ``..._compact_counted``:
+    a last operand of ids, -1 where invalid) read and write 4-byte ids for
+    the flags and write the two per-query counts besides."""
+    counted = args[-1].dtype == torch.int32
     if compact:
         q_rects, q_cbm, q_sig, cx, cy, cbm, csig, cval = args
         T = q_sig.shape[1]
@@ -410,7 +423,7 @@ def verify_bound(args, compact: bool):
         q_rects, q_bm, cx, cy, cbm, cval = args
         q_words = q_bm[:, None, :]
     M, C = cx.shape
-    valid = cval > 0
+    valid = cval >= 0 if counted else cval > 0
     coords = valid & ((csig & q_sig.repeat_interleave(obj, dim=1)) != 0) if compact else valid
     live = coords & ((cx >= q_rects[:, 0:1]) & (cx <= q_rects[:, 2:3])
                      & (cy >= q_rects[:, 1:2]) & (cy <= q_rects[:, 3:4]))
@@ -420,15 +433,74 @@ def verify_bound(args, compact: bool):
         sig_bytes = int(valid.sum()) * 4 + int(valid.reshape(M, T, obj).any(2).sum()) * 4
     else:
         q_need, sig_bytes = int(need.any(1).sum()), 0
-    nbytes = (M * C  # cand_valid
+    flag = 4 if counted else 1
+    nbytes = (M * C * flag  # cand_valid, or the ids
               + sig_bytes  # cand_sig of valid candidates, q_sig of their slots
               + int(coords.sum()) * 8  # cand_x, cand_y
               + int(need.sum()) * 4  # candidate words
               + int(coords.any(1).sum()) * 16  # rects of queries that need them
               + q_need * 4  # query words some candidate needs
-              + M * C)  # out
+              + M * C * flag + (M * 8 if counted else 0))  # out
     ops = M * C + int(valid.sum()) * (2 if compact else 0) + int(coords.sum()) * 4 \
         + int(need.sum()) * 2
+    return nbytes, ops
+
+
+def slot_verify_bound(args, compact: bool, chunk: int = 32):
+    """Bytes and operations of a slot verify (``verify_slots``, or
+    ``compact``, ``verify_slots_compact``) that reads the slot bank itself:
+    every (query, slot) leaf id and flag in; the id of each slot of a
+    selected leaf (each bank slot once, however many queries select it); of
+    a valid slot, its signature (compact) and the words that decide its
+    keyword test (each bank word once); the coordinates of keyword hits;
+    the rectangles of queries with a keyword hit; the query words: compact,
+    the per-slot words some slot needs and the signatures of (query, slot)
+    pairs with a valid slot; full width, the W words of each query with a
+    valid slot, which the kernel reads whole to compact them; the ids and
+    both counts out. Counted ``chunk`` queries at a time, so the
+    (M, T, B, W) hit plane never exists whole."""
+    if compact:
+        q_rects, q_words, q_sig, top_leaf, leaf_ok, x, y, words, sig, sid = args
+    else:
+        q_rects, q_words, top_leaf, leaf_ok, x, y, words, sid = args
+    M, T = top_leaf.shape
+    K, B = sid.shape
+    W = words.shape[2]
+    dev = sid.device
+    leaf = top_leaf.long().clamp(0, K - 1)
+    ok = (leaf_ok > 0)[..., None].expand(M, T, B)
+    slot = leaf[..., None] * B + torch.arange(B, device=dev)  # (M, T, B)
+    valid = ok & (sid.reshape(-1)[slot] >= 0)
+    live = valid & ((sig.reshape(-1)[slot] & q_sig[..., None]) != 0) if compact else valid
+    bank_words = torch.zeros(K * B * W, dtype=torch.bool, device=dev)
+    kw = torch.zeros_like(valid)
+    cols = torch.arange(W, device=dev)
+    q_need = n_need = 0
+    for m0 in range(0, M, chunk):
+        sl = slice(m0, m0 + chunk)
+        qw = q_words[sl][:, :, None, :] if compact else q_words[sl][:, None, None, :]
+        hit = (words.reshape(-1, W)[slot[sl]] & qw) != 0  # (c, T, B, W)
+        need = needed_words(hit, live[sl], qw != 0)
+        kw[sl] = live[sl] & hit.any(-1)
+        bank_words[(slot[sl][..., None] * W + cols)[need]] = True
+        q_need += int(need.any(2).sum())
+        n_need += int(need.sum())
+    distinct = lambda idx: torch.unique(idx).numel()  # noqa: E731
+    if compact:  # per-slot query words some slot needs, q_sig of pairs with a valid slot
+        q_bytes = q_need * 4 + int(valid.any(-1).sum()) * 4
+        sig_bytes = distinct(slot[valid]) * 4
+    else:  # the W words of each query with a valid slot, read whole
+        q_bytes, sig_bytes = int(valid.any(-1).any(-1).sum()) * W * 4, 0
+    nbytes = (M * T * (4 + 1)  # top_leaf, leaf_ok
+              + distinct(slot[ok]) * 4  # ids of the selected leaves' slots
+              + sig_bytes  # slot signatures of valid slots
+              + int(bank_words.sum()) * 4  # slot words
+              + distinct(slot[kw]) * 8  # coordinates of keyword hits
+              + int(kw.any(-1).any(-1).sum()) * 16  # rectangles of queries with a hit
+              + q_bytes
+              + M * T * B * 4 + M * 8)  # ids, n_match and n_kw written once
+    ops = (int(ok.sum()) + int(valid.sum()) * (2 if compact else 0)  # id test, sig AND+test
+           + n_need * 2 + int(kw.sum()) * 4)  # word AND+test, 4 compares
     return nbytes, ops
 
 
@@ -530,10 +602,12 @@ def profile_batch(label: str, serve_one, warm, plan_cache_cls) -> None:
     on_device = [e for e in events if e.device_type == DeviceType.CUDA]
     dev = lambda e: e.self_device_time_total / 1e3  # noqa: E731
     busy_ms = sum(dev(e) for e in on_device)
+    copy_ms = sum(dev(e) for e in on_device if e.key.startswith(("Memcpy", "Memset")))
     log(f"profile of one {label} batch (profiler on): wall {wall_ms:.6f} ms, device busy "
         f"{busy_ms:.6f} ms ({100 * busy_ms / wall_ms:.3f} %), "
         f"device idle {100 - 100 * busy_ms / wall_ms:.3f} %, "
-        f"{sum(e.count for e in on_device)} device events")
+        f"{sum(e.count for e in on_device)} device events; copies and sets {copy_ms:.6f} ms, "
+        f"other device work {busy_ms - copy_ms:.6f} ms")
     for e in sorted(on_device, key=dev, reverse=True)[:8]:
         log(f"  device {dev(e):.6f} ms x{e.count}: {e.key[:100]}")
     host = [e for e in events if e.device_type != DeviceType.CUDA]
@@ -721,6 +795,38 @@ def ragged_verify(dev, compact: bool, M=13, T=5, OBJ=37, W=3, seed=11):
     return (t(rects), t(q_cbm), t(fold(q_cbm)), t(cx), t(cy), t(cbm), t(fold(cbm)), t(valid))
 
 
+def ragged_slot_bank(dev, ops, compact, M=13, T=5, K=11, B=8, W=3, seed=41, empty=False):
+    """Slot-verify operands at ragged shapes: a bank of K leaves x B slots,
+    about a third empty (``empty``: all), points near the query rectangles
+    with some exactly on their edges; dirty leaf ids (-2 to past K),
+    ``leaf_ok = 0`` slots and an all-zero last row; a first query with no
+    nonzero word and a ``NEVER_RECT`` second one. Compact: per-slot query
+    words and OR-fold signatures."""
+    g = np.random.default_rng(seed)
+    rects = _rects(g, M)
+    near = rects[g.integers(0, M, K)]  # (K, 4): each leaf's points near one query
+    u = g.uniform(0, 1, (2, K, B)).astype(np.float32)
+    x = (near[:, 0:1] + u[0] * 2 * (near[:, 2:3] - near[:, 0:1])).astype(np.float32)
+    y = (near[:, 1:2] + u[1] * 2 * (near[:, 3:4] - near[:, 1:2])).astype(np.float32)
+    on_edge = g.integers(0, 6, (K, B)) == 0
+    x = np.where(on_edge, near[:, 2:3], x).astype(np.float32)
+    ids = np.where(g.integers(0, 3, (K, B)) > 0, g.integers(0, 10 * K * B, (K, B)), -1)
+    if empty:
+        ids[:] = -1
+    top_leaf = g.integers(-2, K + 3, (M, T)).astype(np.int32)
+    leaf_ok = g.integers(0, 2, (M, T)).astype(np.int8)
+    leaf_ok[-1] = 0
+    q_words = _words(g, M, T, W) if compact else _words(g, M, W)
+    q_words[0] = 0
+    rects[1] = ops.NEVER_RECT
+    fold = lambda w: np.bitwise_or.reduce(w.view(np.uint32), axis=-1).view(np.int32)  # noqa: E731
+    words = _words(g, K, B, W)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    head = (rects, q_words, fold(q_words)) if compact else (rects, q_words)
+    bank = (x, y, words, fold(words)) if compact else (x, y, words)
+    return tuple(t(a) for a in head + (top_leaf, leaf_ok) + bank + (ids.astype(np.int32),))
+
+
 def _rects(g, n):
     lo = g.uniform(0, 0.8, (n, 2)).astype(np.float32)
     return np.concatenate([lo, lo + g.uniform(0.01, 0.3, (n, 2)).astype(np.float32)], 1)
@@ -895,6 +1001,7 @@ def main() -> int:
         frontier_level_narrow=recorder("frontier_level_narrow", ops.frontier_level_narrow, 4),
         fused_gather_verify_compact=recorder("fused", ops.fused_gather_verify_compact, 3),
         knn_level_dist_narrow=recorder("knn_level_dist_narrow", ops.knn_level_dist_narrow, 5),
+        remap_query_words=recorder("remap", ops.remap_query_words, 2),
     ):
         for b in batches:
             serve_batch(snap, wl.rects[b], bms[b], MAX_LEAVES, plan_cache=warm)
@@ -1126,9 +1233,9 @@ def main() -> int:
     with phase("verify knobs"), patched(
         ops,  # sized by top_leaf (M, T) and cand_x (M, C)
         fused_gather_verify=recorder("fused_wide", ops.fused_gather_verify, 2, ("q_words",)),
-        verify_candidates=recorder("skr_verify/knob", ops.verify_candidates, 2),
-        verify_candidates_compact=recorder("skr_verify_compact/knob",
-                                           ops.verify_candidates_compact, 3),
+        verify_candidates_counted=recorder("skr_verify/knob", ops.verify_candidates_counted, 2),
+        verify_candidates_compact_counted=recorder("skr_verify_compact/knob",
+                                                   ops.verify_candidates_compact_counted, 3),
     ):
         for label, snap_k, kw, kernels in knobs:
             _build.reset_launch_counts()
@@ -1152,12 +1259,14 @@ def main() -> int:
     plain_ops = dict(
         frontier_level=ref.frontier_level_ref,
         fused_gather_verify_compact=lambda *a, variant="auto": plain_fused(*a),
-        verify_candidates=ref.skr_verify_ref,
-        verify_candidates_compact=ref.skr_verify_compact_ref,
+        verify_slots=ref.skr_verify_slots_ref,
+        verify_slots_compact=ref.skr_verify_slots_compact_ref,
         knn_level_dist=ref.knn_level_dist_ref,
     )
+    slot_kernels = ("skr_verify_slots", "skr_verify_slots_compact")
     delta_launches = {}
     delta_bufs = {}
+    delta_caches = {}  # label -> the SKR plan cache learned with the log's delta
     delta_skr = {}  # label -> the SKR batches served with the log's delta
 
     def live_updates(label, own_leaf_terms, jitter, seed, verify_kernel, capture):
@@ -1235,9 +1344,15 @@ def main() -> int:
         log(f"log {label} kNN serve_knn_batch(k={K}, delta): one batch {knn_dt:.6f} s, launches "
             f"{knn_counts}")
         check_descent(skr_counts, "frontier_level", f"log {label} SKR")
-        for name in ("fused_verify_compact_slot", verify_kernel):
-            if skr_counts[name] <= 0:
-                raise AssertionError(f"log {label}: SKR never launched {name}")
+        if skr_counts["fused_verify_compact_slot"] <= 0:
+            raise AssertionError(f"log {label}: SKR never launched fused_verify_compact_slot")
+        # the insert slots: the slot entry once a batch, on the delta's own
+        # buffers, and no gathered entry
+        others = [n for n in (*slot_kernels, "skr_verify", "skr_verify_compact")
+                  if n != verify_kernel and skr_counts[n]]
+        if skr_counts[verify_kernel] != len(batches) or others:
+            raise AssertionError(f"log {label}: SKR did not launch {verify_kernel} once a batch "
+                                 f"and no other verify entry: {skr_counts}")
         if knn_counts["knn_level_dist_narrow"]:
             raise AssertionError(f"log {label}: a delta descent ran on the narrow planes")
         if knn_counts["knn_level_dist"] <= 0:
@@ -1271,13 +1386,37 @@ def main() -> int:
             f"and kNN ids and dist2 equal knn_query on {N_ORACLE} queries each, over a cold "
             f"STR index of the {merged.n} merged objects")
         delta_bufs[label] = buf
+        delta_caches[label] = skr_cache
         delta_skr[label] = skr_out
 
     with phase("live updates"):
-        live_updates("A", True, 1e-3, 21, "skr_verify_compact",
-                     ("verify_candidates_compact", "skr_verify_compact/delta", 3))
-        live_updates("B", False, 0.05, 22, "skr_verify",
-                     ("verify_candidates", "skr_verify/delta", 2))
+        live_updates("A", True, 1e-3, 21, "skr_verify_slots_compact",
+                     ("verify_slots_compact", "skr_verify_slots_compact/delta", 3))
+        live_updates("B", False, 0.05, 22, "skr_verify_slots",
+                     ("verify_slots", "skr_verify_slots/delta", 2))
+
+    with phase("delta SKR batch memory"):
+        # log B's warm delta SKR batch, peak device memory above its start
+        # against one (M, T*B, W) int32 plane of its insert slots: the plane
+        # the engine gathered before row 10 read the delta's buffers
+        slot_args = captured["skr_verify_slots/delta"]
+        M, T = slot_args[2].shape
+        _, B, W = slot_args[6].shape
+        plane = M * T * B * W * 4
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = serve_batch(snap, wl.rects[b0], bms[b0], MAX_LEAVES,
+                          plan_cache=cached(delta_caches["B"]), delta=delta_bufs["B"])
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() - mem0
+        assert_outputs_equal(out, delta_skr["B"][0], "log B's delta SKR batch 0 again")
+        log(f"log B's warm delta SKR batch: {t:.6f} s, peak device memory above its start "
+            f"{peak} B; one (M, T*B, W) = ({M}, {T}*{B}, {W}) int32 insert-slot plane {plane} B")
+        if peak >= plane:
+            raise AssertionError("log B's delta SKR batch allocated an insert-slot plane's bytes")
 
     # ------------------------------------------------------ dense A/B scan
     def sorted_sets(out):
@@ -1293,8 +1432,8 @@ def main() -> int:
     plain_dense_ops = dict(
         filter_pairs=ref.skr_filter_ref,
         fused_gather_verify_compact=lambda *a, variant="auto": plain_fused(*a),
-        verify_candidates=ref.skr_verify_ref,
-        verify_candidates_compact=ref.skr_verify_compact_ref,
+        verify_slots=ref.skr_verify_slots_ref,
+        verify_slots_compact=ref.skr_verify_slots_compact_ref,
     )
     with phase("dense A/B scan"):
         _build.reset_launch_counts()
@@ -1511,11 +1650,18 @@ def main() -> int:
     pad = narrow_ragged[0]
     narrow_ragged.append(pad[:5] + (torch.full_like(pad[5], -1),) + pad[6:])
 
-    def verify_phase(name, replaces, kernel, plain, compact):
-        ragged = [ragged_verify(dev, compact), ragged_verify(dev, compact, W=1, seed=12)]
-        cases = [captured[f"{name}/delta"], captured[f"{name}/knob"]]
-        return (name, csrc + "skr_verify.cu", replaces, cases, ragged, kernel, plain,
-                lambda a: verify_bound(a, compact))
+    def slot_verify_phase(name, replaces, kernel, plain, compact):
+        # the insert slots of a delta SKR batch; ragged: dirty leaf ids,
+        # leaf_ok = 0 rows, a query with no nonzero word and a NEVER_RECT
+        # one, points on edges; B = 1; W = 1; W past one compaction round;
+        # every slot empty
+        ragged = [ragged_slot_bank(dev, ops, compact),
+                  ragged_slot_bank(dev, ops, compact, M=7, T=3, K=5, B=1, W=2, seed=42),
+                  ragged_slot_bank(dev, ops, compact, W=1, B=16, seed=43),
+                  ragged_slot_bank(dev, ops, compact, M=5, T=3, K=9, B=16, W=2100, seed=44),
+                  ragged_slot_bank(dev, ops, compact, seed=45, empty=True)]
+        return (name, csrc + "skr_verify.cu", replaces, [captured[f"{name}/delta"]], ragged,
+                kernel, plain, lambda a: slot_verify_bound(a, compact))
 
     phases = [
         slot_phase("frontier_level_narrow", "src/repro/kernels/frontier.py:113",
@@ -1547,10 +1693,10 @@ def main() -> int:
          [captured["fused_wide"]], wide_ragged,
          lambda *a: ops.fused_gather_verify(*a[:8], variant="prefetch"),
          lambda *a: ref.fused_verify_ref(*a[:8]), lambda a: fused_wide_bound(a[:8])),
-        verify_phase("skr_verify_compact", "src/repro/kernels/skr_verify.py:94",
-                     ops.verify_candidates_compact, ref.skr_verify_compact_ref, True),
-        verify_phase("skr_verify", "src/repro/kernels/skr_verify.py:39",
-                     ops.verify_candidates, ref.skr_verify_ref, False),
+        slot_verify_phase("skr_verify_slots_compact", "src/repro/kernels/skr_verify.py:94",
+                          ops.verify_slots_compact, ref.skr_verify_slots_compact_ref, True),
+        slot_verify_phase("skr_verify_slots", "src/repro/kernels/skr_verify.py:39",
+                          ops.verify_slots, ref.skr_verify_slots_ref, False),
         ("sub_match", csrc + "sub_match.cu", "src/repro/kernels/sub_match.py:67",
          [captured["sub_match"]],
          [ragged_sub(dev, ops), ragged_sub(dev, ops, N=1, S=1, W=1, seed=18)],
@@ -1569,8 +1715,8 @@ def main() -> int:
     launches.update(knob_launches)
     launches.update(delta_launches)
     with phase("kernel phases"):
-        # the first captured case is the row's; later ones (the verify
-        # knobs' shapes) are checked and timed the same way and logged
+        # the first captured case is the row's; later ones (more paths'
+        # shapes) are checked and timed the same way and logged
         for name, source, replaces, cases, ragged, kernel, plain, bound in phases:
             atol = atols.get(name, 0.0)
             for case in [*cases, *ragged]:
@@ -1681,6 +1827,46 @@ def main() -> int:
             "filter_frontier_narrow (gathered operands, through the level kernels) and the "
             "query-tile verify on q_bm: bit-exact against their plain versions at the captured "
             "and ragged shapes")
+        # the gathered entries of rows 9 and 10 run the slot kernels over an
+        # identity leaf map: the counted ones (the unfused knob's verify)
+        # bit-exact in ids, n_match and n_kw against their plain versions at
+        # the knob shapes and ragged ones, timed at the knob shapes; the int8
+        # ones against skr_verify(_compact)_ref at ragged shapes
+        for compact, counted, flags, plain_flags in (
+                (True, ops.verify_candidates_compact_counted, ops.verify_candidates_compact,
+                 ref.skr_verify_compact_ref),
+                (False, ops.verify_candidates_counted, ops.verify_candidates,
+                 ref.skr_verify_ref)):
+            key = "skr_verify_compact" if compact else "skr_verify"
+
+            def plain_counted(*a, compact=compact):
+                M = a[0].shape[0]
+                T = a[2].shape[1] if compact else 1
+                leaves = ops.identity_leaves(M, T, dev)
+                if not compact:
+                    return ref.skr_verify_slots_ref(a[0], a[1], *leaves, *a[2:])
+                bank = lambda t: t.reshape(M * T, -1, *t.shape[2:])  # noqa: E731
+                return ref.skr_verify_slots_compact_ref(*a[:3], *leaves,
+                                                        *(bank(t) for t in a[3:]))
+
+            ragged = [ragged_verify(dev, compact), ragged_verify(dev, compact, W=1, seed=12)]
+            as_ids = lambda a: a[:-1] + ((a[-1] > 0).to(torch.int32) * 7 - 1,)  # noqa: E731
+            knob = captured[f"{key}/knob"]
+            for case in [knob, *map(as_ids, ragged)]:
+                got = counted(*case)
+                torch.cuda.synchronize()
+                assert_same(got, plain_counted(*case), f"{key} counted at {shapes(case)[:5]}")
+            for case in ragged:
+                got = flags(*case)
+                torch.cuda.synchronize()
+                assert_same(got, plain_flags(*case), f"{key} at {shapes(case)[:5]}")
+            ms = time_ms(lambda: counted(*knob))
+            plain_ms = time_ms(lambda: plain_counted(*knob), iters=10)
+            b_ms, b_by = bound_ms(*verify_bound(knob, compact))
+            log(f"{key} (gathered, counted) at the knob shapes {shapes(knob)[:6]}: bit-exact in "
+                f"ids, n_match and n_kw vs plain, and at {len(ragged)} ragged cases; the int8 "
+                f"entry bit-exact at them; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
+                f"{b_ms:.6f} ms ({b_by})")
 
     with phase("operand gathers"):
         # the per-slot planes the engine gathered before rows 1, 4 and 7
@@ -1712,6 +1898,43 @@ def main() -> int:
             "frontier_level (row 4)": lambda: wide_planes(mbrs4, lbms4, fr4),
             "knn_level_dist_narrow (row 7)": lambda: narrow_planes(codes7, lbms7, fr7, wids7),
         }
+        # rows 9 and 10: the insert-slot planes _verify_delta_slots gathered
+        # at logs A's and B's delta SKR batches (coordinates, ids, the int8
+        # validity plane and the slot words), and the keyword recount over
+        # them (_kw_compact, _kw_full) that gave Eq. 1's verified
+        def slot_planes(args, compact):
+            top_leaf, leaf_ok, x, y = args[3:7] if compact else args[2:6]
+            M, B = top_leaf.shape[0], x.shape[1]
+            tl = top_leaf.long()
+            iid = args[-1][tl].reshape(M, -1)
+            ival = ((iid >= 0) & (leaf_ok > 0).repeat_interleave(B, dim=1)).to(torch.int8)
+            planes = [x[tl].reshape(M, -1), y[tl].reshape(M, -1), iid, ival]
+            words = args[7] if compact else args[6]
+            planes.append(words[tl].reshape(M, -1, words.shape[2]))
+            if compact:
+                planes.append(args[8][tl].reshape(M, -1))
+            return planes
+
+        def recount(args, planes, compact):
+            B = args[-1].shape[1]
+            if compact:
+                q_cbm, q_sig = args[1], args[2]
+                kw = (((planes[5] & q_sig.repeat_interleave(B, dim=1)) != 0)
+                      & ((planes[4] & q_cbm.repeat_interleave(B, dim=1)) != 0).any(dim=-1))
+            else:
+                kw = ((planes[4] & args[1][:, None, :]) != 0).any(dim=-1)
+            return (kw & (planes[3] > 0)).to(torch.int32).sum(dim=1, dtype=torch.int32)
+
+        for row, key, compact in (("skr_verify_slots_compact (row 9)",
+                                   "skr_verify_slots_compact/delta", True),
+                                  ("skr_verify_slots (row 10)", "skr_verify_slots/delta", False)):
+            args = captured[key]
+            gathers[row] = lambda args=args, compact=compact: slot_planes(args, compact)
+            planes = slot_planes(args, compact)
+            r_ms = time_ms(lambda: recount(args, planes, compact), iters=10)
+            log(f"keyword recount no longer made for {row}: over the planes "
+                f"{[tuple(p.shape) for p in planes[3:]]}: {r_ms:.6f} ms")
+            del planes
         for row, gather in gathers.items():
             planes = gather()
             nbytes = sum(p.numel() * p.element_size() for p in planes)
@@ -1720,6 +1943,14 @@ def main() -> int:
                 f"{[tuple(p.shape) for p in planes]} ({nbytes} B): {g_ms:.6f} ms")
         log(f"host packing no longer made for the SKR batch: pack_query_words of "
             f"{tuple(host_bm.shape)} words, host clock, mean of 5: {pack_ms:.6f} ms")
+        # the per-slot query words rows 2 and 3 take, still made on every
+        # SKR batch with the compact bank: remap_query_words at the main
+        # path's (M, T) slots
+        remap = captured["remap"]
+        remap_ms = time_ms(lambda: ops.remap_query_words(*remap), iters=10)
+        log(f"operand build of rows 2-3 (still made): remap_query_words of q_bm "
+            f"{tuple(remap[0].shape)} into the leaf dictionaries {tuple(remap[1].shape)} at "
+            f"the (M, T) = {tuple(remap[2].shape)} slots: {remap_ms:.6f} ms")
         del planes, gathers
     captured.clear()
 
@@ -1730,12 +1961,11 @@ def main() -> int:
             snap, points[b0], bms[b0], K, plan_cache=cache), warm_knn, PlanCache)
         profile_batch("dense SKR", lambda cache: serve_batch(
             snap, wl.rects[b0], bms[b0], MAX_LEAVES, mode="dense"), warm, PlanCache)
-        warm_delta = PlanCache()
-        serve_batch(snap, wl.rects[b0], bms[b0], MAX_LEAVES, plan_cache=warm_delta,
-                    delta=delta_bufs["B"])
-        profile_batch("SKR with log B's delta", lambda cache: serve_batch(
-            snap, wl.rects[b0], bms[b0], MAX_LEAVES, plan_cache=cache, delta=delta_bufs["B"]),
-            warm_delta, PlanCache)
+        for label in ("B", "A"):
+            serve = lambda cache, label=label: serve_batch(  # noqa: E731
+                snap, wl.rects[b0], bms[b0], MAX_LEAVES, plan_cache=cache,
+                delta=delta_bufs[label])
+            profile_batch(f"SKR with log {label}'s delta", serve, delta_caches[label], PlanCache)
 
     log(f"card: {card}")
     print(json.dumps({"kernels": rows}), flush=True)

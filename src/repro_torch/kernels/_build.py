@@ -127,6 +127,8 @@ class CudaKernel:
 
 _FUSED_ARGS = (_P,) * 12 + (_I,) * 5
 _WIDE_FUSED_ARGS = (_P,) * 10 + (_I,) * 5
+_SLOTS_ARGS = (_P,) * 11 + (_I,) * 6 + (_P,)
+_SLOTS_COMPACT_ARGS = (_P,) * 13 + (_I,) * 6 + (_P,)
 
 KERNELS: Dict[str, CudaKernel] = {
     k.name: k
@@ -163,14 +165,18 @@ KERNELS: Dict[str, CudaKernel] = {
             "fused_verify_slot", "fused_verify.cu", "wisk_fused_verify_slot",
             _WIDE_FUSED_ARGS + (_I, _P),
         ),
+        # the insert-slot entries and the gathered entries launch the same
+        # two kernels, each counted apart
         CudaKernel(
-            "skr_verify_compact", "skr_verify.cu", "wisk_skr_verify_compact",
-            (_P,) * 9 + (_I,) * 5 + (_P,),
+            "skr_verify_slots_compact", "skr_verify.cu", "wisk_skr_verify_slots_compact",
+            _SLOTS_COMPACT_ARGS,
         ),
+        CudaKernel("skr_verify_slots", "skr_verify.cu", "wisk_skr_verify_slots", _SLOTS_ARGS),
         CudaKernel(
-            "skr_verify", "skr_verify.cu", "wisk_skr_verify",
-            (_P,) * 7 + (_I,) * 4 + (_P,),
+            "skr_verify_compact", "skr_verify.cu", "wisk_skr_verify_slots_compact",
+            _SLOTS_COMPACT_ARGS,
         ),
+        CudaKernel("skr_verify", "skr_verify.cu", "wisk_skr_verify_slots", _SLOTS_ARGS),
         CudaKernel(
             "skr_filter", "skr_filter.cu", "wisk_skr_filter",
             (_P,) * 5 + (_I,) * 4 + (_P,),

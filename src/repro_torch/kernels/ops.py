@@ -34,10 +34,10 @@ FUSED_VARIANTS = ("auto", "vmem", "prefetch")
 # queries' per-slot counts (the compact one for all T slots; the full-width
 # one for its _TILE_SLOTS slots, with their leaf rows and the queries'
 # packed (word id, value) pairs, 2 * Wp ints a query, whatever W is); the
-# dense filter _TILE_QUERIES queries' W words; skr_verify one query's W
-# words; the kNN level filters one query's packed pairs; sub_match up to
-# _SUB_MATCH_OBJECTS objects' packed words. The (M, T) full-width verify
-# compacts a query's nonzero words in rounds of at most 16 KiB of pairs,
+# dense filter _TILE_QUERIES queries' W words; the kNN level filters one
+# query's packed pairs; sub_match up to _SUB_MATCH_OBJECTS objects' packed
+# words. The (M, T) full-width verify and the full-width slot verify
+# compact a query's nonzero words in rounds of at most 16 KiB of pairs,
 # whatever W is.
 _TILE_QUERIES = 8
 _TILE_SLOTS = 4
@@ -471,11 +471,6 @@ def _tile_queries(ints_per_query: int) -> int:
     return bm
 
 
-def _check_staged_words(W: int) -> None:
-    if W > _SHARED_INTS:
-        raise ValueError(f"W={W} query words exceed the verify kernel's shared memory")
-
-
 def fused_gather_verify(
     q_rects, q_bm, top_leaf, leaf_ok, obj_x, obj_y, obj_bm, obj_id, variant: str = "auto",
     q_words=None,
@@ -542,67 +537,195 @@ def fused_gather_verify(
     return ids, kwv
 
 
-def verify_candidates(q_rects, q_bm, cand_x, cand_y, cand_bm, cand_valid):
-    """(M, C) int8 unfused verify of gathered candidates on all W words:
-    in the closed rectangle, keyword-matching and valid. CUDA tensors run
-    ``csrc/skr_verify.cu`` (one warp per candidate)."""
-    if q_rects.device.type == "cpu":
-        return ref.skr_verify_ref(q_rects, q_bm, cand_x, cand_y, cand_bm, cand_valid)
+def verify_slots(q_rects, q_bm, top_leaf, leaf_ok, slot_x, slot_y, slot_bm, slot_id):
+    """Verify the selected leaves' slots of a slot bank on all W words.
+
+    The bank holds K leaves x B slots -- a live delta's insert buffers
+    ``ins_x``/``ins_y``/``ins_bm``/``ins_id`` -- and the (M, T) selected
+    leaves ``top_leaf``/``leaf_ok`` (int8) pick each query's rows (ids
+    clamped to ``[0, K-1]``). A slot matches where its id is not -1, its
+    leaf is ok, one of its words ANDs non-zero with the query's ``q_bm``
+    (M, W) and its point lies in the closed rectangle. Returns ``(ids (M,
+    T*B) i32, n_match (M,) i32, n_kw (M,) i32)``: the matching ids, ``-1``
+    elsewhere, leaf-slot-major; the matches per query; and the
+    keyword-matching valid slots per query, inside the rectangle or not
+    (the Eq. 1 ``verified`` share). CUDA tensors run ``csrc/skr_verify.cu``,
+    which reads the bank itself: no (M, T*B, W) plane is made."""
+    return _verify_slots("skr_verify_slots", q_rects, q_bm, top_leaf, leaf_ok, slot_x, slot_y,
+                         slot_bm, slot_id)
+
+
+def verify_slots_compact(q_rects, q_cbm, q_sig, top_leaf, leaf_ok, slot_x, slot_y, slot_cbm,
+                         slot_sig, slot_id):
+    """``verify_slots`` on the leaf-local compact words: the slot's one-word
+    signature against ``q_sig`` (M, T), then its ``Wl`` words (K, B, Wl)
+    against ``q_cbm`` (M, T, Wl), the query words ``remap_query_words``
+    remapped into each selected leaf's vocabulary. The same outputs."""
+    return _verify_slots_compact("skr_verify_slots_compact", q_rects, q_cbm, q_sig, top_leaf,
+                                 leaf_ok, slot_x, slot_y, slot_cbm, slot_sig, slot_id)
+
+
+def _check_slots(q_rects, top_leaf, leaf_ok, slot_x, slot_y, slot_id):
+    """Check the operands both slot kernels take; returns the device and
+    ``(M, T, K, B)``."""
     dev = q_rects.device
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
+    M, T = top_leaf.shape
+    K, B = slot_id.shape
+    _check("q_rects", q_rects, torch.float32, (M, 4), dev)
+    _check("top_leaf", top_leaf, torch.int32, (M, T), dev)
+    _check("leaf_ok", leaf_ok, torch.int8, (M, T), dev)
+    _check("slot_x", slot_x, torch.float32, (K, B), dev)
+    _check("slot_y", slot_y, torch.float32, (K, B), dev)
+    _check("slot_id", slot_id, torch.int32, (K, B), dev)
+    if M * T and K == 0:
+        raise ValueError("empty slot bank")
+    if T * B >= 2 ** 31:
+        raise ValueError(f"T={T}, B={B} exceed the slot kernels' candidate index")
+    return dev, (M, T, K, B)
+
+
+def _slot_outputs(dev, M: int, T: int, B: int):
+    """Outputs of a slot kernel, ``(ids, n_match, n_kw)``: the counts zero
+    where there is no candidate to verify and no launch."""
+    ids = torch.empty((M, T * B), dtype=torch.int32, device=dev)
+    make = torch.empty if T * B else torch.zeros
+    return ids, make((M,), dtype=torch.int32, device=dev), make((M,), dtype=torch.int32, device=dev)
+
+
+def _verify_slots(kernel: str, q_rects, q_bm, top_leaf, leaf_ok, slot_x, slot_y, slot_bm,
+                  slot_id):
+    """``verify_slots``, its launches counted under ``kernel``."""
+    if q_rects.device.type == "cpu":
+        return ref.skr_verify_slots_ref(q_rects, q_bm, top_leaf, leaf_ok, slot_x, slot_y,
+                                        slot_bm, slot_id)
+    dev, (M, T, K, B) = _check_slots(q_rects, top_leaf, leaf_ok, slot_x, slot_y, slot_id)
+    W = q_bm.shape[1]
+    _check("q_bm", q_bm, torch.int32, (M, W), dev)
+    _check("slot_bm", slot_bm, torch.int32, (K, B, W), dev)
+    out = _slot_outputs(dev, M, T, B)
+    if T * B:
+        KERNELS[kernel](
+            q_rects.data_ptr(), q_bm.data_ptr(), top_leaf.data_ptr(), leaf_ok.data_ptr(),
+            slot_x.data_ptr(), slot_y.data_ptr(), slot_bm.data_ptr(), slot_id.data_ptr(),
+            *(t.data_ptr() for t in out), M, T, K, B, W, dev.index, _stream(dev),
+        )
+    return out
+
+
+def _verify_slots_compact(kernel: str, q_rects, q_cbm, q_sig, top_leaf, leaf_ok, slot_x, slot_y,
+                          slot_cbm, slot_sig, slot_id):
+    """``verify_slots_compact``, its launches counted under ``kernel``."""
+    if q_rects.device.type == "cpu":
+        return ref.skr_verify_slots_compact_ref(q_rects, q_cbm, q_sig, top_leaf, leaf_ok, slot_x,
+                                                slot_y, slot_cbm, slot_sig, slot_id)
+    dev, (M, T, K, B) = _check_slots(q_rects, top_leaf, leaf_ok, slot_x, slot_y, slot_id)
+    Wl = q_cbm.shape[2]
+    _check("q_cbm", q_cbm, torch.int32, (M, T, Wl), dev)
+    _check("q_sig", q_sig, torch.int32, (M, T), dev)
+    _check("slot_cbm", slot_cbm, torch.int32, (K, B, Wl), dev)
+    _check("slot_sig", slot_sig, torch.int32, (K, B), dev)
+    out = _slot_outputs(dev, M, T, B)
+    if T * B:
+        KERNELS[kernel](
+            q_rects.data_ptr(), q_cbm.data_ptr(), q_sig.data_ptr(), top_leaf.data_ptr(),
+            leaf_ok.data_ptr(), slot_x.data_ptr(), slot_y.data_ptr(), slot_cbm.data_ptr(),
+            slot_sig.data_ptr(), slot_id.data_ptr(), *(t.data_ptr() for t in out),
+            M, T, K, B, Wl, dev.index, _stream(dev),
+        )
+    return out
+
+
+def _check_gathered(q_rects, **planes) -> None:
+    """On the card, check gathered candidate planes (``name=(tensor, dtype,
+    shape)``) under the caller's names before they are read as a slot bank
+    (contiguous, so the bank is a view of them)."""
+    if q_rects.device.type != "cpu":
+        for name, (t, dtype, shape) in planes.items():
+            _check(name, t, dtype, shape, q_rects.device)
+
+
+def identity_leaves(M: int, T: int, device):
+    """The leaf map under which gathered (M, T*n) candidate planes read as a
+    slot bank of M*T rows of n slots: ``top_leaf[m, t] = m*T + t`` (int32),
+    every ``leaf_ok`` 1 (int8)."""
+    top_leaf = torch.arange(M * T, dtype=torch.int32, device=device).reshape(M, T)
+    return top_leaf, torch.ones((M, T), dtype=torch.int8, device=device)
+
+
+def verify_candidates_counted(q_rects, q_bm, cand_x, cand_y, cand_bm, cand_id):
+    """``verify_slots`` on candidates gathered into (M, C) planes, valid
+    where ``cand_id`` is not -1: the planes read as a bank of M rows of C
+    slots (``identity_leaves(M, 1)``). Returns ``(ids, n_match, n_kw)``; on
+    the card row 10's kernel, its launches counted as ``skr_verify``."""
     M, C = cand_x.shape
     W = q_bm.shape[1]
-    _check("q_rects", q_rects, torch.float32, (M, 4), dev)
-    _check("q_bm", q_bm, torch.int32, (M, W), dev)
-    _check("cand_x", cand_x, torch.float32, (M, C), dev)
-    _check("cand_y", cand_y, torch.float32, (M, C), dev)
-    _check("cand_bm", cand_bm, torch.int32, (M, C, W), dev)
-    _check("cand_valid", cand_valid, torch.int8, (M, C), dev)
-    _check_staged_words(W)
-    out = torch.empty((M, C), dtype=torch.int8, device=dev)
-    KERNELS["skr_verify"](
-        q_rects.data_ptr(), q_bm.data_ptr(), cand_x.data_ptr(), cand_y.data_ptr(),
-        cand_bm.data_ptr(), cand_valid.data_ptr(), out.data_ptr(), M, C, W,
-        dev.index, _stream(dev),
-    )
-    return out
+    _check_gathered(q_rects, cand_x=(cand_x, torch.float32, (M, C)),
+                    cand_y=(cand_y, torch.float32, (M, C)),
+                    cand_bm=(cand_bm, torch.int32, (M, C, W)),
+                    cand_id=(cand_id, torch.int32, (M, C)))
+    top_leaf, leaf_ok = identity_leaves(M, 1, q_rects.device)
+    return _verify_slots("skr_verify", q_rects, q_bm, top_leaf, leaf_ok, cand_x, cand_y, cand_bm,
+                         cand_id)
+
+
+def verify_candidates_compact_counted(q_rects, q_cbm, q_sig, cand_x, cand_y, cand_cbm, cand_sig,
+                                      cand_id):
+    """``verify_slots_compact`` on leaf-slot-major candidates gathered into
+    (M, T*OBJ) planes, valid where ``cand_id`` is not -1: the planes read as
+    a bank of M*T rows of OBJ slots (``identity_leaves(M, T)``). Returns
+    ``(ids, n_match, n_kw)``; on the card row 9's kernel, its launches
+    counted as ``skr_verify_compact``."""
+    M, T = q_sig.shape
+    C = cand_x.shape[1]
+    if T == 0 or C % T:
+        raise ValueError(f"{C} candidates do not split into T={T} leaf slots")
+    _check_gathered(q_rects, cand_x=(cand_x, torch.float32, (M, C)),
+                    cand_y=(cand_y, torch.float32, (M, C)),
+                    cand_cbm=(cand_cbm, torch.int32, (M, C, q_cbm.shape[2])),
+                    cand_sig=(cand_sig, torch.int32, (M, C)),
+                    cand_id=(cand_id, torch.int32, (M, C)))
+    bank = lambda t: t.reshape(M * T, C // T, *t.shape[2:])  # noqa: E731
+    top_leaf, leaf_ok = identity_leaves(M, T, q_rects.device)
+    return _verify_slots_compact("skr_verify_compact", q_rects, q_cbm, q_sig, top_leaf, leaf_ok,
+                                 bank(cand_x), bank(cand_y), bank(cand_cbm), bank(cand_sig),
+                                 bank(cand_id))
+
+
+def _valid_as_ids(cand_valid):
+    """An int8 validity plane as the slot kernels' ids: 0 where valid, -1
+    elsewhere; a match then comes back as id 0."""
+    return (cand_valid > 0).to(torch.int32) - 1
+
+
+def verify_candidates(q_rects, q_bm, cand_x, cand_y, cand_bm, cand_valid):
+    """(M, C) int8 unfused verify of gathered candidates on all W words:
+    in the closed rectangle, keyword-matching and valid. CUDA tensors run
+    ``verify_candidates_counted`` on the validity plane taken as ids."""
+    if q_rects.device.type == "cpu":
+        return ref.skr_verify_ref(q_rects, q_bm, cand_x, cand_y, cand_bm, cand_valid)
+    _check("cand_valid", cand_valid, torch.int8, tuple(cand_x.shape), q_rects.device)
+    ids, _, _ = verify_candidates_counted(q_rects, q_bm, cand_x, cand_y, cand_bm,
+                                          _valid_as_ids(cand_valid))
+    return (ids >= 0).to(torch.int8)
 
 
 def verify_candidates_compact(q_rects, q_cbm, q_sig, cand_x, cand_y, cand_cbm, cand_sig,
                               cand_valid):
     """(M, T*OBJ) int8 unfused verify on the compact leaf vocabulary.
     Candidates are leaf-slot-major, T slots of OBJ each (OBJ is derived as
-    ``C // T``: ``slots_per_leaf`` for a delta's insert slots), because the
-    remapped query words ``q_cbm``/``q_sig`` differ per slot. CUDA tensors
-    run ``csrc/skr_verify.cu`` (one thread per candidate)."""
+    ``C // T``), because the remapped query words ``q_cbm``/``q_sig`` differ
+    per slot. CUDA tensors run ``verify_candidates_compact_counted`` on the
+    validity plane taken as ids."""
     if q_rects.device.type == "cpu":
         return ref.skr_verify_compact_ref(
             q_rects, q_cbm, q_sig, cand_x, cand_y, cand_cbm, cand_sig, cand_valid
         )
-    dev = q_rects.device
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    M, T = q_sig.shape
-    C = cand_x.shape[1]
-    Wl = q_cbm.shape[2]
-    if T == 0 or C % T:
-        raise ValueError(f"{C} candidates do not split into T={T} leaf slots")
-    _check("q_rects", q_rects, torch.float32, (M, 4), dev)
-    _check("q_cbm", q_cbm, torch.int32, (M, T, Wl), dev)
-    _check("q_sig", q_sig, torch.int32, (M, T), dev)
-    _check("cand_x", cand_x, torch.float32, (M, C), dev)
-    _check("cand_y", cand_y, torch.float32, (M, C), dev)
-    _check("cand_cbm", cand_cbm, torch.int32, (M, C, Wl), dev)
-    _check("cand_sig", cand_sig, torch.int32, (M, C), dev)
-    _check("cand_valid", cand_valid, torch.int8, (M, C), dev)
-    out = torch.empty((M, C), dtype=torch.int8, device=dev)
-    KERNELS["skr_verify_compact"](
-        q_rects.data_ptr(), q_cbm.data_ptr(), q_sig.data_ptr(), cand_x.data_ptr(),
-        cand_y.data_ptr(), cand_cbm.data_ptr(), cand_sig.data_ptr(), cand_valid.data_ptr(),
-        out.data_ptr(), M, T, C // T, Wl, dev.index, _stream(dev),
-    )
-    return out
+    _check("cand_valid", cand_valid, torch.int8, tuple(cand_x.shape), q_rects.device)
+    ids, _, _ = verify_candidates_compact_counted(q_rects, q_cbm, q_sig, cand_x, cand_y, cand_cbm,
+                                                  cand_sig, _valid_as_ids(cand_valid))
+    return (ids >= 0).to(torch.int8)
 
 
 def filter_pairs(q_rects, q_bm, n_mbrs, n_bm):
@@ -620,7 +743,8 @@ def filter_pairs(q_rects, q_bm, n_mbrs, n_bm):
     _check("q_bm", q_bm, torch.int32, (M, W), dev)
     _check("n_mbrs", n_mbrs, torch.float32, (K, 4), dev)
     _check("n_bm", n_bm, torch.int32, (K, W), dev)
-    _check_staged_words(_TILE_QUERIES * W)
+    if _TILE_QUERIES * W > _SHARED_INTS:
+        raise ValueError(f"W={W} query words exceed the filter kernel's shared memory")
     if -(-M // _TILE_QUERIES) > _MAX_GRID_Y:
         raise ValueError(f"M={M} queries exceed the filter kernel's grid")
     out = torch.empty((M, K), dtype=torch.int8, device=dev)

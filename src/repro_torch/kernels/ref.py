@@ -332,6 +332,51 @@ def fused_verify_compact_ref(
     return ids, kwv
 
 
+def _per_query(ids, kwv):
+    """``(ids, n_match, n_kw)``: a verify's ids with its per-query counts of
+    matches and of keyword-matching valid slots (the per-slot ``kwv``
+    summed)."""
+    return ids, (ids >= 0).sum(dim=1, dtype=torch.int32), kwv.sum(dim=1, dtype=torch.int32)
+
+
+def skr_verify_slots_ref(
+    q_rects: torch.Tensor,  # (M, 4) f32
+    q_bm: torch.Tensor,  # (M, W) i32
+    top_leaf: torch.Tensor,  # (M, T) int32 selected leaf ids
+    leaf_ok: torch.Tensor,  # (M, T) int8
+    slot_x: torch.Tensor,  # (K, B) f32 slot bank: a delta's insert buffers
+    slot_y: torch.Tensor,  # (K, B) f32
+    slot_bm: torch.Tensor,  # (K, B, W) i32
+    slot_id: torch.Tensor,  # (K, B) int32, -1 = empty slot
+):
+    """Gather the selected leaves' slots (leaf ids clamped to ``[0, K-1]``),
+    apply ``skr_verify_ref``, and sum per query. Returns ``(ids (M, T*B)
+    i32, n_match (M,) i32, n_kw (M,) i32)``: ids of the matching slots
+    (``-1`` elsewhere, leaf-slot-major), their count, and the count of
+    keyword-matching valid slots, inside the rectangle or not (the Eq. 1
+    ``verified`` share of the slots)."""
+    return _per_query(*fused_verify_ref(q_rects, q_bm, top_leaf, leaf_ok, slot_x, slot_y,
+                                        slot_bm, slot_id))
+
+
+def skr_verify_slots_compact_ref(
+    q_rects: torch.Tensor,  # (M, 4) f32
+    q_cbm: torch.Tensor,  # (M, T, Wl) i32 leaf-local remapped query words
+    q_sig: torch.Tensor,  # (M, T) i32
+    top_leaf: torch.Tensor,  # (M, T) int32 selected leaf ids
+    leaf_ok: torch.Tensor,  # (M, T) int8
+    slot_x: torch.Tensor,  # (K, B) f32 slot bank: a delta's insert buffers
+    slot_y: torch.Tensor,  # (K, B) f32
+    slot_cbm: torch.Tensor,  # (K, B, Wl) i32 compact words
+    slot_sig: torch.Tensor,  # (K, B) i32 OR-fold signatures
+    slot_id: torch.Tensor,  # (K, B) int32, -1 = empty slot
+):
+    """``skr_verify_slots_ref`` on the compact words: gather, then
+    ``skr_verify_compact_ref``, then the two per-query sums."""
+    return _per_query(*fused_verify_compact_ref(q_rects, q_cbm, q_sig, top_leaf, leaf_ok, slot_x,
+                                                slot_y, slot_cbm, slot_sig, slot_id))
+
+
 def skr_filter_ref(
     q_rects: torch.Tensor,  # (M, 4) f32
     q_bm: torch.Tensor,  # (M, W) i32 bitmap words

@@ -26,7 +26,8 @@ The port of the JAX package's ``serve/engine.py`` frontier paths. SKR
    full-width bank for ``compact=False`` or a snapshot without a compact
    bank (its query-tile launch reading each row only at the query's packed
    words). ``fused=False`` gathers the candidates first and runs the unfused
-   ``skr_verify_compact`` / ``skr_verify`` kernels (the A/B baseline).
+   ``skr_verify_compact`` / ``skr_verify`` kernels on them (the A/B
+   baseline). Each verify kernel returns the per-query counts.
 
 Boolean kNN (``retrieve_knn``) is a distance-bounded frontier descent:
 a beam-1 probe descends greedily to one leaf and seeds a padded top-kb
@@ -45,8 +46,10 @@ Live updates: both paths take an optional ``delta`` (serve/delta.py
 level arrays (always the f32 descent: the widened MBRs are not in the
 snapshot's coordinate dictionaries), deleted snapshot objects are masked
 out of verification and the kNN top-k, and each selected leaf's
-insert-buffer slots are verified beside its object block: on the compact
-words while the delta carries them, else on all W words. SKR ids are
+insert-buffer slots are verified beside its object block, by a kernel
+that reads the delta's buffers itself (``ops.verify_slots_compact`` /
+``ops.verify_slots``): on the compact words while the delta carries them,
+else on all W words. SKR ids are
 (M, T*OBJ + T*B) with a delta: the base blocks first, then the insert
 slots, leaf-slot-major.
 
@@ -210,47 +213,19 @@ def _count(mask) -> torch.Tensor:
     return mask.to(torch.int32).sum(dim=1, dtype=torch.int32)
 
 
-def _kw_full(cand_bm, q_bm):
-    """(M, C) keyword test of gathered candidates on all W words."""
-    return ((cand_bm & q_bm[:, None, :]) != 0).any(dim=-1)
-
-
-def _kw_compact(cand_cbm, cand_sig, q_cbm, q_sig, per_slot: int):
-    """(M, T*per_slot) keyword test of leaf-slot-major candidates on the
-    compact words: the signature AND the ``Wl``-word test, against the
-    query words of each candidate's slot."""
-    sig_hit = (cand_sig & q_sig.repeat_interleave(per_slot, dim=1)) != 0
-    return sig_hit & ((cand_cbm & q_cbm.repeat_interleave(per_slot, dim=1)) != 0).any(dim=-1)
-
-
-def _verify_delta_slots(q_rects, q_bm, top_leaf, leaf_ok, delta: DeltaBuffer, q_cbm, q_sig):
-    """Verify the selected leaves' insert-buffer slots: through
-    ``skr_verify_compact`` when the compact bank is in play (``q_cbm``) and
-    the delta carries remapped insert bitmaps (exact: ``DeltaLog`` drops
-    them at the first out-of-dictionary term), else through the full-width
-    ``skr_verify``. Returns ``(ids (M, T*B), counts, kw_scanned)`` for the
-    insert slots alone."""
-    M = q_rects.shape[0]
-    B = delta.slots_per_leaf
-    tl = top_leaf.long()
-    ix = delta.ins_x[tl].reshape(M, -1)
-    iy = delta.ins_y[tl].reshape(M, -1)
-    iid = delta.ins_id[tl].reshape(M, -1)
-    ival = (iid >= 0) & leaf_ok.repeat_interleave(B, dim=1)
+def _verify_delta_slots(q_rects, q_bm, top_leaf, ok8, delta: DeltaBuffer, q_cbm, q_sig):
+    """Verify the selected leaves' insert-buffer slots in one kernel call
+    that reads the delta's buffers itself: ``verify_slots_compact`` when the
+    compact bank is in play (``q_cbm``) and the delta carries remapped
+    insert bitmaps (exact: ``DeltaLog`` drops them at the first
+    out-of-dictionary term), else the full-width ``verify_slots``. No
+    (M, T*B, ...) plane is gathered. Returns ``(ids (M, T*B), counts,
+    kw_scanned)`` for the insert slots alone."""
     if q_cbm is not None and delta.ins_cbm is not None:
-        Wl = delta.ins_cbm.shape[2]
-        icbm = delta.ins_cbm[tl].reshape(M, -1, Wl)
-        isig = delta.ins_sig[tl].reshape(M, -1)
-        match = ops.verify_candidates_compact(
-            q_rects, q_cbm, q_sig, ix, iy, icbm, isig, ival.to(torch.int8)
-        )
-        kw = _kw_compact(icbm, isig, q_cbm, q_sig, B)
-    else:
-        ibm = delta.ins_bm[tl].reshape(M, -1, q_bm.shape[1])
-        match = ops.verify_candidates(q_rects, q_bm, ix, iy, ibm, ival.to(torch.int8))
-        kw = _kw_full(ibm, q_bm)
-    ids = torch.where(match > 0, iid, -1)
-    return ids, _count(match), _count(kw & ival)
+        return ops.verify_slots_compact(q_rects, q_cbm, q_sig, top_leaf, ok8, delta.ins_x,
+                                        delta.ins_y, delta.ins_cbm, delta.ins_sig, delta.ins_id)
+    return ops.verify_slots(q_rects, q_bm, top_leaf, ok8, delta.ins_x, delta.ins_y, delta.ins_bm,
+                            delta.ins_id)
 
 
 def _verify_leaves(
@@ -262,27 +237,29 @@ def _verify_leaves(
     ``fused`` (None or True): one fused gather+verify kernel on the base
     leaf blocks -- the compact bank when ``compact`` allows and the
     snapshot has one, else the full-width bank -- on an id bank masked by
-    ``base_alive`` when a delta is live, then ``_verify_delta_slots`` on
-    the insert slots. ``fused=False``: the unfused A/B baseline -- the
-    candidates are gathered first; on the compact bank the base blocks and
-    the insert slots go through ``skr_verify_compact`` in two calls, at
-    full width the concatenated [base, insert] candidates through
-    ``skr_verify`` in one. Candidate order is [base blocks T*OBJ, insert
-    slots T*B], leaf-slot-major, in every combination, and every
-    combination gives identical outputs. ``words`` are the batch's packed
-    query words, which the full-width fused verify's query-tile launch
-    reads rows at (None where it does not run: ``_tile_reads_words``).
+    ``base_alive`` when a delta is live. ``fused=False``: the unfused A/B
+    baseline -- the base blocks are gathered into candidate planes first
+    (invalid and deleted objects as id -1) and verified by
+    ``verify_candidates_compact_counted`` or, at full width,
+    ``verify_candidates_counted``. Either way a live delta's insert slots
+    then go through ``_verify_delta_slots``. Every kernel returns its
+    per-query counts, so nothing is recounted here. Candidate order is
+    [base blocks T*OBJ, insert slots T*B], leaf-slot-major, in every
+    combination, and every combination gives identical outputs. ``words``
+    are the batch's packed query words, which the full-width fused verify's
+    query-tile launch reads rows at (None where it does not run:
+    ``_tile_reads_words``).
     """
     cbank = _snap_cbank(snap, compact)
     q_cbm = q_sig = None
     if cbank is not None:
         q_cbm, q_sig = ops.remap_query_words(q_bm, cbank[0], top_leaf)
     M = q_rects.shape[0]
+    ok8 = leaf_ok.to(torch.int8)
     if fused is not False:
         base_id = snap.leaf_obj_id
         if delta is not None:  # deleted objects become pad slots
             base_id = base_id.masked_fill(delta.base_alive == 0, -1)
-        ok8 = leaf_ok.to(torch.int8)
         if cbank is not None:
             ids, kwv = ops.fused_gather_verify_compact(
                 q_rects, q_cbm, q_sig, top_leaf, ok8,
@@ -297,40 +274,25 @@ def _verify_leaves(
         counts = _count(ids >= 0)
         verified = kwv.sum(dim=1, dtype=torch.int32)
     else:
-        OBJ = snap.obj_per_leaf
         tl = top_leaf.long()
+        keep = ok8.repeat_interleave(snap.obj_per_leaf, dim=1) > 0
+        if delta is not None:
+            keep = keep & (delta.base_alive[tl].reshape(M, -1) > 0)
+        cid = torch.where(keep, snap.leaf_obj_id[tl].reshape(M, -1), -1)
         cx = snap.leaf_obj_x[tl].reshape(M, -1)
         cy = snap.leaf_obj_y[tl].reshape(M, -1)
-        cid = snap.leaf_obj_id[tl].reshape(M, -1)
-        cval = (cid >= 0) & leaf_ok.repeat_interleave(OBJ, dim=1)
-        if delta is not None:
-            cval = cval & (delta.base_alive[tl].reshape(M, -1) > 0)
-        if cbank is None:  # full width: base and insert slots in one call
+        if cbank is None:
             cbm = snap.leaf_obj_bm[tl].reshape(M, -1, q_bm.shape[1])
-            if delta is not None:
-                B = delta.slots_per_leaf
-                iid = delta.ins_id[tl].reshape(M, -1)
-                cx = torch.cat([cx, delta.ins_x[tl].reshape(M, -1)], dim=1)
-                cy = torch.cat([cy, delta.ins_y[tl].reshape(M, -1)], dim=1)
-                cbm = torch.cat([cbm, delta.ins_bm[tl].reshape(M, -1, q_bm.shape[1])], dim=1)
-                cid = torch.cat([cid, iid], dim=1)
-                cval = torch.cat([cval, (iid >= 0) & leaf_ok.repeat_interleave(B, dim=1)], dim=1)
-            match = ops.verify_candidates(q_rects, q_bm, cx, cy, cbm, cval.to(torch.int8))
-            verified = _count(_kw_full(cbm, q_bm) & cval)
-            return torch.where(match > 0, cid, -1), _count(match), verified
-        Wl = cbank[1].shape[2]
-        ccbm = cbank[1][tl].reshape(M, -1, Wl)
-        csig = cbank[2][tl].reshape(M, -1)
-        match = ops.verify_candidates_compact(
-            q_rects, q_cbm, q_sig, cx, cy, ccbm, csig, cval.to(torch.int8)
-        )
-        ids = torch.where(match > 0, cid, -1)
-        counts = _count(match)
-        verified = _count(_kw_compact(ccbm, csig, q_cbm, q_sig, OBJ) & cval)
+            ids, counts, verified = ops.verify_candidates_counted(q_rects, q_bm, cx, cy, cbm, cid)
+        else:
+            ccbm = cbank[1][tl].reshape(M, -1, cbank[1].shape[2])
+            csig = cbank[2][tl].reshape(M, -1)
+            ids, counts, verified = ops.verify_candidates_compact_counted(
+                q_rects, q_cbm, q_sig, cx, cy, ccbm, csig, cid
+            )
     if delta is not None:
-        d_ids, d_counts, d_kw = _verify_delta_slots(
-            q_rects, q_bm, top_leaf, leaf_ok, delta, q_cbm, q_sig
-        )
+        d_ids, d_counts, d_kw = _verify_delta_slots(q_rects, q_bm, top_leaf, ok8, delta, q_cbm,
+                                                    q_sig)
         ids = torch.cat([ids, d_ids], dim=1)
         counts = counts + d_counts
         verified = verified + d_kw

@@ -379,6 +379,44 @@ VERIFY_COMPACT_SWEEP = [  # m, t, obj, wl
 ]
 
 
+SLOT_SWEEP = [  # m, t, k, b, w
+    (1, 1, 1, 1, 1),      # degenerate: one slot, one word
+    (5, 3, 9, 16, 3),     # nothing a multiple of a warp
+    (13, 5, 11, 8, 1),    # W = 1, B = MIN_SLOTS_PER_LEAF
+    (9, 8, 36, 16, 40),   # words past one warp stride
+    (33, 4, 17, 32, 8),   # T * B past one block pass
+]
+
+
+def slot_bank(rng, m, t, k, b, w, compact, device="cpu"):
+    """Slot-entry operands (``ops.verify_slots``, or ``compact``
+    ``ops.verify_slots_compact``) on ``device``: a bank of k leaves x b
+    slots, about a third of them empty, with points near the query
+    rectangles (edges included); dirty leaf ids (-2 to past K), ``leaf_ok =
+    0`` slots and an all-zero last row; with three queries or more, a first
+    query with no nonzero word and a ``NEVER_RECT`` second one. Compact:
+    per-slot query words and OR-fold signatures."""
+    rects = rand_rects(rng, m)
+    xs, ys = _points_near(rng, rects[rng.integers(0, m, k)], b)
+    ids = np.where(rng.integers(0, 3, (k, b)) > 0, rng.integers(0, 10 * k * b, (k, b)), -1)
+    top_leaf = rng.integers(-2, k + 3, (m, t)).astype(np.int32)
+    leaf_ok = rng.integers(0, 2, (m, t)).astype(np.int8)
+    if m > 1:
+        leaf_ok[-1] = 0
+    q_words = words(rng, m, t, w) if compact else words(rng, m, w)
+    if m > 2:
+        q_words[0] = 0
+        rects[1] = ops.NEVER_RECT
+    fold = lambda a: np.bitwise_or.reduce(a, axis=-1)  # noqa: E731
+    bank = (xs, ys, words(rng, k, b, w))
+    if compact:
+        head = (rects, q_words, fold(q_words), top_leaf, leaf_ok)
+        bank = bank + (fold(bank[2]),)
+    else:
+        head = (rects, q_words, top_leaf, leaf_ok)
+    return tuple(to_torch(a, device) for a in head + bank + (ids.astype(np.int32),))
+
+
 # ------------------------------------------------- the dense A/B filter
 FILTER_ARGS = ("q_rects", "q_bm", "n_mbrs", "n_bm")
 

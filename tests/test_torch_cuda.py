@@ -34,11 +34,12 @@ from repro_torch.serve.subscribe import SubscriptionIndex  # noqa: E402
 from test_torch_cases import (  # noqa: E402
     CDF_SWEEP, FILTER_ARGS, FILTER_SWEEP, FRONTIER_ARGS, FRONTIER_LEVEL_ARGS,
     FRONTIER_LEVEL_NARROW_ARGS, FRONTIER_LEVEL_SWEEP, FRONTIER_SWEEP, FUSED_SWEEP, KNN_ARGS,
-    LEVEL_ARGS, LEVEL_NARROW_ARGS, LEVEL_NARROW_SWEEP, LEVEL_SWEEP, SUB_SWEEP, VERIFY_ARGS,
-    VERIFY_COMPACT_ARGS, VERIFY_COMPACT_SWEEP, VERIFY_SWEEP, cdf_params, filter_case,
-    FRONTIER_LEVEL_ROUNDS, frontier_case, frontier_level_case, fused_args, fused_case,
-    fused_wide_args, knn_case, level_case, level_narrow_case, packed_words, rand_kw,
-    rand_sub_rect, sub_case, term_bitmaps, to_torch, verify_case, verify_compact_case, wide_args,
+    LEVEL_ARGS, LEVEL_NARROW_ARGS, LEVEL_NARROW_SWEEP, LEVEL_SWEEP, SLOT_SWEEP, SUB_SWEEP,
+    VERIFY_ARGS, VERIFY_COMPACT_ARGS, VERIFY_COMPACT_SWEEP, VERIFY_SWEEP, cdf_params,
+    filter_case, FRONTIER_LEVEL_ROUNDS, frontier_case, frontier_level_case, fused_args,
+    fused_case, fused_wide_args, knn_case, level_case, level_narrow_case, packed_words, rand_kw,
+    rand_sub_rect, slot_bank, sub_case, term_bitmaps, to_torch, verify_case, verify_compact_case,
+    wide_args,
 )
 
 pytestmark = pytest.mark.cuda
@@ -381,6 +382,101 @@ def test_skr_verify_compact_kernel_matches_plain(cuda, m, t, obj, wl):
     _equal(got, ref.skr_verify_compact_ref(*args))
 
 
+_SLOT_CARD = [  # m, t, k, b, w
+    (1024, 32, 7832, 16, 256),  # log B's insert slots at the osm profile
+    (1024, 32, 7832, 8, 4),     # log A's: Wl = 4
+    (5, 3, 9, 16, 2100),        # two compaction rounds
+    (64, 32, 300, 128, 256),    # T * B past one block pass many times
+]
+
+
+@pytest.mark.parametrize("compact", [False, True])
+@pytest.mark.parametrize("m,t,k,b,w", SLOT_SWEEP + _SLOT_CARD)
+def test_skr_verify_slots_kernels_match_plain(cuda, m, t, k, b, w, compact):
+    """The slot entries against their plain versions: ids, n_match and n_kw
+    bit for bit, one launch each, and with every slot empty."""
+    args = slot_bank(np.random.default_rng(m * 613 + t * 37 + k * 5 + b + w), m, t, k, b, w,
+                     compact, cuda)
+    entry, plain, name = ((ops.verify_slots_compact, ref.skr_verify_slots_compact_ref,
+                           "skr_verify_slots_compact") if compact else
+                          (ops.verify_slots, ref.skr_verify_slots_ref, "skr_verify_slots"))
+    _build.reset_launch_counts()
+    got = entry(*args)
+    torch.cuda.synchronize()
+    assert _build.KERNELS[name].launches == 1 and sum(_build.launch_counts().values()) == 1
+    _equal(got, plain(*args))
+    if m > 2:
+        assert not got[2][0] and not got[1][1]  # no query word; NEVER_RECT
+    empty = args[:-1] + (torch.full_like(args[-1], -1),)
+    got = entry(*empty)
+    torch.cuda.synchronize()
+    _equal(got, plain(*empty))
+    assert not (got[0] >= 0).any() and not got[2].any()
+
+
+@pytest.mark.parametrize("m,c,w", VERIFY_SWEEP + [(64, 4352, 256)])
+def test_skr_verify_counted_kernel_matches_plain(cuda, m, c, w):
+    """The unfused full-width verify's counted entry (the gathered planes as
+    a bank of M rows, through row 10's kernel) against its plain version."""
+    rng = np.random.default_rng(m * 7919 + c * 31 + w + 5)
+    case = verify_case(rng, m, c, w)
+    args = [to_torch(case[k], cuda) for k in VERIFY_ARGS[:5]]
+    cid = to_torch(np.where(case["cand_valid"] > 0, rng.integers(0, 1 << 20, (m, c)), -1)
+                   .astype(np.int32), cuda)
+    before = _build.KERNELS["skr_verify"].launches
+    got = ops.verify_candidates_counted(*args, cid)
+    torch.cuda.synchronize()
+    assert _build.KERNELS["skr_verify"].launches == before + 1
+    top_leaf, leaf_ok = ops.identity_leaves(m, 1, cuda)
+    _equal(got, ref.skr_verify_slots_ref(args[0], args[1], top_leaf, leaf_ok, *args[2:], cid))
+
+
+@pytest.mark.parametrize("m,t,obj,wl", VERIFY_COMPACT_SWEEP + [(1024, 32, 128, 4)])
+def test_skr_verify_compact_counted_kernel_matches_plain(cuda, m, t, obj, wl):
+    """The unfused compact verify's counted entry (the gathered planes as a
+    bank of M*T rows, through row 9's kernel) against its plain version."""
+    rng = np.random.default_rng(m * 7919 + t * 31 + obj + wl + 5)
+    case = verify_compact_case(rng, m, t, obj, wl)
+    args = [to_torch(case[k], cuda) for k in VERIFY_COMPACT_ARGS[:7]]
+    cid = to_torch(np.where(case["cand_valid"] > 0, rng.integers(0, 1 << 20, (m, t * obj)), -1)
+                   .astype(np.int32), cuda)
+    before = _build.KERNELS["skr_verify_compact"].launches
+    got = ops.verify_candidates_compact_counted(*args, cid)
+    torch.cuda.synchronize()
+    assert _build.KERNELS["skr_verify_compact"].launches == before + 1
+    top_leaf, leaf_ok = ops.identity_leaves(m, t, cuda)
+    bank = lambda a: a.reshape(m * t, obj, *a.shape[2:])  # noqa: E731
+    _equal(got, ref.skr_verify_slots_compact_ref(*args[:3], top_leaf, leaf_ok,
+                                                 *(bank(a) for a in args[3:]), bank(cid)))
+
+
+def test_slot_wrappers_check_operands(cuda):
+    args = list(slot_bank(np.random.default_rng(4), 5, 3, 9, 16, 3, False, cuda))
+    bad = list(args)
+    bad[3] = args[3] > 0
+    with pytest.raises(TypeError, match="leaf_ok"):
+        ops.verify_slots(*bad)
+    bad = list(args)
+    bad[6] = args[6][:, :, :2].contiguous()
+    with pytest.raises(ValueError, match="slot_bm"):
+        ops.verify_slots(*bad)
+    bad = list(args)
+    bad[4] = args[4].t().contiguous().t()
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.verify_slots(*bad)
+    cargs = list(slot_bank(np.random.default_rng(5), 5, 3, 9, 16, 2, True, cuda))
+    bad = list(cargs)
+    bad[2] = cargs[2].cpu()
+    with pytest.raises(ValueError, match="q_sig"):
+        ops.verify_slots_compact(*bad)
+    bad = list(cargs)
+    bad[8] = cargs[8][:-1].contiguous()
+    with pytest.raises(ValueError, match="slot_sig"):
+        ops.verify_slots_compact(*bad)
+    with pytest.raises(ValueError, match="empty slot bank"):
+        ops.verify_slots(*args[:4], *(a[:0].contiguous() for a in args[4:]))
+
+
 def test_verify_wrappers_check_operands(cuda):
     case = verify_case(np.random.default_rng(5), 4, 9, 2)
     args = [to_torch(case[k], cuda) for k in VERIFY_ARGS]
@@ -520,13 +616,13 @@ def test_delta_engine_on_the_card_matches_the_plain_path(cuda, own_leaf_terms):
     host_log = _delta_log(index, ds, host_snap, own_leaf_terms)
     log = _delta_log(index, ds, snap, own_leaf_terms)
     assert log.compact_ok == host_log.compact_ok == own_leaf_terms
-    delta_kernel = "skr_verify_compact" if own_leaf_terms else "skr_verify"
+    delta_kernel = "skr_verify_slots_compact" if own_leaf_terms else "skr_verify_slots"
     for kw, kernels in (
         (dict(), ("frontier_level", "fused_verify_compact_slot", delta_kernel)),
         (dict(fused=False), ("skr_verify_compact", delta_kernel)),
-        (dict(compact=False), ("fused_verify_slot", "skr_verify")),
-        (dict(compact=False, fused_variant="vmem"), ("fused_verify_tile", "skr_verify")),
-        (dict(compact=False, fused=False), ("skr_verify",)),
+        (dict(compact=False), ("fused_verify_slot", "skr_verify_slots")),
+        (dict(compact=False, fused_variant="vmem"), ("fused_verify_tile", "skr_verify_slots")),
+        (dict(compact=False, fused=False), ("skr_verify", "skr_verify_slots")),
     ):
         host = retrieve_workload(host_snap, wl, max_leaves=8, plan_cache=PlanCache(),
                                  delta=host_log.buffer, **kw)
@@ -537,6 +633,10 @@ def test_delta_engine_on_the_card_matches_the_plain_path(cuda, own_leaf_terms):
         assert counts["frontier_level_narrow"] == 0 and counts["frontier_level"] == index.height
         for name in kernels:
             assert counts[name] >= 1, (kw, name, counts)
+        # the insert slots: one slot-entry launch on the delta's buffers
+        assert counts["skr_verify_slots"] + counts["skr_verify_slots_compact"] == 1, (kw, counts)
+        if "fused" not in kw:
+            assert counts["skr_verify"] == counts["skr_verify_compact"] == 0, (kw, counts)
         for k in host:
             assert card[k].dtype == host[k].dtype
             np.testing.assert_array_equal(card[k], host[k], err_msg=f"{kw} {k}")
