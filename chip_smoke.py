@@ -19,7 +19,11 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    ``variant="auto"``) and ``retrieve(fused_variant="vmem")``, with the
    launch counts zeroed before and read after each run (the descent on
    ``frontier_level_narrow``, once per level, with the gathered-plane
-   frontier wrappers refused, as on every descent); checks every output
+   frontier wrappers refused, as on every descent; the compact fused
+   verify's remapping instance once a batch, ``fused_verify_remap_slot`` or
+   in the ``vmem`` run ``fused_verify_remap_tile``, with
+   ``remap_query_words`` refused, as in every fused SKR run below); checks
+   every output
    key against a run with the kernels swapped for their plain versions, and
    ids / ``nodes_checked`` / ``verified`` against the host oracle
    ``execute_serial`` on 256 queries with no overflow;
@@ -55,8 +59,9 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    ``serve_knn_batch(delta=...)`` (warm, counts zeroed before, read after;
    the SKR descent on ``frontier_level`` once per level, the insert slots
    through the slot entry that reads the delta's buffers, log A's
-   ``skr_verify_slots_compact`` and log B's ``skr_verify_slots``, once a
-   batch, and no gathered verify entry) equal their plain-version reruns on
+   ``skr_verify_slots_compact`` -- on the words the fused verify remapped --
+   and log B's ``skr_verify_slots``, once a batch, and no gathered verify
+   entry) equal their plain-version reruns on
    every key, SKR ids equal ``execute_serial`` and kNN ids and ``dist2``
    equal ``knn_query`` on 256 queries each, over a cold STR index of
    ``merged_dataset()``; then log B's warm delta SKR batch holds its peak
@@ -85,18 +90,20 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    version to ``atol=2e-6``;
 11. one phase per kernel (13): holds the kernel against its plain PyTorch
    version on the card -- bit-exact, the CDF bank to ``atol=2e-6`` -- at
-   the captured shapes (rows 9 and 10: the slot entries at logs A's and
-   B's insert slots) and at ragged edges, and times both (CUDA events)
-   beside a bound; then times the (M, F, W) gather the f32 kNN descent no
-   longer makes, and holds ``knn_frontier_dist(_narrow)`` and
+   the captured shapes (rows 2 and 3: the remapping instances, also with
+   ``words=True``; rows 9 and 10: the slot entries at logs A's and B's
+   insert slots) and at ragged edges, and times both (CUDA events) beside
+   a bound; then times the (M, F, W) gather the f32 kNN descent no longer
+   makes, and holds ``knn_frontier_dist(_narrow)`` and
    ``filter_frontier(_narrow)`` (gathered operands, through the level
-   kernels), the query-tile verify without packed words and the unfused
-   verify's gathered entries (ids and both counts; at the knob shapes,
-   timed) against their plain versions; then times, at the captured
-   shapes, the per-slot planes the engine no longer gathers for rows 1, 4,
-   7, 9 and 10, the keyword recounts of rows 9 and 10, the host packing the
-   SKR batch no longer makes, and ``remap_query_words``, the per-slot query
-   words rows 2 and 3 take;
+   kernels), the given-words instances of rows 2 and 3 (timed), the
+   query-tile verify without packed words and the unfused verify's
+   gathered entries (ids and both counts; at the knob shapes, timed)
+   against their plain versions; then times, at the captured shapes, the
+   per-slot planes the engine no longer gathers for rows 1, 4, 7, 9 and 10,
+   the keyword recounts of rows 9 and 10, the host packing the SKR batch no
+   longer makes, and ``remap_query_words``, the per-slot query words rows
+   2 and 3 no longer take;
 12. profiles one warm SKR batch, one warm kNN batch, one warm dense-scan
    batch and one warm SKR batch each with log B's and log A's deltas
    (``torch.profiler``: device busy and idle share, the largest device and
@@ -218,9 +225,10 @@ def assert_same(got, want, what: str, atol: float = 0.0) -> None:
 
 def shapes(case):
     """The shapes of a kernel's operands (a dict of weights counts as one, a
-    tuple of tensors as a list of shapes)."""
+    tuple of tensors as a list of shapes, a flag as itself)."""
     return [{k: tuple(v.shape) for k, v in a.items()} if isinstance(a, dict)
-            else shapes(a) if isinstance(a, tuple) else tuple(a.shape) for a in case]
+            else shapes(a) if isinstance(a, tuple)
+            else tuple(a.shape) if isinstance(a, torch.Tensor) else a for a in case]
 
 
 # ------------------------------------------------------------------ bounds
@@ -332,11 +340,13 @@ def level_bound(args, narrow: bool = False):
     return nbytes, ops
 
 
-def fused_bound(args):
+def fused_bound(args, query_bytes=None):
     """Leaf ids and flags in, ids and counts out for every (query, slot);
     of the selected leaf rows (each bank element once): object ids of leaves
     some valid slot selects, signatures of live objects, compact words that
-    decide a signature-passing object, coordinates of keyword hits."""
+    decide a signature-passing object, coordinates of keyword hits; the
+    query words some object needs and ``q_sig`` of slots with a live object,
+    or ``query_bytes`` in their place (``fused_remap_bound``)."""
     q_rects, q_cbm, q_sig, top_leaf, leaf_ok, ox, oy, ocbm, osig, oid = args
     M, T = top_leaf.shape
     K, OBJ = ox.shape
@@ -351,9 +361,11 @@ def fused_bound(args):
     kw = sig & hit.any(-1)
     word = obj[..., None] * Wl + torch.arange(Wl, device=leaf.device)
     distinct = lambda idx: torch.unique(idx).numel()  # noqa: E731
+    if query_bytes is None:
+        query_bytes = (int(need.any(2).sum()) * 4  # query words some object needs
+                       + int(live.any(-1).sum()) * 4)  # q_sig of slots with a live object
     nbytes = (int(kw.any(-1).any(-1).sum()) * 16  # rects of queries with a hit
-              + int(need.any(2).sum()) * 4  # query words some object needs
-              + int(live.any(-1).sum()) * 4  # q_sig of slots with a live object
+              + query_bytes
               + M * T * (4 + 1)  # top_leaf, leaf_ok
               + distinct(leaf[ok]) * OBJ * 4  # obj_id of the selected rows
               + distinct(obj[live]) * 4  # obj_sig
@@ -363,6 +375,33 @@ def fused_bound(args):
     ops = (int(ok.sum()) * OBJ + int(live.sum()) * 2  # id test, sig AND+test
            + int(need.sum()) * 2 + int(kw.sum()) * 4)  # word AND+test, 4 compares
     return nbytes, ops
+
+
+def fused_remap_bound(args, remap):
+    """``fused_bound`` of the remapping entry (operands ``q_rects, q_bm,
+    leaf_terms, top_leaf, leaf_ok`` and the bank, then the ``words`` flag),
+    each byte once: no ``q_cbm``/``q_sig`` read; the ``leaf_terms`` rows of
+    the distinct leaves that live slots (``leaf_ok > 0``) select, and the
+    distinct (query, word) pairs of ``q_bm`` those rows name at live slots;
+    with ``words`` the remapped words of every slot written out; the rest as
+    ``fused_bound`` counts it on the words ``remap`` (the plain remap)
+    gives."""
+    q_rects, q_bm, leaf_terms, top_leaf, leaf_ok, *bank, words = args
+    M, W = q_bm.shape
+    K, L = leaf_terms.shape
+    q_cbm, q_sig = remap(q_bm, leaf_terms, top_leaf)
+    ok = leaf_ok > 0
+    leaf = top_leaf.long().clamp(0, K - 1)
+    terms = leaf_terms[leaf[ok]]  # (live slots, L)
+    widx = terms.clamp(0, 32 * W - 1) >> 5
+    qrow = torch.arange(M, device=leaf.device)[:, None].expand(M, top_leaf.shape[1])[ok]
+    named = (qrow[:, None] * W + widx)[terms >= 0]
+    query_bytes = (torch.unique(leaf[ok]).numel() * L * 4  # dictionary rows
+                   + torch.unique(named).numel() * 4)  # query words they name
+    nbytes, ops = fused_bound((q_rects, q_cbm, q_sig, top_leaf, leaf_ok, *bank), query_bytes)
+    if words:
+        nbytes += q_cbm.numel() * 4 + q_sig.numel() * 4
+    return nbytes, ops + int((terms >= 0).sum()) * 3  # clamp, shift, and per named bit
 
 
 def fused_wide_bound(args, chunk: int = 32):
@@ -646,22 +685,51 @@ def ragged_slots(dev, narrow: bool, knn: bool, M=37, F=131, W=3, D=61, seed=5):
     return (t(q), qw, t(mbrs), fw, t(valid))
 
 
-def ragged_fused(dev, M=13, T=5, K=11, OBJ=37, Wl=2, seed=7):
+def ragged_fused(dev, M=13, T=5, K=11, OBJ=37, Wl=2, seed=7, W=None):
+    """Compact fused-verify operands at ragged shapes: dirty leaf ids,
+    ``leaf_ok = 0`` slots, -1 id pads. Without ``W``, the given-words form
+    (random ``q_cbm`` and its OR-fold ``q_sig``); with ``W``, the remapping
+    entry's ``(q_bm, leaf_terms)`` form followed by ``words=True``: leaf
+    dictionaries of even term ids, a quarter ``-1`` pads, a tenth past bit
+    32*W - 1 (the remap clamps them) and an all-``-1`` last one; a first
+    query whose bits are odd term ids, in no dictionary (``q_sig == 0`` in
+    every slot), an all-ones second one, and a last of ``leaf_ok = 0``
+    slots only."""
     g = np.random.default_rng(seed)
     words = lambda *s: _words(g, *s)  # noqa: E731
     qlo = g.uniform(0, 0.8, (M, 2)).astype(np.float32)
     rects = np.concatenate([qlo, qlo + g.uniform(0.01, 0.3, (M, 2)).astype(np.float32)], 1)
     cbm = words(K, OBJ, Wl)
     sig = np.bitwise_or.reduce(cbm.view(np.uint32), axis=-1).view(np.int32)
-    q_cbm = words(M, T, Wl)
-    q_sig = np.bitwise_or.reduce(q_cbm.view(np.uint32), axis=-1).view(np.int32)
     oid = np.where(g.integers(0, 4, (K, OBJ)) > 0, g.integers(0, 10_000, (K, OBJ)), -1)
+    leaf_ok = g.integers(0, 2, (M, T)).astype(np.int8)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    return (t(rects), t(q_cbm), t(q_sig), t(g.integers(-2, K + 3, (M, T)).astype(np.int32)),
-            t(g.integers(0, 2, (M, T)).astype(np.int8)),
+    if W is None:
+        q_cbm = words(M, T, Wl)
+        q_sig = np.bitwise_or.reduce(q_cbm.view(np.uint32), axis=-1).view(np.int32)
+        query = (t(q_cbm), t(q_sig))
+    else:
+        nbits = 32 * W
+        terms = 2 * g.integers(0, max(nbits // 2, 1), (K, 32 * Wl))
+        clamped = g.integers(0, 10, terms.shape) == 0  # entries past the bitmap's bits
+        terms = np.where(clamped, nbits + g.integers(0, 64, terms.shape), terms)
+        terms = np.where(g.integers(0, 4, terms.shape) == 0, -1, terms)
+        q_bm = words(M, W).view(np.uint32)
+        if K > 1:
+            terms[-1] = -1
+        if M > 1:
+            odd = np.arange(1, nbits - 1, 2)
+            q_bm[0] = 0
+            np.bitwise_or.at(q_bm[0], odd >> 5, np.uint32(1) << (odd & 31).astype(np.uint32))
+            leaf_ok[-1] = 0
+        if M > 2:
+            q_bm[1] = np.uint32(0xFFFFFFFF)
+        query = (t(q_bm.view(np.int32)), t(terms.astype(np.int32)))
+    bank = (t(g.integers(-2, K + 3, (M, T)).astype(np.int32)), t(leaf_ok),
             t(g.uniform(0, 1, (K, OBJ)).astype(np.float32)),
             t(g.uniform(0, 1, (K, OBJ)).astype(np.float32)),
             t(cbm), t(sig), t(oid.astype(np.int32)))
+    return (t(rects), *query, *bank) + (() if W is None else (True,))
 
 
 def _terms(g, n, W, pool, lo, hi):
@@ -999,9 +1067,8 @@ def main() -> int:
     with phase("warm-up: SKR and kNN batches"), patched(
         ops,  # sized by the frontier (M, F) and top_leaf (M, T)
         frontier_level_narrow=recorder("frontier_level_narrow", ops.frontier_level_narrow, 4),
-        fused_gather_verify_compact=recorder("fused", ops.fused_gather_verify_compact, 3),
+        fused_verify_leaf_words=recorder("fused", ops.fused_verify_leaf_words, 3),
         knn_level_dist_narrow=recorder("knn_level_dist_narrow", ops.knn_level_dist_narrow, 5),
-        remap_query_words=recorder("remap", ops.remap_query_words, 2),
     ):
         for b in batches:
             serve_batch(snap, wl.rects[b], bms[b], MAX_LEAVES, plan_cache=warm)
@@ -1028,13 +1095,16 @@ def main() -> int:
 
     def refuse(what):
         def fail(*a, **kw):
-            raise AssertionError(f"a level-form descent called {what}")
+            raise AssertionError(f"the run called {what}, which it no longer needs")
         return fail
 
     # no per-slot planes on any descent: the range filters' gathered-plane
     # wrappers (the TPU kernels' operands) must not run
     no_slot_planes = dict(filter_frontier=refuse("filter_frontier"),
                           filter_frontier_narrow=refuse("filter_frontier_narrow"))
+    # no fused SKR batch builds the compact verify's per-slot query words:
+    # the kernel remaps them itself
+    no_remap = dict(remap_query_words=refuse("remap_query_words"))
 
     def check_descent(counts, name, what):
         """The descent ran ``name`` once per level of every batch, and the
@@ -1044,14 +1114,25 @@ def main() -> int:
             raise AssertionError(f"{what} did not launch {name} once per level: {counts}")
 
     plain_fused = lambda *a: ref.fused_verify_compact_ref(*a)  # noqa: E731
+    plain_leaf = lambda *a, variant="auto", words=False: (  # noqa: E731
+        ref.fused_verify_leaf_words_ref(*a, words=words))
+
+    def check_remap(counts, name, what):
+        """The fused verify ran its remapping instance ``name`` once a batch
+        and the given-words instances never."""
+        given = counts["fused_verify_compact_slot"] + counts["fused_verify_compact_tile"]
+        if counts[name] != len(batches) or given:
+            raise AssertionError(f"{what} did not launch {name} once a batch: {counts}")
+
     launches = {}
     with phase("SKR main path, plain rerun"):
         _build.reset_launch_counts()
-        with patched(ops, **no_slot_planes):
+        with patched(ops, **no_slot_planes, **no_remap):
             main_out, main_t = serve_all()
             main_counts = _build.launch_counts()
             log(f"SKR main path serve_batch x{len(batches)} (auto): batch s {main_t}, "
-                f"launches {main_counts}; no per-slot plane gathered")
+                f"launches {main_counts}; no per-slot plane gathered, remap_query_words "
+                f"refused")
             _build.reset_launch_counts()
             vmem_out, vmem_t = serve_all("vmem")
             vmem_counts = _build.launch_counts()
@@ -1059,16 +1140,18 @@ def main() -> int:
             f"launches {vmem_counts}")
         check_descent(main_counts, "frontier_level_narrow", "the SKR main path")
         check_descent(vmem_counts, "frontier_level_narrow", "the SKR vmem run")
+        check_remap(main_counts, "fused_verify_remap_slot", "the SKR main path")
+        check_remap(vmem_counts, "fused_verify_remap_tile", "the SKR vmem run")
         for key, counts in (("frontier_level_narrow", main_counts),
-                            ("fused_verify_compact_slot", main_counts),
-                            ("fused_verify_compact_tile", vmem_counts)):
+                            ("fused_verify_remap_slot", main_counts),
+                            ("fused_verify_remap_tile", vmem_counts)):
             if counts[key] <= 0:
                 raise AssertionError(f"the SKR main path never launched {key}")
             launches[key] = counts[key]
 
         _build.reset_launch_counts()
         with patched(ops, frontier_level_narrow=ref.frontier_level_narrow_ref,
-                     fused_gather_verify_compact=lambda *a, variant="auto": plain_fused(*a)):
+                     fused_verify_leaf_words=plain_leaf):
             plain_out, plain_t = serve_all()
         if any(_build.launch_counts().values()):
             raise AssertionError("the plain run launched a kernel")
@@ -1258,7 +1341,7 @@ def main() -> int:
     leaf_terms = snap.leaf_terms.cpu().numpy()
     plain_ops = dict(
         frontier_level=ref.frontier_level_ref,
-        fused_gather_verify_compact=lambda *a, variant="auto": plain_fused(*a),
+        fused_verify_leaf_words=plain_leaf,
         verify_slots=ref.skr_verify_slots_ref,
         verify_slots_compact=ref.skr_verify_slots_compact_ref,
         knn_level_dist=ref.knn_level_dist_ref,
@@ -1333,19 +1416,18 @@ def main() -> int:
         with patched(ops, frontier_level=recorder(f"frontier_level/log {label}",
                                                   ops.frontier_level, 4),
                      **{capture[0]: recorder(capture[1], getattr(ops, capture[0]), capture[2])},
-                     **no_slot_planes):
+                     **no_slot_planes, **no_remap):
             skr_out, skr_t = serve_skr(cached(skr_cache))
         skr_counts = _build.launch_counts()
         _build.reset_launch_counts()
         knn_d, knn_dt = serve_knn(cached(knn_cache))
         knn_counts = _build.launch_counts()
         log(f"log {label} SKR serve_batch(delta) x{len(batches)}: batch s {skr_t}, launches "
-            f"{skr_counts}")
+            f"{skr_counts}; remap_query_words refused")
         log(f"log {label} kNN serve_knn_batch(k={K}, delta): one batch {knn_dt:.6f} s, launches "
             f"{knn_counts}")
         check_descent(skr_counts, "frontier_level", f"log {label} SKR")
-        if skr_counts["fused_verify_compact_slot"] <= 0:
-            raise AssertionError(f"log {label}: SKR never launched fused_verify_compact_slot")
+        check_remap(skr_counts, "fused_verify_remap_slot", f"log {label} SKR")
         # the insert slots: the slot entry once a batch, on the delta's own
         # buffers, and no gathered entry
         others = [n for n in (*slot_kernels, "skr_verify", "skr_verify_compact")
@@ -1431,14 +1513,14 @@ def main() -> int:
 
     plain_dense_ops = dict(
         filter_pairs=ref.skr_filter_ref,
-        fused_gather_verify_compact=lambda *a, variant="auto": plain_fused(*a),
+        fused_verify_leaf_words=plain_leaf,
         verify_slots=ref.skr_verify_slots_ref,
         verify_slots_compact=ref.skr_verify_slots_compact_ref,
     )
     with phase("dense A/B scan"):
         _build.reset_launch_counts()
         dense_out, dense_t = [], []
-        with patched(ops, filter_pairs=recorder("skr_filter", ops.filter_pairs, 2)):
+        with patched(ops, filter_pairs=recorder("skr_filter", ops.filter_pairs, 2), **no_remap):
             for b in batches:
                 t = time.perf_counter()
                 dense_out.append(serve_batch(snap, wl.rects[b], bms[b], MAX_LEAVES, mode="dense"))
@@ -1615,8 +1697,27 @@ def main() -> int:
     # ------------------------------------------------------- kernel phases
     rows = []
     csrc = "src/repro_torch/kernels/csrc/"
+    # rows 2 and 3: the remapping instances at the main path's operands,
+    # checked with words=False (as the engine runs them; the row's time) and
+    # words=True; ragged: Wl of 1, 2 and 8, W of 1 and 3, OBJ of 1 and 37,
+    # dirty leaf ids, leaf_ok = 0 rows, a query that meets no dictionary,
+    # entries past 32*W, all -1 dictionaries
     fu_args = captured["fused"]
+    fu_cases = [fu_args + (False,), fu_args + (True,)]
+    remap_ragged = [ragged_fused(dev, W=3), ragged_fused(dev, M=1, T=1, K=1, OBJ=1, Wl=1, W=1,
+                                                          seed=3),
+                    ragged_fused(dev, M=9, T=4, K=6, OBJ=1, Wl=8, W=1, seed=4),
+                    ragged_fused(dev, M=7, T=3, K=5, OBJ=37, Wl=8, W=3, seed=5),
+                    ragged_fused(dev, M=6, T=6, K=4, OBJ=16, Wl=1, W=3, seed=6)]
     fused_ragged = [ragged_fused(dev), ragged_fused(dev, M=1, T=1, K=1, OBJ=1, Wl=1, seed=3)]
+
+    def remap_entry(variant):
+        return lambda *a: ops.fused_verify_leaf_words(*a[:10], variant=variant, words=a[10])
+
+    def remap_plain(*a):
+        return ref.fused_verify_leaf_words_ref(*a[:10], words=a[10])
+
+    remap_bound = lambda a: fused_remap_bound(a, ref.remap_query_words_ref)  # noqa: E731
 
     def slot_phase(name, replaces, cases, kernel, plain, narrow):
         # dirty ids, a padding row, a query with no nonzero word and one
@@ -1667,13 +1768,12 @@ def main() -> int:
         slot_phase("frontier_level_narrow", "src/repro/kernels/frontier.py:113",
                    [captured["frontier_level_narrow"]], ops.frontier_level_narrow,
                    ref.frontier_level_narrow_ref, True),
-        ("fused_verify_compact_tile", csrc + "fused_verify_compact.cu",
-         "src/repro/kernels/fused_verify.py:267", [fu_args], fused_ragged,
-         lambda *a: ops.fused_gather_verify_compact(*a, variant="vmem"), plain_fused, fused_bound),
-        ("fused_verify_compact_slot", csrc + "fused_verify_compact.cu",
-         "src/repro/kernels/fused_verify.py:345", [fu_args], fused_ragged,
-         lambda *a: ops.fused_gather_verify_compact(*a, variant="prefetch"), plain_fused,
-         fused_bound),
+        ("fused_verify_remap_tile", csrc + "fused_verify_compact.cu",
+         "src/repro/kernels/fused_verify.py:267", fu_cases, remap_ragged, remap_entry("vmem"),
+         remap_plain, remap_bound),
+        ("fused_verify_remap_slot", csrc + "fused_verify_compact.cu",
+         "src/repro/kernels/fused_verify.py:345", fu_cases, remap_ragged, remap_entry("prefetch"),
+         remap_plain, remap_bound),
         slot_phase("frontier_level", "src/repro/kernels/frontier.py:60",
                    [captured["frontier_level/log B"], captured["frontier_level/f32"],
                     captured["frontier_level/log A"]],
@@ -1823,6 +1923,25 @@ def main() -> int:
             level_fn = ops.frontier_level_narrow if narrow else ops.frontier_level
             assert_same(got, level_fn(*rows_m), f"{wrapper.__name__} vs level")
             del head, gathered, sl, got
+        # the given-words instances of rows 2 and 3 (fused_gather_verify_compact,
+        # on the words remap_query_words gives) at the main path's remapped
+        # words and at ragged ones: bit-exact, and timed beside fused_bound
+        q_cbm, q_sig = ref.remap_query_words_ref(*fu_args[1:4])
+        given = (fu_args[0], q_cbm, q_sig, *fu_args[3:])
+        for variant, name in (("vmem", "fused_verify_compact_tile"),
+                              ("prefetch", "fused_verify_compact_slot")):
+            entry = lambda *a, variant=variant: ops.fused_gather_verify_compact(  # noqa: E731
+                *a, variant=variant)
+            for case in [given, *fused_ragged]:
+                got = entry(*case)
+                torch.cuda.synchronize()
+                assert_same(got, plain_fused(*case), f"{name} at {shapes(case)[:5]}")
+            ms = time_ms(lambda: entry(*given))
+            b_ms, b_by = bound_ms(*fused_bound(given))
+            log(f"{name} (given words) at the main path's remapped words {shapes(given)[:5]}: "
+                f"bit-exact vs plain, and at {len(fused_ragged)} ragged cases; kernel {ms:.6f} ms, "
+                f"bound {b_ms:.6f} ms ({b_by})")
+        del given, q_cbm, q_sig, got
         log("knn_frontier_dist, knn_frontier_dist_narrow, filter_frontier and "
             "filter_frontier_narrow (gathered operands, through the level kernels) and the "
             "query-tile verify on q_bm: bit-exact against their plain versions at the captured "
@@ -1943,12 +2062,11 @@ def main() -> int:
                 f"{[tuple(p.shape) for p in planes]} ({nbytes} B): {g_ms:.6f} ms")
         log(f"host packing no longer made for the SKR batch: pack_query_words of "
             f"{tuple(host_bm.shape)} words, host clock, mean of 5: {pack_ms:.6f} ms")
-        # the per-slot query words rows 2 and 3 take, still made on every
-        # SKR batch with the compact bank: remap_query_words at the main
-        # path's (M, T) slots
-        remap = captured["remap"]
+        # the per-slot query words rows 2 and 3 took before their kernels
+        # remapped them: remap_query_words at the main path's (M, T) slots
+        remap = fu_args[1:4]
         remap_ms = time_ms(lambda: ops.remap_query_words(*remap), iters=10)
-        log(f"operand build of rows 2-3 (still made): remap_query_words of q_bm "
+        log(f"operand build no longer made for rows 2-3: remap_query_words of q_bm "
             f"{tuple(remap[0].shape)} into the leaf dictionaries {tuple(remap[1].shape)} at "
             f"the (M, T) = {tuple(remap[2].shape)} slots: {remap_ms:.6f} ms")
         del planes, gathers

@@ -126,6 +126,7 @@ class CudaKernel:
 
 
 _FUSED_ARGS = (_P,) * 12 + (_I,) * 5
+_REMAP_ARGS = (_P,) * 14 + (_I,) * 6
 _WIDE_FUSED_ARGS = (_P,) * 10 + (_I,) * 5
 _SLOTS_ARGS = (_P,) * 11 + (_I,) * 6 + (_P,)
 _SLOTS_COMPACT_ARGS = (_P,) * 13 + (_I,) * 6 + (_P,)
@@ -148,6 +149,16 @@ KERNELS: Dict[str, CudaKernel] = {
         CudaKernel(
             "knn_level_dist", "knn_filter.cu", "wisk_knn_level_dist",
             (_P,) * 7 + (_I,) * 6 + (_P,),
+        ),
+        # rows 2 and 3: the remapping instances (the engine's) and the
+        # given-words ones, each counted apart
+        CudaKernel(
+            "fused_verify_remap_tile", "fused_verify_compact.cu",
+            "wisk_fused_verify_remap_tile", _REMAP_ARGS + (_I, _I, _I, _P),
+        ),
+        CudaKernel(
+            "fused_verify_remap_slot", "fused_verify_compact.cu",
+            "wisk_fused_verify_remap_slot", _REMAP_ARGS + (_I, _P),
         ),
         CudaKernel(
             "fused_verify_compact_tile", "fused_verify_compact.cu",

@@ -30,18 +30,25 @@ FUSED_VARIANTS = ("auto", "vmem", "prefetch")
 
 # The verify, dense-filter, kNN and match kernels keep per-block state in
 # dynamic shared memory, at most _SHARED_INTS ints (32 KiB, inside the 48 KB
-# a block takes without opting in): a query-tile kernel up to _TILE_QUERIES
-# queries' per-slot counts (the compact one for all T slots; the full-width
-# one for its _TILE_SLOTS slots, with their leaf rows and the queries'
-# packed (word id, value) pairs, 2 * Wp ints a query, whatever W is); the
-# dense filter _TILE_QUERIES queries' W words; the kNN level filters one
-# query's packed pairs; sub_match up to _SUB_MATCH_OBJECTS objects' packed
-# words. The (M, T) full-width verify and the full-width slot verify
-# compact a query's nonzero words in rounds of at most 16 KiB of pairs,
-# whatever W is.
+# a block takes without opting in): the full-width query-tile verify up to
+# _TILE_QUERIES queries' per-slot counts for its _TILE_SLOTS slots, with
+# their leaf rows and the queries' packed (word id, value) pairs, 2 * Wp
+# ints a query, whatever W is; the compact verify a pair's Wl remapped
+# words (the query-tile launch one pair per warp, _COMPACT_TILE_WARPS of
+# them, and its _COMPACT_TILE_QUERIES queries' W bitmap words where they
+# fit); the dense filter _TILE_QUERIES queries' W words; the kNN level
+# filters one query's packed pairs; sub_match up to _SUB_MATCH_OBJECTS
+# objects' packed words. The (M, T) full-width verify and the full-width
+# slot verify compact a query's nonzero words in rounds of at most 16 KiB
+# of pairs, whatever W is.
 _TILE_QUERIES = 8
 _TILE_SLOTS = 4
 _SHARED_INTS = 8192
+# queries per block of the compact query-tile verify: a batch of 1024 gives
+# 512 blocks, about four per SM of an H100; a knob that never changes a
+# result
+_COMPACT_TILE_QUERIES = 2
+_COMPACT_TILE_WARPS = 8
 _SUB_MATCH_OBJECTS = 32
 # CUDA's limit on a launch grid's second dimension
 _MAX_GRID_Y = 65535
@@ -121,29 +128,12 @@ def remap_query_words(q_bm: torch.Tensor, leaf_terms: torch.Tensor, leaves: torc
 
     Args are int32 tensors: ``q_bm`` (M, W), ``leaf_terms`` (K, 32*Wl),
     ``leaves`` (M, T). Returns ``(q_cbm (M, T, Wl) i32, q_sig (M, T) i32)``
-    with ``q_sig`` the OR-fold of the remapped words.
+    with ``q_sig`` the OR-fold of the remapped words. Tensor code on any
+    device (``ref.remap_query_words_ref``): the fused verify's remapping
+    entry ``fused_verify_leaf_words`` does it inside its kernel, so only
+    the unfused verify and kNN's leaf chunks call this.
     """
-    M, W = q_bm.shape
-    K, L = leaf_terms.shape
-    Wl = L // 32
-    safe = leaves.clamp(0, K - 1).long()
-    T = safe.shape[1]
-    terms = leaf_terms[safe]  # (M, T, L) global term per local bit
-    tpos = terms.clamp(0, 32 * W - 1)
-    widx = (tpos >> 5).reshape(M, T * L).long()
-    qw = torch.gather(q_bm, 1, widx).reshape(M, T, L)
-    # arithmetic shift of the int32 view, then & 1: bit 31 comes out as 1
-    bits = (qw >> (tpos & 31)) & 1
-    bits = torch.where(terms >= 0, bits, torch.zeros_like(bits))  # pad bits are inert
-    shifts = torch.arange(32, dtype=torch.int64, device=q_bm.device)
-    # distinct powers of two per word: the int64 sum is the exact OR, an
-    # unsigned word value in [0, 2**32); fold it onto its int32 bit view
-    word = (bits.long().reshape(M, T, Wl, 32) << shifts).sum(dim=-1)
-    q_cbm = torch.where(word >= 2**31, word - 2**32, word).to(torch.int32)
-    q_sig = q_cbm[..., 0]
-    for w in range(1, Wl):
-        q_sig = q_sig | q_cbm[..., w]
-    return q_cbm, q_sig
+    return ref.remap_query_words_ref(q_bm, leaf_terms, leaves)
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: Sequence[int], device) -> None:
@@ -407,7 +397,8 @@ def fused_gather_verify_compact(
     q_rects, q_cbm, q_sig, top_leaf, leaf_ok,
     obj_x, obj_y, obj_cbm, obj_sig, obj_id, variant: str = "auto",
 ):
-    """Fused leaf gather + verify on the compact leaf bank.
+    """Fused leaf gather + verify on the compact leaf bank, on query words
+    remapped before the call (the TPU kernels' operands).
 
     Consumes the descent's selected leaves (``top_leaf``/``leaf_ok``), the
     per-slot remapped query words from ``remap_query_words`` and the
@@ -415,36 +406,23 @@ def fused_gather_verify_compact(
     matching object ids (``-1`` fill, leaf-slot-major) and kwv (M, T) i32
     per-slot Eq. 1 ``verified`` counts.
 
-    ``variant`` picks the CUDA kernel (``csrc/fused_verify_compact.cu``):
-    ``"vmem"`` the query-tile kernel, ``"prefetch"`` the (M, T) kernel, and
-    ``"auto"`` the (M, T) kernel -- the TPU's VMEM byte cutoff is no rule on
-    Hopper, and no measured cutoff exists yet. Every variant gives identical
-    outputs; on the CPU all of them run the plain version.
+    ``variant`` picks the CUDA kernel (``csrc/fused_verify_compact.cu``,
+    the given-words instances): ``"vmem"`` the query-tile kernel,
+    ``"prefetch"`` the (M, T) kernel, and ``"auto"`` the (M, T) kernel --
+    the TPU's VMEM byte cutoff is no rule on Hopper, and no measured cutoff
+    exists yet. Every variant gives identical outputs; on the CPU all of
+    them run the plain version. The engine runs ``fused_verify_leaf_words``,
+    which remaps inside the kernel.
     """
-    if variant not in FUSED_VARIANTS:
-        raise ValueError(f"unknown fused-verify variant: {variant!r}")
+    _check_variant(variant)
     if q_rects.device.type == "cpu":
         return ref.fused_verify_compact_ref(
             q_rects, q_cbm, q_sig, top_leaf, leaf_ok, obj_x, obj_y, obj_cbm, obj_sig, obj_id
         )
-    dev = q_rects.device
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    M, T = top_leaf.shape
-    K, OBJ = obj_x.shape
-    Wl = obj_cbm.shape[2]
-    _check("q_rects", q_rects, torch.float32, (M, 4), dev)
+    dev, (M, T, K, OBJ, Wl) = _check_compact_bank(q_rects, top_leaf, leaf_ok, obj_x, obj_y,
+                                                  obj_cbm, obj_sig, obj_id, variant)
     _check("q_cbm", q_cbm, torch.int32, (M, T, Wl), dev)
     _check("q_sig", q_sig, torch.int32, (M, T), dev)
-    _check("top_leaf", top_leaf, torch.int32, (M, T), dev)
-    _check("leaf_ok", leaf_ok, torch.int8, (M, T), dev)
-    _check("obj_x", obj_x, torch.float32, (K, OBJ), dev)
-    _check("obj_y", obj_y, torch.float32, (K, OBJ), dev)
-    _check("obj_cbm", obj_cbm, torch.int32, (K, OBJ, Wl), dev)
-    _check("obj_sig", obj_sig, torch.int32, (K, OBJ), dev)
-    _check("obj_id", obj_id, torch.int32, (K, OBJ), dev)
-    if K == 0 or OBJ == 0:
-        raise ValueError("empty leaf bank")
     ids = torch.empty((M, T * OBJ), dtype=torch.int32, device=dev)
     kwv = torch.empty((M, T), dtype=torch.int32, device=dev)
     args = (
@@ -454,10 +432,97 @@ def fused_gather_verify_compact(
         M, T, K, OBJ, Wl,
     )
     if variant == "vmem":
-        KERNELS["fused_verify_compact_tile"](*args, _tile_queries(T), dev.index, _stream(dev))
+        KERNELS["fused_verify_compact_tile"](*args, _COMPACT_TILE_QUERIES, dev.index,
+                                             _stream(dev))
     else:
         KERNELS["fused_verify_compact_slot"](*args, dev.index, _stream(dev))
     return ids, kwv
+
+
+def fused_verify_leaf_words(
+    q_rects, q_bm, leaf_terms, top_leaf, leaf_ok,
+    obj_x, obj_y, obj_cbm, obj_sig, obj_id, variant: str = "auto", words: bool = False,
+):
+    """``fused_gather_verify_compact`` on the queries' global bitmaps
+    ``q_bm`` (M, W) int32: the kernel remaps each query's bits into its
+    selected leaves' vocabularies ``leaf_terms`` (K, 32*Wl; the global
+    term of each leaf-local bit, ``-1`` pad) itself, so no (M, T, Wl)
+    operand is built before the call. Returns ``(ids, kwv)``; with
+    ``words=True`` also the remapped words ``(q_cbm (M, T, Wl), q_sig (M,
+    T))`` that ``remap_query_words`` gives, written by the same kernel (for
+    the insert-slot verify of a delta with compact insert bitmaps).
+
+    ``variant`` as for ``fused_gather_verify_compact``; the launches count
+    as ``fused_verify_remap_tile`` (``"vmem"``) and
+    ``fused_verify_remap_slot``. On the CPU every variant runs the plain
+    version, ``ref.fused_verify_leaf_words_ref``.
+    """
+    _check_variant(variant)
+    if q_rects.device.type == "cpu":
+        return ref.fused_verify_leaf_words_ref(q_rects, q_bm, leaf_terms, top_leaf, leaf_ok, obj_x,
+                                               obj_y, obj_cbm, obj_sig, obj_id, words=words)
+    dev, (M, T, K, OBJ, Wl) = _check_compact_bank(q_rects, top_leaf, leaf_ok, obj_x, obj_y,
+                                                  obj_cbm, obj_sig, obj_id, variant)
+    W = q_bm.shape[1] if q_bm.dim() == 2 else -1
+    _check("q_bm", q_bm, torch.int32, (M, W), dev)
+    _check("leaf_terms", leaf_terms, torch.int32, (K, 32 * Wl), dev)
+    if W == 0 or Wl == 0:
+        raise ValueError("the query bitmaps and the leaf dictionaries need at least one word")
+    ids = torch.empty((M, T * OBJ), dtype=torch.int32, device=dev)
+    kwv = torch.empty((M, T), dtype=torch.int32, device=dev)
+    q_cbm = q_sig = None
+    if words:
+        q_cbm = torch.empty((M, T, Wl), dtype=torch.int32, device=dev)
+        q_sig = torch.empty((M, T), dtype=torch.int32, device=dev)
+    args = (
+        q_rects.data_ptr(), q_bm.data_ptr(), leaf_terms.data_ptr(), top_leaf.data_ptr(),
+        leaf_ok.data_ptr(), obj_x.data_ptr(), obj_y.data_ptr(), obj_cbm.data_ptr(),
+        obj_sig.data_ptr(), obj_id.data_ptr(), ids.data_ptr(), kwv.data_ptr(),
+        q_cbm.data_ptr() if words else 0, q_sig.data_ptr() if words else 0,
+        M, T, K, OBJ, Wl, W,
+    )
+    if variant == "vmem":
+        bm = _COMPACT_TILE_QUERIES
+        stage = int(_COMPACT_TILE_WARPS * Wl + bm * W <= _SHARED_INTS)
+        KERNELS["fused_verify_remap_tile"](*args, bm, stage, dev.index, _stream(dev))
+    else:
+        KERNELS["fused_verify_remap_slot"](*args, dev.index, _stream(dev))
+    return (ids, kwv, q_cbm, q_sig) if words else (ids, kwv)
+
+
+def _check_variant(variant: str) -> None:
+    if variant not in FUSED_VARIANTS:
+        raise ValueError(f"unknown fused-verify variant: {variant!r}")
+
+
+def _check_compact_bank(q_rects, top_leaf, leaf_ok, obj_x, obj_y, obj_cbm, obj_sig, obj_id,
+                        variant: str):
+    """Check the operands both compact fused-verify entries take; returns
+    the device and ``(M, T, K, OBJ, Wl)``."""
+    dev = q_rects.device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    M, T = top_leaf.shape
+    K, OBJ = obj_x.shape
+    Wl = obj_cbm.shape[2] if obj_cbm.dim() == 3 else -1
+    _check("q_rects", q_rects, torch.float32, (M, 4), dev)
+    _check("top_leaf", top_leaf, torch.int32, (M, T), dev)
+    _check("leaf_ok", leaf_ok, torch.int8, (M, T), dev)
+    _check("obj_x", obj_x, torch.float32, (K, OBJ), dev)
+    _check("obj_y", obj_y, torch.float32, (K, OBJ), dev)
+    _check("obj_cbm", obj_cbm, torch.int32, (K, OBJ, Wl), dev)
+    _check("obj_sig", obj_sig, torch.int32, (K, OBJ), dev)
+    _check("obj_id", obj_id, torch.int32, (K, OBJ), dev)
+    if K == 0 or OBJ == 0:
+        raise ValueError("empty leaf bank")
+    # shared memory: a pair's Wl words (the (M, T) launch), a warp's each
+    # (the query-tile launch)
+    per_block = _COMPACT_TILE_WARPS * Wl if variant == "vmem" else Wl
+    if per_block > _SHARED_INTS:
+        raise ValueError(f"Wl={Wl} compact words exceed the fused verify's shared memory")
+    if M * T >= 2 ** 31:
+        raise ValueError(f"M={M}, T={T} exceed the fused verify's grid")
+    return dev, (M, T, K, OBJ, Wl)
 
 
 def _tile_queries(ints_per_query: int) -> int:
@@ -490,8 +555,7 @@ def fused_gather_verify(
     itself. On the CPU every variant runs the plain version (on the packed
     words when they are given).
     """
-    if variant not in FUSED_VARIANTS:
-        raise ValueError(f"unknown fused-verify variant: {variant!r}")
+    _check_variant(variant)
     if q_rects.device.type == "cpu":
         if q_words is not None:
             return ref.fused_verify_packed_ref(q_rects, *q_words, top_leaf, leaf_ok, obj_x,

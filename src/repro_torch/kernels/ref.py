@@ -332,6 +332,48 @@ def fused_verify_compact_ref(
     return ids, kwv
 
 
+def remap_query_words_ref(q_bm: torch.Tensor, leaf_terms: torch.Tensor, leaves: torch.Tensor):
+    """``ops.remap_query_words``: the query bitmaps ``q_bm`` (M, W) remapped
+    into the (M, T) selected leaves' vocabularies ``leaf_terms`` (K, 32*Wl),
+    leaf ids clamped to ``[0, K-1]``. Returns ``(q_cbm (M, T, Wl), q_sig (M,
+    T))``, int32 bit views."""
+    M, W = q_bm.shape
+    K, L = leaf_terms.shape
+    Wl = L // 32
+    safe = leaves.clamp(0, K - 1).long()
+    T = safe.shape[1]
+    terms = leaf_terms[safe]  # (M, T, L) global term per local bit
+    tpos = terms.clamp(0, 32 * W - 1)
+    widx = (tpos >> 5).reshape(M, T * L).long()
+    qw = torch.gather(q_bm, 1, widx).reshape(M, T, L)
+    # arithmetic shift of the int32 view, then & 1: bit 31 comes out as 1
+    bits = (qw >> (tpos & 31)) & 1
+    bits = torch.where(terms >= 0, bits, torch.zeros_like(bits))  # pad bits are inert
+    shifts = torch.arange(32, dtype=torch.int64, device=q_bm.device)
+    # distinct powers of two per word: the int64 sum is the exact OR, an
+    # unsigned word value in [0, 2**32); fold it onto its int32 bit view
+    word = (bits.long().reshape(M, T, Wl, 32) << shifts).sum(dim=-1)
+    q_cbm = torch.where(word >= 2**31, word - 2**32, word).to(torch.int32)
+    q_sig = q_cbm[..., 0]
+    for w in range(1, Wl):
+        q_sig = q_sig | q_cbm[..., w]
+    return q_cbm, q_sig
+
+
+def fused_verify_leaf_words_ref(
+    q_rects, q_bm, leaf_terms, top_leaf, leaf_ok, obj_x, obj_y, obj_cbm, obj_sig, obj_id,
+    words: bool = False,
+):
+    """``remap_query_words_ref`` of the (M, W) query bitmaps into the
+    selected leaves' vocabularies, then ``fused_verify_compact_ref`` on
+    them: ``(ids, kwv)``, and with ``words`` the remapped ``(q_cbm,
+    q_sig)`` after them."""
+    q_cbm, q_sig = remap_query_words_ref(q_bm, leaf_terms, top_leaf)
+    ids, kwv = fused_verify_compact_ref(q_rects, q_cbm, q_sig, top_leaf, leaf_ok, obj_x, obj_y,
+                                        obj_cbm, obj_sig, obj_id)
+    return (ids, kwv, q_cbm, q_sig) if words else (ids, kwv)
+
+
 def _per_query(ids, kwv):
     """``(ids, n_match, n_kw)``: a verify's ids with its per-query counts of
     matches and of keyword-matching valid slots (the per-slot ``kwv``

@@ -22,10 +22,12 @@ The port of the JAX package's ``serve/engine.py`` frontier paths. SKR
    per query, lowest leaf id first (the spill is counted in ``overflow``).
 4. ``_verify_leaves`` verifies the selected leaves. By default
    (``fused=None``) one fused gather+verify kernel runs on the compact leaf
-   bank (query words remapped into each leaf's vocabulary), or on the
+   bank (``ops.fused_verify_leaf_words``: the kernel remaps the query's
+   bitmap into each selected leaf's vocabulary itself), or on the
    full-width bank for ``compact=False`` or a snapshot without a compact
    bank (its query-tile launch reading each row only at the query's packed
-   words). ``fused=False`` gathers the candidates first and runs the unfused
+   words). ``fused=False`` gathers the candidates first, remaps the query
+   words with ``remap_query_words`` and runs the unfused
    ``skr_verify_compact`` / ``skr_verify`` kernels on them (the A/B
    baseline). Each verify kernel returns the per-query counts.
 
@@ -48,8 +50,9 @@ snapshot's coordinate dictionaries), deleted snapshot objects are masked
 out of verification and the kNN top-k, and each selected leaf's
 insert-buffer slots are verified beside its object block, by a kernel
 that reads the delta's buffers itself (``ops.verify_slots_compact`` /
-``ops.verify_slots``): on the compact words while the delta carries them,
-else on all W words. SKR ids are
+``ops.verify_slots``): on the compact words while the delta carries them
+(the fused verify writes the remapped query words out for it), else on all
+W words. SKR ids are
 (M, T*OBJ + T*B) with a delta: the base blocks first, then the insert
 slots, leaf-slot-major.
 
@@ -236,11 +239,14 @@ def _verify_leaves(
 
     ``fused`` (None or True): one fused gather+verify kernel on the base
     leaf blocks -- the compact bank when ``compact`` allows and the
-    snapshot has one, else the full-width bank -- on an id bank masked by
-    ``base_alive`` when a delta is live. ``fused=False``: the unfused A/B
-    baseline -- the base blocks are gathered into candidate planes first
-    (invalid and deleted objects as id -1) and verified by
-    ``verify_candidates_compact_counted`` or, at full width,
+    snapshot has one (``fused_verify_leaf_words``, which remaps the query
+    words inside the kernel and writes them out only for a delta with
+    compact insert bitmaps), else the full-width bank -- on an id bank
+    masked by ``base_alive`` when a delta is live. ``fused=False``: the
+    unfused A/B baseline -- the base blocks are gathered into candidate
+    planes first (invalid and deleted objects as id -1) and verified by
+    ``verify_candidates_compact_counted`` on the words
+    ``remap_query_words`` gives or, at full width,
     ``verify_candidates_counted``. Either way a live delta's insert slots
     then go through ``_verify_delta_slots``. Every kernel returns its
     per-query counts, so nothing is recounted here. Candidate order is
@@ -251,9 +257,7 @@ def _verify_leaves(
     ``_tile_reads_words``).
     """
     cbank = _snap_cbank(snap, compact)
-    q_cbm = q_sig = None
-    if cbank is not None:
-        q_cbm, q_sig = ops.remap_query_words(q_bm, cbank[0], top_leaf)
+    q_cbm = q_sig = None  # the remapped query words, where the insert slots need them
     M = q_rects.shape[0]
     ok8 = leaf_ok.to(torch.int8)
     if fused is not False:
@@ -261,10 +265,13 @@ def _verify_leaves(
         if delta is not None:  # deleted objects become pad slots
             base_id = base_id.masked_fill(delta.base_alive == 0, -1)
         if cbank is not None:
-            ids, kwv = ops.fused_gather_verify_compact(
-                q_rects, q_cbm, q_sig, top_leaf, ok8,
+            ids, kwv, *q_words = ops.fused_verify_leaf_words(
+                q_rects, q_bm, cbank[0], top_leaf, ok8,
                 snap.leaf_obj_x, snap.leaf_obj_y, cbank[1], cbank[2], base_id, variant=variant,
+                words=delta is not None and delta.ins_cbm is not None,
             )
+            if q_words:
+                q_cbm, q_sig = q_words
         else:
             ids, kwv = ops.fused_gather_verify(
                 q_rects, q_bm, top_leaf, ok8,
@@ -285,6 +292,7 @@ def _verify_leaves(
             cbm = snap.leaf_obj_bm[tl].reshape(M, -1, q_bm.shape[1])
             ids, counts, verified = ops.verify_candidates_counted(q_rects, q_bm, cx, cy, cbm, cid)
         else:
+            q_cbm, q_sig = ops.remap_query_words(q_bm, cbank[0], top_leaf)
             ccbm = cbank[1][tl].reshape(M, -1, cbank[1].shape[2])
             csig = cbank[2][tl].reshape(M, -1)
             ids, counts, verified = ops.verify_candidates_compact_counted(

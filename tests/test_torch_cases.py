@@ -362,6 +362,62 @@ FUSED_SWEEP = [  # m, t, k, obj, w, max_kw
     (7, 3, 5, 24, 4, 70),    # leaf dictionaries of up to 70 terms: Wl = 4
 ]
 
+REMAP_ARGS = ("q_rects", "q_bm", "leaf_terms", "top_leaf", "leaf_ok", "obj_x", "obj_y",
+              "obj_cbm", "obj_sig", "obj_id")
+
+REMAP_SWEEP = [  # m, t, k, obj, w, wl
+    (1, 1, 1, 1, 1, 1),      # degenerate: one pair, one word each
+    (13, 5, 11, 37, 3, 2),   # the smoke's ragged edge: nothing a multiple of a warp
+    (9, 4, 6, 1, 1, 8),      # OBJ = 1, W = 1 under eight dictionary words
+    (7, 3, 5, 37, 3, 8),     # Wl = 8: more words than the (M, T) launch's warps
+    (6, 6, 4, 16, 2, 1),     # dictionaries of one word over a two-word bitmap
+]
+
+
+def remap_case(rng, m, t, k, obj, w, wl):
+    """Operands of the remapping fused verify (``REMAP_ARGS``) with every
+    edge of its remap: leaf dictionaries of ``32 * wl`` entries, a quarter
+    ``-1`` pads, the rest even term ids below ``32 * w`` or entries past
+    it (the remap clamps them to bit ``32 * w - 1``), and with two leaves or
+    more an all-``-1`` last dictionary; dirty leaf ids (-2 to past K) and
+    random ``leaf_ok`` with, for two queries or more, a last query of
+    ``leaf_ok = 0`` only; a first query whose bits are odd term ids below
+    ``32 * w - 1``, which no dictionary holds (``q_sig == 0`` in every
+    slot), and an all-ones second one that meets the clamped entries;
+    random compact object words with their OR-fold signatures, -1 id pads,
+    and wide query rectangles with points near them, so many keyword hits
+    also match."""
+    nbits = 32 * w
+    terms = 2 * rng.integers(0, max(nbits // 2, 1), (k, 32 * wl))
+    terms = np.where(rng.integers(0, 10, terms.shape) == 0,
+                     nbits + rng.integers(0, 64, terms.shape), terms)
+    terms = np.where(rng.integers(0, 4, terms.shape) == 0, -1, terms)
+    if k > 1:
+        terms[-1] = -1
+    q_bm = words(rng, m, w)
+    if m > 1:
+        odd = np.arange(1, nbits - 1, 2)
+        picks = odd[rng.integers(0, 2, odd.size) > 0] if odd.size else odd
+        q_bm[0] = 0
+        np.bitwise_or.at(q_bm[0], picks >> 5, np.uint32(1) << (picks & 31).astype(np.uint32))
+    if m > 2:
+        q_bm[1] = np.uint32(0xFFFFFFFF)
+    leaf_ok = rng.integers(0, 2, (m, t)).astype(np.int8)
+    if m > 1:
+        leaf_ok[-1] = 0
+    lo = rng.uniform(0, 0.5, (m, 2)).astype(np.float32)
+    rects = np.concatenate([lo, lo + rng.uniform(0.2, 0.5, (m, 2)).astype(np.float32)], axis=1)
+    ox, oy = _points_near(rng, rects[rng.integers(0, m, k)], obj)
+    obj_cbm = words(rng, k, obj, wl)
+    return dict(
+        q_rects=rects, q_bm=q_bm, leaf_terms=terms.astype(np.int32),
+        top_leaf=rng.integers(-2, k + 3, (m, t)).astype(np.int32), leaf_ok=leaf_ok,
+        obj_x=ox, obj_y=oy, obj_cbm=obj_cbm, obj_sig=np.bitwise_or.reduce(obj_cbm, axis=-1),
+        obj_id=np.where(rng.integers(0, 4, (k, obj)) > 0,
+                        rng.integers(0, 10 * k * obj, (k, obj)), -1).astype(np.int32),
+    )
+
+
 VERIFY_SWEEP = [  # m, c, w
     (1, 1, 1),       # degenerate
     (5, 37, 3),      # nothing a multiple of a warp or a block

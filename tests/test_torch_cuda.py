@@ -34,12 +34,12 @@ from repro_torch.serve.subscribe import SubscriptionIndex  # noqa: E402
 from test_torch_cases import (  # noqa: E402
     CDF_SWEEP, FILTER_ARGS, FILTER_SWEEP, FRONTIER_ARGS, FRONTIER_LEVEL_ARGS,
     FRONTIER_LEVEL_NARROW_ARGS, FRONTIER_LEVEL_SWEEP, FRONTIER_SWEEP, FUSED_SWEEP, KNN_ARGS,
-    LEVEL_ARGS, LEVEL_NARROW_ARGS, LEVEL_NARROW_SWEEP, LEVEL_SWEEP, SLOT_SWEEP, SUB_SWEEP,
-    VERIFY_ARGS, VERIFY_COMPACT_ARGS, VERIFY_COMPACT_SWEEP, VERIFY_SWEEP, cdf_params,
-    filter_case, FRONTIER_LEVEL_ROUNDS, frontier_case, frontier_level_case, fused_args,
-    fused_case, fused_wide_args, knn_case, level_case, level_narrow_case, packed_words, rand_kw,
-    rand_sub_rect, slot_bank, sub_case, term_bitmaps, to_torch, verify_case, verify_compact_case,
-    wide_args,
+    LEVEL_ARGS, LEVEL_NARROW_ARGS, LEVEL_NARROW_SWEEP, LEVEL_SWEEP, REMAP_ARGS, REMAP_SWEEP,
+    SLOT_SWEEP, SUB_SWEEP, VERIFY_ARGS, VERIFY_COMPACT_ARGS, VERIFY_COMPACT_SWEEP, VERIFY_SWEEP,
+    cdf_params, filter_case, FRONTIER_LEVEL_ROUNDS, frontier_case, frontier_level_case,
+    fused_args, fused_case, fused_wide_args, knn_case, level_case, level_narrow_case,
+    packed_words, rand_kw, rand_sub_rect, remap_case, slot_bank, sub_case, term_bitmaps, to_torch,
+    verify_case, verify_compact_case, wide_args,
 )
 
 pytestmark = pytest.mark.cuda
@@ -70,19 +70,65 @@ def test_frontier_narrow_kernel_matches_plain(cuda, m, f, w):
     _equal(got, ref.frontier_filter_narrow_ref(*args))
 
 
+def _fused_instance(instance, variant, case, device):
+    """One compact fused-verify instance on a case: ``(run, plain, launch
+    count name)``. "given": ``fused_gather_verify_compact`` on the query
+    words ``remap_query_words`` gives; "remap": ``fused_verify_leaf_words``
+    on the bitmaps and dictionaries, its remapped words returned too."""
+    form = "tile" if variant == "vmem" else "slot"
+    if instance == "given":
+        args = fused_args(case, device)
+        return (lambda: ops.fused_gather_verify_compact(*args, variant=variant),
+                lambda: ref.fused_verify_compact_ref(*args), f"fused_verify_compact_{form}")
+    args = [to_torch(case[k], device) for k in REMAP_ARGS]
+    return (lambda: ops.fused_verify_leaf_words(*args, variant=variant, words=True),
+            lambda: ref.fused_verify_leaf_words_ref(*args, words=True),
+            f"fused_verify_remap_{form}")
+
+
+@pytest.mark.parametrize("instance", ["given", "remap"])
 @pytest.mark.parametrize("variant", ["vmem", "prefetch", "auto"])
 @pytest.mark.parametrize("m,t,k,obj,w,max_kw", FUSED_SWEEP + [(1024, 32, 300, 128, 8, 6),
                                                            (64, 16, 40, 128, 16, 200)])
-def test_fused_verify_kernel_matches_plain(cuda, variant, m, t, k, obj, w, max_kw):
+def test_fused_verify_kernel_matches_plain(cuda, variant, m, t, k, obj, w, max_kw, instance):
+    """Both instances of rows 2 and 3 on encoded leaf banks: ids and kwv (and
+    the remapping instance's words) bit for bit, one launch each."""
     case = fused_case(np.random.default_rng(m * 613 + t * 37 + k * 5 + obj + w), m, t, k, obj, w,
                       max_kw)
-    args = fused_args(case, cuda)
-    name = "fused_verify_compact_tile" if variant == "vmem" else "fused_verify_compact_slot"
-    before = _build.KERNELS[name].launches
-    got = ops.fused_gather_verify_compact(*args, variant=variant)
+    run, plain, name = _fused_instance(instance, variant, case, cuda)
+    _build.reset_launch_counts()
+    got = run()
     torch.cuda.synchronize()
-    assert _build.KERNELS[name].launches == before + 1
-    _equal(got, ref.fused_verify_compact_ref(*args))
+    assert _build.KERNELS[name].launches == 1 and sum(_build.launch_counts().values()) == 1
+    _equal(got, plain())
+
+
+_REMAP_CARD = [  # m, t, k, obj, w, wl
+    (1024, 32, 7832, 128, 256, 4),  # the SKR main path's shapes at the osm profile
+    (5, 3, 4, 16, 5000, 2),         # query rows too wide to stage in the tile launch
+    (3, 2, 2, 4, 3, 1024),          # the widest dictionaries (LEAF_DICT_MAX entries)
+    (40, 9, 30, 300, 8, 3),         # OBJ past the (M, T) launch's 256 threads
+]
+
+
+@pytest.mark.parametrize("variant", ["vmem", "prefetch"])
+@pytest.mark.parametrize("m,t,k,obj,w,wl", REMAP_SWEEP + _REMAP_CARD)
+def test_fused_verify_remap_kernels_match_plain_ragged(cuda, variant, m, t, k, obj, w, wl):
+    """The remapping instances on ragged dictionaries (``remap_case``): dirty
+    leaf ids, ``leaf_ok = 0`` rows, entries past the bitmap, all-``-1``
+    dictionaries, a query that meets no dictionary (no id, ``q_sig == 0``):
+    ids, kwv and the words bit for bit, and words=False the same ids and
+    counts."""
+    case = remap_case(np.random.default_rng(m * 613 + t * 37 + k * 5 + obj + w + wl), m, t, k,
+                      obj, w, wl)
+    run, plain, _ = _fused_instance("remap", variant, case, cuda)
+    got = run()
+    torch.cuda.synchronize()
+    _equal(got, plain())
+    if m > 1:
+        assert not got[3][0].any() and not (got[0][0] >= 0).any()
+    args = [to_torch(case[k], cuda) for k in REMAP_ARGS]
+    _equal(ops.fused_verify_leaf_words(*args, variant=variant), got[:2])
 
 
 @pytest.mark.parametrize("m,f,w", FRONTIER_SWEEP + [(1024, 64, 8)])
@@ -534,11 +580,17 @@ def test_wrappers_check_operands(cuda):
         ops.filter_frontier_narrow(args[0][:2], *args[1:])
 
 
+def _refuse_remap(*a, **kw):
+    raise AssertionError("a fused SKR batch called remap_query_words")
+
+
 @pytest.mark.parametrize("layout", ["grid", "str"])
-def test_engine_on_the_card_matches_the_plain_path(cuda, layout):
+def test_engine_on_the_card_matches_the_plain_path(cuda, layout, monkeypatch):
     """Kernels on the card and the plain versions on the host serve the same
     index to identical outputs, key for key, and the card run launched both
-    kernels."""
+    kernels: the compact fused verify's remapping instance, with
+    ``remap_query_words`` refused."""
+    monkeypatch.setattr(ops, "remap_query_words", _refuse_remap)
     ds = make_dataset("sp", n=3000, seed=4)
     index = build_grid_index(ds, 6) if layout == "grid" else build_str_rtree(ds, 32, 4)
     wl = make_workload(ds, m=40, dist="MIX", seed=5)
@@ -550,9 +602,10 @@ def test_engine_on_the_card_matches_the_plain_path(cuda, layout):
     card = serve_batch(snap, wl.rects, wl.kw_bitmap, max_leaves=8, plan_cache=PlanCache())
     counts = _build.launch_counts()
     assert counts["frontier_level_narrow"] == index.height and counts["frontier_level"] == 0
-    assert counts["fused_verify_compact_slot"] == 1
+    assert counts["fused_verify_remap_slot"] == 1 and counts["fused_verify_compact_slot"] == 0
     vmem = retrieve_workload(snap, wl, max_leaves=8, plan_cache=PlanCache(), fused_variant="vmem")
-    assert _build.launch_counts()["fused_verify_compact_tile"] == 1
+    assert _build.launch_counts()["fused_verify_remap_tile"] == 1
+    assert _build.launch_counts()["fused_verify_compact_tile"] == 0
     for k in host:
         assert card[k].dtype == host[k].dtype
         np.testing.assert_array_equal(card[k], host[k], err_msg=k)
@@ -601,11 +654,15 @@ def _delta_log(index, ds, snap, own_leaf_terms, seed=3):
 
 
 @pytest.mark.parametrize("own_leaf_terms", [True, False])
-def test_delta_engine_on_the_card_matches_the_plain_path(cuda, own_leaf_terms):
+def test_delta_engine_on_the_card_matches_the_plain_path(cuda, own_leaf_terms, monkeypatch):
     """The same updates on the card and on the host: every verify knob and
     kNN serve identical outputs, and each card run launched its verify
     kernels -- the delta's insert slots on the compact words while every
-    inserted term lies in its leaf's dictionary, else at full width."""
+    inserted term lies in its leaf's dictionary, else at full width; the
+    fused knobs never run ``remap_query_words``."""
+    remaps = []
+    remap = ops.remap_query_words
+    monkeypatch.setattr(ops, "remap_query_words", lambda *a: remaps.append(a) or remap(*a))
     ds = make_dataset("sp", n=3000, seed=4)
     index = build_str_rtree(ds, 32, 4)
     wl = make_workload(ds, m=40, dist="MIX", seed=5)
@@ -618,7 +675,8 @@ def test_delta_engine_on_the_card_matches_the_plain_path(cuda, own_leaf_terms):
     assert log.compact_ok == host_log.compact_ok == own_leaf_terms
     delta_kernel = "skr_verify_slots_compact" if own_leaf_terms else "skr_verify_slots"
     for kw, kernels in (
-        (dict(), ("frontier_level", "fused_verify_compact_slot", delta_kernel)),
+        (dict(), ("frontier_level", "fused_verify_remap_slot", delta_kernel)),
+        (dict(fused_variant="vmem"), ("frontier_level", "fused_verify_remap_tile", delta_kernel)),
         (dict(fused=False), ("skr_verify_compact", delta_kernel)),
         (dict(compact=False), ("fused_verify_slot", "skr_verify_slots")),
         (dict(compact=False, fused_variant="vmem"), ("fused_verify_tile", "skr_verify_slots")),
@@ -627,9 +685,13 @@ def test_delta_engine_on_the_card_matches_the_plain_path(cuda, own_leaf_terms):
         host = retrieve_workload(host_snap, wl, max_leaves=8, plan_cache=PlanCache(),
                                  delta=host_log.buffer, **kw)
         _build.reset_launch_counts()
+        remaps.clear()
         card = retrieve_workload(snap, wl, max_leaves=8, plan_cache=PlanCache(), delta=log.buffer,
                                  **kw)
         counts = _build.launch_counts()
+        # the compact bank's words: remapped in the fused kernel, by
+        # remap_query_words only for the unfused verify's gathered candidates
+        assert len(remaps) == (kw == dict(fused=False)), (kw, len(remaps))
         assert counts["frontier_level_narrow"] == 0 and counts["frontier_level"] == index.height
         for name in kernels:
             assert counts[name] >= 1, (kw, name, counts)
@@ -708,6 +770,66 @@ def test_new_wrappers_check_operands(cuda):
         ops.cdf_bank_forward(params, torch.zeros(5, dtype=torch.float64, device=cuda))
 
 
+def test_leaf_words_wrapper_checks_operands(cuda):
+    """``fused_verify_leaf_words`` refuses what its kernels do not take."""
+    case = remap_case(np.random.default_rng(8), 5, 3, 4, 8, 2, 2)
+    args = [to_torch(case[k], cuda) for k in REMAP_ARGS]
+    bad = list(args)
+    bad[1] = args[1].to(torch.int64)
+    with pytest.raises(TypeError, match="q_bm"):
+        ops.fused_verify_leaf_words(*bad)
+    bad = list(args)
+    bad[2] = args[2][:, :32].contiguous()  # one dictionary word for Wl = 2
+    with pytest.raises(ValueError, match="leaf_terms"):
+        ops.fused_verify_leaf_words(*bad)
+    bad = list(args)
+    bad[3] = args[3].t().contiguous().t()
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.fused_verify_leaf_words(*bad)
+    bad = list(args)
+    bad[8] = args[8].cpu()
+    with pytest.raises(ValueError, match="obj_sig"):
+        ops.fused_verify_leaf_words(*bad)
+    with pytest.raises(ValueError, match="variant"):
+        ops.fused_verify_leaf_words(*args, variant="tiled")
+    with pytest.raises(ValueError, match="at least one word"):
+        ops.fused_verify_leaf_words(args[0], args[1][:, :0].contiguous(), *args[2:])
+    wide = remap_case(np.random.default_rng(9), 2, 2, 2, 4, 1, 1025)  # past LEAF_DICT_MAX
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.fused_verify_leaf_words(*(to_torch(wide[k], cuda) for k in REMAP_ARGS),
+                                    variant="vmem")
+
+
+def test_fused_batches_launch_the_remapping_instance(cuda, monkeypatch):
+    """``serve_batch`` on the compact bank, alone and with a log-A-like
+    delta (compact insert bitmaps), with ``fused_variant`` "auto" and
+    "vmem": one launch of the remapping instance per batch, none of the
+    given-words one, ``remap_query_words`` refused; equal to the host."""
+    monkeypatch.setattr(ops, "remap_query_words", _refuse_remap)
+    ds = make_dataset("sp", n=3000, seed=6)
+    index = build_str_rtree(ds, 32, 4)
+    wl = make_workload(ds, m=40, dist="MIX", seed=7)
+    host_snap = IndexSnapshot.build(index, ds, device="cpu")
+    snap = IndexSnapshot.build(index, ds)
+    host_log = _delta_log(index, ds, host_snap, True, seed=5)
+    log = _delta_log(index, ds, snap, True, seed=5)
+    assert log.buffer.ins_cbm is not None
+    for delta, host_delta in ((None, None), (log.buffer, host_log.buffer)):
+        for variant, name in (("auto", "fused_verify_remap_slot"),
+                              ("vmem", "fused_verify_remap_tile")):
+            host = retrieve_workload(host_snap, wl, max_leaves=8, plan_cache=PlanCache(),
+                                     delta=host_delta, fused_variant=variant)
+            _build.reset_launch_counts()
+            card = retrieve_workload(snap, wl, max_leaves=8, plan_cache=PlanCache(), delta=delta,
+                                     fused_variant=variant)
+            counts = _build.launch_counts()
+            assert counts[name] == 1, (variant, counts)
+            assert counts["fused_verify_compact_slot"] == counts["fused_verify_compact_tile"] == 0
+            assert counts["skr_verify_slots_compact"] == (delta is not None), counts
+            for k in host:
+                np.testing.assert_array_equal(card[k], host[k], err_msg=f"{variant} {k}")
+
+
 def test_dense_engine_on_the_card_matches_the_plain_path(cuda):
     """The dense scan (one ``skr_filter`` launch per level) through the
     front door on the card, with and without a delta, equals the host."""
@@ -721,7 +843,7 @@ def test_dense_engine_on_the_card_matches_the_plain_path(cuda):
     card = serve_batch(snap, wl.rects, wl.kw_bitmap, max_leaves=8, mode="dense")
     counts = _build.launch_counts()
     assert counts["skr_filter"] == index.height and counts["frontier_level_narrow"] == 0
-    assert counts["fused_verify_compact_slot"] == 1
+    assert counts["fused_verify_remap_slot"] == 1 and counts["fused_verify_compact_slot"] == 0
     for k in host:
         assert card[k].dtype == host[k].dtype
         np.testing.assert_array_equal(card[k], host[k], err_msg=k)

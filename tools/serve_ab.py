@@ -13,7 +13,9 @@ leaf 128, fanout 8) and the 4096-query MIX workload in 4 batches of 1024 --
 the configuration of ``chip_smoke.py`` -- warms every path up once, then
 times each batch (host clock after ``torch.cuda.synchronize``) of:
 
-* SKR ``serve_batch`` (the narrow descent, the compact fused verify);
+* SKR ``serve_batch`` (the narrow descent, the compact fused verify's
+  (M, T) launch) and ``retrieve(fused_variant="vmem")`` (its query-tile
+  launch);
 * SKR ``retrieve(compact=False, fused_variant="vmem")`` (the full-width
   fused verify's query-tile launch);
 * SKR ``retrieve(compact=False)`` (``variant="auto"``: the full-width
@@ -22,6 +24,9 @@ times each batch (host clock after ``torch.cuda.synchronize``) of:
 * SKR ``serve_batch(delta=...)`` and kNN ``serve_knn_batch(delta=...)``
   over a ``DeltaLog`` of 10,000 inserts with their own keywords and 5,000
   deletes (the f32 descents on the widened level arrays);
+* SKR ``serve_batch(delta=...)`` over a second ``DeltaLog`` whose 10,000
+  inserts carry terms of the leaf they route to, so its insert slots stay
+  on the compact words (``skr_delta_compact``);
 * kNN ``serve_knn_batch`` at k = 10 (the narrow descent);
 * kNN ``retrieve_knn(quantized=False)`` (the f32 descent).
 
@@ -88,9 +93,16 @@ def main() -> int:
     dlog.delete(np.concatenate([rng.choice(ds.n, 4900, replace=False),
                                 rng.choice(np.concatenate(new_ids), 100, replace=False)]))
     buf = dlog.buffer
+    clog = DeltaLog(index, ds, snap)  # inserts on their leaf's terms: compact insert slots
+    vocab = (index.levels[-1].mbrs, snap.leaf_terms.cpu().numpy())
+    for _ in range(10):
+        clog.insert(*make_update_stream(ds, 1000, rng, 1e-3, *vocab))
+    cbuf = clog.buffer
 
     paths = {
         "skr": lambda b, c: serve_batch(snap, wl.rects[b], bms[b], 32, plan_cache=c),
+        "skr_vmem": lambda b, c: retrieve(snap, wl.rects[b], bms[b], 32, plan_cache=c,
+                                          fused_variant="vmem"),
         "skr_full_width_vmem": lambda b, c: retrieve(snap, wl.rects[b], bms[b], 32, plan_cache=c,
                                                      compact=False, fused_variant="vmem"),
         "skr_full_width": lambda b, c: retrieve(snap, wl.rects[b], bms[b], 32, plan_cache=c,
@@ -99,6 +111,8 @@ def main() -> int:
                                          quantized=False),
         "skr_delta": lambda b, c: serve_batch(snap, wl.rects[b], bms[b], 32, plan_cache=c,
                                               delta=buf),
+        "skr_delta_compact": lambda b, c: serve_batch(snap, wl.rects[b], bms[b], 32,
+                                                      plan_cache=c, delta=cbuf),
         "knn": lambda b, c: serve_knn_batch(snap, points[b], bms[b], K, plan_cache=c),
         "knn_f32": lambda b, c: retrieve_knn(snap, points[b], bms[b], K, plan_cache=c,
                                              quantized=False),
