@@ -69,32 +69,45 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    insert slots;
 8. the dense A/B scan: the snapshot is built with ``dense=True`` (its
    child matrices); the SKR batches through ``serve_batch(mode="dense")``
-   (counts zeroed before, read after) and one batch with log A's delta,
-   each equal on every key to its plain-version rerun, with the frontier
-   run's ``overflow`` and result sets, ``nodes_scanned`` at or above the
-   frontier's, and ids equal to ``execute_serial`` on the 256 oracle
-   queries;
+   (counts zeroed before, read after; ``skr_filter`` once per level) and
+   one batch with log A's delta, each equal on every key to its
+   plain-version rerun, with the frontier run's ``overflow`` and result
+   sets, ``nodes_scanned`` at or above the frontier's, and ids equal to
+   ``execute_serial`` on the 256 oracle queries; each of the first batch's
+   five ``skr_filter`` launches timed alone, and their sum;
 9. standing subscriptions: 100,000 subscriptions with the rectangles and
    keywords of a MIX workload (seed 2) in a ``SubscriptionIndex`` on the
    card; log A's 10,000 inserts arrive in batches of 1,000 through a
    ``DeltaLog`` and ``match_arrivals`` in the same step; after the fifth
-   batch 10,000 subscriptions leave and 10,000 new ones take their slots;
-   ``pump`` afterwards queues nothing, a twin index driven by ``pump``
-   alone drains the identical stream, a rerun with the kernel swapped for
+   batch 10,000 subscriptions leave and 10,000 new ones take their slots
+   (counts zeroed before, read after: the pairs instance
+   ``sub_match_pairs`` for every match, the matrix instance never, with
+   the matrix entries and ``pack_query_words`` refused; per batch the
+   notifications, the retries, the host time by step -- bitmaps, upload,
+   block compile, kernel and count readback, sort and copy, the rest --
+   and the peak device memory, below one (N, S) int8 matrix); ``pump``
+   afterwards queues nothing, a twin index driven by ``pump`` alone
+   drains the identical stream, a rerun with the pairs entry swapped for
    its plain version gives the same stream pair for pair, and on a seeded
    sample of 256 subscriptions the stream equals ``SubscriptionOracle``'s
-   replay;
+   replay; then the matrix entry ``match_subscriptions`` once on the
+   first arrival batch, its nonzero entries equal to the pairs;
 10. the CDF-MLP bank: ``cdf_bank_forward`` of a seeded bank of
    1->16->16->16->1 MLPs, two per ``osm`` keyword held by at least 0.1 % of
    the objects, at every object's x coordinate, against the chunked plain
    version to ``atol=2e-6``;
-11. one phase per kernel (13): holds the kernel against its plain PyTorch
-   version on the card -- bit-exact, the CDF bank to ``atol=2e-6`` -- at
+11. one phase per kernel (13, and row 11's two instances): holds the
+   kernel against its plain PyTorch version on the card -- bit-exact, the
+   CDF bank to ``atol=2e-6``, the match pairs in canonical order -- at
    the captured shapes (rows 2 and 3: the remapping instances, also with
    ``words=True``; rows 9 and 10: the slot entries at logs A's and B's
-   insert slots) and at ragged edges, and times both (CUDA events) beside
-   a bound; then times the (M, F, W) gather the f32 kNN descent no longer
-   makes, and holds ``knn_frontier_dist(_narrow)`` and
+   insert slots; row 12 at all five levels) and at ragged edges, and
+   times the kernel's launches on the device (``torch.profiler``; it
+   fails where the profiler saw too few launches; the wrapper's time a
+   call back to back, CUDA events, in the log beside it) and the plain version
+   (CUDA events) beside a bound; the match pairs at capacity 0
+   and 1 (one retry each); then times the (M, F, W) gather the f32 kNN
+   descent no longer makes, and holds ``knn_frontier_dist(_narrow)`` and
    ``filter_frontier(_narrow)`` (gathered operands, through the level
    kernels), the given-words instances of rows 2 and 3 (timed), the
    query-tile verify without packed words and the unfused verify's
@@ -102,8 +115,9 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    against their plain versions; then times, at the captured shapes, the
    per-slot planes the engine no longer gathers for rows 1, 4, 7, 9 and 10,
    the keyword recounts of rows 9 and 10, the host packing the SKR batch no
-   longer makes, and ``remap_query_words``, the per-slot query words rows
-   2 and 3 no longer take;
+   longer makes, ``remap_query_words``, the per-slot query words rows 2
+   and 3 no longer take, and the subscription stream's host packing and
+   ``torch.nonzero`` over the (N, S) match matrix;
 12. profiles one warm SKR batch, one warm kNN batch, one warm dense-scan
    batch and one warm SKR batch each with log B's and log A's deltas
    (``torch.profiler``: device busy and idle share, the largest device and
@@ -188,6 +202,54 @@ def time_ms(fn, iters: int = 50, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# the port's CUDA kernels, as torch.profiler names their device events
+KERNEL_FUNCTIONS = ("cdf_mlp_kernel", "frontier_level_kernel", "fused_verify_slot_kernel",
+                    "fused_verify_tile_kernel", "fused_verify_wide_slot_kernel",
+                    "fused_verify_wide_tile_kernel", "knn_level_kernel", "skr_filter_kernel",
+                    "slot_verify_kernel", "sub_match_kernel")
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 5):
+    """``(ms, launches)``: the mean device time of one launch of the port's
+    CUDA kernels (``KERNEL_FUNCTIONS``; no copy, fill or PyTorch kernel)
+    that ``fn`` makes, and their launches the profiler saw per call, from
+    ``torch.profiler``. Unlike ``time_ms`` it does not count the host's time
+    between launches, which bounds back-to-back calls of a kernel shorter
+    than its wrapper. The profiler drops some kernel events of a short
+    window, so the mean is per launch seen, over up to ``tries`` windows
+    until half the calls' launches were seen; it raises if they never
+    were. ``tools/serve_ab.py`` times its kernels with it too."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    total_us = seen = 0
+    for t in range(1, tries + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ours = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                and any(f"{k}(" in e.key or f"{k}<" in e.key for k in KERNEL_FUNCTIONS)]
+        total_us += sum(e.self_device_time_total for e in ours)
+        seen += sum(e.count for e in ours)
+        if seen >= t * iters // 2:
+            return total_us / 1e3 / seen, seen / (t * iters)
+    raise RuntimeError(f"the profiler saw {seen} kernel launches in {tries * iters} calls")
+
+
+def kernel_ms(fn):
+    """``(ms, note)``: ``fn``'s kernel time a launch on the device
+    (``device_ms``), and a note with it and the wrapper's time a call back
+    to back."""
+    call = time_ms(fn)
+    dev, seen = device_ms(fn)
+    return dev, (f"{dev:.6f} ms on the device a launch ({seen:g} launches seen a call), wrapper "
+                 f"{call:.6f} ms per call back to back")
 
 
 @contextlib.contextmanager
@@ -570,21 +632,34 @@ def filter_bound(args, chunk: int = 32):
 
 
 def sub_bound(args, chunk: int = 16):
-    """Bytes and operations of ``sub_match`` on its packed operands: every
-    object point and subscription rectangle in and every flag out; the
-    signatures of objects and subscriptions with a pair inside the
-    rectangle; of the pairs that also pass the signature test, the packed
-    object words and the subscription words (each once) that decide them."""
-    o_pts, o_wids, o_bits, o_sig, s_rects, s_bm, s_sig = args
+    """Bytes and operations of ``sub_match``: every object point and
+    subscription rectangle in; the signatures of objects and subscriptions
+    with a pair inside the rectangle; of the pairs that also pass the
+    signature test, the object words (id and value) and the subscription
+    words (each once) that decide them; and the output. The matrix
+    instance's 7 packed operands write the (N, S) flags; the pairs
+    instance's 5 full-width ones (objects' words counted as their packed
+    nonzero words and folded signature) write 8 B per matching pair.
+    Operations: the points sorted by x and each rectangle's span found in
+    them (log2 N compares each), the x test of the pairs whose x lies in
+    the span, and the y, signature and word tests that this data needs."""
+    if len(args) == 5:
+        from repro_torch.kernels.ref import nonzero_words, or_fold
+
+        o_pts, o_bm, s_rects, s_bm, s_sig = args
+        (o_wids, o_bits), o_sig = nonzero_words(o_bm), or_fold(o_bm)
+    else:
+        o_pts, o_wids, o_bits, o_sig, s_rects, s_bm, s_sig = args
     N, Wp = o_wids.shape
     S, W = s_bm.shape
     sub_words = torch.zeros(S * W, dtype=torch.bool, device=s_bm.device)
     s_in = torch.zeros(S, dtype=torch.bool, device=s_bm.device)
-    o_in = o_need = n_need = n_in = 0
+    o_in = o_need = n_need = n_in = n_match = n_x = 0
     s_cols = torch.arange(S, device=s_bm.device)[None, :, None] * W
     for n0 in range(0, N, chunk):
         x, y = o_pts[n0:n0 + chunk, 0:1], o_pts[n0:n0 + chunk, 1:2]
-        inr = (x >= s_rects[:, 0]) & (x <= s_rects[:, 2]) & (y >= s_rects[:, 1]) & (y <= s_rects[:, 3])
+        in_x = (x >= s_rects[:, 0]) & (x <= s_rects[:, 2])
+        inr = in_x & (y >= s_rects[:, 1]) & (y <= s_rects[:, 3])
         live = inr & ((o_sig[n0:n0 + chunk, None] & s_sig[None, :]) != 0)  # (c, S)
         wid = o_wids[n0:n0 + chunk].long()  # (c, Wp)
         g = s_bm.t()[wid]  # (c, Wp, S)
@@ -596,12 +671,16 @@ def sub_bound(args, chunk: int = 16):
         o_need += int(need.any(1).sum())
         n_need += int(need.sum())
         n_in += int(inr.sum())
+        n_match += int((live & hits.any(-1)).sum())
+        n_x += int(in_x.sum())
+    out = n_match * 8 if len(args) == 5 else N * S
     nbytes = (N * 8 + S * 16  # points, rectangles
               + o_in * 4 + int(s_in.sum()) * 4  # signatures where a pair is in the rectangle
-              + o_need * 8  # packed word ids and values some pair needs
+              + o_need * 8  # object words (id, value) some pair needs
               + int(sub_words.sum()) * 4  # subscription words
-              + N * S)  # out
-    ops = N * S * 4 + n_in * 2 + n_need * 2
+              + out)  # flags, or 8 B a matching pair
+    log_n = max(N - 1, 1).bit_length()
+    ops = (N + S) * log_n + n_x * 4 + n_in * 2 + n_need * 2
     return nbytes, ops
 
 
@@ -900,12 +979,17 @@ def _rects(g, n):
     return np.concatenate([lo, lo + g.uniform(0.01, 0.3, (n, 2)).astype(np.float32)], 1)
 
 
-def ragged_filter(dev, never_rect, M=37, K=131, W=3, seed=13):
+def ragged_filter(dev, never_rect, M=37, K=131, W=3, seed=13, sparse=False):
     """Dense-filter operands at ragged shapes: a ``NEVER_RECT`` node, a node
-    and a query with empty bitmaps, a zero-area query on a node's corner."""
+    and a query with empty bitmaps, a zero-area query on a node's corner;
+    ``sparse``: one to three terms a row, so that most word tests miss."""
     g = np.random.default_rng(seed)
     q_rects, n_mbrs = _rects(g, M), _rects(g, K)
-    q_bm, n_bm = _words(g, M, W), _words(g, K, W)
+    if sparse:
+        pool = np.arange(32 * W)
+        q_bm, n_bm = (_terms(g, n, W, pool, 1, 4).view(np.int32) for n in (M, K))
+    else:
+        q_bm, n_bm = _words(g, M, W), _words(g, K, W)
     if K > 1:
         n_mbrs[0] = never_rect
         n_bm[-1] = 0
@@ -917,15 +1001,26 @@ def ragged_filter(dev, never_rect, M=37, K=131, W=3, seed=13):
     return (t(q_rects), t(q_bm), t(n_mbrs), t(n_bm))
 
 
-def ragged_sub(dev, ops, N=37, S=131, W=3, seed=17):
+def ragged_sub(dev, ops, N=37, S=131, W=3, seed=17, pairs=False, late=False):
     """``sub_match`` operands at ragged shapes, packed as
-    ``match_subscriptions`` packs them: ``NEVER_RECT`` and zero-area
-    subscriptions, empty bitmaps on both sides, points on rectangle edges."""
+    ``match_subscriptions`` packs them (``pairs``: the pairs instance's
+    full-width ones): ``NEVER_RECT`` and zero-area subscriptions, empty
+    bitmaps on both sides, points on rectangle edges. ``late``: every
+    object word nonzero, and each subscription's one word past the 32nd a
+    bit of an object's there or another, so that matches are decided past
+    the words the pairs instance stages."""
     g = np.random.default_rng(seed)
     s_rects = _rects(g, S)
     s_bm = _words(g, S, W).view(np.uint32)
     o_bm = _words(g, N, W).view(np.uint32)
     pts = g.uniform(0, 1, (N, 2)).astype(np.float32)
+    if late:
+        o_bm = np.uint32(1) << g.integers(0, 32, (N, W)).astype(np.uint32)
+        cols = g.integers(32, W, S)
+        s_bm = np.zeros((S, W), np.uint32)
+        s_bm[np.arange(S), cols] = np.where(g.random(S) < 0.5, o_bm[g.integers(0, N, S), cols],
+                                            np.uint32(1) << g.integers(0, 32, S).astype(np.uint32))
+        s_rects[::3] = (0.0, 0.0, 1.0, 1.0)
     if S > 2:
         s_rects[0] = ops.NEVER_RECT
         s_rects[1, 2:] = s_rects[1, :2]  # zero area
@@ -934,11 +1029,13 @@ def ragged_sub(dev, ops, N=37, S=131, W=3, seed=17):
         pts[0] = s_rects[S // 2, 2:]  # a corner
         pts[1] = s_rects[min(1, S - 1), :2]
         o_bm[2] = 0
-    wids, bits = ops.pack_query_words(o_bm)
     fold = lambda w: np.bitwise_or.reduce(w, axis=1).view(np.int32)  # noqa: E731
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    return (t(pts), t(wids), t(bits.view(np.int32)), t(fold(o_bm)), t(s_rects),
-            t(s_bm.view(np.int32)), t(fold(s_bm)))
+    block = (t(s_rects), t(s_bm.view(np.int32)), t(fold(s_bm)))
+    if pairs:
+        return (t(pts), t(o_bm.view(np.int32))) + block
+    wids, bits = ops.pack_query_words(o_bm)
+    return (t(pts), t(wids), t(bits.view(np.int32)), t(fold(o_bm))) + block
 
 
 def cdf_bank(dev, B, H, gen, x=None, N=1001):
@@ -994,14 +1091,16 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.baselines.conventional import build_str_rtree
     from repro_torch.core.query import SubscriptionOracle, execute_serial, knn_query
+    from repro_torch.core.types import ids_to_bitmap
     from repro_torch.data.synth import make_dataset
     from repro_torch.data.workloads import make_update_stream, make_workload
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.launch.wisk_serve import serve_batch, serve_knn_batch
+    from repro_torch.serve import subscribe as subscribe_mod
     from repro_torch.serve.delta import DeltaLog
     from repro_torch.serve.engine import retrieve, retrieve_knn
     from repro_torch.serve.plan import PlanCache
-    from repro_torch.serve.snapshot import IndexSnapshot
+    from repro_torch.serve.snapshot import IndexSnapshot, to_device
     from repro_torch.serve.subscribe import SubscriptionIndex
 
     # the plain versions' matrix products in full f32 (TF32 would be what
@@ -1517,10 +1616,18 @@ def main() -> int:
         verify_slots=ref.skr_verify_slots_ref,
         verify_slots_compact=ref.skr_verify_slots_compact_ref,
     )
+    dense_levels = []  # the first batch's filter_pairs operands, one per level
+    record_filter = recorder("skr_filter", ops.filter_pairs, 2)
+
+    def record_levels(*a, **kw):
+        if len(dense_levels) < snap.n_levels:
+            dense_levels.append(a)
+        return record_filter(*a, **kw)
+
     with phase("dense A/B scan"):
         _build.reset_launch_counts()
         dense_out, dense_t = [], []
-        with patched(ops, filter_pairs=recorder("skr_filter", ops.filter_pairs, 2), **no_remap):
+        with patched(ops, filter_pairs=record_levels, **no_remap):
             for b in batches:
                 t = time.perf_counter()
                 dense_out.append(serve_batch(snap, wl.rects[b], bms[b], MAX_LEAVES, mode="dense"))
@@ -1532,6 +1639,13 @@ def main() -> int:
         launches["skr_filter"] = counts["skr_filter"]
         log(f"dense serve_batch(mode='dense') x{len(batches)}: batch s {dense_t}, skr_filter "
             f"launches per batch {counts['skr_filter'] // len(batches)}, launches {counts}")
+        # every level's launch of a batch, timed alone at its operands: the
+        # kernel's device time and the wrapper's time per call back to back
+        lvl = [kernel_ms(lambda a=a: ops.filter_pairs(*a)) for a in dense_levels]
+        lvl_bound = [bound_ms(*filter_bound(a))[0] for a in dense_levels]
+        log(f"skr_filter per level of dense batch 0 at K = "
+            f"{[int(a[2].shape[0]) for a in dense_levels]}: kernel {[note for _, note in lvl]}; sum per batch {sum(t for t, _ in lvl):.6f} ms; "
+            f"bound ms {[round(t, 6) for t in lvl_bound]}, sum {sum(lvl_bound):.6f} ms")
         _build.reset_launch_counts()
         with patched(ops, **plain_dense_ops):
             dense_plain = [serve_batch(snap, wl.rects[b], bms[b], MAX_LEAVES, mode="dense")
@@ -1565,12 +1679,38 @@ def main() -> int:
             f"equal to its plain rerun and to the frontier's result sets")
 
     # ------------------------------------------------ standing subscriptions
-    def subscription_stream(arrivals=None, dlog=None, twin=None):
+    class StepClock:
+        """Host time of ``match_arrivals``' steps: while ``on``, each
+        wrapped function's time (after a device sync) adds to its step; a
+        wrapped call inside another counts only in the outer one."""
+
+        def __init__(self):
+            self.on, self.busy, self.acc = False, False, {}
+
+        def wrap(self, step, fn):
+            def timed(*a, **kw):
+                if not self.on or self.busy:
+                    return fn(*a, **kw)
+                self.busy = True
+                t = time.perf_counter()
+                try:
+                    out = fn(*a, **kw)
+                    torch.cuda.synchronize()
+                finally:
+                    self.busy = False
+                self.acc[step] = self.acc.get(step, 0.0) + time.perf_counter() - t
+                return out
+            return timed
+
+    def subscription_stream(arrivals=None, dlog=None, twin=None, clock=None):
         """One run of the subscription schedule. With ``dlog`` the arrivals
         are log A's insert batches, inserted into ``dlog`` and matched in
         the same step (``twin``, if given, pumps the log after each batch);
         else the recorded ``arrivals`` are replayed. Returns the index, the
-        arrival batches, the unsubscribed ids and the match times."""
+        arrival batches, the unsubscribed ids and per batch of
+        ``match_arrivals``: host seconds, peak device memory above its
+        start, notifications queued and (with ``clock``) host seconds by
+        step."""
         idx = SubscriptionIndex(ds.vocab_size, device=dev)
         indexes = [idx] + ([twin] if twin is not None else [])
         for i in indexes:
@@ -1578,7 +1718,8 @@ def main() -> int:
                 i.subscribe(r, kw)
         rng = np.random.default_rng(21)
         leaf_vocab = (leaf_mbrs, leaf_terms)
-        batches_in, gone, t_match = [], None, []
+        batches_in, gone = [], None
+        per = dict(t=[], peak=[], queued=[], steps=[])
         for bi in range(N_INSERT // INSERT_BATCH):
             if dlog is not None:
                 locs, kw = make_update_stream(ds, INSERT_BATCH, rng, 1e-3, *leaf_vocab)
@@ -1586,10 +1727,19 @@ def main() -> int:
                 batches_in.append((ids, locs, kw))
             else:
                 ids, locs, kw = arrivals[bi]
-            t = time.perf_counter()
-            idx.match_arrivals(ids, locs, kw_ids=kw)
             torch.cuda.synchronize()
-            t_match.append(time.perf_counter() - t)
+            mem0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            if clock is not None:
+                clock.on, clock.acc = True, {}
+            t = time.perf_counter()
+            per["queued"].append(idx.match_arrivals(ids, locs, kw_ids=kw))
+            torch.cuda.synchronize()
+            per["t"].append(time.perf_counter() - t)
+            per["peak"].append(torch.cuda.max_memory_allocated() - mem0)
+            if clock is not None:
+                clock.on = False
+                per["steps"].append(clock.acc)
             if twin is not None:
                 twin.pump(dlog)
             if bi == 4:  # churn: 10,000 leave, 10,000 join into their slots
@@ -1599,8 +1749,25 @@ def main() -> int:
                         i.unsubscribe(int(sid))
                     for r, kw in zip(churn_wl.rects, churn_wl.kw_ids):
                         i.subscribe(r, kw)
-        return idx, batches_in, gone, t_match
+        return idx, batches_in, gone, per
 
+    def plain_pairs(o_pts, o_bm, s_rects, s_bm, s_sig):
+        """``match_subscription_pairs`` on the plain version, through the
+        same capacity retry."""
+        args = (o_pts, o_bm, s_rects, s_bm, s_sig)
+        pairs, count = ref.sub_match_pairs_ref(*args, ops.SUB_PAIRS_CAPACITY)
+        n = int(count)
+        if n > ops.SUB_PAIRS_CAPACITY:
+            pairs, _ = ref.sub_match_pairs_ref(*args, n)
+        return pairs[:n]
+
+    def canon(pairs, S):
+        """Match pairs in (object, slot) order."""
+        return pairs[torch.argsort(pairs[:, 0].long() * S + pairs[:, 1].long())]
+
+    # the stream runs neither the matrix entries nor host packing
+    no_matrix = dict(sub_match=refuse("sub_match"), match_subscriptions=refuse(
+        "match_subscriptions"), pack_query_words=refuse("pack_query_words"))
     with phase("standing subscriptions"):
         t = time.perf_counter()
         subs_wl = make_workload(ds, m=N_SUBS, dist="MIX", seed=2)
@@ -1609,13 +1776,36 @@ def main() -> int:
             f"{N_SUB_CHURN}): {time.perf_counter() - t:.3f} s")
         dlog = DeltaLog(index, ds, snap)
         twin = SubscriptionIndex(ds.vocab_size, device=dev)
+        clock = StepClock()
+        compile_block = clock.wrap("block compile", SubscriptionIndex.block)
+        pair_calls = []
+        record_pairs = recorder("sub_match_pairs", clock.wrap(
+            "kernel and count readback", ops.match_subscription_pairs), 1)
         _build.reset_launch_counts()
-        with patched(ops, sub_match=recorder("sub_match", ops.sub_match, 5)):
-            sub_idx, arrivals, gone, t_match = subscription_stream(dlog=dlog, twin=twin)
+        with patched(ops, match_subscription_pairs=lambda *a: pair_calls.append(1) or record_pairs(*a),
+                     **no_matrix), \
+                patched(subscribe_mod, ids_to_bitmap=clock.wrap("bitmaps", subscribe_mod.ids_to_bitmap),
+                        to_device=clock.wrap("upload", subscribe_mod.to_device),
+                        canonical_pairs=clock.wrap("sort and copy", subscribe_mod.canonical_pairs)), \
+                patched(SubscriptionIndex, block=lambda self: (
+                    compile_block(self) if self._block is None else self._block)):
+            sub_idx, arrivals, gone, per = subscription_stream(dlog=dlog, twin=twin, clock=clock)
         counts = _build.launch_counts()
-        if counts["sub_match"] <= 0:
-            raise AssertionError("the subscription stream never launched sub_match")
-        launches["sub_match"] = counts["sub_match"]
+        n_batches = N_INSERT // INSERT_BATCH
+        # each batch: one match by match_arrivals, one by the twin's pump
+        if counts["sub_match_pairs"] < 2 * n_batches or counts["sub_match"]:
+            raise AssertionError(f"the stream did not launch sub_match_pairs for every match and "
+                                 f"the matrix instance never: {counts}")
+        launches["sub_match_pairs"] = counts["sub_match_pairs"]
+        retries = counts["sub_match_pairs"] - len(pair_calls)
+        # peak device memory a match took: above the batch's start, less the
+        # block compiled in the batch (the first, and the first after the churn)
+        plane = INSERT_BATCH * sub_idx.n_slots  # one (N, S) int8 match matrix
+        match_peak = [p - sub_idx.block().nbytes() * ("block compile" in d)
+                      for p, d in zip(per["peak"], per["steps"])]
+        if max(match_peak) >= plane:
+            raise AssertionError(f"a match_arrivals batch allocated an (N, S) matrix's bytes: "
+                                 f"{per['peak']}")
         if sub_idx.n_live != N_SUBS or sub_idx.n_slots != twin.n_slots:
             raise AssertionError("the block's live or slot count is off after the churn")
         if sub_idx.pump(dlog) != 0:
@@ -1626,13 +1816,30 @@ def main() -> int:
         if sub_idx.drain().shape != (0, 2):
             raise AssertionError("a second drain was not empty")
         blk = sub_idx.block()
+        t_match = per["t"]
         log(f"subscriptions: {N_SUBS} in {sub_idx.n_slots} slots, block {blk.nbytes()} B on the "
             f"device; {N_INSERT} arrivals in batches of {INSERT_BATCH}: match_arrivals host ms per "
             f"batch {[round(1e3 * t, 3) for t in t_match]} (mean {1e3 * np.mean(t_match):.3f}); "
-            f"{stream.shape[0]} notifications; sub_match launches {counts['sub_match']} (both "
-            f"indexes); pump afterwards queued nothing; the pump-only twin drained the same stream")
+            f"{stream.shape[0]} notifications, per batch {per['queued']}; sub_match_pairs launches "
+            f"{counts['sub_match_pairs']} for {len(pair_calls)} matches (both indexes), retries "
+            f"{retries} at capacity {ops.SUB_PAIRS_CAPACITY}; sub_match (the matrix) 0, "
+            f"pack_query_words and the matrix entries refused; peak device memory above the start "
+            f"per batch {per['peak']} B, less a block compiled in the batch {match_peak} B, below "
+            f"one (N, S) int8 matrix ({plane} B); pump afterwards "
+            f"queued nothing; the pump-only twin drained the same stream")
+        steps = sorted({k for d in per["steps"] for k in d})
+        for bi, (d, t) in enumerate(zip(per["steps"], t_match)):
+            rest = t - sum(d.values())
+            log(f"  match_arrivals batch {bi} host ms by step (each after a device sync): "
+                + ", ".join(f"{k} {1e3 * d.get(k, 0.0):.3f}" for k in steps)
+                + f", queue and the rest {1e3 * rest:.3f}")
+        steady = [bi for bi, d in enumerate(per["steps"]) if "block compile" not in d]
+        mean = {k: 1e3 * np.mean([per["steps"][bi].get(k, 0.0) for bi in steady]) for k in steps}
+        log(f"  mean over the {len(steady)} batches with no block compile: "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in mean.items())
+            + f", total {1e3 * np.mean([t_match[bi] for bi in steady]):.3f} ms")
         _build.reset_launch_counts()
-        with patched(ops, sub_match=ref.sub_match_packed_ref):
+        with patched(ops, match_subscription_pairs=plain_pairs):
             plain_idx, _, _, _ = subscription_stream(arrivals=arrivals)
         if any(_build.launch_counts().values()):
             raise AssertionError("the plain subscription run launched a kernel")
@@ -1667,7 +1874,26 @@ def main() -> int:
         log(f"subscriptions: every notification equals the plain-version run pair for pair; on "
             f"{sample.size} sampled subscriptions ({half} of them notified) the {want.shape[0]} "
             f"notifications equal SubscriptionOracle's replay")
-        del dlog, blk
+        # the matrix entry (match_subscriptions, host-packed words) on the
+        # first arrival batch against the final block: its launch is row
+        # 11's matrix instance, and its nonzero entries equal the pairs
+        ids0, locs0, kw0 = arrivals[0]
+        obm0 = ids_to_bitmap(np.asarray(kw0, np.int32).reshape(len(ids0), -1), ds.vocab_size)
+        _build.reset_launch_counts()
+        with patched(ops, sub_match=recorder("sub_match", ops.sub_match, 5)):
+            mat = ops.match_subscriptions(locs0, obm0, blk.rects, blk.bm, blk.sig[:, 0])
+            torch.cuda.synchronize()
+        launches["sub_match"] = _build.launch_counts()["sub_match"]
+        if launches["sub_match"] != 1:
+            raise AssertionError("match_subscriptions did not launch sub_match once")
+        pairs0 = ops.match_subscription_pairs(
+            to_device(np.asarray(locs0, np.float32), dev), to_device(obm0, dev), blk.rects, blk.bm,
+            blk.sig[:, 0])
+        if not torch.equal(canon(pairs0, blk.n_slots), torch.nonzero(mat).to(torch.int32)):
+            raise AssertionError("the pairs differ from the match matrix's nonzero entries")
+        log(f"match_subscriptions (the matrix instance) on arrival batch 0 against the final "
+            f"block: one launch, {int(mat.sum())} matches, equal to the pairs instance's")
+        del dlog, blk, mat, pairs0
 
     # -------------------------------------------------------- the CDF bank
     with phase("CDF bank"):
@@ -1797,14 +2023,33 @@ def main() -> int:
                           ops.verify_slots_compact, ref.skr_verify_slots_compact_ref, True),
         slot_verify_phase("skr_verify_slots", "src/repro/kernels/skr_verify.py:39",
                           ops.verify_slots, ref.skr_verify_slots_ref, False),
+        # row 11: the stream's pairs instance (the row's time), then the
+        # matrix instance; ragged: W of 1, 3 and 40, S = 1, matches decided
+        # past the words the pairs instance stages, sizes off every block
+        ("sub_match_pairs", csrc + "sub_match.cu", "src/repro/kernels/sub_match.py:67",
+         [captured["sub_match_pairs"]],
+         [ragged_sub(dev, ops, pairs=True), ragged_sub(dev, ops, N=1, S=1, W=1, seed=18, pairs=True),
+          ragged_sub(dev, ops, N=70, S=300, W=40, seed=19, pairs=True, late=True),
+          ragged_sub(dev, ops, N=1000, S=4099, W=256, seed=20, pairs=True)],
+         lambda *a: canon(ops.match_subscription_pairs(*a), a[2].shape[0]),
+         lambda *a: canon(plain_pairs(*a), a[2].shape[0]), sub_bound),
         ("sub_match", csrc + "sub_match.cu", "src/repro/kernels/sub_match.py:67",
          [captured["sub_match"]],
-         [ragged_sub(dev, ops), ragged_sub(dev, ops, N=1, S=1, W=1, seed=18)],
+         [ragged_sub(dev, ops), ragged_sub(dev, ops, N=1, S=1, W=1, seed=18),
+          ragged_sub(dev, ops, N=1000, S=4099, W=256, seed=20)],
          ops.sub_match, ref.sub_match_packed_ref, sub_bound),
+        # row 12: the leaf level (the row's time), then the dense batch's
+        # four upper levels; ragged: node runs and strips cut short, rows
+        # not 16-byte aligned (K = 7833), W of 1, 3 and 2,100 (past a
+        # compaction round, sparse and dense)
         ("skr_filter", csrc + "skr_filter.cu", "src/repro/kernels/skr_filter.py:44",
-         [captured["skr_filter"]],
+         [captured["skr_filter"], *dense_levels[:-1]],
          [ragged_filter(dev, ops.NEVER_RECT), ragged_filter(dev, ops.NEVER_RECT, M=1, K=1, W=1,
-                                                             seed=14)],
+                                                             seed=14),
+          ragged_filter(dev, ops.NEVER_RECT, M=17, K=15, seed=15),
+          ragged_filter(dev, ops.NEVER_RECT, M=5, K=7833, seed=16),
+          ragged_filter(dev, ops.NEVER_RECT, M=6, K=17, W=2100, seed=17, sparse=True),
+          ragged_filter(dev, ops.NEVER_RECT, M=4, K=40, W=2100, seed=18)],
          ops.filter_pairs, ref.skr_filter_ref, filter_bound),
         ("cdf_mlp_bank", csrc + "cdf_mlp.cu", "src/repro/kernels/cdf_mlp.py:42",
          [captured["cdf_mlp_bank"]],
@@ -1812,6 +2057,11 @@ def main() -> int:
          ops.cdf_bank_forward, ref.cdf_mlp_ref, cdf_bound),
     ]
     atols = {"cdf_mlp_bank": CDF_ATOL}  # every other kernel is held bit for bit
+    # timed as one launch at the default capacity, without the count
+    # readback and the canonical sort the checked entry adds
+    timed = {"sub_match_pairs": (
+        lambda *a: ops._sub_pairs(*a, ops.SUB_PAIRS_CAPACITY),
+        lambda *a: ref.sub_match_pairs_ref(*a, ops.SUB_PAIRS_CAPACITY))}
     launches.update(knob_launches)
     launches.update(delta_launches)
     with phase("kernel phases"):
@@ -1826,14 +2076,15 @@ def main() -> int:
             for ci, args in enumerate(cases):
                 err = max_abs_err(kernel(*args), plain(*args))
                 torch.cuda.synchronize()
-                ms = time_ms(lambda: kernel(*args))
-                plain_ms = time_ms(lambda: plain(*args), iters=10)
+                run, run_plain = timed.get(name, (kernel, plain))
+                ms, note = kernel_ms(lambda: run(*args))
+                plain_ms = time_ms(lambda: run_plain(*args), iters=10)
                 nbytes, nops = bound(args)
                 b_ms, b_by = bound_ms(nbytes, nops)
                 agree = "bit-exact" if atol == 0 else f"within atol {atol} (max {err:.3e})"
                 log(f"phase {name}: {agree} vs plain at main-path shapes {shapes(args)} and "
-                    f"{len(ragged)} ragged cases; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-                    f"bound {b_ms:.6f} ms ({b_by}: {nbytes} B, {nops} ops)")
+                    f"{len(ragged)} ragged cases; kernel {note}, plain {plain_ms:.6f} ms, bound "
+                    f"{b_ms:.6f} ms ({b_by}: {nbytes} B, {nops} ops)")
                 if ci == 0:
                     rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                                      launches=launches[name], max_abs_err=err, ms=ms,
@@ -1987,6 +2238,22 @@ def main() -> int:
                 f"entry bit-exact at them; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
                 f"{b_ms:.6f} ms ({b_by})")
 
+        # the pairs instance at capacity 0 and 1 at the stream's captured
+        # operands: one more launch, at the exact count, and the same pairs
+        pa = captured["sub_match_pairs"]
+        want = canon(ops.match_subscription_pairs(*pa), pa[2].shape[0])
+        for cap in (0, 1):
+            before = _build.KERNELS["sub_match_pairs"].launches
+            got = canon(ops.match_subscription_pairs(*pa, capacity=cap), pa[2].shape[0])
+            torch.cuda.synchronize()
+            extra = _build.KERNELS["sub_match_pairs"].launches - before - 1
+            if extra != int(want.shape[0] > cap) or not torch.equal(got, want):
+                raise AssertionError(f"sub_match_pairs at capacity {cap}: {extra} retries, or "
+                                     f"other pairs")
+        log(f"sub_match_pairs at capacity 0 and 1 at the stream's operands: one retry each at the "
+            f"exact count ({want.shape[0]} pairs), the same pairs as at the default capacity")
+        del pa, want, got
+
     with phase("operand gathers"):
         # the per-slot planes the engine gathered before rows 1, 4 and 7
         # read the level themselves, timed at the captured shapes as the
@@ -2070,6 +2337,26 @@ def main() -> int:
             f"{tuple(remap[0].shape)} into the leaf dictionaries {tuple(remap[1].shape)} at "
             f"the (M, T) = {tuple(remap[2].shape)} slots: {remap_ms:.6f} ms")
         del planes, gathers
+        # what the subscription stream no longer makes: the host packing of
+        # an arrival batch's words (pack_query_words and the OR-fold) and
+        # torch.nonzero over the (N, S) match matrix with the copy of its
+        # indices, host clock, mean of 5
+        host_obm = ops.host_words(captured["sub_match_pairs"][1])
+        t = time.perf_counter()
+        for _ in range(5):
+            ops.pack_query_words(host_obm)
+            np.bitwise_or.reduce(host_obm, axis=1)
+        sub_pack_ms = (time.perf_counter() - t) * 1e3 / 5
+        mat = ops.sub_match(*captured["sub_match"])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(5):
+            [x.cpu() for x in torch.nonzero(mat, as_tuple=True)]
+        nonzero_ms = (time.perf_counter() - t) * 1e3 / 5
+        log(f"subscription match steps no longer made: host packing of {tuple(host_obm.shape)} "
+            f"arrival words {sub_pack_ms:.6f} ms; torch.nonzero over the {tuple(mat.shape)} match "
+            f"matrix and the copy of its {int(mat.sum())} index pairs {nonzero_ms:.6f} ms")
+        del mat
     captured.clear()
 
     with phase("profiles"):

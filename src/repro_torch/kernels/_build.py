@@ -190,11 +190,17 @@ KERNELS: Dict[str, CudaKernel] = {
         CudaKernel("skr_verify", "skr_verify.cu", "wisk_skr_verify_slots", _SLOTS_ARGS),
         CudaKernel(
             "skr_filter", "skr_filter.cu", "wisk_skr_filter",
-            (_P,) * 5 + (_I,) * 4 + (_P,),
+            (_P,) * 5 + (_I,) * 5 + (_P,),
         ),
+        # row 11: the matrix instance and the stream's pairs instance, each
+        # counted apart
         CudaKernel(
             "sub_match", "sub_match.cu", "wisk_sub_match",
             (_P,) * 8 + (_I,) * 6 + (_P,),
+        ),
+        CudaKernel(
+            "sub_match_pairs", "sub_match.cu", "wisk_sub_match_pairs",
+            (_P,) * 7 + (_I,) * 6 + (_P,),
         ),
         CudaKernel(
             "cdf_mlp_bank", "cdf_mlp.cu", "wisk_cdf_mlp",

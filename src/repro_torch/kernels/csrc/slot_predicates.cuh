@@ -1,8 +1,10 @@
 // Predicates shared by the port's kernels: the frontier filters
-// (frontier.cu), the kNN distance filters (knn_filter.cu), and the verify
-// kernels (skr_verify.cu, fused_verify.cu, fused_verify_compact.cu); and the
-// block-wide compaction of a query's nonzero words that the frontier
-// filters and the (M, T) full-width verify share.
+// (frontier.cu), the kNN distance filters (knn_filter.cu), the verify
+// kernels (skr_verify.cu, fused_verify.cu, fused_verify_compact.cu), the
+// dense filter (skr_filter.cu) and the subscription match (sub_match.cu);
+// the block-wide compaction of a query's nonzero words that the frontier
+// filters and the (M, T) full-width verify share, and the warp-wide one of
+// the dense filter and the subscription match.
 //
 // Every function is a plain __device__ inline: the kernels that include this
 // header differ only in how threads map onto slots or candidates (one thread
@@ -46,6 +48,11 @@ __device__ __forceinline__ float4 load_mbr(const float* __restrict__ m) {
 __device__ __forceinline__ bool rect_meets(const float* __restrict__ q, float4 b) {
   return (__ldg(q + 0) <= b.z) && (b.x <= __ldg(q + 2)) && (__ldg(q + 1) <= b.w) &&
          (b.y <= __ldg(q + 3));
+}
+
+// The same test with the query rectangle already in registers.
+__device__ __forceinline__ bool rect_meets(float4 q, float4 b) {
+  return (q.x <= b.z) && (b.x <= q.z) && (q.y <= b.w) && (b.y <= q.w);
 }
 
 // A point inside the closed query rectangle q = (xlo, ylo, xhi, yhi): the
@@ -177,6 +184,73 @@ __device__ inline int compact_words(int32_t* s_wid, int32_t* s_bit, int* s_cnt,
   }
   __syncthreads();
   return total;
+}
+
+// 32-word chunks a warp-wide compaction loads before it tests any of them:
+// one memory round trip per kWarpLoads chunks rather than per chunk.
+constexpr int kWarpLoads = 8;
+
+// compact_words by one warp (all 32 lanes must call it, with the same
+// arguments): the nonzero words of q[w0 .. w0 + n), in word order, as
+// (word id, value) pairs at s_wid / s_bit, at most `cap` of them. Lane l
+// reads words l, l + 32, ... (coalesced), kWarpLoads chunks per memory
+// round trip, and a ballot and a popc prefix place each chunk's pairs. No
+// block-wide step, so a block whose warps take different queries needs no
+// vote before it compacts. Every lane gets back:
+//   - the count of nonzero words (which may pass `cap`);
+//   - in *fold, the OR of all n words (the query's one-word signature);
+//   - in *resume, the id of the first nonzero word not stored (w0 + n
+//     when all were).
+// The caller syncs the warp (__syncwarp) before another compaction writes
+// over pairs that lanes may still read.
+__device__ inline int warp_compact_words(int32_t* s_wid, int32_t* s_bit,
+                                         const int32_t* __restrict__ q, int w0, int n,
+                                         int cap, int32_t* fold, int* resume) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  int cnt = 0;
+  int32_t acc = 0;
+  int first_left = w0 + n;
+  for (int base = 0; base < n; base += 32 * kWarpLoads) {  // warp-uniform trip count
+    int32_t v[kWarpLoads];
+#pragma unroll
+    for (int c = 0; c < kWarpLoads; ++c) {
+      const int p = base + 32 * c + lane;
+      v[c] = p < n ? __ldg(q + w0 + p) : 0;
+    }
+#pragma unroll
+    for (int c = 0; c < kWarpLoads; ++c) {
+      acc |= v[c];
+      const unsigned nz = __ballot_sync(0xffffffffu, v[c] != 0);
+      if (v[c] != 0) {
+        const int at = cnt + __popc(nz & below);
+        if (at < cap) {
+          s_wid[at] = w0 + base + 32 * c + lane;
+          s_bit[at] = v[c];
+        } else if (at == cap) {
+          first_left = w0 + base + 32 * c + lane;
+        }
+      }
+      cnt += __popc(nz);
+    }
+  }
+  *fold = (int32_t)__reduce_or_sync(0xffffffffu, (unsigned)acc);
+  *resume = __reduce_min_sync(0xffffffffu, first_left);
+  __syncwarp();  // the pairs are written before any lane reads them
+  return cnt;
+}
+
+// Keyword test by one thread on a full-width row `row` against the words of
+// a query's full-width row `q` from word w0 to n - 1: the tail a capped
+// warp_compact_words left out. Reads each query word, and the row's word
+// only where the query's is nonzero; stops at the first hit.
+__device__ __forceinline__ bool words_hit_from(const int32_t* __restrict__ row,
+                                               const int32_t* __restrict__ q, int w0, int n) {
+  for (int w = w0; w < n; ++w) {
+    const int32_t v = __ldg(q + w);
+    if (v != 0 && (__ldg(row + w) & v) != 0) return true;
+  }
+  return false;
 }
 
 }  // namespace wisk

@@ -28,19 +28,18 @@ NEVER_RECT = (2.0, 2.0, -2.0, -2.0)
 
 FUSED_VARIANTS = ("auto", "vmem", "prefetch")
 
-# The verify, dense-filter, kNN and match kernels keep per-block state in
-# dynamic shared memory, at most _SHARED_INTS ints (32 KiB, inside the 48 KB
-# a block takes without opting in): the full-width query-tile verify up to
-# _TILE_QUERIES queries' per-slot counts for its _TILE_SLOTS slots, with
-# their leaf rows and the queries' packed (word id, value) pairs, 2 * Wp
-# ints a query, whatever W is; the compact verify a pair's Wl remapped
-# words (the query-tile launch one pair per warp, _COMPACT_TILE_WARPS of
-# them, and its _COMPACT_TILE_QUERIES queries' W bitmap words where they
-# fit); the dense filter _TILE_QUERIES queries' W words; the kNN level
-# filters one query's packed pairs; sub_match up to _SUB_MATCH_OBJECTS
-# objects' packed words. The (M, T) full-width verify and the full-width
-# slot verify compact a query's nonzero words in rounds of at most 16 KiB
-# of pairs, whatever W is.
+# The verify, kNN and match kernels keep per-block state in dynamic shared
+# memory, at most _SHARED_INTS ints (32 KiB, inside the 48 KB a block takes
+# without opting in): the full-width query-tile verify up to _TILE_QUERIES
+# queries' per-slot counts for its _TILE_SLOTS slots, with their leaf rows
+# and the queries' packed (word id, value) pairs, 2 * Wp ints a query,
+# whatever W is; the compact verify a pair's Wl remapped words (the
+# query-tile launch one pair per warp, _COMPACT_TILE_WARPS of them, and its
+# _COMPACT_TILE_QUERIES queries' W bitmap words where they fit); the kNN
+# level filters one query's packed pairs; sub_match up to _SUB_MATCH_OBJECTS
+# objects' packed words (the pairs instance at most _SUB_OBJECT_PAIRS pairs
+# an object). The (M, T) full-width verify, the full-width slot verify and
+# the dense filter compact a query's nonzero words in rounds, whatever W is.
 _TILE_QUERIES = 8
 _TILE_SLOTS = 4
 _SHARED_INTS = 8192
@@ -49,7 +48,17 @@ _SHARED_INTS = 8192
 # result
 _COMPACT_TILE_QUERIES = 2
 _COMPACT_TILE_WARPS = 8
-_SUB_MATCH_OBJECTS = 32
+# the dense filter: _FILTER_STRIP nodes a block (csrc/skr_filter.cu)
+_FILTER_STRIP = 512
+# the match kernels: objects a block stages (8 ints each, and the staged
+# word pairs) and the pairs instance's staged pairs per object
+# (csrc/sub_match.cu)
+_SUB_MATCH_OBJECTS = 128
+_SUB_OBJECT_INTS = 8
+_SUB_OBJECT_PAIRS = 32
+# matching pairs the stream's match buffer holds before its kernel is
+# launched again at the exact count; a knob that never changes a result
+SUB_PAIRS_CAPACITY = 1 << 16
 # CUDA's limit on a launch grid's second dimension
 _MAX_GRID_Y = 65535
 
@@ -792,10 +801,19 @@ def verify_candidates_compact(q_rects, q_cbm, q_sig, cand_x, cand_y, cand_cbm, c
     return (ids >= 0).to(torch.int8)
 
 
+def _check_aligned(name: str, t: torch.Tensor) -> None:
+    """Kernels that read rows as float4 need them 16-byte aligned."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
 def filter_pairs(q_rects, q_bm, n_mbrs, n_bm):
     """(M, K) int8 relevance of every query against every node of one level:
     the closed rectangle meets the node's MBR and the bitmaps share a bit
-    (the dense A/B scan). CUDA tensors run ``csrc/skr_filter.cu``."""
+    (the dense A/B scan). CUDA tensors run ``csrc/skr_filter.cu``, which
+    reads a node's words only where its MBR meets the rectangle and there
+    only at the query's nonzero words, 8 queries a block; it
+    writes rows of a pitch rounded up to 16 and returns the (M, K) view."""
     if q_rects.device.type == "cpu":
         return ref.skr_filter_ref(q_rects, q_bm, n_mbrs, n_bm)
     dev = q_rects.device
@@ -807,45 +825,64 @@ def filter_pairs(q_rects, q_bm, n_mbrs, n_bm):
     _check("q_bm", q_bm, torch.int32, (M, W), dev)
     _check("n_mbrs", n_mbrs, torch.float32, (K, 4), dev)
     _check("n_bm", n_bm, torch.int32, (K, W), dev)
-    if _TILE_QUERIES * W > _SHARED_INTS:
-        raise ValueError(f"W={W} query words exceed the filter kernel's shared memory")
-    if -(-M // _TILE_QUERIES) > _MAX_GRID_Y:
-        raise ValueError(f"M={M} queries exceed the filter kernel's grid")
-    out = torch.empty((M, K), dtype=torch.int8, device=dev)
+    _check_aligned("q_rects", q_rects)
+    _check_aligned("n_mbrs", n_mbrs)
+    if -(-K // _FILTER_STRIP) > _MAX_GRID_Y:
+        raise ValueError(f"K={K} nodes exceed the filter kernel's grid")
+    Kp = -(-K // 16) * 16
+    out = torch.empty((M, Kp), dtype=torch.int8, device=dev)
     KERNELS["skr_filter"](
         q_rects.data_ptr(), q_bm.data_ptr(), n_mbrs.data_ptr(), n_bm.data_ptr(),
-        out.data_ptr(), M, K, W, dev.index, _stream(dev),
+        out.data_ptr(), M, K, Kp, W, dev.index, _stream(dev),
     )
-    return out
+    return out[:, :K]
+
+
+def _sub_objects(N: int, S: int, per_object: int) -> int:
+    """Objects a block of a match launch stages: as many as their
+    ``per_object`` ints fit in ``_SHARED_INTS``, at most
+    ``_SUB_MATCH_OBJECTS``."""
+    if per_object > _SHARED_INTS:
+        raise ValueError(f"{per_object} shared ints per object exceed the match kernel's "
+                         "shared memory")
+    objs = min(_SUB_MATCH_OBJECTS, _SHARED_INTS // per_object)
+    tiles = -(-N // objs)
+    if tiles > _MAX_GRID_Y:
+        raise ValueError(f"N={N} objects exceed the match kernel's grid")
+    if N * S >= 2 ** 31:
+        raise ValueError(f"N={N}, S={S} exceed the match kernels' int32 counts")
+    return objs
+
+
+def _check_block(s_rects, s_bm, s_sig, dev):
+    """Check the compiled subscription block's operands; returns ``(S, W)``."""
+    S, W = s_bm.shape
+    _check("s_rects", s_rects, torch.float32, (S, 4), dev)
+    _check("s_bm", s_bm, torch.int32, (S, W), dev)
+    _check("s_sig", s_sig, torch.int32, (S,), dev)
+    _check_aligned("s_rects", s_rects)
+    if W == 0:
+        raise ValueError("subscription bitmaps have no words")
+    return S, W
 
 
 def sub_match(o_pts, o_wids, o_bits, o_sig, s_rects, s_bm, s_sig):
     """(N, S) int8 subscription match matrix on the kernel's own operands:
     object points, packed nonzero words (``pack_query_words``) and OR-fold
     signatures against the block's rectangles, words and signatures. CUDA
-    tensors run ``csrc/sub_match.cu``."""
+    tensors run ``csrc/sub_match.cu``'s matrix instance."""
     if o_pts.device.type == "cpu":
         return ref.sub_match_packed_ref(o_pts, o_wids, o_bits, o_sig, s_rects, s_bm, s_sig)
     dev = o_pts.device
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
     N, Wp = o_wids.shape
-    S, W = s_bm.shape
     _check("o_pts", o_pts, torch.float32, (N, 2), dev)
     _check("o_wids", o_wids, torch.int32, (N, Wp), dev)
     _check("o_bits", o_bits, torch.int32, (N, Wp), dev)
     _check("o_sig", o_sig, torch.int32, (N,), dev)
-    _check("s_rects", s_rects, torch.float32, (S, 4), dev)
-    _check("s_bm", s_bm, torch.int32, (S, W), dev)
-    _check("s_sig", s_sig, torch.int32, (S,), dev)
-    if W == 0:
-        raise ValueError("subscription bitmaps have no words")
-    per_obj = 3 + 2 * Wp
-    if per_obj > _SHARED_INTS:
-        raise ValueError(f"Wp={Wp} packed words exceed the match kernel's shared memory")
-    objs = min(_SUB_MATCH_OBJECTS, _SHARED_INTS // per_obj)
-    if -(-N // objs) > _MAX_GRID_Y:
-        raise ValueError(f"N={N} objects exceed the match kernel's grid")
+    S, W = _check_block(s_rects, s_bm, s_sig, dev)
+    objs = _sub_objects(N, S, _SUB_OBJECT_INTS + 2 * Wp)
     out = torch.empty((N, S), dtype=torch.int8, device=dev)
     KERNELS["sub_match"](
         o_pts.data_ptr(), o_wids.data_ptr(), o_bits.data_ptr(), o_sig.data_ptr(),
@@ -855,12 +892,59 @@ def sub_match(o_pts, o_wids, o_bits, o_sig, s_rects, s_bm, s_sig):
     return out
 
 
-def _or_fold(bm: torch.Tensor) -> torch.Tensor:
-    """(n,) int32 OR of each row's words."""
-    sig = bm[:, 0].clone()
-    for w in range(1, bm.shape[1]):
-        sig |= bm[:, w]
-    return sig
+def _sub_pairs(o_pts, o_bm, s_rects, s_bm, s_sig, capacity: int):
+    """One launch of the pairs instance (the plain version on the CPU):
+    ``(pairs (capacity, 2) i32, count (1,) i32)``, the first ``min(count,
+    capacity)`` rows the matching pairs in no fixed order."""
+    if o_pts.device.type == "cpu":
+        return ref.sub_match_pairs_ref(o_pts, o_bm, s_rects, s_bm, s_sig, capacity)
+    dev = o_pts.device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    S, W = _check_block(s_rects, s_bm, s_sig, dev)
+    N = o_pts.shape[0]
+    _check("o_pts", o_pts, torch.float32, (N, 2), dev)
+    _check("o_bm", o_bm, torch.int32, (N, W), dev)
+    objs = _sub_objects(N, S, _SUB_OBJECT_INTS + 2 * min(W, _SUB_OBJECT_PAIRS))
+    pairs = torch.empty((capacity, 2), dtype=torch.int32, device=dev)
+    count = torch.zeros((1,), dtype=torch.int32, device=dev)
+    KERNELS["sub_match_pairs"](
+        o_pts.data_ptr(), o_bm.data_ptr(), s_rects.data_ptr(), s_bm.data_ptr(),
+        s_sig.data_ptr(), pairs.data_ptr(), count.data_ptr(), N, S, W, objs, capacity,
+        dev.index, _stream(dev),
+    )
+    return pairs, count
+
+
+def match_subscription_pairs(o_pts, o_bm, s_rects, s_bm, s_sig=None, capacity=None):
+    """(n, 2) int32 (object index, slot) pairs of arriving objects that
+    match the subscription block, in no fixed order, on the block's device:
+    the nonzero entries of ``match_subscriptions`` without the (N, S)
+    matrix.
+
+    ``o_pts`` (N, 2) f32 and ``o_bm`` (N, W) int32 are the arrivals' points
+    and full-width bitmaps on the device: the kernel compacts each object's
+    nonzero words and folds its signature itself, so the host packs
+    nothing. ``s_rects``/``s_bm``/``s_sig`` as for ``match_subscriptions``.
+    The pairs go into a buffer of ``capacity`` rows (default
+    ``SUB_PAIRS_CAPACITY``) and one count comes back (the call's one host
+    sync); when it passes the capacity, the kernel is launched again at the
+    exact count, so ``capacity`` never changes the result. CUDA tensors run ``csrc/sub_match.cu``'s pairs
+    instance (launches counted as ``sub_match_pairs``), CPU tensors its
+    plain version ``ref.sub_match_pairs_ref``, through the same retry.
+    """
+    if o_pts.shape[0] == 0 or s_rects.shape[0] == 0:
+        return torch.zeros((0, 2), dtype=torch.int32, device=s_rects.device)
+    if s_sig is None:
+        s_sig = ref.or_fold(s_bm)
+    capacity = SUB_PAIRS_CAPACITY if capacity is None else int(capacity)
+    if capacity < 0:
+        raise ValueError(f"capacity={capacity} is negative")
+    pairs, count = _sub_pairs(o_pts, o_bm, s_rects, s_bm, s_sig, capacity)
+    n = int(count)
+    if n > capacity:
+        pairs, _ = _sub_pairs(o_pts, o_bm, s_rects, s_bm, s_sig, n)
+    return pairs[:n]
 
 
 def match_subscriptions(obj_pts, obj_bm, sub_rects, sub_bm, sub_sig=None):
@@ -873,7 +957,8 @@ def match_subscriptions(obj_pts, obj_bm, sub_rects, sub_bm, sub_sig=None):
     (S, 4) f32, ``sub_bm`` (S, W) int32 and ``sub_sig`` (S,) int32 are the
     compiled subscription block; ``sub_sig`` is folded from ``sub_bm`` when
     not given. Padding is inert: an object with no keyword has a zero
-    signature, an empty slot carries ``NEVER_RECT`` and a zero bitmap.
+    signature, an empty slot carries ``NEVER_RECT`` and a zero bitmap. The
+    subscription stream runs ``match_subscription_pairs`` instead.
     """
     dev = sub_rects.device
     pts = np.asarray(obj_pts, np.float32).reshape(-1, 2)
@@ -884,7 +969,7 @@ def match_subscriptions(obj_pts, obj_bm, sub_rects, sub_bm, sub_sig=None):
     wids, bits = pack_query_words(words)
     o_sig = np.bitwise_or.reduce(words, axis=1)
     if sub_sig is None:
-        sub_sig = _or_fold(sub_bm)
+        sub_sig = ref.or_fold(sub_bm)
     up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     return sub_match(up(pts), up(wids), up(bits.view(np.int32)), up(o_sig.view(np.int32)),
                      sub_rects, sub_bm, sub_sig)

@@ -10,7 +10,7 @@ reference oracles' and the host ``_mbr_dist2_f32``'s arithmetic and what
 the CUDA kernels in ``csrc/`` reproduce with ``__fmul_rn``/``__fadd_rn``.
 
 The dense cross products (``skr_filter_ref``, ``sub_match_ref``,
-``sub_match_packed_ref``) and the CDF bank (``cdf_mlp_ref``) work in chunks
+``sub_match_packed_ref``, ``sub_match_pairs_ref``) and the CDF bank (``cdf_mlp_ref``) work in chunks
 of queries, objects or points: whole, their (M, K, W) and (N, S, W) AND
 planes and (N, B, H) activations would take many GB at serving shapes.
 
@@ -495,6 +495,57 @@ def sub_match_packed_ref(
         kw = ((g & o_bits[sl, :, None]) != 0).any(dim=1)
         out[sl] = (_in_sub_rects(o_pts[sl], s_rects) & sig & kw).to(torch.int8)
     return out
+
+
+def or_fold(bm: torch.Tensor) -> torch.Tensor:
+    """(n,) int32 OR of each row's words: the one-word signature (0 for a
+    row with no word)."""
+    sig = torch.zeros(bm.shape[:1], dtype=torch.int32, device=bm.device)
+    for w in range(bm.shape[1]):
+        sig |= bm[:, w]
+    return sig
+
+
+def nonzero_words(bm: torch.Tensor):
+    """``(wids (n, Wp) i64, bits (n, Wp) i32)``: each row's nonzero words
+    first, in word order, then zero words (value 0, inert), with Wp the most
+    any row has (at least 1): ``ops.pack_query_words`` on tensors, without
+    its power-of-two bucket."""
+    nz = bm != 0
+    wp = max(int(nz.sum(dim=1).max()), 1) if bm.shape[0] else 1
+    wids = torch.argsort((~nz).to(torch.int8), dim=1, stable=True)[:, :wp]
+    return wids, torch.gather(bm, 1, wids)
+
+
+def sub_match_pairs_ref(
+    o_pts: torch.Tensor,  # (N, 2) f32
+    o_bm: torch.Tensor,  # (N, W) i32 full-width object bitmaps
+    s_rects: torch.Tensor,  # (S, 4) f32
+    s_bm: torch.Tensor,  # (S, W) i32
+    s_sig: torch.Tensor,  # (S,) i32 OR-fold subscription signatures
+    capacity: int,
+):
+    """The ``sub_match_pairs`` kernel's contract: ``(pairs (capacity, 2)
+    i32, count (1,) i32)``. ``count`` is the number of matching (object
+    index, slot) pairs -- point-in-rect AND the OR-fold signatures share a
+    bit AND the bitmaps share a bit -- and the first ``min(count,
+    capacity)`` rows of ``pairs`` hold them (here in row-major order; the
+    kernel's come in no fixed order), the rest zero."""
+    N, S = o_pts.shape[0], s_rects.shape[0]
+    o_sig = or_fold(o_bm)
+    o_wids, o_bits = nonzero_words(o_bm)  # no other word can hit
+    s_words = s_bm.t()  # (W, S) word-major view
+    found = [torch.zeros((0, 2), dtype=torch.int64, device=o_pts.device)]
+    for sl in _row_chunks(N, S * o_wids.shape[1]):
+        kw = ((s_words[o_wids[sl]] & o_bits[sl, :, None]) != 0).any(dim=1)
+        sig = (o_sig[sl, None] & s_sig[None, :]) != 0
+        oi, sj = torch.nonzero(_in_sub_rects(o_pts[sl], s_rects) & sig & kw, as_tuple=True)
+        found.append(torch.stack([oi + sl.start, sj], 1))
+    hits = torch.cat(found)
+    pairs = torch.zeros((capacity, 2), dtype=torch.int32, device=o_pts.device)
+    n = min(hits.shape[0], capacity)
+    pairs[:n] = hits[:n].to(torch.int32)
+    return pairs, torch.tensor([hits.shape[0]], dtype=torch.int32, device=o_pts.device)
 
 
 @contextlib.contextmanager

@@ -7,15 +7,17 @@ query matched against all of them:
 * ``SubscriptionBlock`` -- the compiled subscription index on the device:
   rects ``(S, 4)`` f32, keyword bitmaps ``(S, W)`` (int32 views of the
   reference's u32 words) and one-word OR-fold signatures ``(S, 1)``, with S
-  a power-of-two slot count grown by doubling, freed slots reused first.
-  Empty slots carry ``NEVER_RECT`` and a zero bitmap and match nothing.
+  a power-of-two slot count grown by doubling, freed slots reused first,
+  and each slot's subscription id ``(S,)``. Empty slots carry
+  ``NEVER_RECT`` and a zero bitmap and match nothing.
 * ``SubscriptionIndex`` -- the host-side manager and notification log.
   ``subscribe`` / ``unsubscribe`` edit host mirrors and the block is
   compiled again lazily; ``match_arrivals`` matches a batch of arriving
-  objects against the block with the ``sub_match`` kernel
-  (``ops.match_subscriptions``) and queues ``(object_id, subscription_id)``
-  notifications; ``pump(delta_log)`` sweeps a ``DeltaLog``'s live buffered
-  inserts instead; ``drain()`` hands the queue out exactly once.
+  objects against the block with the ``sub_match`` kernel's pairs instance
+  (``ops.match_subscription_pairs``) and queues ``(object_id,
+  subscription_id)`` notifications; ``pump(delta_log)`` sweeps a
+  ``DeltaLog``'s live buffered inserts instead; ``drain()`` hands the queue
+  out exactly once.
 
 Exactly-once: every object id is matched at most once, guarded by a
 high-water mark over the global object id space (``DeltaLog`` assigns ids
@@ -31,10 +33,12 @@ retracts a queued notification; an empty keyword set matches nothing; a
 zero-area rect matches objects exactly at that point. Notifications are
 queued in canonical (object id, subscription id) order per batch.
 
-The match matrix stays on the device: only the matching (object, slot)
-pairs are copied back. ``LiveIndex``, which feeds an index's inserts here
-and swaps rebuilt generations, waits for the construction port (ROADMAP
-A.9, A.11).
+No (N, S) match matrix is made: the arrivals' bitmaps go to the device
+once (``pump``'s never leave it), the kernel emits the matching (object,
+slot) pairs there, they are sorted there into canonical order, and only
+they are copied back.
+``LiveIndex``, which feeds an index's inserts here and swaps rebuilt
+generations, waits for the construction port (ROADMAP A.9, A.11).
 """
 from __future__ import annotations
 
@@ -46,7 +50,8 @@ import torch
 
 from .. import resolve_device
 from ..core.types import bitmap_words, ids_to_bitmap
-from ..kernels.ops import NEVER_RECT, match_subscriptions
+from ..kernels import ops
+from ..kernels.ops import NEVER_RECT
 from .snapshot import to_device
 
 MIN_SUB_SLOTS = 8
@@ -60,18 +65,37 @@ class SubscriptionBlock:
     ``rects`` (S, 4) f32 / ``bm`` (S, W) i32 / ``sig`` (S, 1) i32 with S a
     power-of-two slot count; empty slots are ``NEVER_RECT`` and a zero
     bitmap (signature 0), so the match kernel needs no validity plane.
+    ``sub_id`` (S,) i32 is each slot's subscription id (-1 when empty),
+    which orders the notifications on the device.
     """
 
     rects: torch.Tensor
     bm: torch.Tensor
     sig: torch.Tensor
+    sub_id: torch.Tensor
 
     @property
     def n_slots(self) -> int:
         return int(self.rects.shape[0])
 
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in (self.rects, self.bm, self.sig))
+        return sum(t.numel() * t.element_size()
+                   for t in (self.rects, self.bm, self.sig, self.sub_id))
+
+
+def canonical_pairs(found: torch.Tensor, obj_ids: np.ndarray, slot_sub: torch.Tensor) -> np.ndarray:
+    """The matching (object index, slot) pairs ``found`` -- (n, 2) int32, in
+    any order -- as notifications ``(object id, subscription id)``, (n, 2)
+    int64 on the host in canonical order: by object id, then subscription
+    id. ``obj_ids`` (host) names the objects, ``slot_sub`` (on ``found``'s
+    device) the slots' subscriptions. The pairs are sorted on their device
+    by one 64-bit key -- the object id's rank among the batch's distinct
+    ids, then the subscription id -- and only the sorted keys are copied."""
+    uniq, rank = np.unique(np.asarray(obj_ids, np.int64), return_inverse=True)
+    rank = torch.from_numpy(rank.reshape(-1).astype(np.int64)).to(found.device)
+    key = (rank[found[:, 0].long()] << 32) | (slot_sub[found[:, 1].long()].long() & 0xFFFFFFFF)
+    key = torch.sort(key).values.cpu().numpy()
+    return np.stack([uniq[key >> 32], key & 0xFFFFFFFF], 1)
 
 
 class SubscriptionIndex:
@@ -165,26 +189,28 @@ class SubscriptionIndex:
                 rects=to_device(self._rects, self.device),
                 bm=to_device(self._bms, self.device),
                 sig=to_device(np.bitwise_or.reduce(self._bms, axis=1).reshape(-1, 1), self.device),
+                sub_id=to_device(self._sub_id, self.device),
             )
         return self._block
 
     # ------------------------------------------------------------ matching
-    def _match(self, ids: np.ndarray, locs: np.ndarray, bms: np.ndarray) -> int:
-        """Match arrivals above the mark (sorted by id) against the block
-        and queue their notifications in canonical (object id, subscription
-        id) order; advance the mark."""
+    def _admit(self, ids: np.ndarray) -> bool:
+        """Advance the exactly-once mark over arrivals above it; whether any
+        live subscription is there to match them."""
         if ids.size == 0:
-            return 0
+            return False
         self._seen_max = max(self._seen_max, int(ids.max()))
-        if not self._slot:
-            return 0
+        return bool(self._slot)
+
+    def _match(self, ids: np.ndarray, locs: torch.Tensor, bms: torch.Tensor) -> int:
+        """Match admitted arrivals -- ``locs`` (n, 2) f32 and ``bms`` (n, W)
+        int32 on the block's device -- against the block and queue their
+        notifications in canonical (object id, subscription id) order."""
         blk = self.block()
-        mat = match_subscriptions(locs, bms, blk.rects, blk.bm, blk.sig[:, 0])
-        oi, sj = (t.cpu().numpy() for t in torch.nonzero(mat, as_tuple=True))
-        if oi.size == 0:
+        found = ops.match_subscription_pairs(locs, bms, blk.rects, blk.bm, blk.sig[:, 0])
+        pairs = canonical_pairs(found, ids, blk.sub_id)
+        if pairs.shape[0] == 0:
             return 0
-        pairs = np.stack([ids[oi], self._sub_id[sj].astype(np.int64)], 1)
-        pairs = pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
         self._pending.append(pairs)
         self.matched_total += pairs.shape[0]
         return pairs.shape[0]
@@ -194,8 +220,8 @@ class SubscriptionIndex:
         step they enter the ``DeltaLog``. Ids at or below the high-water
         mark were matched already and are skipped; the mark advances even
         when no subscription is live. ``bms`` (u32 words) or ``kw_ids``
-        (-1-padded id lists) give the keywords. Returns how many
-        notifications were queued."""
+        (-1-padded id lists) give the keywords; the points and bitmaps go
+        to the device once. Returns how many notifications were queued."""
         ids = np.asarray(ids, np.int64).reshape(-1)
         locs = np.asarray(locs, np.float32).reshape(-1, 2)
         if bms is None:
@@ -204,17 +230,18 @@ class SubscriptionIndex:
         keep = ids > self._seen_max
         if not keep.all():
             ids, locs, bms = ids[keep], locs[keep], bms[keep]
-        order = np.argsort(ids, kind="stable")
-        return self._match(ids[order], locs[order], bms[order])
+        if not self._admit(ids):
+            return 0
+        return self._match(ids, to_device(locs, self.device), to_device(bms, self.device))
 
     def pump(self, delta_log) -> int:
         """Full-buffer sweep: match every live buffered insert of
         ``delta_log`` that the high-water mark has not covered. After
         ``match_arrivals`` it queues nothing, and a stream driven by ``pump``
         alone queues the same notifications. Empty slots (``ins_id == -1``,
-        freed by deletes or padding from growth) are skipped. Only the
-        selected slots' rows leave the device. Returns how many were
-        queued."""
+        freed by deletes or padding from growth) are skipped. The selected
+        slots' points and bitmaps stay on the device; only their ids come
+        to the host. Returns how many were queued."""
         buf = delta_log.buffer
         ins_id = buf.ins_id.reshape(-1)
         live = (ins_id >= 0) & (ins_id > min(self._seen_max, _INT32_MAX))
@@ -222,12 +249,11 @@ class SubscriptionIndex:
         if rows.numel() == 0:
             return 0
         ids = ins_id[rows].cpu().numpy().astype(np.int64)
+        if not self._admit(ids):
+            return 0
         locs = torch.stack([buf.ins_x.reshape(-1)[rows], buf.ins_y.reshape(-1)[rows]], 1)
         bms = buf.ins_bm.reshape(ins_id.shape[0], -1)[rows]
-        locs = locs.cpu().numpy()
-        bms = bms.cpu().numpy().view(np.uint32)
-        order = np.argsort(ids, kind="stable")
-        return self._match(ids[order], locs[order], bms[order])
+        return self._match(ids, locs, bms)
 
     # ------------------------------------------------------- notifications
     @property

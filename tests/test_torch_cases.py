@@ -477,14 +477,27 @@ def slot_bank(rng, m, t, k, b, w, compact, device="cpu"):
 FILTER_ARGS = ("q_rects", "q_bm", "n_mbrs", "n_bm")
 
 
-def filter_case(rng, m, k, w):
+def sparse_words(rng, n, w, k=3):
+    """(n, w) u32 rows of at most ``k`` nonzero words at random ids, one of
+    four low bits each: a keyword hit needs the same word and bit, so most
+    tests of a row against another read all of its nonzero words."""
+    out = np.zeros((n, w), np.uint32)
+    for i in range(n):
+        ids = rng.choice(w, size=min(k, w), replace=False)
+        out[i, ids] = np.uint32(1) << rng.integers(0, 4, ids.size).astype(np.uint32)
+    return out
+
+
+def filter_case(rng, m, k, w, sparse=False):
     """``skr_filter`` operands: query rectangles against node MBRs of one
-    level, sparse words, and the degenerate rows where the sizes allow: a
-    ``NEVER_RECT`` node, a node and a query with all-zero bitmaps, and a
-    zero-area query rectangle on a node's corner."""
+    level, words (half of them zero, or ``sparse_words``), and the
+    degenerate rows where the sizes allow: a ``NEVER_RECT`` node, a node
+    and a query with all-zero bitmaps, and a zero-area query rectangle on a
+    node's corner."""
+    make = sparse_words if sparse else words
     n_mbrs = rand_rects(rng, k)
-    case = dict(q_rects=rand_rects(rng, m), q_bm=words(rng, m, w), n_mbrs=n_mbrs,
-                n_bm=words(rng, k, w))
+    case = dict(q_rects=rand_rects(rng, m), q_bm=make(rng, m, w), n_mbrs=n_mbrs,
+                n_bm=make(rng, k, w))
     if k > 1:
         case["n_mbrs"][0] = ops.NEVER_RECT
         case["n_bm"][-1] = 0
@@ -504,6 +517,20 @@ FILTER_SWEEP = [  # m, k, w
     (9, 300, 256),   # the osm profile's word width
 ]
 
+FILTER_RAGGED = [  # m, k, w, sparse: the redesigned kernel's edges
+    (3, 1, 1, False),       # one node, one word
+    (17, 15, 3, False),     # a node run short of 16
+    (9, 17, 3, True),       # a node past a 16-node run
+    (5, 7833, 3, False),    # one past the leaf level's width: rows not 16-byte aligned
+    (7, 33, 1, True),       # W = 1
+    (6, 17, 2100, True),    # W past a 256-word compaction round, few words
+    (4, 40, 2100, False),   # W past a round, half the words nonzero
+]
+
+# the dense scan's five level widths on the smoke's index (osm, n = 1M,
+# STR leaf 128, fanout 8): M = 1024 queries of W = 256 words
+FILTER_LEVELS = [(1024, k, 256) for k in (4, 19, 131, 991, 7832)]
+
 
 # ------------------------------------------------- standing subscriptions
 def rand_sub_rect(rng):
@@ -521,12 +548,13 @@ def rand_kw(rng, v, lo=0, hi=4):
     return kw
 
 
-def sub_case(rng, n, s, v):
+def sub_case(rng, n, s, v, obj_hi=4):
     """Subscriptions and arriving objects with adversarial members: an empty
     keyword set, a zero-area rect and the whole unit square among the
     subscriptions; objects without keywords, one on a rectangle's corner and
-    one on the zero-area rect. Returns ``(locs, obj_kw, rects, sub_kw)``
-    with ``sub_kw`` an (s, 4) -1-padded array."""
+    one on the zero-area rect. Objects carry up to ``obj_hi - 1`` keywords.
+    Returns ``(locs, obj_kw, rects, sub_kw)`` with ``sub_kw`` an (s, 4)
+    -1-padded array."""
     rects = np.stack([rand_sub_rect(rng) for _ in range(s)])
     kws = np.stack([rand_kw(rng, v, lo=1) for _ in range(s)])
     if s >= 3:
@@ -535,7 +563,7 @@ def sub_case(rng, n, s, v):
         rects[1] = np.concatenate([pt, pt])
         rects[2] = (0.0, 0.0, 1.0, 1.0)
     locs = rng.random((n, 2)).astype(np.float32)
-    okw = np.stack([rand_kw(rng, v) for _ in range(n)])
+    okw = np.stack([rand_kw(rng, v, hi=obj_hi) for _ in range(n)])
     locs[0] = rects[0][:2]
     if s >= 2:
         locs[min(1, n - 1)] = rects[1][:2]
@@ -548,6 +576,51 @@ SUB_SWEEP = [  # seed, n, s, v
     (2, 40, 13, 64),     # ragged against every block size
     (3, 130, 129, 200),  # past a tile on both axes
     (4, 37, 300, 8192),  # the osm vocabulary: W = 256 words, subscriptions past a block
+]
+
+def late_word_case(rng, n, s, w):
+    """Objects with all ``w`` words nonzero (one random bit each) and
+    subscriptions with one word past the 32nd, half of them an object's bit
+    there, a third of them over the whole square: each match is decided by
+    a word past the ones the pairs instance stages per object. Returns
+    ``(locs, obj_bm, rects, sub_bm)`` with u32 bitmaps."""
+    obm = np.uint32(1) << rng.integers(0, 32, (n, w)).astype(np.uint32)
+    cols = rng.integers(32, w, s)
+    own = obm[rng.integers(0, n, s), cols]
+    other = np.uint32(1) << rng.integers(0, 32, s).astype(np.uint32)
+    sbm = np.zeros((s, w), np.uint32)
+    sbm[np.arange(s), cols] = np.where(rng.random(s) < 0.5, own, other)
+    rects = np.stack([rand_sub_rect(rng) for _ in range(s)])
+    rects[::3] = (0.0, 0.0, 1.0, 1.0)
+    return rng.random((n, 2)).astype(np.float32), obm, rects, sbm
+
+
+def nan_case(rng, n, s, v):
+    """``sub_case`` with NaN coordinates: every 7th object's x (the first
+    object's among them) and every 11th's y are NaN, and when ``s > 5``
+    subscription 4's left and subscription 5's right edge are NaN. A NaN
+    is inside no rectangle, so those objects and subscriptions match
+    nothing; with many keywords shared (small ``v``) the rest still match.
+    Returns ``(locs, obj_kw, rects, sub_kw)`` as ``sub_case``."""
+    locs, okw, rects, kws = sub_case(rng, n, s, v)
+    locs[::7, 0] = np.nan
+    locs[3::11, 1] = np.nan
+    if s > 5:
+        rects[4, 0] = np.nan
+        rects[5, 2] = np.nan
+    return locs, okw, rects, kws
+
+
+# (seed, n, s, v) of the NaN cases: one tile of objects, and three tiles
+SUB_NAN_SWEEP = [(8, 40, 13, 16), (9, 300, 70, 24)]
+
+
+# the pairs entry's cases: (seed, n, s, v, obj_hi); objects with up to 79
+# keywords have more nonzero words than the kernel stages per object (32),
+# so the rest of their rows is read where a pair needs it
+SUB_PAIRS_SWEEP = [case + (4,) for case in SUB_SWEEP] + [
+    (6, 50, 70, 2048, 80),   # W = 64, most objects with 33 or more nonzero words
+    (7, 9, 40, 256, 80),     # W = 8: every object's words fit the staged pairs
 ]
 
 

@@ -32,14 +32,15 @@ from repro_torch.serve.delta import DeltaLog  # noqa: E402
 from repro_torch.serve.subscribe import SubscriptionIndex  # noqa: E402
 
 from test_torch_cases import (  # noqa: E402
-    CDF_SWEEP, FILTER_ARGS, FILTER_SWEEP, FRONTIER_ARGS, FRONTIER_LEVEL_ARGS,
-    FRONTIER_LEVEL_NARROW_ARGS, FRONTIER_LEVEL_SWEEP, FRONTIER_SWEEP, FUSED_SWEEP, KNN_ARGS,
-    LEVEL_ARGS, LEVEL_NARROW_ARGS, LEVEL_NARROW_SWEEP, LEVEL_SWEEP, REMAP_ARGS, REMAP_SWEEP,
-    SLOT_SWEEP, SUB_SWEEP, VERIFY_ARGS, VERIFY_COMPACT_ARGS, VERIFY_COMPACT_SWEEP, VERIFY_SWEEP,
-    cdf_params, filter_case, FRONTIER_LEVEL_ROUNDS, frontier_case, frontier_level_case,
-    fused_args, fused_case, fused_wide_args, knn_case, level_case, level_narrow_case,
-    packed_words, rand_kw, rand_sub_rect, remap_case, slot_bank, sub_case, term_bitmaps, to_torch,
-    verify_case, verify_compact_case, wide_args,
+    CDF_SWEEP, FILTER_ARGS, FILTER_LEVELS, FILTER_RAGGED, FILTER_SWEEP, FRONTIER_ARGS,
+    FRONTIER_LEVEL_ARGS, FRONTIER_LEVEL_NARROW_ARGS, FRONTIER_LEVEL_SWEEP, FRONTIER_SWEEP,
+    FUSED_SWEEP, KNN_ARGS, LEVEL_ARGS, LEVEL_NARROW_ARGS, LEVEL_NARROW_SWEEP, LEVEL_SWEEP,
+    REMAP_ARGS, REMAP_SWEEP, SLOT_SWEEP, SUB_NAN_SWEEP, SUB_PAIRS_SWEEP, SUB_SWEEP, VERIFY_ARGS,
+    VERIFY_COMPACT_ARGS, VERIFY_COMPACT_SWEEP, VERIFY_SWEEP, cdf_params, filter_case,
+    FRONTIER_LEVEL_ROUNDS, frontier_case, frontier_level_case, fused_args, fused_case,
+    fused_wide_args, knn_case, late_word_case, level_case, level_narrow_case, nan_case, packed_words,
+    rand_kw, rand_sub_rect, remap_case, slot_bank, sub_case, term_bitmaps, to_torch, verify_case,
+    verify_compact_case, wide_args,
 )
 
 pytestmark = pytest.mark.cuda
@@ -713,7 +714,7 @@ def test_delta_engine_on_the_card_matches_the_plain_path(cuda, own_leaf_terms, m
         np.testing.assert_array_equal(card[k], host[k], err_msg=k)
 
 
-@pytest.mark.parametrize("m,k,w", FILTER_SWEEP + [(1024, 991, 256), (70, 7832, 3)])
+@pytest.mark.parametrize("m,k,w", FILTER_SWEEP + [(70, 7832, 3)] + FILTER_LEVELS)
 def test_skr_filter_kernel_matches_plain(cuda, m, k, w):
     case = filter_case(np.random.default_rng(m * 7919 + k * 31 + w), m, k, w)
     args = [to_torch(case[a], cuda) for a in FILTER_ARGS]
@@ -722,6 +723,79 @@ def test_skr_filter_kernel_matches_plain(cuda, m, k, w):
     torch.cuda.synchronize()
     assert _build.KERNELS["skr_filter"].launches == before + 1
     _equal(got, ref.skr_filter_ref(*args))
+
+
+@pytest.mark.parametrize("m,k,w,sparse", FILTER_RAGGED + [(1024, 7832, 256, True)])
+def test_skr_filter_every_tile_matches_plain(cuda, m, k, w, sparse):
+    """The dense filter at its edges (node runs and strips, query tiles of 8
+    cut short, rows not 16-byte aligned, W of 1 and 2,100, sparse words):
+    one launch, equal to the plain version."""
+    case = filter_case(np.random.default_rng(m * 7919 + k * 31 + w), m, k, w, sparse)
+    args = [to_torch(case[a], cuda) for a in FILTER_ARGS]
+    before = _build.KERNELS["skr_filter"].launches
+    got = ops.filter_pairs(*args)
+    torch.cuda.synchronize()
+    assert _build.KERNELS["skr_filter"].launches == before + 1
+    _equal(got, ref.skr_filter_ref(*args))
+
+
+def _pairs_sorted(pairs):
+    """(n, 2) pairs on the host in (object, slot) order."""
+    p = pairs.cpu()
+    return p[torch.from_numpy(np.lexsort((p[:, 1].numpy(), p[:, 0].numpy())))]
+
+
+@pytest.mark.parametrize("seed,n,s,v,obj_hi", SUB_PAIRS_SWEEP + [(5, 1000, 4099, 8192, 4)])
+def test_sub_match_pairs_kernel_matches_plain(cuda, seed, n, s, v, obj_hi):
+    """The pairs instance on the card, sorted, equals its plain version and
+    the nonzero entries of the matrix instance; at capacity 0 and 1 it
+    launches again at the exact count."""
+    locs, okw, rects, kws = sub_case(np.random.default_rng(seed), n, s, v, obj_hi)
+    args = [to_torch(a, cuda) for a in (locs, ids_to_bitmap(okw.astype(np.int32), v), rects,
+                                        ids_to_bitmap(kws.astype(np.int32), v))]
+    s_sig = ref.or_fold(args[3])
+    plain, count = ref.sub_match_pairs_ref(*args, s_sig, 0)
+    want = _pairs_sorted(ref.sub_match_pairs_ref(*args, s_sig, int(count))[0])
+    kernel = _build.KERNELS["sub_match_pairs"]
+    for cap in (None, 0, 1):
+        before = kernel.launches
+        got = ops.match_subscription_pairs(*args, s_sig, capacity=cap)
+        torch.cuda.synchronize()
+        retried = int(count) > (ops.SUB_PAIRS_CAPACITY if cap is None else cap)
+        assert kernel.launches == before + 1 + retried
+        assert got.dtype == torch.int32 and got.device.type == "cuda"
+        _equal(_pairs_sorted(got), want)
+    mat = ops.match_subscriptions(locs, args[1], args[2], args[3])
+    _equal(torch.nonzero(mat).to(torch.int32).cpu(), want)
+
+
+@pytest.mark.parametrize("seed,n,s,v", SUB_NAN_SWEEP + [(10, 1000, 4099, 64)])
+def test_sub_match_nan_coordinates_match_plain(cuda, seed, n, s, v):
+    """NaN points (the x the tile is sorted by, the first object's among
+    them) and NaN rectangle edges: both instances equal their plain
+    versions, and no NaN point matches."""
+    locs, okw, rects, kws = nan_case(np.random.default_rng(seed), n, s, v)
+    obm = ids_to_bitmap(okw.astype(np.int32), v)
+    sbm = ids_to_bitmap(kws.astype(np.int32), v)
+    args = [to_torch(a, cuda) for a in (locs, obm, rects, sbm)]
+    s_sig = ref.or_fold(args[3])
+    _, count = ref.sub_match_pairs_ref(*args, s_sig, 0)
+    want = _pairs_sorted(ref.sub_match_pairs_ref(*args, s_sig, int(count))[0])
+    assert int(count) > 0 and not np.isnan(locs[want[:, 0].numpy()]).any()
+    _equal(_pairs_sorted(ops.match_subscription_pairs(*args, s_sig)), want)
+    mat = ops.match_subscriptions(locs, obm, args[2], args[3], s_sig)
+    _equal(mat.cpu(), ops.match_subscriptions(locs, obm, to_torch(rects), to_torch(sbm)))
+
+
+@pytest.mark.parametrize("n,s,w", [(40, 60, 40), (1000, 4099, 256)])
+def test_sub_match_pairs_past_the_staged_words(cuda, n, s, w):
+    """Matches decided only by words past an object's 32 staged pairs."""
+    args = [to_torch(a, cuda) for a in late_word_case(np.random.default_rng(n + s + w), n, s, w)]
+    s_sig = ref.or_fold(args[3])
+    _, count = ref.sub_match_pairs_ref(*args, s_sig, 0)
+    assert int(count) > 0
+    want = _pairs_sorted(ref.sub_match_pairs_ref(*args, s_sig, int(count))[0])
+    _equal(_pairs_sorted(ops.match_subscription_pairs(*args, s_sig)), want)
 
 
 @pytest.mark.parametrize("seed,n,s,v", SUB_SWEEP + [(5, 1000, 4099, 8192)])
@@ -758,10 +832,12 @@ def test_new_wrappers_check_operands(cuda):
     args = [to_torch(case[a], cuda) for a in FILTER_ARGS]
     with pytest.raises(ValueError, match="n_bm"):
         ops.filter_pairs(*args[:3], args[3][:, :1].contiguous())
-    with pytest.raises(ValueError, match="words exceed"):
-        wide = torch.zeros((4, 2048), dtype=torch.int32, device=cuda)
-        ops.filter_pairs(args[0], wide, args[2], torch.zeros((9, 2048), dtype=torch.int32,
-                                                             device=cuda))
+    # no cap on W: 2,048 words run, and equal the plain version
+    wide = filter_case(np.random.default_rng(2), 4, 9, 2048)
+    wide = [to_torch(wide[a], cuda) for a in FILTER_ARGS]
+    _equal(ops.filter_pairs(*wide), ref.skr_filter_ref(*wide))
+    with pytest.raises(ValueError, match="aligned"):
+        ops.filter_pairs(args[0].reshape(-1)[1:13].reshape(3, 4), args[1][:3], *args[2:])
     params = ops.cdf_params_from_reference(cdf_params(np.random.default_rng(3), 2, 12))
     with pytest.raises(ValueError, match="hidden width"):
         ops.cdf_bank_forward(params, torch.zeros(5, device=cuda))
@@ -858,7 +934,8 @@ def test_dense_engine_on_the_card_matches_the_plain_path(cuda):
 def test_subscription_index_on_the_card_matches_the_host(cuda):
     """Subscription churn and arrivals through a ``DeltaLog`` on the card
     (``match_arrivals`` and ``pump``) give the host's stream, and the card
-    runs launched ``sub_match``."""
+    runs launched the pairs instance ``sub_match_pairs``, once a match,
+    and never the matrix instance."""
     ds = make_dataset("sp", n=3000, seed=4)
     index = build_str_rtree(ds, 32, 4)
     rng = np.random.default_rng(9)
@@ -882,7 +959,8 @@ def test_subscription_index_on_the_card_matches_the_host(cuda):
             for sid in range(0, 300, 7):
                 for i in (idx, host, pumped):
                     i.unsubscribe(sid)
-    assert _build.launch_counts()["sub_match"] == 8
+    assert _build.launch_counts()["sub_match_pairs"] == 8
+    assert _build.launch_counts()["sub_match"] == 0
     got = idx.drain()
     assert got.shape[0] > 0
     np.testing.assert_array_equal(got, host.drain())

@@ -8,7 +8,9 @@ compares floats and ANDs words.
 * Kernel layer: ``filter_pairs`` equals the reference's Pallas wrapper
   (interpret mode) and its oracle ``skr_filter_ref`` over ragged sweeps
   with ``NEVER_RECT`` nodes, empty bitmaps and zero-area rectangles, in one
-  chunk and in many; ``padded_tile_len`` equals the reference's.
+  chunk and in many, and at the CUDA kernel's edges (node runs and strips,
+  W of 1 and 2,100, sparse words); ``padded_tile_len`` equals the
+  reference's.
 * Snapshot: ``IndexSnapshot.build(..., dense=True)`` equals the JAX
   snapshot's ``child_matrix`` field for field, and
   ``from_reference_arrays`` carries it across.
@@ -38,7 +40,9 @@ from repro_torch.serve.delta import DeltaLog  # noqa: E402
 from repro_torch.serve.engine import IndexSnapshot, retrieve_workload  # noqa: E402
 from repro_torch.serve.plan import PlanCache  # noqa: E402
 
-from test_torch_cases import FILTER_ARGS, FILTER_SWEEP, filter_case, to_numpy, to_torch  # noqa: E402
+from test_torch_cases import (  # noqa: E402
+    FILTER_ARGS, FILTER_RAGGED, FILTER_SWEEP, filter_case, to_numpy, to_torch,
+)
 from test_torch_knn import _same  # noqa: E402
 from test_torch_serving import _assert_matches_oracle, _pair  # noqa: E402
 
@@ -59,6 +63,23 @@ def test_filter_pairs_matches_reference(m, k, w):
         assert not got[:, 0].any() and not got[:, -1].any()  # NEVER_RECT, empty node bitmap
     if m > 1:
         assert not got[-1].any()  # the empty query bitmap
+
+
+@pytest.mark.parametrize("m,k,w,sparse", FILTER_RAGGED)
+def test_filter_pairs_ragged_matches_reference(m, k, w, sparse):
+    """The redesigned kernel's edges -- node counts off its 16-node runs
+    and 512-node strips, W = 1 and W past a compaction round, sparse words,
+    ``NEVER_RECT`` nodes and queries with no word -- on the plain version
+    against the reference's Pallas wrapper and oracle."""
+    case = filter_case(np.random.default_rng(m * 7919 + k * 31 + w), m, k, w, sparse)
+    args = [case[a] for a in FILTER_ARGS]
+    got = ops.filter_pairs(*map(to_torch, args))
+    assert got.dtype == torch.int8 and tuple(got.shape) == (m, k)
+    got = to_numpy(got)
+    np.testing.assert_array_equal(got, np.asarray(jref.skr_filter_ref(*map(jnp.asarray, args))))
+    np.testing.assert_array_equal(got, np.asarray(jops.filter_pairs(*args)))
+    # the corner query hits its node where the node has a word; the wordless one never hits
+    assert got[0, k // 2] == case["n_bm"][k // 2].any() and not got[-1].any()
 
 
 def test_filter_pairs_in_chunks_equals_one_pass(monkeypatch):

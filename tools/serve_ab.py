@@ -27,13 +27,28 @@ times each batch (host clock after ``torch.cuda.synchronize``) of:
 * SKR ``serve_batch(delta=...)`` over a second ``DeltaLog`` whose 10,000
   inserts carry terms of the leaf they route to, so its insert slots stay
   on the compact words (``skr_delta_compact``);
+* SKR ``serve_batch(mode="dense")`` (the dense A/B scan; the snapshot is
+  built with ``dense=True``);
 * kNN ``serve_knn_batch`` at k = 10 (the narrow descent);
-* kNN ``retrieve_knn(quantized=False)`` (the f32 descent).
+* kNN ``retrieve_knn(quantized=False)`` (the f32 descent);
+* ``sub_arrivals``: 10 batches of 1,000 arrivals (inserted into a
+  ``DeltaLog`` on their leaf's terms, as ``chip_smoke.py``'s log A) through
+  ``SubscriptionIndex.match_arrivals`` against 100,000 standing
+  subscriptions (a MIX workload, seed 2): host seconds per batch, the first
+  one compiling the block.
 
-It uses only entry points every tree of the port since its kNN and delta
-slices has, checks nothing (``chip_smoke.py`` does), and prints the card
-(``nvidia-smi`` name and power limit) and one JSON line of batch seconds.
-It needs a CUDA device and exits non-zero without one.
+``--paths`` picks some of them (default: all). With ``--kernels`` it also
+takes, from ``torch.profiler`` (``chip_smoke.device_ms``, so it runs from a
+checkout that holds ``chip_smoke.py``), the mean device time of a launch of the dense
+filter at each level of the first batch, of the match matrix entry
+(``ops.match_subscriptions``) on the first arrival batch and, where the tree
+has it, of the pairs entry (``ops.match_subscription_pairs``).
+
+It uses only entry points every tree of the port since its dense and
+subscription slice has (the pairs entry only where it exists), checks
+nothing (``chip_smoke.py`` does), and prints the card (``nvidia-smi`` name
+and power limit) and one JSON line of batch seconds and kernel ms. It needs
+a CUDA device and exits non-zero without one.
 """
 from __future__ import annotations
 
@@ -58,6 +73,9 @@ def main() -> int:
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1] / "src"),
                     help="the src directory of the tree to time")
     ap.add_argument("--label", default="tree")
+    ap.add_argument("--paths", default="", help="comma-separated paths to time (default: all)")
+    ap.add_argument("--kernels", action="store_true", help="also time the dense filter and the "
+                    "match kernels on the device")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("serve_ab: no CUDA device", file=sys.stderr)
@@ -71,6 +89,7 @@ def main() -> int:
     from repro_torch.serve.engine import retrieve, retrieve_knn
     from repro_torch.serve.plan import PlanCache
     from repro_torch.serve.snapshot import IndexSnapshot
+    from repro_torch.serve.subscribe import SubscriptionIndex
 
     import repro_torch
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -78,7 +97,7 @@ def main() -> int:
     print(f"card: {card}; tree {args.label}: {Path(repro_torch.__file__).parent}", flush=True)
     ds = make_dataset("osm", n=N_OBJECTS, seed=0)
     index = build_str_rtree(ds, leaf_size=128, fanout=8)
-    snap = IndexSnapshot.build(index, ds, device=torch.device("cuda:0"))
+    snap = IndexSnapshot.build(index, ds, device=torch.device("cuda:0"), dense=True)
     wl = make_workload(ds, m=N_QUERIES, dist="MIX", seed=1)
     points = np.stack([(wl.rects[:, 0] + wl.rects[:, 2]) / 2,
                        (wl.rects[:, 1] + wl.rects[:, 3]) / 2], 1).astype(np.float32)
@@ -113,14 +132,21 @@ def main() -> int:
                                               delta=buf),
         "skr_delta_compact": lambda b, c: serve_batch(snap, wl.rects[b], bms[b], 32,
                                                       plan_cache=c, delta=cbuf),
+        "skr_dense": lambda b, c: serve_batch(snap, wl.rects[b], bms[b], 32, mode="dense"),
         "knn": lambda b, c: serve_knn_batch(snap, points[b], bms[b], K, plan_cache=c),
         "knn_f32": lambda b, c: retrieve_knn(snap, points[b], bms[b], K, plan_cache=c,
                                              quantized=False),
         "knn_delta": lambda b, c: serve_knn_batch(snap, points[b], bms[b], K, plan_cache=c,
                                                   delta=buf),
     }
+    chosen = [p for p in args.paths.split(",") if p]
+    unknown = set(chosen) - set(paths) - {"sub_arrivals"}
+    if unknown:
+        raise SystemExit(f"unknown paths {sorted(unknown)}")
     times = {}
     for name, serve in paths.items():
+        if chosen and name not in chosen:
+            continue
         warm = PlanCache()
         for b in batches:  # warm-up: builds, learns the widths
             serve(b, warm)
@@ -134,8 +160,64 @@ def main() -> int:
             torch.cuda.synchronize()
             times[name].append(time.perf_counter() - t)
         print(f"{args.label} {name}: batch s {times[name]}", flush=True)
-    print(json.dumps({"label": args.label, "card": card, "batch_s": times}), flush=True)
+    sub_idx, arrivals = None, []
+    if not chosen or "sub_arrivals" in chosen or args.kernels:
+        subs = make_workload(ds, m=100_000, dist="MIX", seed=2)
+        sub_idx = SubscriptionIndex(ds.vocab_size, device=torch.device("cuda:0"))
+        for r, kw in zip(subs.rects, subs.kw_ids):
+            sub_idx.subscribe(r, kw)
+        alog, arng = DeltaLog(index, ds, snap), np.random.default_rng(21)
+        for _ in range(10):
+            locs, kw = make_update_stream(ds, 1000, arng, 1e-3, *vocab)
+            arrivals.append((alog.insert(locs, kw), locs, kw))
+    if not chosen or "sub_arrivals" in chosen:
+        times["sub_arrivals"] = []
+        for ids, locs, kw in arrivals:
+            t = time.perf_counter()
+            sub_idx.match_arrivals(ids, locs, kw_ids=kw)
+            torch.cuda.synchronize()
+            times["sub_arrivals"].append(time.perf_counter() - t)
+        print(f"{args.label} sub_arrivals: batch s {times['sub_arrivals']}, "
+              f"{sub_idx.n_pending} notifications", flush=True)
+    kernel_ms = {}
+    if args.kernels:
+        kernel_ms = time_kernels(snap, wl, bms, batches[0], sub_idx, arrivals[0], ds.vocab_size)
+        print(f"{args.label} kernel device ms per launch: {kernel_ms}", flush=True)
+    print(json.dumps({"label": args.label, "card": card, "batch_s": times,
+                      "kernel_ms": kernel_ms}), flush=True)
     return 0
+
+
+def time_kernels(snap, wl, bms, b, sub_idx, arrival, vocab_size):
+    """Device ms per launch of the dense filter at every level (batch
+    ``b``'s queries) and of the match entries (``arrival`` against the
+    subscription block)."""
+    from repro_torch.core.types import ids_to_bitmap
+    from repro_torch.kernels import ops
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import device_ms
+
+    def ms(fn):
+        return device_ms(fn)[0]
+
+    dev = snap.level_mbrs[0].device
+    q_rects = torch.from_numpy(np.ascontiguousarray(wl.rects[b], np.float32)).to(dev)
+    q_bm = torch.from_numpy(np.ascontiguousarray(bms[b]).view(np.int32)).to(dev)
+    out = {"skr_filter": [ms(lambda li=li: ops.filter_pairs(
+        q_rects, q_bm, snap.level_mbrs[li], snap.level_bms[li]))
+        for li in range(len(snap.level_mbrs))]}
+    ids, locs, kw = arrival
+    obm = ids_to_bitmap(np.asarray(kw, np.int32).reshape(len(ids), -1), vocab_size)
+    blk = sub_idx.block()
+    sig = blk.sig[:, 0]
+    out["sub_match"] = ms(lambda: ops.match_subscriptions(locs, obm, blk.rects, blk.bm, sig))
+    if hasattr(ops, "match_subscription_pairs"):
+        pts = torch.from_numpy(np.ascontiguousarray(locs, np.float32)).to(dev)
+        obm_d = torch.from_numpy(obm.view(np.int32)).to(dev)
+        out["sub_match_pairs"] = ms(lambda: ops.match_subscription_pairs(
+            pts, obm_d, blk.rects, blk.bm, sig))
+    return out
 
 
 if __name__ == "__main__":
