@@ -95,13 +95,17 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
 10. the CDF-MLP bank: ``cdf_bank_forward`` of a seeded bank of
    1->16->16->16->1 MLPs, two per ``osm`` keyword held by at least 0.1 % of
    the objects, at every object's x coordinate, against the chunked plain
-   version to ``atol=2e-6``;
+   version to ``atol=2e-6``; then banks of B off the kernel's 8-model tile
+   at H = 32 and H = 4 on objects' x with NaN, infinite and far points
+   written in (``CDF_EDGE_X``), NaN exactly where the points are NaN;
 11. one phase per kernel (13, and row 11's two instances): holds the
    kernel against its plain PyTorch version on the card -- bit-exact, the
-   CDF bank to ``atol=2e-6``, the match pairs in canonical order -- at
-   the captured shapes (rows 2 and 3: the remapping instances, also with
-   ``words=True``; rows 9 and 10: the slot entries at logs A's and B's
-   insert slots; row 12 at all five levels) and at ragged edges, and
+   CDF bank to ``atol=2e-6``, the match pairs in canonical order, a NaN
+   equal to a NaN -- at the captured shapes (rows 2 and 3: the remapping
+   instances, also with ``words=True``; rows 9 and 10: the slot entries at
+   logs A's and B's insert slots; row 12 at all five levels) and at ragged
+   edges (rows 7 and 8 also at NaN and infinite query points, row 13 at
+   every hidden width, B of 1 to 196 and edge points), and
    times the kernel's launches on the device (``torch.profiler``; it
    fails where the profiler saw too few launches; the wrapper's time a
    call back to back, CUDA events, in the log beside it) and the plain version
@@ -265,23 +269,30 @@ def patched(module, **attrs):
 
 
 def max_abs_err(a, b) -> float:
+    """Largest difference; equal infinities and two NaNs differ by 0, a NaN
+    against a number by NaN."""
     if isinstance(a, tuple):
         return max(max_abs_err(x, y) for x, y in zip(a, b))
     if not a.numel():
         return 0.0
     diff = (a.double() - b.double()).abs()
-    return float(torch.where(a == b, 0.0, diff).max())  # equal infinities differ by 0
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    return float(torch.where(same, 0.0, diff).max())
 
 
 def assert_same(got, want, what: str, atol: float = 0.0) -> None:
     """Kernel output equal to the plain version's: bit for bit, or within
-    ``atol`` where one is given."""
+    ``atol`` where one is given; a NaN equals a NaN."""
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     for g, w in zip(got, want):
-        same = torch.equal(g, w) if atol == 0 else bool(
-            torch.allclose(g, w, atol=atol, rtol=0))
-        if g.dtype != w.dtype or g.shape != w.shape or not same:
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{what}: kernel disagrees with its plain version")
+        if g.is_floating_point():
+            same = bool(torch.allclose(g, w, atol=atol, rtol=0, equal_nan=True))
+        else:
+            same = torch.equal(g, w)
+        if not same:
             raise AssertionError(f"{what}: kernel disagrees with its plain version")
 
 
@@ -854,13 +865,20 @@ def ragged_fused_wide(dev, ops, M=13, T=5, K=11, OBJ=37, W=3, sparse=False, seed
             t(obj_bm), t(oid.astype(np.int32)), (t(wids), t(bits)))
 
 
-def ragged_level(dev, ops, M=37, F=131, N=53, W=3, sparse=False, seed=19, D=None):
+# query points with NaN or infinite coordinates, None keeping one
+NONFINITE_POINTS = [(float("nan"), None), (float("inf"), None), (-float("inf"), -float("inf")),
+                    (None, float("nan"))]
+
+
+def ragged_level(dev, ops, M=37, F=131, N=53, W=3, sparse=False, seed=19, D=None,
+                 nonfinite=False):
     """``knn_level_dist`` operands at ragged shapes: one level of N nodes
     with a few pool terms each, an (M, F) frontier with -1 pads, dirty ids
     past N - 1 and a last row of padding only, and packed query words
     (``_query_words``). With ``D``, ``knn_level_dist_narrow``'s: the MBRs
     as int16 rank codes into two sorted dictionaries of D entries, which
-    come last."""
+    come last. ``nonfinite``: ``NONFINITE_POINTS`` over the first query
+    points (a NaN x first)."""
     g = np.random.default_rng(seed)
     pool = g.choice(32 * W, size=min(32 * W, 48), replace=False)
     _, wids, bits = _query_words(g, ops, M, W, pool, sparse)
@@ -872,6 +890,10 @@ def ragged_level(dev, ops, M=37, F=131, N=53, W=3, sparse=False, seed=19, D=None
         frontier[-1] = -1
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     pts, bms = g.uniform(0, 1, (M, 2)).astype(np.float32), _terms(g, N, W, pool, 0, 7)
+    for r, pat in enumerate(NONFINITE_POINTS[:M] if nonfinite else []):
+        for c, v in enumerate(pat):
+            if v is not None:
+                pts[r, c] = v
     if D is None:
         return (t(pts), t(wids), t(bits), t(mbrs), t(bms.view(np.int32)), t(frontier))
     dx, dy = (np.sort(g.uniform(0, 1, D)).astype(np.float32) for _ in range(2))
@@ -1038,10 +1060,17 @@ def ragged_sub(dev, ops, N=37, S=131, W=3, seed=17, pairs=False, late=False):
     return (t(pts), t(wids), t(bits.view(np.int32)), t(fold(o_bm))) + block
 
 
-def cdf_bank(dev, B, H, gen, x=None, N=1001):
+# the CDF bank's edge points: NaN, both infinities, both zeros, and finite
+# points far enough out that a He-scale bank's outputs saturate or no
+# longer depend on x
+CDF_EDGE_X = (float("nan"), float("inf"), -float("inf"), -0.0, 0.0, 1e6, -1e6, 3e7, -3e7)
+
+
+def cdf_bank(dev, B, H, gen, x=None, N=1001, edges=False):
     """``(params, x)``: a bank of B MLPs 1->H->H->H->1 at ``mlp_init``'s He
     scale (weights N(0, 2/fan_in)) with biases N(0, 0.1^2), all drawn from
-    ``gen``; ``x`` defaults to N uniform points."""
+    ``gen``; ``x`` defaults to N uniform points. ``edges``: a copy of ``x``
+    with ``CDF_EDGE_X`` over as many points, spread over it."""
     dims = dict(w0=(B, 1, H), b0=(B, H), w1=(B, H, H), b1=(B, H), w2=(B, H, H), b2=(B, H),
                 w3=(B, H, 1), b3=(B, 1))
     params = {}
@@ -1050,6 +1079,11 @@ def cdf_bank(dev, B, H, gen, x=None, N=1001):
         params[k] = (torch.randn(shape, generator=gen) * scale).to(dev)
     if x is None:
         x = torch.rand(N, generator=gen).to(dev)
+    if edges:
+        k = min(x.numel(), len(CDF_EDGE_X))
+        x = x.clone()
+        x[torch.arange(k, device=x.device) * x.numel() // k] = torch.tensor(
+            CDF_EDGE_X[:k], dtype=x.dtype, device=x.device)
     return params, x
 
 
@@ -1919,6 +1953,23 @@ def main() -> int:
             f"{tuple(cdf_out.shape)}, max abs err vs the chunked plain version {err:.3e} "
             f"(atol {CDF_ATOL})")
         del cdf_out
+        # the edges: CDF_EDGE_X over objects' x coordinates, banks of B off
+        # the kernel's 8-model tile, H = 32 and H = 4; a NaN point is NaN in
+        # every column, and no finite one anywhere
+        for B, H, n in ((2 * n_high + 1, 32, 100_000), (13, 4, 4099)):
+            edge_args = cdf_bank(dev, B, H, gen, x=x_all[:n], edges=True)
+            got = ops.cdf_bank_forward(*edge_args)
+            torch.cuda.synchronize()
+            plain = ref.cdf_mlp_ref(*edge_args)
+            x_e = edge_args[1]
+            assert_same(got, plain, f"the CDF bank at edge points, B={B} H={H}", CDF_ATOL)
+            if not torch.isnan(got[torch.isnan(x_e)]).all() or torch.isnan(
+                    got[torch.isfinite(x_e)]).any():
+                raise AssertionError(f"the CDF bank's NaNs at B={B} H={H} are not the points'")
+            log(f"CDF bank at B={B} H={H}, N={n} objects' x with {len(CDF_EDGE_X)} edge points "
+                f"(NaN, +-inf, +-0, far): within atol {CDF_ATOL} of the plain version, max abs "
+                f"err {max_abs_err(got, plain):.3e}, NaN where it is NaN")
+        del got, plain, edge_args
 
     # ------------------------------------------------------- kernel phases
     rows = []
@@ -1966,14 +2017,20 @@ def main() -> int:
     wide_ragged = [ragged_fused_wide(dev, ops), ragged_fused_wide(dev, ops, W=1, seed=8),
                    ragged_fused_wide(dev, ops, M=9, T=7, K=13, OBJ=45, W=40, sparse=True,
                                      seed=9)]
+    # rows 7 and 8 also at NaN and infinite query points (NONFINITE_POINTS),
+    # and at one NaN point alone
     level_ragged = [ragged_level(dev, ops), ragged_level(dev, ops, M=1, F=1, N=1, W=1, seed=20),
-                    ragged_level(dev, ops, M=9, F=300, N=200, W=64, sparse=True, seed=21)]
+                    ragged_level(dev, ops, M=9, F=300, N=200, W=64, sparse=True, seed=21),
+                    ragged_level(dev, ops, seed=25, nonfinite=True),
+                    ragged_level(dev, ops, M=1, F=3, N=2, W=1, seed=29, nonfinite=True)]
     # the narrow level's: Wp = W with dirty ids, a padding row and a query
     # with no nonzero word; N = 1 with one-entry dictionaries; Wp below W;
-    # an all-padding frontier
+    # non-finite points; an all-padding frontier
     narrow_ragged = [ragged_level(dev, ops, D=61, seed=22),
                      ragged_level(dev, ops, M=1, F=1, N=1, W=1, D=1, seed=23),
-                     ragged_level(dev, ops, M=9, F=300, N=200, W=64, sparse=True, D=150, seed=24)]
+                     ragged_level(dev, ops, M=9, F=300, N=200, W=64, sparse=True, D=150, seed=24),
+                     ragged_level(dev, ops, D=61, seed=27, nonfinite=True),
+                     ragged_level(dev, ops, M=1, F=3, N=2, W=1, D=2, seed=28, nonfinite=True)]
     pad = narrow_ragged[0]
     narrow_ragged.append(pad[:5] + (torch.full_like(pad[5], -1),) + pad[6:])
 
@@ -2053,7 +2110,10 @@ def main() -> int:
          ops.filter_pairs, ref.skr_filter_ref, filter_bound),
         ("cdf_mlp_bank", csrc + "cdf_mlp.cu", "src/repro/kernels/cdf_mlp.py:42",
          [captured["cdf_mlp_bank"]],
-         [cdf_bank(dev, 5, CDF_HIDDEN, gen), cdf_bank(dev, 3, 8, gen, N=4099)],
+         [cdf_bank(dev, 5, CDF_HIDDEN, gen), cdf_bank(dev, 3, 8, gen, N=4099),
+          cdf_bank(dev, 1, 4, gen, N=1), cdf_bank(dev, 9, 32, gen, N=2081, edges=True),
+          cdf_bank(dev, 7, CDF_HIDDEN, gen, N=97, edges=True),
+          cdf_bank(dev, 196, 8, gen, N=5000, edges=True)],
          ops.cdf_bank_forward, ref.cdf_mlp_ref, cdf_bound),
     ]
     atols = {"cdf_mlp_bank": CDF_ATOL}  # every other kernel is held bit for bit

@@ -61,13 +61,23 @@ __device__ __forceinline__ bool point_in_rect(const float* __restrict__ q, float
   return x >= __ldg(q + 0) && x <= __ldg(q + 2) && y >= __ldg(q + 1) && y <= __ldg(q + 3);
 }
 
+// max(a, b) that returns NaN when either operand is NaN, as jnp.maximum and
+// torch.maximum do (fmaxf returns the other operand). On other operands it
+// equals fmaxf.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 // Squared min-distance from point (px, py) to a closed MBR. Each product and
 // the sum round to nearest on their own (__fmul_rn / __fadd_rn are never
 // contracted into a fused multiply-add, which nvcc does by default), so the
-// result equals the plain PyTorch version and the host oracle bit for bit.
+// result equals the plain PyTorch version and the host oracle bit for bit; a
+// NaN coordinate gives NaN, as there.
 __device__ __forceinline__ float mbr_dist2(float px, float py, float4 b) {
-  const float dx = fmaxf(fmaxf(b.x - px, px - b.z), 0.f);
-  const float dy = fmaxf(fmaxf(b.y - py, py - b.w), 0.f);
+  const float dx = max_nan(max_nan(b.x - px, px - b.z), 0.f);
+  const float dy = max_nan(max_nan(b.y - py, py - b.w), 0.f);
   return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
 }
 

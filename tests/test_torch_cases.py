@@ -643,3 +643,58 @@ def cdf_params(rng, b, h):
         "w2": rng.normal(0, 0.5, (b, h, h)), "b2": rng.normal(0, 0.5, (b, h)),
         "w3": rng.normal(0, 0.5, (b, h, 1)), "b3": rng.normal(0, 0.5, (b, 1)),
     }
+
+
+# Points for the bank at its edges: NaN, both infinities, both zeros, and
+# finite points far enough out that every model's output is saturated or no
+# longer depends on x. (At |x| near 1e3 the hidden sums reach ~1e3, where a
+# change of summation order moves an unsaturated sigmoid past 2e-6.)
+CDF_EDGE_X = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0, 1e6, -1e6, 3e7, -3e7], np.float32)
+
+
+def with_edge_points(rng, x):
+    """``x`` with ``CDF_EDGE_X`` written over as many of its points, at
+    random places."""
+    x = np.array(x, np.float32)
+    k = min(x.size, CDF_EDGE_X.size)
+    x[rng.choice(x.size, k, replace=False)] = CDF_EDGE_X[:k]
+    return x
+
+
+# ------------------------------------------- non-finite query coordinates
+# Written over finite query rows, None keeping a coordinate: a NaN edge, an
+# all-NaN rectangle, the whole plane, an infinite edge, a rectangle at +inf,
+# a -inf edge; and points with NaN or infinite coordinates.
+_NAN, _INF = float("nan"), float("inf")
+NONFINITE_RECTS = [(_NAN, None, None, None), (_NAN,) * 4, (-_INF, -_INF, _INF, _INF),
+                   (None, None, _INF, None), (_INF,) * 4, (None, -_INF, None, None)]
+NONFINITE_POINTS = [(_NAN, None), (_NAN, _NAN), (_INF, None), (-_INF, -_INF), (None, -_INF),
+                    (None, _NAN)]
+
+
+def with_nonfinite(a):
+    """A copy of the (M, 4) query rectangles or (M, 2) query points ``a``
+    with ``NONFINITE_RECTS`` / ``NONFINITE_POINTS`` written over
+    ``min(M, 6)`` rows spread over the batch."""
+    a = np.array(a, np.float32)
+    patterns = NONFINITE_RECTS if a.shape[-1] == 4 else NONFINITE_POINTS
+    m = a.shape[0]
+    k = min(m, len(patterns))
+    for row, pat in zip((np.arange(k) * m) // k, patterns):
+        for c, v in enumerate(pat):
+            if v is not None:
+                a[row, c] = v
+    return a
+
+
+def cdf_params_he(rng, b, h):
+    """A bank of ``b`` random 1->h->h->h->1 MLPs at ``mlp_init``'s He scale
+    (weights N(0, 2 / fan_in)) with biases N(0, 0.1^2), as ``chip_smoke.py``
+    draws its bank: hidden sums of order 1 at every width. (At H = 32 the
+    scales of ``cdf_params`` grow the sums to where float32 in another
+    summation order is off by up to 1.8e-6 on the outputs.)"""
+    fan_in = dict(w0=1, w1=h, w2=h, w3=h)
+    shapes = dict(w0=(b, 1, h), b0=(b, h), w1=(b, h, h), b1=(b, h), w2=(b, h, h), b2=(b, h),
+                  w3=(b, h, 1), b3=(b, 1))
+    return {k: rng.normal(0, (2.0 / fan_in[k]) ** 0.5 if k in fan_in else 0.1, s)
+            for k, s in shapes.items()}

@@ -19,7 +19,7 @@ from repro.data.synth import make_dataset as jmake_dataset  # noqa: E402
 from repro.kernels import ops as jops, ref as jref  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 
-from test_torch_cases import CDF_SWEEP, cdf_params  # noqa: E402
+from test_torch_cases import CDF_EDGE_X, CDF_SWEEP, cdf_params, with_edge_points  # noqa: E402
 
 ATOL = 2e-6
 
@@ -43,6 +43,24 @@ def test_cdf_bank_forward_matches_reference(n, b, h):
     np.testing.assert_allclose(got, np.asarray(jref.cdf_mlp_ref(jp, jnp.asarray(x))),
                                atol=ATOL, rtol=0)
     assert ((got >= 0) & (got <= 1)).all()
+
+
+@pytest.mark.parametrize("n,b,h", CDF_SWEEP)
+def test_cdf_bank_forward_at_edge_points_matches_reference(n, b, h):
+    """NaN, both infinities, both zeros and far points (``CDF_EDGE_X``)
+    among uniform ones: the port equals the reference's kernel (interpret
+    mode) and its oracle to the tolerance, NaN where they give NaN. A NaN
+    point gives NaN in every column, since ReLU propagates it; an infinite
+    one gives NaN wherever infinities of both signs meet in a sum."""
+    rng = np.random.default_rng(n + b + h + 1)
+    params = cdf_params(rng, b, h)
+    x = with_edge_points(rng, rng.uniform(0, 1, max(n, CDF_EDGE_X.size)))
+    got = _forward(params, x)
+    jp = {k: jnp.asarray(v, jnp.float32) for k, v in params.items()}
+    for want in (jops.cdf_bank_forward(jp, jnp.asarray(x)), jref.cdf_mlp_ref(jp, jnp.asarray(x))):
+        np.testing.assert_allclose(got, np.asarray(want), atol=ATOL, rtol=0, equal_nan=True)
+    assert np.isnan(got[np.isnan(x)]).all()
+    assert not np.isnan(got[np.isfinite(x)]).any()
 
 
 def test_cdf_bank_in_chunks_equals_one_pass(monkeypatch):

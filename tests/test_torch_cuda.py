@@ -12,6 +12,9 @@ round each product and the sum on their own (``__fmul_rn``, ``__fadd_rn``),
 as eager PyTorch does in the plain versions. The CDF-MLP bank sums its
 products in another order than the plain version's matrix products and is
 held to ``atol=2e-6`` on outputs in [0, 1], the reference's own tolerance.
+Every comparison takes NaN as equal to NaN: the kernels of rows 1-10 and 12
+also run at query rectangles and points with NaN and infinite coordinates
+(``with_nonfinite``), and the CDF bank at NaN, infinite and far points.
 """
 import numpy as np
 import pytest
@@ -36,7 +39,8 @@ from test_torch_cases import (  # noqa: E402
     FRONTIER_LEVEL_ARGS, FRONTIER_LEVEL_NARROW_ARGS, FRONTIER_LEVEL_SWEEP, FRONTIER_SWEEP,
     FUSED_SWEEP, KNN_ARGS, LEVEL_ARGS, LEVEL_NARROW_ARGS, LEVEL_NARROW_SWEEP, LEVEL_SWEEP,
     REMAP_ARGS, REMAP_SWEEP, SLOT_SWEEP, SUB_NAN_SWEEP, SUB_PAIRS_SWEEP, SUB_SWEEP, VERIFY_ARGS,
-    VERIFY_COMPACT_ARGS, VERIFY_COMPACT_SWEEP, VERIFY_SWEEP, cdf_params, filter_case,
+    VERIFY_COMPACT_ARGS, VERIFY_COMPACT_SWEEP, VERIFY_SWEEP, cdf_params, cdf_params_he, filter_case,
+    with_edge_points, with_nonfinite,
     FRONTIER_LEVEL_ROUNDS, frontier_case, frontier_level_case, fused_args, fused_case,
     fused_wide_args, knn_case, late_word_case, level_case, level_narrow_case, nan_case, packed_words,
     rand_kw, rand_sub_rect, remap_case, slot_bank, sub_case, term_bitmaps, to_torch, verify_case,
@@ -54,10 +58,21 @@ def cuda():
 
 
 def _equal(got, want):
+    """Equal dtypes, shapes and values, a NaN equal to a NaN."""
     for g, w in zip(got if isinstance(got, tuple) else (got,),
                     want if isinstance(want, tuple) else (want,)):
         assert g.dtype == w.dtype and g.shape == w.shape
+        if g.is_floating_point():
+            nan = torch.isnan(g)
+            assert torch.equal(nan, torch.isnan(w))
+            g, w = torch.where(nan, 0.0, g), torch.where(nan, 0.0, w)
         assert torch.equal(g, w)
+
+
+def _nonfinite(case, key="q_rects"):
+    """``case`` (a dict of numpy operands) with NaN and infinite coordinates
+    written over some of its query rectangles or points (``key``)."""
+    return {**case, key: with_nonfinite(case[key])}
 
 
 @pytest.mark.parametrize("m,f,w", FRONTIER_SWEEP + [(1024, 64, 8)])
@@ -69,6 +84,8 @@ def test_frontier_narrow_kernel_matches_plain(cuda, m, f, w):
     torch.cuda.synchronize()
     assert _build.KERNELS["frontier_level_narrow"].launches == before + 1
     _equal(got, ref.frontier_filter_narrow_ref(*args))
+    args = [to_torch(_nonfinite(case)[k], cuda) for k in FRONTIER_ARGS]
+    _equal(ops.filter_frontier_narrow(*args), ref.frontier_filter_narrow_ref(*args))
 
 
 def _fused_instance(instance, variant, case, device):
@@ -102,6 +119,8 @@ def test_fused_verify_kernel_matches_plain(cuda, variant, m, t, k, obj, w, max_k
     torch.cuda.synchronize()
     assert _build.KERNELS[name].launches == 1 and sum(_build.launch_counts().values()) == 1
     _equal(got, plain())
+    run, plain, _ = _fused_instance(instance, variant, _nonfinite(case), cuda)
+    _equal(run(), plain())
 
 
 _REMAP_CARD = [  # m, t, k, obj, w, wl
@@ -130,6 +149,8 @@ def test_fused_verify_remap_kernels_match_plain_ragged(cuda, variant, m, t, k, o
         assert not got[3][0].any() and not (got[0][0] >= 0).any()
     args = [to_torch(case[k], cuda) for k in REMAP_ARGS]
     _equal(ops.fused_verify_leaf_words(*args, variant=variant), got[:2])
+    run, plain, _ = _fused_instance("remap", variant, _nonfinite(case), cuda)
+    _equal(run(), plain())
 
 
 @pytest.mark.parametrize("m,f,w", FRONTIER_SWEEP + [(1024, 64, 8)])
@@ -143,6 +164,8 @@ def test_knn_filter_narrow_kernel_matches_plain(cuda, m, f, w):
     _equal(got, ref.knn_filter_narrow_ref(*args))
     if m > 1:
         assert torch.isinf(got[-1]).all()  # the all-invalid row
+    args = [to_torch(_nonfinite(case, "q_pts")[k], cuda) for k in KNN_ARGS]
+    _equal(ops.knn_frontier_dist_narrow(*args), ref.knn_filter_narrow_ref(*args))
 
 
 _WIDE = {  # query operand, wrapper, plain version, the kernel it launches
@@ -167,6 +190,8 @@ def test_full_width_kernels_match_plain(cuda, kernel, m, f, w):
     torch.cuda.synchronize()
     assert _build.KERNELS[name].launches == before + 1
     _equal(got, plain(*args))
+    args = [to_torch(a, cuda) for a in wide_args(_nonfinite(case, q), wide, q)]
+    _equal(wrapper(*args), plain(*args))
 
 
 @pytest.mark.parametrize("m,f,n,w,q_terms", LEVEL_SWEEP + [
@@ -192,6 +217,8 @@ def test_knn_level_dist_kernel_matches_plain(cuda, m, f, n, w, q_terms):
         assert torch.isfinite(got).any()
     args[5] = torch.full_like(args[5], -1)
     assert torch.isinf(ops.knn_level_dist(*args)).all()
+    args = [to_torch(_nonfinite(case, "q_pts")[k], cuda) for k in LEVEL_ARGS]
+    _equal(ops.knn_level_dist(*args), ref.knn_level_dist_ref(*args))
 
 
 @pytest.mark.parametrize("m,f,n,w,q_terms,single", LEVEL_NARROW_SWEEP + [
@@ -221,6 +248,11 @@ def test_knn_level_dist_narrow_kernel_matches_plain(cuda, m, f, n, w, q_terms, s
         assert torch.isfinite(got).any()
     args[5] = torch.full_like(args[5], -1)
     assert torch.isinf(ops.knn_level_dist_narrow(*args)).all()
+    nonfinite = _nonfinite(case, "q_pts")
+    args = [to_torch(nonfinite[k], cuda) for k in LEVEL_NARROW_ARGS]
+    got = ops.knn_level_dist_narrow(*args)
+    _equal(got, ref.knn_level_dist_narrow_ref(*args))
+    _equal(got, ops.knn_level_dist(*(to_torch(nonfinite[k], cuda) for k in LEVEL_ARGS)))
 
 
 def test_knn_level_dist_narrow_checks_operands(cuda):
@@ -297,6 +329,8 @@ def test_frontier_level_kernels_match_plain(cuda, m, f, n, w, q_terms, single, n
         assert got.any()
     args[4] = torch.full_like(args[4], -1)
     assert not wrapper(*args).any()
+    args = [to_torch(_nonfinite(case)[k], cuda) for k in keys]
+    _equal(wrapper(*args), plain(*args))
 
 
 def test_frontier_level_checks_operands(cuda):
@@ -338,6 +372,8 @@ def test_full_width_fused_verify_kernel_matches_plain(cuda, variant, m, t, k, ob
     torch.cuda.synchronize()
     assert _build.KERNELS[name].launches == before + 1
     _equal(got, ref.fused_verify_ref(*args))
+    args = fused_wide_args(_nonfinite(case), cuda)
+    _equal(ops.fused_gather_verify(*args, variant=variant), ref.fused_verify_ref(*args))
 
 
 @pytest.mark.parametrize("m,t,k,obj,w,max_kw", FUSED_SWEEP + [
@@ -374,6 +410,8 @@ def test_fused_verify_slot_kernel_matches_plain(cuda, m, t, k, obj, w, max_kw):
     args[3] = torch.zeros_like(args[3])  # leaf_ok all 0
     ids, kwv = ops.fused_gather_verify(*args, variant="auto")
     assert (ids == -1).all() and not kwv.any()
+    args = fused_wide_args(_nonfinite(case), cuda)
+    _equal(ops.fused_gather_verify(*args, variant="prefetch"), ref.fused_verify_ref(*args))
 
 
 @pytest.mark.parametrize("sparse", [False, True])
@@ -405,6 +443,9 @@ def test_fused_verify_tile_on_packed_words_matches_plain(cuda, m, t, k, obj, w, 
     _equal(got, ref.fused_verify_ref(*args))
     if m > 1:
         assert not got[1][0].any() and not (got[0][-1] >= 0).any()
+    args = fused_wide_args(_nonfinite(case), cuda)
+    _equal(ops.fused_gather_verify(*args, variant="vmem", q_words=q_words),
+           ref.fused_verify_ref(*args))
 
 
 @pytest.mark.parametrize("m,c,w", VERIFY_SWEEP + [(64, 4352, 256)])
@@ -416,6 +457,8 @@ def test_skr_verify_kernel_matches_plain(cuda, m, c, w):
     torch.cuda.synchronize()
     assert _build.KERNELS["skr_verify"].launches == before + 1
     _equal(got, ref.skr_verify_ref(*args))
+    args = [to_torch(_nonfinite(case)[k], cuda) for k in VERIFY_ARGS]
+    _equal(ops.verify_candidates(*args), ref.skr_verify_ref(*args))
 
 
 @pytest.mark.parametrize("m,t,obj,wl", VERIFY_COMPACT_SWEEP + [(1024, 32, 128, 4)])
@@ -427,6 +470,8 @@ def test_skr_verify_compact_kernel_matches_plain(cuda, m, t, obj, wl):
     torch.cuda.synchronize()
     assert _build.KERNELS["skr_verify_compact"].launches == before + 1
     _equal(got, ref.skr_verify_compact_ref(*args))
+    args = [to_torch(_nonfinite(case)[k], cuda) for k in VERIFY_COMPACT_ARGS]
+    _equal(ops.verify_candidates_compact(*args), ref.skr_verify_compact_ref(*args))
 
 
 _SLOT_CARD = [  # m, t, k, b, w
@@ -459,6 +504,8 @@ def test_skr_verify_slots_kernels_match_plain(cuda, m, t, k, b, w, compact):
     torch.cuda.synchronize()
     _equal(got, plain(*empty))
     assert not (got[0] >= 0).any() and not got[2].any()
+    args = (to_torch(with_nonfinite(args[0].cpu().numpy()), cuda),) + args[1:]
+    _equal(entry(*args), plain(*args))
 
 
 @pytest.mark.parametrize("m,c,w", VERIFY_SWEEP + [(64, 4352, 256)])
@@ -476,6 +523,9 @@ def test_skr_verify_counted_kernel_matches_plain(cuda, m, c, w):
     assert _build.KERNELS["skr_verify"].launches == before + 1
     top_leaf, leaf_ok = ops.identity_leaves(m, 1, cuda)
     _equal(got, ref.skr_verify_slots_ref(args[0], args[1], top_leaf, leaf_ok, *args[2:], cid))
+    args[0] = to_torch(with_nonfinite(case["q_rects"]), cuda)
+    _equal(ops.verify_candidates_counted(*args, cid),
+           ref.skr_verify_slots_ref(args[0], args[1], top_leaf, leaf_ok, *args[2:], cid))
 
 
 @pytest.mark.parametrize("m,t,obj,wl", VERIFY_COMPACT_SWEEP + [(1024, 32, 128, 4)])
@@ -495,6 +545,10 @@ def test_skr_verify_compact_counted_kernel_matches_plain(cuda, m, t, obj, wl):
     bank = lambda a: a.reshape(m * t, obj, *a.shape[2:])  # noqa: E731
     _equal(got, ref.skr_verify_slots_compact_ref(*args[:3], top_leaf, leaf_ok,
                                                  *(bank(a) for a in args[3:]), bank(cid)))
+    args[0] = to_torch(with_nonfinite(case["q_rects"]), cuda)
+    _equal(ops.verify_candidates_compact_counted(*args, cid),
+           ref.skr_verify_slots_compact_ref(*args[:3], top_leaf, leaf_ok,
+                                            *(bank(a) for a in args[3:]), bank(cid)))
 
 
 def test_slot_wrappers_check_operands(cuda):
@@ -643,6 +697,30 @@ def test_knn_engine_on_the_card_matches_the_plain_path(cuda):
         np.testing.assert_array_equal(skr[k][: len(points)], skr_host[k], err_msg=k)
 
 
+def test_knn_engine_at_nonfinite_points_matches_the_plain_path(cuda):
+    """kNN at query points with NaN and infinite coordinates on the card
+    (both descents) equals the plain path on the host, key for key: the
+    distance kernels give NaN where the plain versions do."""
+    ds = make_dataset("sp", n=3000, seed=4)
+    index = build_str_rtree(ds, 32, 4)
+    wl = make_workload(ds, m=40, dist="MIX", seed=5)
+    points = with_nonfinite(np.stack([(wl.rects[:, 0] + wl.rects[:, 2]) / 2,
+                                      (wl.rects[:, 1] + wl.rects[:, 3]) / 2], 1))
+    host_snap = IndexSnapshot.build(index, ds, device="cpu")
+    snap = IndexSnapshot.build(index, ds)
+    for quantized, name in ((None, "knn_level_dist_narrow"), (False, "knn_level_dist")):
+        host = retrieve_knn(host_snap, points, wl.kw_bitmap, 10, plan_cache=PlanCache(),
+                            quantized=quantized)
+        _build.reset_launch_counts()
+        card = retrieve_knn(snap, points, wl.kw_bitmap, 10, plan_cache=PlanCache(),
+                            quantized=quantized)
+        assert _build.launch_counts()[name] >= 2 * index.height
+        for k in host:
+            assert card[k].dtype == host[k].dtype
+            np.testing.assert_array_equal(card[k], host[k], err_msg=f"{quantized} {k}")
+        assert (card["ids"][np.isfinite(points).all(1)] >= 0).any()
+
+
 def _delta_log(index, ds, snap, own_leaf_terms, seed=3):
     """60 inserts near random objects, then 40 base and 2 buffered deletes."""
     log = DeltaLog(index, ds, snap)
@@ -723,6 +801,8 @@ def test_skr_filter_kernel_matches_plain(cuda, m, k, w):
     torch.cuda.synchronize()
     assert _build.KERNELS["skr_filter"].launches == before + 1
     _equal(got, ref.skr_filter_ref(*args))
+    args = [to_torch(_nonfinite(case)[a], cuda) for a in FILTER_ARGS]
+    _equal(ops.filter_pairs(*args), ref.skr_filter_ref(*args))
 
 
 @pytest.mark.parametrize("m,k,w,sparse", FILTER_RAGGED + [(1024, 7832, 256, True)])
@@ -737,6 +817,8 @@ def test_skr_filter_every_tile_matches_plain(cuda, m, k, w, sparse):
     torch.cuda.synchronize()
     assert _build.KERNELS["skr_filter"].launches == before + 1
     _equal(got, ref.skr_filter_ref(*args))
+    args = [to_torch(_nonfinite(case)[a], cuda) for a in FILTER_ARGS]
+    _equal(ops.filter_pairs(*args), ref.skr_filter_ref(*args))
 
 
 def _pairs_sorted(pairs):
@@ -813,18 +895,40 @@ def test_sub_match_kernel_matches_plain(cuda, seed, n, s, v):
     _equal(got, ref.sub_match_ref(*(to_torch(a, cuda) for a in (locs, obm, rects, sbm))))
 
 
-@pytest.mark.parametrize("n,b,h", CDF_SWEEP + [(100_000, 37, 16), (4099, 3, 4)])
-def test_cdf_mlp_kernel_matches_plain(cuda, n, b, h):
+# the kernel's tiles: 8 models a block (one a warp), 32 P points a step (P =
+# 4, 2, 1 at H <= 8, 16, 32) in strips of 2,048 points; these banks at the
+# He scale of the smoke's (cdf_params_he), the others at the reference
+# test's scales
+_CDF_CARD = [(n, b, h, True) for h in ops.CDF_HIDDEN_WIDTHS for n, b in (
+    (1, 1),        # one point, one model
+    (4099, 7),     # one model below the tile; two strips and a ragged one
+    (2081, 8),     # the tile; a strip and 33 points
+    (97, 9),       # one model above it; a step cut short
+    (5000, 196),   # the smoke's bank width
+)]
+
+
+@pytest.mark.parametrize("edges", [False, True])
+@pytest.mark.parametrize("n,b,h,he", [c + (False,) for c in CDF_SWEEP]
+                         + [(100_000, 37, 16, False), (4099, 3, 4, False)] + _CDF_CARD)
+def test_cdf_mlp_kernel_matches_plain(cuda, n, b, h, he, edges):
+    """The bank on the card against its plain version to ``atol=2e-6``, at
+    every hidden width, B off and on the 8-model tile, N off the point
+    tiles; ``edges``: with ``CDF_EDGE_X`` (NaN, infinite and far points)
+    written over some points, NaN where the plain version gives NaN."""
     rng = np.random.default_rng(n + b + h)
-    params = ops.cdf_params_from_reference(cdf_params(rng, b, h))
+    params = ops.cdf_params_from_reference((cdf_params_he if he else cdf_params)(rng, b, h))
     assert params["w0"].device.type == "cuda"
-    x = torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32)).to(cuda)
+    x = rng.uniform(0, 1, n).astype(np.float32)
+    x = torch.from_numpy(with_edge_points(rng, x) if edges else x).to(cuda)
     before = _build.KERNELS["cdf_mlp_bank"].launches
     got = ops.cdf_bank_forward(params, x)
     torch.cuda.synchronize()
     assert _build.KERNELS["cdf_mlp_bank"].launches == before + 1
     assert got.dtype == torch.float32 and tuple(got.shape) == (n, b)
-    torch.testing.assert_close(got, ref.cdf_mlp_ref(params, x), atol=2e-6, rtol=0)
+    torch.testing.assert_close(got, ref.cdf_mlp_ref(params, x), atol=2e-6, rtol=0, equal_nan=True)
+    assert torch.isnan(got[torch.isnan(x)]).all()
+    assert not torch.isnan(got[torch.isfinite(x)]).any()
 
 
 def test_new_wrappers_check_operands(cuda):

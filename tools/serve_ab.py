@@ -37,12 +37,25 @@ times each batch (host clock after ``torch.cuda.synchronize``) of:
   subscriptions (a MIX workload, seed 2): host seconds per batch, the first
   one compiling the block.
 
-``--paths`` picks some of them (default: all). With ``--kernels`` it also
-takes, from ``torch.profiler`` (``chip_smoke.device_ms``, so it runs from a
-checkout that holds ``chip_smoke.py``), the mean device time of a launch of the dense
-filter at each level of the first batch, of the match matrix entry
-(``ops.match_subscriptions``) on the first arrival batch and, where the tree
-has it, of the pairs entry (``ops.match_subscription_pairs``).
+``--paths`` picks some of them (default: all; ``none`` builds no index and
+times no path). With ``--kernels`` it also takes, from ``torch.profiler``
+(``chip_smoke.device_ms``, so it runs from a checkout that holds
+``chip_smoke.py``), the mean device time of a launch of the dense filter at
+each level of the first batch (``skr_filter``), of the match matrix entry
+(``ops.match_subscriptions``) on the first arrival batch and, where the
+tree has it, of the pairs entry (``ops.match_subscription_pairs``)
+(``sub_match``), and of the CDF-MLP bank (``ops.cdf_bank_forward``,
+``cdf_mlp_bank``) at N = 1,000,000 points, B = 196 MLPs, H = 16 -- the
+smoke's shape -- with weights and points drawn from a seed; ``--kernels
+cdf_mlp_bank`` (a comma-separated list) times only those. ``--cdf-out``
+saves the bank's (N, B) output (``torch.save``), and ``--cdf-against``
+prints the largest difference of this tree's output from a saved one, a
+NaN against a NaN counting 0: two trees' kernels compared on one card,
+
+    python3 tools/serve_ab.py --src old/src --label old --paths none \
+        --kernels cdf_mlp_bank --cdf-out _ab/old.pt
+    python3 tools/serve_ab.py --label new --paths none --kernels cdf_mlp_bank \
+        --cdf-against _ab/old.pt
 
 It uses only entry points every tree of the port since its dense and
 subscription slice has (the pairs entry only where it exists), checks
@@ -66,6 +79,8 @@ N_OBJECTS = 1_000_000
 N_QUERIES = 4096
 BATCH = 1024
 K = 10
+KERNEL_GROUPS = ("skr_filter", "sub_match", "cdf_mlp_bank")
+CDF_N, CDF_B, CDF_H = 1_000_000, 196, 16  # chip_smoke.py's bank
 
 
 def main() -> int:
@@ -73,10 +88,17 @@ def main() -> int:
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1] / "src"),
                     help="the src directory of the tree to time")
     ap.add_argument("--label", default="tree")
-    ap.add_argument("--paths", default="", help="comma-separated paths to time (default: all)")
-    ap.add_argument("--kernels", action="store_true", help="also time the dense filter and the "
-                    "match kernels on the device")
+    ap.add_argument("--paths", default="", help="comma-separated paths to time (default: all; "
+                    "none: no path)")
+    ap.add_argument("--kernels", nargs="?", const=",".join(KERNEL_GROUPS), default="",
+                    help="also time kernels on the device: a comma-separated list of "
+                    f"{', '.join(KERNEL_GROUPS)} (default: all)")
+    ap.add_argument("--cdf-out", default="", help="save the CDF bank's output to this file")
+    ap.add_argument("--cdf-against", default="", help="a saved CDF bank output to compare with")
     args = ap.parse_args()
+    kernels = [k for k in args.kernels.split(",") if k]
+    if set(kernels) - set(KERNEL_GROUPS):
+        raise SystemExit(f"unknown kernels {sorted(set(kernels) - set(KERNEL_GROUPS))}")
     if not torch.cuda.is_available():
         print("serve_ab: no CUDA device", file=sys.stderr)
         return 1
@@ -95,6 +117,13 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}; tree {args.label}: {Path(repro_torch.__file__).parent}", flush=True)
+    kernel_ms = {}
+    if "cdf_mlp_bank" in kernels:
+        kernel_ms["cdf_mlp_bank"] = time_cdf(args.cdf_out, args.cdf_against, args.label)
+    if args.paths == "none" and not set(kernels) - {"cdf_mlp_bank"}:
+        print(json.dumps({"label": args.label, "card": card, "batch_s": {},
+                          "kernel_ms": kernel_ms}), flush=True)
+        return 0
     ds = make_dataset("osm", n=N_OBJECTS, seed=0)
     index = build_str_rtree(ds, leaf_size=128, fanout=8)
     snap = IndexSnapshot.build(index, ds, device=torch.device("cuda:0"), dense=True)
@@ -140,7 +169,7 @@ def main() -> int:
                                                   delta=buf),
     }
     chosen = [p for p in args.paths.split(",") if p]
-    unknown = set(chosen) - set(paths) - {"sub_arrivals"}
+    unknown = set(chosen) - set(paths) - {"sub_arrivals", "none"}
     if unknown:
         raise SystemExit(f"unknown paths {sorted(unknown)}")
     times = {}
@@ -161,7 +190,7 @@ def main() -> int:
             times[name].append(time.perf_counter() - t)
         print(f"{args.label} {name}: batch s {times[name]}", flush=True)
     sub_idx, arrivals = None, []
-    if not chosen or "sub_arrivals" in chosen or args.kernels:
+    if not chosen or "sub_arrivals" in chosen or "sub_match" in kernels:
         subs = make_workload(ds, m=100_000, dist="MIX", seed=2)
         sub_idx = SubscriptionIndex(ds.vocab_size, device=torch.device("cuda:0"))
         for r, kw in zip(subs.rects, subs.kw_ids):
@@ -179,34 +208,71 @@ def main() -> int:
             times["sub_arrivals"].append(time.perf_counter() - t)
         print(f"{args.label} sub_arrivals: batch s {times['sub_arrivals']}, "
               f"{sub_idx.n_pending} notifications", flush=True)
-    kernel_ms = {}
-    if args.kernels:
-        kernel_ms = time_kernels(snap, wl, bms, batches[0], sub_idx, arrivals[0], ds.vocab_size)
+    if set(kernels) - {"cdf_mlp_bank"}:
+        kernel_ms.update(time_kernels(snap, wl, bms, batches[0], sub_idx,
+                                      arrivals[0] if arrivals else None, ds.vocab_size, kernels))
         print(f"{args.label} kernel device ms per launch: {kernel_ms}", flush=True)
     print(json.dumps({"label": args.label, "card": card, "batch_s": times,
                       "kernel_ms": kernel_ms}), flush=True)
     return 0
 
 
-def time_kernels(snap, wl, bms, b, sub_idx, arrival, vocab_size):
-    """Device ms per launch of the dense filter at every level (batch
-    ``b``'s queries) and of the match entries (``arrival`` against the
-    subscription block)."""
-    from repro_torch.core.types import ids_to_bitmap
-    from repro_torch.kernels import ops
-
+def _device_ms():
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     from chip_smoke import device_ms
 
-    def ms(fn):
-        return device_ms(fn)[0]
+    return lambda fn: device_ms(fn)[0]
 
+
+def time_cdf(out_path: str, against: str, label: str) -> float:
+    """Device ms per launch of ``ops.cdf_bank_forward`` at the smoke's
+    shape, on He-scale weights and uniform points from seed 0; saves the
+    output to ``out_path`` and compares it with ``against`` where given."""
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator().manual_seed(0)
+    shapes = dict(w0=(CDF_B, 1, CDF_H), b0=(CDF_B, CDF_H), w1=(CDF_B, CDF_H, CDF_H),
+                  b1=(CDF_B, CDF_H), w2=(CDF_B, CDF_H, CDF_H), b2=(CDF_B, CDF_H),
+                  w3=(CDF_B, CDF_H, 1), b3=(CDF_B, 1))
+    params = {k: (torch.randn(s, generator=gen) * ((2.0 / s[1]) ** 0.5 if k[0] == "w" else 0.1))
+              .to(dev) for k, s in shapes.items()}
+    x = torch.rand(CDF_N, generator=gen).to(dev)
+    ms = _device_ms()(lambda: ops.cdf_bank_forward(params, x))
+    out = ops.cdf_bank_forward(params, x)
+    torch.cuda.synchronize()
+    if out_path:
+        Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+        torch.save(out.cpu(), out_path)
+    if against:
+        old = torch.load(against).to(dev)
+        same = (out == old) | (torch.isnan(out) & torch.isnan(old))
+        diff = torch.where(same, 0.0, (out.double() - old.double()).abs()).max()
+        print(f"{label} cdf_mlp_bank: max abs difference from {against}: {float(diff):.3e}, "
+              f"{int((~same).sum())} of {out.numel()} outputs differ", flush=True)
+    print(f"{label} cdf_mlp_bank: {ms:.6f} ms on the device a launch at N={CDF_N} B={CDF_B} "
+          f"H={CDF_H}", flush=True)
+    return ms
+
+
+def time_kernels(snap, wl, bms, b, sub_idx, arrival, vocab_size, kernels):
+    """Device ms per launch of the dense filter at every level (batch
+    ``b``'s queries) and of the match entries (``arrival`` against the
+    subscription block), as ``kernels`` asks."""
+    from repro_torch.core.types import ids_to_bitmap
+    from repro_torch.kernels import ops
+
+    ms = _device_ms()
     dev = snap.level_mbrs[0].device
-    q_rects = torch.from_numpy(np.ascontiguousarray(wl.rects[b], np.float32)).to(dev)
-    q_bm = torch.from_numpy(np.ascontiguousarray(bms[b]).view(np.int32)).to(dev)
-    out = {"skr_filter": [ms(lambda li=li: ops.filter_pairs(
-        q_rects, q_bm, snap.level_mbrs[li], snap.level_bms[li]))
-        for li in range(len(snap.level_mbrs))]}
+    out = {}
+    if "skr_filter" in kernels:
+        q_rects = torch.from_numpy(np.ascontiguousarray(wl.rects[b], np.float32)).to(dev)
+        q_bm = torch.from_numpy(np.ascontiguousarray(bms[b]).view(np.int32)).to(dev)
+        out["skr_filter"] = [ms(lambda li=li: ops.filter_pairs(
+            q_rects, q_bm, snap.level_mbrs[li], snap.level_bms[li]))
+            for li in range(len(snap.level_mbrs))]
+    if "sub_match" not in kernels:
+        return out
     ids, locs, kw = arrival
     obm = ids_to_bitmap(np.asarray(kw, np.int32).reshape(len(ids), -1), vocab_size)
     blk = sub_idx.block()
