@@ -126,7 +126,20 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    batch and one warm SKR batch each with log B's and log A's deltas
    (``torch.profiler``: device busy and idle share, the largest device and
    host items);
-13. prints the kernels' JSON line, then the result line.
+13. construction: ``build_wisk`` on the card over the same 1,000,000
+   objects with ``BuildConfig()`` (itemsets, the CDF bank, learned splits,
+   DQN packing), trained on a MIX workload of 4096 queries (seed 3; the
+   served workload is seed 1): each phase's seconds, the counters, K and
+   the level widths, the bank's B, E and final loss, each packed level's
+   ``n_upper`` and the peak device memory; the learned index's snapshot
+   (bytes, OBJ, compact bank, narrow planes) serves the 4 batches, the
+   first batch's queries without overflow equal ``execute_serial``, and
+   its mean per-query Eq. 1 cost is printed beside the STR R-tree's (not a
+   claim); then twin builds at 120,000 objects, equal bit for bit
+   (partition, hierarchy, bank), an ``accelerated=True`` build, and a
+   ``warm_start_rebuild`` of the first twin for a GAU workload (regressed
+   leaves detected) whose index serves a batch equal to ``execute_serial``;
+14. prints the kernels' JSON line, then the result line.
 
 Every phase prints its seconds. Any failure raises and exits non-zero.
 Without a CUDA device, or outside the repository, it exits non-zero and
@@ -166,6 +179,8 @@ N_SUB_CHURN = 10_000  # leave after the fifth arrival batch, then as many join
 N_SUB_SAMPLE = 256  # subscriptions held against the host oracle
 CDF_HIDDEN = 16
 CDF_HIGH_FRAC = 0.001  # keywords at or above this share of objects get an MLP (x and y)
+N_TRAIN = 4096  # construction: training queries (MIX, seed 3; the served workload is seed 1)
+N_TWIN = 120_000  # construction: the twin builds at the osm profile's own size
 CDF_ATOL = 2e-6
 SEED = 0
 DEVICE = "cuda:0"
@@ -215,16 +230,16 @@ KERNEL_FUNCTIONS = ("cdf_mlp_kernel", "frontier_level_kernel", "fused_verify_slo
                     "slot_verify_kernel", "sub_match_kernel")
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 5):
+def device_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 10):
     """``(ms, launches)``: the mean device time of one launch of the port's
     CUDA kernels (``KERNEL_FUNCTIONS``; no copy, fill or PyTorch kernel)
     that ``fn`` makes, and their launches the profiler saw per call, from
     ``torch.profiler``. Unlike ``time_ms`` it does not count the host's time
     between launches, which bounds back-to-back calls of a kernel shorter
     than its wrapper. The profiler drops some kernel events of a short
-    window, so the mean is per launch seen, over up to ``tries`` windows
-    until half the calls' launches were seen; it raises if they never
-    were. ``tools/serve_ab.py`` times its kernels with it too."""
+    window (in one run of the H100 smoke, 61 % of them over five windows),
+    so the mean is per launch seen, over up to ``tries`` windows until half
+    the calls' launches were seen; it raises if they never were. ``tools/serve_ab.py`` times its kernels with it too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1117,6 +1132,141 @@ def check_knn_oracle(knn_query, index, ds, out, points, bms, rows, k: int, what:
             raise AssertionError(f"{what} query {q}: more ids than knn_query")
 
 
+def check_skr_oracle(execute_serial, index, ds, wl, out, rows, what: str):
+    """ids, ``nodes_checked`` and ``verified`` of ``rows`` (queries of ``wl``
+    without overflow) equal to the host oracle ``execute_serial``, whose
+    stats it returns."""
+    st = execute_serial(index, ds, wl.subset(rows))
+    for j, q in enumerate(rows):
+        row = out["ids"][q]
+        if not np.array_equal(np.sort(row[row >= 0]), np.sort(st.results[j])):
+            raise AssertionError(f"{what} query {q}: ids differ from execute_serial")
+    if not np.array_equal(out["nodes_checked"][rows], st.nodes_accessed):
+        raise AssertionError(f"{what}: nodes_checked differs from execute_serial")
+    if not np.array_equal(out["verified"][rows], st.verified):
+        raise AssertionError(f"{what}: verified differs from execute_serial")
+    return st
+
+
+def eq1(out) -> np.ndarray:
+    """Per-query Eq. 1 cost of served outputs: 0.1 * nodes_checked + verified."""
+    return 0.1 * out["nodes_checked"].astype(np.float64) + out["verified"]
+
+
+def construction(dev, ds, wl, batches, str_out) -> None:
+    """The construction phase: ``build_wisk`` at full size on the card, the
+    learned index served against ``execute_serial`` and its Eq. 1 cost
+    beside the STR R-tree's (``str_out``: the STR main path's outputs on
+    the same batches), twin builds at the profile's own size, an
+    accelerated build and a served warm-start rebuild."""
+    from repro_torch.core.build import BuildConfig, build_wisk, warm_start_rebuild
+    from repro_torch.core.query import execute_serial
+    from repro_torch.data.synth import make_dataset
+    from repro_torch.data.workloads import make_workload
+    from repro_torch.launch.wisk_serve import serve_batch
+    from repro_torch.serve.plan import PlanCache
+    from repro_torch.serve.snapshot import IndexSnapshot
+
+    def build(data, train, what, **cfg):
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        art = build_wisk(data, train, BuildConfig(**cfg), device=dev)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t
+        bank = art.bank
+        log(f"{what}: {total:.3f} s; phase s {json.dumps(art.timings)}")
+        log(f"  counters {json.dumps(art.counters)}")
+        log(f"  K={art.partition.clusters.k} level widths {[l.n for l in art.index.levels]}; leaf "
+            f"sizes max {int(art.partition.clusters.sizes().max())} mean "
+            f"{float(art.partition.clusters.sizes().mean()):.1f}; bank B="
+            f"{0 if bank.nn_params is None else bank.nn_params['w0'].shape[0]} MLPs, "
+            f"E={bank.n_entries} entries, final loss {bank.train_loss:.9f}; packed levels' n_upper "
+            f"{[p.n_upper for p in art.hierarchy.packs] if art.hierarchy else []}")
+        log(f"  peak device memory {torch.cuda.max_memory_allocated()} B "
+            f"({torch.cuda.max_memory_allocated() - start} B above the build's start)")
+        return art
+
+    def serve(snap, rects, bms, rows):
+        cache = PlanCache()
+        outs, times = [], []
+        for b in rows:
+            serve_batch(snap, rects[b], bms[b], MAX_LEAVES, plan_cache=cache)  # learn the widths
+        for b in rows:
+            t = time.perf_counter()
+            outs.append(serve_batch(snap, rects[b], bms[b], MAX_LEAVES, plan_cache=cache))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return outs, times
+
+    # the full-size build: train on one sample of the distribution, serve another
+    train = make_workload(ds, m=N_TRAIN, dist="MIX", seed=3)
+    art = build(ds, train, f"build_wisk {PROFILE} n={ds.n}, MIX m={train.m} seed 3, BuildConfig()")
+    t = time.perf_counter()
+    snap = IndexSnapshot.build(art.index, ds, device=dev)
+    torch.cuda.synchronize()
+    log(f"learned snapshot: {time.perf_counter() - t:.3f} s, {snap.nbytes()} B on the device, "
+        f"OBJ={snap.obj_per_leaf} has_compact_bank={snap.has_compact_bank} "
+        f"has_narrow_planes={snap.has_narrow_planes}")
+    outs, times = serve(snap, wl.rects, wl.kw_bitmap, batches)
+    log(f"learned index serve_batch x{len(batches)}: batch s {times}")
+    rows = np.flatnonzero(outs[0]["overflow"] == 0)
+    if rows.size < N_ORACLE:
+        raise AssertionError(f"only {rows.size} queries of the first batch without overflow")
+    t = time.perf_counter()
+    check_skr_oracle(execute_serial, art.index, ds, wl.subset(batches[0]), outs[0], rows,
+                     "learned index")
+    log(f"learned index: the first batch's {rows.size} queries without overflow equal "
+        f"execute_serial ({time.perf_counter() - t:.3f} s)")
+    cat = {k: np.concatenate([o[k] for o in outs]) for k in ("nodes_checked", "verified", "overflow")}
+    ref = {k: np.concatenate([o[k] for o in str_out]) for k in ("nodes_checked", "verified", "overflow")}
+    both = (cat["overflow"] == 0) & (ref["overflow"] == 0)
+    log(f"Eq. 1 per query (0.1 * nodes_checked + verified, max_leaves={MAX_LEAVES}) on the "
+        f"{wl.m} served queries: learned {float(eq1(cat).mean()):.6f} (overflow "
+        f"{int((cat['overflow'] > 0).sum())}), STR R-tree {float(eq1(ref).mean()):.6f} (overflow "
+        f"{int((ref['overflow'] > 0).sum())}); on the {int(both.sum())} without overflow in "
+        f"either: learned {float(eq1(cat)[both].mean()):.6f}, STR {float(eq1(ref)[both].mean()):.6f}")
+    del snap, outs
+
+    # twin builds at the profile's own size: the same config gives the same index
+    small = make_dataset(PROFILE, n=N_TWIN, seed=SEED)
+    strain = make_workload(small, m=N_TRAIN, dist="MIX", seed=3)
+    twins = [build(small, strain, f"twin build {i} n={small.n}") for i in (1, 2)]
+    a, b = twins
+    if not np.array_equal(a.partition.clusters.assign, b.partition.clusters.assign):
+        raise AssertionError("twin builds: partitions differ")
+    if len(a.hierarchy.parents) != len(b.hierarchy.parents) or not all(
+            np.array_equal(x, y) for x, y in zip(a.hierarchy.parents, b.hierarchy.parents)):
+        raise AssertionError("twin builds: hierarchies differ")
+    if a.bank.train_loss != b.bank.train_loss or not all(
+            torch.equal(a.bank.nn_params[k], b.bank.nn_params[k]) for k in a.bank.nn_params):
+        raise AssertionError("twin builds: banks differ")
+    log("twin builds: equal partition, hierarchy parents and bank, bit for bit")
+    build(small, strain, f"accelerated build n={small.n}", accelerated=True)
+
+    # a warm-start rebuild for a shifted workload, leaves regressed detected
+    shifted = make_workload(small, m=N_TRAIN, dist="GAU", seed=4)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    warm = warm_start_rebuild(small, shifted, a, device=dev)
+    torch.cuda.synchronize()
+    log(f"warm_start_rebuild (GAU m={shifted.m} seed 4): {time.perf_counter() - t:.3f} s; "
+        f"refined_leaves={warm.counters['refined_leaves']} kept_clusters="
+        f"{warm.counters['kept_clusters']}; phase s {json.dumps(warm.timings)}; counters "
+        f"{json.dumps(warm.counters)}; level widths {[l.n for l in warm.index.levels]}")
+    wsnap = IndexSnapshot.build(warm.index, small, device=dev)
+    first = [np.arange(BATCH)]
+    (out,), (t_batch,) = serve(wsnap, shifted.rects, shifted.kw_bitmap, first)
+    rows = np.flatnonzero(out["overflow"] == 0)
+    if rows.size < N_ORACLE:
+        raise AssertionError(f"only {rows.size} rebuilt-index queries without overflow")
+    check_skr_oracle(execute_serial, warm.index, small, shifted.subset(first[0]), out, rows,
+                     "warm-rebuilt index")
+    log(f"warm-rebuilt index: a batch of {BATCH} in {t_batch:.6f} s, its {rows.size} queries "
+        f"without overflow equal execute_serial")
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1301,16 +1451,8 @@ def main() -> int:
         ok = np.flatnonzero(cat["overflow"] == 0)[:N_ORACLE]
         if ok.size < N_ORACLE:
             raise AssertionError(f"only {ok.size} queries without overflow")
-        st = execute_serial(index, ds, wl.subset(ok))
-        for j, q in enumerate(ok):
-            row = cat["ids"][q]
-            if not np.array_equal(np.sort(row[row >= 0]), np.sort(st.results[j])):
-                raise AssertionError(f"query {q}: ids differ from execute_serial")
-        if not np.array_equal(cat["nodes_checked"][ok], st.nodes_accessed):
-            raise AssertionError("nodes_checked differs from execute_serial")
-        if not np.array_equal(cat["verified"][ok], st.verified):
-            raise AssertionError("verified differs from execute_serial")
-        oracle_ok, oracle_st = ok, st
+        oracle_st = check_skr_oracle(execute_serial, index, ds, wl, cat, ok, "SKR main path")
+        oracle_ok = ok
         log(f"execute_serial oracle on {ok.size} queries with overflow == 0: equal; "
             f"queries with overflow: {int((cat['overflow'] > 0).sum())} of {N_QUERIES}, "
             f"results {int(cat['counts'].sum())}")
@@ -2431,6 +2573,10 @@ def main() -> int:
                 snap, wl.rects[b0], bms[b0], MAX_LEAVES, plan_cache=cache,
                 delta=delta_bufs[label])
             profile_batch(f"SKR with log {label}'s delta", serve, delta_caches[label], PlanCache)
+
+    # --------------------------------------------------------- construction
+    with phase("construction"):
+        construction(dev, ds, wl, batches, main_out)
 
     log(f"card: {card}")
     print(json.dumps({"kernels": rows}), flush=True)

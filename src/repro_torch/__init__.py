@@ -1,15 +1,21 @@
-"""PyTorch/CUDA port of WISK's single-device SKR serving path.
+"""PyTorch/CUDA port of WISK: index construction and single-device serving.
 
 A second package beside the JAX reference: the same modules
 (``core``, ``data``, ``baselines``, ``kernels``, ``serve``, ``launch``),
 plain PyTorch on tensors, and hand-written CUDA kernels for Hopper
 (``kernels/csrc``) where the reference runs Pallas kernels on a TPU.
 
-Entry points that place data (``serve.snapshot.IndexSnapshot.build`` and
-``from_reference_arrays``) run on ``cuda`` unless the caller passes
-``device="cpu"``; everything downstream follows the snapshot's device.
+Construction (``core.build.build_wisk`` and ``warm_start_rebuild``: the CDF
+bank, learned split partitioning, DQN packing) trains on the device with
+autograd; serving (SKR in both modes, Boolean kNN, live deltas, standing
+subscriptions) runs on the CUDA kernels. Entry points that place data
+(``build_wisk``, ``warm_start_rebuild``, ``serve.snapshot.IndexSnapshot.build``
+and ``from_reference_arrays``) run on ``cuda`` unless the caller passes
+``device="cpu"``; everything downstream follows their device.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -25,3 +31,15 @@ def resolve_device(device=None) -> torch.device:
             "PyTorch versions on the host"
         )
     return dev
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Matrix products in full float32 on the card (no TF32) while inside;
+    the caller's setting comes back afterwards. Also a decorator."""
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(old)

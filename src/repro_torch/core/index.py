@@ -7,23 +7,12 @@ non-leaf textual summary is a bitmap; leaves use inverted files).
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import List, Optional
 
 import numpy as np
 
+from .packing import HierarchyResult
 from .types import ClusterSet, GeoTextDataset, InvertedFile, Level, WiskIndex
-
-
-@dataclasses.dataclass
-class HierarchyResult:
-    """The parent slot of each lower node, per built level (bottom-up).
-
-    Only the layout: the learned packer's other outputs in the JAX package
-    come over with index construction (ROADMAP A.11).
-    """
-
-    parents: List[np.ndarray]  # per built level: parent slot of each lower node
 
 
 def _group_level(

@@ -15,6 +15,9 @@
   ground truth of standing-subscription matching (serve/subscribe.py): set
   semantics per (object, subscription) pair, no bitmaps, and a replay of a
   subscribe / unsubscribe / arrive / drain schedule.
+* ``execute_level_sync`` -- the vectorized host traversal with (M, n_level)
+  masks; its counters equal ``execute_serial``'s. The drift baseline
+  (``core.drift.index_cost_baseline``) runs it.
 * ``round_up_bucket`` / ``sharded_bucket`` -- the power-of-two width
   discipline shared by the batch padding and the frontier widths.
 * ``padded_child_table`` -- the (n, max_fanout) CSR child table the frontier
@@ -31,10 +34,8 @@ from typing import List, Tuple
 
 import numpy as np
 
+from .cost import DEFAULT_W1, DEFAULT_W2
 from .types import GeoTextDataset, Workload, WiskIndex, points_in_rect
-
-DEFAULT_W1 = 0.1  # stage-1 (filter) weight of the Eq. 1 cost, paper §7.1
-DEFAULT_W2 = 1.0  # stage-2 (verify) weight
 
 
 @dataclasses.dataclass
@@ -271,6 +272,58 @@ def execute_serial(
         )
     cost = w1 * nodes.astype(np.float64) + w2 * verified.astype(np.float64)
     return QueryStats(nodes_accessed=nodes, verified=verified, results=results, cost=cost)
+
+
+def execute_level_sync(
+    index: WiskIndex,
+    dataset: GeoTextDataset,
+    workload: Workload,
+    w1: float = DEFAULT_W1,
+    w2: float = DEFAULT_W2,
+) -> QueryStats:
+    """Vectorized traversal with (M, n_level) masks (the batched engine's
+    execution shape)."""
+    m = workload.m
+    nodes = np.zeros(m, dtype=np.int64)
+    active = np.ones((m, index.levels[0].n), dtype=bool)
+    for li, level in enumerate(index.levels):
+        mb = level.mbrs
+        inter = (
+            (mb[None, :, 0] <= workload.rects[:, None, 2])
+            & (workload.rects[:, None, 0] <= mb[None, :, 2])
+            & (mb[None, :, 1] <= workload.rects[:, None, 3])
+            & (workload.rects[:, None, 1] <= mb[None, :, 3])
+        )
+        kw = np.any(level.bitmaps[None, :, :] & workload.kw_bitmap[:, None, :], axis=2)
+        nodes += active.sum(axis=1)
+        hit = active & inter & kw
+        if li == len(index.levels) - 1:
+            leaf_hit = hit
+            break
+        # propagate to children (CSR frontier expansion, dense-mask form)
+        active = propagate_hits(hit, padded_child_table(level), index.levels[li + 1].n)
+    # leaf verification (vectorized per leaf)
+    verified = np.zeros(m, dtype=np.int64)
+    results: List[List[np.ndarray]] = [[] for _ in range(m)]
+    clusters = index.clusters
+    for leaf in range(index.levels[-1].n):
+        qs = np.nonzero(leaf_hit[:, leaf])[0]
+        if qs.size == 0:
+            continue
+        ids = clusters.order[clusters.offsets[leaf] : clusters.offsets[leaf + 1]]
+        bm = dataset.kw_bitmap[ids]
+        locs = dataset.locs[ids]
+        for qi in qs:
+            match = np.any(bm & workload.kw_bitmap[qi][None, :], axis=1)
+            verified[qi] += int(match.sum())
+            sel = ids[match & points_in_rect(locs, workload.rects[qi])]
+            if sel.size:
+                results[qi].append(sel)
+    res = [
+        np.unique(np.concatenate(r)) if r else np.zeros(0, dtype=np.int32) for r in results
+    ]
+    cost = w1 * nodes.astype(np.float64) + w2 * verified.astype(np.float64)
+    return QueryStats(nodes_accessed=nodes, verified=verified, results=res, cost=cost)
 
 
 # ---------------------------------------------------------- Boolean kNN

@@ -39,6 +39,16 @@ def ids_to_bitmap(kw_ids: np.ndarray, vocab_size: int) -> np.ndarray:
     return bm
 
 
+def set_bits(bitmaps: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(row, term) of every set bit of (rows, W) u32 bitmaps, row-major:
+    only the nonzero words are unpacked."""
+    rows, words = np.nonzero(bitmaps)
+    bits = np.unpackbits(np.ascontiguousarray(bitmaps[rows, words]).view(np.uint8).reshape(-1, 4),
+                         axis=1, bitorder="little")
+    hit, bit = np.nonzero(bits)
+    return rows[hit], words[hit].astype(np.int64) * 32 + bit
+
+
 def bitmap_intersects(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """Rowwise: does bitmap a[i] share any bit with b[i]? Shapes broadcast."""
     return np.any((a & b) != 0, axis=-1)

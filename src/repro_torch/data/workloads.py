@@ -11,9 +11,8 @@ the center object (topped up from the global keyword set):
 * MIX -- 50/50 UNI + LAP (paper default).
 
 ``make_update_stream`` makes live-update traffic for serve/delta.py:
-inserts near existing objects. The reference's ``stratified_sample``
-(construction-time query sampling) comes over with index construction
-(ROADMAP A.11).
+inserts near existing objects. ``stratified_sample`` is construction-time
+query sampling (paper §6, ``BuildConfig.accelerated``).
 """
 from __future__ import annotations
 
@@ -121,3 +120,21 @@ def make_update_stream(
             kw[i] = -1
             kw[i, :k] = rng.choice(terms, k, replace=False)
     return locs, kw
+
+
+def stratified_sample(workload: Workload, ratio: float, seed: int = 0, n_strata: int = 8) -> np.ndarray:
+    """Stratified query sampling (paper §6): stratify by query-center cell so
+    the sample preserves the spatial distribution of the workload."""
+    rng = np.random.default_rng(seed)
+    m = workload.m
+    cx = (workload.rects[:, 0] + workload.rects[:, 2]) / 2
+    cy = (workload.rects[:, 1] + workload.rects[:, 3]) / 2
+    gx = np.minimum((cx * np.sqrt(n_strata)).astype(int), int(np.sqrt(n_strata)) - 1)
+    gy = np.minimum((cy * np.sqrt(n_strata)).astype(int), int(np.sqrt(n_strata)) - 1)
+    strata = gx * int(np.sqrt(n_strata)) + gy
+    keep = []
+    for s in np.unique(strata):
+        ids = np.nonzero(strata == s)[0]
+        k = max(1, int(round(ids.size * ratio)))
+        keep.append(rng.choice(ids, size=k, replace=False))
+    return np.sort(np.concatenate(keep))

@@ -19,10 +19,11 @@ holds each CUDA kernel against these functions on the same inputs.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Dict
 
 import torch
+
+from .. import full_f32_matmul
 
 # elements of the largest intermediate a chunked plain version makes at once
 _CHUNK_ELEMS = 1 << 26
@@ -548,18 +549,6 @@ def sub_match_pairs_ref(
     return pairs, torch.tensor([hits.shape[0]], dtype=torch.int32, device=o_pts.device)
 
 
-@contextlib.contextmanager
-def _full_f32_matmul():
-    """Matrix products in full float32 on the card (no TF32) while inside;
-    the caller's setting comes back afterwards."""
-    old = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(old)
-
-
 def cdf_mlp_ref(params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     """Evaluate a bank of B CDF MLPs (1 -> H -> H -> H -> 1, ReLU, sigmoid
     head) at N points, a chunk of points at a time, in full float32.
@@ -571,7 +560,7 @@ def cdf_mlp_ref(params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tenso
     B, _, H = params["w0"].shape
     N = x.shape[0]
     out = torch.empty((N, B), dtype=torch.float32, device=x.device)
-    with _full_f32_matmul():
+    with full_f32_matmul():
         for sl in _row_chunks(N, B * H):
             h = x[sl, None, None] * params["w0"][None, :, 0, :] + params["b0"][None]
             h = torch.relu(h)

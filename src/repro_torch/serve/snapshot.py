@@ -28,7 +28,7 @@ import torch
 
 from .. import resolve_device
 from ..core.query import padded_child_table, round_up_bucket
-from ..core.types import GeoTextDataset, WiskIndex
+from ..core.types import GeoTextDataset, WiskIndex, set_bits
 
 # int16 code capacity per coordinate dictionary: a level whose distinct
 # coordinate count exceeds this gets no narrow planes
@@ -56,31 +56,28 @@ def encode_leaf_vocab(leaf_obj_bm, cap: int = LEAF_DICT_MAX):
     * ``leaf_obj_sig`` (K, OBJ) u32 -- per-object OR-fold of the Wl words;
 
     or ``(None, None, None)`` when any leaf's dictionary would exceed
-    ``cap``. The same arrays as the reference encoder, computed by reading
-    each object's bits only at its leaf's dictionary positions.
+    ``cap``. The same arrays as the reference encoder, computed from each
+    leaf's set bits alone (its nonzero words, unpacked), so the work
+    follows the objects' terms and not the (OBJ, 32 * Wl) padding: a
+    learned leaf of thousands of objects over a W = 256 vocabulary would
+    otherwise cost gigabytes of temporaries.
     """
     bm = np.asarray(leaf_obj_bm, np.uint32)
     K, OBJ, W = bm.shape
-    shifts = np.arange(32, dtype=np.uint32)
-    union = np.bitwise_or.reduce(bm, axis=1)  # (K, W)
-    present = (((union[:, :, None] >> shifts) & 1) != 0).reshape(K, W * 32)
-    n_terms = present.sum(axis=1)
-    if K and int(n_terms.max()) > cap:
+    leaf_bits = [set_bits(bm[c]) for c in range(K)]  # per leaf: (object row, global term)
+    terms = [np.unique(g) for _, g in leaf_bits]  # each leaf's sorted dictionary
+    max_terms = max((t.size for t in terms), default=0)
+    if max_terms > cap:
         return None, None, None
-    max_terms = max(1, int(n_terms.max()) if K else 1)
-    need = -(-max_terms // 32)
+    need = -(-max(1, max_terms) // 32)
     Wl = 1 << (need - 1).bit_length()  # power-of-two word count, min 1
     leaf_terms = np.full((K, 32 * Wl), -1, np.int32)
     cbm = np.zeros((K, OBJ, Wl), np.uint32)
-    for c in range(K):
-        terms = np.flatnonzero(present[c]).astype(np.int32)
-        leaf_terms[c, : terms.size] = terms
-        if terms.size == 0:
-            continue
-        obits = (bm[c][:, terms >> 5] >> (terms & 31).astype(np.uint32)) & 1
-        local = np.zeros((OBJ, Wl * 32), np.uint32)
-        local[:, : terms.size] = obits
-        cbm[c] = np.bitwise_or.reduce(local.reshape(OBJ, Wl, 32) << shifts, axis=-1)
+    for c, ((rows, g), t) in enumerate(zip(leaf_bits, terms)):
+        leaf_terms[c, : t.size] = t
+        local = np.searchsorted(t, g)
+        np.bitwise_or.at(cbm[c], (rows, local >> 5),
+                         np.left_shift(np.uint32(1), (local & 31).astype(np.uint32)))
     sig = np.bitwise_or.reduce(cbm, axis=-1)  # (K, OBJ)
     return leaf_terms, cbm, sig
 

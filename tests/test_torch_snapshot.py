@@ -236,7 +236,8 @@ def test_port_imports_no_jax_and_no_reference_module():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=str(ROOT),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    # every module of the port, construction (core/build.py and its parts) included
+    assert int(out.stdout.strip()) >= 29
 
 
 def _imports(path: Path):
@@ -250,7 +251,7 @@ def _imports(path: Path):
 
 def test_source_scan_finds_no_jax_or_reference_import():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 16
+    assert len(files) >= 31
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
