@@ -139,7 +139,31 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    (partition, hierarchy, bank), an ``accelerated=True`` build, and a
    ``warm_start_rebuild`` of the first twin for a GAU workload (regressed
    leaves detected) whose index serves a batch equal to ``execute_serial``;
-14. prints the kernels' JSON line, then the result line.
+14. the live front door: a ``LiveIndex`` over the construction phase's
+   full-size learned build (no second build; its snapshot's bytes, OBJ and
+   compact bank printed) with ``DriftConfig(threshold=1.3,
+   min_queries=48)``, batches of 256: a warm-up batch and 4 fresh MIX
+   batches, the monitor armed after each; 100,000 geofences (MIX, seed
+   2); 10,000 inserts in batches of 1,000 (host time each, the
+   subscription match included; the notifications drained after the
+   fifth) and 5,000 deletes (100 of them buffered inserts); one SKR batch
+   with the delta, (a) its queries without overflow equal
+   ``exact_query_result_ids`` over ``merged_dataset()``, and one kNN batch
+   at k = 10, (b) ids and ``dist2`` equal ``knn_query`` over a cold STR
+   index of it; shifted traffic (UNI, then GAU, then LAP, 4 batches each
+   at most) until the monitor trips, each ratio printed; ``maybe_rebuild()``
+   with no force, timed apart as ``warm_start_rebuild`` and the new
+   snapshot, peak device memory across the swap, each generation's bytes,
+   OBJ not grown; (c) the old generation serves one batch equal before and
+   after the swap; (d) the new one has ``seq`` + 1, no delta, the merged
+   objects, and its first batch's queries without overflow equal
+   ``execute_serial``; 2,000 inserts after the swap (ids above the
+   pre-swap ones) and traffic until the monitor re-arms; (e) the whole
+   notification stream equals its plain rerun and a 256-sample
+   ``SubscriptionOracle`` replay, a second drain empty; one SKR batch
+   without a delta, one with it and one insert batch profiled, with the
+   rows of PERF.md section 6 they launch;
+15. prints the kernels' JSON line, then the result line.
 
 Every phase prints its seconds. Any failure raises and exits non-zero.
 Without a CUDA device, or outside the repository, it exits non-zero and
@@ -149,6 +173,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -181,6 +206,16 @@ CDF_HIDDEN = 16
 CDF_HIGH_FRAC = 0.001  # keywords at or above this share of objects get an MLP (x and y)
 N_TRAIN = 4096  # construction: training queries (MIX, seed 3; the served workload is seed 1)
 N_TWIN = 120_000  # construction: the twin builds at the osm profile's own size
+# the live front door, on the construction phase's learned index: batches of
+# 256 (at OBJ = 32,768 the dense ids of a batch are (M, 32 * 32,768) int32)
+LIVE_BATCH = 256
+N_LIVE_SAME = 4  # same-distribution (MIX) batches after the monitor's warm-up batch
+LIVE_SHIFTS = ("UNI", "GAU", "LAP")  # tried in turn until the monitor trips
+N_SHIFT_BATCHES = 4  # per shifted distribution at most
+N_POST_INSERT = 2_000  # inserts after the swap
+N_POST_BATCHES = 2  # post-swap batches: the first re-arms the monitor (48 < 256 queries)
+LIVE_THRESHOLD = 1.3  # DriftConfig of the JAX package's LiveIndex tests
+LIVE_MIN_QUERIES = 48
 CDF_ATOL = 2e-6
 SEED = 0
 DEVICE = "cuda:0"
@@ -1102,6 +1137,19 @@ def cdf_bank(dev, B, H, gen, x=None, N=1001, edges=False):
     return params, x
 
 
+def plain_pairs(o_pts, o_bm, s_rects, s_bm, s_sig):
+    """``match_subscription_pairs`` on the plain version, through the same
+    capacity retry."""
+    from repro_torch.kernels import ops, ref
+
+    args = (o_pts, o_bm, s_rects, s_bm, s_sig)
+    pairs, count = ref.sub_match_pairs_ref(*args, ops.SUB_PAIRS_CAPACITY)
+    n = int(count)
+    if n > ops.SUB_PAIRS_CAPACITY:
+        pairs, _ = ref.sub_match_pairs_ref(*args, n)
+    return pairs[:n]
+
+
 def query_points(wl) -> np.ndarray:
     """kNN query points: the centres of the workload's rectangles."""
     return np.stack(
@@ -1265,6 +1313,312 @@ def construction(dev, ds, wl, batches, str_out) -> None:
                      "warm-rebuilt index")
     log(f"warm-rebuilt index: a batch of {BATCH} in {t_batch:.6f} s, its {rows.size} queries "
         f"without overflow equal execute_serial")
+    return art, train
+
+
+# PERF.md section 6's rows, by the launch counts' names
+KERNEL_ROWS = {
+    "frontier_level_narrow": 1, "fused_verify_remap_tile": 2, "fused_verify_compact_tile": 2,
+    "fused_verify_remap_slot": 3, "fused_verify_compact_slot": 3, "frontier_level": 4,
+    "fused_verify_tile": 5, "fused_verify_slot": 6, "knn_level_dist_narrow": 7,
+    "knn_level_dist": 8, "skr_verify_slots_compact": 9, "skr_verify_compact": 9,
+    "skr_verify_slots": 10, "skr_verify": 10, "sub_match": 11, "sub_match_pairs": 11,
+    "skr_filter": 12, "cdf_mlp_bank": 13,
+}
+
+
+def rows_launched(counts) -> str:
+    """The launch counts by PERF.md row, e.g. ``row 4 frontier_level x5``."""
+    hit = sorted((KERNEL_ROWS[k], k, n) for k, n in counts.items() if n)
+    return ", ".join(f"row {r} {k} x{n}" for r, k, n in hit) or "no kernel"
+
+
+def live_front_door(dev, ds, train, art) -> None:
+    """The live front door on the construction phase's learned index: a
+    ``LiveIndex`` over ``art`` (no second build), same-distribution traffic
+    with the drift monitor armed, 100,000 geofences, 10,000 inserts and
+    5,000 deletes matched and served with the live delta, shifted traffic
+    until the monitor trips, ``maybe_rebuild()`` (no force) while an
+    in-flight reader holds the old generation, then inserts and traffic on
+    the new one. Checks (a)-(e) each raise on failure."""
+    from repro_torch.baselines.conventional import build_str_rtree
+    from repro_torch.core.cost import exact_query_result_ids
+    from repro_torch.core.drift import DriftConfig
+    from repro_torch.core.query import SubscriptionOracle, execute_serial, knn_query
+    from repro_torch.data.workloads import make_update_stream, make_workload
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch import wisk_serve
+    from repro_torch.launch.wisk_serve import LiveIndex, serve_batch
+    from repro_torch.serve.plan import PlanCache
+    from repro_torch.serve.snapshot import IndexSnapshot
+    from repro_torch.serve.subscribe import SubscriptionIndex
+
+    lat = {"same": [], "shift": [], "post": []}
+    mix_seed = iter(range(11, 100))  # fresh MIX samples: training used 3, serving 1, geofences 2
+    shift_seed = iter(range(31, 100))
+
+    def batch(dist, seeds):
+        return make_workload(ds, m=LIVE_BATCH, dist=dist, seed=next(seeds))
+
+    def serve(wl, what):
+        t = time.perf_counter()
+        out = live.serve(wl.rects, wl.kw_bitmap, MAX_LEAVES)
+        torch.cuda.synchronize()
+        lat[what].append(time.perf_counter() - t)
+        m = live.monitor
+        log(f"  {what} batch: {lat[what][-1]:.6f} s; monitor {m.state} ratio {m.ratio:.6f} "
+            f"(ewma {m.ewma:.6f}, baseline {m.baseline})")
+        return out
+
+    cfg = DriftConfig(threshold=LIVE_THRESHOLD, min_queries=LIVE_MIN_QUERIES)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    with phase("LiveIndex over the learned build"):
+        live = LiveIndex(ds, train, drift_config=cfg, artifacts=art, device=dev)
+    gen0 = live.generation
+    log(f"live generation 0: snapshot {gen0.snapshot.nbytes()} B on the device, "
+        f"OBJ={gen0.snapshot.obj_per_leaf} has_compact_bank={gen0.snapshot.has_compact_bank} "
+        f"Wl={gen0.snapshot.n_compact_words if gen0.snapshot.has_compact_bank else None}; device "
+        f"memory {torch.cuda.memory_allocated()} B ({torch.cuda.memory_allocated() - mem0} B above "
+        f"the phase's start); DriftConfig threshold={cfg.threshold} min_queries={cfg.min_queries}")
+
+    # 1) the monitor's warm-up, then same-distribution traffic: it must stay armed
+    with phase("warm-up and same-distribution traffic"):
+        serve(batch("MIX", mix_seed), "same")
+        if live.monitor.state != "armed":
+            raise AssertionError(f"the monitor is {live.monitor.state} after its warm-up batch")
+        same_ratios = []
+        for _ in range(N_LIVE_SAME):
+            serve(batch("MIX", mix_seed), "same")
+            same_ratios.append(live.monitor.ratio)
+            if live.monitor.state != "armed":
+                raise AssertionError(f"same-distribution traffic moved the monitor to "
+                                     f"{live.monitor.state} (ratio {live.monitor.ratio})")
+    log(f"same-distribution ratios {same_ratios}: the highest {max(same_ratios):.6f} below the "
+        f"threshold {cfg.threshold}")
+
+    # 2) standing geofences
+    subs_wl = make_workload(ds, m=N_SUBS, dist="MIX", seed=2)
+    with phase(f"subscribe {N_SUBS} geofences"):
+        for r, kw in zip(subs_wl.rects, subs_wl.kw_ids):
+            live.subscribe(r, kw)
+
+    # 3) inserts (matched in the same step) and deletes
+    rng = np.random.default_rng(31)
+    arrivals, t_ins = [], []
+    with phase(f"{N_INSERT} inserts in batches of {INSERT_BATCH}"):
+        for i in range(N_INSERT // INSERT_BATCH):
+            locs, kw = make_update_stream(ds, INSERT_BATCH, rng, 1e-3)
+            t = time.perf_counter()
+            ids = live.insert(locs, kw)
+            torch.cuda.synchronize()
+            t_ins.append(time.perf_counter() - t)
+            arrivals.append((ids, locs, kw))
+            if i == N_INSERT // INSERT_BATCH // 2 - 1:  # the rest stays queued across the swap
+                drained = [live.drain_notifications()]
+    pre_max = int(arrivals[-1][0].max())
+    log(f"live inserts: host s per batch of {INSERT_BATCH} (DeltaLog.insert and the subscription "
+        f"match) {t_ins} (mean {1e3 * np.mean(t_ins):.3f} ms per 1,000); "
+        f"{drained[0].shape[0]} notifications drained after {N_INSERT // 2} inserts")
+    with phase(f"{N_DELETE} deletes"):
+        new_ids = np.concatenate([a[0] for a in arrivals])
+        dels = np.concatenate([rng.choice(ds.n, N_DELETE - N_DELETE_BUFFERED, replace=False),
+                               rng.choice(new_ids, N_DELETE_BUFFERED, replace=False)])
+        if live.delete(dels) != N_DELETE:
+            raise AssertionError("not every live delete took")
+    dlog = live.generation.delta_log
+    log(f"live delta: {dlog.n_updates()} updates, slots_per_leaf={dlog.buffer.slots_per_leaf} "
+        f"compact_ok={dlog.compact_ok}, {dlog.buffer.nbytes()} B on the device")
+
+    # 4) SKR and kNN with the live delta: checks (a) and (b)
+    with phase("SKR batch with the delta, check (a)"):
+        wl = batch("MIX", mix_seed)
+        out = serve(wl, "same")
+        merged = live.generation.delta_log.merged_dataset()
+        rows = np.flatnonzero(out["overflow"] == 0)[:N_ORACLE]
+        if rows.size < N_ORACLE // 2:
+            raise AssertionError(f"only {rows.size} live queries without overflow")
+        for q in rows:
+            row = out["ids"][q]
+            want = exact_query_result_ids(merged, wl.rects[q], wl.kw_bitmap[q])
+            if not np.array_equal(np.sort(row[row >= 0]), want):
+                raise AssertionError(f"(a) live query {q}: ids differ from exact_query_result_ids")
+    log(f"(a) SKR with the live delta: the {rows.size} queries without overflow equal "
+        f"exact_query_result_ids over the {merged.n} merged objects")
+    with phase(f"kNN batch (k={K}) with the delta, check (b)"):
+        kwl = batch("MIX", mix_seed)
+        pts = query_points(kwl)
+        torch.cuda.synchronize()
+        kmem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        kout = live.serve_knn(pts, kwl.kw_bitmap, K)
+        torch.cuda.synchronize()
+        t_knn = time.perf_counter() - t
+        kpeak = torch.cuda.max_memory_allocated() - kmem
+        cold = build_str_rtree(merged, leaf_size=LEAF_SIZE, fanout=FANOUT)
+        check_knn_oracle(knn_query, cold, merged, kout, pts, kwl.kw_bitmap,
+                         range(min(N_ORACLE, LIVE_BATCH)), K, "(b) live kNN")
+    log(f"(b) kNN with the live delta: {t_knn:.6f} s, peak device memory {kpeak} B above its "
+        f"start; ids and dist2 equal knn_query over a cold STR index of the merged objects")
+    del merged, cold
+
+    # 5) shifted traffic until the monitor trips; no force. UNI trips it
+    # (PERF.md section 6, with little to spare), GAU and LAP follow if not
+    with phase("shifted traffic"):
+        tripped = None
+        for dist in LIVE_SHIFTS:
+            for _ in range(N_SHIFT_BATCHES):
+                swl = batch(dist, shift_seed)
+                serve(swl, "shift")
+                if live.monitor.triggered:
+                    tripped = dist
+                    break
+            if tripped:
+                break
+    if tripped is None:
+        raise AssertionError(f"no shift of {LIVE_SHIFTS} tripped the monitor")
+    log(f"the monitor tripped on {tripped} traffic at ratio {live.monitor.ratio:.6f} > threshold "
+        f"{cfg.threshold} (same-distribution ratios at most {max(same_ratios):.6f})")
+
+    # the in-flight reader: the old generation on one batch before and after the swap
+    old = live.generation
+
+    def in_flight():
+        return serve_batch(old.snapshot, swl.rects, swl.kw_bitmap, MAX_LEAVES,
+                           plan_cache=old.plan_cache, delta=old.delta())
+
+    before = in_flight()
+    split = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            split[name] = time.perf_counter() - t
+            return r
+        return run
+
+    torch.cuda.synchronize()
+    swap0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with patched(wisk_serve, warm_start_rebuild=timed("warm_start_rebuild",
+                                                      wisk_serve.warm_start_rebuild)), \
+            patched(IndexSnapshot, build=staticmethod(timed("snapshot", IndexSnapshot.build))):
+        if not timed("swap", live.maybe_rebuild)():
+            raise AssertionError("maybe_rebuild() did not swap after the monitor tripped")
+    swap_peak = torch.cuda.max_memory_allocated()
+    new = live.generation
+    warm = new.artifacts
+    log(f"swap: maybe_rebuild {split['swap']:.3f} s = warm_start_rebuild "
+        f"{split['warm_start_rebuild']:.3f} s + the new snapshot {split['snapshot']:.3f} s + the "
+        f"rest (merged dataset, observed workload, DeltaLog); rebuild phase s "
+        f"{json.dumps(warm.timings)} counters {json.dumps(warm.counters)}; level widths "
+        f"{[l.n for l in warm.index.levels]}")
+    log(f"swap memory: old generation {old.snapshot.nbytes()} B, new {new.snapshot.nbytes()} B "
+        f"(OBJ {old.snapshot.obj_per_leaf} -> {new.snapshot.obj_per_leaf}); peak device memory "
+        f"across the swap {swap_peak} B ({swap_peak - swap0} B above its start, "
+        f"{torch.cuda.get_device_properties(0).total_memory} B on the card)")
+    if new.snapshot.obj_per_leaf > old.snapshot.obj_per_leaf:
+        raise AssertionError(f"the warm rebuild grew OBJ from {old.snapshot.obj_per_leaf} to "
+                             f"{new.snapshot.obj_per_leaf}")
+
+    # (c) the in-flight generation, (d) the new one
+    assert_outputs_equal({k: before[k] for k in ("ids", "counts")},
+                         {k: in_flight()[k] for k in ("ids", "counts")}, "(c) the old generation")
+    log("(c) the old generation serves the same ids and counts before and after the swap")
+    n_pre = sum(a[0].size for a in arrivals)
+    if new.seq != old.seq + 1 or new.delta() is not None or new.dataset.n != ds.n + n_pre:
+        raise AssertionError(f"(d) the new generation: seq {new.seq}, delta {new.delta()}, "
+                             f"n {new.dataset.n}")
+    del old, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("first post-swap batch, check (d)"):
+        pwl = batch(tripped, shift_seed)
+        pout = serve(pwl, "post")
+        rows = np.flatnonzero(pout["overflow"] == 0)[:N_ORACLE]
+        if rows.size < N_ORACLE // 2:
+            raise AssertionError(f"only {rows.size} post-swap queries without overflow")
+        check_skr_oracle(execute_serial, new.artifacts.index, new.dataset, pwl, pout, rows,
+                         "(d) the new generation")
+    log(f"(d) the new generation: seq {new.seq}, no delta, {new.dataset.n} objects; the first "
+        f"batch's {rows.size} queries without overflow equal execute_serial")
+
+    # 6) inserts after the swap, then traffic until the monitor re-arms;
+    # one batch of each kind profiled, with the rows it launches
+    def profiled(label, fn):
+        _build.reset_launch_counts()
+        profile_batch(label, lambda cache: fn(), live.generation.plan_cache, PlanCache)
+        log(f"  {label}: launches {rows_launched(_build.launch_counts())}")
+
+    profiled("live SKR batch without a delta", lambda: live.serve(pwl.rects, pwl.kw_bitmap,
+                                                                  MAX_LEAVES))
+    with phase(f"{N_POST_INSERT} inserts after the swap"):
+        for i in range(N_POST_INSERT // INSERT_BATCH):
+            locs, kw = make_update_stream(ds, INSERT_BATCH, rng, 1e-3)
+            got = []
+            if i == 0:
+                profiled(f"live insert batch of {INSERT_BATCH}",
+                         lambda: got.append(live.insert(locs, kw)))
+            else:
+                got.append(live.insert(locs, kw))
+            arrivals.append((got[0], locs, kw))
+    post_min = int(min(a[0].min() for a in arrivals[N_INSERT // INSERT_BATCH:]))
+    if post_min <= pre_max:
+        raise AssertionError(f"post-swap ids start at {post_min}, not above {pre_max}")
+    with phase("post-swap traffic"):
+        for _ in range(N_POST_BATCHES):
+            pwl = batch(tripped, shift_seed)
+            serve(pwl, "post")
+        if live.monitor.state != "armed":
+            raise AssertionError(f"the monitor is {live.monitor.state} after the post-swap traffic")
+    profiled("live SKR batch with the delta", lambda: live.serve(pwl.rects, pwl.kw_bitmap,
+                                                                 MAX_LEAVES))
+
+    # (e) the notification stream: drained before the swap, and after it
+    # (queued across it and post-swap)
+    with phase("notifications, check (e)"):
+        drained.append(live.drain_notifications())
+        stream = np.concatenate(drained)
+        if live.drain_notifications().shape != (0, 2):
+            raise AssertionError("(e) a second drain was not empty")
+        plain = SubscriptionIndex(ds.vocab_size, device=dev)
+        for r, kw in zip(subs_wl.rects, subs_wl.kw_ids):
+            plain.subscribe(r, kw)
+        _build.reset_launch_counts()
+        with patched(ops, match_subscription_pairs=plain_pairs):
+            for ids, locs, kw in arrivals:
+                plain.match_arrivals(ids, locs, kw_ids=kw)
+        if any(_build.launch_counts().values()):
+            raise AssertionError("(e) the plain rerun launched a kernel")
+        if not np.array_equal(plain.drain(), stream):
+            raise AssertionError("(e) the stream differs from its plain rerun")
+        sample_rng = np.random.default_rng(29)
+        notified = np.unique(stream[:, 1])
+        half = min(N_SUB_SAMPLE // 2, notified.size)
+        sample = np.union1d(sample_rng.choice(notified, half, replace=False),
+                            sample_rng.choice(N_SUBS, N_SUB_SAMPLE - half, replace=False))
+        oracle = SubscriptionOracle()
+        to_oracle = {int(sid): oracle.subscribe(subs_wl.rects[sid], subs_wl.kw_ids[sid])
+                     for sid in sample}
+        for ids, locs, kw in arrivals:
+            oracle.arrive(ids, locs, kw)
+        keep = np.isin(stream[:, 1], sample)
+        mapped = np.stack([stream[keep, 0], [to_oracle[int(s)] for s in stream[keep, 1]]], 1)
+        want = oracle.drain()
+        if not np.array_equal(mapped.reshape(-1, 2), want):
+            raise AssertionError("(e) the sampled stream differs from SubscriptionOracle's replay")
+    log(f"(e) notifications: {stream.shape[0]} ({drained[0].shape[0]} drained before the swap, "
+        f"{drained[1].shape[0]} after it, of them "
+        f"{int((drained[1][:, 0] <= pre_max).sum())} queued across it); equal to the plain "
+        f"rerun pair for pair; on {sample.size} sampled geofences ({half} notified) the "
+        f"{want.shape[0]} notifications equal SubscriptionOracle's replay; post-swap ids from "
+        f"{post_min} above the pre-swap {pre_max}; a second drain is empty")
+    log(f"live batch latencies of {LIVE_BATCH} (s): before the shift {lat['same']}, under it "
+        f"{lat['shift']}, after the swap {lat['post']}")
 
 
 # -------------------------------------------------------------------- main
@@ -1927,16 +2281,6 @@ def main() -> int:
                         i.subscribe(r, kw)
         return idx, batches_in, gone, per
 
-    def plain_pairs(o_pts, o_bm, s_rects, s_bm, s_sig):
-        """``match_subscription_pairs`` on the plain version, through the
-        same capacity retry."""
-        args = (o_pts, o_bm, s_rects, s_bm, s_sig)
-        pairs, count = ref.sub_match_pairs_ref(*args, ops.SUB_PAIRS_CAPACITY)
-        n = int(count)
-        if n > ops.SUB_PAIRS_CAPACITY:
-            pairs, _ = ref.sub_match_pairs_ref(*args, n)
-        return pairs[:n]
-
     def canon(pairs, S):
         """Match pairs in (object, slot) order."""
         return pairs[torch.argsort(pairs[:, 0].long() * S + pairs[:, 1].long())]
@@ -2576,7 +2920,12 @@ def main() -> int:
 
     # --------------------------------------------------------- construction
     with phase("construction"):
-        construction(dev, ds, wl, batches, main_out)
+        art, train = construction(dev, ds, wl, batches, main_out)
+    gc.collect()  # the construction phase's snapshots and twin builds
+    torch.cuda.empty_cache()
+
+    with phase("live front door"):
+        live_front_door(dev, ds, train, art)
 
     log(f"card: {card}")
     print(json.dumps({"kernels": rows}), flush=True)

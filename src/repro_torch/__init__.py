@@ -8,10 +8,15 @@ plain PyTorch on tensors, and hand-written CUDA kernels for Hopper
 Construction (``core.build.build_wisk`` and ``warm_start_rebuild``: the CDF
 bank, learned split partitioning, DQN packing) trains on the device with
 autograd; serving (SKR in both modes, Boolean kNN, live deltas, standing
-subscriptions) runs on the CUDA kernels. Entry points that place data
-(``build_wisk``, ``warm_start_rebuild``, ``serve.snapshot.IndexSnapshot.build``
-and ``from_reference_arrays``) run on ``cuda`` unless the caller passes
-``device="cpu"``; everything downstream follows their device.
+subscriptions) runs on the CUDA kernels; ``launch.wisk_serve.LiveIndex``
+ties them together as the live front door (updates, geofences, drift
+detection, a warm rebuild and an atomic generation swap). The baselines
+(``baselines.conventional``, ``baselines.learned``) are host numpy. Entry
+points that place data (``build_wisk``, ``warm_start_rebuild``,
+``serve.snapshot.IndexSnapshot.build`` and ``from_reference_arrays``,
+``serve.subscribe.SubscriptionIndex``, ``LiveIndex``) run on ``cuda``
+unless the caller passes ``device="cpu"``; everything downstream follows
+their device.
 """
 from __future__ import annotations
 

@@ -7,22 +7,35 @@ dense A/B scan) on the snapshot's device and slices the pads off;
 live ``DeltaBuffer`` (serve/delta.py);
 ``HotQueryCache`` / ``serve_batch_cached`` serve repeated probes from an
 LRU cache; ``MicroBatcher`` coalesces singleton queries into one dispatch.
+
+On top of them sits the incremental-maintenance front door (DESIGN.md §7):
+``LiveIndex`` buffers object inserts and deletes in the current
+``ServingGeneration``'s ``DeltaLog``, merged into every descent; matches
+every insert batch against the standing subscriptions
+(serve/subscribe.py); watches the observed Eq. 1 cost with a
+``DriftMonitor`` (core/drift.py); and on a trip warm-start rebuilds on the
+recently observed traffic (``core.build.warm_start_rebuild``) and swaps the
+fresh generation in with one reference store.
+
 Host-side orchestration only, with the behaviour of the JAX package's
 ``launch/wisk_serve.py`` single-device front door. The multi-device
-regimes are ROADMAP A.10; ``ServingGeneration``/``LiveIndex`` (rebuild
-swaps that feed standing subscriptions, serve/subscribe.py) wait for the
-construction port (A.9, A.11).
+regimes (query- and index-parallel serving) are ROADMAP A.10.
 """
 from __future__ import annotations
 
+import dataclasses
 from collections import OrderedDict
 from typing import Dict, Optional
 
 import numpy as np
 
-from ..serve.delta import DeltaBuffer
+from .. import resolve_device
+from ..core.build import BuildConfig, build_wisk, warm_start_rebuild
+from ..core.drift import DriftMonitor, observed_workload
+from ..serve.delta import DeltaBuffer, DeltaLog
 from ..serve.engine import IndexSnapshot, retrieve, retrieve_knn
 from ..serve.plan import PlanCache, pad_knn_queries_to_bucket, pad_queries_to_bucket
+from ..serve.subscribe import SubscriptionIndex
 
 _PER_QUERY_SKR = ("ids", "counts", "nodes_checked", "nodes_scanned", "verified", "overflow")
 _PER_QUERY_KNN = ("ids", "dist2", "nodes_checked", "verified", "leaves_verified", "pruned")
@@ -269,3 +282,238 @@ class MicroBatcher:
         if ticket not in self._done:
             self.flush()
         return self._done.pop(ticket)
+
+
+# ------------------------------- incremental maintenance front door (§7)
+@dataclasses.dataclass(frozen=True)
+class ServingGeneration:
+    """One immutable serving epoch (DESIGN.md §7).
+
+    Everything a request touches -- snapshot, delta log, plan cache, the
+    backing dataset and artifacts -- is bundled so replacing a generation is
+    ONE reference store (``LiveIndex._gen = new``): an in-flight batch that
+    grabbed the old generation keeps serving a consistent view; the next
+    batch sees the new one. ``seq`` increments per swap.
+    """
+
+    artifacts: object  # core.build.BuildArtifacts
+    dataset: object  # core.types.GeoTextDataset
+    snapshot: IndexSnapshot
+    delta_log: DeltaLog
+    plan_cache: PlanCache
+    seq: int = 0
+
+    def delta(self) -> Optional[DeltaBuffer]:
+        """The live delta, or None when no updates are buffered (the
+        executors' zero-overhead fast path)."""
+        return self.delta_log.buffer if self.delta_log.n_updates() else None
+
+
+class LiveIndex:
+    """Serving front door that survives live traffic (DESIGN.md §7).
+
+    Ties the incremental subsystem together: object updates land in the
+    current generation's ``DeltaLog`` and are merged into every query on
+    the fly; a ``DriftMonitor`` watches the observed per-query Eq.1 cost;
+    and ``maybe_rebuild()`` reacts to a trip by warm-start rebuilding on
+    the recently observed workload and atomically swapping in the fresh
+    ``IndexSnapshot`` -- serving never blocks on a rebuild, in-flight
+    batches finish on the generation they started on.
+
+    All methods are host-side control plane; the descents they drive run on
+    ``device`` (``cuda`` unless the caller names another; raises where CUDA
+    is absent), where the build, every generation's snapshot, the
+    subscription block and the warm rebuild's split learner live. Given
+    ``artifacts``, their CDF bank moves there. Single-writer discipline:
+    updates and swaps are expected from one maintenance thread; readers may
+    hold ``generation`` freely.
+
+    The reference's index-parallel regime (``index_shards``/``index_mesh``,
+    a partitioned snapshot per generation) is not ported yet (ROADMAP A.10),
+    so there are no such arguments.
+    """
+
+    def __init__(
+        self,
+        dataset,
+        workload,
+        build_config=None,
+        drift_config=None,
+        artifacts=None,
+        max_recent: int = 512,
+        slots_per_leaf: int = 8,
+        result_cache: Optional[HotQueryCache] = None,
+        device=None,
+    ) -> None:
+        self.device = resolve_device(device)
+        self.build_config = build_config or BuildConfig()
+        self._slots_per_leaf = slots_per_leaf
+        # hot-query result cache (§3.5): exact results keyed on the current
+        # served state, so every state change below must invalidate it
+        self.result_cache = result_cache
+        if artifacts is None:
+            artifacts = build_wisk(dataset, workload, self.build_config, device=self.device)
+        else:
+            artifacts = dataclasses.replace(artifacts, bank=artifacts.bank.to(self.device))
+        self._gen = self._make_generation(artifacts, dataset, seq=0)
+        # continuous-filter pub-sub (DESIGN.md §8): the standing-subscription
+        # index + notification log live on the front door, NOT on a
+        # generation -- subscriptions, queued notifications, and the
+        # exactly-once high-water mark (global object ids are monotonic
+        # across rebuilds) all survive maybe_rebuild() swaps untouched
+        self.subscriptions = SubscriptionIndex(dataset.vocab_size, device=self.device)
+        # baseline learned from the warmup window of observed traffic (see
+        # core/drift.py: a trained-workload prediction undershoots steady
+        # state by the generalization gap)
+        self.monitor = DriftMonitor(None, drift_config)
+        self.max_recent = max_recent
+        self._recent_rects: list = []
+        self._recent_bms: list = []
+        self.swaps = 0
+
+    def _make_generation(self, artifacts, dataset, seq: int) -> ServingGeneration:
+        snapshot = IndexSnapshot.build(artifacts.index, dataset, device=self.device)
+        return ServingGeneration(
+            artifacts=artifacts,
+            dataset=dataset,
+            snapshot=snapshot,
+            delta_log=DeltaLog(artifacts.index, dataset, snapshot, self._slots_per_leaf),
+            plan_cache=PlanCache(),
+            seq=seq,
+        )
+
+    @property
+    def generation(self) -> ServingGeneration:
+        """The current generation; grab once per batch for a stable view."""
+        return self._gen
+
+    # ------------------------------------------------------------- serving
+    def _record(self, rects, bms) -> None:
+        self._recent_rects.extend(np.asarray(rects, np.float32).reshape(-1, 4))
+        self._recent_bms.extend(np.asarray(bms, np.uint32).reshape(len(rects), -1))
+        drop = len(self._recent_rects) - self.max_recent
+        if drop > 0:
+            del self._recent_rects[:drop]
+            del self._recent_bms[:drop]
+
+    def serve(self, q_rects, q_bm, max_leaves: int = 32) -> Dict[str, np.ndarray]:
+        """Delta-merged SKR batch through the current generation; feeds the
+        drift monitor with the observed Eq.1 counters.
+
+        With a ``result_cache`` the batch goes through ``serve_batch_cached``
+        and only MISS rows feed the monitor -- cache hits cost nothing, and
+        counting them would mask drift in exactly the hot traffic a rebuild
+        should follow."""
+        gen = self._gen
+        if self.result_cache is not None:
+            out = serve_batch_cached(
+                gen.snapshot, q_rects, q_bm, self.result_cache, max_leaves,
+                plan_cache=gen.plan_cache, delta=gen.delta(),
+            )
+            fresh = ~out["cached"]
+        else:
+            out = serve_batch(
+                gen.snapshot, q_rects, q_bm, max_leaves,
+                plan_cache=gen.plan_cache, delta=gen.delta(),
+            )
+            fresh = slice(None)
+        self._record(q_rects, q_bm)
+        nc = np.asarray(out["nodes_checked"])[fresh]
+        if nc.size:  # an all-hit batch observed no real descents
+            self.monitor.observe_counters(nc, np.asarray(out["verified"])[fresh])
+        return out
+
+    def serve_knn(self, points, q_bm, k: int) -> Dict[str, np.ndarray]:
+        """Delta-merged Boolean kNN batch through the current generation.
+
+        kNN traffic enters the recent-traffic window as zero-area point
+        rects, so kNN-driven drift both trips the monitor AND steers the
+        rebuild's training workload toward the traffic that tripped it."""
+        gen = self._gen
+        out = serve_knn_batch(
+            gen.snapshot, points, q_bm, k, plan_cache=gen.plan_cache, delta=gen.delta(),
+        )
+        pts = np.asarray(points, np.float32).reshape(-1, 2)
+        self._record(np.concatenate([pts, pts], axis=1), q_bm)
+        self.monitor.observe_counters(out["nodes_checked"], out["verified"])
+        return out
+
+    # ------------------------------------------------------------- updates
+    def insert(self, locs, kw_ids) -> np.ndarray:
+        """Buffer new objects into the current generation's delta log;
+        visible to the very next query. Returns the assigned global ids.
+
+        In the same step, the arrivals are matched on the device against the
+        compiled subscription block (DESIGN.md §8): any standing filter they
+        satisfy queues an (object_id, subscription_id) notification for
+        ``drain_notifications()``."""
+        if self.result_cache is not None:
+            self.result_cache.invalidate()
+        ids = self._gen.delta_log.insert(locs, kw_ids)
+        self.subscriptions.match_arrivals(ids, locs, kw_ids=kw_ids)
+        return ids
+
+    def delete(self, ids) -> int:
+        """Mask objects out of serving immediately; returns #newly deleted.
+
+        Deletion never retracts a queued notification -- the object *did*
+        arrive while the matching subscriptions were live (§8 contract)."""
+        if self.result_cache is not None:
+            self.result_cache.invalidate()
+        return self._gen.delta_log.delete(ids)
+
+    # -------------------------------------------- continuous filters (§8)
+    def subscribe(self, rect, kw_ids) -> int:
+        """Register a standing spatio-textual filter (geofence); returns its
+        subscription id. Matches objects inserted from now on: each
+        ``insert`` batch is matched on the device against the compiled
+        subscription block in the same step it enters the delta log."""
+        return self.subscriptions.subscribe(rect, kw_ids)
+
+    def unsubscribe(self, sub_id: int) -> bool:
+        """Retire a standing filter; already-queued notifications survive."""
+        return self.subscriptions.unsubscribe(sub_id)
+
+    def drain_notifications(self) -> np.ndarray:
+        """All queued (object_id, subscription_id) notifications, exactly
+        once -- across buffer growth, freed-slot reuse, deletes, and
+        rebuild swaps (the subscription state lives on the front door, and
+        the exactly-once mark rides the monotonic global id space, which a
+        swap continues rather than restarts)."""
+        return self.subscriptions.drain()
+
+    # ------------------------------------------------------------- rebuild
+    def observed_workload(self):
+        """The recent-traffic window as a trainable ``Workload``."""
+        return observed_workload(
+            np.asarray(self._recent_rects, np.float32),
+            np.asarray(self._recent_bms, np.uint32),
+            self._gen.dataset.vocab_size,
+        )
+
+    def maybe_rebuild(self, force: bool = False, min_observed: int = 16) -> bool:
+        """Warm-start rebuild + atomic swap when the drift monitor tripped
+        (or ``force``). Returns True when a swap happened.
+
+        The rebuild runs on the *merged* dataset (base + buffered inserts,
+        deletes tombstoned) and the recently observed workload; the old
+        generation keeps serving until the single reference store at the
+        end -- the atomicity contract held by tests/test_torch_live.py.
+        """
+        if not (force or self.monitor.triggered):
+            return False
+        if len(self._recent_rects) < min_observed:
+            return False
+        gen = self._gen
+        merged = gen.delta_log.merged_dataset()
+        artifacts = warm_start_rebuild(
+            merged, self.observed_workload(), gen.artifacts, self.build_config,
+            assign=gen.delta_log.merged_assignment(), device=self.device,
+        )
+        new_gen = self._make_generation(artifacts, merged, seq=gen.seq + 1)
+        self._gen = new_gen  # THE swap: one reference store
+        if self.result_cache is not None:
+            self.result_cache.invalidate()  # cached rows belong to the old gen
+        self.monitor.rearm()  # back to warmup: re-learn the baseline
+        self.swaps += 1
+        return True

@@ -37,8 +37,10 @@ No (N, S) match matrix is made: the arrivals' bitmaps go to the device
 once (``pump``'s never leave it), the kernel emits the matching (object,
 slot) pairs there, they are sorted there into canonical order, and only
 they are copied back.
-``LiveIndex``, which feeds an index's inserts here and swaps rebuilt
-generations, waits for the construction port (ROADMAP A.9, A.11).
+``launch.wisk_serve.LiveIndex`` holds one ``SubscriptionIndex`` on its
+front door, matches each insert batch here in the same step, and keeps it
+across generation swaps, so queued notifications and the high-water mark
+survive a rebuild.
 """
 from __future__ import annotations
 

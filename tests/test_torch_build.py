@@ -131,7 +131,8 @@ def test_accelerated_build_samples_and_groups(data):
 def _carried(ref, ds, wl):
     b = ref.bank
     bank = dict(cls=b.cls, count=b.count, gauss=b.gauss, nn_slot=b.nn_slot,
-                nn_params={k: np.asarray(v) for k, v in b.nn_params.items()},
+                nn_params=None if b.nn_params is None else {
+                    k: np.asarray(v) for k, v in b.nn_params.items()},
                 vocab_size=b.vocab_size, train_loss=b.train_loss)
     return tbuild.artifacts_from_reference(ds, bank, ref.itemsets, ref.partition.clusters.assign,
                                            ref.hierarchy.parents, wl, device="cpu")
