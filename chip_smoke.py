@@ -163,7 +163,32 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    ``SubscriptionOracle`` replay, a second drain empty; one SKR batch
    without a delta, one with it and one insert batch profiled, with the
    rows of PERF.md section 6 they launch;
-15. prints the kernels' JSON line, then the result line.
+15. multi-rank serving: ``N_RANKS`` = 2 ranks spawned with
+   ``torch.multiprocessing``, gloo on one card (ranks share it; NCCL
+   refuses two ranks on one GPU), NCCL with a card a rank. The parent puts
+   the snapshot (without the dense matrices), its
+   ``PartitionedSnapshot.build(S=2)`` and log B's delta in shared host
+   memory; each rank places only its slab (and, for the query-parallel
+   regime, a replica). Checked on every rank: index-parallel SKR over the
+   4 batches (cold, then warm) and one kNN batch at k = 10 (cold, then
+   warm) against the single-device outputs (id sets and counters; kNN
+   every key); query-parallel SKR and kNN at the single-device run's
+   learned widths, every key; log B's delta routed with
+   ``partition_delta``, one SKR and one kNN batch against the
+   single-device delta runs; the flat step at ``WiskServeConfig()`` (4096
+   queries, 65,536 nodes, W = 128, OBJ = 512; each rank draws its own
+   leaf rows on the card) against its plain per-shard sum;
+   ``LiveIndex(index_shards=2)`` over the 120,000-object twin build
+   through serves, 1,000 inserts, 500 deletes, a kNN batch and a forced
+   swap against the single-device ``LiveIndex``. Printed: backend, slab
+   and snapshot bytes, each batch's seconds, the collectives' share of the
+   warm batches (host clock, waits for the peer rank included) and of one
+   profiled SKR batch per regime (``torch.profiler``, with the device's
+   idle share), that host time split for one more SKR batch per regime
+   on every rank into the wait for the rank's own device work, the wait
+   for its peer and the collective itself, launches by row per rank, peak
+   device memory per rank;
+16. prints the kernels' JSON line, then the result line.
 
 Every phase prints its seconds. Any failure raises and exits non-zero.
 Without a CUDA device, or outside the repository, it exits non-zero and
@@ -177,6 +202,7 @@ import gc
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1313,7 +1339,7 @@ def construction(dev, ds, wl, batches, str_out) -> None:
                      "warm-rebuilt index")
     log(f"warm-rebuilt index: a batch of {BATCH} in {t_batch:.6f} s, its {rows.size} queries "
         f"without overflow equal execute_serial")
-    return art, train
+    return art, train, (small, strain, a)
 
 
 # PERF.md section 6's rows, by the launch counts' names
@@ -1619,6 +1645,528 @@ def live_front_door(dev, ds, train, art) -> None:
         f"{post_min} above the pre-swap {pre_max}; a second drain is empty")
     log(f"live batch latencies of {LIVE_BATCH} (s): before the shift {lat['same']}, under it "
         f"{lat['shift']}, after the swap {lat['post']}")
+
+
+# ------------------------------------------------- multi-rank serving (phase 15)
+N_RANKS = 2
+KNN_RANK_QUERIES = 1024  # the kNN batch of the multi-rank phase
+FLAT_SEED = SEED + 15  # the flat step's queries; shard s's leaf rows take FLAT_SEED + 1 + s
+FLAT_SHAPE = None  # (n_queries, n_nodes) of the flat step; None: WiskServeConfig()'s own
+N_LIVE_INSERT = 1_000  # the sharded LiveIndex's inserts before the swap
+N_LIVE_DELETE = 500  # of which 50 are buffered inserts
+RANK_TIMEOUT_S = 900
+COLLECTIVE_NAMES = ("all_gather", "allgather", "all_reduce", "allreduce", "broadcast")
+# the kernels each run of the multi-rank phase must launch on every rank
+RANK_RUNS_NEED = {
+    "index SKR": ("frontier_level_narrow", "fused_verify_remap_slot"),
+    "index kNN": ("knn_level_dist_narrow",),
+    "query SKR": ("frontier_level_narrow", "fused_verify_remap_slot"),
+    "query kNN": ("knn_level_dist_narrow",),
+    "index SKR delta": ("frontier_level", "fused_verify_remap_slot", "skr_verify_slots"),
+    "index kNN delta": ("knn_level_dist",),
+    "flat step": ("skr_filter", "skr_verify"),
+}
+
+
+def share(obj):
+    """``obj`` with every tensor field of its dataclass in shared memory, so
+    the spawned ranks map the parent's host arrays instead of copying
+    them; returns ``obj``."""
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        for t in v if isinstance(v, list) else [v]:
+            if isinstance(t, torch.Tensor):
+                t.share_memory_()
+    return obj
+
+
+def run_live_steps(li, steps):
+    """Drive a ``LiveIndex`` through ``steps`` (``("serve", rects, bms,
+    max_leaves)``, ``("knn", points, bms, k)``, ``("insert", locs, kw)``,
+    ``("delete", ids)``, ``("rebuild",)``); each step's result and the
+    generation's ``seq`` after it."""
+    out = []
+    for op, *args in steps:
+        if op == "serve":
+            got = li.serve(*args)
+        elif op == "knn":
+            got = li.serve_knn(*args)
+        elif op == "insert":
+            got = li.insert(*args)
+        elif op == "delete":
+            got = li.delete(*args)
+        else:
+            got = li.maybe_rebuild(force=True)
+        out.append((op, got, li.generation.seq))
+    return out
+
+
+def same_id_sets(got, want, what: str) -> None:
+    """SKR outputs served on another layout: equal counters and, per query,
+    equal id sets (the ids' order follows the layout)."""
+    for k in ("counts", "nodes_checked", "verified", "overflow"):
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        if g.dtype != w.dtype or not np.array_equal(g, w):
+            raise AssertionError(f"{what}: {k} differs")
+    for q, (a, b) in enumerate(zip(got["ids"], want["ids"])):
+        if not np.array_equal(np.sort(a[a >= 0]), np.sort(b[b >= 0])):
+            raise AssertionError(f"{what}: query {q}'s ids differ")
+
+
+def collective_share(prof, wall_us: float) -> float:
+    """The share of ``wall_us`` the host spent inside collectives: the union
+    of the profiler's host intervals of events named for one."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if any(n in e.name.lower() for n in COLLECTIVE_NAMES))
+    total, end = 0.0, -float("inf")
+    for a, b in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / wall_us
+
+
+@contextlib.contextmanager
+def timed_collectives():
+    """Host seconds spent inside ``torch.distributed``'s all-gathers and
+    all-reduces while inside (gloo and NCCL both return from these calls
+    once the collective is done), as ``box[0]``."""
+    import torch.distributed as dist
+
+    box = [0.0]
+
+    def timed(fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                box[0] += time.perf_counter() - t
+        return call
+
+    with patched(dist, all_gather_into_tensor=timed(dist.all_gather_into_tensor),
+                 all_reduce=timed(dist.all_reduce)):
+        yield box
+
+
+@contextlib.contextmanager
+def split_collectives(sync):
+    """Inside, every all-gather and all-reduce first waits for this rank's
+    own device work (``sync``), then for the other ranks of its group (a
+    barrier on that group), and only then runs; the host seconds of each
+    part add up by op in ``box[op] = [own device, peer wait, collective,
+    calls]``. The first two are what a collective's host time holds
+    besides its own transfer (ranks that share a card also wait there for
+    each other's kernels); the barrier's own round trip counts as peer
+    wait. The syncs and barriers slow the batch: its wall is not a batch
+    time."""
+    import torch.distributed as dist
+
+    box = {}
+
+    def split(op, fn):
+        def call(*a, **kw):
+            part = box.setdefault(op, [0.0, 0.0, 0.0, 0])
+            t0 = time.perf_counter()
+            sync()
+            t1 = time.perf_counter()
+            dist.barrier(group=kw.get("group"))
+            t2 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                part[0] += t1 - t0
+                part[1] += t2 - t1
+                part[2] += time.perf_counter() - t2
+                part[3] += 1
+        return call
+
+    with patched(dist, all_gather_into_tensor=split("all_gather", dist.all_gather_into_tensor),
+                 all_reduce=split("all_reduce", dist.all_reduce)):
+        yield box
+
+
+def profiled(serve_one):
+    """``(wall ms, device idle %, collective %)`` of one call of
+    ``serve_one`` under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        serve_one()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+    return wall_us / 1e3, 100 - 100 * busy / wall_us, 100 * collective_share(prof, wall_us)
+
+
+def rank_phase(rank: int, world: int, init: str, backend: str, p: dict) -> None:
+    """One rank of the multi-rank phase (spawned): every rank makes the same
+    calls; rank 0 logs. Any failed check raises, which ends this rank with
+    a non-zero exit and the parent's phase with it."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch import wisk_serve
+    from repro_torch.launch.flat_legacy import wisk_serve_step
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.launch.wisk_serve import (
+        LiveIndex, serve_index_sharded, serve_knn_index_sharded, serve_knn_sharded, serve_sharded,
+    )
+    from repro_torch.serve.plan import PlanCache
+
+    on_card = p["device_type"] == "cuda"  # else a rehearsal on the CPU
+    dev = torch.device(f"cuda:{rank % torch.cuda.device_count()}" if on_card else "cpu")
+    sync = (lambda: torch.cuda.synchronize(dev)) if on_card else (lambda: None)
+    if on_card:
+        torch.cuda.set_device(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    dist.init_process_group(backend, init_method=init, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    say = log if rank == 0 else (lambda *a: None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    qmesh = make_serving_mesh(query=world, index=1, device=dev)
+    imesh = make_serving_mesh(query=1, index=world, device=dev)
+    say(f"  rank 0 up, its group joined and its meshes made: {time.time() - p['spawned']:.3f} s "
+        f"after the spawn")
+    psnap, host = p["psnap"], p["host"]
+    rects, bms, points, batches = p["rects"], p["bms"], p["points"], p["batches"]
+    b0, kq = batches[0], p["knn_rows"]
+    counts = {}  # run -> this rank's launch counts
+    secs = {}
+
+    def run(name, fn):
+        """``fn()`` with the launch counts zeroed before and read after, the
+        host clock around it (synchronized)."""
+        sync()
+        _build.reset_launch_counts()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        secs.setdefault(name, []).append(time.perf_counter() - t)
+        counts[name] = {k: v for k, v in _build.launch_counts().items() if v}
+        return out
+
+    t = time.perf_counter()
+    slab = wisk_serve._placed(psnap, imesh).snap
+    sync()
+    say(f"  rank slab: {slab.nbytes()} B on {dev} of the whole snapshot's {host.nbytes()} B "
+        f"(per_shard_bytes {psnap.per_shard_bytes()}), placed in {time.perf_counter() - t:.3f} s")
+
+    # index-parallel SKR: the 4 batches, a cold cache converged on batch 0
+    icache = PlanCache()
+    run("index SKR cold", lambda: serve_index_sharded(psnap, rects[b0], bms[b0], MAX_LEAVES,
+                                                      mesh=imesh, plan_cache=icache))
+    with timed_collectives() as in_coll:
+        outs = [run("index SKR", lambda b=b: serve_index_sharded(
+            psnap, rects[b], bms[b], MAX_LEAVES, mesh=imesh, plan_cache=icache)) for b in batches]
+    for bi, (got, want) in enumerate(zip(outs, p["skr"])):
+        same_id_sets(got, want, f"index-parallel SKR batch {bi}")
+    say(f"  index-parallel SKR (S={world}): cold batch {secs['index SKR cold'][0]:.6f} s, warm "
+        f"batch s {secs['index SKR']}, of them {in_coll[0]:.6f} s "
+        f"({100 * in_coll[0] / sum(secs['index SKR']):.3f} %) in collectives (host clock, waits "
+        f"for the peer rank included); id sets, counts, nodes_checked, verified and overflow "
+        f"equal the single-device batches; widths {sorted(icache.widths.items())}")
+
+    # index-parallel kNN
+    kcache = PlanCache()
+    kout = run("index kNN cold", lambda: serve_knn_index_sharded(
+        psnap, points[kq], bms[kq], K, mesh=imesh, plan_cache=kcache))
+    with timed_collectives() as in_coll:
+        kout2 = run("index kNN", lambda: serve_knn_index_sharded(
+            psnap, points[kq], bms[kq], K, mesh=imesh, plan_cache=kcache))
+    want = {k: v[:kq.size] for k, v in p["knn"].items() if k != "frontier_widths"}
+    for got in (kout, kout2):
+        assert_outputs_equal({k: got[k] for k in want}, want, "index-parallel kNN")
+    say(f"  index-parallel kNN (S={world}, k={K}, {kq.size} queries): cold "
+        f"{secs['index kNN cold'][0]:.6f} s, warm {secs['index kNN'][0]:.6f} s, of it "
+        f"{in_coll[0]:.6f} s ({100 * in_coll[0] / secs['index kNN'][0]:.3f} %) in collectives "
+        f"(host clock, waits for the peer rank included); ids, dist2 and every counter equal "
+        f"the single-device batch; widths {sorted(kcache.widths.items())}")
+
+    # query-parallel: the same batches; from a cold cache, then at the
+    # single-device run's learned widths, where every key is equal
+    got = run("query SKR cold", lambda: serve_sharded(host, rects[b0], bms[b0], MAX_LEAVES,
+                                                      mesh=qmesh, plan_cache=PlanCache()))
+    same_id_sets(got, p["skr"][0], "query-parallel SKR batch 0, cold cache")
+    qcache = PlanCache()
+    qcache.widths = dict(p["warm_skr"])
+    outs = [run("query SKR", lambda b=b: serve_sharded(host, rects[b], bms[b], MAX_LEAVES,
+                                                       mesh=qmesh, plan_cache=qcache))
+            for b in batches]
+    for bi, (got, want) in enumerate(zip(outs, p["skr"])):
+        assert_outputs_equal(got, want, f"query-parallel SKR batch {bi}")
+    qkcache = PlanCache()
+    qkcache.widths = dict(p["warm_knn"])
+    got = run("query kNN", lambda: serve_knn_sharded(host, points[kq], bms[kq], K, mesh=qmesh,
+                                                     plan_cache=qkcache))
+    assert_outputs_equal(got, {k: (v[:kq.size] if k != "frontier_widths" else v)
+                               for k, v in p["knn"].items()}, "query-parallel kNN")
+    say(f"  query-parallel (Q={world}): SKR cold batch {secs['query SKR cold'][0]:.6f} s "
+        f"(id sets and counters equal), at the learned widths batch s {secs['query SKR']}; kNN "
+        f"{secs['query kNN'][0]:.6f} s; every key equal, id order included")
+
+    # log B's delta routed to the owning shards
+    dcache, dkcache = PlanCache(), PlanCache()
+    got = run("index SKR delta", lambda: serve_index_sharded(
+        psnap, rects[b0], bms[b0], MAX_LEAVES, mesh=imesh, plan_cache=dcache, delta=p["delta"]))
+    same_id_sets(got, p["delta_skr"], "index-parallel SKR with log B's delta")
+    got = run("index kNN delta", lambda: serve_knn_index_sharded(
+        psnap, points[b0], bms[b0], K, mesh=imesh, plan_cache=dkcache, delta=p["delta"]))
+    want = {k: v for k, v in p["delta_knn"].items() if k != "frontier_widths"}
+    assert_outputs_equal({k: got[k] for k in want}, want, "index-parallel kNN with log B's delta")
+    say(f"  log B's delta (partition_delta): SKR {secs['index SKR delta'][0]:.6f} s, kNN "
+        f"{secs['index kNN delta'][0]:.6f} s (cold caches); equal to the single-device delta runs")
+
+    # the flat fallback step: each rank draws only its own leaf rows
+    q_rects, q_bm = flat_queries(dev)
+    leaves = flat_shard(imesh.axis("index").index, world, dev)
+    flat = run("flat step", lambda: wisk_serve_step(q_rects, q_bm, *leaves,
+                                                    axis=imesh.axis("index")))
+    for name, g, w in zip(("counts", "scanned", "overflow"), flat, p["flat_want"]):
+        if not torch.equal(g.cpu(), w):
+            raise AssertionError(f"flat step: {name} differs from the plain per-shard sum")
+    say(f"  flat step at WiskServeConfig() ({q_rects.shape[0]} queries, {world} x "
+        f"{leaves[0].shape[0]} nodes, W={q_bm.shape[1]}, OBJ={leaves[2].shape[1]}): "
+        f"{secs['flat step'][0]:.6f} s, equal to the plain per-shard sum")
+    del q_rects, q_bm, leaves, flat
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the sharded LiveIndex against the single-device one
+    live = run("LiveIndex up", lambda: LiveIndex(index_mesh=imesh, **p["live_kw"]))
+    got = run("LiveIndex steps", lambda: run_live_steps(live, p["live_steps"]))
+    for i, ((op, g, seq), (_, w, wseq)) in enumerate(zip(got, p["live_want"])):
+        if seq != wseq:
+            raise AssertionError(f"LiveIndex step {i} ({op}): seq {seq} != {wseq}")
+        if op == "serve":
+            same_id_sets(g, w, f"LiveIndex step {i}")
+        elif op == "knn":
+            assert_outputs_equal({k: g[k] for k in KNN_OUT}, {k: w[k] for k in KNN_OUT},
+                                 f"LiveIndex step {i}")
+        elif not np.array_equal(np.asarray(g), np.asarray(w)):
+            raise AssertionError(f"LiveIndex step {i} ({op}): {g} != {w}")
+    n_ins = sum(len(s[1]) for s in p["live_steps"] if s[0] == "insert")
+    n_del = sum(len(s[1]) for s in p["live_steps"] if s[0] == "delete")
+    say(f"  LiveIndex(index_shards={world}) over the {p['live_kw']['dataset'].n}-object twin "
+        f"build: up in {secs['LiveIndex up'][0]:.6f} s; {len(got)} steps (serves, {n_ins} "
+        f"inserts, {n_del} deletes, kNN, a forced swap) in {secs['LiveIndex steps'][0]:.6f} s, "
+        f"equal step for step to the single-device LiveIndex")
+
+    # where a SKR batch's time goes, on rank 0 (every rank serves the
+    # batch); a kNN batch's profile would hold hundreds of thousands of
+    # events (a chunk loop of thousands of steps), so the kNN batch above
+    # reads its collectives on the host clock instead
+    t = time.perf_counter()
+    for label, fn in (
+        ("index-parallel SKR", lambda: serve_index_sharded(
+            psnap, rects[b0], bms[b0], MAX_LEAVES, mesh=imesh, plan_cache=icache)),
+        ("query-parallel SKR", lambda: serve_sharded(
+            host, rects[b0], bms[b0], MAX_LEAVES, mesh=qmesh, plan_cache=qcache)),
+    ):
+        if rank == 0 and on_card:
+            wall, idle, coll = profiled(fn)
+            say(f"  profile of one warm {label} batch on rank 0 (profiler on): wall {wall:.6f} ms, "
+                f"device idle {idle:.3f} %, in collectives {coll:.3f} % of the wall")
+        else:
+            fn()
+            sync()
+    say(f"  profiles: {time.perf_counter() - t:.3f} s")
+
+    # what the host time inside collectives holds: the same warm SKR batch
+    # per regime with each collective split into the wait for this rank's
+    # own device work, the wait for the peer rank, and the collective itself
+    splits = {}
+    for label, fn in (
+        ("index-parallel SKR", lambda: serve_index_sharded(
+            psnap, rects[b0], bms[b0], MAX_LEAVES, mesh=imesh, plan_cache=icache)),
+        ("query-parallel SKR", lambda: serve_sharded(
+            host, rects[b0], bms[b0], MAX_LEAVES, mesh=qmesh, plan_cache=qcache)),
+    ):
+        sync()
+        t = time.perf_counter()
+        with split_collectives(sync) as box:
+            fn()
+        sync()
+        splits[label] = (time.perf_counter() - t, box)
+
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    everyone = [None] * world
+    dist.all_gather_object(everyone, (rank, counts, peak, slab.nbytes(), splits))
+    for r, c, pk, sb, sp in everyone:
+        say(f"  rank {r}: slab {sb} B, peak device memory {pk} B; launches by run: "
+            + "; ".join(f"{name}: {rows_launched(v)}" for name, v in c.items()))
+        for label, (wall, box) in sp.items():
+            say(f"  rank {r}, one warm {label} batch with its collectives split (wall "
+                f"{wall:.6f} s, slowed by the split): " + "; ".join(
+                    f"{op} x{n}: own device {a:.6f} s, peer wait {b:.6f} s, collective "
+                    f"{c_:.6f} s" for op, (a, b, c_, n) in sorted(box.items())))
+    for name, need in RANK_RUNS_NEED.items() if on_card else ():
+        for r, c, _, _, _ in everyone:
+            for k in need:
+                if not c[name].get(k):
+                    raise AssertionError(f"rank {r}'s {name} run never launched {k}")
+    dist.destroy_process_group()
+
+
+KNN_OUT = ("ids", "dist2", "nodes_checked", "verified", "leaves_verified", "pruned")
+
+
+def _device_words(g, shape, dev) -> torch.Tensor:
+    """Random int32 bitmap words drawn on ``dev``, about half of them zero."""
+    w = torch.randint(-2 ** 31, 2 ** 31, shape, generator=g, device=dev, dtype=torch.int64)
+    return w.to(torch.int32) * torch.randint(0, 2, shape, generator=g, device=dev,
+                                             dtype=torch.int32)
+
+
+def flat_config():
+    """``WiskServeConfig()``, at ``FLAT_SHAPE`` where a rehearsal set one."""
+    from repro_torch.configs.wisk import WiskServeConfig
+
+    cfg = WiskServeConfig()
+    if FLAT_SHAPE is not None:
+        cfg.n_queries, cfg.n_nodes = FLAT_SHAPE
+    return cfg
+
+
+def flat_queries(dev):
+    """The flat step's ``n_queries`` query rectangles and bitmap words
+    (int32 views), drawn on ``dev`` from ``FLAT_SEED``."""
+    cfg = flat_config()
+    g = torch.Generator(dev).manual_seed(FLAT_SEED)
+    lo = 0.8 * torch.rand(cfg.n_queries, 2, generator=g, device=dev)
+    ext = 0.01 + 0.19 * torch.rand(cfg.n_queries, 2, generator=g, device=dev)
+    return torch.cat([lo, lo + ext], 1), _device_words(g, (cfg.n_queries, cfg.vocab // 32), dev)
+
+
+def flat_shard(s: int, n_shards: int, dev) -> list:
+    """Leaf shard ``s`` of ``n_shards`` of the flat step's operands at
+    ``WiskServeConfig``'s widths (``n_nodes`` leaves in all, ``OBJ_PER_LEAF``
+    slots a leaf, ``vocab // 32`` words), drawn on ``dev`` from its own seed,
+    so a rank draws only its slab and the plain run draws the same rows:
+    leaf MBRs and words, objects inside their leaf with two keywords each,
+    80 % of the slots valid. In ``wisk_serve_step``'s argument order."""
+    from repro_torch.launch.flat_legacy import OBJ_PER_LEAF
+
+    cfg = flat_config()
+    K, W = cfg.n_nodes // n_shards, cfg.vocab // 32
+    g = torch.Generator(dev).manual_seed(FLAT_SEED + 1 + s)
+    rand = lambda *shape: torch.rand(*shape, generator=g, device=dev)  # noqa: E731
+    lo, ext = 0.9 * rand(K, 2), 0.005 + 0.095 * rand(K, 2)
+    obj_bm = torch.zeros((K, OBJ_PER_LEAF, W), dtype=torch.int32, device=dev)
+    for _ in range(2):
+        w = torch.randint(0, W, (K, OBJ_PER_LEAF, 1), generator=g, device=dev)
+        bit = torch.randint(0, 32, (K, OBJ_PER_LEAF, 1), generator=g, device=dev,
+                            dtype=torch.int32)
+        obj_bm.scatter_(2, w, obj_bm.gather(2, w) | torch.bitwise_left_shift(
+            torch.ones_like(bit), bit))
+    leaf_bm = _device_words(g, (K, W), dev) | _device_words(g, (K, W), dev)
+    obj_x = lo[:, :1] + ext[:, :1] * rand(K, OBJ_PER_LEAF)
+    obj_y = lo[:, 1:] + ext[:, 1:] * rand(K, OBJ_PER_LEAF)
+    obj_valid = (rand(K, OBJ_PER_LEAF) < 0.8).to(torch.int8)
+    return [torch.cat([lo, lo + ext], 1), leaf_bm, obj_x, obj_y, obj_bm, obj_valid]
+
+
+def multi_rank_serving(dev, wl, points, batches, snap, warm, skr_out, warm_knn, knn_out, delta,
+                       delta_skr, delta_knn, twin) -> None:
+    """Phase 15: both multi-rank regimes over the smoke's index on
+    ``N_RANKS`` ranks. The parent builds the host arrays once (the snapshot,
+    its partition, log B's delta, the flat step's operands, the twin
+    build) in shared memory and the single-device outputs to hold the ranks
+    to; the ranks place their slabs and serve (``rank_phase``)."""
+    from repro_torch.core.drift import DriftConfig
+    from repro_torch.data.workloads import make_update_stream, make_workload
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.flat_legacy import OBJ_PER_LEAF, wisk_serve_step
+    from repro_torch.launch.wisk_serve import LiveIndex
+    from repro_torch.serve.snapshot import PartitionedSnapshot
+
+    cards = torch.cuda.device_count()
+    backend = "nccl" if dev.type == "cuda" and cards >= N_RANKS else "gloo"
+    log(f"multi-rank serving: {N_RANKS} ranks on {min(cards, N_RANKS)} card(s) of {cards}, "
+        f"backend {backend} (NCCL takes one card a rank; ranks that share a card use gloo, "
+        f"which runs all_reduce, all_gather_into_tensor and broadcast on CUDA tensors itself: "
+        f"no collective is copied through the host)")
+    t = time.perf_counter()
+    host = share(dataclasses.replace(snap, child_matrix=[]).to("cpu"))
+    psnap = share(PartitionedSnapshot.build(host, N_RANKS))
+    log(f"host snapshot and PartitionedSnapshot.build(S={N_RANKS}): {time.perf_counter() - t:.3f} "
+        f"s; whole snapshot {host.nbytes()} B, per shard {psnap.per_shard_bytes()} B "
+        f"(level pads {psnap.part.level_pads})")
+
+    # the flat step at WiskServeConfig(): the plain per-shard sum, one shard
+    # on the card at a time (each rank draws its own shard again)
+    t = time.perf_counter()
+    q_rects, q_bm = flat_queries(dev)
+    parts, nbytes = [], 0
+    with patched(ops, filter_pairs=ref.skr_filter_ref, verify_candidates=ref.skr_verify_ref):
+        for s in range(N_RANKS):
+            leaves = flat_shard(s, N_RANKS, dev)
+            nbytes += sum(v.numel() * v.element_size() for v in leaves)
+            parts.append(wisk_serve_step(q_rects, q_bm, *leaves))
+            del leaves
+    flat_want = [sum(x[i] for x in parts).cpu() for i in range(3)]
+    log(f"flat step operands at WiskServeConfig(): {q_rects.shape[0]} queries x "
+        f"{N_RANKS} shards of {flat_config().n_nodes // N_RANKS} nodes, "
+        f"W={q_bm.shape[1]}, OBJ={OBJ_PER_LEAF} ({nbytes} B of leaf rows, drawn on the card); "
+        f"plain per-shard sum in {time.perf_counter() - t:.3f} s: {int(flat_want[0].sum())} "
+        f"matches, {int(flat_want[1].sum())} relevant leaves, {int(flat_want[2].sum())} overflow")
+    del q_rects, q_bm, parts
+
+    # the sharded LiveIndex's scenario, first on one device for the outputs to hold it to
+    small, strain, art = twin
+    g = np.random.default_rng(SEED + 16)
+    wls = [make_workload(small, m=LIVE_BATCH, dist="MIX", seed=s) for s in (61, 62, 63, 64)]
+    locs, kw = make_update_stream(small, N_LIVE_INSERT, g, 0.05)
+    locs2, kw2 = make_update_stream(small, N_LIVE_INSERT // 5, g, 0.05)
+    steps = [("serve", wls[0].rects, wls[0].kw_bitmap, MAX_LEAVES),
+             ("insert", locs, kw),
+             ("serve", wls[1].rects, wls[1].kw_bitmap, MAX_LEAVES)]
+    live_kw = dict(dataset=small, workload=strain,
+                   drift_config=DriftConfig(threshold=LIVE_THRESHOLD, min_queries=LIVE_MIN_QUERIES),
+                   artifacts=dataclasses.replace(art, bank=art.bank.to("cpu")))
+    single = LiveIndex(device=dev, **live_kw)
+    want = run_live_steps(single, steps)
+    new_ids = want[1][1]
+    dels = np.concatenate([g.choice(small.n, N_LIVE_DELETE - 50, replace=False),
+                           g.choice(new_ids, 50, replace=False)])
+    more = [("delete", dels),
+            ("serve", wls[1].rects, wls[1].kw_bitmap, MAX_LEAVES),
+            ("knn", query_points(wls[2]), wls[2].kw_bitmap, K),
+            ("rebuild",),
+            ("serve", wls[3].rects, wls[3].kw_bitmap, MAX_LEAVES),
+            ("insert", locs2, kw2),
+            ("serve", wls[3].rects, wls[3].kw_bitmap, MAX_LEAVES)]
+    t = time.perf_counter()
+    want += run_live_steps(single, more)
+    steps += more
+    torch.cuda.synchronize()
+    log(f"single-device LiveIndex scenario over the twin build ({small.n} objects, "
+        f"{len(steps)} steps, the forced swap included): {time.perf_counter() - t:.3f} s after "
+        f"the first three steps")
+    del single
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    payload = dict(
+        psnap=psnap, host=host, rects=wl.rects, bms=wl.kw_bitmap, points=points, batches=batches,
+        warm_skr=dict(warm.widths), skr=skr_out, warm_knn=dict(warm_knn.widths), knn=knn_out[0],
+        delta=share(delta.to("cpu")), delta_skr=delta_skr,
+        delta_knn=delta_knn, flat_want=flat_want, live_kw=live_kw,
+        live_steps=steps, live_want=want, device_type=dev.type,
+        knn_rows=batches[0][:KNN_RANK_QUERIES],
+    )
+    with tempfile.TemporaryDirectory() as d:
+        t = time.perf_counter()
+        payload["spawned"] = time.time()
+        torch.multiprocessing.spawn(rank_phase, args=(N_RANKS, f"file://{d}/rendezvous", backend,
+                                                      payload), nprocs=N_RANKS, join=True)
+    log(f"ranks: {time.perf_counter() - t:.3f} s from spawn to join")
 
 
 # -------------------------------------------------------------------- main
@@ -1980,6 +2528,7 @@ def main() -> int:
     delta_bufs = {}
     delta_caches = {}  # label -> the SKR plan cache learned with the log's delta
     delta_skr = {}  # label -> the SKR batches served with the log's delta
+    delta_knn = {}  # label -> the kNN batch served with the log's delta
 
     def live_updates(label, own_leaf_terms, jitter, seed, verify_kernel, capture):
         """One DeltaLog: N_INSERT inserts in batches, N_DELETE deletes, the
@@ -2099,6 +2648,7 @@ def main() -> int:
         delta_bufs[label] = buf
         delta_caches[label] = skr_cache
         delta_skr[label] = skr_out
+        delta_knn[label] = knn_d
 
     with phase("live updates"):
         live_updates("A", True, 1e-3, 21, "skr_verify_slots_compact",
@@ -2920,12 +3470,19 @@ def main() -> int:
 
     # --------------------------------------------------------- construction
     with phase("construction"):
-        art, train = construction(dev, ds, wl, batches, main_out)
+        art, train, twin = construction(dev, ds, wl, batches, main_out)
     gc.collect()  # the construction phase's snapshots and twin builds
     torch.cuda.empty_cache()
 
     with phase("live front door"):
         live_front_door(dev, ds, train, art)
+    del art
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with phase("multi-rank serving"):
+        multi_rank_serving(dev, wl, points, batches, snap, warm, main_out, warm_knn, knn_out,
+                           delta_bufs["B"], delta_skr["B"][0], delta_knn["B"], twin)
 
     log(f"card: {card}")
     print(json.dumps({"kernels": rows}), flush=True)

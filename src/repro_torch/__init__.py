@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of WISK: index construction and single-device serving.
+"""PyTorch/CUDA port of WISK: index construction, and serving on one device or several ranks.
 
 A second package beside the JAX reference: the same modules
 (``core``, ``data``, ``baselines``, ``kernels``, ``serve``, ``launch``),
@@ -10,7 +10,11 @@ bank, learned split partitioning, DQN packing) trains on the device with
 autograd; serving (SKR in both modes, Boolean kNN, live deltas, standing
 subscriptions) runs on the CUDA kernels; ``launch.wisk_serve.LiveIndex``
 ties them together as the live front door (updates, geofences, drift
-detection, a warm rebuild and an atomic generation swap). The baselines
+detection, a warm rebuild and an atomic generation swap). Several
+``torch.distributed`` ranks serve one batch together over a serving mesh
+(``launch/mesh.py``): query-parallel with the snapshot replicated, or
+index-parallel over a ``serve.snapshot.PartitionedSnapshot`` (the
+front doors in ``launch/wisk_serve.py``). The baselines
 (``baselines.conventional``, ``baselines.learned``) are host numpy. Entry
 points that place data (``build_wisk``, ``warm_start_rebuild``,
 ``serve.snapshot.IndexSnapshot.build`` and ``from_reference_arrays``,

@@ -1,0 +1,182 @@
+"""Serving meshes over ``torch.distributed`` ranks.
+
+The JAX package serves from one controller over a device mesh: a
+``jax.make_mesh`` of ``("data", "index")`` (or ``("data", "model")``) axes,
+with ``shard_map`` bodies calling ``lax.psum`` / ``pmax`` / ``all_gather``
+over an axis. The port is multi-controller SPMD: every rank runs the same
+front-door call on the same batch, and a ``ServingMesh`` tells it where it
+sits. The ranks are laid out as the reference lays out its devices, row
+major over ``(data, second axis)``: rank ``r`` has data coordinate
+``r // n_second`` and second-axis coordinate ``r % n_second``. Each axis is
+a ``MeshAxis`` with one process group per line of ranks along it (the
+reference's collectives over that axis name), and its collectives:
+
+====================  ==========================================
+reference             port (``MeshAxis``)
+====================  ==========================================
+``lax.psum``          ``psum``: ``all_reduce(SUM)``
+``lax.pmax``          ``pmax``: ``all_reduce(MAX)``
+``lax.all_gather``    ``all_gather``: ``all_gather_into_tensor``
+====================  ==========================================
+
+``make_production_mesh`` (the TPU pod shapes) has no counterpart.
+
+The caller starts the process group (``init_process_group`` with its
+address, world size and rank); a mesh of one rank needs none. NCCL takes
+one card per rank. Gloo also runs these collectives on CUDA tensors, which
+is how ranks that share one card serve (NCCL refuses two ranks on one
+GPU); no collective is copied through the host.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from .. import resolve_device
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class MeshAxis:
+    """One mesh axis as this rank sees it: its ``size``, this rank's
+    coordinate ``index`` on it, and the process group of the ranks that
+    share every other coordinate (None when the axis has one rank, so its
+    collectives are the identity)."""
+
+    name: str
+    size: int
+    index: int
+    group: Optional[object]
+
+    def _reduce(self, t: torch.Tensor, op) -> torch.Tensor:
+        out = t.clone()
+        dist.all_reduce(out, op=op, group=self.group)
+        return out
+
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        """Elementwise sum over the axis (``lax.psum``)."""
+        if self.group is None:
+            return t
+        return self._reduce(t, dist.ReduceOp.SUM)
+
+    def pmax(self, t: torch.Tensor) -> torch.Tensor:
+        """Elementwise maximum over the axis (``lax.pmax``)."""
+        if self.group is None:
+            return t
+        return self._reduce(t, dist.ReduceOp.MAX)
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """(size, *t.shape): every rank's ``t`` stacked in axis order
+        (``lax.all_gather``)."""
+        if self.group is None:
+            return t[None]
+        x = t.reshape((1,) + tuple(t.shape)).contiguous()
+        out = torch.empty((self.size,) + tuple(t.shape), dtype=t.dtype, device=t.device)
+        dist.all_gather_into_tensor(out, x, group=self.group)
+        return out
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ServingMesh:
+    """This rank's place in a 2D serving mesh: its global ``rank``, its
+    ``device``, the two named axes (``axis_names``; ``data`` first) and
+    ``everyone`` (every rank of the mesh, for agreement checks and
+    broadcasts). Hashable by identity, so memos can key on it."""
+
+    axis_names: Tuple[str, str]
+    rank: int
+    device: torch.device
+    axes: Dict[str, MeshAxis]
+    everyone: MeshAxis
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {n: self.axes[n].size for n in self.axis_names}
+
+    @property
+    def size(self) -> int:
+        return self.everyone.size
+
+    def axis(self, name: str) -> MeshAxis:
+        return self.axes[name]
+
+    def broadcast_object(self, obj, src: int = 0):
+        """``obj`` from mesh rank ``src`` on every rank (pickled; only
+        objects this program made)."""
+        if self.everyone.group is None:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=src, group=self.everyone.group)
+        return box[0]
+
+    def agree(self, value: int, what: str) -> int:
+        """``value``, checked equal on every rank of the mesh: raises when
+        the ranks disagree (host state that must be replicated drifted)."""
+        mine = torch.tensor([int(value)], dtype=torch.int64, device=self.device)
+        got = self.everyone.all_gather(mine)
+        if bool((got != got[0]).any()):
+            raise RuntimeError(f"the ranks disagree on {what}: {got.flatten().tolist()}")
+        return int(value)
+
+
+def _default_device(rank: int) -> torch.device:
+    """``cuda:{local_rank % device_count}`` (``LOCAL_RANK`` as torchrun sets
+    it, else the global rank); raises where CUDA is absent."""
+    n = torch.cuda.device_count()
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    return resolve_device(f"cuda:{local % n}" if n else "cuda")
+
+
+def _make_mesh(axis_names: Tuple[str, str], n0: int, n1: int, device) -> ServingMesh:
+    if n0 < 1 or n1 < 1:
+        raise ValueError(f"mesh axes must have at least one rank, got {n0} x {n1}")
+    initialized = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if initialized else 1
+    if n0 * n1 != world:
+        raise ValueError(
+            f"a {n0} x {n1} mesh needs {n0 * n1} ranks; the process group has {world}"
+            + ("" if initialized else " (call torch.distributed.init_process_group first)")
+        )
+    rank = dist.get_rank() if initialized else 0
+    dev = _default_device(rank) if device is None else resolve_device(device)
+    # every rank creates every group, in the same order (new_group is collective)
+    lines = {
+        axis_names[0]: [[c0 * n1 + c1 for c0 in range(n0)] for c1 in range(n1)],
+        axis_names[1]: [[c0 * n1 + c1 for c1 in range(n1)] for c0 in range(n0)],
+    }
+    coord = {axis_names[0]: rank // n1, axis_names[1]: rank % n1}
+    axes = {}
+    for name, size in ((axis_names[0], n0), (axis_names[1], n1)):
+        mine = None
+        if size > 1:
+            for ranks in lines[name]:
+                g = dist.new_group(ranks)
+                if rank in ranks:
+                    mine = g
+        axes[name] = MeshAxis(name, size, coord[name], mine)
+    everyone = MeshAxis("everyone", world, rank, dist.group.WORLD if world > 1 else None)
+    return ServingMesh(axis_names, rank, dev, axes, everyone)
+
+
+def make_serving_mesh(query: int = 1, index: int = 1, device=None) -> ServingMesh:
+    """The 2D serving mesh: ``query`` query-parallel replicas x ``index``
+    index shards, axes ``("data", "index")``, over the ``query * index``
+    ranks of the started process group (one rank needs none). The "data"
+    axis carries the query batch; the "index" axis the
+    ``PartitionedSnapshot``'s per-shard slabs (sharding/rules.py routes the
+    ``leaf`` logical axis to it). ``device`` defaults to
+    ``cuda:{local_rank % device_count}``; ``"cpu"`` runs the plain versions.
+    """
+    return _make_mesh(("data", "index"), int(query), int(index), device)
+
+
+def make_host_mesh(data: int = 1, model: int = 1, device=None) -> ServingMesh:
+    """A ``("data", "model")`` mesh over the ranks, as the reference's host
+    mesh: ``data`` and ``model`` clamped to the ranks there are."""
+    n = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    data = min(int(data), n)
+    model = min(int(model), max(n // data, 1))
+    return _make_mesh(("data", "model"), data, model, device)

@@ -34,9 +34,10 @@ take updates without a rebuild:
 Bitmaps are int32 tensors holding the bits of the reference's u32 words,
 as in the snapshot. Id convention: inserts get ids ``n, n+1, ...`` in
 arrival order, so a cold rebuild over ``merged_dataset()`` returns the same
-ids. Replicating a buffer over several devices and routing it to index
-shards (the reference's ``replicate``/``partition_delta``) wait for
-multi-GPU serving (ROADMAP A.10).
+ids. For multi-rank serving a buffer is replicated on a rank's device
+(``replicate``), or routed to the owning index shards
+(``partition_delta``, on the host) with ``shard(mesh)`` placing this
+rank's slab.
 """
 from __future__ import annotations
 
@@ -49,7 +50,8 @@ import torch
 from .. import resolve_device
 from ..core.query import _mbr_dist2_f32
 from ..core.types import GeoTextDataset, WiskIndex, ids_to_bitmap
-from .snapshot import IndexSnapshot, to_device
+from ..kernels.ops import NEVER_RECT
+from .snapshot import IndexSnapshot, _moved, _nbytes, _slabs, _stack_shard_rows, to_device
 
 MIN_SLOTS_PER_LEAF = 8
 
@@ -117,13 +119,27 @@ class DeltaBuffer:
     def nbytes(self) -> int:
         """Bytes of every tensor the buffer holds (augmented levels no
         insert has touched are the snapshot's own tensors)."""
-        total = 0
-        for name in ARRAY_FIELDS:
-            v = getattr(self, name)
-            for t in v if isinstance(v, list) else [v]:
-                if t is not None:
-                    total += t.numel() * t.element_size()
-        return total
+        return _nbytes(self, ARRAY_FIELDS)
+
+    def to(self, device) -> "DeltaBuffer":
+        """The buffer with every tensor on ``device`` (itself when they are
+        there already)."""
+        dev = resolve_device(device)
+        if dev == self.device:
+            return self
+        return DeltaBuffer(slots_per_leaf=self.slots_per_leaf, **_moved(self, ARRAY_FIELDS, dev))
+
+    def replicate(self, mesh) -> "DeltaBuffer":
+        """The whole buffer on a serving mesh rank's device (the
+        query-parallel regime's replica)."""
+        return self.to(mesh.device)
+
+    def shard(self, mesh) -> "DeltaBuffer":
+        """This rank's slab of a ``partition_delta`` buffer, on its device:
+        every tensor split along its first dimension over the mesh's
+        ``index`` axis (logical axis ``leaf``), as the partitioned
+        snapshot's ``shard``."""
+        return DeltaBuffer(slots_per_leaf=self.slots_per_leaf, **_slabs(self, ARRAY_FIELDS, mesh))
 
     @staticmethod
     def empty(snap: IndexSnapshot, slots_per_leaf: int = MIN_SLOTS_PER_LEAF) -> "DeltaBuffer":
@@ -195,6 +211,47 @@ class DeltaBuffer:
             else:
                 kw[name] = to_device(v, dev)
         return DeltaBuffer(slots_per_leaf=int(slots_per_leaf), **kw)
+
+
+def partition_delta(delta: DeltaBuffer, part) -> DeltaBuffer:
+    """Route a ``DeltaBuffer`` in the global layout to the owning index shards.
+
+    Returns a new buffer, on the host, whose rows follow the stacked
+    ``PartitionedSnapshot`` layout of ``part`` (an ``IndexPartition``):
+    level arrays become ``(S*pad_li, ...)`` with each shard's slice holding
+    its own nodes' augmented MBRs and bitmaps (pads: the never-intersecting
+    rectangle, empty bitmaps); the insert buffers and the delete mask become
+    ``(S*Kp, ...)`` with each leaf's buffered inserts and alive mask only on
+    the shard that owns the leaf (pads: empty slots, alive). ``shard(mesh)``
+    then places one rank's slab, so every shard merges exactly its own
+    updates.
+    """
+    L = delta.n_levels
+    leaf_ids = part.nodes[L - 1]
+    Kp = part.level_pads[L - 1]
+    never = np.asarray(NEVER_RECT, np.float32)
+    cpu = torch.device("cpu")
+
+    def leaves(t, fill):
+        return None if t is None else to_device(
+            _stack_shard_rows(t.cpu().numpy(), leaf_ids, Kp, fill), cpu)
+
+    return DeltaBuffer(
+        aug_mbrs=[to_device(_stack_shard_rows(m.cpu().numpy(), part.nodes[li],
+                                              part.level_pads[li], never), cpu)
+                  for li, m in enumerate(delta.aug_mbrs)],
+        aug_bms=[to_device(_stack_shard_rows(b.cpu().numpy(), part.nodes[li],
+                                             part.level_pads[li], 0), cpu)
+                 for li, b in enumerate(delta.aug_bms)],
+        ins_x=leaves(delta.ins_x, 0),
+        ins_y=leaves(delta.ins_y, 0),
+        ins_bm=leaves(delta.ins_bm, 0),
+        ins_id=leaves(delta.ins_id, -1),
+        base_alive=leaves(delta.base_alive, 1),
+        slots_per_leaf=delta.slots_per_leaf,
+        ins_cbm=leaves(delta.ins_cbm, 0),
+        ins_sig=leaves(delta.ins_sig, 0),
+    )
 
 
 def _remap_insert_bitmap(bm: np.ndarray, terms: np.ndarray):

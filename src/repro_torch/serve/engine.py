@@ -167,6 +167,41 @@ def _select_leaves_frontier(frontier, surv, take: int, n_leaf: int):
     return top_leaf, leaf_ok, overflow
 
 
+# ------------------------------------ index-parallel collectives (multi-rank)
+def _gather_cat(x, axis):
+    """All-gather over the mesh's ``index`` axis, shards concatenated along
+    dimension 1: the (M, F) per-shard view becomes the (M, S*F) global
+    view."""
+    g = axis.all_gather(x)  # (S, M, F)
+    return g.permute(1, 0, 2).reshape(x.shape[0], -1)
+
+
+def _select_leaves_indexed(frontier, surv, leaf_gid, take_g: int, take_loc: int, axis):
+    """Index-parallel twin of ``_select_leaves_frontier``: keep the globally
+    ``take_g`` smallest-GLOBAL-id surviving leaves, exactly the
+    single-device selection (and therefore its ``overflow`` drops).
+
+    One bound exchange: each shard gathers its ``take_loc`` smallest
+    surviving global leaf ids, the all-gathered (S*take_loc) candidates are
+    sorted, and the ``take_g``-th smallest becomes the keep threshold. A
+    shard can hold at most ``take_loc`` (at least its survivor count: the
+    caller passes its leaf frontier width) of the global winners, so the
+    threshold is exact. ``overflow`` is the summed global survivor count
+    beyond ``take_g``, per query the single-device counter.
+    """
+    K = leaf_gid.shape[0]
+    ok = (surv > 0) & (frontier >= 0)
+    gid = torch.where(ok, leaf_gid[frontier.clamp(0, K - 1).long()], _ID_SENTINEL)
+    small = torch.sort(gid, dim=1).values[:, :take_loc]  # ascending, sentinel-padded
+    g = torch.sort(_gather_cat(small, axis), dim=1).values
+    thr = g[:, min(take_g, axis.size * take_loc) - 1]
+    keep = (ok & (gid <= thr[:, None])).to(torch.int8)
+    top_leaf, leaf_ok, _ = _select_leaves_frontier(frontier, keep, take_loc, K)
+    total = axis.psum(ok.sum(dim=1, dtype=torch.int32))
+    overflow = (total - take_g).clamp_min(0)
+    return top_leaf, leaf_ok, overflow
+
+
 def _root_frontier(snap: IndexSnapshot, M: int) -> torch.Tensor:
     n_root = int(snap.level_mbrs[0].shape[0])
     root = torch.full((snap.root_width(),), -1, dtype=torch.int32, device=snap.device)
@@ -174,8 +209,19 @@ def _root_frontier(snap: IndexSnapshot, M: int) -> torch.Tensor:
     return root[None, :].expand(M, -1).contiguous()
 
 
+def _local_root_frontier(width: int, n_root_local: int, M: int, device) -> torch.Tensor:
+    """Shard-local root frontier for the index-parallel descent: the first
+    ``n_root_local`` (this shard's real root count; shards own different
+    numbers of root subtrees) slots hold local root ids, the rest ``-1``
+    pads. Masking by the real local count keeps the summed
+    ``nodes_checked`` equal to the single-device root scan."""
+    slot = torch.arange(width, dtype=torch.int32, device=device)
+    root = torch.where(slot < n_root_local, slot, -1)
+    return root[None, :].expand(M, -1).contiguous()
+
+
 def _descend_frontier(snap: IndexSnapshot, q_rects, q_bm, narrow: bool, plan: ExecutionPlan,
-                      delta):
+                      delta, root=None):
     """The range-query frontier descent (on the narrow planes, or the f32
     descent for ``narrow=False``; ``delta`` swaps in the widened level
     arrays).
@@ -183,10 +229,12 @@ def _descend_frontier(snap: IndexSnapshot, q_rects, q_bm, narrow: bool, plan: Ex
     ``plan.widths=None``: exact mode -- bucket each next frontier on the
     batch's actual occupancy, one host sync per level. ``plan.widths=(...)``:
     cached mode -- no per-level syncs; the per-level child-count maxima stay
-    on the device for the caller's single batched overflow check.
+    on the device for the caller's single batched overflow check. ``root``
+    overrides the level-0 frontier: the index-parallel regime starts each
+    shard from its masked local root frontier (``_local_root_frontier``).
     """
     M = q_rects.shape[0]
-    frontier = _root_frontier(snap, M)
+    frontier = root if root is not None else _root_frontier(snap, M)
     nodes_checked = torch.zeros((M,), dtype=torch.int32, device=snap.device)
     used = []
     needs = []
@@ -733,6 +781,199 @@ def _descend_knn(
         top_d, top_id, nodes_checked, verified + ver, leaves_verified + lv, pruned + pr,
         used, torch.minimum(risk, rm),
     )
+    return result, needs
+
+
+def _lex_order(key1, key2):
+    """Per row, the permutation sorting (key1, key2) lexicographically (two
+    stable passes; NaN keys last)."""
+    o = torch.sort(key2, dim=1, stable=True).indices
+    o2 = torch.sort(torch.gather(key1, 1, o), dim=1, stable=True).indices
+    return torch.gather(o, 1, o2)
+
+
+def _gather_pairs(d, ids, axis):
+    """``_gather_cat`` of an f32 (M, F) and an int32 (M, F) tensor in one
+    all-gather (the distances travel as their bits)."""
+    M, F = d.shape
+    g = _gather_cat(torch.cat([d.view(torch.int32), ids], dim=1), axis).reshape(M, axis.size, 2, F)
+    return g[:, :, 0].reshape(M, -1).view(torch.float32), g[:, :, 1].reshape(M, -1)
+
+
+def _global_rank(gd, gg, index: int, F: int):
+    """(M, F) rank of shard ``index``'s keys -- columns ``[index*F,
+    (index+1)*F)`` of the gathered (M, T) keys ``(gd, gg)`` -- under the
+    (dist, gid) order: each key's position in a lexicographic sort of its
+    row. For a finite key with a unique gid that is the count of keys
+    strictly below it; NaN and +inf keys sort after every finite one. Memory
+    is O(M*T); no (M, F, T) compare is built."""
+    M, T = gd.shape
+    order = _lex_order(gd, gg)
+    pos = torch.empty((M, T), dtype=torch.int64, device=gd.device)
+    pos.scatter_(1, order, torch.arange(T, device=gd.device).expand(M, -1))
+    return pos[:, index * F:(index + 1) * F]
+
+
+def _knn_leaf_phase_indexed(
+    snap: IndexSnapshot, points, q_bm, delta, cbank, leaf_d, frontier, probe_leaf, leaf_gid,
+    top_d, top_id, k: int, kb: int, ch: int, axis,
+):
+    """Index-parallel twin of ``_knn_leaf_phase``.
+
+    Parity with the single-device leaf phase needs the *global* ascending
+    (min-dist, global leaf id) chunk order, because each chunk's bound is
+    tightened by every previous chunk. Each shard ranks its local leaves
+    within the all-gathered global (dist, gid) keys and scatters them into
+    their global-rank slots; slots owned by other shards stay ``(inf, -1)``
+    locally, so every shard walks the same global chunk sequence with
+    exactly its own leaves materialized. After each chunk the shards
+    exchange their local top-kb candidates and merge them into a shared
+    buffer -- the truncation is lossless (a chunk contributes at most kb of
+    the new top-kb) -- so the bound sequence, and therefore which leaves are
+    verified and which bounded out, is the single-device scan's. Counters
+    are per shard (each real leaf counted by its owner only); the caller
+    sums them over the ``index`` axis.
+
+    The rank of a leaf is its position in a lexicographic sort of the
+    gathered keys: a real leaf's global id is unique, so that position is
+    the count of keys strictly below it (the reference's (M, F, S*F)
+    compare, which this never builds), and NaN and +inf keys sort after
+    every finite one, where the compare never counts them either.
+    """
+    M, F = leaf_d.shape
+    K = leaf_gid.shape[0]
+    inf = float("inf")
+    d = torch.where(frontier == probe_leaf[:, None], inf, leaf_d)
+    gid = torch.where(frontier >= 0, leaf_gid[frontier.clamp(0, K - 1).long()], _ID_SENTINEL)
+    gid = torch.where(torch.isfinite(d), gid, _ID_SENTINEL)
+    o = _lex_order(d, gid)
+    d_s, gid_s, leaf_s = (torch.gather(t, 1, o) for t in (d, gid, frontier))
+
+    T = axis.size * F
+    rank = _global_rank(*_gather_pairs(d_s, gid_s, axis), axis.index, F)
+
+    nch = -(-T // ch)
+    fin = torch.isfinite(d_s)
+    tgt = torch.where(fin, rank, nch * ch)  # non-finite keys land in the dump slot
+    buf_d = torch.full((M, nch * ch + 1), inf, device=d.device)
+    buf_l = torch.full((M, nch * ch + 1), -1, dtype=torch.int32, device=d.device)
+    buf_d.scatter_(1, tgt, torch.where(fin, d_s, inf))
+    buf_l.scatter_(1, tgt, torch.where(fin, leaf_s, -1))
+    lv = torch.zeros((M,), dtype=torch.int32, device=d.device)
+    ver, pr = lv.clone(), lv.clone()
+    for c in range(0, nch * ch, ch):
+        dc, lc = buf_d[:, c:c + ch], buf_l[:, c:c + ch]
+        bound = top_d[:, k - 1]
+        fin = torch.isfinite(dc)
+        active = fin & (dc <= bound[:, None])
+        cd, cid, valid = _score_leaves(snap, points, q_bm, delta, cbank, lc, active)
+        loc_d, loc_id = _merge_topk(torch.full_like(top_d, inf),
+                                    torch.full_like(top_id, _ID_SENTINEL), cd, cid, kb)
+        g_d, g_id = _gather_pairs(loc_d, loc_id, axis)  # (M, S*kb)
+        top_d, top_id = _merge_topk(top_d, top_id, g_d, g_id, kb)
+        lv += active.sum(dim=1, dtype=torch.int32)
+        ver += valid.sum(dim=(1, 2), dtype=torch.int32)
+        pr += (fin & ~active).sum(dim=1, dtype=torch.int32)
+    return top_d, top_id, lv, ver, pr
+
+
+def _descend_knn_indexed(
+    snap: IndexSnapshot, root_gid, leaf_gid, n_root_local: int, points, q_bm, words,
+    narrow: bool, delta, cbank, k: int, kb: int, plan: ExecutionPlan, axis,
+):
+    """Index-parallel kNN descent: one rank's shard of the hierarchy.
+
+    ``snap`` is this rank's slab (``PartitionedSnapshot.shard``);
+    ``root_gid``/``leaf_gid`` map its local slots to global ids and
+    ``n_root_local`` is its real root count; ``axis`` is the mesh's
+    ``index`` axis. Three exchanges keep exact parity with ``_descend_knn``:
+
+    1. *Probe*: every shard scans its local roots (their summed count
+       equals the global root scan), then the shards exchange their best
+       ``(dist, root gid)`` -- the lexicographic minimum elects the one
+       *canonical* shard whose greedy chain is the single-device probe's
+       (smallest-id argmin tie-break). Only the canonical shard counts the
+       probe's lower levels and verifies its probe leaf; the seeded top-k
+       buffer is then shared by an all-gather and a sort.
+    2. *Sweep*: shard-local -- the bound does not move during the sweep, so
+       per-node prune decisions are the single-device sweep's and the
+       counters sum exactly.
+    3. *Leaf phase*: ``_knn_leaf_phase_indexed`` walks the global
+       (dist, gid)-ordered chunk sequence with a shared bound.
+
+    Always exact f32. Returns the 7-tuple result (no risk) and this
+    shard's ``needs``.
+    """
+    M = int(points.shape[0])
+    L = snap.n_levels
+    dev = snap.device
+    inf = float("inf")
+
+    def dist_level(li, fr):
+        return _knn_dist_level(snap, li, points, words, narrow, fr, delta)
+
+    top_d = torch.full((M, kb), inf, device=dev)
+    top_id = torch.full((M, kb), _ID_SENTINEL, dtype=torch.int32, device=dev)
+    nodes_checked = torch.zeros((M,), dtype=torch.int32, device=dev)
+    pruned = torch.zeros((M,), dtype=torch.int32, device=dev)
+
+    # probe: local root scan, then one (dist, gid) exchange elects the
+    # canonical shard that owns the single-device greedy chain
+    cand = _local_root_frontier(snap.root_width(), n_root_local, M, dev)
+    d0, nv0, _ = dist_level(0, cand)
+    nodes_checked = nodes_checked + nv0
+    best = torch.argmin(d0, dim=1, keepdim=True)  # ties: the lowest slot, the smallest gid
+    bd = torch.gather(d0, 1, best)[:, 0]
+    bslot = torch.gather(cand, 1, best)[:, 0]
+    fin_bd = torch.isfinite(bd)
+    bgid = torch.where((bslot >= 0) & fin_bd,
+                       root_gid[bslot.clamp(0, root_gid.shape[0] - 1).long()], _ID_SENTINEL)
+    g = axis.all_gather(torch.stack([torch.where(fin_bd, bd, inf).view(torch.int32), bgid]))
+    g_bd, g_bg = g[:, 0].view(torch.float32), g[:, 1]  # (S, M)
+    win_d = g_bd.min(dim=0).values
+    win_gid = torch.where(g_bd == win_d, g_bg, _ID_SENTINEL).min(dim=0).values
+    canonical = fin_bd & (bd == win_d) & (bgid == win_gid)
+    cur = torch.where(fin_bd, bslot, -1)
+    for li in range(1, L):
+        cand = _probe_children(snap.child_table[li - 1], cur)
+        d, nv, _ = dist_level(li, cand)
+        nodes_checked = nodes_checked + torch.where(canonical, nv, 0)
+        cur = _probe_select(d, cand)
+    probe_leaf = torch.where(canonical, cur, -1)
+    top_d, top_id, verified = _knn_probe_verify(
+        snap, points, q_bm, delta, cbank, probe_leaf, top_d, top_id, kb
+    )
+    leaves_verified = (probe_leaf >= 0).to(torch.int32)
+    # share the canonical shard's seed so every shard sweeps the same bound
+    top_d, top_id = _sort2(*_gather_pairs(top_d, top_id, axis))
+    top_d, top_id = top_d[:, :kb], top_id[:, :kb]
+
+    # bounded sweep: shard-local (the bound is fixed until the leaf phase)
+    frontier = _local_root_frontier(snap.root_width(), n_root_local, M, dev)
+    used: List[int] = []
+    needs: List = []
+    leaf_d = None
+    for li in range(L):
+        used.append(int(frontier.shape[1]))
+        d, nv, safe = dist_level(li, frontier)
+        nodes_checked = nodes_checked + nv
+        if li < L - 1:
+            alive, pr = _bound_prune(d, top_d, k)
+            pruned = pruned + pr
+            need = torch.where(alive, snap.child_counts[li][safe], 0).sum(dim=1)
+            f_next = plan.pick_width(need, li, needs)
+            frontier = _expand_frontier(snap.child_table[li], safe, alive, f_next)
+        else:
+            leaf_d = d
+
+    F = int(frontier.shape[1])
+    ch = 4 if F % 4 == 0 else 1
+    top_d, top_id, lv, ver, pr = _knn_leaf_phase_indexed(
+        snap, points, q_bm, delta, cbank, leaf_d, frontier, probe_leaf, leaf_gid, top_d, top_id,
+        k, kb, ch, axis,
+    )
+    result = (top_d, top_id, nodes_checked, verified + ver, leaves_verified + lv, pruned + pr,
+              used)
     return result, needs
 
 

@@ -4,9 +4,10 @@ Serving an ``IndexSnapshot`` needs two kinds of planning state that are not
 index data:
 
 * **Batch bucketing.** Incoming query batches are padded to power-of-two
-  buckets with inert pad queries (``pad_queries_to_bucket``, and
-  ``pad_knn_queries_to_bucket`` for kNN points), so the set
-  of batch shapes stays logarithmic in the largest batch.
+  buckets (optionally per query shard) with inert pad queries
+  (``pad_queries_to_bucket``, and ``pad_knn_queries_to_bucket`` for kNN
+  points), so the set of batch shapes stays logarithmic in the largest
+  batch.
 * **Execution plans.** Each frontier descent runs at per-level expansion
   widths. ``PlanCache`` owns the monotone per-(path, level) width cache,
   hands the executor an immutable ``ExecutionPlan`` per descent and absorbs
@@ -33,8 +34,10 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core.query import round_up_bucket
+from ..core.query import round_up_bucket, sharded_bucket
 from ..kernels.ops import NEVER_RECT
+
+MIN_WIDTH_BUCKET = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +76,37 @@ class PlanCache:
         if any(w is None for w in ws):
             return ExecutionPlan(tag=tag, widths=None)
         return ExecutionPlan(tag=tag, widths=tuple(ws))  # type: ignore[arg-type]
+
+    def seeded_plan(self, tag: str, n_links: int, minimum: int = MIN_WIDTH_BUCKET) -> ExecutionPlan:
+        """Always-concrete widths (unlearned levels seeded at ``minimum``):
+        the multi-rank descents run at widths every rank shares and converge
+        by grow-and-redescend instead of per-level syncs."""
+        return ExecutionPlan(
+            tag=tag,
+            widths=tuple(self.widths.get((tag, li), minimum) for li in range(n_links)),
+        )
+
+    def seeded_shard_plan(
+        self, tag: str, n_shards: int, n_links: int, minimum: int = MIN_WIDTH_BUCKET,
+    ) -> ExecutionPlan:
+        """Per-shard width cache for the index-parallel descents: shard ``s``
+        learns under the sub-tag ``f"{tag}/s{s}"``, but every shard of one
+        descent runs the SAME widths, so the plan's per-level width is the
+        max over the shard slots. A hot shard widens the others' frontiers
+        (pad slots are inert)."""
+        ws = []
+        for li in range(n_links):
+            ws.append(max(
+                self.widths.get((f"{tag}/s{s}", li), minimum) for s in range(n_shards)
+            ))
+        return ExecutionPlan(tag=tag, widths=tuple(ws))
+
+    def observe_shards(self, tag: str, per_shard_maxima) -> None:
+        """Grow the per-shard slots from an (S, n_links) matrix of observed
+        child-count maxima (one row per index shard)."""
+        per_shard_maxima = np.asarray(per_shard_maxima)
+        for s in range(per_shard_maxima.shape[0]):
+            self.observe(f"{tag}/s{s}", per_shard_maxima[s])
 
     def observe(self, tag: str, maxima: Sequence[int]) -> None:
         """Grow each (tag, level) slot to the bucket of its observed maximum;
@@ -115,13 +149,15 @@ def default_plan_cache(snapshot) -> PlanCache:
     return cache
 
 
-def pad_queries_to_bucket(q_rects, q_bm, minimum: int = 8):
+def pad_queries_to_bucket(q_rects, q_bm, minimum: int = 8, shards: int = 1):
     """Pad an incoming query batch to its power-of-two bucket (host-only).
 
     Args:
         q_rects: (m, 4) f32 query rectangles ``(xlo, ylo, xhi, yhi)``.
         q_bm: (m, W) u32 query keyword bitmaps.
         minimum: smallest bucket size.
+        shards: pad to ``shards`` equal power-of-two buckets so the batch
+            splits evenly over the query shards of a serving mesh.
 
     Returns:
         ``(rects, bms, m)``: the padded (bucket, 4)/(bucket, W) arrays plus
@@ -132,7 +168,7 @@ def pad_queries_to_bucket(q_rects, q_bm, minimum: int = 8):
     q_rects = np.asarray(q_rects, np.float32)
     q_bm = np.asarray(q_bm, np.uint32)
     m = q_rects.shape[0]
-    bucket = round_up_bucket(m, minimum)
+    bucket = sharded_bucket(m, shards, minimum)
     if bucket == m:
         return q_rects, q_bm, m
     pad = bucket - m
@@ -143,12 +179,12 @@ def pad_queries_to_bucket(q_rects, q_bm, minimum: int = 8):
     return rects, bms, m
 
 
-def pad_knn_queries_to_bucket(points, q_bm, minimum: int = 8):
+def pad_knn_queries_to_bucket(points, q_bm, minimum: int = 8, shards: int = 1):
     """kNN twin of ``pad_queries_to_bucket`` (host-only).
 
     Args:
         points: (m, 2) f32 query points; ``q_bm``: (m, W) u32 bitmaps.
-        minimum: smallest bucket size.
+        minimum / shards: as in ``pad_queries_to_bucket``.
 
     Returns:
         ``(points, bms, m)`` padded to the bucket, plus the original size.
@@ -161,7 +197,7 @@ def pad_knn_queries_to_bucket(points, q_bm, minimum: int = 8):
     points = np.asarray(points, np.float32)
     q_bm = np.asarray(q_bm, np.uint32)
     m = points.shape[0]
-    bucket = round_up_bucket(m, minimum)
+    bucket = sharded_bucket(m, shards, minimum)
     if bucket == m:
         return points, q_bm, m
     pad = bucket - m

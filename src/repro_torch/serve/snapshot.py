@@ -16,12 +16,23 @@ Mutability policy: the snapshot is frozen. Serving *state* (the monotone
 frontier width cache) lives in ``serve/plan.py``'s ``PlanCache``.
 
 ``build`` and ``from_reference_arrays`` run on the host and place the
-tensors on ``device`` (``cuda`` unless the caller passes another).
+tensors on ``device`` (``cuda`` unless the caller passes another);
+``replicate(mesh)`` puts a copy on a serving mesh rank's device.
+
+Index-parallel serving: for an index too large to replicate,
+``partition_index`` cuts the level-0 (root) forest into ``n_shards``
+balanced sub-hierarchies and ``PartitionedSnapshot`` stacks the per-shard
+slabs along the first dimension, on the host. ``shard(mesh)`` moves only
+this rank's slab to its device and returns it as a plain ``IndexSnapshot``
+(what the reference's ``local_view`` re-wraps inside a ``shard_map`` body),
+on which the engine's descent runs unchanged
+(launch/wisk_serve.py: ``serve_index_sharded`` /
+``serve_knn_index_sharded``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Mapping, Optional
+from typing import List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +40,7 @@ import torch
 from .. import resolve_device
 from ..core.query import padded_child_table, round_up_bucket
 from ..core.types import GeoTextDataset, WiskIndex, set_bits
+from ..kernels.ops import NEVER_RECT
 
 # int16 code capacity per coordinate dictionary: a level whose distinct
 # coordinate count exceeds this gets no narrow planes
@@ -125,6 +137,47 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _moved(obj, fields, device: torch.device) -> dict:
+    """``obj``'s tensor fields (lists per level, None kept) on ``device``."""
+    kw = {}
+    for name in fields:
+        v = getattr(obj, name)
+        if v is None:
+            kw[name] = None
+        elif isinstance(v, list):
+            kw[name] = [t.to(device) for t in v]
+        else:
+            kw[name] = v.to(device)
+    return kw
+
+
+def _slabs(obj, fields, mesh) -> dict:
+    """``obj``'s stacked tensor fields (lists per level, None kept), each
+    cut to this rank's block of its first dimension over the mesh's leaf
+    axis (``sharding/rules.py``) and moved to the rank's device."""
+    from ..sharding.rules import shard_rows
+
+    def slab(t):
+        return shard_rows(t, "leaf", mesh).to(mesh.device)
+
+    kw = {}
+    for name in fields:
+        v = getattr(obj, name)
+        kw[name] = None if v is None else [slab(t) for t in v] if isinstance(v, list) else slab(v)
+    return kw
+
+
+def _nbytes(obj, fields) -> int:
+    """Bytes of ``obj``'s tensor fields."""
+    total = 0
+    for name in fields:
+        v = getattr(obj, name)
+        for t in v if isinstance(v, list) else [v]:
+            if t is not None:
+                total += t.numel() * t.element_size()
+    return total
+
+
 # the snapshot's tensor fields, in the JAX package's field order
 ARRAY_FIELDS = (
     "level_mbrs",
@@ -209,13 +262,20 @@ class IndexSnapshot:
 
     def nbytes(self) -> int:
         """Bytes of every tensor the snapshot holds on its device."""
-        total = 0
-        for name in ARRAY_FIELDS:
-            v = getattr(self, name)
-            for t in v if isinstance(v, list) else [v]:
-                if t is not None:
-                    total += t.numel() * t.element_size()
-        return total
+        return _nbytes(self, ARRAY_FIELDS)
+
+    def to(self, device) -> "IndexSnapshot":
+        """The snapshot with every tensor on ``device`` (itself when they
+        are there already)."""
+        dev = resolve_device(device)
+        if dev == self.device:
+            return self
+        return IndexSnapshot(obj_per_leaf=self.obj_per_leaf, **_moved(self, ARRAY_FIELDS, dev))
+
+    def replicate(self, mesh) -> "IndexSnapshot":
+        """The whole snapshot on a serving mesh rank's device (the
+        query-parallel regime's replica)."""
+        return self.to(mesh.device)
 
     @staticmethod
     def build(
@@ -295,3 +355,316 @@ class IndexSnapshot:
             else:
                 kw[name] = to_device(v, dev)
         return IndexSnapshot(obj_per_leaf=int(obj_per_leaf), **kw)
+
+
+# ------------------------------------------------ index-parallel partitioning
+@dataclasses.dataclass(frozen=True, eq=False)
+class IndexPartition:
+    """Host-side cut of the level-0 (root) forest into shard-local subtrees.
+
+    Each root subtree is assigned whole to one shard (greedy LPT on subtree
+    leaf counts, deterministic tie-breaks), so every shard's node set is
+    closed under the child relation and its sub-hierarchy is a self-contained
+    index. ``nodes[li][s]`` lists shard ``s``'s global node ids at level
+    ``li`` (sorted ascending: local id order IS global id order within a
+    shard, which the engine's smallest-id tie-breaks rely on);
+    ``shard_of``/``local_of`` are the per-level inverse maps.
+    """
+
+    n_shards: int
+    root_to_shard: np.ndarray  # (n_root,) owning shard per root subtree
+    nodes: List[List[np.ndarray]]  # [li][s] sorted global node ids
+    shard_of: List[np.ndarray]  # [li] (n_li,) owning shard per node
+    local_of: List[np.ndarray]  # [li] (n_li,) local index within the shard
+    level_pads: Tuple[int, ...]  # stacked per-shard slab height per level
+    n_leaves: int  # global leaf count
+
+    @property
+    def leaf_pad(self) -> int:
+        return self.level_pads[-1]
+
+
+def partition_index(snap: IndexSnapshot, n_shards: int) -> IndexPartition:
+    """Cut ``snap``'s root forest into ``n_shards`` balanced subtree groups.
+
+    Greedy LPT: roots are sorted by descending subtree leaf count (ties:
+    smallest root id) and each is assigned to the currently lightest shard
+    (ties: lowest shard id) -- deterministic, and within one subtree of the
+    optimal balance. Requires ``n_root >= n_shards`` (the level-0 forest is
+    the cut line). Host-only.
+    """
+    L = snap.n_levels
+    n_root = int(snap.level_mbrs[0].shape[0])
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    if n_root < n_shards:
+        raise ValueError(
+            f"cannot cut {n_root} root subtrees into {n_shards} shards; "
+            "rebuild with a wider root forest or fewer index shards"
+        )
+    table = [t.cpu().numpy() for t in snap.child_table]
+    # per-root per-level membership by BFS down the CSR tables
+    members: List[List[np.ndarray]] = []
+    for r in range(n_root):
+        per_level = [np.array([r], np.int64)]
+        for li in range(L - 1):
+            rows = table[li][per_level[-1]]
+            per_level.append(np.sort(rows[rows >= 0]).astype(np.int64))
+        members.append(per_level)
+    weights = [int(m[-1].size) for m in members]
+    order = sorted(range(n_root), key=lambda r: (-weights[r], r))
+    load = [0] * n_shards
+    root_to_shard = np.zeros(n_root, np.int64)
+    for r in order:
+        s = min(range(n_shards), key=lambda i: (load[i], i))
+        root_to_shard[r] = s
+        load[s] += weights[r]
+    nodes: List[List[np.ndarray]] = []
+    for li in range(L):
+        row = []
+        for s in range(n_shards):
+            ms = [members[r][li] for r in range(n_root) if root_to_shard[r] == s]
+            row.append(np.sort(np.concatenate(ms)).astype(np.int64) if ms
+                       else np.zeros(0, np.int64))
+        nodes.append(row)
+    shard_of, local_of = [], []
+    for li in range(L):
+        n_li = int(snap.level_mbrs[li].shape[0])
+        so = np.full(n_li, -1, np.int64)
+        lo = np.full(n_li, -1, np.int64)
+        for s in range(n_shards):
+            so[nodes[li][s]] = s
+            lo[nodes[li][s]] = np.arange(nodes[li][s].size)
+        shard_of.append(so)
+        local_of.append(lo)
+    level_pads = tuple(max(nodes[li][s].size for s in range(n_shards)) for li in range(L))
+    return IndexPartition(
+        n_shards=n_shards,
+        root_to_shard=root_to_shard,
+        nodes=nodes,
+        shard_of=shard_of,
+        local_of=local_of,
+        level_pads=level_pads,
+        n_leaves=snap.n_leaves,
+    )
+
+
+def _stack_shard_rows(arr: np.ndarray, ids_per_shard, pad_to: int, fill) -> np.ndarray:
+    """Stack per-shard row subsets of ``arr`` into one (S*pad_to, ...) slab;
+    pad rows get ``fill`` (a scalar, or a per-column row like
+    ``NEVER_RECT``). The first dimension is the one the ``index`` mesh axis
+    splits."""
+    S = len(ids_per_shard)
+    out = np.empty((S * pad_to, *arr.shape[1:]), arr.dtype)
+    out[:] = fill
+    for s, ids in enumerate(ids_per_shard):
+        out[s * pad_to: s * pad_to + ids.size] = arr[ids]
+    return out
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
+
+
+# the partitioned snapshot's tensor fields, in the JAX package's order
+PARTITION_FIELDS = (
+    "level_mbrs",
+    "level_bms",
+    "child_table",
+    "child_counts",
+    "leaf_obj_x",
+    "leaf_obj_y",
+    "leaf_obj_bm",
+    "leaf_obj_id",
+    "root_gid",
+    "leaf_gid",
+    "level_counts",
+    "level_mbr_codes",
+    "level_dict_x",
+    "level_dict_y",
+    "leaf_terms",
+    "leaf_obj_cbm",
+    "leaf_obj_sig",
+)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PartitionedSnapshot:
+    """The index cut into shard-local sub-hierarchies, stacked on the host.
+
+    Every per-node / per-leaf tensor of the base ``IndexSnapshot`` is laid
+    out as ``(n_shards * pad, ...)``: shard ``s``'s slab occupies rows
+    ``[s*pad, (s+1)*pad)``, padded with inert rows (``NEVER_RECT`` MBRs,
+    zero bitmaps, ``-1`` ids). Child tables hold shard-LOCAL ids, so each
+    slab is a closed sub-hierarchy; ``leaf_obj_id`` keeps GLOBAL object ids
+    and ``root_gid``/``leaf_gid`` map local node slots back to global ids
+    (the collectives' tie-break currency). The narrow int16 planes are
+    re-encoded per shard against shard-local coordinate dictionaries (still
+    lossless; none for the whole partition if any shard's dictionary
+    overflows ``NARROW_DICT_MAX``). Bitmaps are int32 views, as in the
+    snapshot; every tensor lives on the CPU until ``shard(mesh)``.
+    """
+
+    level_mbrs: List[torch.Tensor]  # per level: (S*Np, 4) f32
+    level_bms: List[torch.Tensor]  # per level: (S*Np, W) i32
+    child_table: List[torch.Tensor]  # (S*Np, fan) i32, shard-LOCAL child ids
+    child_counts: List[torch.Tensor]  # (S*Np,) i32
+    leaf_obj_x: torch.Tensor  # (S*Kp, OBJ) f32
+    leaf_obj_y: torch.Tensor
+    leaf_obj_bm: torch.Tensor  # (S*Kp, OBJ, W) i32
+    leaf_obj_id: torch.Tensor  # (S*Kp, OBJ) i32 GLOBAL object ids, -1 pad
+    root_gid: torch.Tensor  # (S*Np0,) i32 global node id per local root, -1 pad
+    leaf_gid: torch.Tensor  # (S*Kp,) i32 global leaf id per local leaf, -1 pad
+    level_counts: torch.Tensor  # (S, L) i32 real node count per (shard, level)
+    obj_per_leaf: int
+    n_shards: int
+    part: IndexPartition
+    level_mbr_codes: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    level_dict_x: List[torch.Tensor] = dataclasses.field(default_factory=list)  # (S*Dx,)
+    level_dict_y: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    # the compact leaf bank: leaf dictionaries are shard-local already, so
+    # stacking selects each shard's leaf rows (Wl stays global)
+    leaf_terms: Optional[torch.Tensor] = None  # (S*Kp, 32*Wl) i32, -1 pad
+    leaf_obj_cbm: Optional[torch.Tensor] = None  # (S*Kp, OBJ, Wl) i32
+    leaf_obj_sig: Optional[torch.Tensor] = None  # (S*Kp, OBJ) i32
+
+    @property
+    def n_levels(self) -> int:
+        return len(self.level_mbrs)
+
+    @property
+    def n_leaves_global(self) -> int:
+        return self.part.n_leaves
+
+    @property
+    def has_narrow_planes(self) -> bool:
+        return len(self.level_mbr_codes) == len(self.level_mbrs) > 0
+
+    @property
+    def has_compact_bank(self) -> bool:
+        return self.leaf_obj_cbm is not None
+
+    def local_root_width(self) -> int:
+        """Bucketed width of one shard's root frontier."""
+        return round_up_bucket(self.part.level_pads[0])
+
+    def nbytes(self) -> int:
+        """Bytes of every stacked tensor (all shards)."""
+        return _nbytes(self, PARTITION_FIELDS)
+
+    def per_shard_bytes(self) -> int:
+        """Bytes per index shard: each rank holds exactly one slab of every
+        stacked tensor."""
+        return self.nbytes() // self.n_shards
+
+    def shard(self, mesh) -> IndexSnapshot:
+        """This rank's slab on its device, as a plain ``IndexSnapshot``: every
+        stacked tensor split along its first dimension over the mesh's
+        ``index`` axis (logical axis ``leaf``), and only this rank's block
+        moved. The slab is a closed sub-hierarchy (pad rows included), so
+        the engine descends on it unchanged."""
+        fields = [name for name in ARRAY_FIELDS if name != "child_matrix"]
+        return IndexSnapshot(obj_per_leaf=self.obj_per_leaf, child_matrix=[],
+                             **_slabs(self, fields, mesh))
+
+    def shard_ids(self, mesh) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        """This rank's ``(root_gid, leaf_gid)`` slabs on its device and its
+        real root count (host int)."""
+        kw = _slabs(self, ("root_gid", "leaf_gid", "level_counts"), mesh)
+        return kw["root_gid"], kw["leaf_gid"], int(kw["level_counts"][0, 0])
+
+    @staticmethod
+    def build(snap: IndexSnapshot, n_shards: int) -> "PartitionedSnapshot":
+        """Partition a built ``IndexSnapshot`` (on any device) into
+        ``n_shards`` stacked shard-local sub-hierarchies, on the host (see
+        ``partition_index``)."""
+        part = partition_index(snap, n_shards)
+        L = snap.n_levels
+        S = n_shards
+        pads = part.level_pads
+        never = np.asarray(NEVER_RECT, np.float32)
+        fields = dict(level_mbrs=[], level_bms=[], child_table=[], child_counts=[])
+        for li in range(L):
+            ids = part.nodes[li]
+            fields["level_mbrs"].append(
+                _stack_shard_rows(_host(snap.level_mbrs[li]), ids, pads[li], never))
+            fields["level_bms"].append(_stack_shard_rows(_host(snap.level_bms[li]), ids, pads[li], 0))
+            if li < L - 1:
+                stacked = _stack_shard_rows(_host(snap.child_table[li]), ids, pads[li], -1)
+                # global child ids -> shard-local ids (children live in the
+                # parent's shard: subtrees are assigned whole)
+                loc = part.local_of[li + 1][np.clip(stacked, 0, None)]
+                fields["child_table"].append(np.where(stacked >= 0, loc, -1).astype(np.int32))
+                fields["child_counts"].append(
+                    _stack_shard_rows(_host(snap.child_counts[li]), ids, pads[li], 0))
+        leaf_ids = part.nodes[L - 1]
+        Kp = pads[L - 1]
+        for name, fill in (("leaf_obj_x", 0.0), ("leaf_obj_y", 0.0), ("leaf_obj_bm", 0),
+                           ("leaf_obj_id", -1)):
+            fields[name] = _stack_shard_rows(_host(getattr(snap, name)), leaf_ids, Kp, fill)
+        if snap.has_compact_bank:
+            for name, fill in (("leaf_terms", -1), ("leaf_obj_cbm", 0), ("leaf_obj_sig", 0)):
+                fields[name] = _stack_shard_rows(_host(getattr(snap, name)), leaf_ids, Kp, fill)
+        n_of = [int(snap.level_mbrs[li].shape[0]) for li in range(L)]
+        fields["root_gid"] = _stack_shard_rows(np.arange(n_of[0], dtype=np.int32), part.nodes[0],
+                                               pads[0], -1)
+        fields["leaf_gid"] = _stack_shard_rows(np.arange(n_of[-1], dtype=np.int32), leaf_ids, Kp,
+                                               -1)
+        fields["level_counts"] = np.stack(
+            [[part.nodes[li][s].size for li in range(L)] for s in range(S)]).astype(np.int32)
+        # per-shard narrow planes: re-encoded against shard-local dictionaries
+        per_level = []
+        narrow_ok = snap.has_narrow_planes
+        for li in range(L if narrow_ok else 0):
+            m = _host(snap.level_mbrs[li]).astype(np.float32)
+            row = []
+            for s in range(S):
+                codes, dx, dy = encode_mbr_planes([m[part.nodes[li][s]]])
+                if not codes:
+                    narrow_ok = False
+                    break
+                row.append((codes[0], dx[0], dy[0]))
+            if not narrow_ok:
+                break
+            per_level.append(row)
+        if narrow_ok:
+            fields.update(level_mbr_codes=[], level_dict_x=[], level_dict_y=[])
+            for li, row in enumerate(per_level):
+                cp = np.zeros((S * pads[li], 4), np.int16)
+                Dx = max(r[1].size for r in row)
+                Dy = max(r[2].size for r in row)
+                dxp = np.zeros((S * Dx,), np.float32)
+                dyp = np.zeros((S * Dy,), np.float32)
+                for s, (c, dx, dy) in enumerate(row):
+                    cp[s * pads[li]: s * pads[li] + c.shape[0]] = c
+                    # dictionaries padded by repeating the last entry: pad
+                    # slots are never addressed by a real (in-range) code
+                    dxp[s * Dx:(s + 1) * Dx] = np.pad(dx, (0, Dx - dx.size), mode="edge")
+                    dyp[s * Dy:(s + 1) * Dy] = np.pad(dy, (0, Dy - dy.size), mode="edge")
+                fields["level_mbr_codes"].append(cp)
+                fields["level_dict_x"].append(dxp)
+                fields["level_dict_y"].append(dyp)
+        return PartitionedSnapshot.from_reference_arrays(fields, snap.obj_per_leaf, part)
+
+    @staticmethod
+    def from_reference_arrays(
+        fields: Mapping[str, object], obj_per_leaf: int, part: IndexPartition
+    ) -> "PartitionedSnapshot":
+        """A partitioned snapshot from stacked host arrays: ``fields`` maps
+        each name of ``PARTITION_FIELDS`` to a numpy array (a list of them
+        for per-level fields, None for an absent compact bank) -- the
+        reference's ``PartitionedSnapshot`` fields through ``np.asarray``,
+        or ``build``'s own -- and ``part`` is the cut they follow."""
+        cpu = torch.device("cpu")
+        kw = {}
+        for name in PARTITION_FIELDS:
+            v = fields.get(name)
+            if v is None:
+                kw[name] = [] if name in ("level_mbr_codes", "level_dict_x", "level_dict_y") \
+                    else None
+            elif isinstance(v, (list, tuple)):
+                kw[name] = [to_device(a, cpu) for a in v]
+            else:
+                kw[name] = to_device(v, cpu)
+        return PartitionedSnapshot(obj_per_leaf=int(obj_per_leaf), n_shards=part.n_shards,
+                                   part=part, **kw)
