@@ -188,7 +188,26 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    on every rank into the wait for the rank's own device work, the wait
    for its peer and the collective itself, launches by row per rank, peak
    device memory per rank;
-16. prints the kernels' JSON line, then the result line.
+16. LM serving (``lm_serving``): ``tinyllama-1.1b`` at its published
+   widths (bf16, weights from a seeded generator) fed by the port's SKR
+   retrieval: the first 128 queries of the first batch through
+   ``retrieve_workload`` (counts zeroed before, read after the whole
+   phase's main path: rows 1 and 3 must launch; the queries without
+   overflow equal ``execute_serial``), each query's first 32 retrieved ids
+   modulo the vocabulary teacher-forced through ``decode_step`` into a
+   4096-slot bf16 cache, then ``greedy_generate(n_new=64)``: the warm
+   step's time (CUDA events) against its bound (every weight and the whole
+   cache read once at 3.35 TB/s), tokens/s, peak device memory;
+   ``prefill_step`` at B = 8, S = 2048 (masked scan, chunk 1024) against
+   its bound (its operations at 989 TFLOP/s); checks: 512 decode steps at
+   B = 8 against ``prefill_step`` and 4 decode steps at B = 2 against the
+   port's own run on the CPU, each within 0.05 of the largest logit,
+   greedy tokens equal wherever the CPU's top-2 margin exceeds the error;
+   then ``deepseek-7b``, ``minitron-8b``, ``starcoder2-7b`` (36 heads
+   padded to 48: the padded slots zero) and ``phi-3-vision-4.2b`` (576
+   stub patches) at their published widths, one short pass each (prefill
+   at B = 2, S = 256; 8 decode steps against prefill; peak memory);
+17. prints the kernels' JSON line, then the result line.
 
 Every phase prints its seconds. Any failure raises and exits non-zero.
 Without a CUDA device, or outside the repository, it exits non-zero and
@@ -788,15 +807,21 @@ def bound_ms(nbytes: int, ops: int):
 
 
 def profile_batch(label: str, serve_one, warm, plan_cache_cls) -> None:
-    """Where one warm batch's time goes: ``torch.profiler`` over a single
-    serving call, device time by operation against the host clock."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Where one warm batch's time goes: ``profile_call`` over a single
+    serving call at the learned widths of ``warm``."""
     cache = plan_cache_cls()
     cache.widths = dict(warm.widths)
+    profile_call(f"{label} batch", lambda: serve_one(cache))
+
+
+def profile_call(label: str, fn) -> float:
+    """``torch.profiler`` over one call of ``fn``: device time by operation
+    against the host clock. Returns the device's idle share in percent."""
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        serve_one(cache)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     from torch.autograd import DeviceType
@@ -808,16 +833,19 @@ def profile_batch(label: str, serve_one, warm, plan_cache_cls) -> None:
     dev = lambda e: e.self_device_time_total / 1e3  # noqa: E731
     busy_ms = sum(dev(e) for e in on_device)
     copy_ms = sum(dev(e) for e in on_device if e.key.startswith(("Memcpy", "Memset")))
-    log(f"profile of one {label} batch (profiler on): wall {wall_ms:.6f} ms, device busy "
+    host = [e for e in events if e.device_type != DeviceType.CUDA]
+    idle = 100 - 100 * busy_ms / wall_ms
+    log(f"profile of one {label} (profiler on): wall {wall_ms:.6f} ms, device busy "
         f"{busy_ms:.6f} ms ({100 * busy_ms / wall_ms:.3f} %), "
-        f"device idle {100 - 100 * busy_ms / wall_ms:.3f} %, "
-        f"{sum(e.count for e in on_device)} device events; copies and sets {copy_ms:.6f} ms, "
-        f"other device work {busy_ms - copy_ms:.6f} ms")
+        f"device idle {idle:.3f} %, "
+        f"{sum(e.count for e in on_device)} device events, "
+        f"{sum(e.count for e in host if e.key.startswith('aten::'))} host aten calls; copies "
+        f"and sets {copy_ms:.6f} ms, other device work {busy_ms - copy_ms:.6f} ms")
     for e in sorted(on_device, key=dev, reverse=True)[:8]:
         log(f"  device {dev(e):.6f} ms x{e.count}: {e.key[:100]}")
-    host = [e for e in events if e.device_type != DeviceType.CUDA]
     for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
         log(f"  host {e.self_cpu_time_total / 1e3:.6f} ms x{e.count}: {e.key[:100]}")
+    return idle
 
 
 # --------------------------------------------------------- ragged operands
@@ -2169,6 +2197,312 @@ def multi_rank_serving(dev, wl, points, batches, snap, warm, skr_out, warm_knn, 
     log(f"ranks: {time.perf_counter() - t:.3f} s from spawn to join")
 
 
+# ------------------------------------------------------- LM serving (phase 16)
+LM_ARCH = "tinyllama-1.1b"  # the retrieval-augmented path's model, published widths
+LM_QUERIES = 128  # the first SKR batch's first queries prompt one decode row each
+LM_PROMPT = 32  # retrieved ids per prompt (teacher-forced decode steps)
+LM_CACHE = 4096  # KV cache slots
+LM_NEW = 64  # greedy tokens after the prompt
+LM_PREFILL = (8, 2048)  # prefill_step's (B, S), masked_scan at attn_chunk 1024
+LM_CHECK = (8, 512)  # decode against prefill: (B, teacher-forced steps)
+LM_CPU = (2, 4)  # the card against the port's CPU run: (B, decode steps), as many greedy
+LM_OTHERS = ("deepseek-7b", "minitron-8b", "starcoder2-7b", "phi-3-vision-4.2b")
+LM_SHORT = (2, 256, 8)  # the other configs: prefill (B, S) and decode steps
+LM_REL = 0.05  # the reference's test_decode_matches_prefill_tinyllama bound, of max |logit|
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
+
+
+def lm_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def lm_matmul_params(cfg) -> int:
+    """Weights one token multiplies in a layer stack (no head, no table)."""
+    H = cfg.pad_heads_to or cfg.n_heads
+    attn = cfg.d_model * (2 * H + 2 * cfg.n_kv_heads) * cfg.head_dim
+    return cfg.n_layers * (attn + 3 * cfg.d_model * cfg.d_ff)
+
+
+def lm_decode_bound(cfg, model, B: int, S: int):
+    """``(ms, bytes, operations)`` of one decode step: every weight read
+    once but the table (B rows), the whole cache read and one slot written,
+    the logits written; the products, and scores over every slot."""
+    H = cfg.pad_heads_to or cfg.n_heads
+    el = model.embed.table.element_size()
+    cache = 2 * cfg.n_layers * B * S * cfg.n_kv_heads * cfg.head_dim * 2
+    nbytes = (lm_bytes(model) - model.embed.table.numel() * el + B * cfg.d_model * el
+              + cache + cache // S + B * cfg.vocab * el)
+    ops = 2 * B * (lm_matmul_params(cfg) + cfg.d_model * cfg.vocab) \
+        + 4 * cfg.n_layers * B * H * S * cfg.head_dim
+    return max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3, nbytes, ops
+
+
+def lm_prefill_bound(cfg, model, B: int, S: int):
+    """``(ms, operations, bytes)`` of one prefill: the products of B*S
+    tokens, the head at the last position, and the masked scan's scores over
+    every (query, key) pair of the padded key length (QK and PV)."""
+    H = cfg.pad_heads_to or cfg.n_heads
+    C = min(cfg.attn_chunk, S)
+    skv = -(-S // C) * C
+    ops = 2 * B * S * lm_matmul_params(cfg) + 2 * B * cfg.d_model * cfg.vocab \
+        + 4 * cfg.n_layers * B * H * S * skv * cfg.head_dim
+    el = model.embed.table.element_size()
+    nbytes = lm_bytes(model) - model.embed.table.numel() * el + B * S * (cfg.d_model * el + 4) \
+        + B * cfg.vocab * el
+    return max(ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3, ops, nbytes
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|, both as f32 on the host."""
+    got, want = got.float().cpu(), want.float().cpu()
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError("non-finite logits")
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def first_ids(ids: np.ndarray, n: int) -> np.ndarray:
+    """Each row's first ``n`` retrieved ids (slots >= 0, in slot order),
+    padded with -1."""
+    out = np.full((ids.shape[0], n), -1, np.int64)
+    for i, row in enumerate(ids):
+        hit = row[row >= 0][:n]
+        out[i, :hit.size] = hit
+    return out
+
+
+def decode_against_prefill(steps, params, toks) -> float:
+    """The last of ``toks.shape[1]`` teacher-forced decode steps' logits
+    against ``prefill_step`` at the last position, relative to the largest
+    prefill logit; fails above ``LM_REL``."""
+    B, S = toks.shape
+    want = steps.prefill_step(params, dict(tokens=toks))
+    cache = steps.init_cache(B, S)
+    pos = torch.zeros((), dtype=torch.int32, device=toks.device)
+    for t in range(S):
+        got, cache = steps.decode_step(params, cache, toks[:, t:t + 1], pos)
+        pos = pos + 1
+    del cache
+    err = rel_err(got, want)
+    if err > LM_REL:
+        raise AssertionError(f"decode after {S} steps differs from prefill: {err} > {LM_REL}")
+    return err
+
+
+def lm_serving(dev, card: str, ds, index, snap, wl) -> None:
+    """Phase 16: retrieval-augmented LM serving at published widths.
+
+    (a) ``tinyllama-1.1b`` (bf16, weights from a seeded generator): the
+    first ``LM_QUERIES`` queries of the first SKR batch through
+    ``retrieve_workload`` (counts zeroed before, read after: rows 1 and 3
+    must launch; ids of the queries without overflow equal
+    ``execute_serial``), each query's first ``LM_PROMPT`` ids modulo the
+    vocabulary teacher-forced through ``decode_step`` into a
+    ``LM_CACHE``-slot cache, then ``greedy_generate(n_new=LM_NEW)``; the
+    warm step's time (CUDA events) against its bound, tokens/s, peak
+    device memory; ``prefill_step`` at ``LM_PREFILL`` against its bound.
+    (b) decode against prefill at ``LM_CHECK`` and the card against the
+    port's CPU run at ``LM_CPU``, both within ``LM_REL`` of the largest
+    logit, greedy tokens equal where the CPU's top-2 margin exceeds the
+    error. (c) ``LM_OTHERS`` at published widths, one short pass each.
+    """
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.query import execute_serial
+    from repro_torch.kernels import _build
+    from repro_torch.serve.engine import retrieve_workload
+    from repro_torch.train.decode import greedy_generate
+    from repro_torch.train.step import build_steps
+
+    cfg = get_config(LM_ARCH)
+    log(f"LM serving on {card}: {LM_ARCH} n_layers={cfg.n_layers} d_model={cfg.d_model} "
+        f"heads={cfg.n_heads} kv={cfg.n_kv_heads} head_dim={cfg.head_dim} d_ff={cfg.d_ff} "
+        f"vocab={cfg.vocab} {cfg.dtype}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+
+    # (a) retrieval, then the model fed by it; launches read across both
+    rows = np.arange(LM_QUERIES)
+    sub = wl.subset(rows)
+    _build.reset_launch_counts()
+    t = time.perf_counter()
+    hits = retrieve_workload(snap, sub, max_leaves=MAX_LEAVES)
+    torch.cuda.synchronize()
+    t_ret = time.perf_counter() - t
+    exact = np.flatnonzero(np.asarray(hits["overflow"]) == 0)
+    check_skr_oracle(execute_serial, index, ds, sub, hits, exact, "LM retrieval")
+    prompt_ids = first_ids(np.asarray(hits["ids"]), LM_PROMPT)
+    prompt = torch.from_numpy((prompt_ids % cfg.vocab).astype(np.int32)).to(dev)
+    log(f"retrieval: {LM_QUERIES} queries in {t_ret:.6f} s, {exact.size} without overflow equal "
+        f"execute_serial; retrieved per query min {int(np.min(hits['counts']))} max "
+        f"{int(np.max(hits['counts']))}; prompt slots that are ids {(prompt_ids >= 0).mean():.4f}")
+
+    steps = build_steps(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t = time.perf_counter()
+    params = steps.init_state(gen)["params"]
+    torch.cuda.synchronize()
+    log(f"init {LM_ARCH}: {lm_bytes(params)} B of weights in {time.perf_counter() - t:.3f} s")
+    B = LM_QUERIES
+    cache = steps.init_cache(B, LM_CACHE)
+    log(f"cache: {sum(c.numel() * c.element_size() for c in cache.values())} B "
+        f"({B} x {LM_CACHE} slots, bf16)")
+    pos = torch.zeros((), dtype=torch.int32, device=dev)
+    t = time.perf_counter()
+    for i in range(LM_PROMPT):
+        logits, cache = steps.decode_step(params, cache, prompt[:, i:i + 1], pos)
+        pos = pos + 1
+    torch.cuda.synchronize()
+    t_prompt = time.perf_counter() - t
+    first = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    t = time.perf_counter()
+    toks, cache = greedy_generate(steps, params, cache, first, n_new=LM_NEW, start_pos=LM_PROMPT)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t
+    counts = _build.launch_counts()
+    log(f"  launches (retrieval and LM, counts zeroed before): {rows_launched(counts)}")
+    for name in ("frontier_level_narrow", "fused_verify_remap_slot"):
+        if counts[name] <= 0:
+            raise AssertionError(f"the LM path's retrieval never launched {name}")
+    if toks.shape != (B, LM_NEW) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab:
+        raise AssertionError(f"greedy tokens out of range: {tuple(toks.shape)}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite decode logits")
+    tpos = torch.tensor(LM_PROMPT + LM_NEW, dtype=torch.int32, device=dev)
+    step_ms = time_ms(lambda: steps.decode_step(params, cache, first, tpos), iters=10, warmup=2)
+    b_ms, b_bytes, b_ops = lm_decode_bound(cfg, params, B, LM_CACHE)
+    log(f"decode ({card}): {LM_PROMPT} teacher-forced steps {t_prompt:.6f} s, greedy "
+        f"{LM_NEW} steps {t_gen:.6f} s = {B * LM_NEW / t_gen:.3f} tokens/s "
+        f"({1e3 * t_gen / LM_NEW:.6f} ms a step, host clock); warm decode_step "
+        f"{step_ms:.6f} ms (CUDA events) = {B / step_ms * 1e3:.3f} tokens/s; bound {b_ms:.6f} "
+        f"ms ({b_bytes} B / 3.35 TB/s; {b_ops} operations / 989 TFLOP/s): "
+        f"{100 * b_ms / step_ms:.3f} % of it")
+    log(f"  first row's tokens: {toks[0, :16].tolist()}")
+    profile_call(f"{LM_ARCH} decode_step (B={B}, {LM_CACHE} slots)",
+                 lambda: steps.decode_step(params, cache, first, tpos))
+    del cache, logits
+    torch.cuda.empty_cache()
+
+    pb, ps = LM_PREFILL
+    ptoks = torch.randint(0, cfg.vocab, (pb, ps), generator=gen, device=dev, dtype=torch.int32)
+    out = steps.prefill_step(params, dict(tokens=ptoks))
+    if out.shape != (pb, 1, cfg.vocab) or not torch.isfinite(out).all():
+        raise AssertionError(f"prefill logits: {tuple(out.shape)}")
+    pre_ms = time_ms(lambda: steps.prefill_step(params, dict(tokens=ptoks)), iters=3, warmup=1)
+    p_ms, p_ops, p_bytes = lm_prefill_bound(cfg, params, pb, ps)
+    log(f"prefill ({card}): B={pb} S={ps} masked_scan attn_chunk={cfg.attn_chunk}: "
+        f"{pre_ms:.6f} ms (CUDA events) = {pb * ps / pre_ms * 1e3:.1f} tokens/s; bound "
+        f"{p_ms:.6f} ms ({p_ops} operations / 989 TFLOP/s; {p_bytes} B): "
+        f"{100 * p_ms / pre_ms:.3f} % of it")
+    profile_call(f"{LM_ARCH} prefill_step (B={pb}, S={ps})",
+                 lambda: steps.prefill_step(params, dict(tokens=ptoks)))
+    log(f"peak device memory (a): {torch.cuda.max_memory_allocated() - base} B above the "
+        f"phase's start ({base} B)")
+    del out, ptoks
+
+    # (b) decode against prefill, then the card against the CPU
+    cb, cs = LM_CHECK
+    ctoks = prompt[:cb].repeat(1, cs // LM_PROMPT + 1)[:, :cs].contiguous()
+    t = time.perf_counter()
+    err = decode_against_prefill(steps, params, ctoks)
+    log(f"check: {cs} decode steps at B={cb} against prefill_step: max |err| / max |logit| "
+        f"{err:.6f} <= {LM_REL} ({time.perf_counter() - t:.3f} s)")
+
+    hb, hn = LM_CPU
+    csteps = build_steps(cfg, device="cpu")
+    cpu = copy.deepcopy(params).to("cpu")
+    htoks = prompt[:hb, :hn]
+    caches = dict(card=steps.init_cache(hb, 2 * hn), cpu=csteps.init_cache(hb, 2 * hn))
+    t = time.perf_counter()
+    errs, last = [], {}
+    for i in range(hn):
+        for name, st, p in (("card", steps, params), ("cpu", csteps, cpu)):
+            d = st.device
+            last[name], caches[name] = st.decode_step(
+                p, caches[name], htoks[:, i:i + 1].to(d), torch.tensor(i, dtype=torch.int32,
+                                                                        device=d))
+        errs.append(rel_err(last["card"], last["cpu"]))
+    err = max(errs)
+    if err > LM_REL:
+        raise AssertionError(f"the card's decode logits differ from the CPU's: {errs}")
+    # greedy from the last teacher-forced logits; the CPU's margins say where
+    # its tokens are decided by more than the error
+    ref_logits = last["cpu"].float()
+    scale = float(ref_logits.abs().max())
+    tok = {n: torch.argmax(last[n][:, -1:], dim=-1).to(torch.int32) for n in last}
+    card_toks, _ = greedy_generate(steps, params, caches["card"], tok["card"], n_new=hn,
+                                   start_pos=hn)
+    cpu_toks, margins = [tok["cpu"]], []
+    c, pos_c = caches["cpu"], torch.tensor(hn, dtype=torch.int32)
+    top = torch.topk(ref_logits[:, -1], 2, dim=-1).values
+    margins.append(top[:, 0] - top[:, 1])
+    for i in range(hn):
+        lg, c = csteps.decode_step(cpu, c, cpu_toks[-1], pos_c)
+        pos_c = pos_c + 1
+        top = torch.topk(lg[:, -1].float(), 2, dim=-1).values
+        margins.append(top[:, 0] - top[:, 1])
+        cpu_toks.append(torch.argmax(lg[:, -1:], dim=-1).to(torch.int32))
+    cpu_seq = torch.cat(cpu_toks, dim=1)  # (hb, hn + 1): the first, then hn greedy
+    card_seq = torch.cat([tok["card"].cpu(), card_toks[:, :hn].cpu()], dim=1)
+    margin = torch.stack(margins, dim=1)
+    compared = 0
+    for r in range(hb):
+        for j in range(hn + 1):
+            if float(margin[r, j]) <= err * scale:
+                break  # a near tie: the rest of the row may follow either token
+            if int(card_seq[r, j]) != int(cpu_seq[r, j]):
+                raise AssertionError(f"greedy token {j} of row {r}: card {card_seq[r].tolist()} "
+                                     f"cpu {cpu_seq[r].tolist()}")
+            compared += 1
+    log(f"check: the card against the port's CPU run at full width, B={hb}, {hn} decode steps: "
+        f"max |err| / max |logit| {err:.6f} <= {LM_REL} (per step {[f'{e:.6f}' for e in errs]}); "
+        f"greedy tokens equal at {compared} of {hb * (hn + 1)} positions (compared up to each "
+        f"row's first CPU top-2 margin within the error) ({time.perf_counter() - t:.3f} s)")
+    del params, cpu, caches, c
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the other configs of the path at their published widths
+    sb, ss, sn = LM_SHORT
+    for arch in LM_OTHERS:
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        cfg = get_config(arch)
+        steps = build_steps(cfg, device=dev)
+        params = steps.init_state(torch.Generator(device=dev).manual_seed(SEED))["params"]
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+        toks = torch.randint(0, cfg.vocab, (sb, ss), generator=gen, device=dev, dtype=torch.int32)
+        batch = dict(tokens=toks)
+        if cfg.family == "vlm":
+            batch["patches"] = torch.randn((sb, cfg.n_patches, cfg.d_model), generator=gen,
+                                           device=dev).to(torch.bfloat16)
+        out = steps.prefill_step(params, batch)
+        pre_ms = time_ms(lambda: steps.prefill_step(params, batch), iters=2, warmup=1)
+        if out.shape != (sb, 1, cfg.vocab) or not torch.isfinite(out).all():
+            raise AssertionError(f"{arch}: prefill logits {tuple(out.shape)}")
+        err = decode_against_prefill(steps, params, toks[:, :sn])
+        H = cfg.pad_heads_to or cfg.n_heads
+        pad_note = ""
+        if H > cfg.n_heads:
+            g, g_pad = cfg.n_heads // cfg.n_kv_heads, H // cfg.n_kv_heads
+            pad = torch.arange(H, device=dev) % g_pad >= g
+            attn = params.dense_blocks.attn
+            if attn.wq[:, :, pad].any() or attn.wo[:, pad].any():
+                raise AssertionError(f"{arch}: a padded head slot is not zero")
+            pad_note = f"; {int(pad.sum())} padded head slots of {H} zero in wq and wo"
+        n_seq = ss + (cfg.n_patches if cfg.family == "vlm" else 0)
+        log(f"{arch} ({card}): {lm_bytes(params)} B of weights; prefill B={sb} S={n_seq}"
+            f"{f' ({cfg.n_patches} patches)' if cfg.family == 'vlm' else ''} {pre_ms:.6f} "
+            f"ms (CUDA events), logits finite; {sn} decode steps against prefill: "
+            f"{err:.6f} <= {LM_REL}{pad_note}; peak device memory "
+            f"{torch.cuda.max_memory_allocated()} B ({time.perf_counter() - t:.3f} s)")
+        del params, out, batch, toks
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3483,6 +3817,9 @@ def main() -> int:
     with phase("multi-rank serving"):
         multi_rank_serving(dev, wl, points, batches, snap, warm, main_out, warm_knn, knn_out,
                            delta_bufs["B"], delta_skr["B"][0], delta_knn["B"], twin)
+
+    with phase("LM serving"):
+        lm_serving(dev, card, ds, index, snap, wl)
 
     log(f"card: {card}")
     print(json.dumps({"kernels": rows}), flush=True)

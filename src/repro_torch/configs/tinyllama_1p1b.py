@@ -1,0 +1,10 @@
+"""tinyllama-1.1b [dense]: 22L d_model=2048 32H (GQA kv=4) d_ff=5632
+vocab=32000. [arXiv:2401.02385]"""
+from .base import ArchConfig
+
+
+def config() -> ArchConfig:
+    return ArchConfig(
+        name="tinyllama-1.1b", family="dense", n_layers=22, d_model=2048,
+        n_heads=32, n_kv_heads=4, d_ff=5632, vocab=32000, head_dim=64,
+    )
