@@ -207,7 +207,24 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    padded to 48: the padded slots zero) and ``phi-3-vision-4.2b`` (576
    stub patches) at their published widths, one short pass each (prefill
    at B = 2, S = 256; 8 decode steps against prefill; peak memory);
-17. prints the kernels' JSON line, then the result line.
+17. LM training (``lm_training``): (a) ``tinyllama-1.1b`` at its published
+   config (bf16, AdamW, ``remat="full"``, seeded weights) on the
+   ``TokenPipeline`` of seed 0 at B = 4, S = 2048: 12 ``train_step``s, each
+   timed with CUDA events, the warm steps' mean and spread against
+   ``lm_train_bound`` (four forwards' operations at 989 TFLOP/s; AdamW's
+   22 B a parameter at 3.35 TB/s), tokens/s, one profiled step's device
+   idle share, peak device memory, every step's loss, grad_norm and lr
+   finite; (b) one step at B = 1, S = 128 from one fresh state on the card
+   and on the CPU: loss within 1e-2, grad_norm within 2e-2, AdamW's m
+   within 5e-2 and v within 1e-1 of each leaf's largest value; (c) one
+   step of ``phi-3-vision-4.2b`` at its published width (B = 1, 256
+   patches + 768 tokens: ``batch_spec("train", 1024, 1)``): the text
+   region's loss finite, peak memory; (d) the reduced dense config
+   through ``train``: 200 steps at B = 8, S = 128 with checkpoints every
+   50, the loss falling, a restart to 220 restored from 200; the first 3
+   losses, and 3 steps each of Adafactor and SGD, within 1e-2 of the
+   port's CPU runs;
+18. prints the kernels' JSON line, then the result line.
 
 Every phase prints its seconds. Any failure raises and exits non-zero.
 Without a CUDA device, or outside the repository, it exits non-zero and
@@ -2342,7 +2359,7 @@ def lm_serving(dev, card: str, ds, index, snap, wl) -> None:
     steps = build_steps(cfg, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     t = time.perf_counter()
-    params = steps.init_state(gen)["params"]
+    params = steps.bundle.init(gen, dev)  # serving: no optimizer state
     torch.cuda.synchronize()
     log(f"init {LM_ARCH}: {lm_bytes(params)} B of weights in {time.perf_counter() - t:.3f} s")
     B = LM_QUERIES
@@ -2471,7 +2488,7 @@ def lm_serving(dev, card: str, ds, index, snap, wl) -> None:
         t = time.perf_counter()
         cfg = get_config(arch)
         steps = build_steps(cfg, device=dev)
-        params = steps.init_state(torch.Generator(device=dev).manual_seed(SEED))["params"]
+        params = steps.bundle.init(torch.Generator(device=dev).manual_seed(SEED), dev)
         gen = torch.Generator(device=dev).manual_seed(SEED + 1)
         toks = torch.randint(0, cfg.vocab, (sb, ss), generator=gen, device=dev, dtype=torch.int32)
         batch = dict(tokens=toks)
@@ -2501,6 +2518,234 @@ def lm_serving(dev, card: str, ds, index, snap, wl) -> None:
         del params, out, batch, toks
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------ LM training (phase 17)
+TRAIN_ARCH = "tinyllama-1.1b"  # published config: bf16, AdamW, remat="full"
+TRAIN_SHAPE = (4, 2048)  # (a): B, S -- 8,192 tokens a step
+TRAIN_STEPS = 12  # (a): timed one by one; the first TRAIN_WARM are warm-up
+TRAIN_WARM = 2
+TRAIN_CPU = (1, 128)  # (b): one step at full width, the card against the CPU
+TRAIN_VLM = ("phi-3-vision-4.2b", 1, 1024)  # (c): one step, batch_spec("train", S, B)
+TRAIN_LOOP = (200, 220, 50, 8, 128)  # (d): steps, restart to, save every, B, S
+TRAIN_OPT_STEPS = 3  # (d): steps of each optimizer, the card against the CPU
+# (b) and (d): the card against the CPU, relative to each value's or leaf's
+# largest magnitude; v is g^2, so twice m's relative error
+TRAIN_REL = dict(loss=1e-2, grad_norm=2e-2, m=5e-2, v=1e-1)
+ADAM_BYTES_PER_PARAM = 22  # read p, g (bf16), m, v (f32); write m, v, p
+
+
+def lm_train_bound(cfg, n_params: int, B: int, S: int):
+    """``(ms, operations, bytes)`` of one training step: four forwards'
+    operations (the forward, the remat recompute and a backward of two), a
+    forward being the products of B*S tokens, the head at every position
+    and the masked scan's scores over every (query, key) pair of the padded
+    key length (QK and PV); and AdamW's bytes, 22 a parameter."""
+    H = cfg.pad_heads_to or cfg.n_heads
+    C = min(cfg.attn_chunk, S)
+    skv = -(-S // C) * C
+    T = B * S
+    fwd = 2 * T * lm_matmul_params(cfg) + 2 * T * cfg.d_model * cfg.vocab \
+        + 4 * cfg.n_layers * B * H * S * skv * cfg.head_dim
+    ops = 4 * fwd
+    nbytes = ADAM_BYTES_PER_PARAM * n_params
+    return max(ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3, ops, nbytes
+
+
+def check_metrics(metrics, what: str) -> None:
+    for k, v in metrics.items():
+        if not np.isfinite(float(v)):
+            raise AssertionError(f"{what}: {k} = {float(v)}")
+
+
+def card_against_cpu_losses(got, want, what: str) -> float:
+    err = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    if len(got) != len(want) or err > TRAIN_REL["loss"]:
+        raise AssertionError(f"{what}: card losses {got} against the CPU's {want}")
+    return err
+
+
+def lm_training(dev, card: str) -> None:
+    """Phase 17: LM training on the card.
+
+    (a) ``tinyllama-1.1b`` at its published config (bf16, AdamW,
+    ``remat="full"``, weights from a seeded generator on the card) on the
+    ``TokenPipeline`` of seed 0 at ``TRAIN_SHAPE``: ``TRAIN_STEPS``
+    ``train_step``s, each timed with CUDA events; the warm steps' time and
+    spread against ``lm_train_bound``, tokens/s, one profiled step's device
+    idle share, peak device memory, every step's loss, grad_norm and lr
+    finite. (b) One step at ``TRAIN_CPU`` from the same fresh state on the
+    card and on the CPU: loss, grad_norm and every AdamW moment within
+    ``TRAIN_REL``. (c) One step of ``phi-3-vision-4.2b`` at published
+    width, ``batch_spec("train", ...)``: the text region's loss finite, peak
+    memory. (d) The reduced dense config through ``train``: ``TRAIN_LOOP``
+    steps with checkpoints, the loss falling, a restart to the second step
+    count restored from the first; its first 3 losses, and Adafactor's and
+    SGD's ``TRAIN_OPT_STEPS``, against the port's CPU runs.
+    """
+    import copy
+    import dataclasses
+
+    from repro_torch import full_f32_matmul
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.train.loop import TrainConfig, train
+    from repro_torch.train.step import build_steps
+    from repro_torch.tree import leaves
+
+    # (a) the published config at full width
+    cfg = get_config(TRAIN_ARCH)
+    B, S = TRAIN_SHAPE
+    log(f"LM training on {card}: {TRAIN_ARCH} n_layers={cfg.n_layers} d_model={cfg.d_model} "
+        f"vocab={cfg.vocab} {cfg.dtype} {cfg.optimizer} remat={cfg.remat} "
+        f"attn_chunk={cfg.attn_chunk}; B={B} S={S}")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    steps = build_steps(cfg, device=dev)
+    t = time.perf_counter()
+    state = steps.init_state(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    w_bytes = lm_bytes(state["params"])
+    o_bytes = sum(x.numel() * x.element_size() for x in leaves(state["opt"]))
+    log(f"init: {n_params} parameters, {w_bytes} B of weights, {o_bytes} B of f32 moments "
+        f"({time.perf_counter() - t:.3f} s)")
+    pipe = TokenPipeline(cfg.vocab, S, B, seed=0)
+    batches = [pipe.next_batch(cfg, dev) for _ in range(TRAIN_STEPS)]
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(TRAIN_STEPS)]
+    metrics = []
+    t = time.perf_counter()
+    for (start, end), batch in zip(events, batches):
+        start.record()
+        state, m = steps.train_step(state, batch)
+        end.record()
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    ms = [s.elapsed_time(e) for s, e in events]
+    for i, m in enumerate(metrics):
+        check_metrics(m, f"step {i}")
+    log("  per step (loss, grad_norm, lr): " + "; ".join(
+        f"{float(m['loss']):.6f} {float(m['grad_norm']):.6f} {float(m['lr']):.3e}"
+        for m in metrics))
+    warm = ms[TRAIN_WARM:]
+    mean = float(np.mean(warm))
+    b_ms, b_ops, b_bytes = lm_train_bound(cfg, n_params, B, S)
+    log(f"train_step ({card}): first {ms[0]:.6f} ms; warm steps mean {mean:.6f} ms, min "
+        f"{min(warm):.6f}, max {max(warm):.6f}, std {float(np.std(warm)):.6f} over {len(warm)} "
+        f"(CUDA events) = {B * S / mean * 1e3:.3f} tokens/s; host wall {wall:.3f} s for "
+        f"{TRAIN_STEPS} steps; bound {b_ms:.6f} ms ({b_ops} operations / 989 TFLOP/s; "
+        f"{b_bytes} B / 3.35 TB/s): {100 * b_ms / mean:.3f} % of it")
+    profile_call(f"{TRAIN_ARCH} train_step (B={B}, S={S})",
+                 lambda: steps.train_step(state, batches[-1]))
+    log(f"peak device memory (a): {torch.cuda.max_memory_allocated() - base} B above the "
+        f"phase's start ({base} B); the state {w_bytes + o_bytes} B")
+    del state, batches, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) one step from the same fresh state on the card and on the CPU
+    hb, hs = TRAIN_CPU
+    state = steps.init_state(torch.Generator(device=dev).manual_seed(SEED + 1))
+    csteps = build_steps(cfg, device="cpu")
+    cmodel = copy.deepcopy(state["params"]).to("cpu")
+    opt_init, _ = get_optimizer(cfg.optimizer)
+    cstate = dict(params=cmodel, opt=opt_init(cmodel.tree()),
+                  step=torch.zeros((), dtype=torch.int32))
+    batch = TokenPipeline(cfg.vocab, hs, hb, seed=1).next_batch(cfg, "cpu")
+    t = time.perf_counter()
+    state, gm = steps.train_step(state, {k: v.to(dev) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t
+    t = time.perf_counter()
+    cstate, cm = csteps.train_step(cstate, batch)
+    t_cpu = time.perf_counter() - t
+    errs = {k: abs(float(gm[k]) - float(cm[k])) / abs(float(cm[k])) for k in ("loss", "grad_norm")}
+    for name in ("m", "v"):
+        errs[name] = max(rel_err(a.detach(), b.detach()) for a, b in zip(
+            leaves(getattr(state["opt"], name)), leaves(getattr(cstate["opt"], name))))
+    p_err = max(rel_err(a.detach(), b.detach())
+                for a, b in zip(leaves(state["params"]), leaves(cmodel)))
+    for k, v in errs.items():
+        if not v <= TRAIN_REL[k]:
+            raise AssertionError(f"(b) the card's {k} differs from the CPU's: {v} > {TRAIN_REL[k]}")
+    log(f"check: one train_step at full width, B={hb} S={hs}, the card against the port's CPU "
+        f"run: loss {float(gm['loss']):.6f} / {float(cm['loss']):.6f}, errors (of the largest "
+        f"value, per leaf for m and v) " + ", ".join(f"{k} {v:.6f} <= {TRAIN_REL[k]}"
+                                                    for k, v in errs.items())
+        + f"; parameters after the step {p_err:.6f} (lr {float(cm['lr']):.3e}); card "
+        f"{t_card:.3f} s, CPU {t_cpu:.3f} s")
+    del state, cstate, cmodel, steps, csteps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) vlm at published width
+    arch, vb, vs = TRAIN_VLM
+    vcfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    vsteps = build_steps(vcfg, device=dev)
+    state = vsteps.init_state(torch.Generator(device=dev).manual_seed(SEED))
+    n_vlm = sum(p.numel() for p in state["params"].parameters())
+    spec, _ = vsteps.batch_spec("train", vs, vb)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    vbatch = dict(
+        tokens=torch.randint(0, vcfg.vocab, spec["tokens"].shape, generator=gen, device=dev,
+                             dtype=torch.int32),
+        patches=torch.randn(spec["patches"].shape, generator=gen, device=dev).to(
+            spec["patches"].dtype))
+    _, loss_start = state["params"].embed_inputs(vbatch)
+    state, vm = vsteps.train_step(state, vbatch)
+    torch.cuda.synchronize()
+    check_metrics(vm, arch)
+    if loss_start != spec["patches"].shape[1]:
+        raise AssertionError(f"{arch}: the text region starts at {loss_start}")
+    log(f"{arch} ({card}): {n_vlm} parameters, one train_step at B={vb}, "
+        f"{spec['patches'].shape[1]} patches + {spec['tokens'].shape[1]} tokens: the text "
+        f"region's loss {float(vm['loss']):.6f}, grad_norm {float(vm['grad_norm']):.6f}, finite; "
+        f"peak device memory {torch.cuda.max_memory_allocated() - base} B above the start "
+        f"({base} B) ({time.perf_counter() - t:.3f} s)")
+    del state, vsteps, vbatch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the reduced dense config through the whole loop
+    n1, n2, every, lb, ls = TRAIN_LOOP
+    rcfg = get_config(TRAIN_ARCH).reduced()
+    with full_f32_matmul(), tempfile.TemporaryDirectory() as d:
+        tc = dict(batch=lb, seq=ls, ckpt_every=every, log_every=0)
+        t = time.perf_counter()
+        r1 = train(rcfg, TrainConfig(n_steps=n1, ckpt_dir=d, **tc), device=dev)
+        t1 = time.perf_counter() - t
+        r2 = train(rcfg, TrainConfig(n_steps=n2, ckpt_dir=d, **tc), device=dev)
+        first, last = float(np.mean(r1.losses[:10])), float(np.mean(r1.losses[-10:]))
+        if not (r1.restored_from is None and len(r1.losses) == n1 and last < first):
+            raise AssertionError(f"(d) the loss did not fall: {first} -> {last}")
+        if r2.restored_from != n1 or len(r2.losses) != n2 - n1 or not np.all(
+                np.isfinite(r2.losses)):
+            raise AssertionError(f"(d) restart: restored_from {r2.restored_from}, "
+                                 f"{len(r2.losses)} losses")
+        cpu = train(rcfg, TrainConfig(n_steps=3, **tc), device="cpu")
+        err = card_against_cpu_losses(r1.losses[:3], cpu.losses, "(d) adamw")
+        opt_errs = {}
+        for opt in ("adafactor", "sgd"):
+            ocfg = dataclasses.replace(rcfg, optimizer=opt)
+            got = train(ocfg, TrainConfig(n_steps=TRAIN_OPT_STEPS, **tc), device=dev).losses
+            want = train(ocfg, TrainConfig(n_steps=TRAIN_OPT_STEPS, **tc), device="cpu").losses
+            opt_errs[opt] = card_against_cpu_losses(got, want, f"(d) {opt}")
+    log(f"(d) reduced {TRAIN_ARCH} (f32, B={lb} S={ls}) through train ({card}): {n1} steps in "
+        f"{t1:.3f} s (median step {1e3 * float(np.median(r1.step_times)):.3f} ms host clock), "
+        f"loss {first:.6f} (first 10) -> {last:.6f} (last 10), saves every {every}; restart to "
+        f"{n2}: restored_from {r2.restored_from}, {len(r2.losses)} steps, last loss "
+        f"{r2.losses[-1]:.6f}; first 3 losses against the CPU {err:.2e}, "
+        + ", ".join(f"{k} {TRAIN_OPT_STEPS} steps {v:.2e}" for k, v in opt_errs.items())
+        + f" <= {TRAIN_REL['loss']}")
 
 
 # -------------------------------------------------------------------- main
@@ -3820,6 +4065,9 @@ def main() -> int:
 
     with phase("LM serving"):
         lm_serving(dev, card, ds, index, snap, wl)
+
+    with phase("LM training"):
+        lm_training(dev, card)
 
     log(f"card: {card}")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,6 +1,7 @@
 """Shared model layers: params-with-specs helpers, norms, RoPE, embeddings,
 GQA attention (chunked flash-pattern prefill and one-token decode against a
-KV cache), SwiGLU / GELU FFN -- the JAX package's ``models/layers.py``.
+KV cache), SwiGLU / GELU FFN, the cross-entropy loss -- the JAX package's
+``models/layers.py``.
 
 Every ``init_*`` returns a dict whose leaves are ``Param(value, spec)``;
 ``split_params`` separates values from logical-name specs, which name each
@@ -113,6 +114,17 @@ def init_lm_head(gen, cfg: ArchConfig, device=None) -> Dict:
 
 def lm_logits(params: Dict, x: torch.Tensor) -> torch.Tensor:
     return x @ params["w"]
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy over all positions: logsumexp in f32 minus the
+    gold logit. The reference sums the logits against an f32 one-hot; each
+    row has one nonzero term there, so a gather of the gold logit gives the
+    same bits without the (B, S, vocab) one-hot."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - gold)
 
 
 # --------------------------------------------------------------- attention

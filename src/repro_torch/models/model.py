@@ -1,26 +1,30 @@
 """Model assembly for the decoder-only dense families (``dense``, and
-``vlm``, which prepends stub patch embeddings): init, prefill and
-KV-cache decode -- the JAX package's ``models/model.py`` for these
-families.
+``vlm``, which prepends stub patch embeddings): init, the training loss,
+prefill and KV-cache decode -- the JAX package's ``models/model.py`` for
+these families.
 
 A model is a ``DecoderOnlyLM``: an ``nn.Module`` whose parameters sit
 under the reference's tree paths (``embed.table``, ``head.w``,
 ``final_norm``, ``dense_blocks.attn.wq``, ...), the layer stack with a
 leading ``layers`` dimension, each parameter's logical spec kept beside it
 in ``specs``. Where the reference scans over the stack, the port loops
-over layers in Python. ``ModelBundle``'s functions keep the reference's
-names and wrap the module; the training loss comes with the training
-port (ROADMAP A.13b).
+over layers in Python; where it wraps the scan body in ``jax.checkpoint``
+(``cfg.remat == "full"``), the port wraps each layer in
+``torch.utils.checkpoint``. ``ModelBundle``'s functions keep the
+reference's names and wrap the module. The parameters are registered
+without gradients; the training steps turn them on.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Callable, Dict
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..tree import module_tree
 from . import layers as L
 from .layers import Param, split_params
 
@@ -116,34 +120,52 @@ class DecoderOnlyLM(nn.Module):
 
     def tree(self) -> Dict:
         """The parameters as the reference's nested values dict."""
-        out: Dict[str, Any] = {}
-        for name, p in self.named_parameters():
-            *path, leaf = name.split(".")
-            d = out
-            for part in path:
-                d = d.setdefault(part, {})
-            d[leaf] = p
-        return out
+        return module_tree(self)
 
     def _layers(self):
-        """Each layer's parameters: views of the stack at its index."""
+        """Each layer's parameters: views of the stack at its index. One
+        ``unbind`` a leaf, so the backward stacks the layers' gradients
+        once instead of adding a stack-sized gradient per layer."""
         blocks = self.tree()["dense_blocks"]
-        return [_index(blocks, i) for i in range(self.cfg.n_layers)]
+        per_leaf = _unbind(blocks)
+        return [_index(per_leaf, i) for i in range(self.cfg.n_layers)]
 
-    def embed_inputs(self, batch: Dict) -> torch.Tensor:
+    def embed_inputs(self, batch: Dict):
+        """The embedded inputs and where the text region starts (the
+        patches' count for ``vlm``, else 0)."""
         x = L.embed_lookup(dict(table=self.embed.table), batch["tokens"])
+        loss_start = 0
         if self.cfg.family == "vlm" and "patches" in batch:
             x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
-        return x
+            loss_start = batch["patches"].shape[1]
+        return x, loss_start
 
     def backbone(self, x: torch.Tensor) -> torch.Tensor:
+        # remat only where a backward will run: serving keeps no activations
+        remat = self.cfg.remat == "full" and torch.is_grad_enabled()
         for lp in self._layers():
-            x = _apply_block(lp, x, self.cfg)
+            if remat:
+                x = checkpoint(_apply_block, lp, x, self.cfg, use_reentrant=False)
+            else:
+                x = _apply_block(lp, x, self.cfg)
         return x
+
+    def loss(self, batch: Dict) -> torch.Tensor:
+        """The mean next-token cross entropy (0-d f32). For ``vlm`` with
+        patches, over the text region only: the final norm and the head see
+        ``x[:, loss_start:]``, as the reference. (The MTP term is the
+        ``mla_moe`` family's, ROADMAP A.13d.)"""
+        x, loss_start = self.embed_inputs(batch)
+        x = self.backbone(x)
+        if loss_start:
+            h = _norm(self.final_norm, x[:, loss_start:])
+            logits = L.lm_logits(dict(w=self.head.w), h)
+            return L.softmax_xent(logits[:, :-1], batch["tokens"][:, 1:])
+        return _lm_losses(self, x, batch["tokens"])
 
     def prefill(self, batch: Dict) -> torch.Tensor:
         """The last position's logits (B, 1, vocab); fills no cache."""
-        x = self.backbone(self.embed_inputs(batch))
+        x = self.backbone(self.embed_inputs(batch)[0])
         h = _norm(self.final_norm, x[:, -1:])
         return L.lm_logits(dict(w=self.head.w), h)
 
@@ -155,6 +177,17 @@ class DecoderOnlyLM(nn.Module):
             x, _, _ = _decode_block(lp, x, cache["k"][i], cache["v"][i], pos, self.cfg)
         h = _norm(self.final_norm, x)
         return L.lm_logits(dict(w=self.head.w), h), cache
+
+
+def _lm_losses(model: DecoderOnlyLM, x, tokens):
+    logits = L.lm_logits(dict(w=model.head.w), _norm(model.final_norm, x))
+    return L.softmax_xent(logits[:, :-1], tokens[:, 1:])
+
+
+def _unbind(v):
+    if isinstance(v, dict):
+        return {k: _unbind(u) for k, u in v.items()}
+    return torch.unbind(v, 0)
 
 
 def _index(v, i):
@@ -169,6 +202,7 @@ class ModelBundle:
     cfg: ArchConfig
     init: Callable  # (generator, device=None) -> DecoderOnlyLM
     init_tree: Callable  # (generator, device=None) -> Param tree (``meta``: specs alone)
+    loss: Callable  # (params, batch) -> scalar
     prefill: Callable  # (params, batch) -> logits of the last position
     decode: Callable  # (params, cache, tokens, pos) -> (logits, cache)
     cache_shape: Callable  # (batch, seq) -> {name: (shape, dtype, logical names)}
@@ -198,13 +232,16 @@ def build_decoder_only(cfg: ArchConfig) -> ModelBundle:
         # bf16 whatever the model's dtype, as the reference
         return dict(k=(shape, torch.bfloat16, names), v=(shape, torch.bfloat16, names))
 
+    def loss(params: DecoderOnlyLM, batch: Dict) -> torch.Tensor:
+        return params.loss(batch)
+
     def prefill(params: DecoderOnlyLM, batch: Dict) -> torch.Tensor:
         return params.prefill(batch)
 
     def decode(params: DecoderOnlyLM, cache: Dict, tokens, pos):
         return params.decode(cache, tokens, pos)
 
-    return ModelBundle(cfg, init, init_tree, prefill, decode, cache_shape)
+    return ModelBundle(cfg, init, init_tree, loss, prefill, decode, cache_shape)
 
 
 # ---------------------------------------------------------------- factory

@@ -1,0 +1,167 @@
+"""Optimizers written out in PyTorch: AdamW, Adafactor, SGD and the cosine
+schedule -- the JAX package's ``optim/optimizers.py``.
+
+Every optimizer is a pair of tree-level functions, as the reference::
+
+    state = init(params)
+    updates, state = update(grads, state, params, lr, step)
+
+``params`` and ``grads`` are trees of tensors (a module's parameter dict);
+``lr`` and ``step`` are 0-d tensors. The moments are f32 whatever the
+parameters' dtype, and each formula is the reference's, operation by
+operation: AdamW adds ``wd * p`` inside the ``-lr * (...)`` term and
+``eps`` outside ``sqrt(vh)``. (``torch.optim`` keeps bf16 moments for bf16
+parameters and decays before the step, which gives other values.)
+``update`` writes the new moments into the state's tensors in place and
+returns that state: a caller that keeps an older state copies it first.
+Each update is cast to its parameter's dtype.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from ..tree import leaves, tree_map
+
+
+def global_norm(tree) -> torch.Tensor:
+    sq = [torch.sum(torch.square(x.float())) for x in leaves(tree)]
+    return torch.sqrt(torch.sum(torch.stack(sq)))
+
+
+def clip_by_global_norm(tree, max_norm: float):
+    """``(tree * scale, norm)`` with ``scale = min(1, max_norm / (norm +
+    1e-9))``. Each leaf is clipped in f32: the reference's bf16 gradient
+    times its f32 0-d scale is f32 there (in PyTorch it would stay bf16).
+    The input leaves are left as they are."""
+    norm = global_norm(tree)
+    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    return tree_map(lambda g: g.to(torch.float32, copy=True).mul_(scale), tree), norm
+
+
+# ----------------------------------------------------------------- schedules
+def cosine_schedule(base_lr: float, warmup: int, total: int) -> Callable[[Any], torch.Tensor]:
+    """Linear warm-up from ``base_lr / warmup`` to ``base_lr``, then a
+    cosine to 0 at ``total``: an f32 0-d tensor on the step's device."""
+    def fn(step):
+        step = torch.as_tensor(step).float()
+        warm = base_lr * torch.clamp((step + 1.0) / max(warmup, 1), max=1.0)
+        prog = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = base_lr * 0.5 * (1.0 + torch.cos(math.pi * prog))
+        return torch.where(step < warmup, warm, cos)
+
+    return fn
+
+
+def _f32_zeros(p) -> torch.Tensor:
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+# --------------------------------------------------------------------- adamw
+class AdamWState(NamedTuple):
+    m: Any
+    v: Any
+
+
+def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8, wd: float = 0.1):
+    def init(params):
+        return AdamWState(m=tree_map(_f32_zeros, params), v=tree_map(_f32_zeros, params))
+
+    @torch.no_grad()
+    def update(grads, state, params, lr, step):
+        t = step.float() + 1.0
+        c1, c2 = 1 - b1**t, 1 - b2**t
+
+        def one(g, m, v, p):
+            # in place where the reference's rounding allows: a few
+            # leaf-sized f32 temporaries at a time
+            g = g.float()
+            m.mul_(b1).add_(g * (1 - b1))
+            v.mul_(b2).add_(torch.square(g).mul_(1 - b2))
+            u = m / c1
+            u.div_(torch.div(v, c2).sqrt_().add_(eps))
+            u.add_(p.to(torch.float32, copy=True).mul_(wd))
+            return u.mul_(-lr).to(p.dtype)
+
+        return tree_map(one, grads, state.m, state.v, params), state
+
+    return init, update
+
+
+# ----------------------------------------------------------------- adafactor
+class AdafactorState(NamedTuple):
+    vr: Any  # row factors (or the full v for leaves under 2-D)
+    vc: Any  # column factors ((1,) zeros for leaves under 2-D)
+
+
+def adafactor(eps: float = 1e-30, clip_thresh: float = 1.0, decay_pow: float = 0.8):
+    """Factored second moments (Shazeer & Stern) without momentum. A leaf
+    of two or more dims keeps a row factor (the mean over its last axis)
+    and a column factor (the mean over its second-to-last): a stacked
+    ``wq`` of (L, d, H, hd) keeps (L, d, H) and (L, d, hd)."""
+
+    def init(params):
+        def vr_init(p):
+            shape = p.shape[:-1] if p.ndim >= 2 else p.shape
+            return torch.zeros(shape, dtype=torch.float32, device=p.device)
+
+        def vc_init(p):
+            shape = p.shape[:-2] + p.shape[-1:] if p.ndim >= 2 else (1,)
+            return torch.zeros(shape, dtype=torch.float32, device=p.device)
+
+        return AdafactorState(vr=tree_map(vr_init, params), vc=tree_map(vc_init, params))
+
+    @torch.no_grad()
+    def update(grads, state, params, lr, step):
+        t = step.float() + 1.0
+        beta = 1.0 - t ** (-decay_pow)
+
+        def one(g, vr, vc, p):
+            g = g.float()
+            g2 = torch.square(g) + eps
+            if p.ndim >= 2:
+                vr.mul_(beta).add_((1 - beta) * torch.mean(g2, dim=-1))
+                vc.mul_(beta).add_((1 - beta) * torch.mean(g2, dim=-2))
+                denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=eps)
+                pre = (vr / denom)[..., None] * vc[..., None, :]
+                u = g / torch.sqrt(pre + eps)
+            else:
+                vr.mul_(beta).add_((1 - beta) * g2)
+                u = g / torch.sqrt(vr + eps)
+            # update clipping (RMS <= clip_thresh)
+            rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
+            u = u / torch.clamp(rms / clip_thresh, min=1.0)
+            return ((-lr) * u).to(p.dtype)
+
+        return tree_map(one, grads, state.vr, state.vc, params), state
+
+    return init, update
+
+
+# ----------------------------------------------------------------------- sgd
+class SGDState(NamedTuple):
+    mom: Any
+
+
+def sgd(momentum: float = 0.9):
+    def init(params):
+        return SGDState(mom=tree_map(_f32_zeros, params))
+
+    @torch.no_grad()
+    def update(grads, state, params, lr, step):
+        def one(g, m, p):
+            m.mul_(momentum).add_(g.float())
+            return ((-lr) * m).to(p.dtype)
+
+        return tree_map(one, grads, state.mom, params), state
+
+    return init, update
+
+
+OPTIMIZERS = {"adamw": adamw, "adafactor": adafactor, "sgd": sgd}
+
+
+def get_optimizer(name: str):
+    return OPTIMIZERS[name]()

@@ -1,0 +1,54 @@
+"""Elastic scaling: the JAX package's ``resilience/elastic.py``.
+
+``plan_remesh(n_devices)`` picks the largest (data, model) grid that fits
+the surviving devices while keeping the model-parallel degree where
+possible (changing it would change head and expert shard divisibility);
+the checkpoint layer then restores the latest step
+(``ckpt/checkpoint.py:restore``). The deterministic token pipeline skips
+to ``global_step * global_batch`` examples, so a restart sees the batches
+it would have seen.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+from ..launch.mesh import ServingMesh, make_host_mesh
+
+
+@dataclasses.dataclass
+class RemeshPlan:
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
+    dropped_devices: int
+
+    def make_mesh(self, device=None) -> ServingMesh:
+        """The plan's ``("data", "model")`` mesh over the started ranks
+        (``launch/mesh.py:make_host_mesh``, which clamps to the ranks
+        there are), on ``device`` (``cuda`` unless the caller names
+        another)."""
+        return make_host_mesh(*self.shape, device=device)
+
+
+def plan_remesh(n_devices: int, prefer_model: int = 16) -> RemeshPlan:
+    """The largest usable (data, model) grid of at most ``n_devices``, the
+    model degree the power of two at most ``prefer_model`` that drops the
+    fewest devices."""
+    best = (None, None)
+    m = prefer_model
+    while m >= 1:
+        if n_devices >= m:
+            drop = n_devices - (n_devices // m) * m
+            if best[0] is None or drop < best[0]:
+                best = (drop, m)
+        m //= 2
+    model = best[1] or 1
+    data = n_devices // model
+    # the ragged remainder is dropped (it rejoins at the next restart)
+    used = data * model
+    return RemeshPlan(shape=(data, model), axes=("data", "model"), dropped_devices=n_devices - used)
+
+
+def data_skip_offset(global_step: int, global_batch: int) -> int:
+    """Where the deterministic pipeline resumes after a restart, in examples."""
+    return global_step * global_batch

@@ -1,0 +1,125 @@
+"""The training loop with checkpoint and restart, straggler monitoring and
+optional gradient compression: the JAX package's ``train/loop.py``.
+
+``train`` runs on ``device`` (``cuda`` unless the caller passes another).
+The initial weights are drawn from a CPU generator seeded with
+``TrainConfig.seed`` and moved to the device, so a run starts from the
+same state on every device.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..ckpt.checkpoint import AsyncCheckpointer, latest_step, restore
+from ..configs.base import ArchConfig
+from ..data.tokens import TokenPipeline
+from ..optim.compression import ef_init, int8_tree_roundtrip, topk_with_error_feedback
+from ..optim.optimizers import clip_by_global_norm, cosine_schedule, get_optimizer
+from ..resilience.straggler import StragglerMonitor
+from ..tree import module_tree
+from .step import Steps, apply_updates, build_steps, loss_and_grads
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    n_steps: int = 50
+    batch: int = 8
+    seq: int = 128
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 25
+    log_every: int = 10
+    grad_compression: Optional[str] = None  # None | "topk" | "int8"
+    topk_frac: float = 0.1
+    seed: int = 0
+
+
+@dataclasses.dataclass
+class TrainResult:
+    losses: list
+    final_step: int
+    restored_from: Optional[int]
+    step_times: list
+    flagged_hosts: list
+
+
+def _compressed_step(steps: Steps, tc: TrainConfig):
+    """The reference's step with compression: the gradients compressed
+    (error-feedback top-k or the int8 round trip) before the clip at 1.0,
+    the schedule fixed at ``cosine_schedule(3e-4, 100, 10_000)``."""
+    _, opt_update = get_optimizer(steps.cfg.optimizer)
+    sched = cosine_schedule(3e-4, 100, 10_000)
+
+    def step_fn(state, batch, ef_res):
+        model = state["params"]
+        loss, grads = loss_and_grads(steps.bundle, model, batch)
+        if tc.grad_compression == "topk":
+            grads, ef_res = topk_with_error_feedback(grads, ef_res, tc.topk_frac)
+        elif tc.grad_compression == "int8":
+            grads = int8_tree_roundtrip(grads)
+        grads, gnorm = clip_by_global_norm(grads, 1.0)
+        lr_t = sched(state["step"])
+        updates, opt = opt_update(grads, state["opt"], module_tree(model), lr_t, state["step"])
+        apply_updates(model, updates)
+        return dict(params=model, opt=opt, step=state["step"] + 1), dict(
+            loss=loss, grad_norm=gnorm), ef_res
+
+    return step_fn
+
+
+def train(cfg: ArchConfig, tc: TrainConfig, steps: Optional[Steps] = None,
+          device=None) -> TrainResult:
+    steps = steps or build_steps(cfg, device)
+    dev = steps.device
+    pipe = TokenPipeline(vocab=cfg.vocab, seq=tc.seq, batch=tc.batch, seed=tc.seed)
+
+    restored_from = None
+    state = steps.init_state(torch.Generator().manual_seed(tc.seed))
+    start_step = 0
+    ckpt = None
+    if tc.ckpt_dir:
+        ckpt = AsyncCheckpointer(tc.ckpt_dir)
+        if latest_step(tc.ckpt_dir) is not None:
+            state, start_step = restore(tc.ckpt_dir, state)
+            restored_from = start_step
+            pipe.skip_to(start_step)
+
+    ef = None
+    if tc.grad_compression:
+        ef = ef_init(module_tree(state["params"]))
+        step_fn = _compressed_step(steps, tc)
+
+    monitor = StragglerMonitor(n_hosts=1)
+    losses, times, flagged_all = [], [], []
+    try:
+        for it in range(start_step, tc.n_steps):
+            batch = pipe.next_batch(cfg, dev)
+            t0 = time.perf_counter()
+            if tc.grad_compression:
+                state, metrics, ef = step_fn(state, batch, ef)
+            else:
+                state, metrics = steps.train_step(state, batch)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            dt = time.perf_counter() - t0
+            loss = float(metrics["loss"])
+            times.append(dt)
+            flagged = monitor.observe(np.array([dt]))
+            if flagged:
+                flagged_all.extend(flagged)
+            losses.append(loss)
+            if tc.log_every and (it + 1) % tc.log_every == 0:
+                print(f"step {it+1} loss {loss:.4f} ({dt*1e3:.0f} ms)")
+            if ckpt and (it + 1) % tc.ckpt_every == 0:
+                ckpt.submit(it + 1, state)
+        if ckpt:
+            ckpt.submit(tc.n_steps, state)
+    finally:
+        if ckpt:
+            ckpt.close()
+    return TrainResult(losses=losses, final_step=tc.n_steps, restored_from=restored_from,
+                       step_times=times, flagged_hosts=flagged_all)

@@ -1,8 +1,12 @@
-"""The serving half of the JAX package's ``train/step.py``: ``build_steps``
-returns a ``Steps`` object with the model, its device, ``init_state``,
-``prefill_step`` and ``decode_step``, and the abstract batch and cache of a
-shape. ``train_step``, the optimizer state and its specs and the schedule
-come with the training port (ROADMAP A.13b).
+"""Step builders: the JAX package's ``train/step.py``. ``build_steps``
+returns a ``Steps`` object with the model, its device, the optimizer,
+``init_state``, ``train_step``, ``prefill_step`` and ``decode_step``, the
+logical specs of the state, and the abstract batch and cache of a shape.
+
+``train_step`` takes the loss's gradients with autograd, clips them by
+their global norm (in f32), reads the cosine schedule at the state's step
+and adds the optimizer's updates to the parameters in place. The serving
+steps run under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -15,6 +19,46 @@ from .. import resolve_device
 from ..configs.base import ArchConfig
 from ..models.layers import split_params
 from ..models.model import ModelBundle, build_model
+from ..optim.optimizers import (AdafactorState, AdamWState, SGDState, clip_by_global_norm,
+                                cosine_schedule, get_optimizer)
+from ..tree import leaves, module_tree, unflatten
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(i, (str, type(None))) for i in x)
+
+
+def _map_specs(fn, specs):
+    if _is_spec(specs):
+        return fn(specs)
+    return {k: _map_specs(fn, v) for k, v in specs.items()}
+
+
+def _adamw_specs(pspecs):
+    return AdamWState(m=pspecs, v=pspecs)
+
+
+def _adafactor_specs(pspecs):
+    def vr(s):
+        return s[:-1] if len(s) >= 2 else s
+
+    def vc(s):
+        return s[:-2] + s[-1:] if len(s) >= 2 else (None,)
+
+    return AdafactorState(vr=_map_specs(vr, pspecs), vc=_map_specs(vc, pspecs))
+
+
+def _sgd_specs(pspecs):
+    return SGDState(mom=pspecs)
+
+
+OPT_SPECS = {"adamw": _adamw_specs, "adafactor": _adafactor_specs, "sgd": _sgd_specs}
+
+
+def opt_state_specs(name: str, param_specs):
+    """The parameters' logical specs mirrored onto optimizer ``name``'s
+    state leaves."""
+    return OPT_SPECS[name](param_specs)
 
 
 class ShapeDtype(NamedTuple):
@@ -29,10 +73,12 @@ class Steps:
     bundle: ModelBundle
     device: torch.device
 
-    init_state: Callable  # generator -> {"params": DecoderOnlyLM, "step": int32 0-d}
+    init_state: Callable  # generator -> {"params": DecoderOnlyLM, "opt", "step": int32 0-d}
+    train_step: Callable  # (state, batch) -> (state, metrics)
     prefill_step: Callable  # (params, batch) -> logits of the last position
     decode_step: Callable  # (params, cache, tokens, pos) -> (logits, cache)
 
+    state_specs: Any  # logical-name tree mirroring the state
     param_specs: Any  # logical-name tree mirroring the parameters
 
     def batch_spec(self, kind: str, seq: int, batch: int):
@@ -68,19 +114,55 @@ class Steps:
                 for k, s in sds.items()}
 
 
-def build_steps(cfg: ArchConfig, device=None) -> Steps:
-    """The serving steps of ``cfg``'s model on ``device`` (``cuda`` unless
-    the caller passes another; raises when CUDA is absent)."""
+def loss_and_grads(bundle: ModelBundle, model, batch):
+    """``(loss, grads)``: the loss (detached) and its gradients with
+    autograd, in the parameters' dict shape and dtypes."""
+    params = module_tree(model)
+    with torch.enable_grad():
+        loss = bundle.loss(model, batch)
+        grads = torch.autograd.grad(loss, leaves(params))
+    return loss.detach(), unflatten(params, grads)
+
+
+@torch.no_grad()
+def apply_updates(model, updates) -> None:
+    """``p + u`` in the parameter's dtype, written into each parameter."""
+    for p, u in zip(leaves(model), leaves(updates)):
+        p.add_(u.to(p.dtype))
+
+
+def build_steps(cfg: ArchConfig, device=None, lr: float = 3e-4, warmup: int = 100,
+                total_steps: int = 10_000, grad_clip: float = 1.0) -> Steps:
+    """The steps of ``cfg``'s model and optimizer on ``device`` (``cuda``
+    unless the caller passes another; raises when CUDA is absent)."""
     dev = resolve_device(device)
     bundle = build_model(cfg)
+    opt_init, opt_update = get_optimizer(cfg.optimizer)
+    sched = cosine_schedule(lr, warmup, total_steps)
     # the specs from an init on the meta device: shapes only, nothing drawn
     _, pspecs = split_params(bundle.init_tree(torch.Generator(), device="meta"))
+    state_specs = dict(params=pspecs, opt=OPT_SPECS[cfg.optimizer](pspecs), step=())
 
     def init_state(gen: torch.Generator) -> Dict[str, Any]:
         """Parameters drawn from ``gen`` (on its own device), on the steps'
-        device, and the step count."""
-        return dict(params=bundle.init(gen, dev),
+        device with gradients on, the optimizer's zero state and the step."""
+        model = bundle.init(gen, dev).requires_grad_(True)
+        return dict(params=model, opt=opt_init(module_tree(model)),
                     step=torch.zeros((), dtype=torch.int32, device=dev))
+
+    def train_step(state, batch):
+        """One step: ``(state, {"loss", "grad_norm", "lr"})``. The
+        parameters and the optimizer state are updated in place; the
+        returned state holds them and the next step count."""
+        model = state["params"]
+        loss, grads = loss_and_grads(bundle, model, batch)
+        grads, gnorm = clip_by_global_norm(grads, grad_clip)
+        lr_t = sched(state["step"])
+        updates, opt = opt_update(grads, state["opt"], module_tree(model), lr_t, state["step"])
+        del grads
+        apply_updates(model, updates)
+        return (dict(params=model, opt=opt, step=state["step"] + 1),
+                dict(loss=loss, grad_norm=gnorm, lr=lr_t))
 
     @torch.no_grad()
     def prefill_step(params, batch):
@@ -91,4 +173,5 @@ def build_steps(cfg: ArchConfig, device=None) -> Steps:
         return bundle.decode(params, cache, tokens, pos)
 
     return Steps(cfg=cfg, bundle=bundle, device=dev, init_state=init_state,
-                 prefill_step=prefill_step, decode_step=decode_step, param_specs=pspecs)
+                 train_step=train_step, prefill_step=prefill_step, decode_step=decode_step,
+                 state_specs=state_specs, param_specs=pspecs)
