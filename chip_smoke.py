@@ -224,7 +224,43 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    50, the loss falling, a restart to 220 restored from 200; the first 3
    losses, and 3 steps each of Adafactor and SGD, within 1e-2 of the
    port's CPU runs;
-18. prints the kernels' JSON line, then the result line.
+18. the MoE and MLA families (``moe_families``), no kernel on their path:
+   (a) ``qwen2-moe-a2.7b`` at its published widths, all 24 layers (60
+   routed experts padded to 64, top-4, 4 shared; bf16, seeded weights):
+   ``prefill_step`` at B = 8, S = 2048 against its bound and the (token,
+   expert) choices it dropped at capacity, then at B = 128 into 1,024
+   slots (4,096 would be 103 GB of cache) 4 teacher-forced and 8 greedy
+   steps (tokens/s), a warm ``decode_step`` (CUDA events) against its bound
+   (the weights of the experts the step's tokens chose, the whole cache),
+   its dropped choices, one profiled step, peak memory; then 4 decode
+   steps at B = 2 against prefill within 0.05 (no capacity binds at 8
+   tokens; each decode step replays prefill's expert choices) with the
+   weights drawn anew in f32 (the cache bf16, as the reference's: in bf16
+   weights the cache's rounding grows to 9.2 % over the 24 layers); (b)
+   ``deepseek-v3-671b`` at its published widths cut to 4 layers (3 dense,
+   one MoE layer of 256 experts; recorded as a cut), the same steps with
+   prefill at B = 1, S = 2048 and the decode into a 4,096-slot latent
+   cache; (c) the card against the port's CPU run on the same weights
+   (qwen2-moe at published width cut to 2 layers, deepseek-v3 at its
+   ``reduced()`` config): the first MoE call of a prefill at B = 8, S = 16
+   routed equal wherever the CPU's router margin exceeds the two runs'
+   difference; then, the card replaying the CPU's routing decisions, that
+   prefill's and 4 decode steps' logits within 0.05 of the largest logit,
+   greedy tokens equal above the top-2 margin; (d) one ``train_step`` of
+   each at published width, depth cut (qwen2-moe 2 layers with AdamW;
+   deepseek-v3 one dense and one MoE layer with the MTP block and
+   Adafactor; ``remat="full"``) at B = 1, S = 2048 against
+   ``lm_train_bound``, peak memory; one step from a fresh state on the CPU
+   and on the card (B = 1; S = 64 for qwen2-moe at published width, bf16,
+   within the phase 17(b) bounds; S = 32 for deepseek-v3 at its
+   ``reduced()`` config in f32, within 1e-5 (loss, grad_norm) and 1e-4
+   (each optimizer-state leaf): its CPU step at published width takes
+   about five minutes), the card replaying the CPU's routing decisions at
+   its own gates, the first MoE call's own decisions against the CPU's by
+   the margin rule; (e) the first MoE layer's forward twice on one input whose
+   first half is one token repeated (its experts' capacity binds on ties):
+   the same bits, the lowest-indexed tied tokens kept;
+19. prints the kernels' JSON line, then the result line.
 
 Every phase prints its seconds. Any failure raises and exits non-zero.
 Without a CUDA device, or outside the repository, it exits non-zero and
@@ -240,6 +276,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -2233,48 +2270,120 @@ def lm_bytes(model) -> int:
     return sum(p.numel() * p.element_size() for p in model.parameters())
 
 
-def lm_matmul_params(cfg) -> int:
-    """Weights one token multiplies in a layer stack (no head, no table)."""
+def _attn_params(cfg) -> int:
+    """Attention weights one token multiplies in a layer: GQA's q, k, v and
+    o; or MLA's projections, ``wk_b`` and ``wv_b`` once a token as the
+    path computes them (materialized k and v at prefill, the absorbed
+    q and context at decode)."""
+    if cfg.use_mla:
+        H = cfg.n_heads
+        return (cfg.d_model * cfg.q_lora + cfg.q_lora * H * (cfg.qk_nope + cfg.qk_rope)
+                + cfg.d_model * (cfg.kv_lora + cfg.qk_rope) + cfg.kv_lora * H * cfg.qk_nope
+                + cfg.kv_lora * H * cfg.v_head + H * cfg.v_head * cfg.d_model)
     H = cfg.pad_heads_to or cfg.n_heads
-    attn = cfg.d_model * (2 * H + 2 * cfg.n_kv_heads) * cfg.head_dim
-    return cfg.n_layers * (attn + 3 * cfg.d_model * cfg.d_ff)
+    return cfg.d_model * (2 * H + 2 * cfg.n_kv_heads) * cfg.head_dim
 
 
-def lm_decode_bound(cfg, model, B: int, S: int):
+def _qk_dim(cfg) -> int:
+    """The width the prefill's scores and context run at: q/k's head width
+    (MLA pads v to it)."""
+    return cfg.qk_nope + cfg.qk_rope if cfg.use_mla else cfg.head_dim
+
+
+def lm_matmul_params(cfg) -> int:
+    """Weights one token multiplies in the layer stacks in the model's dtype
+    (no head, no table, no router): per layer its attention and its FFN --
+    a dense SwiGLU, or the token's top-k experts and the shared experts."""
+    from repro_torch.models.model import block_kinds
+
+    _, _, n_dense, n_moe = block_kinds(cfg)
+    f = cfg.d_expert or cfg.d_ff
+    moe = 3 * cfg.d_model * f * (cfg.moe_topk + cfg.n_shared_experts)
+    return (n_dense * (_attn_params(cfg) + 3 * cfg.d_model * cfg.d_ff)
+            + n_moe * (_attn_params(cfg) + moe))
+
+
+def lm_router_ops(cfg, T: int) -> int:
+    """The routers' f32 products for ``T`` tokens (all padded experts)."""
+    from repro_torch.models.model import block_kinds
+    from repro_torch.models.moe import n_experts_padded
+
+    n_moe = block_kinds(cfg)[3]
+    return 2 * T * n_moe * cfg.d_model * n_experts_padded(cfg) if n_moe else 0
+
+
+def lm_ops_ms(bf16_ops: int, f32_ops: int = 0) -> float:
+    return (bf16_ops / BF16_OPS_PER_S + f32_ops / F32_OPS_PER_S) * 1e3
+
+
+def lm_cache_bytes(cfg, B: int, S: int) -> int:
+    """The bf16 cache: k and v per layer, or MLA's latent and rope key."""
+    per_slot = cfg.kv_lora + cfg.qk_rope if cfg.use_mla else 2 * cfg.n_kv_heads * cfg.head_dim
+    return cfg.n_layers * B * S * per_slot * 2
+
+
+def lm_decode_bound(cfg, model, B: int, S: int, chosen=None):
     """``(ms, bytes, operations)`` of one decode step: every weight read
-    once but the table (B rows), the whole cache read and one slot written,
-    the logits written; the products, and scores over every slot."""
+    once but the table (B rows) and, for MoE, the experts no token of the
+    step chose (``chosen``: the distinct experts chosen, summed over the MoE
+    layers; every expert where None), the whole cache read and one slot
+    written, the logits written; the products (the routers' at the f32
+    rate), and the scores over every slot (MLA: the latent's and the rope
+    key's widths, and the context over the latent)."""
     H = cfg.pad_heads_to or cfg.n_heads
     el = model.embed.table.element_size()
-    cache = 2 * cfg.n_layers * B * S * cfg.n_kv_heads * cfg.head_dim * 2
-    nbytes = (lm_bytes(model) - model.embed.table.numel() * el + B * cfg.d_model * el
+    cache = lm_cache_bytes(cfg, B, S)
+    unchosen = 0
+    if chosen is not None and cfg.n_experts:
+        from repro_torch.models.model import block_kinds
+        from repro_torch.models.moe import n_experts_padded
+
+        f = cfg.d_expert or cfg.d_ff
+        n_moe = block_kinds(cfg)[3]
+        unchosen = (n_moe * n_experts_padded(cfg) - chosen) * 3 * cfg.d_model * f * el
+    nbytes = (lm_bytes(model) - model.embed.table.numel() * el - unchosen + B * cfg.d_model * el
               + cache + cache // S + B * cfg.vocab * el)
-    ops = 2 * B * (lm_matmul_params(cfg) + cfg.d_model * cfg.vocab) \
-        + 4 * cfg.n_layers * B * H * S * cfg.head_dim
-    return max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3, nbytes, ops
+    if cfg.use_mla:
+        scores = 2 * B * H * S * (2 * cfg.kv_lora + cfg.qk_rope)
+    else:
+        scores = 4 * B * H * S * cfg.head_dim
+    ops = 2 * B * (lm_matmul_params(cfg) + cfg.d_model * cfg.vocab) + cfg.n_layers * scores
+    ms = max(nbytes / HBM_BYTES_PER_S * 1e3, lm_ops_ms(ops, lm_router_ops(cfg, B)))
+    return ms, nbytes, ops
 
 
 def lm_prefill_bound(cfg, model, B: int, S: int):
     """``(ms, operations, bytes)`` of one prefill: the products of B*S
-    tokens, the head at the last position, and the masked scan's scores over
-    every (query, key) pair of the padded key length (QK and PV)."""
+    tokens (the routers' at the f32 rate), the head at the last position,
+    and the masked scan's scores over every (query, key) pair of the padded
+    key length (QK and PV, at q/k's head width)."""
     H = cfg.pad_heads_to or cfg.n_heads
     C = min(cfg.attn_chunk, S)
     skv = -(-S // C) * C
     ops = 2 * B * S * lm_matmul_params(cfg) + 2 * B * cfg.d_model * cfg.vocab \
-        + 4 * cfg.n_layers * B * H * S * skv * cfg.head_dim
+        + 4 * cfg.n_layers * B * H * S * skv * _qk_dim(cfg)
     el = model.embed.table.element_size()
     nbytes = lm_bytes(model) - model.embed.table.numel() * el + B * S * (cfg.d_model * el + 4) \
         + B * cfg.vocab * el
-    return max(ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3, ops, nbytes
+    return max(lm_ops_ms(ops, lm_router_ops(cfg, B * S)), nbytes / HBM_BYTES_PER_S * 1e3), ops, \
+        nbytes
 
 
-def rel_err(got, want) -> float:
-    """max |got - want| over max |want|, both as f32 on the host."""
-    got, want = got.float().cpu(), want.float().cpu()
-    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
-        raise AssertionError("non-finite logits")
-    return float((got - want).abs().max() / want.abs().max())
+def rel_err(got, want, block: int = 1 << 26) -> float:
+    """max |got - want| over max |want|, both as f32, on ``got``'s device
+    (the card's copy of a CPU tensor is one block at a time; an f32 max of
+    differences is the same there as on the host)."""
+    g, w = got.detach().reshape(-1), want.detach().reshape(-1)
+    diff = top = 0.0
+    for i in range(0, g.numel(), block):
+        a, b = g[i:i + block].float(), w[i:i + block].to(g.device).float()
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError("non-finite values")
+        diff = max(diff, float((a - b).abs().max()))
+        top = max(top, float(b.abs().max()))
+    if not top:  # an all-zero reference (Adafactor's sentinel of a 1-D leaf)
+        return 0.0 if not diff else float("inf")
+    return diff / top
 
 
 def first_ids(ids: np.ndarray, n: int) -> np.ndarray:
@@ -2287,22 +2396,80 @@ def first_ids(ids: np.ndarray, n: int) -> np.ndarray:
     return out
 
 
-def decode_against_prefill(steps, params, toks) -> float:
+def decode_against_prefill(steps, params, toks, moe: bool = False) -> float:
     """The last of ``toks.shape[1]`` teacher-forced decode steps' logits
     against ``prefill_step`` at the last position, relative to the largest
-    prefill logit; fails above ``LM_REL``."""
+    prefill logit; fails above ``LM_REL``. With ``moe`` each decode step
+    replays prefill's expert choices for its tokens (``RoutingLog``): a
+    token's top-k experts are a discontinuous function of its router
+    logits, and the two paths' roundings may flip a near tie. It needs
+    ``B * S <= 8``, where no capacity binds at prefill."""
     B, S = toks.shape
-    want = steps.prefill_step(params, dict(tokens=toks))
+    if moe and B * S > 8:
+        raise ValueError(f"{B * S} tokens: a capacity could bind at prefill")
+    with RoutingLog(keep=True) if moe else contextlib.nullcontext() as pl:
+        want = steps.prefill_step(params, dict(tokens=toks))
+    replay = None
+    if moe:  # call t * L + layer of the decode is prefill's layer at position t
+        L = len(pl.calls)
+        replay = types.SimpleNamespace(calls=[
+            dict(top_idx=pl.calls[layer]["top_idx"].view(B, S, -1)[:, t])
+            for t in range(S) for layer in range(L)])
     cache = steps.init_cache(B, S)
     pos = torch.zeros((), dtype=torch.int32, device=toks.device)
-    for t in range(S):
-        got, cache = steps.decode_step(params, cache, toks[:, t:t + 1], pos)
-        pos = pos + 1
+    with RoutingLog(replay=replay) if moe else contextlib.nullcontext():
+        for t in range(S):
+            got, cache = steps.decode_step(params, cache, toks[:, t:t + 1], pos)
+            pos = pos + 1
     del cache
     err = rel_err(got, want)
     if err > LM_REL:
         raise AssertionError(f"decode after {S} steps differs from prefill: {err} > {LM_REL}")
     return err
+
+
+def greedy_against_cpu(steps, params, csteps, cpu, caches, last, hn: int, err: float,
+                       replay: bool = False) -> int:
+    """Greedy decoding for ``hn`` steps from the last teacher-forced logits
+    (``last``: the card's and the CPU's) into ``caches`` (written at
+    positions ``hn`` on) on both. The tokens must be equal up to each row's
+    first position where the CPU's top-2 margin is within ``err`` times its
+    largest logit (a near tie: the rest of the row may follow either
+    token). With ``replay`` the card replays the CPU's routing decisions
+    (``RoutingLog``). Returns how many tokens were compared."""
+    from repro_torch.train.decode import greedy_generate
+
+    hb = last["cpu"].shape[0]
+    ref_logits = last["cpu"].float()
+    scale = float(ref_logits.abs().max())
+    tok = {n: torch.argmax(last[n][:, -1:], dim=-1).to(torch.int32) for n in last}
+    cpu_toks, margins = [tok["cpu"]], []
+    c, pos_c = caches["cpu"], torch.tensor(hn, dtype=torch.int32)
+    top = torch.topk(ref_logits[:, -1], 2, dim=-1).values
+    margins.append(top[:, 0] - top[:, 1])
+    with RoutingLog(keep=True) if replay else contextlib.nullcontext() as cl:
+        for _ in range(hn):
+            lg, c = csteps.decode_step(cpu, c, cpu_toks[-1], pos_c)
+            pos_c = pos_c + 1
+            top = torch.topk(lg[:, -1].float(), 2, dim=-1).values
+            margins.append(top[:, 0] - top[:, 1])
+            cpu_toks.append(torch.argmax(lg[:, -1:], dim=-1).to(torch.int32))
+    with RoutingLog(replay=cl) if replay else contextlib.nullcontext():
+        card_toks, _ = greedy_generate(steps, params, caches["card"], tok["card"], n_new=hn,
+                                       start_pos=hn)
+    cpu_seq = torch.cat(cpu_toks, dim=1)  # (hb, hn + 1): the first, then hn greedy
+    card_seq = torch.cat([tok["card"].cpu(), card_toks[:, :hn].cpu()], dim=1)
+    margin = torch.stack(margins, dim=1)
+    compared = 0
+    for r in range(hb):
+        for j in range(hn + 1):
+            if float(margin[r, j]) <= err * scale:
+                break  # a near tie: the rest of the row may follow either token
+            if int(card_seq[r, j]) != int(cpu_seq[r, j]):
+                raise AssertionError(f"greedy token {j} of row {r}: card {card_seq[r].tolist()} "
+                                     f"cpu {cpu_seq[r].tolist()}")
+            compared += 1
+    return compared
 
 
 def lm_serving(dev, card: str, ds, index, snap, wl) -> None:
@@ -2444,40 +2611,12 @@ def lm_serving(dev, card: str, ds, index, snap, wl) -> None:
     err = max(errs)
     if err > LM_REL:
         raise AssertionError(f"the card's decode logits differ from the CPU's: {errs}")
-    # greedy from the last teacher-forced logits; the CPU's margins say where
-    # its tokens are decided by more than the error
-    ref_logits = last["cpu"].float()
-    scale = float(ref_logits.abs().max())
-    tok = {n: torch.argmax(last[n][:, -1:], dim=-1).to(torch.int32) for n in last}
-    card_toks, _ = greedy_generate(steps, params, caches["card"], tok["card"], n_new=hn,
-                                   start_pos=hn)
-    cpu_toks, margins = [tok["cpu"]], []
-    c, pos_c = caches["cpu"], torch.tensor(hn, dtype=torch.int32)
-    top = torch.topk(ref_logits[:, -1], 2, dim=-1).values
-    margins.append(top[:, 0] - top[:, 1])
-    for i in range(hn):
-        lg, c = csteps.decode_step(cpu, c, cpu_toks[-1], pos_c)
-        pos_c = pos_c + 1
-        top = torch.topk(lg[:, -1].float(), 2, dim=-1).values
-        margins.append(top[:, 0] - top[:, 1])
-        cpu_toks.append(torch.argmax(lg[:, -1:], dim=-1).to(torch.int32))
-    cpu_seq = torch.cat(cpu_toks, dim=1)  # (hb, hn + 1): the first, then hn greedy
-    card_seq = torch.cat([tok["card"].cpu(), card_toks[:, :hn].cpu()], dim=1)
-    margin = torch.stack(margins, dim=1)
-    compared = 0
-    for r in range(hb):
-        for j in range(hn + 1):
-            if float(margin[r, j]) <= err * scale:
-                break  # a near tie: the rest of the row may follow either token
-            if int(card_seq[r, j]) != int(cpu_seq[r, j]):
-                raise AssertionError(f"greedy token {j} of row {r}: card {card_seq[r].tolist()} "
-                                     f"cpu {cpu_seq[r].tolist()}")
-            compared += 1
+    compared = greedy_against_cpu(steps, params, csteps, cpu, caches, last, hn, err)
     log(f"check: the card against the port's CPU run at full width, B={hb}, {hn} decode steps: "
         f"max |err| / max |logit| {err:.6f} <= {LM_REL} (per step {[f'{e:.6f}' for e in errs]}); "
         f"greedy tokens equal at {compared} of {hb * (hn + 1)} positions (compared up to each "
         f"row's first CPU top-2 margin within the error) ({time.perf_counter() - t:.3f} s)")
-    del params, cpu, caches, c
+    del params, cpu, caches
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2532,24 +2671,34 @@ TRAIN_OPT_STEPS = 3  # (d): steps of each optimizer, the card against the CPU
 # (b) and (d): the card against the CPU, relative to each value's or leaf's
 # largest magnitude; v is g^2, so twice m's relative error
 TRAIN_REL = dict(loss=1e-2, grad_norm=2e-2, m=5e-2, v=1e-1)
-ADAM_BYTES_PER_PARAM = 22  # read p, g (bf16), m, v (f32); write m, v, p
+# the optimizer's bytes a bf16 parameter: AdamW reads p, g (bf16), m, v
+# (f32) and writes m, v, p; Adafactor reads p, g and writes p (its factored
+# moments are a row and a column a matrix)
+OPT_BYTES_PER_PARAM = dict(adamw=22, adafactor=6)
 
 
 def lm_train_bound(cfg, n_params: int, B: int, S: int):
     """``(ms, operations, bytes)`` of one training step: four forwards'
     operations (the forward, the remat recompute and a backward of two), a
-    forward being the products of B*S tokens, the head at every position
-    and the masked scan's scores over every (query, key) pair of the padded
-    key length (QK and PV); and AdamW's bytes, 22 a parameter."""
+    forward being the products of B*S tokens (the routers' at the f32
+    rate), the head at every position and the masked scan's scores over
+    every (query, key) pair of the padded key length (QK and PV); with an
+    MTP block, its projection, dense block and head three times over (it
+    is not recomputed); and the optimizer's bytes (``OPT_BYTES_PER_PARAM``)."""
     H = cfg.pad_heads_to or cfg.n_heads
     C = min(cfg.attn_chunk, S)
     skv = -(-S // C) * C
     T = B * S
-    fwd = 2 * T * lm_matmul_params(cfg) + 2 * T * cfg.d_model * cfg.vocab \
-        + 4 * cfg.n_layers * B * H * S * skv * cfg.head_dim
+    scores = 4 * B * H * S * skv * _qk_dim(cfg)
+    head = 2 * T * cfg.d_model * cfg.vocab
+    fwd = 2 * T * lm_matmul_params(cfg) + head + cfg.n_layers * scores
     ops = 4 * fwd
-    nbytes = ADAM_BYTES_PER_PARAM * n_params
-    return max(ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3, ops, nbytes
+    if cfg.mtp_depth:
+        block = _attn_params(cfg) + 3 * cfg.d_model * cfg.d_ff
+        ops += 3 * (2 * T * (2 * cfg.d_model * cfg.d_model + block) + head + scores)
+    nbytes = OPT_BYTES_PER_PARAM[cfg.optimizer] * n_params
+    ms = max(lm_ops_ms(ops, 4 * lm_router_ops(cfg, T)), nbytes / HBM_BYTES_PER_S * 1e3)
+    return ms, ops, nbytes
 
 
 def check_metrics(metrics, what: str) -> None:
@@ -2746,6 +2895,555 @@ def lm_training(dev, card: str) -> None:
         f"{r2.losses[-1]:.6f}; first 3 losses against the CPU {err:.2e}, "
         + ", ".join(f"{k} {TRAIN_OPT_STEPS} steps {v:.2e}" for k, v in opt_errs.items())
         + f" <= {TRAIN_REL['loss']}")
+
+
+# ------------------------------------------ MoE and MLA families (phase 18)
+MOE_ARCHS = ("qwen2-moe-a2.7b", "deepseek-v3-671b")
+# (b): deepseek-v3's depth cut, 3 dense layers and 1 MoE layer of its 61 (the
+# 61 layers are 1.3 TB in bf16); qwen2-moe keeps its 24 layers
+MOE_DEPTH = {"deepseek-v3-671b": 4}
+MOE_PREFILL = {"qwen2-moe-a2.7b": (8, 2048), "deepseek-v3-671b": (1, 2048)}  # (B, S)
+# (B, slots) of the decode: qwen2-moe's 24 layers of 16 kv heads x 128 hold
+# 196,608 B of bf16 cache a slot, so 128 rows x 4,096 slots would be 103 GB
+# beside 30.3 GB of weights; it decodes into 1,024 slots (25.8 GB). The
+# latent cache of deepseek-v3's cut is 4,608 B a slot: 2.4 GB at 4,096.
+MOE_DECODE = {"qwen2-moe-a2.7b": (128, 1024), "deepseek-v3-671b": (128, 4096)}
+MOE_STEPS = (4, 8)  # teacher-forced steps, then greedy tokens, at the decode shape
+# decode against prefill: (B, S), the decode replaying prefill's expert
+# choices. At B * S <= 8 tokens no expert's capacity (8 at least) binds at
+# prefill, so both compute one function; where it binds, a prefill drops
+# choices that a decode (a token a row) keeps -- the reference's semantics
+MOE_CHECK = (2, 4)
+# ... with the weights in this dtype. Decode reads k and v rounded to the
+# bf16 cache (the reference's), prefill does not; qwen2-moe's random experts
+# (std 1/8, fan_in the expert count) grow that gap layer by layer: 9.2 % of
+# the largest logit at 24 layers in bf16, 2.8-3.1 % in f32, 4.1 % at 8 layers
+# in bf16 (tools/moe_decode_drift.py; NVIDIA H100 80GB HBM3, 700.00 W). f32
+# keeps the check's 24 layers and widths within LM_REL
+MOE_CHECK_DTYPE = {"qwen2-moe-a2.7b": "float32", "deepseek-v3-671b": "bfloat16"}
+# (c): the card against the port's CPU run -- qwen2-moe at published width
+# cut to 2 layers, deepseek-v3 at its reduced() config (None); prefill
+# (B, S), then as many teacher-forced decode steps as greedy tokens
+MOE_CPU = {"qwen2-moe-a2.7b": dict(n_layers=2), "deepseek-v3-671b": None}
+MOE_CPU_SHAPE = (8, 16, 4)
+# (d): one train_step at published width, depth cut, on the card at
+# MOE_TRAIN_SHAPE against lm_train_bound; one against the CPU's
+MOE_TRAIN = {"qwen2-moe-a2.7b": dict(n_layers=2),
+             "deepseek-v3-671b": dict(n_layers=2, first_dense=1)}
+# (B, S, config) of the step against the CPU: "published" compares the
+# published-width state itself (bf16: MOE_TRAIN_REL); "reduced" the arch's
+# reduced() config in f32 (MOE_TRAIN_F32). deepseek-v3's CPU step at
+# published width, read once at B=1 S=32 (NVIDIA H100 80GB HBM3, 700.00 W):
+# 318.8 s on the machine's 8 host cores, too long for the smoke; the card
+# within vr 1.23 %, vc 3.00 % of it
+MOE_TRAIN_CPU = {"qwen2-moe-a2.7b": (1, 64, "published"),
+                 "deepseek-v3-671b": (1, 32, "reduced")}
+MOE_TRAIN_SHAPE = (1, 2048)
+MOE_TRAIN_REL = dict(TRAIN_REL, vr=TRAIN_REL["v"], vc=TRAIN_REL["v"])  # Adafactor's g^2 factors
+# in f32 under full f32 products the devices differ by their sums' order:
+# tests/test_torch_cuda_train.py's f32 bounds
+MOE_TRAIN_F32 = dict(loss=1e-5, grad_norm=1e-5, m=1e-4, v=1e-4, vr=1e-4, vc=1e-4)
+DENSE_ARCHS = ("tinyllama-1.1b", "deepseek-7b", "minitron-8b", "starcoder2-7b",
+               "phi-3-vision-4.2b")
+
+
+class RoutingLog:
+    """The routing of every MoE call while active (``moe._route`` and
+    ``moe._select`` wrapped): per call the (token, expert) choices, the
+    slots capacity kept and the distinct experts chosen (0-d device
+    tensors, read after the run), and with ``keep`` the routing itself on
+    the host, for ``compare_routing``. With ``replay`` (another log, kept,
+    or anything with such ``calls``) each call's discrete decisions -- the
+    top-k experts and, where the replayed call has them, each expert's
+    selected tokens -- are that log's call's instead of its own, the gates
+    still this run's: one run then computes the other's function. The log
+    keeps its own top-k experts."""
+
+    def __init__(self, keep: bool = False, replay=None):
+        self.keep = keep or replay is not None
+        self.replay = replay
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        route, select = moe._route, moe._select
+
+        def logged_route(x2d, w_router, cfg):
+            probs, top_idx = route(x2d, w_router, cfg)
+            seen = torch.zeros(probs.shape[1], dtype=torch.int32, device=probs.device)
+            seen.index_fill_(0, top_idx.reshape(-1), 1)
+            rec = dict(choices=top_idx.numel(), chosen=seen.sum())
+            if self.keep:
+                rec.update(probs=probs.detach().cpu(), top_idx=top_idx.cpu())
+            self.calls.append(rec)
+            if self.replay is not None:
+                top_idx = self.replay.calls[len(self.calls) - 1]["top_idx"].to(top_idx.device)
+            return probs, top_idx
+
+        def logged_select(probs, top_idx, e_lo, e_n, cap):
+            top_val, tok_idx = select(probs, top_idx, e_lo, e_n, cap)
+            rec = self.calls[-1]
+            rec.update(kept=(top_val > 0).sum(), cap=cap)
+            if self.keep:
+                rec.update(top_val=top_val.detach().cpu(), tok_idx=tok_idx.cpu())
+            rc = self.replay.calls[len(self.calls) - 1] if self.replay is not None else {}
+            if "tok_idx" in rc:  # the replayed selection at this run's gates
+                tok_idx = rc["tok_idx"].to(tok_idx.device)
+                eids = e_lo + torch.arange(e_n, device=probs.device)
+                chosen = (top_idx[None, :, :] == eids[:, None, None]).any(-1)
+                score = torch.where(chosen, probs[:, e_lo:e_lo + e_n].T, -1.0)
+                top_val = torch.gather(score, 1, tok_idx)
+            return top_val, tok_idx
+
+        self._patch = patched(moe, _route=logged_route, _select=logged_select)
+        self._patch.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._patch.__exit__(*exc)
+
+    def dropped(self) -> list:
+        """Per MoE call: the (token, expert) choices no slot kept."""
+        return [r["choices"] - int(r["kept"]) for r in self.calls]
+
+    def chosen(self) -> int:
+        """The distinct experts chosen, summed over the calls."""
+        return sum(int(r["chosen"]) for r in self.calls)
+
+
+def compare_routing(g: dict, c: dict, n_experts: int, what: str) -> str:
+    """One MoE call's routing on the card (``g``, a kept ``RoutingLog``
+    call) against the CPU's (``c``) from inputs that differ by the devices'
+    roundings alone. A token is decided where the CPU's k-th and (k+1)-th
+    router log-probabilities (the logits' own gap) are further apart than
+    twice the largest difference between the two runs' (no error of either
+    side can then swap them): its top-k experts must be equal. An expert is
+    decided where the same tokens chose it on both runs and either its
+    capacity does not bind or the CPU's gates at the cut (its C-th and
+    (C+1)-th chooser) are further apart than twice the gates' largest
+    difference: the tokens it keeps must be equal. Where every token and
+    expert is decided, the dropped choices must be equal. Returns a
+    summary."""
+    T, K = c["top_idx"].shape
+    lg = torch.log(g["probs"][:, :n_experts].double())
+    lc = torch.log(c["probs"][:, :n_experts].double())
+    srt = torch.sort(lc, dim=1, descending=True).values
+    decided = srt[:, K - 1] - srt[:, K] > 2 * float((lg - lc).abs().max())
+    same = (torch.sort(g["top_idx"], 1).values == torch.sort(c["top_idx"], 1).values).all(1)
+    if not bool(same[decided].all()):
+        raise AssertionError(f"{what}: a decided token's experts differ")
+    E, C = c["tok_idx"].shape
+    eids = torch.arange(E)
+    perr = float((g["probs"].double() - c["probs"].double()).abs().max())
+    chooser = {n: (r["top_idx"][None, :, :] == eids[:, None, None]).any(-1)
+               for n, r in (("card", g), ("cpu", c))}
+    score = torch.where(chooser["cpu"], c["probs"].T.double(), -1.0)
+    srt = torch.sort(score, dim=1, descending=True).values
+    unbound = chooser["cpu"].sum(1) <= C
+    cut = unbound if C >= T else unbound | (srt[:, C - 1] - srt[:, C] > 2 * perr)
+    e_decided = (chooser["card"] == chooser["cpu"]).all(1) & cut
+    kept = [torch.zeros((E, T), dtype=torch.bool).scatter_(1, r["tok_idx"], r["top_val"] > 0)
+            for r in (g, c)]
+    if not bool((kept[0] == kept[1])[e_decided].all()):
+        raise AssertionError(f"{what}: a decided expert keeps other tokens")
+    d = (g["choices"] - int(g["kept"]), c["choices"] - int(c["kept"]))
+    whole = bool(decided.all()) and bool(e_decided.all())
+    if whole and d[0] != d[1]:
+        raise AssertionError(f"{what}: dropped {d[0]} on the card, {d[1]} on the CPU")
+    return (f"the first MoE call's own routing: {int(decided.sum())} of {T} tokens decided "
+            f"above the margin, their experts equal; {int(e_decided.sum())} of {E} expert "
+            f"selections decided, their kept tokens equal; dropped choices {d[0]} on the card, "
+            f"{d[1]} on the CPU" + (" (equal: every decision above the margin)" if whole else ""))
+
+
+def cpu_copy(bundle, model):
+    """A CPU copy of ``model``, the same bits, made leaf by leaf into an
+    empty skeleton (a copy on the card first would double its share)."""
+    from repro_torch.models.model import DecoderOnlyLM
+
+    out = DecoderOnlyLM(bundle.cfg, bundle.init_tree(torch.Generator(), device="meta"))
+    out = out.to_empty(device="cpu")
+    with torch.no_grad():
+        for p, q in zip(out.parameters(), model.parameters()):
+            p.copy_(q)
+    return out.requires_grad_(next(model.parameters()).requires_grad)
+
+
+def moe_layer_params(model):
+    """The first MoE layer's ``moe`` parameters (views of the stack)."""
+    return next(lp["moe"] for kind, lp in model._layers() if kind.endswith("moe"))
+
+
+def moe_serving(dev, card: str, arch: str) -> None:
+    """(a) / (b): ``arch`` at its published widths (``MOE_DEPTH``'s cut
+    where given), bf16 weights from a seeded generator: ``prefill_step`` at
+    ``MOE_PREFILL`` against its bound and the choices it dropped at
+    capacity; (e) the first MoE layer's forward twice on one input with
+    repeated rows, the same bits; at ``MOE_DECODE`` teacher-forced and
+    greedy steps (tokens/s, host clock), a warm ``decode_step`` (CUDA
+    events) against its bound with the experts its tokens chose, the
+    choices it dropped, one profiled step; peak device memory; then decode
+    against prefill at ``MOE_CHECK`` within ``LM_REL``, the weights drawn
+    anew in ``MOE_CHECK_DTYPE``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import moe_ffn_dense
+    from repro_torch.train.decode import greedy_generate
+    from repro_torch.train.step import build_steps
+
+    cfg = get_config(arch)
+    cut = MOE_DEPTH.get(arch)
+    if cut:
+        cfg = dataclasses.replace(cfg, n_layers=cut)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    steps = build_steps(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t = time.perf_counter()
+    params = steps.bundle.init(gen, dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"{arch} on {card}: n_layers={cfg.n_layers}"
+        + (f" (a depth cut: {cut} of {get_config(arch).n_layers}, first_dense="
+           f"{cfg.first_dense})" if cut else "")
+        + f" d_model={cfg.d_model} heads={cfg.n_heads} experts={cfg.n_experts} top-"
+        f"{cfg.moe_topk} shared={cfg.n_shared_experts} d_expert={cfg.d_expert} d_ff={cfg.d_ff} "
+        f"vocab={cfg.vocab} mla={cfg.use_mla} {cfg.dtype}: {n_params} parameters, "
+        f"{lm_bytes(params)} B of weights ({time.perf_counter() - t:.3f} s)")
+
+    # prefill, and the choices it dropped at capacity
+    pb, ps = MOE_PREFILL[arch]
+    toks = torch.randint(0, cfg.vocab, (pb, ps), generator=gen, device=dev, dtype=torch.int32)
+    with RoutingLog() as rl:
+        out = steps.prefill_step(params, dict(tokens=toks))
+    if out.shape != (pb, 1, cfg.vocab) or not torch.isfinite(out).all():
+        raise AssertionError(f"{arch}: prefill logits {tuple(out.shape)}")
+    drops, per = rl.dropped(), rl.calls[0]["choices"]
+    pre_ms = time_ms(lambda: steps.prefill_step(params, dict(tokens=toks)), iters=3, warmup=1)
+    p_ms, p_ops, p_bytes = lm_prefill_bound(cfg, params, pb, ps)
+    log(f"prefill ({card}): B={pb} S={ps}: {pre_ms:.6f} ms (CUDA events) = "
+        f"{pb * ps / pre_ms * 1e3:.1f} tokens/s; bound {p_ms:.6f} ms ({p_ops} bf16 operations / "
+        f"989 TFLOP/s + {lm_router_ops(cfg, pb * ps)} f32 router operations / 67 TFLOP/s; "
+        f"{p_bytes} B): {100 * p_ms / pre_ms:.3f} % of it; capacity {rl.calls[0]['cap']} an "
+        f"expert; dropped (token, expert) choices per MoE layer {drops} of {per} "
+        f"({100 * sum(drops) / (len(drops) * per):.3f} %)")
+    del out
+
+    # (e) one MoE layer's forward twice from the same input: the same bits.
+    # The first half of the tokens is one vector, so its top-k experts are
+    # chosen by that many tokens at equal gates: their capacity binds and the
+    # tie order decides which are kept (the lowest indices, as top_k)
+    mp = moe_layer_params(params)
+    x = torch.randn((pb, ps, cfg.d_model), generator=gen, device=dev).to(mp["w_gate"].dtype)
+    x2d = x.view(-1, cfg.d_model)
+    n_tied = x2d.shape[0] // 2
+    x2d[:n_tied] = x2d[0]
+    with RoutingLog(keep=True) as rl:
+        y1 = moe_ffn_dense(mp, x, cfg)
+        y2 = moe_ffn_dense(mp, x, cfg)
+    if not torch.equal(y1, y2):
+        raise AssertionError(f"{arch}: two forwards of the MoE layer differ")
+    r = rl.calls[0]
+    if rl.dropped()[0] != rl.dropped()[1] or not torch.equal(r["tok_idx"],
+                                                            rl.calls[1]["tok_idx"]):
+        raise AssertionError(f"{arch}: two routings of one input differ: {rl.dropped()}")
+    for e in r["top_idx"][0].tolist():
+        kept = r["tok_idx"][e][r["top_val"][e] > 0]
+        tied = torch.sort(kept[kept < n_tied]).values
+        if not torch.equal(tied, torch.arange(tied.numel())) or tied.numel() >= n_tied:
+            raise AssertionError(f"{arch}: expert {e} kept tied tokens {tied.tolist()[:8]}...")
+    log(f"(e) {arch}: the first MoE layer's forward twice on one ({pb}, {ps}) input, its first "
+        f"{n_tied} tokens one vector: the same bits ({y1.numel()} {str(y1.dtype)[6:]} values), "
+        f"{rl.dropped()[0]} of {r['choices']} choices dropped both times (capacity "
+        f"{r['cap']}); each of the tied tokens' {r['top_idx'].shape[1]} experts kept the "
+        f"lowest-indexed tied tokens")
+    del x, x2d, y1, y2, mp
+
+    ctoks = toks[:MOE_CHECK[0], :MOE_CHECK[1]].clone()
+    del toks
+
+    # decode at the serving shape
+    B, slots = MOE_DECODE[arch]
+    n_tf, n_new = MOE_STEPS
+    cache = steps.init_cache(B, slots)
+    log(f"cache: {sum(c.numel() * c.element_size() for c in cache.values())} B ({B} x {slots} "
+        f"slots, bf16: {sorted(cache)})")
+    prompt = torch.randint(0, cfg.vocab, (B, n_tf), generator=gen, device=dev, dtype=torch.int32)
+    pos = torch.zeros((), dtype=torch.int32, device=dev)
+    t = time.perf_counter()
+    for i in range(n_tf):
+        logits, cache = steps.decode_step(params, cache, prompt[:, i:i + 1], pos)
+        pos = pos + 1
+    torch.cuda.synchronize()
+    t_tf = time.perf_counter() - t
+    first = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    t = time.perf_counter()
+    gtoks, cache = greedy_generate(steps, params, cache, first, n_new=n_new, start_pos=n_tf)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t
+    if gtoks.shape != (B, n_new) or int(gtoks.min()) < 0 or int(gtoks.max()) >= cfg.vocab:
+        raise AssertionError(f"{arch}: greedy tokens {tuple(gtoks.shape)}")
+    tpos = torch.tensor(n_tf + n_new, dtype=torch.int32, device=dev)
+    with RoutingLog() as rl:
+        logits = steps.decode_step(params, cache, first, tpos)[0]  # the cache is ``cache``
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{arch}: non-finite decode logits")
+    chosen = rl.chosen()
+    step_ms = time_ms(lambda: steps.decode_step(params, cache, first, tpos), iters=10, warmup=2)
+    b_ms, b_bytes, b_ops = lm_decode_bound(cfg, params, B, slots, chosen=chosen)
+    log(f"decode ({card}): {n_tf} teacher-forced steps {t_tf:.6f} s, greedy {n_new} steps "
+        f"{t_gen:.6f} s = {B * n_new / t_gen:.3f} tokens/s (host clock); warm decode_step "
+        f"{step_ms:.6f} ms (CUDA events) = {B / step_ms * 1e3:.3f} tokens/s; bound {b_ms:.6f} ms "
+        f"({b_bytes} B / 3.35 TB/s, the weights of the {chosen} experts the step's tokens chose "
+        f"over its {len(rl.calls)} MoE layers; {b_ops} bf16 operations / 989 TFLOP/s): "
+        f"{100 * b_ms / step_ms:.3f} % of it; dropped choices a step per MoE layer "
+        f"{rl.dropped()} of {rl.calls[0]['choices']} (capacity {rl.calls[0]['cap']})")
+    log(f"  first row's tokens: {gtoks[0].tolist()}")
+    profile_call(f"{arch} decode_step (B={B}, {slots} slots)",
+                 lambda: steps.decode_step(params, cache, first, tpos))
+    log(f"peak device memory ({arch}): {torch.cuda.max_memory_allocated() - base} B above the "
+        f"start ({base} B)")
+    del params, cache, logits, steps
+
+    # decode against prefill where no capacity binds, prefill's experts
+    # replayed, the weights drawn anew in MOE_CHECK_DTYPE
+    gc.collect()
+    torch.cuda.empty_cache()
+    ccfg = dataclasses.replace(cfg, dtype=MOE_CHECK_DTYPE[arch])
+    csteps = build_steps(ccfg, device=dev)
+    t = time.perf_counter()
+    cparams = csteps.bundle.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    err = decode_against_prefill(csteps, cparams, ctoks, moe=True)
+    log(f"check: {ctoks.shape[1]} decode steps at B={ctoks.shape[0]} against prefill_step, "
+        f"{ccfg.n_layers} layers, {ccfg.dtype} weights, the cache bf16 (no capacity binds at "
+        f"{ctoks.numel()} tokens; each step replaying prefill's expert choices): max |err| / "
+        f"max |logit| {err:.6f} <= {LM_REL} ({time.perf_counter() - t:.3f} s)")
+    del cparams, csteps
+
+
+def moe_card_against_cpu(dev, card: str, arch: str) -> None:
+    """(c): ``arch`` cut as ``MOE_CPU`` says, one set of weights on the card
+    and on the CPU: prefill at ``MOE_CPU_SHAPE``, then teacher-forced decode
+    steps and greedy tokens, the card replaying the CPU's routing decisions
+    (``RoutingLog``) so that both compute one function: every row's logits
+    within ``LM_REL``, greedy tokens equal above the top-2 margin. The
+    card's own routing is held once, on the first MoE call of a prefill
+    with its own decisions, by ``compare_routing``'s margin rule."""
+    from repro_torch import full_f32_matmul
+    from repro_torch.configs import get_config
+    from repro_torch.train.step import build_steps
+
+    cut = MOE_CPU[arch]
+    cfg = get_config(arch)
+    cfg = cfg.reduced() if cut is None else dataclasses.replace(cfg, **cut)
+    steps, csteps = build_steps(cfg, device=dev), build_steps(cfg, device="cpu")
+    t = time.perf_counter()
+    params = steps.bundle.init(torch.Generator(device=dev).manual_seed(SEED + 3), dev)
+    cpu = cpu_copy(csteps.bundle, params)
+    B, S, n = MOE_CPU_SHAPE
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=torch.Generator().manual_seed(SEED + 3),
+                         dtype=torch.int32)
+    with full_f32_matmul():
+        with RoutingLog(keep=True) as cl:
+            want = csteps.prefill_step(cpu, dict(tokens=toks))
+        with RoutingLog(keep=True) as own:
+            steps.prefill_step(params, dict(tokens=toks.to(dev)))
+        routing = compare_routing(own.calls[0], cl.calls[0], cfg.n_experts, f"{arch} prefill")
+        with RoutingLog(replay=cl):
+            got = steps.prefill_step(params, dict(tokens=toks.to(dev)))
+        pre_err = rel_err(got, want)
+        if pre_err > LM_REL:
+            raise AssertionError(f"{arch}: the card's prefill logits differ: {pre_err}")
+        caches = dict(card=steps.init_cache(B, 2 * n), cpu=csteps.init_cache(B, 2 * n))
+        last, logits, dl = {}, {}, {}
+        for name, st, p in (("cpu", csteps, cpu), ("card", steps, params)):
+            d = st.device
+            dl[name] = RoutingLog(keep=True) if name == "cpu" else RoutingLog(replay=dl["cpu"])
+            logits[name] = []
+            with dl[name]:
+                for i in range(n):
+                    last[name], caches[name] = st.decode_step(
+                        p, caches[name], toks[:, i:i + 1].to(d),
+                        torch.tensor(i, dtype=torch.int32, device=d))
+                    logits[name].append(last[name])
+        errs = [rel_err(g, w) for g, w in zip(logits["card"], logits["cpu"])]
+        err = max(errs)
+        if err > LM_REL:
+            raise AssertionError(f"{arch}: the card's decode logits differ: {errs}")
+        compared = greedy_against_cpu(steps, params, csteps, cpu, caches, last, n, err,
+                                      replay=True)
+    log(f"check (c) {arch} ({'reduced()' if cut is None else f'published width, {cut}'}, "
+        f"{cfg.dtype}), the card against the port's CPU run: prefill B={B} S={S}: {routing}; "
+        f"the card replaying the CPU's routing from here: prefill max |err| / max |logit| "
+        f"{pre_err:.6f} <= {LM_REL}; {n} decode steps at B={B} "
+        f"{[f'{e:.6f}' for e in errs]} <= {LM_REL}; greedy tokens equal at {compared} of "
+        f"{B * (n + 1)} positions (compared up to each row's first CPU top-2 margin within the "
+        f"error); the CPU dropped {sum(dl['cpu'].dropped())} choices over the decode's "
+        f"{len(dl['cpu'].calls)} MoE calls ({time.perf_counter() - t:.3f} s)")
+    del params, cpu, caches
+
+
+def train_step_against_cpu(dev, cfg, steps, state, hb: int, hs: int, what: str, rel: dict):
+    """One ``train_step`` at (``hb``, ``hs``) from ``state`` (fresh, on the
+    card) and from its copy on the CPU, the card replaying the CPU's
+    routing decisions at its own gates (a near tie flipped by the devices'
+    roundings would send a token's gradient to another expert: the
+    comparison is of the arithmetic; the card's own decisions in the first
+    MoE call are held by ``compare_routing``): loss, grad_norm and each
+    optimizer-state leaf within ``rel``. Returns the stepped state and a
+    summary."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.train.step import build_steps
+    from repro_torch.tree import leaves
+
+    csteps = build_steps(cfg, device="cpu")
+    t = time.perf_counter()
+    cmodel = cpu_copy(csteps.bundle, state["params"])
+    cstate = dict(params=cmodel, opt=get_optimizer(cfg.optimizer)[0](cmodel.tree()),
+                  step=torch.zeros((), dtype=torch.int32))
+    t_copy = time.perf_counter() - t
+    batch = TokenPipeline(cfg.vocab, hs, hb, seed=1).next_batch(cfg, "cpu")
+    t = time.perf_counter()
+    with RoutingLog(keep=True) as cl:
+        cstate, cm = csteps.train_step(cstate, batch)
+    t_cpu = time.perf_counter() - t
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with RoutingLog(replay=cl) as gl:
+        start.record()
+        state, gm = steps.train_step(state, {k: v.to(dev) for k, v in batch.items()})
+        end.record()
+        end.synchronize()
+    check_metrics(gm, what)
+    # the first call's experts are the card's own (the log keeps them), and
+    # an expert its choosers agree on selects from the same tokens either way
+    own = compare_routing(gl.calls[0], cl.calls[0], cfg.n_experts, what)
+    errs = {k: abs(float(gm[k]) - float(cm[k])) / abs(float(cm[k])) for k in ("loss", "grad_norm")}
+    for name in type(state["opt"])._fields:
+        errs[name] = max(rel_err(a, b) for a, b in zip(leaves(getattr(state["opt"], name)),
+                                                       leaves(getattr(cstate["opt"], name))))
+    for k, v in errs.items():
+        if not v <= rel[k]:
+            raise AssertionError(f"{what}: the card's {k} differs from the CPU's: {v} > {rel[k]}")
+    return state, (
+        f"check {what}: one train_step at B={hb} S={hs}, the card (replaying the CPU's routing "
+        f"decisions in its {len(cl.calls)} MoE calls, forward and recompute, at its own gates) "
+        f"against the port's CPU run: loss {float(gm['loss']):.6f} / {float(cm['loss']):.6f}, "
+        f"errors (of the largest value, per leaf for the optimizer's state) " + ", ".join(
+            f"{k} {v:.3e} <= {rel[k]}" for k, v in errs.items())
+        + f"; {own}; card {start.elapsed_time(end):.3f} ms (CUDA "
+        f"events), CPU {t_cpu:.3f} s, the CPU copy {t_copy:.3f} s")
+
+
+def moe_training(dev, card: str, arch: str) -> None:
+    """(d): ``arch`` at published width cut to ``MOE_TRAIN``'s depth, with
+    its published optimizer and ``remat="full"``: where ``MOE_TRAIN_CPU``
+    says ``"published"``, one step from the fresh state against the CPU's
+    (``train_step_against_cpu``); one step on the card at
+    ``MOE_TRAIN_SHAPE`` (CUDA events) against ``lm_train_bound``, peak
+    device memory; where it says ``"reduced"``, the step against the CPU
+    at the arch's ``reduced()`` config (f32, ``remat="full"``, within
+    ``MOE_TRAIN_F32``)."""
+    from repro_torch import full_f32_matmul
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.train.step import build_steps
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_config(arch), **MOE_TRAIN[arch])
+    hb, hs, at = MOE_TRAIN_CPU[arch]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    steps = build_steps(cfg, device=dev)
+    state = steps.init_state(torch.Generator(device=dev).manual_seed(SEED + 4))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    w_bytes = lm_bytes(state["params"])
+    o_bytes = sum(x.numel() * x.element_size() for x in leaves(state["opt"]))
+    log(f"(d) {arch} on {card}: {MOE_TRAIN[arch]} of the published config, {cfg.optimizer}, "
+        f"remat={cfg.remat}: {n_params} parameters, {w_bytes} B of weights, {o_bytes} B of "
+        f"optimizer state ({time.perf_counter() - t:.3f} s)")
+    if at == "published":
+        state, line = train_step_against_cpu(dev, cfg, steps, state, hb, hs, f"(d) {arch}",
+                                             MOE_TRAIN_REL)
+        log(line + f"; peak device memory {torch.cuda.max_memory_allocated() - base} B above "
+            f"the start")
+        gc.collect()
+
+    B, S = MOE_TRAIN_SHAPE
+    batch = TokenPipeline(cfg.vocab, S, B, seed=2).next_batch(cfg, dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, m = steps.train_step(state, batch)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    check_metrics(m, f"(d) {arch}")
+    b_ms, b_ops, b_bytes = lm_train_bound(cfg, n_params, B, S)
+    log(f"(d) {arch} train_step ({card}): B={B} S={S} {ms:.6f} ms (CUDA events, the state's "
+        f"{'second' if at == 'published' else 'first'} step) = {B * S / ms * 1e3:.3f} tokens/s, "
+        f"loss {float(m['loss']):.6f}, grad_norm {float(m['grad_norm']):.6f}; bound "
+        f"{b_ms:.6f} ms ({b_ops} bf16 operations / 989 TFLOP/s + "
+        f"{4 * lm_router_ops(cfg, B * S)} f32 router operations; {b_bytes} B / 3.35 TB/s): "
+        f"{100 * b_ms / ms:.3f} % of it; peak device memory "
+        f"{torch.cuda.max_memory_allocated() - base} B above the start ({base} B), the state "
+        f"{w_bytes + o_bytes} B")
+    del state, batch, steps
+    if at == "reduced":
+        gc.collect()
+        torch.cuda.empty_cache()
+        rcfg = dataclasses.replace(get_config(arch).reduced(), remat="full")
+        rsteps = build_steps(rcfg, device=dev)
+        rstate = rsteps.init_state(torch.Generator(device=dev).manual_seed(SEED + 4))
+        with full_f32_matmul():
+            _, line = train_step_against_cpu(dev, rcfg, rsteps, rstate, hb, hs,
+                                             f"(d) {arch} reduced() ({rcfg.optimizer}, f32)",
+                                             MOE_TRAIN_F32)
+        log(line)
+
+
+def moe_families(dev, card: str) -> None:
+    """Phase 18: the MoE and MLA decoder-only families on the card.
+
+    (a) ``qwen2-moe-a2.7b`` (24 layers, 60 routed experts padded to 64,
+    top-4, 4 shared) and (b) ``deepseek-v3-671b`` (MLA, 256 routed experts,
+    top-8, 1 shared, the MTP block) depth cut to 4 layers (3 dense, one
+    MoE), both at their published widths: ``moe_serving``. (c) the card
+    against the port's CPU run on the same weights:
+    ``moe_card_against_cpu``. (d) one ``train_step`` of each at published
+    width, depth cut: ``moe_training``. (e) inside (a) and (b): one MoE
+    layer's forward twice on the card, the same bits.
+    """
+    from repro_torch.configs import get_config
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the routers' f32 products would be rounded")
+    # the bound helpers keep the dense families' numbers
+    for c in map(get_config, DENSE_ARCHS):
+        H = c.pad_heads_to or c.n_heads
+        assert lm_matmul_params(c) == c.n_layers * (c.d_model * (2 * H + 2 * c.n_kv_heads) * c.head_dim + 3 * c.d_model * c.d_ff) and not lm_router_ops(c, 1), c.name  # noqa: E501
+    for arch in MOE_ARCHS:
+        with phase(f"{arch} serving"):
+            moe_serving(dev, card, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in MOE_ARCHS:
+        with phase(f"{arch} card against CPU"):
+            moe_card_against_cpu(dev, card, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in MOE_ARCHS:
+        with phase(f"{arch} train_step"):
+            moe_training(dev, card, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 # -------------------------------------------------------------------- main
@@ -4068,6 +4766,9 @@ def main() -> int:
 
     with phase("LM training"):
         lm_training(dev, card)
+
+    with phase("MoE and MLA families"):
+        moe_families(dev, card)
 
     log(f"card: {card}")
     print(json.dumps({"kernels": rows}), flush=True)

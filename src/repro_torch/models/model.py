@@ -1,18 +1,27 @@
-"""Model assembly for the decoder-only dense families (``dense``, and
-``vlm``, which prepends stub patch embeddings): init, the training loss,
-prefill and KV-cache decode -- the JAX package's ``models/model.py`` for
-these families.
+"""Model assembly for the decoder-only families -- the JAX package's
+``models/model.py`` for ``build_decoder_only``: init, the training loss,
+prefill and KV-cache decode.
+
+Families served here:
+  dense, vlm  -- a GQA decoder-only stack (``vlm`` prepends stub patch
+                 embeddings)
+  moe         -- every layer's FFN is a shared + routed MoE (qwen2-moe)
+  mla_moe     -- MLA attention, leading dense layers, then MoE layers, and
+                 a multi-token-prediction (MTP) block in the loss
+                 (deepseek-v3)
+Still to port: ``encdec`` (ROADMAP A.13e), ``xlstm`` (A.13f), ``hybrid``
+(A.13g).
 
 A model is a ``DecoderOnlyLM``: an ``nn.Module`` whose parameters sit
 under the reference's tree paths (``embed.table``, ``head.w``,
-``final_norm``, ``dense_blocks.attn.wq``, ...), the layer stack with a
-leading ``layers`` dimension, each parameter's logical spec kept beside it
-in ``specs``. Where the reference scans over the stack, the port loops
-over layers in Python; where it wraps the scan body in ``jax.checkpoint``
-(``cfg.remat == "full"``), the port wraps each layer in
-``torch.utils.checkpoint``. ``ModelBundle``'s functions keep the
-reference's names and wrap the module. The parameters are registered
-without gradients; the training steps turn them on.
+``final_norm``, ``dense_blocks.attn.wq``, ``moe_blocks.moe.w_gate``,
+``mtp.proj``, ...), each layer stack with a leading ``layers`` dimension,
+each parameter's logical spec kept beside it in ``specs``. Where the
+reference scans over a stack, the port loops over layers in Python; where
+it wraps the scan body in ``jax.checkpoint`` (``cfg.remat == "full"``),
+the port wraps each layer in ``torch.utils.checkpoint``. ``ModelBundle``'s
+functions keep the reference's names and wrap the module. The parameters
+are registered without gradients; the training steps turn them on.
 """
 from __future__ import annotations
 
@@ -26,12 +35,12 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from ..tree import module_tree
 from . import layers as L
+from . import mla as MLA
+from . import moe as MOE
 from .layers import Param, split_params
 
 # the families other slices port, and the ROADMAP item that ports each
 UNPORTED_FAMILIES = {
-    "moe": "A.13c (MoE)",
-    "mla_moe": "A.13d (MLA + MoE + MTP)",
     "encdec": "A.13e (enc-dec)",
     "xlstm": "A.13f (xLSTM)",
     "hybrid": "A.13g (hybrid)",
@@ -42,8 +51,12 @@ UNPORTED_FAMILIES = {
 def stack_init(init_fn: Callable, n: int, axis_name: str = "layers"):
     """``n`` independent inits stacked into one Param tree with a leading
     ``axis_name`` dimension. Each layer is written into the stack as it is
-    drawn, so only one layer's temporaries exist at a time."""
+    drawn, so only one layer's temporaries exist at a time; a stack of one
+    is the layer itself with the dimension added (no copy)."""
     first = init_fn()
+    if n == 1:
+        return L.tree_map(lambda p: Param(p.value.unsqueeze(0), (axis_name,) + tuple(p.spec)),
+                          first)
     stacked = L.tree_map(lambda p: Param(
         torch.empty((n,) + tuple(p.value.shape), dtype=p.value.dtype, device=p.value.device),
         (axis_name,) + tuple(p.spec)), first)
@@ -66,25 +79,70 @@ def _norm(w, x):
     return L.rms_norm(x, w)
 
 
-def _init_block(gen, cfg: ArchConfig, device=None):
-    """A dense block: the reference's ``_init_block(kind="dense")``."""
-    return dict(
-        ln1=L.ones((cfg.d_model,), ("embed",), device=device or gen.device),
-        ln2=L.ones((cfg.d_model,), ("embed",), device=device or gen.device),
-        attn=L.init_attention(gen, cfg, device),
-        ffn=L.init_ffn(gen, cfg, device=device),
-    )
+# ------------------------------------------------ decoder block (attn+ffn)
+def _init_block(gen, cfg: ArchConfig, kind: str = "dense", device=None):
+    """kind: dense | moe | mla_dense | mla_moe, as the reference's."""
+    dev = device or gen.device
+    p = dict(ln1=L.ones((cfg.d_model,), ("embed",), device=dev),
+             ln2=L.ones((cfg.d_model,), ("embed",), device=dev))
+    if kind.startswith("mla"):
+        p["attn"] = MLA.init_mla(gen, cfg, device)
+    else:
+        p["attn"] = L.init_attention(gen, cfg, device)
+    if kind.endswith("moe"):
+        p["moe"] = MOE.init_moe(gen, cfg, device)
+    else:
+        p["ffn"] = L.init_ffn(gen, cfg, device=device)
+    return p
 
 
-def _apply_block(p, x, cfg: ArchConfig):
-    x = x + L.attention(p["attn"], _norm(p["ln1"], x), cfg)
-    return x + L.ffn(p["ffn"], _norm(p["ln2"], x))
-
-
-def _decode_block(p, x, cache_k, cache_v, pos, cfg):
-    a, ck, cv = L.decode_attention(p["attn"], _norm(p["ln1"], x), cache_k, cache_v, pos, cfg)
+def _apply_block(p, x, cfg: ArchConfig, kind: str = "dense", positions=None):
+    h = _norm(p["ln1"], x)
+    if kind.startswith("mla"):
+        a = MLA.mla_attention(p["attn"], h, cfg, positions)
+    else:
+        a = L.attention(p["attn"], h, cfg, positions)
     x = x + a
-    return x + L.ffn(p["ffn"], _norm(p["ln2"], x)), ck, cv
+    h = _norm(p["ln2"], x)
+    if kind.endswith("moe"):
+        f = MOE.moe_ffn(p["moe"], h, cfg)
+    else:
+        f = L.ffn(p["ffn"], h)
+    return x + f
+
+
+def _decode_block(p, x, cache_k, cache_v, pos, cfg, kind: str = "dense"):
+    h = _norm(p["ln1"], x)
+    if kind.startswith("mla"):
+        a, ck, cv = MLA.mla_decode(p["attn"], h, cache_k, cache_v, pos, cfg)
+    else:
+        a, ck, cv = L.decode_attention(p["attn"], h, cache_k, cache_v, pos, cfg)
+    x = x + a
+    h = _norm(p["ln2"], x)
+    if kind.endswith("moe"):
+        f = MOE.moe_ffn_dense(p["moe"], h, cfg)  # decode: a token a row
+    else:
+        f = L.ffn(p["ffn"], h)
+    return x + f, ck, cv
+
+
+def block_kinds(cfg: ArchConfig):
+    """``(dense_kind, moe_kind, n_dense, n_moe)`` of ``cfg``: the kinds of
+    the two stacks and their layer counts, as ``build_decoder_only``'s."""
+    is_mla = cfg.use_mla
+    if cfg.n_experts:
+        moe_kind = "mla_moe" if is_mla else "moe"
+    else:
+        moe_kind = "mla_dense" if is_mla else "dense"
+    dense_kind = "mla_dense" if is_mla else "dense"
+    n_dense = cfg.first_dense if cfg.n_experts else cfg.n_layers
+    n_moe = cfg.n_layers - n_dense if cfg.n_experts else 0
+    return dense_kind, moe_kind, n_dense, n_moe
+
+
+def cache_names(cfg: ArchConfig):
+    """The cache's two entries: the latent and rope key for MLA, else k, v."""
+    return ("ckv", "kr") if cfg.use_mla else ("k", "v")
 
 
 # ------------------------------------------------------------------ module
@@ -101,12 +159,17 @@ class _Node(nn.Module):
 
 
 class DecoderOnlyLM(nn.Module):
-    """The dense / vlm decoder-only model, its parameters under the
-    reference's tree paths. ``tree`` is a Param tree (``bundle.init_tree``'s)."""
+    """A decoder-only model of the ``dense``, ``vlm``, ``moe`` or
+    ``mla_moe`` family, its parameters under the reference's tree paths:
+    ``dense_blocks`` (the leading dense layers, or every layer of a model
+    without experts), ``moe_blocks`` (the MoE layers) and, with
+    ``cfg.mtp_depth``, the ``mtp`` block. ``tree`` is a Param tree
+    (``bundle.init_tree``'s)."""
 
     def __init__(self, cfg: ArchConfig, tree: Dict):
         super().__init__()
         self.cfg = cfg
+        self.dense_kind, self.moe_kind, _, _ = block_kinds(cfg)
         values, spec_tree = split_params(tree)
         self.specs: Dict[str, tuple] = dict(_flatten(spec_tree))
         for name, value in _flatten(values):
@@ -123,12 +186,18 @@ class DecoderOnlyLM(nn.Module):
         return module_tree(self)
 
     def _layers(self):
-        """Each layer's parameters: views of the stack at its index. One
-        ``unbind`` a leaf, so the backward stacks the layers' gradients
+        """``(kind, layer parameters)`` of every layer, the dense stack
+        first: each layer's parameters are views of its stack at its index.
+        One ``unbind`` a leaf, so the backward stacks the layers' gradients
         once instead of adding a stack-sized gradient per layer."""
-        blocks = self.tree()["dense_blocks"]
-        per_leaf = _unbind(blocks)
-        return [_index(per_leaf, i) for i in range(self.cfg.n_layers)]
+        tree = self.tree()
+        out = []
+        for name, kind in (("dense_blocks", self.dense_kind), ("moe_blocks", self.moe_kind)):
+            if name in tree:
+                per_leaf = _unbind(tree[name])
+                n = len(next(iter(_leaves(per_leaf))))
+                out += [(kind, _index(per_leaf, i)) for i in range(n)]
+        return out
 
     def embed_inputs(self, batch: Dict):
         """The embedded inputs and where the text region starts (the
@@ -143,25 +212,35 @@ class DecoderOnlyLM(nn.Module):
     def backbone(self, x: torch.Tensor) -> torch.Tensor:
         # remat only where a backward will run: serving keeps no activations
         remat = self.cfg.remat == "full" and torch.is_grad_enabled()
-        for lp in self._layers():
+        for kind, lp in self._layers():
             if remat:
-                x = checkpoint(_apply_block, lp, x, self.cfg, use_reentrant=False)
+                x = checkpoint(_apply_block, lp, x, self.cfg, kind, use_reentrant=False)
             else:
-                x = _apply_block(lp, x, self.cfg)
+                x = _apply_block(lp, x, self.cfg, kind)
         return x
 
     def loss(self, batch: Dict) -> torch.Tensor:
         """The mean next-token cross entropy (0-d f32). For ``vlm`` with
         patches, over the text region only: the final norm and the head see
-        ``x[:, loss_start:]``, as the reference. (The MTP term is the
-        ``mla_moe`` family's, ROADMAP A.13d.)"""
+        ``x[:, loss_start:]``, as the reference. With ``cfg.mtp_depth``,
+        plus ``0.3`` times the MTP block's cross entropy two tokens ahead."""
         x, loss_start = self.embed_inputs(batch)
         x = self.backbone(x)
+        tok = batch["tokens"]
         if loss_start:
             h = _norm(self.final_norm, x[:, loss_start:])
             logits = L.lm_logits(dict(w=self.head.w), h)
-            return L.softmax_xent(logits[:, :-1], batch["tokens"][:, 1:])
-        return _lm_losses(self, x, batch["tokens"])
+            loss = L.softmax_xent(logits[:, :-1], tok[:, 1:])
+        else:
+            loss = _lm_losses(self, x, tok)
+        if self.cfg.mtp_depth and hasattr(self, "mtp"):
+            mtp = self.tree()["mtp"]
+            emb_next = L.embed_lookup(dict(table=self.embed.table), torch.roll(tok, -1, 1))
+            hcat = torch.cat([_norm(mtp["norm"], x[:, loss_start:]), emb_next], dim=-1)
+            h2 = _apply_block(mtp["block"], hcat @ mtp["proj"], self.cfg, self.dense_kind)
+            logits2 = L.lm_logits(dict(w=self.head.w), _norm(self.final_norm, h2))
+            loss = loss + 0.3 * L.softmax_xent(logits2[:, :-2], tok[:, 2:])
+        return loss
 
     def prefill(self, batch: Dict) -> torch.Tensor:
         """The last position's logits (B, 1, vocab); fills no cache."""
@@ -171,10 +250,12 @@ class DecoderOnlyLM(nn.Module):
 
     def decode(self, cache: Dict, tokens: torch.Tensor, pos: torch.Tensor):
         """One token per row at position ``pos`` (a 0-d tensor): logits
-        (B, 1, vocab) and the cache, written in place."""
+        (B, 1, vocab) and the cache, layer ``i`` of it written in place
+        (the dense layers first, as the reference concatenates them)."""
+        a, b = cache_names(self.cfg)
         x = L.embed_lookup(dict(table=self.embed.table), tokens)
-        for i, lp in enumerate(self._layers()):
-            x, _, _ = _decode_block(lp, x, cache["k"][i], cache["v"][i], pos, self.cfg)
+        for i, (kind, lp) in enumerate(self._layers()):
+            x, _, _ = _decode_block(lp, x, cache[a][i], cache[b][i], pos, self.cfg, kind)
         h = _norm(self.final_norm, x)
         return L.lm_logits(dict(w=self.head.w), h), cache
 
@@ -187,7 +268,17 @@ def _lm_losses(model: DecoderOnlyLM, x, tokens):
 def _unbind(v):
     if isinstance(v, dict):
         return {k: _unbind(u) for k, u in v.items()}
+    if v.shape[0] == 1:
+        return (v.squeeze(0),)  # a view: its backward copies nothing
     return torch.unbind(v, 0)
+
+
+def _leaves(v):
+    if isinstance(v, dict):
+        for u in v.values():
+            yield from _leaves(u)
+    else:
+        yield v
 
 
 def _index(v, i):
@@ -209,16 +300,29 @@ class ModelBundle:
 
 
 def build_decoder_only(cfg: ArchConfig) -> ModelBundle:
-    """The ``dense`` and ``vlm`` families."""
+    """The ``dense``, ``vlm``, ``moe`` and ``mla_moe`` families."""
+    dense_kind, moe_kind, n_dense, n_moe = block_kinds(cfg)
 
     def init_tree(gen: torch.Generator, device=None) -> Dict:
         dev = device or gen.device
-        return dict(
+        p = dict(
             embed=L.init_embedding(gen, cfg, device),
             head=L.init_lm_head(gen, cfg, device),
             final_norm=L.ones((cfg.d_model,), ("embed",), device=dev),
-            dense_blocks=stack_init(lambda: _init_block(gen, cfg, device), cfg.n_layers),
         )
+        if n_dense:
+            p["dense_blocks"] = stack_init(lambda: _init_block(gen, cfg, dense_kind, device),
+                                           n_dense)
+        if n_moe:
+            p["moe_blocks"] = stack_init(lambda: _init_block(gen, cfg, moe_kind, device), n_moe)
+        if cfg.mtp_depth:
+            p["mtp"] = dict(
+                proj=L.make(gen, (2 * cfg.d_model, cfg.d_model), ("wembed", None), 1.0,
+                            L._dtype(cfg), device),
+                block=_init_block(gen, cfg, dense_kind, device),
+                norm=L.ones((cfg.d_model,), ("embed",), device=dev),
+            )
+        return p
 
     def init(gen: torch.Generator, device=None) -> DecoderOnlyLM:
         """Parameters drawn from ``gen`` on its device, then moved to
@@ -227,9 +331,13 @@ def build_decoder_only(cfg: ArchConfig) -> ModelBundle:
         return model if device is None else model.to(device)
 
     def cache_shape(batch: int, seq: int):
+        # bf16 whatever the model's dtype, as the reference
+        names = ("layers", "batch", "kv_seq", None)
+        if cfg.use_mla:
+            return dict(ckv=((cfg.n_layers, batch, seq, cfg.kv_lora), torch.bfloat16, names),
+                        kr=((cfg.n_layers, batch, seq, cfg.qk_rope), torch.bfloat16, names))
         names = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
         shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.head_dim)
-        # bf16 whatever the model's dtype, as the reference
         return dict(k=(shape, torch.bfloat16, names), v=(shape, torch.bfloat16, names))
 
     def loss(params: DecoderOnlyLM, batch: Dict) -> torch.Tensor:
@@ -246,7 +354,7 @@ def build_decoder_only(cfg: ArchConfig) -> ModelBundle:
 
 # ---------------------------------------------------------------- factory
 def build_model(cfg: ArchConfig) -> ModelBundle:
-    if cfg.family in ("dense", "vlm"):
+    if cfg.family in ("dense", "vlm", "moe", "mla_moe"):
         return build_decoder_only(cfg)
     if cfg.family in UNPORTED_FAMILIES:
         raise NotImplementedError(

@@ -15,6 +15,13 @@ parameters and decays before the step, which gives other values.)
 ``update`` writes the new moments into the state's tensors in place and
 returns that state: a caller that keeps an older state copies it first.
 Each update is cast to its parameter's dtype.
+
+``update`` also takes ``scale``: the gradients are then the unclipped ones
+and each is used as ``g.float() * scale``, the clip's own f32 product,
+fused into the update so that no f32 copy of every gradient exists at
+once. Adafactor makes a leaf's f32 temporaries, and ``global_norm`` its
+squares, ``CHUNK`` elements at a time (a stacked expert weight is many
+such blocks; most leaves are one).
 """
 from __future__ import annotations
 
@@ -26,9 +33,28 @@ import torch
 from ..tree import leaves, tree_map
 
 
+CHUNK = 1 << 28  # elements: above it a leaf's f32 temporaries are made in blocks
+
+
+def _sq_sum(x: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of ``x``'s squares, ``CHUNK`` elements at a time."""
+    return torch.stack([torch.sum(torch.square(b.float()))
+                        for b in x.reshape(-1).split(CHUNK)]).sum()
+
+
 def global_norm(tree) -> torch.Tensor:
-    sq = [torch.sum(torch.square(x.float())) for x in leaves(tree)]
+    sq = [_sq_sum(x) for x in leaves(tree)]
     return torch.sqrt(torch.sum(torch.stack(sq)))
+
+
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """``min(1, max_norm / (norm + 1e-9))``: what the clip multiplies by."""
+    return torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+
+
+def _f32(g: torch.Tensor, scale) -> torch.Tensor:
+    """The gradient in f32, times the clip's ``scale`` where given."""
+    return g.float() if scale is None else g.float() * scale
 
 
 def clip_by_global_norm(tree, max_norm: float):
@@ -37,7 +63,7 @@ def clip_by_global_norm(tree, max_norm: float):
     times its f32 0-d scale is f32 there (in PyTorch it would stay bf16).
     The input leaves are left as they are."""
     norm = global_norm(tree)
-    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    scale = clip_scale(norm, max_norm)
     return tree_map(lambda g: g.to(torch.float32, copy=True).mul_(scale), tree), norm
 
 
@@ -70,14 +96,14 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8, wd: float = 0.1)
         return AdamWState(m=tree_map(_f32_zeros, params), v=tree_map(_f32_zeros, params))
 
     @torch.no_grad()
-    def update(grads, state, params, lr, step):
+    def update(grads, state, params, lr, step, scale=None):
         t = step.float() + 1.0
         c1, c2 = 1 - b1**t, 1 - b2**t
 
         def one(g, m, v, p):
             # in place where the reference's rounding allows: a few
             # leaf-sized f32 temporaries at a time
-            g = g.float()
+            g = _f32(g, scale)
             m.mul_(b1).add_(g * (1 - b1))
             v.mul_(b2).add_(torch.square(g).mul_(1 - b2))
             u = m / c1
@@ -113,23 +139,52 @@ def adafactor(eps: float = 1e-30, clip_thresh: float = 1.0, decay_pow: float = 0
 
         return AdafactorState(vr=tree_map(vr_init, params), vc=tree_map(vc_init, params))
 
+    def factored(g, vr, vc, p, lr, beta, scale):
+        """The update of a leaf of two or more dims, a block of rows (the
+        second-to-last axis) of at most ``CHUNK`` elements at a time: the
+        row factors and the column sums in one pass, then the update's RMS,
+        then the update. A leaf of one block makes its ``u`` once."""
+        r = g.shape[-2]
+        n = max(1, CHUNK // max(g.numel() // max(r, 1), 1))
+        blocks = [(i, min(i + n, r)) for i in range(0, r, n)]
+        col = torch.zeros_like(vc)
+        for i, j in blocks:
+            g2 = torch.square(_f32(g[..., i:j, :], scale)) + eps
+            vr[..., i:j].mul_(beta).add_((1 - beta) * torch.mean(g2, dim=-1))
+            col += torch.sum(g2, dim=-2)
+        vc.mul_(beta).add_((1 - beta) * (col / r))
+        denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=eps)
+
+        def u(i, j):
+            pre = (vr[..., i:j] / denom)[..., None] * vc[..., None, :]
+            return _f32(g[..., i:j, :], scale) / torch.sqrt(pre + eps)
+
+        kept, sums = None, []
+        for i, j in blocks:
+            x = u(i, j)
+            sums.append(torch.sum(torch.square(x)))
+            kept = x if len(blocks) == 1 else None
+        # update clipping (RMS <= clip_thresh)
+        rms = torch.sqrt(torch.stack(sums).sum() / g.numel() + 1e-12)
+        div = torch.clamp(rms / clip_thresh, min=1.0)
+        if kept is not None:
+            return ((-lr) * (kept / div)).to(p.dtype)
+        out = torch.empty_like(p)
+        for i, j in blocks:
+            out[..., i:j, :] = ((-lr) * (u(i, j) / div)).to(p.dtype)
+        return out
+
     @torch.no_grad()
-    def update(grads, state, params, lr, step):
+    def update(grads, state, params, lr, step, scale=None):
         t = step.float() + 1.0
         beta = 1.0 - t ** (-decay_pow)
 
         def one(g, vr, vc, p):
-            g = g.float()
-            g2 = torch.square(g) + eps
             if p.ndim >= 2:
-                vr.mul_(beta).add_((1 - beta) * torch.mean(g2, dim=-1))
-                vc.mul_(beta).add_((1 - beta) * torch.mean(g2, dim=-2))
-                denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=eps)
-                pre = (vr / denom)[..., None] * vc[..., None, :]
-                u = g / torch.sqrt(pre + eps)
-            else:
-                vr.mul_(beta).add_((1 - beta) * g2)
-                u = g / torch.sqrt(vr + eps)
+                return factored(g, vr, vc, p, lr, beta, scale)
+            g = _f32(g, scale)
+            vr.mul_(beta).add_((1 - beta) * (torch.square(g) + eps))
+            u = g / torch.sqrt(vr + eps)
             # update clipping (RMS <= clip_thresh)
             rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
             u = u / torch.clamp(rms / clip_thresh, min=1.0)
@@ -150,9 +205,9 @@ def sgd(momentum: float = 0.9):
         return SGDState(mom=tree_map(_f32_zeros, params))
 
     @torch.no_grad()
-    def update(grads, state, params, lr, step):
+    def update(grads, state, params, lr, step, scale=None):
         def one(g, m, p):
-            m.mul_(momentum).add_(g.float())
+            m.mul_(momentum).add_(_f32(g, scale))
             return ((-lr) * m).to(p.dtype)
 
         return tree_map(one, grads, state.mom, params), state

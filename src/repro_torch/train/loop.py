@@ -19,10 +19,10 @@ from ..ckpt.checkpoint import AsyncCheckpointer, latest_step, restore
 from ..configs.base import ArchConfig
 from ..data.tokens import TokenPipeline
 from ..optim.compression import ef_init, int8_tree_roundtrip, topk_with_error_feedback
-from ..optim.optimizers import clip_by_global_norm, cosine_schedule, get_optimizer
+from ..optim.optimizers import cosine_schedule, get_optimizer
 from ..resilience.straggler import StragglerMonitor
-from ..tree import module_tree
-from .step import Steps, apply_updates, build_steps, loss_and_grads
+from ..tree import leaves, module_tree
+from .step import Steps, build_steps, clip_and_update, loss_and_grads
 
 
 @dataclasses.dataclass
@@ -49,8 +49,9 @@ class TrainResult:
 
 def _compressed_step(steps: Steps, tc: TrainConfig):
     """The reference's step with compression: the gradients compressed
-    (error-feedback top-k or the int8 round trip) before the clip at 1.0,
-    the schedule fixed at ``cosine_schedule(3e-4, 100, 10_000)``."""
+    (error-feedback top-k or the int8 round trip) before the clip at 1.0
+    (``clip_and_update``, as ``train_step``), the schedule fixed at
+    ``cosine_schedule(3e-4, 100, 10_000)``."""
     _, opt_update = get_optimizer(steps.cfg.optimizer)
     sched = cosine_schedule(3e-4, 100, 10_000)
 
@@ -61,11 +62,11 @@ def _compressed_step(steps: Steps, tc: TrainConfig):
             grads, ef_res = topk_with_error_feedback(grads, ef_res, tc.topk_frac)
         elif tc.grad_compression == "int8":
             grads = int8_tree_roundtrip(grads)
-        grads, gnorm = clip_by_global_norm(grads, 1.0)
+        grads = leaves(grads)  # the list is all that holds them: each goes as it lands
         lr_t = sched(state["step"])
-        updates, opt = opt_update(grads, state["opt"], module_tree(model), lr_t, state["step"])
-        apply_updates(model, updates)
-        return dict(params=model, opt=opt, step=state["step"] + 1), dict(
+        gnorm = clip_and_update(model, state["opt"], grads, opt_update, lr_t, state["step"],
+                                1.0)
+        return dict(params=model, opt=state["opt"], step=state["step"] + 1), dict(
             loss=loss, grad_norm=gnorm), ef_res
 
     return step_fn

@@ -3,10 +3,14 @@ returns a ``Steps`` object with the model, its device, the optimizer,
 ``init_state``, ``train_step``, ``prefill_step`` and ``decode_step``, the
 logical specs of the state, and the abstract batch and cache of a shape.
 
-``train_step`` takes the loss's gradients with autograd, clips them by
-their global norm (in f32), reads the cosine schedule at the state's step
-and adds the optimizer's updates to the parameters in place. The serving
-steps run under ``torch.no_grad()``.
+``train_step`` takes the loss's gradients with autograd, reads the cosine
+schedule at the state's step and runs ``clip_and_update``: the clip by the
+global norm (in f32) fused into each leaf's update, added to the
+parameters in place one leaf at a time, each gradient dropped once its
+update is added. Beside the parameters and the optimizer state only the
+gradients and one leaf's temporaries exist (a layer of 256 experts of a
+published MoE would not fit with an f32 copy of every gradient). The
+serving steps run under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -19,8 +23,8 @@ from .. import resolve_device
 from ..configs.base import ArchConfig
 from ..models.layers import split_params
 from ..models.model import ModelBundle, build_model
-from ..optim.optimizers import (AdafactorState, AdamWState, SGDState, clip_by_global_norm,
-                                cosine_schedule, get_optimizer)
+from ..optim.optimizers import (AdafactorState, AdamWState, SGDState, clip_scale,
+                                cosine_schedule, get_optimizer, global_norm)
 from ..tree import leaves, module_tree, unflatten
 
 
@@ -124,11 +128,23 @@ def loss_and_grads(bundle: ModelBundle, model, batch):
     return loss.detach(), unflatten(params, grads)
 
 
-@torch.no_grad()
-def apply_updates(model, updates) -> None:
-    """``p + u`` in the parameter's dtype, written into each parameter."""
-    for p, u in zip(leaves(model), leaves(updates)):
-        p.add_(u.to(p.dtype))
+def clip_and_update(model, opt, grads, opt_update, lr, step, max_norm: float) -> torch.Tensor:
+    """Clip ``grads`` (a list in ``leaves(model)``'s order, emptied as it
+    goes) by their global norm and add ``opt_update``'s updates to the
+    parameters in place, one leaf at a time: the clip is fused into each
+    leaf's update and each gradient is dropped once its update is added.
+    ``opt``'s tensors are updated in place. Returns the unclipped norm."""
+    gnorm = global_norm(grads)
+    scale = clip_scale(gnorm, max_norm)
+    fields = [leaves(f) for f in opt]  # each mirrors the parameters
+    with torch.no_grad():
+        for i, p in enumerate(leaves(model)):
+            g, grads[i] = grads[i], None
+            u, _ = opt_update(g, type(opt)(*(f[i] for f in fields)), p, lr, step, scale)
+            del g
+            p.add_(u.to(p.dtype))
+            del u
+    return gnorm
 
 
 def build_steps(cfg: ArchConfig, device=None, lr: float = 3e-4, warmup: int = 100,
@@ -154,13 +170,11 @@ def build_steps(cfg: ArchConfig, device=None, lr: float = 3e-4, warmup: int = 10
         """One step: ``(state, {"loss", "grad_norm", "lr"})``. The
         parameters and the optimizer state are updated in place; the
         returned state holds them and the next step count."""
-        model = state["params"]
+        model, opt = state["params"], state["opt"]
         loss, grads = loss_and_grads(bundle, model, batch)
-        grads, gnorm = clip_by_global_norm(grads, grad_clip)
+        grads = leaves(grads)  # the list is all that holds them: each goes as it lands
         lr_t = sched(state["step"])
-        updates, opt = opt_update(grads, state["opt"], module_tree(model), lr_t, state["step"])
-        del grads
-        apply_updates(model, updates)
+        gnorm = clip_and_update(model, opt, grads, opt_update, lr_t, state["step"], grad_clip)
         return (dict(params=model, opt=opt, step=state["step"] + 1),
                 dict(loss=loss, grad_norm=gnorm, lr=lr_t))
 
