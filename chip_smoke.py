@@ -122,8 +122,10 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    longer makes, ``remap_query_words``, the per-slot query words rows 2
    and 3 no longer take, and the subscription stream's host packing and
    ``torch.nonzero`` over the (N, S) match matrix;
-12. profiles one warm SKR batch, one warm kNN batch, one warm dense-scan
-   batch and one warm SKR batch each with log B's and log A's deltas
+12. profiles one warm SKR batch, one warm dense-scan batch and one warm
+   SKR batch each with log B's and log A's deltas (no kNN batch: its
+   732,838 profiler events took about two minutes to summarize, most of
+   this phase, and left the whole run within 50 s of its time limit)
    (``torch.profiler``: device busy and idle share, the largest device and
    host items);
 13. construction: ``build_wisk`` on the card over the same 1,000,000
@@ -260,7 +262,37 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    the margin rule; (e) the first MoE layer's forward twice on one input whose
    first half is one token repeated (its experts' capacity binds on ties):
    the same bits, the lowest-indexed tied tokens kept;
-19. prints the kernels' JSON line, then the result line.
+19. the enc-dec and xLSTM families (``seq_families``), no kernel on their
+   path, both at their published widths and depth (bf16, seeded weights):
+   (a) ``whisper-base`` (6 + 6 layers, d_model 512): ``prefill_step`` at
+   B = 8, S = 2048 on the ``TokenPipeline``'s batch, its (8, 512, 512) f32
+   frames included, against its bound (one profile); at B = 128 into
+   2,048 self-cache slots, the 512-slot cross cache filled from the
+   encoder over the pipeline's frames (the reference fills nothing), 4
+   teacher-forced and 8 greedy steps (tokens/s), a warm ``decode_step``
+   (CUDA events) against its bound (the self cache, the cross cache and
+   the weights read), one profiled step (idle share, host aten calls),
+   peak memory; (b) ``xlstm-125m`` (two units of five mLSTM layers and an
+   sLSTM layer, d_model 768) the same but the prefill's profile, its
+   decode from ``init_*_state`` (3.03 GB of f32 states read and written a
+   step); (c) for each, 256 decode steps at B = 8 against
+   ``prefill_step`` within 0.05 of the largest logit, every row (whisper:
+   the cross cache filled from 64 frames; xLSTM: from ``init_*_state``,
+   its weights drawn anew in f32 -- in bf16 the reference's own decode
+   drifts 15 % at 12 layers -- and the reference's own decode from the
+   zero cache finite), then the card against the port's CPU run on one
+   set of weights at ``reduced()`` (f32, full f32 products: 1e-5;
+   whisper's decode through its bf16 cache 2e-2) and at published width
+   cut to 2 layers (bf16: 0.05; xLSTM's unit cut to one mLSTM and one
+   sLSTM layer): prefill at B = 4, S = 16, 4 decode steps, greedy tokens
+   equal above the CPU's top-2 margin; (d) a ``train_step`` of each at
+   full depth, B = 4, S = 2048 (xLSTM: S = 512, its time loop), AdamW,
+   ``remat="full"``, one warm-up and three timed (CUDA events) against
+   ``lm_train_bound``, tokens/s, peak memory; one step at ``reduced()``
+   f32 against the CPU's within 1e-5 (loss, grad_norm) and 1e-4 (each
+   AdamW moment; xLSTM, whose gates amplify f32 roundings: grad_norm
+   5e-5, moments 1e-3);
+20. prints the kernels' JSON line, then the result line.
 
 Every phase prints its seconds. Any failure raises and exits non-zero.
 Without a CUDA device, or outside the repository, it exits non-zero and
@@ -2293,14 +2325,81 @@ def _qk_dim(cfg) -> int:
 def lm_matmul_params(cfg) -> int:
     """Weights one token multiplies in the layer stacks in the model's dtype
     (no head, no table, no router): per layer its attention and its FFN --
-    a dense SwiGLU, or the token's top-k experts and the shared experts."""
+    a dense SwiGLU, or the token's top-k experts and the shared experts.
+    Enc-dec: a decoder token's self attention, its cross attention's q and
+    o (k and v are the frames', ``enc_matmul_params``) and the GELU FFN.
+    xLSTM: the mLSTM layers' ``up``, q, k, v and ``down`` (the f32 gates are
+    ``xlstm_f32_ops``'), the sLSTM layers' ``w_in``, ``w_rec`` and ``down``."""
     from repro_torch.models.model import block_kinds
 
+    d = cfg.d_model
+    if cfg.family == "encdec":
+        H = cfg.pad_heads_to or cfg.n_heads
+        return cfg.n_layers * (_attn_params(cfg) + 2 * d * H * cfg.head_dim + 2 * d * cfg.d_ff)
+    if cfg.family == "xlstm":
+        di, n_s = cfg.d_inner, cfg.n_layers // cfg.slstm_every
+        return (cfg.n_layers - n_s) * (2 * d * di + 3 * di * di + di * d) + n_s * 9 * d * d
     _, _, n_dense, n_moe = block_kinds(cfg)
     f = cfg.d_expert or cfg.d_ff
     moe = 3 * cfg.d_model * f * (cfg.moe_topk + cfg.n_shared_experts)
     return (n_dense * (_attn_params(cfg) + 3 * cfg.d_model * cfg.d_ff)
             + n_moe * (_attn_params(cfg) + moe))
+
+
+def enc_matmul_params(cfg) -> int:
+    """Enc-dec: weights one frame multiplies -- every encoder layer's
+    attention and GELU FFN, and every decoder layer's cross-attention k and
+    v of the encoder's output."""
+    kv = 2 * cfg.d_model * cfg.n_kv_heads * cfg.head_dim
+    return cfg.enc_layers * (_attn_params(cfg) + 2 * cfg.d_model * cfg.d_ff) + cfg.n_layers * kv
+
+
+def xlstm_f32_ops(cfg, B: int, S: int) -> int:
+    """xLSTM: the f32 products of B x S tokens -- each mLSTM layer's gates
+    and its chunks' intra-chunk terms per head (the L x L scores, the
+    decayed values and normalizer: 6 L^2 dh a chunk) and inter-chunk terms
+    (q against C and the carried C: 4 L dh^2; q against N, the normalizer
+    and the carried N: 6 L dh). S = 1 is a decode step's (q against C and
+    N, and the gates)."""
+    H, di = cfg.n_heads, cfg.d_inner
+    dh, n_m = di // H, cfg.n_layers - cfg.n_layers // cfg.slstm_every
+    gates = 2 * B * S * di * 2 * H
+    if S == 1:
+        return n_m * (gates + 2 * B * H * (dh * dh + dh))
+    L = min(cfg.ssm_chunk, S)
+    return n_m * (gates + B * H * S * (6 * L * dh + 4 * dh * dh + 6 * dh))
+
+
+def _padded(cfg, n: int) -> int:
+    """A key length padded to the masked scan's chunk."""
+    C = min(cfg.attn_chunk, n)
+    return -(-n // C) * C
+
+
+def enc_len(cfg, S: int) -> int:
+    """Enc-dec: the frames' (and the cross cache's) length at sequence S
+    (at S >= 256 both TokenPipeline's and ``cache_shape``'s S // 4)."""
+    return max(S // cfg.enc_frames_div, 64)
+
+
+def lm_forward_ops(cfg, B: int, S: int, S_enc: int = 0):
+    """``(bf16, f32)`` operations of one forward over B x S tokens, no head:
+    the layer stacks' products and the masked scans' scores over every
+    (query, key) pair of the padded key length (QK and PV, at q/k's head
+    width); the routers' products at the f32 rate. Enc-dec: also the
+    encoder over B x ``S_enc`` f32 frames (TokenPipeline's; f32 frames make
+    the encoder's products, the cross attention's k and v and its scores
+    f32, as JAX promotes them), its scores, and the cross scores. xLSTM:
+    no scores; ``xlstm_f32_ops``."""
+    H = cfg.pad_heads_to or cfg.n_heads
+    bf16, f32 = 2 * B * S * lm_matmul_params(cfg), lm_router_ops(cfg, B * S)
+    if cfg.family == "xlstm":
+        return bf16, f32 + xlstm_f32_ops(cfg, B, S)
+    bf16 += 4 * cfg.n_layers * B * H * S * _padded(cfg, S) * _qk_dim(cfg)
+    if cfg.family == "encdec":
+        f32 += 2 * B * S_enc * enc_matmul_params(cfg) + 4 * B * H * cfg.head_dim * _padded(
+            cfg, S_enc) * (cfg.n_layers * S + cfg.enc_layers * S_enc)
+    return bf16, f32
 
 
 def lm_router_ops(cfg, T: int) -> int:
@@ -2317,9 +2416,17 @@ def lm_ops_ms(bf16_ops: int, f32_ops: int = 0) -> float:
 
 
 def lm_cache_bytes(cfg, B: int, S: int) -> int:
-    """The bf16 cache: k and v per layer, or MLA's latent and rope key."""
+    """The decode cache's bytes: bf16 k and v per layer, or MLA's latent and
+    rope key; enc-dec's self k and v and its cross cache (``enc_len``
+    slots); xLSTM's f32 states (C, N, m of every mLSTM layer; c, n, h, m
+    of every sLSTM layer), whatever S."""
+    if cfg.family == "xlstm":
+        H, d = cfg.n_heads, cfg.d_model
+        dh, n_s = cfg.d_inner // H, cfg.n_layers // cfg.slstm_every
+        return 4 * B * ((cfg.n_layers - n_s) * H * (dh * dh + dh + 1) + n_s * 4 * d)
     per_slot = cfg.kv_lora + cfg.qk_rope if cfg.use_mla else 2 * cfg.n_kv_heads * cfg.head_dim
-    return cfg.n_layers * B * S * per_slot * 2
+    cross = cfg.n_layers * B * enc_len(cfg, S) * per_slot * 2 if cfg.family == "encdec" else 0
+    return cfg.n_layers * B * S * per_slot * 2 + cross
 
 
 def lm_decode_bound(cfg, model, B: int, S: int, chosen=None):
@@ -2327,9 +2434,11 @@ def lm_decode_bound(cfg, model, B: int, S: int, chosen=None):
     once but the table (B rows) and, for MoE, the experts no token of the
     step chose (``chosen``: the distinct experts chosen, summed over the MoE
     layers; every expert where None), the whole cache read and one slot
-    written, the logits written; the products (the routers' at the f32
-    rate), and the scores over every slot (MLA: the latent's and the rope
-    key's widths, and the context over the latent)."""
+    written (enc-dec: the cross cache read; xLSTM: every state read and
+    written), the logits written; the products (the routers' and xLSTM's
+    f32 ones at the f32 rate), and the scores over every slot (MLA: the
+    latent's and the rope key's widths, and the context over the latent;
+    enc-dec: the cross cache's slots too)."""
     H = cfg.pad_heads_to or cfg.n_heads
     el = model.embed.table.element_size()
     cache = lm_cache_bytes(cfg, B, S)
@@ -2341,32 +2450,37 @@ def lm_decode_bound(cfg, model, B: int, S: int, chosen=None):
         f = cfg.d_expert or cfg.d_ff
         n_moe = block_kinds(cfg)[3]
         unchosen = (n_moe * n_experts_padded(cfg) - chosen) * 3 * cfg.d_model * f * el
-    nbytes = (lm_bytes(model) - model.embed.table.numel() * el - unchosen + B * cfg.d_model * el
-              + cache + cache // S + B * cfg.vocab * el)
-    if cfg.use_mla:
-        scores = 2 * B * H * S * (2 * cfg.kv_lora + cfg.qk_rope)
+    if cfg.family == "xlstm":
+        traffic, scores = 2 * cache, 0
+    elif cfg.family == "encdec":
+        self_slot = cfg.n_layers * B * 2 * cfg.n_kv_heads * cfg.head_dim * 2
+        traffic = cache + self_slot
+        scores = 4 * B * H * (S + enc_len(cfg, S)) * cfg.head_dim
     else:
-        scores = 4 * B * H * S * cfg.head_dim
+        traffic = cache + cache // S
+        if cfg.use_mla:
+            scores = 2 * B * H * S * (2 * cfg.kv_lora + cfg.qk_rope)
+        else:
+            scores = 4 * B * H * S * cfg.head_dim
+    nbytes = (lm_bytes(model) - model.embed.table.numel() * el - unchosen + B * cfg.d_model * el
+              + traffic + B * cfg.vocab * el)
     ops = 2 * B * (lm_matmul_params(cfg) + cfg.d_model * cfg.vocab) + cfg.n_layers * scores
-    ms = max(nbytes / HBM_BYTES_PER_S * 1e3, lm_ops_ms(ops, lm_router_ops(cfg, B)))
+    f32 = lm_router_ops(cfg, B) + (xlstm_f32_ops(cfg, B, 1) if cfg.family == "xlstm" else 0)
+    ms = max(nbytes / HBM_BYTES_PER_S * 1e3, lm_ops_ms(ops, f32))
     return ms, nbytes, ops
 
 
-def lm_prefill_bound(cfg, model, B: int, S: int):
-    """``(ms, operations, bytes)`` of one prefill: the products of B*S
-    tokens (the routers' at the f32 rate), the head at the last position,
-    and the masked scan's scores over every (query, key) pair of the padded
-    key length (QK and PV, at q/k's head width)."""
-    H = cfg.pad_heads_to or cfg.n_heads
-    C = min(cfg.attn_chunk, S)
-    skv = -(-S // C) * C
-    ops = 2 * B * S * lm_matmul_params(cfg) + 2 * B * cfg.d_model * cfg.vocab \
-        + 4 * cfg.n_layers * B * H * S * skv * _qk_dim(cfg)
+def lm_prefill_bound(cfg, model, B: int, S: int, S_enc: int = 0):
+    """``(ms, operations, bytes)`` of one prefill: ``lm_forward_ops`` (the
+    f32 ones at the f32 rate; ``operations`` counts the bf16 ones) and the
+    head at the last position; every weight but the table read once, the
+    tokens (and enc-dec's f32 frames) read, the logits written."""
+    bf16, f32 = lm_forward_ops(cfg, B, S, S_enc)
+    ops = bf16 + 2 * B * cfg.d_model * cfg.vocab
     el = model.embed.table.element_size()
     nbytes = lm_bytes(model) - model.embed.table.numel() * el + B * S * (cfg.d_model * el + 4) \
-        + B * cfg.vocab * el
-    return max(lm_ops_ms(ops, lm_router_ops(cfg, B * S)), nbytes / HBM_BYTES_PER_S * 1e3), ops, \
-        nbytes
+        + B * S_enc * cfg.d_model * 4 + B * cfg.vocab * el
+    return max(lm_ops_ms(ops, f32), nbytes / HBM_BYTES_PER_S * 1e3), ops, nbytes
 
 
 def rel_err(got, want, block: int = 1 << 26) -> float:
@@ -2396,26 +2510,29 @@ def first_ids(ids: np.ndarray, n: int) -> np.ndarray:
     return out
 
 
-def decode_against_prefill(steps, params, toks, moe: bool = False) -> float:
+def decode_against_prefill(steps, params, toks, moe: bool = False, frames=None) -> float:
     """The last of ``toks.shape[1]`` teacher-forced decode steps' logits
     against ``prefill_step`` at the last position, relative to the largest
-    prefill logit; fails above ``LM_REL``. With ``moe`` each decode step
-    replays prefill's expert choices for its tokens (``RoutingLog``): a
-    token's top-k experts are a discontinuous function of its router
-    logits, and the two paths' roundings may flip a near tie. It needs
-    ``B * S <= 8``, where no capacity binds at prefill."""
+    prefill logit; fails above ``LM_REL``. The decode starts from
+    ``start_cache`` (enc-dec: the cross cache filled from ``frames``,
+    which prefill reads too; xLSTM: ``init_*_state``). With ``moe`` each
+    decode step replays prefill's expert choices for its tokens
+    (``RoutingLog``): a token's top-k experts are a discontinuous function
+    of its router logits, and the two paths' roundings may flip a near tie.
+    It needs ``B * S <= 8``, where no capacity binds at prefill."""
     B, S = toks.shape
     if moe and B * S > 8:
         raise ValueError(f"{B * S} tokens: a capacity could bind at prefill")
+    batch = dict(tokens=toks) if frames is None else dict(tokens=toks, frames=frames)
     with RoutingLog(keep=True) if moe else contextlib.nullcontext() as pl:
-        want = steps.prefill_step(params, dict(tokens=toks))
+        want = steps.prefill_step(params, batch)
     replay = None
     if moe:  # call t * L + layer of the decode is prefill's layer at position t
         L = len(pl.calls)
         replay = types.SimpleNamespace(calls=[
             dict(top_idx=pl.calls[layer]["top_idx"].view(B, S, -1)[:, t])
             for t in range(S) for layer in range(L)])
-    cache = steps.init_cache(B, S)
+    cache = start_cache(steps, params, B, S, frames)
     pos = torch.zeros((), dtype=torch.int32, device=toks.device)
     with RoutingLog(replay=replay) if moe else contextlib.nullcontext():
         for t in range(S):
@@ -2677,27 +2794,25 @@ TRAIN_REL = dict(loss=1e-2, grad_norm=2e-2, m=5e-2, v=1e-1)
 OPT_BYTES_PER_PARAM = dict(adamw=22, adafactor=6)
 
 
-def lm_train_bound(cfg, n_params: int, B: int, S: int):
+def lm_train_bound(cfg, n_params: int, B: int, S: int, S_enc: int = 0):
     """``(ms, operations, bytes)`` of one training step: four forwards'
     operations (the forward, the remat recompute and a backward of two), a
-    forward being the products of B*S tokens (the routers' at the f32
-    rate), the head at every position and the masked scan's scores over
-    every (query, key) pair of the padded key length (QK and PV); with an
-    MTP block, its projection, dense block and head three times over (it
-    is not recomputed); and the optimizer's bytes (``OPT_BYTES_PER_PARAM``)."""
-    H = cfg.pad_heads_to or cfg.n_heads
-    C = min(cfg.attn_chunk, S)
-    skv = -(-S // C) * C
+    forward being ``lm_forward_ops`` (the f32 ones at the f32 rate;
+    ``operations`` counts the bf16 ones) and the head at every position;
+    with an MTP block, its projection, dense block and head three times
+    over (it is not recomputed); and the optimizer's bytes
+    (``OPT_BYTES_PER_PARAM``)."""
     T = B * S
-    scores = 4 * B * H * S * skv * _qk_dim(cfg)
     head = 2 * T * cfg.d_model * cfg.vocab
-    fwd = 2 * T * lm_matmul_params(cfg) + head + cfg.n_layers * scores
-    ops = 4 * fwd
+    bf16, f32 = lm_forward_ops(cfg, B, S, S_enc)
+    ops = 4 * (bf16 + head)
     if cfg.mtp_depth:
+        H = cfg.pad_heads_to or cfg.n_heads
+        scores = 4 * B * H * S * _padded(cfg, S) * _qk_dim(cfg)
         block = _attn_params(cfg) + 3 * cfg.d_model * cfg.d_ff
         ops += 3 * (2 * T * (2 * cfg.d_model * cfg.d_model + block) + head + scores)
     nbytes = OPT_BYTES_PER_PARAM[cfg.optimizer] * n_params
-    ms = max(lm_ops_ms(ops, 4 * lm_router_ops(cfg, T)), nbytes / HBM_BYTES_PER_S * 1e3)
+    ms = max(lm_ops_ms(ops, 4 * f32), nbytes / HBM_BYTES_PER_S * 1e3)
     return ms, ops, nbytes
 
 
@@ -3060,9 +3175,7 @@ def compare_routing(g: dict, c: dict, n_experts: int, what: str) -> str:
 def cpu_copy(bundle, model):
     """A CPU copy of ``model``, the same bits, made leaf by leaf into an
     empty skeleton (a copy on the card first would double its share)."""
-    from repro_torch.models.model import DecoderOnlyLM
-
-    out = DecoderOnlyLM(bundle.cfg, bundle.init_tree(torch.Generator(), device="meta"))
+    out = type(model)(bundle.cfg, bundle.init_tree(torch.Generator(), device="meta"))
     out = out.to_empty(device="cpu")
     with torch.no_grad():
         for p, q in zip(out.parameters(), model.parameters()):
@@ -3320,7 +3433,8 @@ def train_step_against_cpu(dev, cfg, steps, state, hb: int, hs: int, what: str, 
     check_metrics(gm, what)
     # the first call's experts are the card's own (the log keeps them), and
     # an expert its choosers agree on selects from the same tokens either way
-    own = compare_routing(gl.calls[0], cl.calls[0], cfg.n_experts, what)
+    own = (compare_routing(gl.calls[0], cl.calls[0], cfg.n_experts, what) if cl.calls
+           else "no MoE call")
     errs = {k: abs(float(gm[k]) - float(cm[k])) / abs(float(cm[k])) for k in ("loss", "grad_norm")}
     for name in type(state["opt"])._fields:
         errs[name] = max(rel_err(a, b) for a, b in zip(leaves(getattr(state["opt"], name)),
@@ -3328,13 +3442,14 @@ def train_step_against_cpu(dev, cfg, steps, state, hb: int, hs: int, what: str, 
     for k, v in errs.items():
         if not v <= rel[k]:
             raise AssertionError(f"{what}: the card's {k} differs from the CPU's: {v} > {rel[k]}")
+    replayed = (f" (replaying the CPU's routing decisions in its {len(cl.calls)} MoE calls, "
+                f"forward and recompute, at its own gates)" if cl.calls else "")
     return state, (
-        f"check {what}: one train_step at B={hb} S={hs}, the card (replaying the CPU's routing "
-        f"decisions in its {len(cl.calls)} MoE calls, forward and recompute, at its own gates) "
+        f"check {what}: one train_step at B={hb} S={hs}, the card{replayed} "
         f"against the port's CPU run: loss {float(gm['loss']):.6f} / {float(cm['loss']):.6f}, "
         f"errors (of the largest value, per leaf for the optimizer's state) " + ", ".join(
             f"{k} {v:.3e} <= {rel[k]}" for k, v in errs.items())
-        + f"; {own}; card {start.elapsed_time(end):.3f} ms (CUDA "
+        + (f"; {own}" if cl.calls else "") + f"; card {start.elapsed_time(end):.3f} ms (CUDA "
         f"events), CPU {t_cpu:.3f} s, the CPU copy {t_copy:.3f} s")
 
 
@@ -3442,6 +3557,404 @@ def moe_families(dev, card: str) -> None:
     for arch in MOE_ARCHS:
         with phase(f"{arch} train_step"):
             moe_training(dev, card, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# ------------------------------------ enc-dec and xLSTM families (phase 19)
+SEQ_ARCHS = ("whisper-base", "xlstm-125m")
+SEQ_PREFILL = (8, 2048)  # (B, S); whisper's TokenPipeline frames then (8, 512, 512) f32
+# (B, slots): whisper's self cache 3.22 GB at 2,048 slots and its cross cache
+# (512 slots) 0.81 GB; xLSTM's states 3.03 GB whatever the slots
+SEQ_DECODE = (128, 2048)
+SEQ_STEPS = (4, 8)  # teacher-forced steps, then greedy tokens, at the decode shape
+# the prefills profiled: xLSTM's makes 256,641 host aten calls (its sLSTM's
+# time loop), and its profile took 61.3 s to summarize (NVIDIA H100 80GB
+# HBM3, 700.00 W)
+SEQ_PROFILE_PREFILL = ("whisper-base",)
+SEQ_CHECK = (8, 256)  # decode against prefill: (B, teacher-forced steps); whisper: 64 frames
+# ... with the weights in this dtype. xLSTM's bf16 residual stream rounds
+# differently in the chunked mixer and the recurrent decode, and its
+# exponential gates grow that gap with depth: at published width over 12
+# layers 15.1 % of the largest logit in the reference's own bf16 run
+# (tools/reference_seq_drift.py, JAX on the CPU, B = 2, S = 256), 9.6e-5 in
+# f32 (tools/seq_decode_drift.py has the port's). f32 weights keep the
+# check's 12 layers and widths within LM_REL; whisper stays bf16
+SEQ_CHECK_DTYPE = {"whisper-base": "bfloat16", "xlstm-125m": "float32"}
+# (c): the card against the port's CPU run on one set of weights, at the
+# arch's reduced() config (f32, full f32 products) and at published width
+# cut to 2 layers (bf16; xLSTM's unit cut to one mLSTM and one sLSTM layer):
+# prefill (B, S), then as many teacher-forced decode steps as greedy tokens
+SEQ_CPU_CUT = {"whisper-base": dict(n_layers=2, enc_layers=2),
+               "xlstm-125m": dict(n_layers=2, slstm_every=2)}
+SEQ_CPU_SHAPE = (4, 16, 4)
+SEQ_F32_REL = 1e-5  # reduced() f32, the card against the CPU (prefill; xLSTM's f32 states)
+# ... what whisper's decode reads from its bf16 self cache: an f32 ulp
+# apart rounds to neighbouring bf16 values (tests/test_torch_lm.py's bound)
+SEQ_CACHE_REL = 2e-2
+# (d): B, S of the full-depth step. xLSTM's S is cut to 512: its sLSTM
+# runs a Python loop over time in the forward, the remat recompute and the
+# backward, and a step at S = 2048 took 12,191-13,525 ms (NVIDIA H100 80GB
+# HBM3, 700.00 W)
+SEQ_TRAIN = {"whisper-base": (4, 2048), "xlstm-125m": (4, 512)}
+SEQ_TRAIN_STEPS = (1, 3)  # (d): warm-up steps, then timed steps
+SEQ_TRAIN_CPU = (1, 32)  # (d): reduced() f32 step, the card against the CPU
+# PR 27's f32 bounds; xLSTM's exponential gates amplify f32 roundings past
+# them: one f32 ulp on every weight moves its reduced() config's gradient
+# leaves by up to 4.05e-4 and three steps' grad_norm by up to 8.9e-5
+# (tools/seq_noise_floor.py on the CPU), so its grad_norm and state leaves
+# are held to 5e-5 and 1e-3
+SEQ_TRAIN_F32 = {"whisper-base": dict(loss=1e-5, grad_norm=1e-5, m=1e-4, v=1e-4),
+                 "xlstm-125m": dict(loss=1e-5, grad_norm=5e-5, m=1e-3, v=1e-3)}
+
+
+def fill_cross_cache(model, cache, enc_out):
+    """The enc-dec cross cache from the encoder's output: each decoder
+    layer's cross-attention k and v projections of it, rounded to the
+    cache's bf16. (The reference fills nothing: its decode reads the zeros
+    of ``cache_shape``.)"""
+    from repro_torch.models.layers import _proj
+
+    ca = model.tree()["dec_blocks"]["cross_attn"]
+    with torch.no_grad():
+        for i in range(cache["xk"].shape[0]):
+            cache["xk"][i].copy_(_proj(enc_out, ca["wk"][i]))
+            cache["xv"][i].copy_(_proj(enc_out, ca["wv"][i]))
+    return cache
+
+
+def start_cache(steps, params, B: int, S: int, frames=None):
+    """A decode cache of (B, S) that starts where prefill does: enc-dec's
+    cross cache filled from ``frames`` (``fill_cross_cache``; their length
+    must be the cache's), xLSTM's stabilizers at ``init_*_state``'s
+    ``-1e30`` (the zero cache starts them at 0, the reference's own decode);
+    the zero cache otherwise."""
+    cache = steps.init_cache(B, S)
+    if steps.cfg.family == "encdec":
+        if frames is None or frames.shape[1] != cache["xk"].shape[2]:
+            raise ValueError(f"frames of the cross cache's {cache['xk'].shape[2]} slots needed")
+        with torch.no_grad():
+            return fill_cross_cache(params, cache, params.encode(frames))
+    if steps.cfg.family == "xlstm":
+        from repro_torch.models.xlstm import STAB_INIT
+
+        cache["m"].fill_(STAB_INIT)
+        cache["sm"].fill_(STAB_INIT)
+    return cache
+
+
+def seq_frames(cfg, B: int, S: int, gen, dev):
+    """Enc-dec: (B, enc_len(S), d) f32 frames from ``gen`` (the cross
+    cache's length at S slots), else None."""
+    if cfg.family != "encdec":
+        return None
+    return torch.randn((B, enc_len(cfg, S), cfg.d_model), generator=gen, device=gen.device).to(
+        dev)
+
+
+def seq_serving(dev, card: str, arch: str) -> None:
+    """(a) / (b): ``arch`` at its published widths and depth, bf16 weights
+    from a seeded generator: ``prefill_step`` at ``SEQ_PREFILL`` on the
+    ``TokenPipeline``'s batch (whisper: its f32 frames) against its bound,
+    one profiled prefill (``SEQ_PROFILE_PREFILL``); at ``SEQ_DECODE`` a
+    cache that starts where prefill does (``start_cache``: whisper's cross
+    cache filled from the encoder over the pipeline's frames, timed),
+    teacher-forced and greedy
+    steps (tokens/s, host clock), a warm ``decode_step`` (CUDA events)
+    against its bound, one profiled step (device idle share, host aten
+    calls), peak memory; then (c) decode against prefill at ``SEQ_CHECK``
+    within ``LM_REL``, every row, and for xLSTM the reference's own decode
+    from the zero cache: finite, its gap to prefill printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.train.decode import greedy_generate
+    from repro_torch.train.step import build_steps
+
+    cfg = get_config(arch)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    steps = build_steps(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t = time.perf_counter()
+    params = steps.bundle.init(gen, dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    shape = (f"enc_layers={cfg.enc_layers} n_layers={cfg.n_layers} d_ff={cfg.d_ff} "
+             f"heads={cfg.n_heads} enc_frames_div={cfg.enc_frames_div}"
+             if cfg.family == "encdec" else
+             f"n_layers={cfg.n_layers} slstm_every={cfg.slstm_every} heads={cfg.n_heads} "
+             f"d_inner={cfg.d_inner} ssm_chunk={cfg.ssm_chunk}")
+    log(f"{arch} on {card}: {cfg.family} d_model={cfg.d_model} {shape} vocab={cfg.vocab} "
+        f"{cfg.dtype}: {n_params} parameters, {lm_bytes(params)} B of weights "
+        f"({time.perf_counter() - t:.3f} s)")
+
+    # prefill on the pipeline's batch
+    pb, ps = SEQ_PREFILL
+    batch = TokenPipeline(cfg.vocab, ps, pb, seed=SEED).next_batch(cfg, dev)
+    s_enc = batch["frames"].shape[1] if "frames" in batch else 0
+    t = time.perf_counter()
+    out = steps.prefill_step(params, batch)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t
+    if out.shape != (pb, 1, cfg.vocab) or not torch.isfinite(out).all():
+        raise AssertionError(f"{arch}: prefill logits {tuple(out.shape)}")
+    del out
+    pre_ms = time_ms(lambda: steps.prefill_step(params, batch), iters=2, warmup=0)
+    p_ms, p_ops, p_bytes = lm_prefill_bound(cfg, params, pb, ps, s_enc)
+    p_f32 = lm_forward_ops(cfg, pb, ps, s_enc)[1]
+    log(f"prefill ({card}): B={pb} S={ps}"
+        + (f" with {tuple(batch['frames'].shape)} f32 frames" if s_enc else "")
+        + f": {pre_ms:.6f} ms (CUDA events) = {pb * ps / pre_ms * 1e3:.1f} tokens/s; bound "
+        f"{p_ms:.6f} ms ({p_ops} bf16 operations / 989 TFLOP/s + {p_f32} f32 operations / "
+        f"67 TFLOP/s; {p_bytes} B): {100 * p_ms / pre_ms:.3f} % of it; the first call "
+        f"{t_first:.3f} s (host clock)")
+    if arch in SEQ_PROFILE_PREFILL:
+        profile_call(f"{arch} prefill_step (B={pb}, S={ps})",
+                     lambda: steps.prefill_step(params, batch))
+    del batch
+
+    # decode at the serving shape, from a cache that starts where prefill does
+    B, slots = SEQ_DECODE
+    n_tf, n_new = SEQ_STEPS
+    dbatch = TokenPipeline(cfg.vocab, slots, B, seed=SEED + 1).next_batch(cfg, dev)
+    t = time.perf_counter()
+    cache = start_cache(steps, params, B, slots, dbatch.get("frames"))
+    torch.cuda.synchronize()
+    t_fill = time.perf_counter() - t
+    prompt = dbatch["tokens"][:, :n_tf].contiguous()
+    del dbatch
+    log(f"cache: {sum(c.numel() * c.element_size() for c in cache.values())} B ({B} rows, "
+        f"{sorted((k, tuple(c.shape), str(c.dtype)[6:]) for k, c in cache.items())}); "
+        + (f"the cross cache filled from the encoder over ({B}, {cache['xk'].shape[2]}, "
+           f"{cfg.d_model}) f32 frames in {t_fill:.3f} s" if cfg.family == "encdec" else
+           "the stabilizers at init_*_state's -1e30"))
+    pos = torch.zeros((), dtype=torch.int32, device=dev)
+    t = time.perf_counter()
+    for i in range(n_tf):
+        logits, cache = steps.decode_step(params, cache, prompt[:, i:i + 1], pos)
+        pos = pos + 1
+    torch.cuda.synchronize()
+    t_tf = time.perf_counter() - t
+    first = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    t = time.perf_counter()
+    gtoks, cache = greedy_generate(steps, params, cache, first, n_new=n_new, start_pos=n_tf)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t
+    if gtoks.shape != (B, n_new) or int(gtoks.min()) < 0 or int(gtoks.max()) >= cfg.vocab:
+        raise AssertionError(f"{arch}: greedy tokens {tuple(gtoks.shape)}")
+    tpos = torch.tensor(n_tf + n_new, dtype=torch.int32, device=dev)
+    logits = steps.decode_step(params, cache, first, tpos)[0]
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{arch}: non-finite decode logits")
+    step_ms = time_ms(lambda: steps.decode_step(params, cache, first, tpos), iters=10, warmup=2)
+    b_ms, b_bytes, b_ops = lm_decode_bound(cfg, params, B, slots)
+    log(f"decode ({card}): {n_tf} teacher-forced steps {t_tf:.6f} s, greedy {n_new} steps "
+        f"{t_gen:.6f} s = {B * n_new / t_gen:.3f} tokens/s (host clock); warm decode_step "
+        f"{step_ms:.6f} ms (CUDA events) = {B / step_ms * 1e3:.3f} tokens/s; bound {b_ms:.6f} ms "
+        f"({b_bytes} B / 3.35 TB/s; {b_ops} bf16 operations / 989 TFLOP/s): "
+        f"{100 * b_ms / step_ms:.3f} % of it")
+    log(f"  first row's tokens: {gtoks[0].tolist()}")
+    profile_call(f"{arch} decode_step (B={B}, {slots} slots)",
+                 lambda: steps.decode_step(params, cache, first, tpos))
+    log(f"peak device memory ({arch}): {torch.cuda.max_memory_allocated() - base} B above the "
+        f"start ({base} B)")
+    del cache, logits
+
+    # (c) decode against prefill, every row, from the cache prefill starts at,
+    # the weights drawn anew in SEQ_CHECK_DTYPE where it is not the model's
+    if SEQ_CHECK_DTYPE[arch] != cfg.dtype:
+        del params, steps
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(cfg, dtype=SEQ_CHECK_DTYPE[arch])
+        steps = build_steps(cfg, device=dev)
+        params = steps.bundle.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    cb, cs = SEQ_CHECK
+    cgen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    ctoks = torch.randint(0, cfg.vocab, (cb, cs), generator=cgen, device=dev, dtype=torch.int32)
+    frames = seq_frames(cfg, cb, cs, cgen, dev)
+    t = time.perf_counter()
+    err = decode_against_prefill(steps, params, ctoks, frames=frames)
+    note = ""
+    if cfg.family == "xlstm":  # the reference's own decode: the zero cache
+        want = steps.prefill_step(params, dict(tokens=ctoks))
+        zc, zpos = steps.init_cache(cb, cs), torch.zeros((), dtype=torch.int32, device=dev)
+        for i in range(cs):
+            zl, zc = steps.decode_step(params, zc, ctoks[:, i:i + 1], zpos)
+            zpos = zpos + 1
+        if not torch.isfinite(zl).all():
+            raise AssertionError(f"{arch}: the zero cache's decode is not finite")
+        note = (f"; from the zero cache (the reference's own decode, stabilizers at 0) "
+                f"finite, {rel_err(zl, want):.6f} from prefill")
+        del zc, want
+    log(f"check (c): {cs} decode steps at B={cb} against prefill_step, every row, "
+        f"{cfg.n_layers} layers, {cfg.dtype} weights, from "
+        + ("the cross cache filled from the encoder over " f"{tuple(frames.shape)} frames"
+           if frames is not None else "init_mlstm_state / init_slstm_state")
+        + f": max |err| / max |logit| {err:.6f} <= {LM_REL}{note} "
+        f"({time.perf_counter() - t:.3f} s)")
+    del params, steps
+
+
+def seq_card_against_cpu(dev, card: str, arch: str) -> None:
+    """(c): one set of weights on the card and on the CPU, at ``arch``'s
+    ``reduced()`` config (f32, full f32 products: prefill and xLSTM's
+    decode within ``SEQ_F32_REL``, whisper's decode through its bf16 cache
+    within ``SEQ_CACHE_REL``) and at published width cut as
+    ``SEQ_CPU_CUT`` says (bf16: ``LM_REL``): prefill at ``SEQ_CPU_SHAPE``,
+    teacher-forced decode steps from ``start_cache`` on each device, then
+    greedy tokens equal above the CPU's top-2 margin."""
+    from repro_torch import full_f32_matmul
+    from repro_torch.configs import get_config
+    from repro_torch.train.step import build_steps
+
+    B, S, n = SEQ_CPU_SHAPE
+    for label, cfg in (("reduced() f32", get_config(arch).reduced()),
+                       (f"published width, {SEQ_CPU_CUT[arch]}",
+                        dataclasses.replace(get_config(arch), **SEQ_CPU_CUT[arch]))):
+        f32 = cfg.dtype == "float32"
+        pre_rel = SEQ_F32_REL if f32 else LM_REL
+        dec_rel = SEQ_CACHE_REL if f32 and cfg.family == "encdec" else pre_rel
+        t = time.perf_counter()
+        steps, csteps = build_steps(cfg, device=dev), build_steps(cfg, device="cpu")
+        params = steps.bundle.init(torch.Generator(device=dev).manual_seed(SEED + 3), dev)
+        cpu = cpu_copy(csteps.bundle, params)
+        gen = torch.Generator().manual_seed(SEED + 3)
+        toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, dtype=torch.int32)
+        frames = seq_frames(cfg, B, 2 * n, gen, "cpu")
+        batch = dict(tokens=toks) if frames is None else dict(tokens=toks, frames=frames)
+        with full_f32_matmul() if f32 else contextlib.nullcontext():
+            want = csteps.prefill_step(cpu, batch)
+            got = steps.prefill_step(params, {k: v.to(dev) for k, v in batch.items()})
+            pre_err = rel_err(got, want)
+            if pre_err > pre_rel:
+                raise AssertionError(f"{arch} {label}: the card's prefill differs: {pre_err}")
+            caches = dict(card=start_cache(steps, params, B, 2 * n,
+                                           None if frames is None else frames.to(dev)),
+                          cpu=start_cache(csteps, cpu, B, 2 * n, frames))
+            last, errs = {}, []
+            for i in range(n):
+                for name, st, p in (("cpu", csteps, cpu), ("card", steps, params)):
+                    d = st.device
+                    last[name], caches[name] = st.decode_step(
+                        p, caches[name], toks[:, i:i + 1].to(d),
+                        torch.tensor(i, dtype=torch.int32, device=d))
+                errs.append(rel_err(last["card"], last["cpu"]))
+            err = max(errs)
+            if err > dec_rel:
+                raise AssertionError(f"{arch} {label}: the card's decode differs: {errs}")
+            compared = greedy_against_cpu(steps, params, csteps, cpu, caches, last, n, err)
+        log(f"check (c) {arch} {label} ({cfg.dtype}), the card against the port's CPU run: "
+            f"prefill B={B} S={S} max |err| / max |logit| {pre_err:.3e} <= {pre_rel}; {n} "
+            f"decode steps at B={B} {[f'{e:.3e}' for e in errs]} <= {dec_rel}; greedy tokens "
+            f"equal at {compared} of {B * (n + 1)} positions (compared up to each row's first "
+            f"CPU top-2 margin within the error) ({time.perf_counter() - t:.3f} s)")
+        del params, cpu, caches, steps, csteps
+
+
+def seq_training(dev, card: str, arch: str) -> None:
+    """(d): ``arch`` at its published config and depth (bf16, AdamW,
+    ``remat="full"``): ``SEQ_TRAIN_STEPS`` warm-up then timed
+    ``train_step``s at ``SEQ_TRAIN[arch]`` on the ``TokenPipeline`` (whisper: its
+    f32 frames), each timed with CUDA events, their mean and spread against
+    ``lm_train_bound``, tokens/s, peak device memory; then one step at the
+    arch's ``reduced()`` config (f32, ``remat="full"``) from one fresh
+    state on the card and on the CPU within ``SEQ_TRAIN_F32[arch]``."""
+    from repro_torch import full_f32_matmul
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.train.step import build_steps
+    from repro_torch.tree import leaves
+
+    cfg = get_config(arch)
+    B, S = SEQ_TRAIN[arch]
+    n_warm, n_timed = SEQ_TRAIN_STEPS
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    steps = build_steps(cfg, device=dev)
+    state = steps.init_state(torch.Generator(device=dev).manual_seed(SEED + 4))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    w_bytes = lm_bytes(state["params"])
+    o_bytes = sum(x.numel() * x.element_size() for x in leaves(state["opt"]))
+    pipe = TokenPipeline(cfg.vocab, S, B, seed=2)
+    batches = [pipe.next_batch(cfg, dev) for _ in range(n_warm + n_timed)]
+    s_enc = batches[0]["frames"].shape[1] if "frames" in batches[0] else 0
+    log(f"(d) {arch} on {card}: {cfg.optimizer}, remat={cfg.remat}: {n_params} parameters, "
+        f"{w_bytes} B of weights, {o_bytes} B of optimizer state ({time.perf_counter() - t:.3f} s)")
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in batches]
+    metrics = []
+    t = time.perf_counter()
+    for (start, end), batch in zip(events, batches):
+        start.record()
+        state, m = steps.train_step(state, batch)
+        end.record()
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    for i, m in enumerate(metrics):
+        check_metrics(m, f"(d) {arch} step {i}")
+    ms = [s.elapsed_time(e) for s, e in events]
+    timed = ms[n_warm:]
+    mean = float(np.mean(timed))
+    b_ms, b_ops, b_bytes = lm_train_bound(cfg, n_params, B, S, s_enc)
+    log(f"(d) {arch} train_step ({card}): B={B} S={S}"
+        + (f" with ({B}, {s_enc}, {cfg.d_model}) f32 frames" if s_enc else "")
+        + f": first {ms[0]:.6f} ms; timed steps mean {mean:.6f} ms, min {min(timed):.6f}, max "
+        f"{max(timed):.6f}, std {float(np.std(timed)):.6f} over {len(timed)} (CUDA events) = "
+        f"{B * S / mean * 1e3:.3f} tokens/s; host wall {wall:.3f} s for {len(batches)} steps; "
+        f"losses {[round(float(m['loss']), 6) for m in metrics]}; bound {b_ms:.6f} ms ({b_ops} "
+        f"bf16 operations / 989 TFLOP/s + {4 * lm_forward_ops(cfg, B, S, s_enc)[1]} f32 "
+        f"operations / 67 TFLOP/s; {b_bytes} B / 3.35 TB/s): {100 * b_ms / mean:.3f} % of it; "
+        f"peak device memory {torch.cuda.max_memory_allocated() - base} B above the start "
+        f"({base} B), the state {w_bytes + o_bytes} B")
+    del state, batches, steps, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    hb, hs = SEQ_TRAIN_CPU
+    rcfg = dataclasses.replace(get_config(arch).reduced(), remat="full")
+    rsteps = build_steps(rcfg, device=dev)
+    rstate = rsteps.init_state(torch.Generator(device=dev).manual_seed(SEED + 4))
+    with full_f32_matmul():
+        _, line = train_step_against_cpu(dev, rcfg, rsteps, rstate, hb, hs,
+                                         f"(d) {arch} reduced() ({rcfg.optimizer}, f32)",
+                                         SEQ_TRAIN_F32[arch])
+    log(line)
+
+
+def seq_families(dev, card: str) -> None:
+    """Phase 19: the enc-dec and xLSTM families on the card.
+
+    (a) ``whisper-base`` (6 encoder and 6 decoder layers, d_model 512) and
+    (b) ``xlstm-125m`` (two units of five mLSTM layers and one sLSTM layer,
+    d_model 768), both at their published widths and depth:
+    ``seq_serving``, with (c)'s decode against prefill. (c) the card
+    against the port's CPU run on the same weights:
+    ``seq_card_against_cpu``. (d) one warm ``train_step`` of each at full
+    depth, and one against the CPU at ``reduced()``: ``seq_training``.
+    """
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the promoted f32 products would be rounded")
+    for arch in SEQ_ARCHS:
+        with phase(f"{arch} serving"):
+            seq_serving(dev, card, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        with phase(f"{arch} card against CPU"):
+            seq_card_against_cpu(dev, card, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        with phase(f"{arch} train_step"):
+            seq_training(dev, card, arch)
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -4735,8 +5248,6 @@ def main() -> int:
     with phase("profiles"):
         profile_batch("SKR", lambda cache: serve_batch(
             snap, wl.rects[b0], bms[b0], MAX_LEAVES, plan_cache=cache), warm, PlanCache)
-        profile_batch(f"kNN (k={K})", lambda cache: serve_knn_batch(
-            snap, points[b0], bms[b0], K, plan_cache=cache), warm_knn, PlanCache)
         profile_batch("dense SKR", lambda cache: serve_batch(
             snap, wl.rects[b0], bms[b0], MAX_LEAVES, mode="dense"), warm, PlanCache)
         for label in ("B", "A"):
@@ -4769,6 +5280,9 @@ def main() -> int:
 
     with phase("MoE and MLA families"):
         moe_families(dev, card)
+
+    with phase("enc-dec and xLSTM families"):
+        seq_families(dev, card)
 
     log(f"card: {card}")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -40,18 +40,24 @@ class TokenPipeline:
 
     def next_batch(self, cfg, device=None) -> Dict[str, torch.Tensor]:
         """The next batch on ``device`` (``cuda`` unless the caller names
-        another): int32 ``tokens`` (batch, seq), and for ``vlm`` f32
-        ``patches`` (batch, min(n_patches, max(seq // 4, 4)), d_model)."""
-        if cfg.family == "encdec":
-            raise NotImplementedError(
-                "the encdec family's frames are not ported yet (ROADMAP A.13e)")
+        another): int32 ``tokens`` (batch, seq); for ``encdec`` also f32
+        ``frames`` (batch, max(seq // enc_frames_div, 8), d_model), for
+        ``vlm`` f32 ``patches`` (batch, min(n_patches, max(seq // 4, 4)),
+        d_model), each drawn from a seed of its own after the step is
+        advanced, as the reference."""
         dev = resolve_device(device)
         toks = self._batch_tokens(self.step)
         self.step += 1
-        out = dict(tokens=torch.from_numpy(toks).to(dev))
+        tokens = torch.from_numpy(toks).to(dev)
+        if cfg.family == "encdec":
+            rng = np.random.default_rng(np.uint64(self.seed * 7_000_003 + self.step))
+            frames = rng.normal(0, 1, size=(self.batch, max(self.seq // cfg.enc_frames_div, 8),
+                                            cfg.d_model))
+            return dict(frames=torch.from_numpy(frames.astype(np.float32)).to(dev), tokens=tokens)
         if cfg.family == "vlm":
             P = min(cfg.n_patches, max(self.seq // 4, 4))
             rng = np.random.default_rng(np.uint64(self.seed * 9_000_003 + self.step))
             patches = rng.normal(0, 1, size=(self.batch, P, cfg.d_model))
-            out["patches"] = torch.from_numpy(patches.astype(np.float32)).to(dev)
-        return out
+            return dict(patches=torch.from_numpy(patches.astype(np.float32)).to(dev),
+                        tokens=tokens)
+        return dict(tokens=tokens)

@@ -1,6 +1,6 @@
 """Weights carried across from the JAX package: the reference's parameter
 values (``state["params"]`` as numpy arrays) as a ``state_dict`` of the
-port's ``DecoderOnlyLM``."""
+port's model module (``DecoderOnlyLM``, ``EncDecLM`` or ``XLSTMLM``)."""
 from __future__ import annotations
 
 from typing import Dict

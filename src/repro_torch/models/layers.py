@@ -1,7 +1,8 @@
-"""Shared model layers: params-with-specs helpers, norms, RoPE, embeddings,
-GQA attention (chunked flash-pattern prefill and one-token decode against a
-KV cache), SwiGLU / GELU FFN, the cross-entropy loss -- the JAX package's
-``models/layers.py``.
+"""Shared model layers: params-with-specs helpers, norms (RMS and layer
+norm), RoPE, sinusoidal positions, embeddings, GQA attention (chunked
+flash-pattern prefill -- causal, bidirectional or cross -- and one-token
+decode against a KV cache), SwiGLU / GELU FFN, the cross-entropy loss --
+the JAX package's ``models/layers.py``.
 
 Every ``init_*`` returns a dict whose leaves are ``Param(value, spec)``;
 ``split_params`` separates values from logical-name specs, which name each
@@ -9,9 +10,12 @@ axis for a later sharded run. All matmul compute runs in the config dtype
 (bf16 at the published widths); softmax and norms accumulate in f32. Each
 function follows its reference op by op, dtype casts included: the
 attention scores of a bf16 model are rounded to bf16 before the f32
-softmax, as the reference's ``einsum`` returns them. The reference's
-``constrain`` calls pin shardings on a mesh and compute nothing, so this
-single-device port has none.
+softmax, as the reference's ``einsum`` returns them. Where the reference
+multiplies an f32 operand by a bf16 one (the enc-dec family's f32 frames
+against bf16 weights), JAX promotes both to f32; ``_matmul`` and
+``_einsum`` do the same, in full f32 on the card, and leave a product of
+one dtype as it was. The reference's ``constrain`` calls pin shardings on
+a mesh and compute nothing, so this single-device port has none.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import full_f32_matmul
 from ..configs.base import ArchConfig
 
 NEG_INF = -1e30  # the reference's score mask
@@ -63,8 +68,32 @@ def make(gen: torch.Generator, shape, spec, scale: float = 1.0, dtype=torch.bflo
     return Param(x.to(dtype) * std, tuple(spec))
 
 
+def zeros(shape, spec, dtype=torch.float32, device=None) -> Param:
+    return Param(torch.zeros(tuple(shape), dtype=dtype, device=device), tuple(spec))
+
+
 def ones(shape, spec, dtype=torch.float32, device=None) -> Param:
     return Param(torch.ones(tuple(shape), dtype=dtype, device=device), tuple(spec))
+
+
+# ---------------------------------------------------------------- products
+def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b``; operands of two dtypes are promoted to the wider, as JAX
+    does, and their (f32) product runs in full f32 on the card."""
+    if a.dtype == b.dtype:
+        return a @ b
+    dt = torch.promote_types(a.dtype, b.dtype)
+    with full_f32_matmul():
+        return a.to(dt) @ b.to(dt)
+
+
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` with ``_matmul``'s promotion."""
+    if a.dtype == b.dtype:
+        return torch.einsum(eq, a, b)
+    dt = torch.promote_types(a.dtype, b.dtype)
+    with full_f32_matmul():
+        return torch.einsum(eq, a.to(dt), b.to(dt))
 
 
 # ------------------------------------------------------------------- norms
@@ -72,6 +101,17 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
     xf = x.float()
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * w).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """In f32, cast back. The variance is the population one
+    (``jnp.var``'s), taken as the reference does: the mean of the squared
+    deviations from the mean."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * w + b).to(x.dtype)
 
 
 # -------------------------------------------------------------------- RoPE
@@ -92,6 +132,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """(seq, d) f32: sin in the even columns, cos in the odd ones,
+    interleaved. The frequency step is taken in f32, as the reference's
+    ``-jnp.log(10000.0) / d``."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    step = -torch.log(torch.tensor(10000.0, dtype=torch.float32, device=device)) / d
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device) * step)
+    pe = torch.zeros((seq, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
 
 
 # -------------------------------------------------------------- embeddings
@@ -154,7 +207,7 @@ def init_attention(gen, cfg: ArchConfig, device=None) -> Dict:
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk")`` as one matrix product."""
     d, h, k = w.shape
-    return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+    return _matmul(x, w.reshape(d, h * k)).unflatten(-1, (h, k))
 
 
 def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -169,7 +222,9 @@ def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
 def _chunked_causal_attn(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, chunk: int, causal: bool, impl: str
 ) -> torch.Tensor:
-    """Flash-pattern attention. q, k, v: (B, S, H, D) (k/v already H-expanded).
+    """Flash-pattern attention. q, k, v: (B, S, H, D) (k/v already H-expanded;
+    their length may differ from q's, and k's dtype from q's: the scores
+    are then taken in the wider one).
 
     ``masked_scan``: a loop over KV chunks with a running (max, denom) --
     O(S*C) memory, computes all S^2 scores (causal entries masked).
@@ -199,7 +254,7 @@ def _chunked_causal_attn(
             q_i = qf[:, i * CQ:(i + 1) * CQ]
             hi = min((i + 1) * CQ, Skv)
             k_i, v_i = k[:, :hi], v[:, :hi]
-            s = torch.einsum("bqhd,bkhd->bhqk", q_i, k_i).float()
+            s = _einsum("bqhd,bkhd->bhqk", q_i, k_i).float()
             qpos = i * CQ + torch.arange(CQ, device=dev)
             kpos = torch.arange(hi, device=dev)
             mask = (qpos[:, None] >= kpos[None, :]) & (kpos[None, :] < kv_valid)
@@ -215,7 +270,7 @@ def _chunked_causal_attn(
     denom = torch.zeros((B, H, S), dtype=torch.float32, device=dev)
     for ci in range(n_chunks):
         k_i, v_i = k[:, ci * C:(ci + 1) * C], v[:, ci * C:(ci + 1) * C]
-        s = torch.einsum("bqhd,bkhd->bhqk", qf, k_i).float()  # (B, H, S, C)
+        s = _einsum("bqhd,bkhd->bhqk", qf, k_i).float()  # (B, H, S, C)
         kpos = ci * C + torch.arange(C, device=dev)
         mask = kpos[None, :] < kv_valid
         if causal:
@@ -237,24 +292,30 @@ def attention(
     x: torch.Tensor,  # (B, S, d)
     cfg: ArchConfig,
     positions: Optional[torch.Tensor] = None,
+    causal: bool = True,
+    kv_x: Optional[torch.Tensor] = None,  # cross-attention source
 ) -> torch.Tensor:
-    """Causal self-attention over the sequence (the reference's
-    ``causal=False`` and cross-attention ``kv_x`` serve the enc-dec family,
-    which ROADMAP A.13e ports)."""
+    """Self-attention over the sequence (causal, or bidirectional with
+    ``causal=False``), or cross attention from ``x`` to ``kv_x``: k and v
+    are then projected from the source, take no rope, and every source
+    position is attended."""
     B, S, _ = x.shape
+    src = x if kv_x is None else kv_x
     q = _proj(x, params["wq"])
-    k = _proj(x, params["wk"])
-    v = _proj(x, params["wv"])
+    k = _proj(src, params["wk"])
+    v = _proj(src, params["wv"])
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if kv_x is None:
+        k = apply_rope(k, positions, cfg.rope_theta)
     n_heads = params["wq"].shape[1]
     k = _expand_kv(k, n_heads)
     v = _expand_kv(v, n_heads)
-    out = _chunked_causal_attn(q, k, v, cfg.attn_chunk, True, cfg.causal_impl)
+    out = _chunked_causal_attn(q, k, v, cfg.attn_chunk, causal and kv_x is None,
+                               cfg.causal_impl)
     H, hd, d = params["wo"].shape
-    return out.reshape(B, S, H * hd) @ params["wo"].reshape(H * hd, d)
+    return _matmul(out.reshape(B, S, H * hd), params["wo"].reshape(H * hd, d))
 
 
 def write_cache(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> None:
@@ -271,35 +332,38 @@ def decode_attention(
     x: torch.Tensor,  # (B, 1, d)
     cache_k: torch.Tensor,  # (B, S, KV, hd), written in place
     cache_v: torch.Tensor,
-    pos: torch.Tensor,  # () current position
+    pos,  # () current position: a 0-d tensor, or an int
     cfg: ArchConfig,
+    update_cache: bool = True,
+    rope: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token decode against the whole cache (every slot scored, slots
-    past ``pos`` masked). The port writes the new k/v into ``cache_k`` /
-    ``cache_v`` in place and returns them, where the reference returns
-    updated copies. (The reference's ``update_cache=False`` and
-    ``rope=False`` serve the enc-dec family, ROADMAP A.13e.)"""
+    past ``pos`` masked). With ``update_cache`` the port writes the new k/v
+    into ``cache_k`` / ``cache_v`` in place and returns them, where the
+    reference returns updated copies; without it (the enc-dec family's
+    cross attention) the cache is only read. ``rope=False`` leaves q and
+    the new k unrotated."""
     B, S, KV, hd = cache_k.shape
     H = params["wq"].shape[1]
     q = _proj(x, params["wq"])[:, 0]  # (B, H, hd)
-    q = apply_rope(q[:, None], pos[None, None], cfg.rope_theta)[:, 0]
-    k_new = apply_rope(_proj(x, params["wk"]), pos[None, None], cfg.rope_theta)  # (B, 1, KV, hd)
-    write_cache(cache_k, k_new, pos)
-    write_cache(cache_v, _proj(x, params["wv"]), pos)
+    if rope:
+        q = apply_rope(q[:, None], pos[None, None], cfg.rope_theta)[:, 0]
+    if update_cache:
+        k_new = _proj(x, params["wk"])  # (B, 1, KV, hd)
+        if rope:
+            k_new = apply_rope(k_new, pos[None, None], cfg.rope_theta)
+        write_cache(cache_k, k_new, pos)
+        write_cache(cache_v, _proj(x, params["wv"]), pos)
     g = H // KV
     qg = q.reshape(B, KV, g, hd)
-    dt = torch.promote_types(qg.dtype, cache_k.dtype)
     # per kv head, so that the (B, S, hd) cache slice is read in place
-    s = torch.stack([qg[:, j].to(dt) @ cache_k[:, :, j].to(dt).transpose(1, 2)
+    s = torch.stack([_matmul(qg[:, j], cache_k[:, :, j].transpose(1, 2))
                      for j in range(KV)], dim=1).float() / hd**0.5  # (B, KV, g, S)
     mask = torch.arange(S, device=x.device)[None, None, None, :] <= pos
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(cache_v.dtype)
     out = torch.stack([p[:, j] @ cache_v[:, :, j] for j in range(KV)], dim=1)  # (B, KV, g, hd)
-    wo = params["wo"]
-    out = out.reshape(B, 1, H * hd)
-    dt = torch.promote_types(out.dtype, wo.dtype)
-    y = out.to(dt) @ wo.reshape(H * hd, -1).to(dt)
+    y = _matmul(out.reshape(B, 1, H * hd), params["wo"].reshape(H * hd, -1))
     return y, cache_k, cache_v
 
 
@@ -318,9 +382,9 @@ def init_ffn(gen, cfg: ArchConfig, d_ff: Optional[int] = None, gelu: bool = Fals
 
 
 def ffn(params: Dict, x: torch.Tensor) -> torch.Tensor:
-    up = x @ params["w_up"]
+    up = _matmul(x, params["w_up"])
     if "w_gate" in params:
-        h = torch.nn.functional.silu(x @ params["w_gate"]) * up
+        h = torch.nn.functional.silu(_matmul(x, params["w_gate"])) * up
     else:
         h = torch.nn.functional.gelu(up, approximate="tanh")
-    return h @ params["w_out"]
+    return _matmul(h, params["w_out"])

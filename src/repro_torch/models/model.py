@@ -1,6 +1,5 @@
-"""Model assembly for the decoder-only families -- the JAX package's
-``models/model.py`` for ``build_decoder_only``: init, the training loss,
-prefill and KV-cache decode.
+"""Model assembly -- the JAX package's ``models/model.py``: init, the
+training loss, prefill and cached decode of each family.
 
 Families served here:
   dense, vlm  -- a GQA decoder-only stack (``vlm`` prepends stub patch
@@ -9,19 +8,24 @@ Families served here:
   mla_moe     -- MLA attention, leading dense layers, then MoE layers, and
                  a multi-token-prediction (MTP) block in the loss
                  (deepseek-v3)
-Still to port: ``encdec`` (ROADMAP A.13e), ``xlstm`` (A.13f), ``hybrid``
-(A.13g).
+  encdec      -- whisper: a bidirectional encoder over stub frame
+                 embeddings and a causal decoder with cross attention
+  xlstm       -- a repeating unit of mLSTM layers and one sLSTM layer
+Still to port: ``hybrid`` (ROADMAP A.13g).
 
-A model is a ``DecoderOnlyLM``: an ``nn.Module`` whose parameters sit
-under the reference's tree paths (``embed.table``, ``head.w``,
-``final_norm``, ``dense_blocks.attn.wq``, ``moe_blocks.moe.w_gate``,
-``mtp.proj``, ...), each layer stack with a leading ``layers`` dimension,
-each parameter's logical spec kept beside it in ``specs``. Where the
-reference scans over a stack, the port loops over layers in Python; where
-it wraps the scan body in ``jax.checkpoint`` (``cfg.remat == "full"``),
-the port wraps each layer in ``torch.utils.checkpoint``. ``ModelBundle``'s
-functions keep the reference's names and wrap the module. The parameters
-are registered without gradients; the training steps turn them on.
+A model is an ``nn.Module`` (``DecoderOnlyLM``, ``EncDecLM``, ``XLSTMLM``)
+whose parameters sit under the reference's tree paths (``embed.table``,
+``head.w``, ``final_norm``, ``dense_blocks.attn.wq``,
+``moe_blocks.moe.w_gate``, ``mtp.proj``, ``enc_blocks.ln1b``,
+``dec_blocks.cross_attn.wk``, ``units.m0.core.w_if``, ...), each layer
+stack with a leading ``layers`` (or ``repeat``) dimension, each
+parameter's logical spec kept beside it in ``specs``. Where the reference
+scans over a stack, the port loops over layers in Python; where it wraps
+the scan body in ``jax.checkpoint`` (``cfg.remat == "full"``), the port
+wraps each layer (each xLSTM unit) in ``torch.utils.checkpoint``.
+``ModelBundle``'s functions keep the reference's names and wrap the
+module. The parameters are registered without gradients; the training
+steps turn them on.
 """
 from __future__ import annotations
 
@@ -37,12 +41,11 @@ from ..tree import module_tree
 from . import layers as L
 from . import mla as MLA
 from . import moe as MOE
+from . import xlstm as XL
 from .layers import Param, split_params
 
 # the families other slices port, and the ROADMAP item that ports each
 UNPORTED_FAMILIES = {
-    "encdec": "A.13e (enc-dec)",
-    "xlstm": "A.13f (xLSTM)",
     "hybrid": "A.13g (hybrid)",
 }
 
@@ -158,18 +161,14 @@ class _Node(nn.Module):
     """A plain container: one level of the parameter tree."""
 
 
-class DecoderOnlyLM(nn.Module):
-    """A decoder-only model of the ``dense``, ``vlm``, ``moe`` or
-    ``mla_moe`` family, its parameters under the reference's tree paths:
-    ``dense_blocks`` (the leading dense layers, or every layer of a model
-    without experts), ``moe_blocks`` (the MoE layers) and, with
-    ``cfg.mtp_depth``, the ``mtp`` block. ``tree`` is a Param tree
-    (``bundle.init_tree``'s)."""
+class _TreeLM(nn.Module):
+    """A model whose parameters are a Param tree's values under its paths
+    (``tree`` is a Param tree, ``bundle.init_tree``'s), each spec in
+    ``specs`` under the parameter's dotted name."""
 
     def __init__(self, cfg: ArchConfig, tree: Dict):
         super().__init__()
         self.cfg = cfg
-        self.dense_kind, self.moe_kind, _, _ = block_kinds(cfg)
         values, spec_tree = split_params(tree)
         self.specs: Dict[str, tuple] = dict(_flatten(spec_tree))
         for name, value in _flatten(values):
@@ -185,18 +184,40 @@ class DecoderOnlyLM(nn.Module):
         """The parameters as the reference's nested values dict."""
         return module_tree(self)
 
+    def _remat(self) -> bool:
+        # remat only where a backward will run: serving keeps no activations
+        return self.cfg.remat == "full" and torch.is_grad_enabled()
+
+
+def _stack(tree: Dict) -> list:
+    """A stacked Param-values tree as one tree per layer, each leaf a view
+    of its stack at the layer's index. One ``unbind`` a leaf, so the
+    backward stacks the layers' gradients once instead of adding a
+    stack-sized gradient per layer."""
+    per_leaf = _unbind(tree)
+    n = len(next(iter(_leaves(per_leaf))))
+    return [_index(per_leaf, i) for i in range(n)]
+
+
+class DecoderOnlyLM(_TreeLM):
+    """A decoder-only model of the ``dense``, ``vlm``, ``moe`` or
+    ``mla_moe`` family, its parameters under the reference's tree paths:
+    ``dense_blocks`` (the leading dense layers, or every layer of a model
+    without experts), ``moe_blocks`` (the MoE layers) and, with
+    ``cfg.mtp_depth``, the ``mtp`` block."""
+
+    def __init__(self, cfg: ArchConfig, tree: Dict):
+        super().__init__(cfg, tree)
+        self.dense_kind, self.moe_kind, _, _ = block_kinds(cfg)
+
     def _layers(self):
         """``(kind, layer parameters)`` of every layer, the dense stack
-        first: each layer's parameters are views of its stack at its index.
-        One ``unbind`` a leaf, so the backward stacks the layers' gradients
-        once instead of adding a stack-sized gradient per layer."""
+        first: each layer's parameters are views of its stack (``_stack``)."""
         tree = self.tree()
         out = []
         for name, kind in (("dense_blocks", self.dense_kind), ("moe_blocks", self.moe_kind)):
             if name in tree:
-                per_leaf = _unbind(tree[name])
-                n = len(next(iter(_leaves(per_leaf))))
-                out += [(kind, _index(per_leaf, i)) for i in range(n)]
+                out += [(kind, lp) for lp in _stack(tree[name])]
         return out
 
     def embed_inputs(self, batch: Dict):
@@ -210,8 +231,7 @@ class DecoderOnlyLM(nn.Module):
         return x, loss_start
 
     def backbone(self, x: torch.Tensor) -> torch.Tensor:
-        # remat only where a backward will run: serving keeps no activations
-        remat = self.cfg.remat == "full" and torch.is_grad_enabled()
+        remat = self._remat()
         for kind, lp in self._layers():
             if remat:
                 x = checkpoint(_apply_block, lp, x, self.cfg, kind, use_reentrant=False)
@@ -260,7 +280,7 @@ class DecoderOnlyLM(nn.Module):
         return L.lm_logits(dict(w=self.head.w), h), cache
 
 
-def _lm_losses(model: DecoderOnlyLM, x, tokens):
+def _lm_losses(model: _TreeLM, x, tokens):
     logits = L.lm_logits(dict(w=model.head.w), _norm(model.final_norm, x))
     return L.softmax_xent(logits[:, :-1], tokens[:, 1:])
 
@@ -287,11 +307,159 @@ def _index(v, i):
     return v[i]
 
 
+# ------------------------------------------------------------------ encdec
+def _lnorm(w, b, x):
+    return L.layer_norm(x, w, b)
+
+
+def _enc_layer(lp, x, cfg: ArchConfig):
+    h = _lnorm(lp["ln1"], lp["ln1b"], x)
+    x = x + L.attention(lp["attn"], h, cfg, causal=False)
+    h = _lnorm(lp["ln2"], lp["ln2b"], x)
+    return x + L.ffn(lp["ffn"], h)
+
+
+def _dec_layer(lp, x, enc_out, cfg: ArchConfig):
+    h = _lnorm(lp["ln1"], lp["ln1b"], x)
+    x = x + L.attention(lp["self_attn"], h, cfg, causal=True)
+    h = _lnorm(lp["ln2"], lp["ln2b"], x)
+    x = x + L.attention(lp["cross_attn"], h, cfg, causal=False, kv_x=enc_out)
+    h = _lnorm(lp["ln3"], lp["ln3b"], x)
+    return x + L.ffn(lp["ffn"], h)
+
+
+class EncDecLM(_TreeLM):
+    """The ``encdec`` family (whisper): ``enc_blocks`` (bidirectional
+    self-attention and a GELU FFN) over stub frame embeddings, then
+    ``enc_norm`` / ``enc_norm_b``; ``dec_blocks`` (causal self-attention,
+    cross attention to the encoder's output, a GELU FFN), then
+    ``final_norm`` / ``final_norm_b``. Every norm is a layer norm with a
+    bias; positions are sinusoidal, added to the inputs."""
+
+    def _run(self, layer, stack: str, x, *args):
+        remat = self._remat()
+        for lp in _stack(self.tree()[stack]):
+            if remat:
+                x = checkpoint(layer, lp, x, *args, self.cfg, use_reentrant=False)
+            else:
+                x = layer(lp, x, *args, self.cfg)
+        return x
+
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """(B, S_enc, d) frames, in their own dtype: the encoder's output."""
+        pe = L.sinusoidal_positions(frames.shape[1], self.cfg.d_model, frames.device)
+        x = self._run(_enc_layer, "enc_blocks", frames + pe.to(frames.dtype))
+        return _lnorm(self.enc_norm, self.enc_norm_b, x)
+
+    def run_decoder(self, tokens: torch.Tensor, enc_out: torch.Tensor, pos0: int = 0):
+        """The decoder's final-normed output for ``tokens`` at positions
+        ``pos0`` on."""
+        S = tokens.shape[1]
+        x = L.embed_lookup(dict(table=self.embed.table), tokens)
+        pe = L.sinusoidal_positions(pos0 + S, self.cfg.d_model, x.device)[pos0:]
+        x = self._run(_dec_layer, "dec_blocks", x + pe.to(x.dtype), enc_out)
+        return _lnorm(self.final_norm, self.final_norm_b, x)
+
+    def loss(self, batch: Dict) -> torch.Tensor:
+        x = self.run_decoder(batch["tokens"], self.encode(batch["frames"]))
+        logits = L.lm_logits(dict(w=self.head.w), x)
+        return L.softmax_xent(logits[:, :-1], batch["tokens"][:, 1:])
+
+    def prefill(self, batch: Dict) -> torch.Tensor:
+        """The last position's logits (B, 1, vocab); fills no cache."""
+        x = self.run_decoder(batch["tokens"], self.encode(batch["frames"]))
+        return L.lm_logits(dict(w=self.head.w), x[:, -1:])
+
+    def decode(self, cache: Dict, tokens: torch.Tensor, pos: torch.Tensor):
+        """One token per row at position ``pos`` (a 0-d tensor): logits
+        (B, 1, vocab) and the cache, its self-attention ``k`` / ``v``
+        written in place at ``pos``; the cross cache ``xk`` / ``xv`` is
+        read (every slot) and returned unchanged. The position embedding is
+        the table's row at ``pos`` clamped into the cache, as the
+        reference's ``dynamic_slice``."""
+        cfg = self.cfg
+        x = L.embed_lookup(dict(table=self.embed.table), tokens)
+        S = cache["k"].shape[2]
+        idx = torch.clamp(pos.reshape(1).long(), 0, S - 1)
+        pe = L.sinusoidal_positions(S, cfg.d_model, x.device).index_select(0, idx)
+        x = x + pe[None].to(x.dtype)
+        for i, lp in enumerate(_stack(self.tree()["dec_blocks"])):
+            xk, xv = cache["xk"][i], cache["xv"][i]
+            h = _lnorm(lp["ln1"], lp["ln1b"], x)
+            a, _, _ = L.decode_attention(lp["self_attn"], h, cache["k"][i], cache["v"][i], pos,
+                                         cfg, rope=False)
+            x = x + a
+            h = _lnorm(lp["ln2"], lp["ln2b"], x)
+            a, _, _ = L.decode_attention(lp["cross_attn"], h, xk, xv, xk.shape[1] - 1, cfg,
+                                         update_cache=False, rope=False)
+            x = x + a
+            h = _lnorm(lp["ln3"], lp["ln3b"], x)
+            x = x + L.ffn(lp["ffn"], h)
+        x = _lnorm(self.final_norm, self.final_norm_b, x)
+        return L.lm_logits(dict(w=self.head.w), x), cache
+
+
+# ------------------------------------------------------------------- xlstm
+def _unit_apply(up, x, cfg: ArchConfig):
+    unit = cfg.slstm_every
+    for i in range(unit):
+        if i == unit - 1:
+            p = up[f"s{i}"]
+            x = x + XL.slstm_mixer(p["core"], _norm(p["ln"], x), cfg)
+        else:
+            p = up[f"m{i}"]
+            x = x + XL.mlstm_mixer(p["core"], _norm(p["ln"], x), cfg)
+    return x
+
+
+class XLSTMLM(_TreeLM):
+    """The ``xlstm`` family: ``units``, a stack (leading ``repeat``
+    dimension) of repeating units of ``cfg.slstm_every`` layers, the mLSTM
+    layers ``m0 ...`` and the sLSTM layer last, each ``{ln, core}`` with a
+    pre-norm residual."""
+
+    def backbone(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = L.embed_lookup(dict(table=self.embed.table), tokens)
+        remat = self._remat()
+        for up in _stack(self.tree()["units"]):
+            if remat:
+                x = checkpoint(_unit_apply, up, x, self.cfg, use_reentrant=False)
+            else:
+                x = _unit_apply(up, x, self.cfg)
+        return x
+
+    def loss(self, batch: Dict) -> torch.Tensor:
+        return _lm_losses(self, self.backbone(batch["tokens"]), batch["tokens"])
+
+    def prefill(self, batch: Dict) -> torch.Tensor:
+        """The last position's logits (B, 1, vocab); fills no state."""
+        x = self.backbone(batch["tokens"])
+        return L.lm_logits(dict(w=self.head.w), _norm(self.final_norm, x[:, -1:]))
+
+    def decode(self, cache: Dict, tokens: torch.Tensor, pos: torch.Tensor):
+        """One token per row: logits (B, 1, vocab) and the cache, every
+        layer's recurrent state (``C``, ``N``, ``m`` of the mLSTM layers;
+        ``sc``, ``sn``, ``sh``, ``sm`` of the sLSTM's) updated in place.
+        ``pos`` is not read (the state carries the position)."""
+        cfg = self.cfg
+        last = cfg.slstm_every - 1
+        x = L.embed_lookup(dict(table=self.embed.table), tokens)
+        for r, up in enumerate(_stack(self.tree()["units"])):
+            for i in range(last):
+                p = up[f"m{i}"]
+                st = dict(C=cache["C"][r, i], N=cache["N"][r, i], m=cache["m"][r, i])
+                x = x + XL.mlstm_decode(p["core"], _norm(p["ln"], x), st, cfg)[0]
+            p = up[f"s{last}"]
+            st = dict(c=cache["sc"][r], n=cache["sn"][r], h=cache["sh"][r], m=cache["sm"][r])
+            x = x + XL.slstm_decode(p["core"], _norm(p["ln"], x), st, cfg)[0]
+        return L.lm_logits(dict(w=self.head.w), _norm(self.final_norm, x)), cache
+
+
 # ---------------------------------------------------------------- Bundle
 @dataclasses.dataclass
 class ModelBundle:
     cfg: ArchConfig
-    init: Callable  # (generator, device=None) -> DecoderOnlyLM
+    init: Callable  # (generator, device=None) -> the family's module
     init_tree: Callable  # (generator, device=None) -> Param tree (``meta``: specs alone)
     loss: Callable  # (params, batch) -> scalar
     prefill: Callable  # (params, batch) -> logits of the last position
@@ -324,12 +492,6 @@ def build_decoder_only(cfg: ArchConfig) -> ModelBundle:
             )
         return p
 
-    def init(gen: torch.Generator, device=None) -> DecoderOnlyLM:
-        """Parameters drawn from ``gen`` on its device, then moved to
-        ``device`` (default: the generator's)."""
-        model = DecoderOnlyLM(cfg, init_tree(gen))
-        return model if device is None else model.to(device)
-
     def cache_shape(batch: int, seq: int):
         # bf16 whatever the model's dtype, as the reference
         names = ("layers", "batch", "kv_seq", None)
@@ -340,22 +502,128 @@ def build_decoder_only(cfg: ArchConfig) -> ModelBundle:
         shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.head_dim)
         return dict(k=(shape, torch.bfloat16, names), v=(shape, torch.bfloat16, names))
 
-    def loss(params: DecoderOnlyLM, batch: Dict) -> torch.Tensor:
+    return _bundle(cfg, DecoderOnlyLM, init_tree, cache_shape)
+
+
+def _bundle(cfg: ArchConfig, module, init_tree: Callable, cache_shape: Callable) -> ModelBundle:
+    """The bundle of a family's module class and its tree and cache."""
+
+    def init(gen: torch.Generator, device=None):
+        """Parameters drawn from ``gen`` on its device, then moved to
+        ``device`` (default: the generator's)."""
+        model = module(cfg, init_tree(gen))
+        return model if device is None else model.to(device)
+
+    def loss(params, batch: Dict) -> torch.Tensor:
         return params.loss(batch)
 
-    def prefill(params: DecoderOnlyLM, batch: Dict) -> torch.Tensor:
+    def prefill(params, batch: Dict) -> torch.Tensor:
         return params.prefill(batch)
 
-    def decode(params: DecoderOnlyLM, cache: Dict, tokens, pos):
+    def decode(params, cache: Dict, tokens, pos):
         return params.decode(cache, tokens, pos)
 
     return ModelBundle(cfg, init, init_tree, loss, prefill, decode, cache_shape)
+
+
+def _norm_params(cfg: ArchConfig, dev, *names) -> Dict:
+    """Layer-norm weights (ones) and biases (zeros, names ending in
+    ``b``) of width ``d_model``."""
+    return {n: (L.zeros if n.endswith("b") else L.ones)((cfg.d_model,), ("embed",), device=dev)
+            for n in names}
+
+
+def build_encdec(cfg: ArchConfig) -> ModelBundle:
+    """The ``encdec`` family (whisper-base)."""
+
+    def enc_block(gen, device):
+        dev = device or gen.device
+        return dict(**_norm_params(cfg, dev, "ln1", "ln1b", "ln2", "ln2b"),
+                    attn=L.init_attention(gen, cfg, device),
+                    ffn=L.init_ffn(gen, cfg, gelu=True, device=device))
+
+    def dec_block(gen, device):
+        dev = device or gen.device
+        return dict(**_norm_params(cfg, dev, "ln1", "ln1b", "ln2", "ln2b", "ln3", "ln3b"),
+                    self_attn=L.init_attention(gen, cfg, device),
+                    cross_attn=L.init_attention(gen, cfg, device),
+                    ffn=L.init_ffn(gen, cfg, gelu=True, device=device))
+
+    def init_tree(gen: torch.Generator, device=None) -> Dict:
+        dev = device or gen.device
+        return dict(
+            embed=L.init_embedding(gen, cfg, device),
+            head=L.init_lm_head(gen, cfg, device),
+            enc_blocks=stack_init(lambda: enc_block(gen, device), cfg.enc_layers),
+            dec_blocks=stack_init(lambda: dec_block(gen, device), cfg.n_layers),
+            **_norm_params(cfg, dev, "enc_norm", "enc_norm_b", "final_norm", "final_norm_b"),
+        )
+
+    def cache_shape(batch: int, seq: int):
+        # the cross cache holds the encoder's length at the frames' ratio
+        enc_s = max(seq // cfg.enc_frames_div, 64)
+        kv = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.head_dim)
+        xkv = (cfg.n_layers, batch, enc_s, cfg.n_kv_heads, cfg.head_dim)
+        spec = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+        return dict(k=(kv, torch.bfloat16, spec), v=(kv, torch.bfloat16, spec),
+                    xk=(xkv, torch.bfloat16, spec), xv=(xkv, torch.bfloat16, spec))
+
+    return _bundle(cfg, EncDecLM, init_tree, cache_shape)
+
+
+def build_xlstm(cfg: ArchConfig) -> ModelBundle:
+    """The ``xlstm`` family (xlstm-125m)."""
+    unit = cfg.slstm_every  # layers per repeating unit; the last one is the sLSTM
+    if cfg.n_layers % unit:
+        raise ValueError(f"{cfg.n_layers} layers are not whole units of {unit}")
+    n_rep = cfg.n_layers // unit
+
+    def init_unit(gen, device):
+        dev = device or gen.device
+        p = {}
+        for i in range(unit):
+            ln = L.ones((cfg.d_model,), ("embed",), device=dev)
+            if i == unit - 1:
+                p[f"s{i}"] = dict(ln=ln, core=XL.init_slstm(gen, cfg, device))
+            else:
+                p[f"m{i}"] = dict(ln=ln, core=XL.init_mlstm(gen, cfg, device))
+        return p
+
+    def init_tree(gen: torch.Generator, device=None) -> Dict:
+        dev = device or gen.device
+        return dict(
+            embed=L.init_embedding(gen, cfg, device),
+            head=L.init_lm_head(gen, cfg, device),
+            units=stack_init(lambda: init_unit(gen, device), n_rep, "repeat"),
+            final_norm=L.ones((cfg.d_model,), ("embed",), device=dev),
+        )
+
+    def cache_shape(batch: int, seq: int):
+        H = cfg.n_heads
+        dh = cfg.d_inner // H
+        d = cfg.d_model
+        f32 = torch.float32
+        return dict(
+            C=((n_rep, unit - 1, batch, H, dh, dh), f32, ("repeat", None, "batch", None, None, None)),
+            N=((n_rep, unit - 1, batch, H, dh), f32, ("repeat", None, "batch", None, None)),
+            m=((n_rep, unit - 1, batch, H), f32, ("repeat", None, "batch", None)),
+            sc=((n_rep, batch, d), f32, ("repeat", "batch", None)),
+            sn=((n_rep, batch, d), f32, ("repeat", "batch", None)),
+            sh=((n_rep, batch, d), f32, ("repeat", "batch", None)),
+            sm=((n_rep, batch, d), f32, ("repeat", "batch", None)),
+        )
+
+    return _bundle(cfg, XLSTMLM, init_tree, cache_shape)
 
 
 # ---------------------------------------------------------------- factory
 def build_model(cfg: ArchConfig) -> ModelBundle:
     if cfg.family in ("dense", "vlm", "moe", "mla_moe"):
         return build_decoder_only(cfg)
+    if cfg.family == "encdec":
+        return build_encdec(cfg)
+    if cfg.family == "xlstm":
+        return build_xlstm(cfg)
     if cfg.family in UNPORTED_FAMILIES:
         raise NotImplementedError(
             f"the {cfg.family!r} family is not ported yet (ROADMAP {UNPORTED_FAMILIES[cfg.family]})")

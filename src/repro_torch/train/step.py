@@ -77,7 +77,7 @@ class Steps:
     bundle: ModelBundle
     device: torch.device
 
-    init_state: Callable  # generator -> {"params": DecoderOnlyLM, "opt", "step": int32 0-d}
+    init_state: Callable  # generator -> {"params": the model module, "opt", "step": int32 0-d}
     train_step: Callable  # (state, batch) -> (state, metrics)
     prefill_step: Callable  # (params, batch) -> logits of the last position
     decode_step: Callable  # (params, cache, tokens, pos) -> (logits, cache)
@@ -88,7 +88,13 @@ class Steps:
     def batch_spec(self, kind: str, seq: int, batch: int):
         """(abstract batch dict, logical specs) for a shape kind."""
         cfg = self.cfg
-        if cfg.family == "vlm":
+        if cfg.family == "encdec":
+            # the frames' length here has a floor of 64; TokenPipeline's has 8
+            enc_s = max(seq // cfg.enc_frames_div, 64)
+            b = dict(frames=ShapeDtype((batch, enc_s, cfg.d_model), torch.bfloat16),
+                     tokens=ShapeDtype((batch, seq), torch.int32))
+            s = dict(frames=("batch", None, None), tokens=("batch", None))
+        elif cfg.family == "vlm":
             P_ = min(cfg.n_patches, max(seq // 4, 16))
             b = dict(patches=ShapeDtype((batch, P_, cfg.d_model), torch.bfloat16),
                      tokens=ShapeDtype((batch, max(seq - P_, 8)), torch.int32))

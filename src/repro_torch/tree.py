@@ -2,10 +2,10 @@
 
 The training state is a tree: dicts (keys in sorted order, as
 ``jax.tree.flatten`` takes them), NamedTuples and tuples (fields in
-order), ``None`` (no leaves) and, for the parameters, a ``DecoderOnlyLM``,
-which stands for its nested dict of parameters. Anything else is a leaf.
-The same order makes a checkpoint written by either package readable by
-the other.
+order), ``None`` (no leaves) and, for the parameters, a model module
+(``models/model.py``), which stands for its nested dict of parameters.
+Anything else is a leaf. The same order makes a checkpoint written by
+either package readable by the other.
 """
 from __future__ import annotations
 

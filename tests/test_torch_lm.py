@@ -343,7 +343,7 @@ def test_params_from_reference_bf16_bits():
 
 @pytest.mark.parametrize("family", sorted(UNPORTED_FAMILIES))
 def test_build_model_raises_for_unported_families(family):
-    arch = {"encdec": "whisper-base", "xlstm": "xlstm-125m", "hybrid": "jamba-v0.1-52b"}[family]
+    arch = {"hybrid": "jamba-v0.1-52b"}[family]
     cfg = get_config(arch)
     assert cfg.family == family
     with pytest.raises(NotImplementedError, match=r"ROADMAP A\.13"):

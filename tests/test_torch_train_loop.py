@@ -2,7 +2,8 @@
 CPU: the token pipeline, checkpoints, straggler detection, elastic
 re-meshing and ``train`` itself.
 
-- ``TokenPipeline`` batches (dense and vlm, with ``skip_to``): bit for bit.
+- ``TokenPipeline`` batches (dense and vlm, with ``skip_to``; enc-dec's
+  frames): bit for bit.
 - ``StragglerMonitor``, ``plan_remesh``, ``data_skip_offset``: equal
   outputs on the reference tests' cases.
 - A checkpoint written by the reference restores in the port, and one
@@ -99,8 +100,14 @@ def test_token_pipeline_bit_for_bit_with_skip(arch):
 
 def test_token_pipeline_device_rule(monkeypatch):
     cfg = get_config(ARCH).reduced()
-    with pytest.raises(NotImplementedError, match="A.13e"):
-        TokenPipeline(64, 16, 2).next_batch(get_config("whisper-base").reduced(), "cpu")
+    # the enc-dec family's frames (f32, at least 8 of them) are the reference's
+    wcfg, jwcfg = get_config("whisper-base").reduced(), jget_config("whisper-base").reduced()
+    b, jb = TokenPipeline(64, 16, 2).next_batch(wcfg, "cpu"), JTokenPipeline(64, 16, 2).next_batch(
+        jwcfg)
+    assert sorted(b) == sorted(jb) == ["frames", "tokens"]
+    assert b["frames"].dtype == torch.float32 and b["frames"].shape == (2, 8, wcfg.d_model)
+    for k in jb:
+        np.testing.assert_array_equal(_bits(b[k]), _bits(jb[k]))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TokenPipeline(cfg.vocab, 16, 2).next_batch(cfg)
