@@ -292,7 +292,35 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    f32 against the CPU's within 1e-5 (loss, grad_norm) and 1e-4 (each
    AdamW moment; xLSTM, whose gates amplify f32 roundings: grad_norm
    5e-5, moments 1e-3);
-20. prints the kernels' JSON line, then the result line.
+20. the hybrid family (``hybrid_family``), no kernel on its path:
+   ``jamba-v0.1-52b`` at its published widths (d_model 4096, 32 heads of
+   128 and 8 kv heads, 16 experts top-2 of width 14336 every other layer,
+   d_inner 8192, d_state 16, SSM chunks of 128; bf16, seeded weights): (a)
+   cut to 16 of its 32 layers (two superblocks, 26.05 B parameters, 52.17
+   GB; recorded as a cut): ``prefill_step`` at B = 8, S = 2048 against its
+   bound and the (token, expert) choices it dropped at capacity; at B = 128
+   into 4,096 slots (4.30 GB of k/v, 1.12 GB of Mamba state) 4
+   teacher-forced and 8 greedy steps (tokens/s), a warm ``decode_step``
+   (CUDA events) against its bound with the experts its tokens chose, one
+   profiled step (idle share, host aten calls), peak memory; (b) the
+   reference's ``long_500k`` shape: a warm ``decode_step`` at B = 1 into
+   524,288 slots (4.30 GB of bf16 k/v) over a seeded cache at position
+   524,287, against its bound; (c) 256 decode steps at B = 8 from the zero
+   cache against ``prefill_step`` within 0.05 of the largest logit, every
+   row, each step replaying prefill's expert choices, the capacity factor
+   raised so that none binds at prefill, the weights drawn anew in f32 at 8
+   layers (in bf16 the drift grows with depth: 5.1 % at 16 layers); (d) the
+   card against the port's CPU run: the ``reduced()`` config in f32 under
+   full f32 products (prefill at B = 4, S = 32 and 4 decode steps within
+   1e-5, the card replaying the CPU's routing, greedy tokens equal above
+   the CPU's top-2 margin) and one Mamba layer at published width in bf16
+   (``mamba_mixer`` at B = 2, S = 256 and 8 ``mamba_decode`` steps within
+   0.05); (e) one superblock (8 layers, 13.3 B parameters) trained with
+   Adafactor and ``remat="full"`` at B = 1, S = 2048, one warm-up and three
+   timed steps (CUDA events) against ``lm_train_bound``, tokens/s, peak
+   memory; one ``reduced()`` f32 step against the CPU's within 1e-5 (loss,
+   grad_norm) and 1e-4 (each Adafactor factor);
+21. prints the kernels' JSON line, then the result line.
 
 Every phase prints its seconds. Any failure raises and exits non-zero.
 Without a CUDA device, or outside the repository, it exits non-zero and
@@ -2329,7 +2357,9 @@ def lm_matmul_params(cfg) -> int:
     Enc-dec: a decoder token's self attention, its cross attention's q and
     o (k and v are the frames', ``enc_matmul_params``) and the GELU FFN.
     xLSTM: the mLSTM layers' ``up``, q, k, v and ``down`` (the f32 gates are
-    ``xlstm_f32_ops``'), the sLSTM layers' ``w_in``, ``w_rec`` and ``down``."""
+    ``xlstm_f32_ops``'), the sLSTM layers' ``w_in``, ``w_rec`` and ``down``.
+    Hybrid: the attention layers' attention, the Mamba layers'
+    ``mamba_params``, and each layer's dense FFN or top-k experts."""
     from repro_torch.models.model import block_kinds
 
     d = cfg.d_model
@@ -2342,8 +2372,37 @@ def lm_matmul_params(cfg) -> int:
     _, _, n_dense, n_moe = block_kinds(cfg)
     f = cfg.d_expert or cfg.d_ff
     moe = 3 * cfg.d_model * f * (cfg.moe_topk + cfg.n_shared_experts)
+    if cfg.family == "hybrid":
+        n_attn = n_attn_layers(cfg)
+        return (n_attn * _attn_params(cfg) + (cfg.n_layers - n_attn) * mamba_params(cfg)
+                + n_dense * 3 * d * cfg.d_ff + n_moe * moe)
     return (n_dense * (_attn_params(cfg) + 3 * cfg.d_model * cfg.d_ff)
             + n_moe * (_attn_params(cfg) + moe))
+
+
+def n_attn_layers(cfg) -> int:
+    """The layers with attention, and a k/v cache: the hybrid's one a
+    superblock, every layer elsewhere."""
+    return cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
+
+
+def mamba_params(cfg) -> int:
+    """The model-dtype weights one token multiplies in a Mamba mixer:
+    ``in_proj``, ``x_proj`` and ``out_proj`` (``dt_proj`` is f32:
+    ``mamba_f32_ops``)."""
+    di = cfg.d_inner
+    return cfg.d_model * 2 * di + di * (cfg.dt_rank + 2 * cfg.d_state) + di * cfg.d_model
+
+
+def mamba_f32_ops(cfg, B: int, S: int) -> int:
+    """The hybrid's f32 work of B x S tokens in its Mamba layers: a token's
+    ``dt_proj`` product (2 dt_rank d_inner), conv (2 d_conv d_inner) and
+    per (d_inner, d_state) element the recurrence's least work -- ``dA =
+    exp(dt A)`` (2), ``dB x`` (1), ``h = dA h + dB x`` (2) and the
+    contraction with C (2); a decode step's (S = 1) the same."""
+    n_m = cfg.n_layers - n_attn_layers(cfg)
+    di = cfg.d_inner
+    return n_m * B * S * (2 * cfg.dt_rank * di + 2 * cfg.d_conv * di + 7 * di * cfg.d_state)
 
 
 def enc_matmul_params(cfg) -> int:
@@ -2390,12 +2449,15 @@ def lm_forward_ops(cfg, B: int, S: int, S_enc: int = 0):
     encoder over B x ``S_enc`` f32 frames (TokenPipeline's; f32 frames make
     the encoder's products, the cross attention's k and v and its scores
     f32, as JAX promotes them), its scores, and the cross scores. xLSTM:
-    no scores; ``xlstm_f32_ops``."""
+    no scores; ``xlstm_f32_ops``. Hybrid: the attention layers' scores;
+    ``mamba_f32_ops``."""
     H = cfg.pad_heads_to or cfg.n_heads
     bf16, f32 = 2 * B * S * lm_matmul_params(cfg), lm_router_ops(cfg, B * S)
     if cfg.family == "xlstm":
         return bf16, f32 + xlstm_f32_ops(cfg, B, S)
-    bf16 += 4 * cfg.n_layers * B * H * S * _padded(cfg, S) * _qk_dim(cfg)
+    if cfg.family == "hybrid":
+        f32 += mamba_f32_ops(cfg, B, S)
+    bf16 += 4 * n_attn_layers(cfg) * B * H * S * _padded(cfg, S) * _qk_dim(cfg)
     if cfg.family == "encdec":
         f32 += 2 * B * S_enc * enc_matmul_params(cfg) + 4 * B * H * cfg.head_dim * _padded(
             cfg, S_enc) * (cfg.n_layers * S + cfg.enc_layers * S_enc)
@@ -2403,7 +2465,8 @@ def lm_forward_ops(cfg, B: int, S: int, S_enc: int = 0):
 
 
 def lm_router_ops(cfg, T: int) -> int:
-    """The routers' f32 products for ``T`` tokens (all padded experts)."""
+    """The routers' f32 products for ``T`` tokens (all padded experts), in
+    each MoE layer (``block_kinds``: the hybrid's every ``moe_every``-th)."""
     from repro_torch.models.model import block_kinds
     from repro_torch.models.moe import n_experts_padded
 
@@ -2419,14 +2482,25 @@ def lm_cache_bytes(cfg, B: int, S: int) -> int:
     """The decode cache's bytes: bf16 k and v per layer, or MLA's latent and
     rope key; enc-dec's self k and v and its cross cache (``enc_len``
     slots); xLSTM's f32 states (C, N, m of every mLSTM layer; c, n, h, m
-    of every sLSTM layer), whatever S."""
+    of every sLSTM layer), whatever S; the hybrid's k and v in its
+    attention layers and its Mamba layers' f32 ``h`` and ``conv``
+    (``mamba_state_bytes``)."""
     if cfg.family == "xlstm":
         H, d = cfg.n_heads, cfg.d_model
         dh, n_s = cfg.d_inner // H, cfg.n_layers // cfg.slstm_every
         return 4 * B * ((cfg.n_layers - n_s) * H * (dh * dh + dh + 1) + n_s * 4 * d)
     per_slot = cfg.kv_lora + cfg.qk_rope if cfg.use_mla else 2 * cfg.n_kv_heads * cfg.head_dim
     cross = cfg.n_layers * B * enc_len(cfg, S) * per_slot * 2 if cfg.family == "encdec" else 0
-    return cfg.n_layers * B * S * per_slot * 2 + cross
+    return n_attn_layers(cfg) * B * S * per_slot * 2 + cross + mamba_state_bytes(cfg, B)
+
+
+def mamba_state_bytes(cfg, B: int) -> int:
+    """The hybrid's f32 Mamba states of B rows (``h`` and ``conv`` of every
+    Mamba layer; 0 for the other families)."""
+    if cfg.family != "hybrid":
+        return 0
+    n_m = cfg.n_layers - n_attn_layers(cfg)
+    return 4 * n_m * B * cfg.d_inner * (cfg.d_state + cfg.d_conv - 1)
 
 
 def lm_decode_bound(cfg, model, B: int, S: int, chosen=None):
@@ -2435,10 +2509,12 @@ def lm_decode_bound(cfg, model, B: int, S: int, chosen=None):
     step chose (``chosen``: the distinct experts chosen, summed over the MoE
     layers; every expert where None), the whole cache read and one slot
     written (enc-dec: the cross cache read; xLSTM: every state read and
-    written), the logits written; the products (the routers' and xLSTM's
-    f32 ones at the f32 rate), and the scores over every slot (MLA: the
-    latent's and the rope key's widths, and the context over the latent;
-    enc-dec: the cross cache's slots too)."""
+    written; the hybrid: its attention layers' k and v read and one slot
+    written, its Mamba states read and written), the logits written; the
+    products (the routers', xLSTM's and the Mamba layers' f32 ones at the
+    f32 rate), and the scores over every slot of the attention layers (MLA:
+    the latent's and the rope key's widths, and the context over the
+    latent; enc-dec: the cross cache's slots too)."""
     H = cfg.pad_heads_to or cfg.n_heads
     el = model.embed.table.element_size()
     cache = lm_cache_bytes(cfg, B, S)
@@ -2457,15 +2533,17 @@ def lm_decode_bound(cfg, model, B: int, S: int, chosen=None):
         traffic = cache + self_slot
         scores = 4 * B * H * (S + enc_len(cfg, S)) * cfg.head_dim
     else:
-        traffic = cache + cache // S
+        state = mamba_state_bytes(cfg, B)
+        traffic = cache - state + (cache - state) // S + 2 * state
         if cfg.use_mla:
             scores = 2 * B * H * S * (2 * cfg.kv_lora + cfg.qk_rope)
         else:
             scores = 4 * B * H * S * cfg.head_dim
     nbytes = (lm_bytes(model) - model.embed.table.numel() * el - unchosen + B * cfg.d_model * el
               + traffic + B * cfg.vocab * el)
-    ops = 2 * B * (lm_matmul_params(cfg) + cfg.d_model * cfg.vocab) + cfg.n_layers * scores
-    f32 = lm_router_ops(cfg, B) + (xlstm_f32_ops(cfg, B, 1) if cfg.family == "xlstm" else 0)
+    ops = 2 * B * (lm_matmul_params(cfg) + cfg.d_model * cfg.vocab) + n_attn_layers(cfg) * scores
+    f32 = lm_router_ops(cfg, B) + (xlstm_f32_ops(cfg, B, 1) if cfg.family == "xlstm" else 0) \
+        + mamba_f32_ops(cfg, B, 1) * (cfg.family == "hybrid")
     ms = max(nbytes / HBM_BYTES_PER_S * 1e3, lm_ops_ms(ops, f32))
     return ms, nbytes, ops
 
@@ -2511,17 +2589,29 @@ def first_ids(ids: np.ndarray, n: int) -> np.ndarray:
 
 
 def decode_against_prefill(steps, params, toks, moe: bool = False, frames=None) -> float:
+    """``decode_prefill_gap``; fails above ``LM_REL``."""
+    err = decode_prefill_gap(steps, params, toks, moe, frames)
+    if err > LM_REL:
+        S = toks.shape[1]
+        raise AssertionError(f"decode after {S} steps differs from prefill: {err} > {LM_REL}")
+    return err
+
+
+def decode_prefill_gap(steps, params, toks, moe: bool = False, frames=None) -> float:
     """The last of ``toks.shape[1]`` teacher-forced decode steps' logits
     against ``prefill_step`` at the last position, relative to the largest
-    prefill logit; fails above ``LM_REL``. The decode starts from
+    prefill logit. The decode starts from
     ``start_cache`` (enc-dec: the cross cache filled from ``frames``,
     which prefill reads too; xLSTM: ``init_*_state``). With ``moe`` each
     decode step replays prefill's expert choices for its tokens
     (``RoutingLog``): a token's top-k experts are a discontinuous function
     of its router logits, and the two paths' roundings may flip a near tie.
-    It needs ``B * S <= 8``, where no capacity binds at prefill."""
+    It needs a capacity (``params.cfg``'s) of at least ``B * S``, so that
+    none binds at prefill (decode, a token a row, drops nothing)."""
+    from repro_torch.models.moe import _capacity
+
     B, S = toks.shape
-    if moe and B * S > 8:
+    if moe and _capacity(B * S, params.cfg, params.cfg.n_experts) < B * S:
         raise ValueError(f"{B * S} tokens: a capacity could bind at prefill")
     batch = dict(tokens=toks) if frames is None else dict(tokens=toks, frames=frames)
     with RoutingLog(keep=True) if moe else contextlib.nullcontext() as pl:
@@ -2539,10 +2629,7 @@ def decode_against_prefill(steps, params, toks, moe: bool = False, frames=None) 
             got, cache = steps.decode_step(params, cache, toks[:, t:t + 1], pos)
             pos = pos + 1
     del cache
-    err = rel_err(got, want)
-    if err > LM_REL:
-        raise AssertionError(f"decode after {S} steps differs from prefill: {err} > {LM_REL}")
-    return err
+    return rel_err(got, want)
 
 
 def greedy_against_cpu(steps, params, csteps, cpu, caches, last, hn: int, err: float,
@@ -3337,26 +3424,29 @@ def moe_serving(dev, card: str, arch: str) -> None:
     del cparams, csteps
 
 
-def moe_card_against_cpu(dev, card: str, arch: str) -> None:
-    """(c): ``arch`` cut as ``MOE_CPU`` says, one set of weights on the card
-    and on the CPU: prefill at ``MOE_CPU_SHAPE``, then teacher-forced decode
-    steps and greedy tokens, the card replaying the CPU's routing decisions
-    (``RoutingLog``) so that both compute one function: every row's logits
-    within ``LM_REL``, greedy tokens equal above the top-2 margin. The
-    card's own routing is held once, on the first MoE call of a prefill
-    with its own decisions, by ``compare_routing``'s margin rule."""
+def moe_card_against_cpu(dev, card: str, arch: str, cfg=None, rel: float = LM_REL,
+                         shape=MOE_CPU_SHAPE, part: str = "(c)") -> None:
+    """(c): ``arch`` cut as ``MOE_CPU`` says (or ``cfg``), one set of
+    weights on the card and on the CPU: prefill at ``shape``, then
+    teacher-forced decode steps and greedy tokens, the card replaying the
+    CPU's routing decisions (``RoutingLog``) so that both compute one
+    function: every row's logits within ``rel``, greedy tokens equal above
+    the top-2 margin. The card's own routing is held once, on the first MoE
+    call of a prefill with its own decisions, by ``compare_routing``'s
+    margin rule."""
     from repro_torch import full_f32_matmul
     from repro_torch.configs import get_config
     from repro_torch.train.step import build_steps
 
-    cut = MOE_CPU[arch]
-    cfg = get_config(arch)
-    cfg = cfg.reduced() if cut is None else dataclasses.replace(cfg, **cut)
+    cut = MOE_CPU.get(arch)
+    if cfg is None:
+        cfg = get_config(arch)
+        cfg = cfg.reduced() if cut is None else dataclasses.replace(cfg, **cut)
     steps, csteps = build_steps(cfg, device=dev), build_steps(cfg, device="cpu")
     t = time.perf_counter()
     params = steps.bundle.init(torch.Generator(device=dev).manual_seed(SEED + 3), dev)
     cpu = cpu_copy(csteps.bundle, params)
-    B, S, n = MOE_CPU_SHAPE
+    B, S, n = shape
     toks = torch.randint(0, cfg.vocab, (B, S), generator=torch.Generator().manual_seed(SEED + 3),
                          dtype=torch.int32)
     with full_f32_matmul():
@@ -3368,7 +3458,7 @@ def moe_card_against_cpu(dev, card: str, arch: str) -> None:
         with RoutingLog(replay=cl):
             got = steps.prefill_step(params, dict(tokens=toks.to(dev)))
         pre_err = rel_err(got, want)
-        if pre_err > LM_REL:
+        if pre_err > rel:
             raise AssertionError(f"{arch}: the card's prefill logits differ: {pre_err}")
         caches = dict(card=steps.init_cache(B, 2 * n), cpu=csteps.init_cache(B, 2 * n))
         last, logits, dl = {}, {}, {}
@@ -3384,15 +3474,15 @@ def moe_card_against_cpu(dev, card: str, arch: str) -> None:
                     logits[name].append(last[name])
         errs = [rel_err(g, w) for g, w in zip(logits["card"], logits["cpu"])]
         err = max(errs)
-        if err > LM_REL:
+        if err > rel:
             raise AssertionError(f"{arch}: the card's decode logits differ: {errs}")
         compared = greedy_against_cpu(steps, params, csteps, cpu, caches, last, n, err,
                                       replay=True)
-    log(f"check (c) {arch} ({'reduced()' if cut is None else f'published width, {cut}'}, "
+    log(f"check {part} {arch} ({'reduced()' if cut is None else f'published width, {cut}'}, "
         f"{cfg.dtype}), the card against the port's CPU run: prefill B={B} S={S}: {routing}; "
         f"the card replaying the CPU's routing from here: prefill max |err| / max |logit| "
-        f"{pre_err:.6f} <= {LM_REL}; {n} decode steps at B={B} "
-        f"{[f'{e:.6f}' for e in errs]} <= {LM_REL}; greedy tokens equal at {compared} of "
+        f"{pre_err:.3e} <= {rel}; {n} decode steps at B={B} "
+        f"{[f'{e:.3e}' for e in errs]} <= {rel}; greedy tokens equal at {compared} of "
         f"{B * (n + 1)} positions (compared up to each row's first CPU top-2 margin within the "
         f"error); the CPU dropped {sum(dl['cpu'].dropped())} choices over the decode's "
         f"{len(dl['cpu'].calls)} MoE calls ({time.perf_counter() - t:.3f} s)")
@@ -3957,6 +4047,363 @@ def seq_families(dev, card: str) -> None:
             seq_training(dev, card, arch)
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------ the hybrid family
+HYBRID_ARCH = "jamba-v0.1-52b"
+# (a)-(c): the depth cut, two of the four superblocks: 16 of 32 layers, 26.06 B
+# parameters, 52.1 GB in bf16 (all 32 layers, 51.6 B, are 103 GB: more than
+# the card holds)
+HYBRID_SERVE_LAYERS = 16
+HYBRID_PREFILL = (8, 2048)  # (B, S)
+# whether (a) profiles one prefill: its 82,781 host aten calls took about 13 s
+# to summarize (NVIDIA H100 80GB HBM3, 700.00 W), so the smoke leaves it to
+# tools/hybrid_phase.py --profile-prefill
+HYBRID_PROFILE_PREFILL = False
+# (B, slots): 4.3 GB of bf16 k/v in the two attention layers and 1.12 GB of
+# f32 Mamba state in the 14 Mamba layers
+HYBRID_DECODE = (128, 4096)
+HYBRID_STEPS = (4, 8)  # teacher-forced steps, then greedy tokens, at the decode shape
+HYBRID_LONG = "long_500k"  # (b): the reference's shape for subquadratic configs
+# (c): decode against prefill: (B, teacher-forced steps), from the zero cache
+# (the Mamba mixer's own start), each step replaying prefill's expert choices;
+# the check's capacity factor makes every expert's capacity at least the
+# prefill's tokens, so none binds there (decode, a token a row, drops
+# nothing: as built the two paths compute different functions)
+HYBRID_CHECK = (8, 256)
+HYBRID_CHECK_CF = 100.0
+# ... with the weights drawn anew in this dtype at this depth. bf16's
+# roundings grow with depth: 5.13 % of the largest logit at 16 layers, 3.44 %
+# at 8, and 4.0e-5 in f32 at 8 (tools/hybrid_phase.py --drift; NVIDIA H100
+# 80GB HBM3, 700.00 W; the reference's own bf16 drift at reduced() is 3.88 %
+# with no capacity binding, tools/reference_seq_drift.py hybrid). 16 layers
+# in f32 (104 GB) do not fit: the check runs one superblock in f32
+HYBRID_CHECK_DTYPE = "float32"
+HYBRID_CHECK_LAYERS = 8
+# (d): reduced() f32 on the card against the CPU: prefill (B, S), then as many
+# decode steps as greedy tokens; then one Mamba layer at published width in
+# bf16: mamba_mixer at (B, S), then decode steps from init_mamba_state
+HYBRID_CPU_SHAPE = (4, 32, 4)
+HYBRID_MIXER = (2, 256, 8)
+HYBRID_F32_REL = 1e-5
+# (e): one superblock (8 layers, 13.3 B parameters) at B, S; warm-up steps,
+# then timed steps; then a reduced() f32 step against the CPU's
+HYBRID_TRAIN_LAYERS = 8
+HYBRID_TRAIN_SHAPE = (1, 2048)
+HYBRID_TRAIN_STEPS = (1, 3)
+HYBRID_TRAIN_CPU = (1, 32)
+HYBRID_TRAIN_F32 = dict(loss=1e-5, grad_norm=1e-5, vr=1e-4, vc=1e-4)
+
+
+def hybrid_serving(dev, card: str) -> None:
+    """(a)-(c): ``jamba-v0.1-52b`` at its published widths cut to
+    ``HYBRID_SERVE_LAYERS`` (recorded as a cut), bf16 weights from a seeded
+    generator: (a) ``prefill_step`` at ``HYBRID_PREFILL`` against its bound
+    and the choices it dropped at capacity (with
+    ``HYBRID_PROFILE_PREFILL``, one profiled prefill); at
+    ``HYBRID_DECODE``
+    teacher-forced and greedy steps (tokens/s, host clock), a warm
+    ``decode_step`` (CUDA events) against its bound with the experts its
+    tokens chose, one profiled step, peak device memory; (b) a warm
+    ``decode_step`` at the reference's ``long_500k`` shape over a seeded
+    cache at its last position, against its bound; (c) decode against
+    prefill at ``HYBRID_CHECK`` within ``LM_REL``, every row, the weights
+    drawn anew in ``HYBRID_CHECK_DTYPE`` at ``HYBRID_CHECK_LAYERS``."""
+    from repro_torch.configs import SHAPES, applicable_shapes, get_config
+    from repro_torch.train.decode import greedy_generate
+    from repro_torch.train.step import build_steps
+
+    full = get_config(HYBRID_ARCH)
+    cfg = dataclasses.replace(full, n_layers=HYBRID_SERVE_LAYERS)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    steps = build_steps(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t = time.perf_counter()
+    params = steps.bundle.init(gen, dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"{HYBRID_ARCH} on {card}: n_layers={cfg.n_layers} (a depth cut: {cfg.n_layers} of "
+        f"{full.n_layers}, {cfg.n_layers // cfg.attn_every} of {full.n_layers // cfg.attn_every} "
+        f"superblocks) attn_every={cfg.attn_every} (attention at {params.attn_pos}) "
+        f"moe_every={cfg.moe_every} d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
+        f"d_ff={cfg.d_ff} experts={cfg.n_experts} top-{cfg.moe_topk} d_inner={cfg.d_inner} "
+        f"d_state={cfg.d_state} d_conv={cfg.d_conv} dt_rank={cfg.dt_rank} ssm_chunk="
+        f"{cfg.ssm_chunk} vocab={cfg.vocab} {cfg.dtype}: {n_params} parameters, "
+        f"{lm_bytes(params)} B of weights ({time.perf_counter() - t:.3f} s)")
+
+    # (a) prefill, and the choices it dropped at capacity
+    pb, ps = HYBRID_PREFILL
+    toks = torch.randint(0, cfg.vocab, (pb, ps), generator=gen, device=dev, dtype=torch.int32)
+    t = time.perf_counter()
+    with RoutingLog() as rl:
+        out = steps.prefill_step(params, dict(tokens=toks))
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t
+    if out.shape != (pb, 1, cfg.vocab) or not torch.isfinite(out).all():
+        raise AssertionError(f"{HYBRID_ARCH}: prefill logits {tuple(out.shape)}")
+    drops, per = rl.dropped(), rl.calls[0]["choices"]
+    del out
+    pre_ms = time_ms(lambda: steps.prefill_step(params, dict(tokens=toks)), iters=2, warmup=0)
+    p_ms, p_ops, p_bytes = lm_prefill_bound(cfg, params, pb, ps)
+    log(f"(a) prefill ({card}): B={pb} S={ps}: {pre_ms:.6f} ms (CUDA events, 2 calls) = "
+        f"{pb * ps / pre_ms * 1e3:.1f} tokens/s; bound {p_ms:.6f} ms ({p_ops} bf16 operations / "
+        f"989 TFLOP/s + {lm_forward_ops(cfg, pb, ps)[1]} f32 router and Mamba operations / "
+        f"67 TFLOP/s; {p_bytes} B): {100 * p_ms / pre_ms:.3f} % of it; the first call "
+        f"{t_first:.3f} s (host clock); capacity {rl.calls[0]['cap']} an expert; dropped "
+        f"(token, expert) choices per MoE layer {drops} of {per} "
+        f"({100 * sum(drops) / (len(drops) * per):.3f} %)")
+    if HYBRID_PROFILE_PREFILL:
+        profile_call(f"{HYBRID_ARCH} prefill_step (B={pb}, S={ps})",
+                     lambda: steps.prefill_step(params, dict(tokens=toks)))
+    del toks
+
+    # (a) decode at the serving shape, from the zero cache
+    B, slots = HYBRID_DECODE
+    n_tf, n_new = HYBRID_STEPS
+    cache = steps.init_cache(B, slots)
+    log(f"cache: {sum(c.numel() * c.element_size() for c in cache.values())} B ({B} rows, "
+        f"{sorted((k, tuple(c.shape), str(c.dtype)[6:]) for k, c in cache.items())}): k/v "
+        f"{cache['k'].nbytes + cache['v'].nbytes} B, Mamba state "
+        f"{cache['h'].nbytes + cache['conv'].nbytes} B")
+    prompt = torch.randint(0, cfg.vocab, (B, n_tf), generator=gen, device=dev, dtype=torch.int32)
+    pos = torch.zeros((), dtype=torch.int32, device=dev)
+    t = time.perf_counter()
+    for i in range(n_tf):
+        logits, cache = steps.decode_step(params, cache, prompt[:, i:i + 1], pos)
+        pos = pos + 1
+    torch.cuda.synchronize()
+    t_tf = time.perf_counter() - t
+    first = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    t = time.perf_counter()
+    gtoks, cache = greedy_generate(steps, params, cache, first, n_new=n_new, start_pos=n_tf)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t
+    if gtoks.shape != (B, n_new) or int(gtoks.min()) < 0 or int(gtoks.max()) >= cfg.vocab:
+        raise AssertionError(f"{HYBRID_ARCH}: greedy tokens {tuple(gtoks.shape)}")
+    tpos = torch.tensor(n_tf + n_new, dtype=torch.int32, device=dev)
+    with RoutingLog() as rl:
+        logits = steps.decode_step(params, cache, first, tpos)[0]
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{HYBRID_ARCH}: non-finite decode logits")
+    chosen = rl.chosen()
+    step_ms = time_ms(lambda: steps.decode_step(params, cache, first, tpos), iters=10, warmup=2)
+    b_ms, b_bytes, b_ops = lm_decode_bound(cfg, params, B, slots, chosen=chosen)
+    log(f"(a) decode ({card}): {n_tf} teacher-forced steps {t_tf:.6f} s, greedy {n_new} steps "
+        f"{t_gen:.6f} s = {B * n_new / t_gen:.3f} tokens/s (host clock); warm decode_step "
+        f"{step_ms:.6f} ms (CUDA events) = {B / step_ms * 1e3:.3f} tokens/s; bound {b_ms:.6f} ms "
+        f"({b_bytes} B / 3.35 TB/s, the weights of the {chosen} experts the step's tokens chose "
+        f"over its {len(rl.calls)} MoE layers, the k/v read and the Mamba state read and "
+        f"written; {b_ops} bf16 operations / 989 TFLOP/s): {100 * b_ms / step_ms:.3f} % of it; "
+        f"dropped choices a step per MoE layer {rl.dropped()} of {rl.calls[0]['choices']} "
+        f"(capacity {rl.calls[0]['cap']})")
+    log(f"  first row's tokens: {gtoks[0].tolist()}")
+    profile_call(f"{HYBRID_ARCH} decode_step (B={B}, {slots} slots)",
+                 lambda: steps.decode_step(params, cache, first, tpos))
+    log(f"peak device memory ({HYBRID_ARCH}, {cfg.n_layers} layers, (a)): "
+        f"{torch.cuda.max_memory_allocated() - base} B above the start ({base} B)")
+    del cache, logits
+
+    # (b) the long_500k shape: one row into 524,288 slots, at the last one
+    if HYBRID_LONG not in applicable_shapes(cfg):
+        raise AssertionError(f"{HYBRID_ARCH}: {HYBRID_LONG} does not apply")
+    ls, lb, _ = SHAPES[HYBRID_LONG]
+    torch.cuda.reset_peak_memory_stats()
+    lgen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    t = time.perf_counter()
+    lcache = steps.init_cache(lb, ls)
+    for c in lcache.values():  # seeded: k and v bf16, the Mamba states f32
+        c.copy_(torch.randn(c.shape, generator=lgen, device=dev, dtype=c.dtype))
+    torch.cuda.synchronize()
+    t_seed = time.perf_counter() - t
+    ltok = torch.randint(0, cfg.vocab, (lb, 1), generator=lgen, device=dev, dtype=torch.int32)
+    lpos = torch.tensor(ls - 1, dtype=torch.int32, device=dev)
+    with RoutingLog() as rl:
+        logits = steps.decode_step(params, lcache, ltok, lpos)[0]
+    if logits.shape != (lb, 1, cfg.vocab) or not torch.isfinite(logits).all():
+        raise AssertionError(f"{HYBRID_ARCH}: {HYBRID_LONG} decode logits {tuple(logits.shape)}")
+    chosen = rl.chosen()
+    long_ms = time_ms(lambda: steps.decode_step(params, lcache, ltok, lpos), iters=10, warmup=2)
+    l_ms, l_bytes, l_ops = lm_decode_bound(cfg, params, lb, ls, chosen=chosen)
+    log(f"(b) {HYBRID_LONG} decode_step ({card}): B={lb} into {ls} slots at position {ls - 1} "
+        f"over a seeded cache ({sum(c.nbytes for c in lcache.values())} B, seeded in "
+        f"{t_seed:.3f} s): {long_ms:.6f} ms (CUDA events) = {lb / long_ms * 1e3:.3f} tokens/s; "
+        f"bound {l_ms:.6f} ms ({l_bytes} B / 3.35 TB/s, the weights of the {chosen} experts "
+        f"chosen over {len(rl.calls)} MoE layers; {l_ops} bf16 operations): "
+        f"{100 * l_ms / long_ms:.3f} % of it; peak device memory "
+        f"{torch.cuda.max_memory_allocated() - base} B above the start")
+    del lcache, logits
+
+    del params, steps
+
+    # (c) decode against prefill, no capacity binding, the weights drawn anew
+    gc.collect()
+    torch.cuda.empty_cache()
+    cb, cs = HYBRID_CHECK
+    ccfg = dataclasses.replace(cfg, n_layers=HYBRID_CHECK_LAYERS, dtype=HYBRID_CHECK_DTYPE,
+                               capacity_factor=HYBRID_CHECK_CF)
+    t = time.perf_counter()
+    csteps = build_steps(ccfg, device=dev)
+    cparams = csteps.bundle.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    ctoks = torch.randint(0, cfg.vocab, (cb, cs), generator=torch.Generator(device=dev).manual_seed(
+        SEED + 2), device=dev, dtype=torch.int32)
+    err = decode_against_prefill(csteps, cparams, ctoks, moe=True)
+    log(f"check (c): {cs} decode steps at B={cb} from the zero cache against prefill_step, every "
+        f"row, {ccfg.n_layers} layers (a depth cut), {ccfg.dtype} weights, the k/v cache bf16, "
+        f"capacity_factor {HYBRID_CHECK_CF} (no capacity binds at the prefill's {ctoks.numel()} "
+        f"tokens), each step replaying prefill's expert choices: max |err| / max |logit| "
+        f"{err:.6f} <= {LM_REL} ({time.perf_counter() - t:.3f} s)")
+    del cparams, csteps
+
+
+def mamba_layer_against_cpu(dev, card: str) -> None:
+    """(d), second half: one Mamba mixer at published width (bf16, seeded
+    weights) on the card and on the CPU: ``mamba_mixer`` at
+    ``HYBRID_MIXER``'s (B, S), then its decode steps from
+    ``init_mamba_state``, the outputs and states within ``LM_REL``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+
+    cfg = get_config(HYBRID_ARCH)
+    B, S, n = HYBRID_MIXER
+    t = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    p = {k: v.value for k, v in ssm.init_mamba(gen, cfg, dev).items()}
+    cp = {k: v.cpu() for k, v in p.items()}
+    n_params = sum(v.numel() for v in p.values())
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        got = ssm.mamba_mixer(p, x, cfg)
+        torch.cuda.synchronize()
+        tc = time.perf_counter()
+        want = ssm.mamba_mixer(cp, x.cpu(), cfg)
+        t_cpu = time.perf_counter() - tc
+        mix_err = rel_err(got, want)
+        st, cst = ssm.init_mamba_state(cfg, B, dev), ssm.init_mamba_state(cfg, B)
+        errs = []
+        for i in range(n):
+            y = ssm.mamba_decode(p, x[:, i:i + 1], st, cfg)[0]
+            cy = ssm.mamba_decode(cp, x[:, i:i + 1].cpu(), cst, cfg)[0]
+            errs.append(rel_err(y, cy))
+        s_err = max(rel_err(st[k], cst[k]) for k in st)
+    if max([mix_err, s_err] + errs) > LM_REL:
+        raise AssertionError(f"(d) mamba layer: mixer {mix_err}, decode {errs}, states {s_err}")
+    log(f"check (d) one Mamba layer at published width ({n_params} parameters, bf16), the card "
+        f"against the port's CPU run: mamba_mixer at B={B} S={S} max |err| / max |y| "
+        f"{mix_err:.6f} <= {LM_REL} (CPU {t_cpu:.3f} s); {n} mamba_decode steps from "
+        f"init_mamba_state {[f'{e:.6f}' for e in errs]}, the states h and conv {s_err:.6f} <= "
+        f"{LM_REL} ({time.perf_counter() - t:.3f} s)")
+
+
+def hybrid_training(dev, card: str) -> None:
+    """(e): ``jamba-v0.1-52b`` at published width cut to
+    ``HYBRID_TRAIN_LAYERS`` (one superblock; a cut), Adafactor (the
+    config's) and ``remat="full"`` (a checkpoint a block):
+    ``HYBRID_TRAIN_STEPS`` warm-up then timed ``train_step``s at
+    ``HYBRID_TRAIN_SHAPE`` on the ``TokenPipeline``, each timed with CUDA
+    events, against ``lm_train_bound``, tokens/s, peak device memory; then
+    one step at the ``reduced()`` config (f32, ``remat="full"``) from one
+    fresh state on the card and on the CPU within ``HYBRID_TRAIN_F32``."""
+    from repro_torch import full_f32_matmul
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.train.step import build_steps
+    from repro_torch.tree import leaves
+
+    full = get_config(HYBRID_ARCH)
+    cfg = dataclasses.replace(full, n_layers=HYBRID_TRAIN_LAYERS)
+    B, S = HYBRID_TRAIN_SHAPE
+    n_warm, n_timed = HYBRID_TRAIN_STEPS
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    steps = build_steps(cfg, device=dev)
+    state = steps.init_state(torch.Generator(device=dev).manual_seed(SEED + 4))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    w_bytes = lm_bytes(state["params"])
+    o_bytes = sum(x.numel() * x.element_size() for x in leaves(state["opt"]))
+    pipe = TokenPipeline(cfg.vocab, S, B, seed=2)
+    batches = [pipe.next_batch(cfg, dev) for _ in range(n_warm + n_timed)]
+    log(f"(e) {HYBRID_ARCH} on {card}: n_layers={cfg.n_layers} (a depth cut: {cfg.n_layers} of "
+        f"{full.n_layers}, one superblock), {cfg.optimizer}, remat={cfg.remat}: {n_params} "
+        f"parameters, {w_bytes} B of weights, {o_bytes} B of optimizer state "
+        f"({time.perf_counter() - t:.3f} s)")
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in batches]
+    metrics = []
+    t = time.perf_counter()
+    for (start, end), batch in zip(events, batches):
+        start.record()
+        state, m = steps.train_step(state, batch)
+        end.record()
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    for i, m in enumerate(metrics):
+        check_metrics(m, f"(e) {HYBRID_ARCH} step {i}")
+    ms = [s.elapsed_time(e) for s, e in events]
+    timed = ms[n_warm:]
+    mean = float(np.mean(timed))
+    b_ms, b_ops, b_bytes = lm_train_bound(cfg, n_params, B, S)
+    log(f"(e) {HYBRID_ARCH} train_step ({card}): B={B} S={S}: first {ms[0]:.6f} ms; timed "
+        f"steps mean {mean:.6f} ms, min {min(timed):.6f}, max {max(timed):.6f}, std "
+        f"{float(np.std(timed)):.6f} over {len(timed)} (CUDA events) = {B * S / mean * 1e3:.3f} "
+        f"tokens/s; host wall {wall:.3f} s for {len(batches)} steps; losses "
+        f"{[round(float(m['loss']), 6) for m in metrics]}; bound {b_ms:.6f} ms ({b_ops} bf16 "
+        f"operations / 989 TFLOP/s + {4 * lm_forward_ops(cfg, B, S)[1]} f32 operations / "
+        f"67 TFLOP/s; {b_bytes} B / 3.35 TB/s): {100 * b_ms / mean:.3f} % of it; peak device "
+        f"memory {torch.cuda.max_memory_allocated() - base} B above the start ({base} B), the "
+        f"state {w_bytes + o_bytes} B")
+    del state, batches, steps, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    hb, hs = HYBRID_TRAIN_CPU
+    rcfg = dataclasses.replace(full.reduced(), remat="full")
+    rsteps = build_steps(rcfg, device=dev)
+    rstate = rsteps.init_state(torch.Generator(device=dev).manual_seed(SEED + 4))
+    with full_f32_matmul():
+        _, line = train_step_against_cpu(dev, rcfg, rsteps, rstate, hb, hs,
+                                         f"(e) {HYBRID_ARCH} reduced() ({rcfg.optimizer}, f32)",
+                                         HYBRID_TRAIN_F32)
+    log(line)
+
+
+def hybrid_family(dev, card: str) -> None:
+    """Phase 20: the hybrid family (``jamba-v0.1-52b``) on the card.
+
+    (a)-(c) ``hybrid_serving`` at 16 of its 32 layers: prefill, decode at
+    B = 128, the ``long_500k`` decode, decode against prefill. (d) the card
+    against the port's CPU run: the ``reduced()`` config in f32
+    (``moe_card_against_cpu``) and one Mamba layer at published width in
+    bf16 (``mamba_layer_against_cpu``). (e) ``hybrid_training`` at 8
+    layers, and a ``reduced()`` step against the CPU's.
+    """
+    from repro_torch.configs import get_config
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the f32 products would be rounded")
+    with phase(f"{HYBRID_ARCH} serving (a)-(c)"):
+        hybrid_serving(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase(f"{HYBRID_ARCH} card against CPU (d)"):
+        moe_card_against_cpu(dev, card, HYBRID_ARCH, cfg=get_config(HYBRID_ARCH).reduced(),
+                             rel=HYBRID_F32_REL, shape=HYBRID_CPU_SHAPE, part="(d)")
+        mamba_layer_against_cpu(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase(f"{HYBRID_ARCH} train_step (e)"):
+        hybrid_training(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # -------------------------------------------------------------------- main
@@ -5283,6 +5730,9 @@ def main() -> int:
 
     with phase("enc-dec and xLSTM families"):
         seq_families(dev, card)
+
+    with phase("hybrid family"):
+        hybrid_family(dev, card)
 
     log(f"card: {card}")
     print(json.dumps({"kernels": rows}), flush=True)

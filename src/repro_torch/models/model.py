@@ -11,18 +11,21 @@ Families served here:
   encdec      -- whisper: a bidirectional encoder over stub frame
                  embeddings and a causal decoder with cross attention
   xlstm       -- a repeating unit of mLSTM layers and one sLSTM layer
-Still to port: ``hybrid`` (ROADMAP A.13g).
+  hybrid      -- jamba: a superblock of ``attn_every`` layers, Mamba
+                 mixers and one attention layer, an MoE FFN on every
+                 ``moe_every``-th layer
 
-A model is an ``nn.Module`` (``DecoderOnlyLM``, ``EncDecLM``, ``XLSTMLM``)
-whose parameters sit under the reference's tree paths (``embed.table``,
-``head.w``, ``final_norm``, ``dense_blocks.attn.wq``,
+A model is an ``nn.Module`` (``DecoderOnlyLM``, ``EncDecLM``, ``XLSTMLM``,
+``HybridLM``) whose parameters sit under the reference's tree paths
+(``embed.table``, ``head.w``, ``final_norm``, ``dense_blocks.attn.wq``,
 ``moe_blocks.moe.w_gate``, ``mtp.proj``, ``enc_blocks.ln1b``,
-``dec_blocks.cross_attn.wk``, ``units.m0.core.w_if``, ...), each layer
-stack with a leading ``layers`` (or ``repeat``) dimension, each
-parameter's logical spec kept beside it in ``specs``. Where the reference
-scans over a stack, the port loops over layers in Python; where it wraps
-the scan body in ``jax.checkpoint`` (``cfg.remat == "full"``), the port
-wraps each layer (each xLSTM unit) in ``torch.utils.checkpoint``.
+``dec_blocks.cross_attn.wk``, ``units.m0.core.w_if``,
+``units.b0.mix.A_log``, ...), each layer stack with a leading ``layers``
+(or ``repeat``) dimension, each parameter's logical spec kept beside it in
+``specs``. Where the reference scans over a stack, the port loops over
+layers in Python; where it wraps the scan body in ``jax.checkpoint``
+(``cfg.remat == "full"``), the port wraps each layer (each xLSTM unit;
+each block of a hybrid superblock) in ``torch.utils.checkpoint``.
 ``ModelBundle``'s functions keep the reference's names and wrap the
 module. The parameters are registered without gradients; the training
 steps turn them on.
@@ -41,13 +44,9 @@ from ..tree import module_tree
 from . import layers as L
 from . import mla as MLA
 from . import moe as MOE
+from . import ssm as SSM
 from . import xlstm as XL
 from .layers import Param, split_params
-
-# the families other slices port, and the ROADMAP item that ports each
-UNPORTED_FAMILIES = {
-    "hybrid": "A.13g (hybrid)",
-}
 
 
 # ----------------------------------------------------------------- helpers
@@ -131,7 +130,11 @@ def _decode_block(p, x, cache_k, cache_v, pos, cfg, kind: str = "dense"):
 
 def block_kinds(cfg: ArchConfig):
     """``(dense_kind, moe_kind, n_dense, n_moe)`` of ``cfg``: the kinds of
-    the two stacks and their layer counts, as ``build_decoder_only``'s."""
+    the two stacks and their layer counts, as ``build_decoder_only``'s; for
+    the hybrid family the layers with a dense and with an MoE FFN."""
+    if cfg.family == "hybrid":
+        n_moe = cfg.n_layers // cfg.attn_every * len(hybrid_moe_positions(cfg))
+        return "dense", "moe", cfg.n_layers - n_moe, n_moe
     is_mla = cfg.use_mla
     if cfg.n_experts:
         moe_kind = "mla_moe" if is_mla else "moe"
@@ -455,6 +458,88 @@ class XLSTMLM(_TreeLM):
         return L.lm_logits(dict(w=self.head.w), _norm(self.final_norm, x)), cache
 
 
+# ------------------------------------------------------------------ hybrid
+def hybrid_attn_position(cfg: ArchConfig) -> int:
+    """The attention layer's position in a hybrid superblock of
+    ``attn_every`` layers: ``attn_every // 2 - 1`` (layer 3 of 8), as the
+    reference's ``build_hybrid``; every other position is a Mamba mixer."""
+    return cfg.attn_every // 2 - 1
+
+
+def hybrid_moe_positions(cfg: ArchConfig) -> tuple:
+    """The superblock positions with an MoE FFN: ``i % moe_every ==
+    moe_every - 1`` (none without experts)."""
+    if not cfg.n_experts:
+        return ()
+    return tuple(i for i in range(cfg.attn_every) if i % cfg.moe_every == cfg.moe_every - 1)
+
+
+def _hybrid_block(bp, x, cfg: ArchConfig, attn: bool, moe: bool):
+    h = _norm(bp["ln1"], x)
+    x = x + (L.attention(bp["mix"], h, cfg) if attn else SSM.mamba_mixer(bp["mix"], h, cfg))
+    h = _norm(bp["ln2"], x)
+    return x + (MOE.moe_ffn(bp["ffn"], h, cfg) if moe else L.ffn(bp["ffn"], h))
+
+
+class HybridLM(_TreeLM):
+    """The ``hybrid`` family (jamba): ``units``, a stack (leading
+    ``repeat`` dimension) of superblocks of ``cfg.attn_every`` layers
+    ``b0 ...``, each ``{ln1, ln2, mix, ffn}`` with pre-norm residuals:
+    ``mix`` is the attention at ``hybrid_attn_position`` and a Mamba mixer
+    elsewhere, ``ffn`` an MoE at ``hybrid_moe_positions`` and a dense
+    SwiGLU elsewhere. Prefill and the loss route the MoE with capacity;
+    decode runs ``moe_ffn_dense``, a token a row, as the reference."""
+
+    def __init__(self, cfg: ArchConfig, tree: Dict):
+        super().__init__(cfg, tree)
+        self.attn_pos = hybrid_attn_position(cfg)
+        self.moe_pos = hybrid_moe_positions(cfg)
+
+    def backbone(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = L.embed_lookup(dict(table=self.embed.table), tokens)
+        remat = self._remat()
+        for up in _stack(self.tree()["units"]):
+            for i in range(self.cfg.attn_every):
+                args = (up[f"b{i}"], x, self.cfg, i == self.attn_pos, i in self.moe_pos)
+                x = checkpoint(_hybrid_block, *args, use_reentrant=False) if remat else \
+                    _hybrid_block(*args)
+        return x
+
+    def loss(self, batch: Dict) -> torch.Tensor:
+        return _lm_losses(self, self.backbone(batch["tokens"]), batch["tokens"])
+
+    def prefill(self, batch: Dict) -> torch.Tensor:
+        """The last position's logits (B, 1, vocab); fills no cache."""
+        x = self.backbone(batch["tokens"])
+        return L.lm_logits(dict(w=self.head.w), _norm(self.final_norm, x[:, -1:]))
+
+    def decode(self, cache: Dict, tokens: torch.Tensor, pos: torch.Tensor):
+        """One token per row at position ``pos`` (a 0-d tensor): logits
+        (B, 1, vocab) and the cache, updated in place: the attention
+        layer's ``k`` / ``v`` at ``pos``, each Mamba layer's ``h`` and
+        ``conv`` (the zero cache is the mixer's own start: ``h = 0`` and
+        the conv's zero padding)."""
+        cfg = self.cfg
+        x = L.embed_lookup(dict(table=self.embed.table), tokens)
+        for r, up in enumerate(_stack(self.tree()["units"])):
+            mi = 0
+            for i in range(cfg.attn_every):
+                bp = up[f"b{i}"]
+                h = _norm(bp["ln1"], x)
+                if i == self.attn_pos:
+                    y = L.decode_attention(bp["mix"], h, cache["k"][r], cache["v"][r], pos,
+                                           cfg)[0]
+                else:
+                    st = dict(h=cache["h"][r, mi], conv=cache["conv"][r, mi])
+                    y = SSM.mamba_decode(bp["mix"], h, st, cfg)[0]
+                    mi += 1
+                x = x + y
+                h = _norm(bp["ln2"], x)
+                x = x + (MOE.moe_ffn_dense(bp["ffn"], h, cfg) if i in self.moe_pos
+                         else L.ffn(bp["ffn"], h))
+        return L.lm_logits(dict(w=self.head.w), _norm(self.final_norm, x)), cache
+
+
 # ---------------------------------------------------------------- Bundle
 @dataclasses.dataclass
 class ModelBundle:
@@ -616,6 +701,53 @@ def build_xlstm(cfg: ArchConfig) -> ModelBundle:
     return _bundle(cfg, XLSTMLM, init_tree, cache_shape)
 
 
+def build_hybrid(cfg: ArchConfig) -> ModelBundle:
+    """The ``hybrid`` family (jamba-v0.1-52b)."""
+    unit = cfg.attn_every
+    if not unit or cfg.n_layers % unit:
+        raise ValueError(f"{cfg.n_layers} layers are not whole superblocks of {unit}")
+    n_rep = cfg.n_layers // unit
+    attn_pos, moe_pos = hybrid_attn_position(cfg), hybrid_moe_positions(cfg)
+
+    def init_block(gen, device, i: int):
+        dev = device or gen.device
+        mix = (L.init_attention(gen, cfg, device) if i == attn_pos
+               else SSM.init_mamba(gen, cfg, device))
+        ffn = (MOE.init_moe(gen, cfg, device) if i in moe_pos
+               else L.init_ffn(gen, cfg, device=device))
+        return dict(ln1=L.ones((cfg.d_model,), ("embed",), device=dev),
+                    ln2=L.ones((cfg.d_model,), ("embed",), device=dev), mix=mix, ffn=ffn)
+
+    def init_tree(gen: torch.Generator, device=None) -> Dict:
+        dev = device or gen.device
+        # each block position stacked over the superblocks on its own: the
+        # same tree as a stack of whole superblocks, with one block's draw
+        # alive beside the stacks instead of a superblock's (13.3 B
+        # parameters at jamba's published widths)
+        return dict(
+            embed=L.init_embedding(gen, cfg, device),
+            head=L.init_lm_head(gen, cfg, device),
+            units={f"b{i}": stack_init(lambda i=i: init_block(gen, device, i), n_rep, "repeat")
+                   for i in range(unit)},
+            final_norm=L.ones((cfg.d_model,), ("embed",), device=dev),
+        )
+
+    def cache_shape(batch: int, seq: int):
+        # k and v bf16 whatever the model's dtype, the Mamba states f32, as the reference
+        n_mamba = unit - 1
+        kv = ((n_rep, batch, seq, cfg.n_kv_heads, cfg.head_dim), torch.bfloat16,
+              ("repeat", "batch", "kv_seq", "kv_heads", "head_dim"))
+        return dict(
+            k=kv, v=kv,
+            h=((n_rep, n_mamba, batch, cfg.d_inner, cfg.d_state), torch.float32,
+               ("repeat", None, "batch", "inner", None)),
+            conv=((n_rep, n_mamba, batch, cfg.d_conv - 1, cfg.d_inner), torch.float32,
+                  ("repeat", None, "batch", None, "inner")),
+        )
+
+    return _bundle(cfg, HybridLM, init_tree, cache_shape)
+
+
 # ---------------------------------------------------------------- factory
 def build_model(cfg: ArchConfig) -> ModelBundle:
     if cfg.family in ("dense", "vlm", "moe", "mla_moe"):
@@ -624,7 +756,6 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
         return build_encdec(cfg)
     if cfg.family == "xlstm":
         return build_xlstm(cfg)
-    if cfg.family in UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet (ROADMAP {UNPORTED_FAMILIES[cfg.family]})")
+    if cfg.family == "hybrid":
+        return build_hybrid(cfg)
     raise ValueError(f"unknown family {cfg.family}")

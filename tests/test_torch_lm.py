@@ -37,9 +37,11 @@ from repro.train.step import build_steps as jbuild_steps  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.convert import params_from_reference  # noqa: E402
-from repro_torch.models.model import UNPORTED_FAMILIES, build_model  # noqa: E402
+from repro_torch.configs import ARCH_IDS  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.train.decode import greedy_generate  # noqa: E402
 from repro_torch.train.step import build_steps  # noqa: E402
+from repro_torch.tree import leaves  # noqa: E402
 
 F32_ATOL = 2e-6
 MATMUL_REL = 1e-4
@@ -341,15 +343,18 @@ def test_params_from_reference_bf16_bits():
     np.testing.assert_array_equal(sd["c"].numpy(), tree["c"])
 
 
-@pytest.mark.parametrize("family", sorted(UNPORTED_FAMILIES))
-def test_build_model_raises_for_unported_families(family):
-    arch = {"hybrid": "jamba-v0.1-52b"}[family]
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_family_builds(arch):
+    """Every published config builds in the port (no family raises): the
+    model's tree on the meta device (nothing drawn) and the steps on the
+    CPU, their parameter and state specs the reference's."""
     cfg = get_config(arch)
-    assert cfg.family == family
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.13"):
-        build_model(cfg)
-    with pytest.raises(NotImplementedError):
-        build_steps(cfg.reduced(), device="cpu")
+    values, _ = L.split_params(build_model(cfg).init_tree(torch.Generator(), device="meta"))
+    assert leaves(values) and all(v.device.type == "meta" for v in leaves(values))
+    steps = build_steps(cfg, device="cpu")
+    jsteps = jbuild_steps(jget_config(arch))
+    assert steps.param_specs == jsteps.param_specs
+    assert steps.state_specs == jsteps.state_specs
 
 
 def test_build_steps_needs_a_card_unless_told(monkeypatch):
