@@ -172,8 +172,8 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    ``PartitionedSnapshot.build(S=2)`` and log B's delta in shared host
    memory; each rank places only its slab (and, for the query-parallel
    regime, a replica). Checked on every rank: index-parallel SKR over the
-   4 batches (cold, then warm) and one kNN batch at k = 10 (cold, then
-   warm) against the single-device outputs (id sets and counters; kNN
+   4 batches (cold, then warm) and one kNN batch at k = 10 (from a cold
+   cache) against the single-device outputs (id sets and counters; kNN
    every key); query-parallel SKR and kNN at the single-device run's
    learned widths, every key; log B's delta routed with
    ``partition_delta``, one SKR and one kNN batch against the
@@ -320,7 +320,32 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    timed steps (CUDA events) against ``lm_train_bound``, tokens/s, peak
    memory; one ``reduced()`` f32 step against the CPU's within 1e-5 (loss,
    grad_norm) and 1e-4 (each Adafactor factor);
-21. prints the kernels' JSON line, then the result line.
+21. LMs served over a mesh of ranks, and the dry run (``lms_over_ranks``),
+   no kernel on its path: the single-device runs first (prefill of the
+   whole batch and of each data shard's rows, decode steps, routing kept),
+   the dry run's collective census of each rank's cell at the same depth,
+   batch and mesh, then ranks spawned as in phase 15 (gloo on one card,
+   NCCL with a card a rank): (a) ``qwen2-moe-a2.7b`` at its published
+   widths cut to 4 layers (bf16, seeded weights) on four ranks ``(data=2,
+   model=2)``: ``prefill_step`` at B = 8, S = 2048 (``moe_ffn_sharded``),
+   each rank's logits within 5e-2 of the single-device prefill of its data
+   shard's rows alone (the same capacity), routing replayed, then 16 decode
+   steps into 2,048 slots against the single-device decode of the whole
+   batch; (b) the same model on two ranks ``(1, 2)`` (the first two of the
+   same spawn; the others wait), against the single-device prefill of the
+   whole batch; (c) ``deepseek-v3-671b`` at
+   its published widths cut to 4 layers (one MoE layer of 256 experts, 128
+   a rank) on ``(1, 2)``, prefill at B = 1, S = 2048; (d) every rank's
+   census of its prefill and of each decode step equal to the dry run's,
+   integer for integer; printed: prefill and decode ms per mesh beside the
+   single-device runs' (CUDA events), the collectives' share of a prefill
+   (host clock), peak memory per rank; (e) the dry run at full width on
+   the 256-GPU mesh (``data=32,model=8``) of qwen2-moe's and deepseek-v3's
+   ``prefill_32k`` and ``decode_32k``, jamba's ``decode_32k`` and
+   ``long_500k`` and ``wisk serve``, in two processes of their own from
+   the phase's start, printing each cell's ``fits`` and its three roofline
+   terms;
+22. prints the kernels' JSON line, then the result line.
 
 Every phase prints its seconds. Any failure raises and exits non-zero.
 Without a CUDA device, or outside the repository, it exits non-zero and
@@ -332,6 +357,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -2015,27 +2041,23 @@ def rank_phase(rank: int, world: int, init: str, backend: str, p: dict) -> None:
         f"for the peer rank included); id sets, counts, nodes_checked, verified and overflow "
         f"equal the single-device batches; widths {sorted(icache.widths.items())}")
 
-    # index-parallel kNN
+    # index-parallel kNN, from a cold cache (its warm repeat, 7.6 s, is cut
+    # for the smoke's time limit)
     kcache = PlanCache()
-    kout = run("index kNN cold", lambda: serve_knn_index_sharded(
-        psnap, points[kq], bms[kq], K, mesh=imesh, plan_cache=kcache))
     with timed_collectives() as in_coll:
-        kout2 = run("index kNN", lambda: serve_knn_index_sharded(
+        kout = run("index kNN", lambda: serve_knn_index_sharded(
             psnap, points[kq], bms[kq], K, mesh=imesh, plan_cache=kcache))
     want = {k: v[:kq.size] for k, v in p["knn"].items() if k != "frontier_widths"}
-    for got in (kout, kout2):
-        assert_outputs_equal({k: got[k] for k in want}, want, "index-parallel kNN")
+    assert_outputs_equal({k: kout[k] for k in want}, want, "index-parallel kNN")
     say(f"  index-parallel kNN (S={world}, k={K}, {kq.size} queries): cold "
-        f"{secs['index kNN cold'][0]:.6f} s, warm {secs['index kNN'][0]:.6f} s, of it "
-        f"{in_coll[0]:.6f} s ({100 * in_coll[0] / secs['index kNN'][0]:.3f} %) in collectives "
-        f"(host clock, waits for the peer rank included); ids, dist2 and every counter equal "
-        f"the single-device batch; widths {sorted(kcache.widths.items())}")
+        f"{secs['index kNN'][0]:.6f} s, of it {in_coll[0]:.6f} s "
+        f"({100 * in_coll[0] / secs['index kNN'][0]:.3f} %) in collectives (host clock, waits "
+        f"for the peer rank included); ids, dist2 and every counter equal the single-device "
+        f"batch; widths {sorted(kcache.widths.items())}")
 
-    # query-parallel: the same batches; from a cold cache, then at the
-    # single-device run's learned widths, where every key is equal
-    got = run("query SKR cold", lambda: serve_sharded(host, rects[b0], bms[b0], MAX_LEAVES,
-                                                      mesh=qmesh, plan_cache=PlanCache()))
-    same_id_sets(got, p["skr"][0], "query-parallel SKR batch 0, cold cache")
+    # query-parallel: the same batches at the single-device run's learned
+    # widths, where every key is equal (the cold-cache batch is cut for the
+    # smoke's time limit; tests/test_torch_sharded.py converges from cold)
     qcache = PlanCache()
     qcache.widths = dict(p["warm_skr"])
     outs = [run("query SKR", lambda b=b: serve_sharded(host, rects[b], bms[b], MAX_LEAVES,
@@ -2049,9 +2071,8 @@ def rank_phase(rank: int, world: int, init: str, backend: str, p: dict) -> None:
                                                      plan_cache=qkcache))
     assert_outputs_equal(got, {k: (v[:kq.size] if k != "frontier_widths" else v)
                                for k, v in p["knn"].items()}, "query-parallel kNN")
-    say(f"  query-parallel (Q={world}): SKR cold batch {secs['query SKR cold'][0]:.6f} s "
-        f"(id sets and counters equal), at the learned widths batch s {secs['query SKR']}; kNN "
-        f"{secs['query kNN'][0]:.6f} s; every key equal, id order included")
+    say(f"  query-parallel (Q={world}): SKR at the learned widths batch s {secs['query SKR']}; "
+        f"kNN {secs['query kNN'][0]:.6f} s; every key equal, id order included")
 
     # log B's delta routed to the owning shards
     dcache, dkcache = PlanCache(), PlanCache()
@@ -3190,8 +3211,8 @@ class RoutingLog:
             if self.keep:
                 rec.update(top_val=top_val.detach().cpu(), tok_idx=tok_idx.cpu())
             rc = self.replay.calls[len(self.calls) - 1] if self.replay is not None else {}
-            if "tok_idx" in rc:  # the replayed selection at this run's gates
-                tok_idx = rc["tok_idx"].to(tok_idx.device)
+            if "tok_idx" in rc:  # the replayed selection at this run's gates (its experts')
+                tok_idx = rc["tok_idx"][e_lo:e_lo + e_n].to(tok_idx.device)
                 eids = e_lo + torch.arange(e_n, device=probs.device)
                 chosen = (top_idx[None, :, :] == eids[:, None, None]).any(-1)
                 score = torch.where(chosen, probs[:, e_lo:e_lo + e_n].T, -1.0)
@@ -4404,6 +4425,388 @@ def hybrid_family(dev, card: str) -> None:
         hybrid_training(dev, card)
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------ LMs over ranks and the dry run (phase 21)
+# (a) and (b): qwen2-moe at its published widths (60 experts padded to 64,
+# d_expert 1408, 4 shared, vocab 151,936) cut to 4 layers; (c): deepseek-v3
+# at its published widths cut to 4 layers (3 dense, one MoE layer of 256
+# experts); bf16, seeded weights (recorded as cuts)
+RANKS_DEPTH = {"qwen2-moe-a2.7b": 4, "deepseek-v3-671b": 4}
+RANKS_PREFILL = {"qwen2-moe-a2.7b": (8, 2048), "deepseek-v3-671b": (1, 2048)}  # (B, S)
+RANKS_DECODE = 16  # (a): decode steps at the prefill's B, into S slots
+# (part, arch, (data, model), decode steps): the runs of the phase, in turn
+# on one spawn of ranks (a run on fewer ranks than the spawn's takes the
+# first ones, the rest wait)
+RANKS_RUNS = [("a", "qwen2-moe-a2.7b", (2, 2), RANKS_DECODE),
+              ("b", "qwen2-moe-a2.7b", (1, 2), 0), ("c", "deepseek-v3-671b", (1, 2), 0)]
+# every rank's logits within this share of the single-device run's largest
+# logit: the bf16 bound of tests/test_torch_moe_sharded.py (and LM_REL); the
+# two runs differ by the order of the experts' sums in bf16 (a rank's
+# experts first, then the sum over model), the routing replayed
+RANKS_REL = 5e-2
+# (e): the dry run at full width on the 256-GPU mesh
+DRYRUN_MESH = "data=32,model=8"
+DRYRUN_CELLS = (("qwen2-moe-a2.7b", "prefill_32k"), ("qwen2-moe-a2.7b", "decode_32k"),
+                ("deepseek-v3-671b", "prefill_32k"), ("deepseek-v3-671b", "decode_32k"),
+                ("jamba-v0.1-52b", "decode_32k"), ("jamba-v0.1-52b", "long_500k"),
+                ("wisk", "serve"))
+
+
+def ranks_config(arch: str):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), n_layers=RANKS_DEPTH[arch])
+
+
+def _host_log(log_):
+    """A ``RoutingLog``'s kept calls on the host (for a rank to replay)."""
+    keep = ("probs", "top_idx", "top_val", "tok_idx")
+    return types.SimpleNamespace(calls=[{k: c[k].cpu() for k in keep if k in c}
+                                        for c in log_.calls])
+
+
+def single_device_runs(dev, card: str, arch: str, layouts) -> dict:
+    """The single-device runs the ranks are held to, on the card: prefill of
+    the whole batch and of each data shard's rows alone (the same
+    ``t_loc``), and the decode steps of the whole batch, each with its
+    routing kept for the ranks to replay; their times (CUDA events) and peak
+    memory. Returns the outputs on the host."""
+    from repro_torch.models.moe import n_experts_padded
+    from repro_torch.train.step import build_steps
+
+    cfg = ranks_config(arch)
+    B, S = RANKS_PREFILL[arch]
+    n_dec = max(n for _, a, _, n in RANKS_RUNS if a == arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    steps = build_steps(cfg, device=dev)
+    t = time.perf_counter()
+    params = steps.bundle.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    log(f"{arch} single device ({card}): n_layers={cfg.n_layers} (a depth cut) d_model="
+        f"{cfg.d_model} experts={cfg.n_experts} padded to {n_experts_padded(cfg)} top-"
+        f"{cfg.moe_topk} shared={cfg.n_shared_experts} d_expert={cfg.d_expert} vocab={cfg.vocab}"
+        f" {cfg.dtype}: {lm_bytes(params)} B of weights ({time.perf_counter() - t:.3f} s)")
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=g, device=dev, dtype=torch.int32)
+    dec = torch.randint(0, cfg.vocab, (B, max(n_dec, 1)), generator=g, device=dev,
+                        dtype=torch.int32)
+    out = dict(cfg=cfg, tokens=toks.cpu(), dec_tokens=dec.cpu(), prefill={}, times={})
+    row_sets = {(0, B)} | {(i * B // d, (i + 1) * B // d) for d, _ in layouts
+                           for i in range(d)}
+    for lo, hi in sorted(row_sets):
+        batch = dict(tokens=toks[lo:hi])
+        with RoutingLog(keep=True) as rl:
+            logits = steps.prefill_step(params, batch)
+        ms = time_ms(lambda: steps.prefill_step(params, batch), iters=2, warmup=1)
+        out["prefill"][(lo, hi)] = (logits.cpu(), _host_log(rl))
+        out["times"][f"prefill rows {lo}:{hi}"] = ms
+    if n_dec:
+        cache = steps.init_cache(B, S)
+        logs, step_logits = [], []
+        for i in range(n_dec):
+            with RoutingLog(keep=True) as rl:
+                lo_, cache = steps.decode_step(params, cache, dec[:, i:i + 1],
+                                               torch.tensor(i, dtype=torch.int32, device=dev))
+            step_logits.append(lo_.cpu())
+            logs.append(_host_log(rl))
+        pos = torch.tensor(n_dec - 1, dtype=torch.int32, device=dev)
+        out["times"]["decode step"] = time_ms(
+            lambda: steps.decode_step(params, cache, dec[:, -1:], pos), iters=3, warmup=1)
+        out["decode"] = (step_logits, logs)
+        del cache
+    out["peak"] = torch.cuda.max_memory_allocated() - base
+    log(f"{arch} single device: " + ", ".join(f"{k} {v:.6f} ms" for k, v in out["times"].items())
+        + f" (CUDA events); peak device memory {out['peak']} B above the start")
+    del params, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_prediction(arch: str, layout, B: int, S: int, n_dec: int) -> dict:
+    """The dry run's census of the cell the ranks run: prefill at (B, S)
+    and one decode step at B into S slots, on the abstract mesh of
+    ``layout``, at the same depth."""
+    from repro_torch.launch.dryrun import run_cell
+
+    mesh = f"data={layout[0]},model={layout[1]}"
+    cfg = ranks_config(arch)
+    out = {}
+    for kind, shape in (("prefill", "prefill_32k"), ("decode", "decode_32k")):
+        if kind == "decode" and not n_dec:
+            continue
+        rec = run_cell(arch, shape, mesh, seq=S, batch=B, cfg=cfg)
+        out[kind] = (rec["collective_bytes_by_axis"], rec["collective_counts_by_axis"])
+    return out
+
+
+def timed_step(fn, on_card: bool, sync):
+    """One call of ``fn``: ``(device ms by CUDA events, or the host clock's
+    off the card; host seconds; [host seconds inside collectives])``."""
+    sync()
+    if on_card:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+    t = time.perf_counter()
+    with timed_collectives() as box:
+        fn()
+        if on_card:
+            end.record()
+        sync()
+    wall = time.perf_counter() - t
+    return (start.elapsed_time(end) if on_card else wall * 1e3), wall, box
+
+
+def run_mesh(rank: int, world: int, layout, dev):
+    """The ``("data", "model")`` mesh of a run: ``make_host_mesh`` where the
+    run takes every rank, else one over the first ``data * model`` ranks,
+    laid out as ``make_host_mesh`` lays them out (None on the others).
+    Every rank creates every group, in the same order."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import MeshAxis, ServingMesh, make_host_mesh
+
+    d, m = layout
+    if d * m == world:
+        return make_host_mesh(d, m, device=dev)
+    lines = dict(data=[[c0 * m + c1 for c0 in range(d)] for c1 in range(m)],
+                 model=[[c0 * m + c1 for c1 in range(m)] for c0 in range(d)])
+    groups = {}
+    for name, size in (("data", d), ("model", m)):
+        for ranks in lines[name] if size > 1 else ():
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                groups[name] = g
+    everyone = dist.new_group(list(range(d * m)))
+    if rank >= d * m:
+        return None
+    axes = dict(data=MeshAxis("data", d, rank // m, groups.get("data")),
+                model=MeshAxis("model", m, rank % m, groups.get("model")))
+    return ServingMesh(("data", "model"), rank, dev, axes,
+                       MeshAxis("everyone", d * m, rank, everyone))
+
+
+def mesh_rank(rank: int, world: int, init: str, backend: str, p: dict) -> None:
+    """One rank of phase 21 (spawned): the runs in turn, each on its own
+    mesh (``run_mesh``). Every check raises on failure, which ends the rank
+    non-zero and the parent's phase with it; each rank logs its own
+    lines."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import collective_census
+    from repro_torch.train.step import build_steps
+
+    on_card = p["device_type"] == "cuda"
+    dev = torch.device(f"cuda:{rank % torch.cuda.device_count()}" if on_card else "cpu")
+    sync = (lambda: torch.cuda.synchronize(dev)) if on_card else (lambda: None)
+    if on_card:
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=init, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    if rank == 0:
+        log(f"ranks: rank 0 up, its group joined: {time.time() - p['spawned']:.3f} s after the "
+            f"spawn")
+    for part, arch, layout, n_dec in p["runs"]:
+        ref, pred = p["refs"][arch], p["pred"][part]
+        cfg = ref["cfg"]
+        B, S = ref["tokens"].shape
+        mesh = run_mesh(rank, world, layout, dev)
+        if mesh is None:  # a run on the first ranks: wait for it
+            dist.barrier()
+            continue
+        say = lambda *a: log(f"({part}) rank {rank} {layout}:", *a)  # noqa: E731
+        if on_card:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev) if on_card else 0
+        steps = build_steps(cfg, mesh=mesh)
+        t = time.perf_counter()
+        params = steps.bundle.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+        sync()
+        i, n_rows = mesh.axis("data").index, B // layout[0]
+        rows = (i * n_rows, (i + 1) * n_rows)
+        say(f"{lm_bytes(params)} B of weights on this rank (the experts' block "
+            f"{tuple(params.tree()['moe_blocks']['moe']['w_gate'].shape)}), drawn in "
+            f"{time.perf_counter() - t:.3f} s; its rows {rows[0]}:{rows[1]} of {B}")
+        batch = dict(tokens=ref["tokens"].to(dev))
+        want, replay = ref["prefill"][rows]
+        with RoutingLog(replay=replay), collective_census() as census:
+            logits = steps.prefill_step(params, batch)
+        err = rel_err(logits, want)
+        if logits.shape != want.shape or err > RANKS_REL:
+            raise AssertionError(f"({part}) rank {rank}: prefill logits {tuple(logits.shape)} "
+                                 f"off the single-device run's by {err}")
+        if (census.bytes, census.counts) != pred["prefill"]:
+            raise AssertionError(f"({part}) rank {rank}: the prefill's census {census.bytes} "
+                                 f"{census.counts} is not the dry run's {pred['prefill']}")
+        # a second prefill, warm, timed (the first ran this process's first products)
+        ms, wall, box = timed_step(lambda: steps.prefill_step(params, batch), on_card, sync)
+        say(f"prefill B={B} S={S}: max |err| / max |logit| {err:.6f} <= {RANKS_REL} against "
+            f"the single-device prefill of rows {rows[0]}:{rows[1]} (routing replayed); "
+            f"census {census.bytes} calls {census.counts} = the dry run's; "
+            f"{ms:.6f} ms (CUDA events; single device "
+            f"{ref['times'][f'prefill rows {rows[0]}:{rows[1]}']:.6f} ms), collectives "
+            f"{100 * box[0] / wall:.3f} % of a {wall * 1e3:.3f} ms prefill (host clock)")
+        if n_dec:
+            dec_logits, dec_logs = ref["decode"]
+            cache = steps.init_cache(B, S)
+            dec = ref["dec_tokens"].to(dev)
+            box_out = []
+            worst, t = 0.0, time.perf_counter()
+            for s in range(n_dec):
+                pos = torch.tensor(s, dtype=torch.int32, device=dev)
+
+                def step():
+                    return steps.decode_step(params, cache, dec[:, s:s + 1], pos)
+
+                with RoutingLog(replay=dec_logs[s]), collective_census() as census:
+                    if s < n_dec - 1:
+                        lo_, cache = step()
+                    else:  # the last step is the warm one timed
+                        step_ms, _, _ = timed_step(lambda: box_out.append(step()), on_card, sync)
+                        lo_, cache = box_out.pop()
+                worst = max(worst, rel_err(lo_, dec_logits[s][rows[0]:rows[1]]))
+                if (census.bytes, census.counts) != pred["decode"]:
+                    raise AssertionError(f"({part}) rank {rank}: decode census {census.bytes} "
+                                         f"is not the dry run's {pred['decode']}")
+            sync()
+            t_dec = time.perf_counter() - t
+            if worst > RANKS_REL:
+                raise AssertionError(f"({part}) rank {rank}: decode off by {worst}")
+            say(f"{n_dec} decode steps (moe_ffn_dense over the whole batch, its rows gathered "
+                f"over data) into {S} slots: {t_dec:.3f} s (host clock), max |err| / max "
+                f"|logit| {worst:.6f} <= {RANKS_REL} against the single-device decode of the "
+                f"whole batch (routing replayed); census a step {census.bytes} = the dry run's; "
+                f"a warm step {step_ms:.6f} ms (CUDA events; single device "
+                f"{ref['times']['decode step']:.6f} ms)")
+            del cache
+        peak = (torch.cuda.max_memory_allocated(dev) - base) if on_card else 0
+        say(f"peak device memory {peak} B above the start ({base} B)")
+        del params, steps, logits
+        dist.barrier()
+    dist.destroy_process_group()
+
+
+# (e)'s process: ``run_cell`` of each "arch:shape" argument in turn
+DRYRUN_SCRIPT = """
+import sys
+from repro_torch.launch.dryrun import run_cell
+for cell in sys.argv[3:]:
+    run_cell(*cell.split(":"), sys.argv[1], sys.argv[2])
+"""
+
+
+def start_dryrun(out_dir: str):
+    """(e), started: the dry run of ``DRYRUN_CELLS`` at full width on
+    ``DRYRUN_MESH`` in two processes of their own, the prefill cells in one
+    and the rest in the other, a cell after another (host work on meta
+    tensors, no card visible; two processes, so that they take two cores
+    from the gloo ranks), while the phase runs on."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src")] + [
+        v for v in [env.get("PYTHONPATH")] if v])
+    groups = [[c for c in DRYRUN_CELLS if c[1].startswith("prefill") == first]
+              for first in (True, False)]
+    return time.perf_counter(), [subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_SCRIPT, DRYRUN_MESH, out_dir,
+         *[f"{arch}:{shape}" for arch, shape in cells]], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for cells in groups if cells]
+
+
+def full_width_dryrun(started, out_dir: str) -> None:
+    """(e), finished: each cell's record, its ``fits`` against one card's
+    memory (the card's own here) and its three roofline terms."""
+    from repro_torch.launch.dryrun import device_memory, mesh_name, parse_mesh
+    from repro_torch.roofline.analysis import collective_seconds, roofline_from_record
+
+    t, procs = started
+    for proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise AssertionError(f"(e) the dry run failed:\n{err[-3000:]}")
+    log(f"(e) the dry run's processes: {time.perf_counter() - t:.3f} s from their start to the "
+        f"end of their {len(DRYRUN_CELLS)} cells")
+    mem = device_memory()
+    log(f"(e) one card's memory: {mem['bytes']} B ({mem['source']})")
+    for arch, shape in DRYRUN_CELLS:
+        f = Path(out_dir) / f"{arch}_{shape}_{mesh_name(parse_mesh(DRYRUN_MESH))}.json"
+        rec = json.loads(f.read_text())
+        if "skipped" in rec:
+            raise AssertionError(f"(e) {arch} {shape}: skipped: {rec['skipped']}")
+        m, census = rec["memory"], rec["op_census"]
+        row = roofline_from_record(rec) if arch != "wisk" else None
+        terms = (row.compute_s, row.memory_s, row.collective_s) if row else (
+            census["flops"] / 989e12, census["bytes"] / HBM_BYTES_PER_S,
+            collective_seconds(rec["collective_bytes_by_axis"]))
+        log(f"(e) {arch} {shape} on {rec['mesh']} ({rec['devices']} H100s): argument "
+            f"{m['argument_bytes']} B (fits {rec['fits']['argument_bytes']}), by the rules "
+            f"{m['rules_argument_bytes']} B (fits {rec['fits']['rules_argument_bytes']}), peak "
+            f"live {m['peak_live_bytes']} B; compute {terms[0] * 1e3:.6f} ms, memory "
+            f"{terms[1] * 1e3:.6f} ms, collective {terms[2] * 1e3:.6f} ms per step and rank "
+            + (f"(bound: {row.bottleneck}; useful {row.useful_ratio:.3f})" if row else "")
+            + f"; collectives {rec['collective_bytes_by_axis']}; traced in "
+            f"{rec['trace_s']:.3f} s")
+        if rec["fits"]["device_memory_bytes"] != mem["bytes"]:
+            log(f"(e) the records' card memory {rec['fits']['device_memory_bytes']} B "
+                f"({rec['fits']['source']}) is not this card's")
+
+
+def ranks_runs(dev, card: str) -> None:
+    """(a)-(d): the single-device runs (``single_device_runs``, one model
+    on the card at a time), the dry run's census of each rank's cell
+    (``dryrun_prediction``), then ``RANKS_RUNS`` on one spawn of ranks
+    (``mesh_rank``)."""
+    runs = RANKS_RUNS
+    refs, pred = {}, {}
+    for arch in dict.fromkeys(a for _, a, _, _ in runs):
+        layouts = [lay for _, a, lay, _ in runs if a == arch]
+        refs[arch] = single_device_runs(dev, card, arch, layouts)
+    for part, arch, layout, n_dec in runs:
+        B, S = RANKS_PREFILL[arch]
+        pred[part] = dryrun_prediction(arch, layout, B, S, n_dec)
+        log(f"({part}) {arch} on {layout}: the dry run's census, prefill "
+            f"{pred[part]['prefill'][0]}" + (f", a decode step {pred[part]['decode'][0]}"
+                                               if n_dec else ""))
+    cards = torch.cuda.device_count()
+    world = max(lay[0] * lay[1] for _, _, lay, _ in runs)
+    backend = "nccl" if dev.type == "cuda" and cards >= world else "gloo"
+    log(f"ranks: {world} on {min(cards, world)} card(s) of {cards}, backend {backend}: "
+        f"{[(p, a, lay) for p, a, lay, _ in runs]}")
+    payload = dict(runs=runs, refs=refs, pred=pred, device_type=dev.type)
+    with tempfile.TemporaryDirectory() as d:
+        t = time.perf_counter()
+        payload["spawned"] = time.time()
+        torch.multiprocessing.spawn(mesh_rank, args=(world, f"file://{d}/rendezvous", backend,
+                                                     payload), nprocs=world, join=True)
+    log(f"ranks: {time.perf_counter() - t:.3f} s from spawn to join")
+
+
+def lms_over_ranks(dev, card: str) -> None:
+    """Phase 21: LMs served over a mesh of ranks, and the dry run: (a)
+    qwen2-moe on four ranks ``(data=2, model=2)``, prefill and decode; then
+    on the first two ranks ``(1, 2)`` (b) qwen2-moe's and (c) deepseek-v3's
+    prefill;
+    (d) every rank's census equal to the dry run's (``ranks_runs``); (e)
+    the full-width dry run, in processes of its own from the start."""
+    with tempfile.TemporaryDirectory() as out_dir:
+        dry = start_dryrun(out_dir)
+        try:
+            ranks_runs(dev, card)
+            full_width_dryrun(dry, out_dir)
+        finally:
+            for proc in dry[1]:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
 
 
 # -------------------------------------------------------------------- main
@@ -5733,6 +6136,9 @@ def main() -> int:
 
     with phase("hybrid family"):
         hybrid_family(dev, card)
+
+    with phase("LMs over ranks and the dry run"):
+        lms_over_ranks(dev, card)
 
     log(f"card: {card}")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -775,8 +775,9 @@ def _valid_as_ids(cand_valid):
 def verify_candidates(q_rects, q_bm, cand_x, cand_y, cand_bm, cand_valid):
     """(M, C) int8 unfused verify of gathered candidates on all W words:
     in the closed rectangle, keyword-matching and valid. CUDA tensors run
-    ``verify_candidates_counted`` on the validity plane taken as ids."""
-    if q_rects.device.type == "cpu":
+    ``verify_candidates_counted`` on the validity plane taken as ids; CPU
+    and ``meta`` tensors (a dry run's trace) the plain version."""
+    if q_rects.device.type in ("cpu", "meta"):
         return ref.skr_verify_ref(q_rects, q_bm, cand_x, cand_y, cand_bm, cand_valid)
     _check("cand_valid", cand_valid, torch.int8, tuple(cand_x.shape), q_rects.device)
     ids, _, _ = verify_candidates_counted(q_rects, q_bm, cand_x, cand_y, cand_bm,
@@ -813,8 +814,9 @@ def filter_pairs(q_rects, q_bm, n_mbrs, n_bm):
     (the dense A/B scan). CUDA tensors run ``csrc/skr_filter.cu``, which
     reads a node's words only where its MBR meets the rectangle and there
     only at the query's nonzero words, 8 queries a block; it
-    writes rows of a pitch rounded up to 16 and returns the (M, K) view."""
-    if q_rects.device.type == "cpu":
+    writes rows of a pitch rounded up to 16 and returns the (M, K) view.
+    CPU and ``meta`` tensors (a dry run's trace) run the plain version."""
+    if q_rects.device.type in ("cpu", "meta"):
         return ref.skr_filter_ref(q_rects, q_bm, n_mbrs, n_bm)
     dev = q_rects.device
     if dev.type != "cuda":

@@ -7,19 +7,28 @@ per-query counts are summed over the leaf axis. Retired from the serving
 front door -- the index-parallel regime (``serve_index_sharded``) serves
 large indexes with the hierarchy at exact parity -- it stays as the A/B
 floor a hierarchical descent must beat (a flat scan touches every leaf).
-The port of the JAX package's ``launch/flat_legacy.py`` step; its XLA
-lowering surface (``make_inputs``, ``lower_wisk_serve``) belongs to the
-dry-run and roofline tools, which are not ported.
+The port of the JAX package's ``launch/flat_legacy.py``, its dry-run
+surface included: ``make_inputs`` gives the step's operands as ``meta``
+tensors and ``trace_wisk_serve`` traces one rank's step on a mesh of
+placeholder ranks (``launch/mesh.py:make_abstract_mesh``), the counterpart
+of the reference's ``lower_wisk_serve``.
 
 On CUDA tensors the filter is the ``skr_filter`` kernel
 (``ops.filter_pairs``) and the single-stage verify the ``skr_verify``
-kernel (``ops.verify_candidates``); CPU tensors run their plain versions.
+kernel (``ops.verify_candidates``); CPU and meta tensors run their plain
+versions (the reference's dry run lowers its plain math too).
 """
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 
+from ..configs.wisk import WiskServeConfig
 from ..kernels import ops
+from ..roofline.op_stats import OpStats
+from ..sharding.rules import default_rules, shard_tensor
+from .mesh import collective_census
 
 OBJ_PER_LEAF = 512
 TOP_LEAVES_LOCAL = 4
@@ -81,3 +90,47 @@ def wisk_serve_step(q_rects, q_bm, leaf_mbrs, leaf_bm, obj_x, obj_y, obj_bm, obj
     if axis is not None:
         counts, scanned, overflow = axis.psum(counts), axis.psum(scanned), axis.psum(overflow)
     return counts, scanned, overflow
+
+
+# the operands' logical names, in the step's argument order
+INPUT_NAMES = dict(
+    q_rects=("query", None), q_bm=("query", None),
+    leaf_mbrs=("leaf", None), leaf_bm=("leaf", None),
+    obj_x=("leaf", None), obj_y=("leaf", None),
+    obj_bm=("leaf", "obj_slot", "word"), obj_valid=("leaf", None),
+)
+
+
+def make_inputs(cfg: WiskServeConfig) -> Dict[str, torch.Tensor]:
+    """The flat step's whole operands as ``meta`` tensors (nothing is
+    allocated): the reference's shapes, the u32 bitmap words as int32."""
+    W = cfg.vocab // 32
+    meta = lambda shape, dtype: torch.empty(shape, dtype=dtype, device="meta")  # noqa: E731
+    return dict(
+        q_rects=meta((cfg.n_queries, 4), torch.float32),
+        q_bm=meta((cfg.n_queries, W), torch.int32),
+        leaf_mbrs=meta((cfg.n_nodes, 4), torch.float32),
+        leaf_bm=meta((cfg.n_nodes, W), torch.int32),
+        obj_x=meta((cfg.n_nodes, OBJ_PER_LEAF), torch.float32),
+        obj_y=meta((cfg.n_nodes, OBJ_PER_LEAF), torch.float32),
+        obj_bm=meta((cfg.n_nodes, OBJ_PER_LEAF, W), torch.int32),
+        obj_valid=meta((cfg.n_nodes, OBJ_PER_LEAF), torch.int8),
+    )
+
+
+def trace_wisk_serve(mesh, cfg: WiskServeConfig = None, two_stage: bool = False) -> Dict:
+    """Trace (never execute) one rank's flat step on ``mesh`` (an abstract
+    ``("data", "model")`` mesh): the queries split over the data axes and
+    the leaves with their object blocks over ``model`` by the rules, the
+    counts summed over ``model``. Returns the rank's ``argument_bytes``,
+    its ``op_census`` (``roofline/op_stats.py``) and its collective census
+    (``collective_bytes_by_axis`` / ``collective_counts_by_axis``). Host
+    only: every tensor is ``meta``."""
+    cfg = cfg or WiskServeConfig()
+    rules = default_rules(mesh)
+    args = [shard_tensor(t, INPUT_NAMES[k], mesh, rules) for k, t in make_inputs(cfg).items()]
+    with collective_census() as census, OpStats() as stats:
+        wisk_serve_step(*args, two_stage=two_stage, axis=mesh.axis("model"))
+    return dict(argument_bytes=sum(t.numel() * t.element_size() for t in args),
+                op_census=stats.as_dict(), collective_bytes_by_axis=census.bytes,
+                collective_counts_by_axis=census.counts)

@@ -19,7 +19,18 @@ reference             port (``MeshAxis``)
 ``lax.all_gather``    ``all_gather``: ``all_gather_into_tensor``
 ====================  ==========================================
 
-``make_production_mesh`` (the TPU pod shapes) has no counterpart.
+``make_production_mesh`` (the TPU pod shapes) has no counterpart; its
+role in the dry run, a mesh of placeholder devices that allocates nothing,
+is ``make_abstract_mesh``: named axes with sizes and this rank's
+coordinates but no process group, whose collectives return ``meta``
+tensors of the right shapes.
+
+Every collective of a ``MeshAxis``, real or abstract, adds its result
+bytes per device to the ``CollectiveCensus`` that ``collective_census()``
+opens, by axis and by operation (``all-reduce`` for ``psum`` / ``pmax``,
+``all-gather`` for ``all_gather``: the names and the byte count of the
+reference dry run's ``parse_collective_bytes``). A real run and a dry run
+of the same program therefore count the same integers.
 
 The caller starts the process group (``init_process_group`` with its
 address, world size and rank); a mesh of one rank needs none. NCCL takes
@@ -29,9 +40,12 @@ GPU); no collective is copied through the host.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
+import math
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -39,54 +53,122 @@ import torch.distributed as dist
 from .. import resolve_device
 
 
+class CollectiveCensus:
+    """Result bytes per device and calls of every collective made while it
+    is open, by axis and by operation: ``bytes[axis][op]`` and
+    ``counts[axis][op]``."""
+
+    def __init__(self) -> None:
+        self.bytes: Dict[str, Dict[str, int]] = {}
+        self.counts: Dict[str, Dict[str, int]] = {}
+
+    def add(self, axis: str, op: str, nbytes: int) -> None:
+        by_op = self.bytes.setdefault(axis, {})
+        by_op[op] = by_op.get(op, 0) + int(nbytes)
+        calls = self.counts.setdefault(axis, {})
+        calls[op] = calls.get(op, 0) + 1
+
+    def by_op(self) -> Dict[str, int]:
+        """Bytes by operation, summed over the axes."""
+        out: Dict[str, int] = {}
+        for by_op in self.bytes.values():
+            for op, n in by_op.items():
+                out[op] = out.get(op, 0) + n
+        return out
+
+    def total(self) -> int:
+        return sum(self.by_op().values())
+
+
+_CENSUS: contextvars.ContextVar[Optional[CollectiveCensus]] = contextvars.ContextVar(
+    "collective_census", default=None)
+
+
+@contextlib.contextmanager
+def collective_census() -> Iterator[CollectiveCensus]:
+    """A fresh ``CollectiveCensus`` that every ``MeshAxis`` collective adds
+    to until the block ends (the census open before it is restored)."""
+    census = CollectiveCensus()
+    token = _CENSUS.set(census)
+    try:
+        yield census
+    finally:
+        _CENSUS.reset(token)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class MeshAxis:
     """One mesh axis as this rank sees it: its ``size``, this rank's
     coordinate ``index`` on it, and the process group of the ranks that
     share every other coordinate (None when the axis has one rank, so its
-    collectives are the identity)."""
+    collectives are the identity). An ``abstract`` axis has no group at
+    any size: its collectives take ``meta`` tensors and return ``meta``
+    tensors of the result's shape."""
 
     name: str
     size: int
     index: int
     group: Optional[object]
+    abstract: bool = False
+
+    def _active(self, t: torch.Tensor) -> bool:
+        """Whether a collective on ``t`` moves data (and is counted)."""
+        if self.abstract:
+            if t.device.type != "meta":
+                raise ValueError(f"an abstract axis takes meta tensors, got {t.device}")
+            return self.size > 1
+        return self.group is not None
+
+    def _count(self, op: str, nbytes: int) -> None:
+        census = _CENSUS.get()
+        if census is not None:
+            census.add(self.name, op, nbytes)
 
     def _reduce(self, t: torch.Tensor, op) -> torch.Tensor:
+        self._count("all-reduce", _nbytes(t))
         out = t.clone()
-        dist.all_reduce(out, op=op, group=self.group)
+        if not self.abstract:
+            dist.all_reduce(out, op=op, group=self.group)
         return out
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
         """Elementwise sum over the axis (``lax.psum``)."""
-        if self.group is None:
+        if not self._active(t):
             return t
         return self._reduce(t, dist.ReduceOp.SUM)
 
     def pmax(self, t: torch.Tensor) -> torch.Tensor:
         """Elementwise maximum over the axis (``lax.pmax``)."""
-        if self.group is None:
+        if not self._active(t):
             return t
         return self._reduce(t, dist.ReduceOp.MAX)
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """(size, *t.shape): every rank's ``t`` stacked in axis order
         (``lax.all_gather``)."""
-        if self.group is None:
+        if not self._active(t):
             return t[None]
-        x = t.reshape((1,) + tuple(t.shape)).contiguous()
         out = torch.empty((self.size,) + tuple(t.shape), dtype=t.dtype, device=t.device)
-        dist.all_gather_into_tensor(out, x, group=self.group)
+        self._count("all-gather", _nbytes(out))
+        if not self.abstract:
+            x = t.reshape((1,) + tuple(t.shape)).contiguous()
+            dist.all_gather_into_tensor(out, x, group=self.group)
         return out
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ServingMesh:
-    """This rank's place in a 2D serving mesh: its global ``rank``, its
-    ``device``, the two named axes (``axis_names``; ``data`` first) and
-    ``everyone`` (every rank of the mesh, for agreement checks and
-    broadcasts). Hashable by identity, so memos can key on it."""
+    """This rank's place in a mesh: its global ``rank``, its ``device``,
+    the named axes (``axis_names``, row major: the last varies fastest; a
+    process group's meshes are 2D, ``data`` first) and ``everyone`` (every
+    rank of the mesh, for agreement checks and broadcasts). Hashable by
+    identity, so memos can key on it."""
 
-    axis_names: Tuple[str, str]
+    axis_names: Tuple[str, ...]
     rank: int
     device: torch.device
     axes: Dict[str, MeshAxis]
@@ -102,6 +184,24 @@ class ServingMesh:
 
     def axis(self, name: str) -> MeshAxis:
         return self.axes[name]
+
+    def group_axis(self, names: Sequence[str]) -> Optional[MeshAxis]:
+        """One axis over the axes ``names`` together (row major, as a
+        collective over several mesh axes of the reference): the axis itself
+        for one name, None for none. Several axes combine only on an
+        abstract mesh (a process group's meshes are 2D)."""
+        names = tuple(names)
+        if not names:
+            return None
+        if len(names) == 1:
+            return self.axis(names[0])
+        axes = [self.axis(n) for n in names]
+        if not all(a.abstract for a in axes):
+            raise NotImplementedError(f"a collective over the axes {names} of a process group")
+        index = 0
+        for a in axes:
+            index = index * a.size + a.index
+        return MeshAxis(",".join(names), math.prod(a.size for a in axes), index, None, True)
 
     def broadcast_object(self, obj, src: int = 0):
         """``obj`` from mesh rank ``src`` on every rank (pickled; only
@@ -159,6 +259,27 @@ def _make_mesh(axis_names: Tuple[str, str], n0: int, n1: int, device) -> Serving
         axes[name] = MeshAxis(name, size, coord[name], mine)
     everyone = MeshAxis("everyone", world, rank, dist.group.WORLD if world > 1 else None)
     return ServingMesh(axis_names, rank, dev, axes, everyone)
+
+
+def make_abstract_mesh(rank: int = 0, **sizes: int) -> ServingMesh:
+    """A mesh of ``sizes`` (axis name to size, in order: e.g. ``pod=2,
+    data=32, model=8``) with no process group, as the reference's dry run
+    lays out placeholder devices: mesh rank ``rank``'s coordinates, device
+    ``meta``, every axis abstract (its collectives count and return meta
+    tensors). Nothing is allocated."""
+    if not sizes or any(int(n) < 1 for n in sizes.values()):
+        raise ValueError(f"mesh axes must have at least one rank, got {sizes}")
+    names = tuple(sizes)
+    world = math.prod(int(n) for n in sizes.values())
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} is outside a mesh of {world}")
+    coords, rest = {}, rank
+    for name in reversed(names):
+        coords[name] = rest % int(sizes[name])
+        rest //= int(sizes[name])
+    axes = {n: MeshAxis(n, int(sizes[n]), coords[n], None, True) for n in names}
+    everyone = MeshAxis("everyone", world, rank, None, True)
+    return ServingMesh(names, rank, torch.device("meta"), axes, everyone)
 
 
 def make_serving_mesh(query: int = 1, index: int = 1, device=None) -> ServingMesh:

@@ -89,7 +89,7 @@ from ..serve.plan import (
 )
 from ..serve.snapshot import PartitionedSnapshot, to_device
 from ..serve.subscribe import SubscriptionIndex
-from ..sharding.rules import dp_axes, shard_rows
+from ..sharding.rules import dp_mesh_axes, shard_rows
 from .mesh import ServingMesh, make_host_mesh, make_serving_mesh
 
 _PER_QUERY_SKR = ("ids", "counts", "nodes_checked", "nodes_scanned", "verified", "overflow")
@@ -348,7 +348,7 @@ def default_serving_mesh() -> ServingMesh:
 
 def mesh_dp_size(mesh: ServingMesh) -> int:
     """Number of query shards: the product of the mesh's data axes."""
-    return math.prod(a.size for a in dp_axes(mesh))
+    return math.prod(a.size for a in dp_mesh_axes(mesh))
 
 
 # Replicated-snapshot memo: putting a production-scale index on a rank's
@@ -472,7 +472,7 @@ def serve_sharded(
     _check_delta(snap_r, delta_r)
     narrow = _narrow_descent(snap_r, None, delta_r)
     rects_d, bms_d, _ = _shard_queries(mesh, snap_r.device, rects, bms, False)
-    dp = dp_axes(mesh)
+    dp = dp_mesh_axes(mesh)
 
     def run(widths):
         leaf_width = widths[-1] if widths else snap.root_width()
@@ -562,7 +562,7 @@ def serve_knn_sharded(
     narrow = _narrow_descent(snap_r, None, delta_r)
     pts_d, bms_d, words = _shard_queries(mesh, snap_r.device, pts, bms, True)
     kb = round_up_bucket(k, min_topk_bucket)
-    dp = dp_axes(mesh)
+    dp = dp_mesh_axes(mesh)
     widths, out = _converge_widths(
         snap, cache, "knn",
         lambda widths: _knn_shard_body(snap_r, delta_r, pts_d, bms_d, words, widths=widths, k=k,
@@ -718,7 +718,7 @@ def serve_index_sharded(
     _check_delta(placed.snap, delta_s)
     narrow = _narrow_descent(placed.snap, None, delta_s)
     rects_d, bms_d, _ = _shard_queries(mesh, mesh.device, rects, bms, False)
-    dp, index = dp_axes(mesh), mesh.axis("index")
+    dp, index = dp_mesh_axes(mesh), mesh.axis("index")
     n_links = psnap.n_levels - 1
 
     def run(widths):
@@ -796,7 +796,7 @@ def serve_knn_index_sharded(
     narrow = _narrow_descent(placed.snap, None, delta_s)
     pts_d, bms_d, words = _shard_queries(mesh, mesh.device, pts, bms, True)
     kb = round_up_bucket(k, min_topk_bucket)
-    dp, index = dp_axes(mesh), mesh.axis("index")
+    dp, index = dp_mesh_axes(mesh), mesh.axis("index")
     widths, out = _converge_widths_indexed(
         cache, "knn_ix", S, psnap.n_levels - 1,
         lambda widths: _ix_knn_body(placed, delta_s, pts_d, bms_d, words, widths=widths, k=k,

@@ -29,6 +29,14 @@ each block of a hybrid superblock) in ``torch.utils.checkpoint``.
 ``ModelBundle``'s functions keep the reference's names and wrap the
 module. The parameters are registered without gradients; the training
 steps turn them on.
+
+A model built with a ``mesh`` (``build_model(cfg, mesh, rules)``) runs as
+one rank of it: its batch rows are this rank's, its expert stacks this
+rank's block where ``moe.ep_sharded``, and prefill's MoE layers call
+``moe_ffn(..., mesh)`` where the reference does (decode's call
+``moe_ffn_dense`` over the whole batch). Every other weight is whole on
+every rank and computed there: the reference's values, not its
+tensor-parallel layout.
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..sharding.rules import default_rules
 from ..tree import module_tree
 from . import layers as L
 from . import mla as MLA
@@ -82,7 +91,7 @@ def _norm(w, x):
 
 
 # ------------------------------------------------ decoder block (attn+ffn)
-def _init_block(gen, cfg: ArchConfig, kind: str = "dense", device=None):
+def _init_block(gen, cfg: ArchConfig, kind: str = "dense", device=None, mesh=None, rules=None):
     """kind: dense | moe | mla_dense | mla_moe, as the reference's."""
     dev = device or gen.device
     p = dict(ln1=L.ones((cfg.d_model,), ("embed",), device=dev),
@@ -92,13 +101,13 @@ def _init_block(gen, cfg: ArchConfig, kind: str = "dense", device=None):
     else:
         p["attn"] = L.init_attention(gen, cfg, device)
     if kind.endswith("moe"):
-        p["moe"] = MOE.init_moe(gen, cfg, device)
+        p["moe"] = MOE.init_moe(gen, cfg, device, mesh, rules)
     else:
         p["ffn"] = L.init_ffn(gen, cfg, device=device)
     return p
 
 
-def _apply_block(p, x, cfg: ArchConfig, kind: str = "dense", positions=None):
+def _apply_block(p, x, cfg: ArchConfig, kind: str = "dense", positions=None, mesh=None):
     h = _norm(p["ln1"], x)
     if kind.startswith("mla"):
         a = MLA.mla_attention(p["attn"], h, cfg, positions)
@@ -107,13 +116,14 @@ def _apply_block(p, x, cfg: ArchConfig, kind: str = "dense", positions=None):
     x = x + a
     h = _norm(p["ln2"], x)
     if kind.endswith("moe"):
-        f = MOE.moe_ffn(p["moe"], h, cfg)
+        f = MOE.moe_ffn(p["moe"], h, cfg, mesh)
     else:
         f = L.ffn(p["ffn"], h)
     return x + f
 
 
-def _decode_block(p, x, cache_k, cache_v, pos, cfg, kind: str = "dense"):
+def _decode_block(p, x, cache_k, cache_v, pos, cfg, kind: str = "dense", mesh=None,
+                  rows_split: bool = True):
     h = _norm(p["ln1"], x)
     if kind.startswith("mla"):
         a, ck, cv = MLA.mla_decode(p["attn"], h, cache_k, cache_v, pos, cfg)
@@ -122,7 +132,7 @@ def _decode_block(p, x, cache_k, cache_v, pos, cfg, kind: str = "dense"):
     x = x + a
     h = _norm(p["ln2"], x)
     if kind.endswith("moe"):
-        f = MOE.moe_ffn_dense(p["moe"], h, cfg)  # decode: a token a row
+        f = MOE.moe_ffn_dense(p["moe"], h, cfg, mesh, rows_split)  # decode: a token a row
     else:
         f = L.ffn(p["ffn"], h)
     return x + f, ck, cv
@@ -167,11 +177,13 @@ class _Node(nn.Module):
 class _TreeLM(nn.Module):
     """A model whose parameters are a Param tree's values under its paths
     (``tree`` is a Param tree, ``bundle.init_tree``'s), each spec in
-    ``specs`` under the parameter's dotted name."""
+    ``specs`` under the parameter's dotted name; with a ``mesh``, one rank
+    of it (the tree then holds the rank's expert blocks)."""
 
-    def __init__(self, cfg: ArchConfig, tree: Dict):
+    def __init__(self, cfg: ArchConfig, tree: Dict, mesh=None):
         super().__init__()
         self.cfg = cfg
+        self.mesh = mesh
         values, spec_tree = split_params(tree)
         self.specs: Dict[str, tuple] = dict(_flatten(spec_tree))
         for name, value in _flatten(values):
@@ -209,8 +221,8 @@ class DecoderOnlyLM(_TreeLM):
     without experts), ``moe_blocks`` (the MoE layers) and, with
     ``cfg.mtp_depth``, the ``mtp`` block."""
 
-    def __init__(self, cfg: ArchConfig, tree: Dict):
-        super().__init__(cfg, tree)
+    def __init__(self, cfg: ArchConfig, tree: Dict, mesh=None):
+        super().__init__(cfg, tree, mesh)
         self.dense_kind, self.moe_kind, _, _ = block_kinds(cfg)
 
     def _layers(self):
@@ -237,9 +249,10 @@ class DecoderOnlyLM(_TreeLM):
         remat = self._remat()
         for kind, lp in self._layers():
             if remat:
-                x = checkpoint(_apply_block, lp, x, self.cfg, kind, use_reentrant=False)
+                x = checkpoint(_apply_block, lp, x, self.cfg, kind, None, self.mesh,
+                               use_reentrant=False)
             else:
-                x = _apply_block(lp, x, self.cfg, kind)
+                x = _apply_block(lp, x, self.cfg, kind, None, self.mesh)
         return x
 
     def loss(self, batch: Dict) -> torch.Tensor:
@@ -271,14 +284,19 @@ class DecoderOnlyLM(_TreeLM):
         h = _norm(self.final_norm, x[:, -1:])
         return L.lm_logits(dict(w=self.head.w), h)
 
-    def decode(self, cache: Dict, tokens: torch.Tensor, pos: torch.Tensor):
+    def decode(self, cache: Dict, tokens: torch.Tensor, pos: torch.Tensor,
+               long_ctx: bool = False):
         """One token per row at position ``pos`` (a 0-d tensor): logits
         (B, 1, vocab) and the cache, layer ``i`` of it written in place
-        (the dense layers first, as the reference concatenates them)."""
+        (the dense layers first, as the reference concatenates them). On a
+        mesh, ``long_ctx`` says the rows are the whole batch on every rank
+        (else this rank's rows of it), which the MoE layers' capacity
+        reads."""
         a, b = cache_names(self.cfg)
         x = L.embed_lookup(dict(table=self.embed.table), tokens)
         for i, (kind, lp) in enumerate(self._layers()):
-            x, _, _ = _decode_block(lp, x, cache[a][i], cache[b][i], pos, self.cfg, kind)
+            x, _, _ = _decode_block(lp, x, cache[a][i], cache[b][i], pos, self.cfg, kind,
+                                    self.mesh, not long_ctx)
         h = _norm(self.final_norm, x)
         return L.lm_logits(dict(w=self.head.w), h), cache
 
@@ -373,13 +391,15 @@ class EncDecLM(_TreeLM):
         x = self.run_decoder(batch["tokens"], self.encode(batch["frames"]))
         return L.lm_logits(dict(w=self.head.w), x[:, -1:])
 
-    def decode(self, cache: Dict, tokens: torch.Tensor, pos: torch.Tensor):
+    def decode(self, cache: Dict, tokens: torch.Tensor, pos: torch.Tensor,
+               long_ctx: bool = False):
         """One token per row at position ``pos`` (a 0-d tensor): logits
         (B, 1, vocab) and the cache, its self-attention ``k`` / ``v``
         written in place at ``pos``; the cross cache ``xk`` / ``xv`` is
         read (every slot) and returned unchanged. The position embedding is
         the table's row at ``pos`` clamped into the cache, as the
-        reference's ``dynamic_slice``."""
+        reference's ``dynamic_slice``. ``long_ctx`` is read by MoE layers
+        only (none here)."""
         cfg = self.cfg
         x = L.embed_lookup(dict(table=self.embed.table), tokens)
         S = cache["k"].shape[2]
@@ -439,11 +459,13 @@ class XLSTMLM(_TreeLM):
         x = self.backbone(batch["tokens"])
         return L.lm_logits(dict(w=self.head.w), _norm(self.final_norm, x[:, -1:]))
 
-    def decode(self, cache: Dict, tokens: torch.Tensor, pos: torch.Tensor):
+    def decode(self, cache: Dict, tokens: torch.Tensor, pos: torch.Tensor,
+               long_ctx: bool = False):
         """One token per row: logits (B, 1, vocab) and the cache, every
         layer's recurrent state (``C``, ``N``, ``m`` of the mLSTM layers;
         ``sc``, ``sn``, ``sh``, ``sm`` of the sLSTM's) updated in place.
-        ``pos`` is not read (the state carries the position)."""
+        ``pos`` is not read (the state carries the position); ``long_ctx``
+        is read by MoE layers only (none here)."""
         cfg = self.cfg
         last = cfg.slstm_every - 1
         x = L.embed_lookup(dict(table=self.embed.table), tokens)
@@ -474,11 +496,11 @@ def hybrid_moe_positions(cfg: ArchConfig) -> tuple:
     return tuple(i for i in range(cfg.attn_every) if i % cfg.moe_every == cfg.moe_every - 1)
 
 
-def _hybrid_block(bp, x, cfg: ArchConfig, attn: bool, moe: bool):
+def _hybrid_block(bp, x, cfg: ArchConfig, attn: bool, moe: bool, mesh=None):
     h = _norm(bp["ln1"], x)
     x = x + (L.attention(bp["mix"], h, cfg) if attn else SSM.mamba_mixer(bp["mix"], h, cfg))
     h = _norm(bp["ln2"], x)
-    return x + (MOE.moe_ffn(bp["ffn"], h, cfg) if moe else L.ffn(bp["ffn"], h))
+    return x + (MOE.moe_ffn(bp["ffn"], h, cfg, mesh) if moe else L.ffn(bp["ffn"], h))
 
 
 class HybridLM(_TreeLM):
@@ -490,8 +512,8 @@ class HybridLM(_TreeLM):
     SwiGLU elsewhere. Prefill and the loss route the MoE with capacity;
     decode runs ``moe_ffn_dense``, a token a row, as the reference."""
 
-    def __init__(self, cfg: ArchConfig, tree: Dict):
-        super().__init__(cfg, tree)
+    def __init__(self, cfg: ArchConfig, tree: Dict, mesh=None):
+        super().__init__(cfg, tree, mesh)
         self.attn_pos = hybrid_attn_position(cfg)
         self.moe_pos = hybrid_moe_positions(cfg)
 
@@ -500,7 +522,8 @@ class HybridLM(_TreeLM):
         remat = self._remat()
         for up in _stack(self.tree()["units"]):
             for i in range(self.cfg.attn_every):
-                args = (up[f"b{i}"], x, self.cfg, i == self.attn_pos, i in self.moe_pos)
+                args = (up[f"b{i}"], x, self.cfg, i == self.attn_pos, i in self.moe_pos,
+                        self.mesh)
                 x = checkpoint(_hybrid_block, *args, use_reentrant=False) if remat else \
                     _hybrid_block(*args)
         return x
@@ -513,12 +536,13 @@ class HybridLM(_TreeLM):
         x = self.backbone(batch["tokens"])
         return L.lm_logits(dict(w=self.head.w), _norm(self.final_norm, x[:, -1:]))
 
-    def decode(self, cache: Dict, tokens: torch.Tensor, pos: torch.Tensor):
+    def decode(self, cache: Dict, tokens: torch.Tensor, pos: torch.Tensor,
+               long_ctx: bool = False):
         """One token per row at position ``pos`` (a 0-d tensor): logits
         (B, 1, vocab) and the cache, updated in place: the attention
         layer's ``k`` / ``v`` at ``pos``, each Mamba layer's ``h`` and
         ``conv`` (the zero cache is the mixer's own start: ``h = 0`` and
-        the conv's zero padding)."""
+        the conv's zero padding). ``long_ctx`` as ``DecoderOnlyLM``'s."""
         cfg = self.cfg
         x = L.embed_lookup(dict(table=self.embed.table), tokens)
         for r, up in enumerate(_stack(self.tree()["units"])):
@@ -535,8 +559,8 @@ class HybridLM(_TreeLM):
                     mi += 1
                 x = x + y
                 h = _norm(bp["ln2"], x)
-                x = x + (MOE.moe_ffn_dense(bp["ffn"], h, cfg) if i in self.moe_pos
-                         else L.ffn(bp["ffn"], h))
+                x = x + (MOE.moe_ffn_dense(bp["ffn"], h, cfg, self.mesh, not long_ctx)
+                         if i in self.moe_pos else L.ffn(bp["ffn"], h))
         return L.lm_logits(dict(w=self.head.w), _norm(self.final_norm, x)), cache
 
 
@@ -544,15 +568,15 @@ class HybridLM(_TreeLM):
 @dataclasses.dataclass
 class ModelBundle:
     cfg: ArchConfig
-    init: Callable  # (generator, device=None) -> the family's module
+    init: Callable  # (generator, device=None) -> the family's module (``meta``: nothing drawn)
     init_tree: Callable  # (generator, device=None) -> Param tree (``meta``: specs alone)
     loss: Callable  # (params, batch) -> scalar
     prefill: Callable  # (params, batch) -> logits of the last position
-    decode: Callable  # (params, cache, tokens, pos) -> (logits, cache)
+    decode: Callable  # (params, cache, tokens, pos, long_ctx=False) -> (logits, cache)
     cache_shape: Callable  # (batch, seq) -> {name: (shape, dtype, logical names)}
 
 
-def build_decoder_only(cfg: ArchConfig) -> ModelBundle:
+def build_decoder_only(cfg: ArchConfig, mesh=None, rules=None) -> ModelBundle:
     """The ``dense``, ``vlm``, ``moe`` and ``mla_moe`` families."""
     dense_kind, moe_kind, n_dense, n_moe = block_kinds(cfg)
 
@@ -567,7 +591,8 @@ def build_decoder_only(cfg: ArchConfig) -> ModelBundle:
             p["dense_blocks"] = stack_init(lambda: _init_block(gen, cfg, dense_kind, device),
                                            n_dense)
         if n_moe:
-            p["moe_blocks"] = stack_init(lambda: _init_block(gen, cfg, moe_kind, device), n_moe)
+            p["moe_blocks"] = stack_init(
+                lambda: _init_block(gen, cfg, moe_kind, device, mesh, rules), n_moe)
         if cfg.mtp_depth:
             p["mtp"] = dict(
                 proj=L.make(gen, (2 * cfg.d_model, cfg.d_model), ("wembed", None), 1.0,
@@ -587,16 +612,20 @@ def build_decoder_only(cfg: ArchConfig) -> ModelBundle:
         shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.head_dim)
         return dict(k=(shape, torch.bfloat16, names), v=(shape, torch.bfloat16, names))
 
-    return _bundle(cfg, DecoderOnlyLM, init_tree, cache_shape)
+    return _bundle(cfg, DecoderOnlyLM, init_tree, cache_shape, mesh)
 
 
-def _bundle(cfg: ArchConfig, module, init_tree: Callable, cache_shape: Callable) -> ModelBundle:
+def _bundle(cfg: ArchConfig, module, init_tree: Callable, cache_shape: Callable,
+            mesh=None) -> ModelBundle:
     """The bundle of a family's module class and its tree and cache."""
 
     def init(gen: torch.Generator, device=None):
         """Parameters drawn from ``gen`` on its device, then moved to
-        ``device`` (default: the generator's)."""
-        model = module(cfg, init_tree(gen))
+        ``device`` (default: the generator's); on ``meta`` nothing is
+        drawn."""
+        if device is not None and torch.device(device).type == "meta":
+            return module(cfg, init_tree(gen, "meta"), mesh)
+        model = module(cfg, init_tree(gen), mesh)
         return model if device is None else model.to(device)
 
     def loss(params, batch: Dict) -> torch.Tensor:
@@ -605,8 +634,8 @@ def _bundle(cfg: ArchConfig, module, init_tree: Callable, cache_shape: Callable)
     def prefill(params, batch: Dict) -> torch.Tensor:
         return params.prefill(batch)
 
-    def decode(params, cache: Dict, tokens, pos):
-        return params.decode(cache, tokens, pos)
+    def decode(params, cache: Dict, tokens, pos, long_ctx: bool = False):
+        return params.decode(cache, tokens, pos, long_ctx)
 
     return ModelBundle(cfg, init, init_tree, loss, prefill, decode, cache_shape)
 
@@ -618,7 +647,7 @@ def _norm_params(cfg: ArchConfig, dev, *names) -> Dict:
             for n in names}
 
 
-def build_encdec(cfg: ArchConfig) -> ModelBundle:
+def build_encdec(cfg: ArchConfig, mesh=None, rules=None) -> ModelBundle:
     """The ``encdec`` family (whisper-base)."""
 
     def enc_block(gen, device):
@@ -653,10 +682,10 @@ def build_encdec(cfg: ArchConfig) -> ModelBundle:
         return dict(k=(kv, torch.bfloat16, spec), v=(kv, torch.bfloat16, spec),
                     xk=(xkv, torch.bfloat16, spec), xv=(xkv, torch.bfloat16, spec))
 
-    return _bundle(cfg, EncDecLM, init_tree, cache_shape)
+    return _bundle(cfg, EncDecLM, init_tree, cache_shape, mesh)
 
 
-def build_xlstm(cfg: ArchConfig) -> ModelBundle:
+def build_xlstm(cfg: ArchConfig, mesh=None, rules=None) -> ModelBundle:
     """The ``xlstm`` family (xlstm-125m)."""
     unit = cfg.slstm_every  # layers per repeating unit; the last one is the sLSTM
     if cfg.n_layers % unit:
@@ -698,10 +727,10 @@ def build_xlstm(cfg: ArchConfig) -> ModelBundle:
             sm=((n_rep, batch, d), f32, ("repeat", "batch", None)),
         )
 
-    return _bundle(cfg, XLSTMLM, init_tree, cache_shape)
+    return _bundle(cfg, XLSTMLM, init_tree, cache_shape, mesh)
 
 
-def build_hybrid(cfg: ArchConfig) -> ModelBundle:
+def build_hybrid(cfg: ArchConfig, mesh=None, rules=None) -> ModelBundle:
     """The ``hybrid`` family (jamba-v0.1-52b)."""
     unit = cfg.attn_every
     if not unit or cfg.n_layers % unit:
@@ -713,7 +742,7 @@ def build_hybrid(cfg: ArchConfig) -> ModelBundle:
         dev = device or gen.device
         mix = (L.init_attention(gen, cfg, device) if i == attn_pos
                else SSM.init_mamba(gen, cfg, device))
-        ffn = (MOE.init_moe(gen, cfg, device) if i in moe_pos
+        ffn = (MOE.init_moe(gen, cfg, device, mesh, rules) if i in moe_pos
                else L.init_ffn(gen, cfg, device=device))
         return dict(ln1=L.ones((cfg.d_model,), ("embed",), device=dev),
                     ln2=L.ones((cfg.d_model,), ("embed",), device=dev), mix=mix, ffn=ffn)
@@ -745,17 +774,22 @@ def build_hybrid(cfg: ArchConfig) -> ModelBundle:
                   ("repeat", None, "batch", None, "inner")),
         )
 
-    return _bundle(cfg, HybridLM, init_tree, cache_shape)
+    return _bundle(cfg, HybridLM, init_tree, cache_shape, mesh)
 
 
 # ---------------------------------------------------------------- factory
-def build_model(cfg: ArchConfig) -> ModelBundle:
+def build_model(cfg: ArchConfig, mesh=None, rules=None) -> ModelBundle:
+    """``cfg``'s bundle; with a ``mesh``, one rank of it: its expert stacks
+    drawn as the rank's block by ``rules`` (default: the mesh's
+    ``default_rules``) where ``moe.ep_sharded``."""
+    if mesh is not None and rules is None:
+        rules = default_rules(mesh)
     if cfg.family in ("dense", "vlm", "moe", "mla_moe"):
-        return build_decoder_only(cfg)
+        return build_decoder_only(cfg, mesh, rules)
     if cfg.family == "encdec":
-        return build_encdec(cfg)
+        return build_encdec(cfg, mesh, rules)
     if cfg.family == "xlstm":
-        return build_xlstm(cfg)
+        return build_xlstm(cfg, mesh, rules)
     if cfg.family == "hybrid":
-        return build_hybrid(cfg)
+        return build_hybrid(cfg, mesh, rules)
     raise ValueError(f"unknown family {cfg.family}")

@@ -1,5 +1,5 @@
 """Mixture-of-Experts FFN: capacity-based top-k routing with shared experts
--- the JAX package's ``models/moe.py`` on one device.
+-- the JAX package's ``models/moe.py``, on one device or over a mesh.
 
 Each token's router picks its ``moe_topk`` experts; each expert then takes
 at most ``capacity`` tokens, those of its choosers with the largest gates
@@ -24,8 +24,21 @@ Three points keep the reference's semantics exactly:
   the zero-weighted slots of tokens an expert took without being chosen;
   adding a zero changes no value, so they are left out.
 
-The reference's ``moe_ffn_sharded`` (experts over a mesh's ``model`` axis)
-is ROADMAP A.13h; ``moe_ffn`` runs ``moe_ffn_dense``.
+Over a ``("data", "model")`` mesh of ranks (``launch/mesh.py``) each rank
+holds its rows of the batch (split over the data axes) and, where
+``ep_sharded``, its block of the expert stacks: experts over ``model``,
+``d`` over the data axes (``init_moe(..., mesh)`` draws every expert and
+keeps the block, so the values are the single-device draw's).
+``moe_ffn_sharded`` is the reference's expert-parallel path: the rank's
+tokens, routed over all experts, capacity from the data shard's token
+count, its experts' share computed with their weights all-gathered over
+the data axes, then summed over ``model``; no all-to-all, since every model
+rank holds its data group's tokens. ``moe_ffn`` takes it exactly where the
+reference's does. Elsewhere (and in decode) the MoE is the reference's
+``moe_ffn_dense`` over the whole batch, whose capacity counts every token:
+a rank gathers the batch's rows over the data axes, computes its experts'
+share with their ``d`` left split over the data axes (``_d_split_compute``),
+sums over ``model`` and keeps its own rows.
 """
 from __future__ import annotations
 
@@ -36,6 +49,7 @@ import torch.nn.functional as F
 
 from .. import full_f32_matmul
 from ..configs.base import ArchConfig
+from ..sharding.rules import dp_axes, named_sharding
 from .layers import NEG_INF, Param, _dtype, make
 
 EP_PAD = 16
@@ -45,30 +59,53 @@ def n_experts_padded(cfg: ArchConfig) -> int:
     return -(-cfg.n_experts // EP_PAD) * EP_PAD
 
 
-def _make_experts(gen, shape, spec, dtype, device=None) -> Param:
+def ep_sharded(cfg: ArchConfig, mesh) -> bool:
+    """Whether ``moe_ffn`` takes the expert-parallel path on ``mesh`` (the
+    reference's dispatch): a ``model`` axis of more than one rank that
+    divides the padded expert count. Only then are the expert stacks
+    stored as each rank's block."""
+    if mesh is None or "model" not in mesh.axis_names:
+        return False
+    m = mesh.axis("model").size
+    return m > 1 and n_experts_padded(cfg) % m == 0
+
+
+def _make_experts(gen, shape, spec, dtype, device=None, mesh=None, rules=None) -> Param:
     """``make(gen, shape, spec, 1.0, dtype)`` drawn one expert at a time:
     the same distribution (``fan_in = shape[0]``, the expert count, as the
     reference's rule), with one expert's f32 draw alive instead of the
-    whole (E, d, f) stack's."""
+    whole (E, d, f) stack's. With a ``mesh``, every expert is drawn (the
+    generator's stream stays the single-device one's) and only this rank's
+    block by ``spec`` is kept."""
     dev = gen.device if device is None else torch.device(device)
-    out = torch.empty(tuple(shape), dtype=dtype, device=dev)
+    block = tuple(slice(0, n) for n in shape)
+    if mesh is not None:
+        block = named_sharding(mesh, spec, rules).index(shape)
+    out = torch.empty(tuple(s.stop - s.start for s in block), dtype=dtype, device=dev)
     if dev.type != "meta":
         std = 1.0 / max(shape[0], 1) ** 0.5
         for e in range(shape[0]):
             x = torch.randn(tuple(shape[1:]), generator=gen, dtype=torch.float32, device=dev)
-            out[e] = x.to(dtype) * std
+            if block[0].start <= e < block[0].stop:
+                out[e - block[0].start] = x[block[1:]].to(dtype) * std
     return Param(out, tuple(spec))
 
 
-def init_moe(gen, cfg: ArchConfig, device=None) -> Dict:
+def init_moe(gen, cfg: ArchConfig, device=None, mesh=None, rules=None) -> Dict:
+    """The MoE's parameters; on a ``mesh`` where ``ep_sharded``, the expert
+    stacks as this rank's block by their specs under ``rules``."""
     d, f = cfg.d_model, cfg.d_expert or cfg.d_ff
     E = n_experts_padded(cfg)
     dt = _dtype(cfg)
+    ep = dict(mesh=mesh, rules=rules) if ep_sharded(cfg, mesh) else {}
     p = dict(
         w_router=make(gen, (d, E), ("wembed", None), 1.0, torch.float32, device),
-        w_gate=_make_experts(gen, (E, d, f), ("experts", "wembed", "expert_mlp"), dt, device),
-        w_up=_make_experts(gen, (E, d, f), ("experts", "wembed", "expert_mlp"), dt, device),
-        w_down=_make_experts(gen, (E, f, d), ("experts", "expert_mlp", "wembed"), dt, device),
+        w_gate=_make_experts(gen, (E, d, f), ("experts", "wembed", "expert_mlp"), dt, device,
+                             **ep),
+        w_up=_make_experts(gen, (E, d, f), ("experts", "wembed", "expert_mlp"), dt, device,
+                           **ep),
+        w_down=_make_experts(gen, (E, f, d), ("experts", "expert_mlp", "wembed"), dt, device,
+                             **ep),
     )
     if cfg.n_shared_experts:
         fs = cfg.n_shared_experts * f
@@ -159,36 +196,115 @@ def _combine(contrib: torch.Tensor, tok_idx: torch.Tensor, top_idx: torch.Tensor
 
 
 def _select_and_apply(x2d, probs, top_idx, wg, wu, wd, cfg: ArchConfig, e_lo: int, e_n: int,
-                      cap: int) -> torch.Tensor:
+                      cap: int, compute=_expert_compute) -> torch.Tensor:
     """Top-C selection per expert in ``[e_lo, e_lo + e_n)``, the experts'
-    FFN, the weighted combine: the (T, d) output of these experts."""
+    FFN (``compute``), the weighted combine: the (T, d) output of these
+    experts."""
     T, d = x2d.shape
     top_val, tok_idx = _select(probs, top_idx, e_lo, e_n, cap)
     valid = top_val > 0.0
     xg = x2d[tok_idx.reshape(-1)].reshape(e_n, -1, d)  # (e_n, C, d)
-    yg = _expert_compute(xg, wg, wu, wd)
+    yg = compute(xg, wg, wu, wd)
     w = torch.where(valid, top_val, 0.0).to(yg.dtype)[..., None]  # (e_n, C, 1)
     return _combine(yg * w, tok_idx, top_idx, e_lo)
 
 
-def moe_ffn_dense(params: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """The reference's single-device MoE: every expert, one device."""
-    B, S, d = x.shape
-    x2d = x.reshape(-1, d)
+def _gathered(w: torch.Tensor, axis, dim: int) -> torch.Tensor:
+    """``w``'s blocks of every rank of ``axis`` joined along ``dim`` in
+    axis order (``lax.all_gather(..., tiled=True)``)."""
+    if axis is None or axis.size == 1:
+        return w
+    g = axis.all_gather(w)  # (n, *w.shape)
+    return g.movedim(0, dim).reshape(w.shape[:dim] + (-1,) + w.shape[dim + 1:])
+
+
+def _d_split_compute(dp):
+    """``_expert_compute`` on weights whose ``d`` is this rank's block over
+    ``dp``: the gate and up products over the rank's block of ``d``, summed
+    over ``dp``; the down product's ``d`` blocks gathered over ``dp``. The
+    collectives carry the experts' activations, not their weights."""
+
+    def compute(xg, wg, wu, wd):
+        n = wg.shape[1]
+        xs = xg[..., dp.index * n:(dp.index + 1) * n]
+        g = dp.psum(torch.bmm(xs, wg))
+        u = dp.psum(torch.bmm(xs, wu))
+        return _gathered(torch.bmm(F.silu(g) * u, wd), dp, 2)
+
+    return compute
+
+
+def _experts_out(params: Dict, x2d: torch.Tensor, cfg: ArchConfig, mesh, cap: int,
+                 gather_weights: bool = True):
+    """(T, d): the routed experts' output for the tokens ``x2d``, routed
+    over every expert. Where ``ep_sharded`` on ``mesh``, this rank's
+    experts ``[e_lo, e_lo + e_n)`` compute -- with their weights gathered
+    over the data axes (``gather_weights``, the reference's sharded path),
+    else with ``d`` split over them (``_d_split_compute``: a few tokens'
+    activations move instead of the weights) -- and the shares are summed
+    over ``model``."""
     probs, top_idx = _route(x2d, params["w_router"], cfg)
-    E = params["w_gate"].shape[0]
-    cap = _capacity(x2d.shape[0], cfg, cfg.n_experts)
-    y = _select_and_apply(x2d, probs, top_idx, params["w_gate"], params["w_up"],
-                          params["w_down"], cfg, 0, E, cap)
-    out = y.reshape(B, S, d).to(x.dtype)
+    wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
+    if not ep_sharded(cfg, mesh):
+        return _select_and_apply(x2d, probs, top_idx, wg, wu, wd, cfg, 0, wg.shape[0], cap)
+    model, dp = mesh.axis("model"), mesh.group_axis(dp_axes(mesh))
+    e_n = n_experts_padded(cfg) // model.size
+    n_dp = dp.size if dp is not None else 1
+    if (wg.shape[0], wg.shape[1] * n_dp) != (e_n, cfg.d_model) or wd.shape[2] != wg.shape[1]:
+        raise ValueError(f"expert stacks {tuple(wg.shape)} / {tuple(wd.shape)} are not this "
+                         f"rank's block of {e_n} experts (build the model with the mesh)")
+    compute = _expert_compute
+    if n_dp == 1 or gather_weights:
+        wg, wu, wd = _gathered(wg, dp, 1), _gathered(wu, dp, 1), _gathered(wd, dp, 2)
+    else:
+        compute = _d_split_compute(dp)
+    y = _select_and_apply(x2d, probs, top_idx, wg, wu, wd, cfg, model.index * e_n, e_n, cap,
+                          compute)
+    return model.psum(y)
+
+
+def _with_shared(params: Dict, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    out = y.reshape(x.shape).to(x.dtype)
     if "shared" in params:
         out = out + _shared_ffn(params["shared"], x)
     return out
 
 
+def moe_ffn_dense(params: Dict, x: torch.Tensor, cfg: ArchConfig, mesh=None,
+                  rows_split: bool = True) -> torch.Tensor:
+    """The reference's MoE over the whole batch: every expert, the capacity
+    from every token. On a ``mesh`` with ``rows_split`` (``x`` is this
+    rank's rows of a batch split over the data axes), the rows are gathered
+    over the data axes and this rank's rows of the output kept; without it
+    ``x`` is the whole batch on every rank (long-context decode). The
+    experts' ``d`` stays split over the data axes (``_d_split_compute``):
+    at decode's few tokens their activations are far smaller than their
+    weights."""
+    B, S, d = x.shape
+    dp = mesh.group_axis(dp_axes(mesh)) if mesh is not None and rows_split else None
+    x_all = _gathered(x, dp, 0)
+    x2d = x_all.reshape(-1, d)
+    y = _experts_out(params, x2d, cfg, mesh, _capacity(x2d.shape[0], cfg, cfg.n_experts),
+                     gather_weights=False)
+    if dp is not None and dp.size > 1:
+        y = y.reshape(dp.size, B * S, d)[dp.index]
+    return _with_shared(params, y, x)
+
+
+def moe_ffn_sharded(params: Dict, x: torch.Tensor, cfg: ArchConfig, mesh) -> torch.Tensor:
+    """The reference's expert-parallel MoE on this rank: ``x`` is its rows
+    (split over the data axes), the capacity that of its data shard's
+    ``t_loc`` tokens, its experts' share summed over ``model``."""
+    B_loc, S, d = x.shape
+    t_loc = max(1, B_loc * S)  # (B * S) // n_dp of the reference
+    y = _experts_out(params, x.reshape(-1, d), cfg, mesh,
+                     _capacity(t_loc, cfg, cfg.n_experts))
+    return _with_shared(params, y, x)
+
+
 def moe_ffn(params: Dict, x: torch.Tensor, cfg: ArchConfig, mesh=None) -> torch.Tensor:
-    """``moe_ffn_dense``; the reference's ``moe_ffn_sharded`` over a mesh
-    is ROADMAP A.13h."""
-    if mesh is not None:
-        raise NotImplementedError("the sharded MoE is not ported yet (ROADMAP A.13h)")
-    return moe_ffn_dense(params, x, cfg)
+    """``moe_ffn_sharded`` where ``ep_sharded`` on ``mesh``, else
+    ``moe_ffn_dense`` (over the whole batch), as the reference's."""
+    if ep_sharded(cfg, mesh):
+        return moe_ffn_sharded(params, x, cfg, mesh)
+    return moe_ffn_dense(params, x, cfg, mesh)

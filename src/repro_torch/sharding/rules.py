@@ -1,8 +1,13 @@
-"""Logical-axis rules of WISK serving, mapped onto a ``ServingMesh``.
+"""Logical-axis sharding rules (MaxText-style), mapped onto a ``ServingMesh``:
+the port of the JAX package's ``sharding/rules.py``.
 
-The port of the JAX package's ``sharding/rules.py`` rows for WISK serving
-(the LM rows come with the LM substrate). A tensor dimension carries a
-logical name; the rules map it to mesh axes:
+Every parameter / activation dimension carries a logical name; a rules table
+maps logical names to mesh axes. Weights use FSDP-flavoured names
+(``wembed``: storage split over the data axes while activations stay whole
+on the same dimension); ``heads``, ``mlp``, ``vocab``, ``experts`` and
+``inner`` split over ``model``; decode caches split their sequence over
+``model`` (``kv_seq``) or, for long-context decode, over every axis
+(``kv_seq_all``). The WISK rows:
 
 * ``query`` -- the query batch, split over the data axes (replicated
   index: each query shard serves its rows against the whole snapshot);
@@ -13,62 +18,184 @@ logical name; the rules map it to mesh axes:
 * ``word`` and ``obj_slot`` -- bitmap words and per-leaf object slots,
   never split.
 
-``shard_rows`` takes this rank's block of a host array along its first
-dimension, which is what placing an array with the reference's
-``NamedSharding`` leaves on each device.
+``named_sharding`` gives a ``Sharding``: the mesh axes of each dimension
+and ``shard_shape``, the per-device block shape of a global shape (JAX's
+``NamedSharding.shard_shape``). ``shard_tensor`` takes this rank's block of
+a host array or tensor on every split dimension, which is what placing it
+with the reference's ``NamedSharding`` leaves on each device; ``shard_rows``
+is its one-dimension case. There is no ``constrain``: each rank runs its
+own program, so nothing pins an activation's layout.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
-from ..launch.mesh import MeshAxis, ServingMesh
+from ..launch.mesh import ServingMesh
 
 Axis = Union[None, str, Tuple[str, ...]]
 
 
-def dp_axes(mesh: ServingMesh) -> List[MeshAxis]:
-    """The mesh's data (query-parallel) axes, as the reference's
-    ``dp_axes``: the ``data`` axis of every serving and host mesh."""
-    return [mesh.axis(a) for a in ("data",) if a in mesh.axis_names]
+def dp_axes(mesh: ServingMesh) -> Tuple[str, ...]:
+    """The mesh's data axes, ``("pod", "data")`` where present (the
+    reference's ``dp_axes``)."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def dp_mesh_axes(mesh: ServingMesh) -> list:
+    """``dp_axes``' ``MeshAxis`` objects, for their collectives."""
+    return [mesh.axis(a) for a in dp_axes(mesh)]
 
 
 def default_rules(mesh: ServingMesh) -> Dict[str, Axis]:
-    dp = tuple(a.name for a in dp_axes(mesh))
+    dp = dp_axes(mesh)
     return {
+        # activations
+        "batch": dp,
+        "seq": None,
+        "embed": None,
+        "act_heads": "model",
+        "act_mlp": "model",
+        "act_vocab": "model",
+        "act_experts": "model",
+        "kv_seq": "model",  # decode caches: sequence over model (flash-decoding)
+        "kv_seq_all": dp + ("model",),  # long-context decode: sequence over everything
+        # weights
+        "wembed": dp,  # FSDP storage axis
+        "heads": "model",
+        "kv_heads": None,  # GQA kv heads are often fewer than the model ranks: replicated
+        "head_dim": None,
+        "mlp": "model",
+        "vocab": "model",
+        "experts": "model",
+        "expert_mlp": None,
+        "layers": None,
+        "lora": None,
+        "state": None,
+        "inner": "model",  # mamba d_inner / xlstm inner: channel TP
+        "conv": None,
+        "repeat": None,
+        # WISK serving: replicated (queries over the data axes), index-sharded
+        # ("leaf" over "index") and the flat fallback (leaf rows over "model")
         "query": dp,
         "leaf": "index" if "index" in mesh.axis_names else "model",
-        "word": None,
-        "obj_slot": None,
+        "word": None,  # keyword bitmap words stay unsharded
+        "obj_slot": None,  # per-leaf object blocks ride their leaf's shard
     }
 
 
 def spec_for(names: Sequence[Optional[str]], rules: Dict[str, Axis]) -> Tuple[Axis, ...]:
     """Per dimension, the mesh axes its logical name splits over (None:
-    not split), empty tuples normalised to None."""
+    not split): empty tuples normalised to None and one-axis tuples to the
+    axis, as ``PartitionSpec`` normalises them."""
     parts = []
     for n in names:
         ax = None if n is None else rules.get(n)
-        parts.append(None if isinstance(ax, tuple) and not ax else ax)
+        if not (ax is None or isinstance(ax, (str, tuple))):
+            ax = None
+        if isinstance(ax, tuple) and len(ax) < 2:
+            ax = ax[0] if ax else None
+        parts.append(ax)
     return tuple(parts)
 
 
+def _axes_of(part: Axis) -> Tuple[str, ...]:
+    if part is None:
+        return ()
+    return (part,) if isinstance(part, str) else tuple(part)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A layout on ``mesh``: ``spec``, the mesh axes of each dimension."""
+
+    mesh: ServingMesh
+    spec: Tuple[Axis, ...]
+
+    def __post_init__(self):
+        seen = set()
+        for part in self.spec:
+            for a in _axes_of(part):
+                if a not in self.mesh.axis_names:
+                    raise ValueError(f"axis {a!r} of {self.spec} is not in the mesh "
+                                     f"{self.mesh.axis_names}")
+                if a in seen:
+                    raise ValueError(f"{self.spec} maps the mesh axis {a!r} to two dimensions")
+                seen.add(a)
+
+    def tiles(self, ndim: int) -> Tuple[int, ...]:
+        """How many blocks each of ``ndim`` dimensions splits into."""
+        if len(self.spec) > ndim:
+            raise ValueError(f"{self.spec} has more dimensions than a rank-{ndim} array")
+        spec = self.spec + (None,) * (ndim - len(self.spec))
+        return tuple(math.prod(self.mesh.axis(a).size for a in _axes_of(p)) for p in spec)
+
+    def shard_shape(self, global_shape: Sequence[int]) -> Tuple[int, ...]:
+        """The per-device block shape of an array of ``global_shape``;
+        raises where a dimension does not split evenly."""
+        shape = tuple(int(n) for n in global_shape)
+        out = []
+        for i, (n, k) in enumerate(zip(shape, self.tiles(len(shape)))):
+            if n % k:
+                raise ValueError(f"dimension {i} of {shape} does not split into {k} blocks "
+                                 f"({self.spec})")
+            out.append(n // k)
+        return tuple(out)
+
+    def index(self, global_shape: Sequence[int]) -> Tuple[slice, ...]:
+        """The slices of this rank's block: on each split dimension, the
+        block at the rank's coordinates on its axes, row major."""
+        block = self.shard_shape(global_shape)
+        spec = self.spec + (None,) * (len(block) - len(self.spec))
+        out = []
+        for part, n in zip(spec, block):
+            at = 0
+            for a in _axes_of(part):
+                ax = self.mesh.axis(a)
+                at = at * ax.size + ax.index
+            out.append(slice(at * n, (at + 1) * n))
+        return tuple(out)
+
+
+def named_sharding(mesh: ServingMesh, names: Sequence[Optional[str]],
+                   rules: Optional[Dict[str, Axis]] = None) -> Sharding:
+    rules = rules or default_rules(mesh)
+    return Sharding(mesh, spec_for(names, rules))
+
+
+def _is_names(t) -> bool:
+    return isinstance(t, tuple) and all(isinstance(x, (str, type(None))) for x in t)
+
+
+def tree_shardings(mesh: ServingMesh, tree_names: Any, rules: Optional[Dict[str, Axis]] = None):
+    """Map a tree (dicts, lists and named tuples) of logical-name tuples to
+    ``Sharding``s; a leaf is a tuple of names (the reference's test)."""
+    rules = rules or default_rules(mesh)
+
+    def walk(t):
+        if _is_names(t):
+            return named_sharding(mesh, t, rules)
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(walk(v) for v in t))
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        raise TypeError(f"not a spec tree: {t!r}")
+
+    return walk(tree_names)
+
+
+def shard_tensor(a, names: Sequence[Optional[str]], mesh: ServingMesh,
+                 rules: Optional[Dict[str, Axis]] = None):
+    """This rank's block of ``a`` (anything indexable with slices that has
+    a ``shape``) on every dimension its logical ``names`` split: a view.
+    Raises when a dimension does not split evenly."""
+    return a[named_sharding(mesh, names, rules).index(a.shape)]
+
+
 def shard_rows(a, name: Optional[str], mesh: ServingMesh):
-    """This rank's block of ``a`` (anything sliceable with a ``shape``)
-    along its first dimension, whose logical name is ``name``: the blocks
-    follow the rank's coordinates on the axes the name maps to, row major.
-    Raises when the dimension does not split evenly."""
-    (axes,) = spec_for((name,), default_rules(mesh))
-    if axes is None:
-        return a
-    axes = (axes,) if isinstance(axes, str) else axes
-    sizes = [mesh.axis(n).size for n in axes]
-    n = math.prod(sizes)
-    block = 0
-    for ax, size in zip(axes, sizes):
-        block = block * size + mesh.axis(ax).index
-    rows = int(a.shape[0])
-    if rows % n:
-        raise ValueError(f"{rows} rows of {name!r} do not split over {n} shards")
-    per = rows // n
-    return a[block * per:(block + 1) * per]
+    """This rank's block of ``a`` along its first dimension, whose logical
+    name is ``name`` (``shard_tensor``'s one-dimension case)."""
+    return shard_tensor(a, (name,), mesh)

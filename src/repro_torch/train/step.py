@@ -11,6 +11,17 @@ update is added. Beside the parameters and the optimizer state only the
 gradients and one leaf's temporaries exist (a layer of 256 experts of a
 published MoE would not fit with an f32 copy of every gradient). The
 serving steps run under ``torch.no_grad()``.
+
+With a ``mesh`` (``launch/mesh.py``: a ``("data", "model")`` mesh of ranks,
+or an abstract one for the dry run) the steps are one rank's: the rules
+are the mesh's ``default_rules`` with ``cfg.logical_overrides`` merged in,
+as the reference's; the model's expert stacks are the rank's block (where
+``moe.ep_sharded``); ``prefill_step`` and ``decode_step`` take the whole
+batch, the same on every rank, and compute this rank's rows of it (its
+block by ``placement_rules``: the batch split over the data axes, every
+other dimension whole), returning those rows' logits; the cache is the
+rank's own (``init_cache``; ``local`` cuts a whole one). Training over
+ranks is ROADMAP A.13i.
 """
 from __future__ import annotations
 
@@ -23,6 +34,7 @@ from .. import resolve_device
 from ..configs.base import ArchConfig
 from ..models.layers import split_params
 from ..models.model import ModelBundle, build_model
+from ..sharding.rules import default_rules, shard_tensor
 from ..optim.optimizers import (AdafactorState, AdamWState, SGDState, clip_scale,
                                 cosine_schedule, get_optimizer, global_norm)
 from ..tree import leaves, module_tree, unflatten
@@ -71,6 +83,21 @@ class ShapeDtype(NamedTuple):
     dtype: torch.dtype
 
 
+def mesh_rules(cfg: ArchConfig, mesh) -> Dict[str, Any]:
+    """The rules of ``cfg``'s steps on ``mesh``: its ``default_rules`` with
+    ``cfg.logical_overrides`` merged in (the reference's ``build_steps``)."""
+    rules = default_rules(mesh)
+    rules.update(cfg.logical_overrides or {})
+    return rules
+
+
+def placement_rules(rules: Dict[str, Any]) -> Dict[str, Any]:
+    """Where this slice places activations and caches: the batch as
+    ``rules`` split it, every other dimension whole (no tensor or sequence
+    parallelism yet)."""
+    return {k: (v if k == "batch" else None) for k, v in rules.items()}
+
+
 @dataclasses.dataclass
 class Steps:
     cfg: ArchConfig
@@ -84,6 +111,17 @@ class Steps:
 
     state_specs: Any  # logical-name tree mirroring the state
     param_specs: Any  # logical-name tree mirroring the parameters
+    mesh: Any = None  # this rank's mesh (None: one device)
+    rules: Any = None  # the mesh's rules, overrides merged
+
+    def local(self, tree, specs):
+        """This rank's block of a tree of whole tensors (a batch or a
+        cache) by its logical ``specs`` and ``placement_rules``; the tree
+        itself without a mesh."""
+        if self.mesh is None:
+            return tree
+        place = placement_rules(self.rules)
+        return {k: shard_tensor(v, specs[k], self.mesh, place) for k, v in tree.items()}
 
     def batch_spec(self, kind: str, seq: int, batch: int):
         """(abstract batch dict, logical specs) for a shape kind."""
@@ -117,10 +155,15 @@ class Steps:
             specs[k] = names
         return sds, specs
 
-    def init_cache(self, batch: int, seq: int) -> Dict[str, torch.Tensor]:
-        """A zero cache of ``cache_spec(batch, seq)`` on the steps' device."""
-        sds, _ = self.cache_spec(batch, seq)
-        return {k: torch.zeros(s.shape, dtype=s.dtype, device=self.device)
+    def init_cache(self, batch: int, seq: int, long_ctx: bool = False) -> Dict[str, torch.Tensor]:
+        """A zero cache of ``cache_spec(batch, seq, long_ctx)`` on the
+        steps' device: this rank's block of it on a mesh."""
+        sds, specs = self.cache_spec(batch, seq, long_ctx)
+        shapes = {k: s.shape for k, s in sds.items()}
+        if self.mesh is not None:
+            meta = {k: torch.empty(s, device="meta") for k, s in shapes.items()}
+            shapes = {k: v.shape for k, v in self.local(meta, specs).items()}
+        return {k: torch.zeros(shapes[k], dtype=s.dtype, device=self.device)
                 for k, s in sds.items()}
 
 
@@ -153,12 +196,14 @@ def clip_and_update(model, opt, grads, opt_update, lr, step, max_norm: float) ->
     return gnorm
 
 
-def build_steps(cfg: ArchConfig, device=None, lr: float = 3e-4, warmup: int = 100,
+def build_steps(cfg: ArchConfig, device=None, mesh=None, lr: float = 3e-4, warmup: int = 100,
                 total_steps: int = 10_000, grad_clip: float = 1.0) -> Steps:
     """The steps of ``cfg``'s model and optimizer on ``device`` (``cuda``
-    unless the caller passes another; raises when CUDA is absent)."""
-    dev = resolve_device(device)
-    bundle = build_model(cfg)
+    unless the caller passes another; raises when CUDA is absent; ``meta``
+    draws nothing), or as one rank of ``mesh`` on the mesh's device."""
+    dev = resolve_device(mesh.device if mesh is not None else device)
+    rules = mesh_rules(cfg, mesh) if mesh is not None else None
+    bundle = build_model(cfg, mesh, rules)
     opt_init, opt_update = get_optimizer(cfg.optimizer)
     sched = cosine_schedule(lr, warmup, total_steps)
     # the specs from an init on the meta device: shapes only, nothing drawn
@@ -167,7 +212,8 @@ def build_steps(cfg: ArchConfig, device=None, lr: float = 3e-4, warmup: int = 10
 
     def init_state(gen: torch.Generator) -> Dict[str, Any]:
         """Parameters drawn from ``gen`` (on its own device), on the steps'
-        device with gradients on, the optimizer's zero state and the step."""
+        device with gradients on, the optimizer's zero state and the step
+        (on ``meta``: the shapes alone, nothing drawn)."""
         model = bundle.init(gen, dev).requires_grad_(True)
         return dict(params=model, opt=opt_init(module_tree(model)),
                     step=torch.zeros((), dtype=torch.int32, device=dev))
@@ -176,6 +222,8 @@ def build_steps(cfg: ArchConfig, device=None, lr: float = 3e-4, warmup: int = 10
         """One step: ``(state, {"loss", "grad_norm", "lr"})``. The
         parameters and the optimizer state are updated in place; the
         returned state holds them and the next step count."""
+        if mesh is not None and mesh.size > 1:
+            raise NotImplementedError("training over a mesh of ranks is ROADMAP A.13i")
         model, opt = state["params"], state["opt"]
         loss, grads = loss_and_grads(bundle, model, batch)
         grads = leaves(grads)  # the list is all that holds them: each goes as it lands
@@ -184,14 +232,27 @@ def build_steps(cfg: ArchConfig, device=None, lr: float = 3e-4, warmup: int = 10
         return (dict(params=model, opt=opt, step=state["step"] + 1),
                 dict(loss=loss, grad_norm=gnorm, lr=lr_t))
 
+    def rows(batch):
+        """This rank's rows of every batch entry (each leads with the batch)."""
+        if mesh is None:
+            return batch
+        return steps.local(batch, {k: ("batch",) for k in batch})
+
     @torch.no_grad()
     def prefill_step(params, batch):
-        return bundle.prefill(params, batch)
+        """The last position's logits of the batch's rows (this rank's, on a
+        mesh)."""
+        return bundle.prefill(params, rows(batch))
 
     @torch.no_grad()
-    def decode_step(params, cache, tokens, pos):
-        return bundle.decode(params, cache, tokens, pos)
+    def decode_step(params, cache, tokens, pos, long_ctx: bool = False):
+        """One token a row into ``cache`` (this rank's, on a mesh: ``tokens``
+        are the whole batch's, and with ``long_ctx`` every rank takes them
+        all, as the cache's batch is then whole)."""
+        toks = tokens if long_ctx else rows(dict(tokens=tokens))["tokens"]
+        return bundle.decode(params, cache, toks, pos, long_ctx)
 
-    return Steps(cfg=cfg, bundle=bundle, device=dev, init_state=init_state,
-                 train_step=train_step, prefill_step=prefill_step, decode_step=decode_step,
-                 state_specs=state_specs, param_specs=pspecs)
+    steps = Steps(cfg=cfg, bundle=bundle, device=dev, init_state=init_state,
+                  train_step=train_step, prefill_step=prefill_step, decode_step=decode_step,
+                  state_specs=state_specs, param_specs=pspecs, mesh=mesh, rules=rules)
+    return steps

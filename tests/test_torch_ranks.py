@@ -93,6 +93,15 @@ class _Ctx:
             self.meshes[key] = make_serving_mesh(query=query, index=index, device=self.device)
         return self.meshes[key]
 
+    def host_mesh(self, data: int, model: int):
+        """The ``("data", "model")`` mesh of ``data`` x ``model`` ranks."""
+        from repro_torch.launch.mesh import make_host_mesh
+
+        key = ("host", data, model)
+        if key not in self.meshes:
+            self.meshes[key] = make_host_mesh(data=data, model=model, device=self.device)
+        return self.meshes[key]
+
 
 def _rank_main(rank, world, rendezvous, device, tasks, results) -> None:
     torch.set_num_threads(1)
@@ -190,3 +199,55 @@ def run_live_steps(li, steps):
         out.append((op, got, li.generation.seq))
     return out
 
+
+
+def moe_layer(ctx, layout, cfg, params, x, dtype="float32"):
+    """``moe_ffn(..., mesh)`` on the ``("data", "model")`` mesh ``layout``:
+    ``params`` and ``x`` are whole numpy f32 arrays, of which the rank takes
+    its blocks (the expert stacks where ``ep_sharded``, ``x``'s rows), all
+    but the router in ``dtype``. Returns the rank's output rows (as f32)
+    and the census of its collectives."""
+    from repro_torch.launch.mesh import collective_census
+    from repro_torch.models import moe
+    from repro_torch.sharding.rules import default_rules, shard_tensor
+
+    mesh = ctx.host_mesh(*layout)
+    rules = default_rules(mesh)
+    names = dict(w_gate=("experts", "wembed", "expert_mlp"),
+                 w_up=("experts", "wembed", "expert_mlp"),
+                 w_down=("experts", "expert_mlp", "wembed"))
+    dt = getattr(torch, dtype)
+    p = {k: torch.from_numpy(v).to(torch.float32 if k == "w_router" else dt)
+         if not isinstance(v, dict) else {n: torch.from_numpy(a).to(dt) for n, a in v.items()}
+         for k, v in params.items()}
+    if moe.ep_sharded(cfg, mesh):
+        p.update({k: shard_tensor(p[k], n, mesh, rules).contiguous() for k, n in names.items()})
+    x_loc = shard_tensor(torch.from_numpy(x).to(dt), ("batch", None, None), mesh, rules)
+    with torch.no_grad(), collective_census() as census:
+        y = moe.moe_ffn(p, x_loc, cfg, mesh)
+    return y.float().numpy(), census.bytes, census.counts
+
+
+def lm_steps(ctx, layout, cfg, seed, tokens, n_decode):
+    """``build_steps(cfg, mesh=...)`` on the layout's mesh, the state drawn
+    from ``seed`` on the CPU: ``prefill_step`` on ``tokens`` (the whole
+    batch) and ``n_decode`` decode steps of its columns into a fresh cache.
+    Returns this rank's prefill logits, its decode logits and the censuses
+    of the prefill and of one decode step."""
+    from repro_torch.launch.mesh import collective_census
+    from repro_torch.train.step import build_steps
+
+    mesh = ctx.host_mesh(*layout)
+    steps = build_steps(cfg, mesh=mesh)
+    params = steps.init_state(torch.Generator().manual_seed(seed))["params"]
+    toks = torch.from_numpy(tokens)
+    with collective_census() as pre:
+        logits = steps.prefill_step(params, dict(tokens=toks))
+    cache = steps.init_cache(toks.shape[0], n_decode)
+    dec = []
+    for t in range(n_decode):
+        with collective_census() as step:
+            lo, cache = steps.decode_step(params, cache, toks[:, t:t + 1],
+                                          torch.tensor(t, dtype=torch.int32))
+        dec.append(lo.numpy())
+    return logits.numpy(), dec, pre.bytes, step.bytes
