@@ -320,7 +320,8 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    timed steps (CUDA events) against ``lm_train_bound``, tokens/s, peak
    memory; one ``reduced()`` f32 step against the CPU's within 1e-5 (loss,
    grad_norm) and 1e-4 (each Adafactor factor);
-21. LMs served over a mesh of ranks, and the dry run (``lms_over_ranks``),
+21. LMs served and trained over a mesh of ranks, and the dry run
+   (``lms_over_ranks``),
    no kernel on its path: the single-device runs first (prefill of the
    whole batch and of each data shard's rows, decode steps, routing kept),
    the dry run's collective census of each rank's cell at the same depth,
@@ -342,9 +343,25 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    (host clock), peak memory per rank; (e) the dry run at full width on
    the 256-GPU mesh (``data=32,model=8``) of qwen2-moe's and deepseek-v3's
    ``prefill_32k`` and ``decode_32k``, jamba's ``decode_32k`` and
-   ``long_500k`` and ``wisk serve``, in two processes of their own from
-   the phase's start, printing each cell's ``fits`` and its three roofline
-   terms;
+   ``long_500k``, qwen2-moe's ``train_4k`` and ``wisk serve``, in two
+   processes of their own from the phase's start, printing each cell's
+   ``fits`` and its three roofline terms. Then, in the same spawn, training
+   over the ranks (``ranks_train_refs`` before it, on one device): (f)
+   qwen2-moe at published widths cut to 2 layers (bf16, AdamW,
+   ``remat="full"``) on ``(2, 2)``, three ``train_step``s at B = 4, S =
+   512 on the ``TokenPipeline`` of seed 0, step 1 within phase 17(b)'s
+   bounds of one device stepping each data shard's rows alone (routing
+   replayed); each step's ms (CUDA events; the host clock of the slowest
+   rank), the collectives' share, peak memory a rank, every whole leaf
+   bit-identical on every rank after every step; (g) deepseek-v3 at
+   ``reduced()`` (f32, Adafactor, the MTP block) on ``(2, 2)``, one step
+   within 1e-5 (loss, grad_norm) and 1e-4 (each factor) of the same kind
+   of single-device step; (h) (g)'s state checkpointed (whole leaves) and
+   restored on ``plan_remesh(2).make_mesh()``'s ``(1, 2)`` of the first
+   two ranks, one more step within (g)'s bounds of one device's step from
+   the same checkpoint (run by the last rank, one the plan leaves out); (i)
+   every rank's census of (f)'s and (g)'s steps equal to the dry run's
+   ``train`` cell at the same depth, batch and mesh;
 22. prints the kernels' JSON line, then the result line.
 
 Every phase prints its seconds. Any failure raises and exits non-zero.
@@ -1896,9 +1913,9 @@ def collective_share(prof, wall_us: float) -> float:
 
 @contextlib.contextmanager
 def timed_collectives():
-    """Host seconds spent inside ``torch.distributed``'s all-gathers and
-    all-reduces while inside (gloo and NCCL both return from these calls
-    once the collective is done), as ``box[0]``."""
+    """Host seconds spent inside ``torch.distributed``'s all-gathers,
+    all-reduces and reduce-scatters while inside (gloo and NCCL both return
+    from these calls once the collective is done), as ``box[0]``."""
     import torch.distributed as dist
 
     box = [0.0]
@@ -1913,7 +1930,8 @@ def timed_collectives():
         return call
 
     with patched(dist, all_gather_into_tensor=timed(dist.all_gather_into_tensor),
-                 all_reduce=timed(dist.all_reduce)):
+                 all_reduce=timed(dist.all_reduce),
+                 reduce_scatter_tensor=timed(dist.reduce_scatter_tensor)):
         yield box
 
 
@@ -4450,7 +4468,27 @@ DRYRUN_MESH = "data=32,model=8"
 DRYRUN_CELLS = (("qwen2-moe-a2.7b", "prefill_32k"), ("qwen2-moe-a2.7b", "decode_32k"),
                 ("deepseek-v3-671b", "prefill_32k"), ("deepseek-v3-671b", "decode_32k"),
                 ("jamba-v0.1-52b", "decode_32k"), ("jamba-v0.1-52b", "long_500k"),
-                ("wisk", "serve"))
+                ("qwen2-moe-a2.7b", "train_4k"), ("wisk", "serve"))
+# (f): qwen2-moe at its published widths cut to 2 layers (bf16, AdamW,
+# remat="full", seeded weights) trained on four ranks (data=2, model=2) at
+# B = 4, S = 512 on the TokenPipeline of seed 0, step 1 held to a single
+# device stepping each data shard's rows alone, gradients averaged, routing
+# replayed, within phase 17(b)'s bounds (TRAIN_REL)
+RANKS_TRAIN_ARCH = "qwen2-moe-a2.7b"
+RANKS_TRAIN_DEPTH = 2
+RANKS_TRAIN_SHAPE = (4, 512)
+RANKS_TRAIN_STEPS = 3
+RANKS_TRAIN_SEED = SEED + 31
+# (g) and (h): deepseek-v3 at reduced() (f32, Adafactor, the MTP block) on
+# (2, 2), one step against the same kind of single-device run; (h) its state
+# checkpointed, restored on the first two ranks as plan_remesh(2)'s (1, 2)
+# and stepped once more against one device's step from the same checkpoint
+# (run by the last rank, one the plan drops); tests/test_torch_cuda_train.py's f32
+# bounds
+RANKS_ADAFACTOR_ARCH = "deepseek-v3-671b"
+RANKS_ADAFACTOR_SHAPE = (4, 64)
+RANKS_ADAFACTOR_REL = dict(loss=1e-5, grad_norm=1e-5, vr=1e-4, vc=1e-4)
+RANKS_LAYOUT = (2, 2)
 
 
 def ranks_config(arch: str):
@@ -4561,45 +4599,17 @@ def timed_step(fn, on_card: bool, sync):
     return (start.elapsed_time(end) if on_card else wall * 1e3), wall, box
 
 
-def run_mesh(rank: int, world: int, layout, dev):
-    """The ``("data", "model")`` mesh of a run: ``make_host_mesh`` where the
-    run takes every rank, else one over the first ``data * model`` ranks,
-    laid out as ``make_host_mesh`` lays them out (None on the others).
-    Every rank creates every group, in the same order."""
-    import torch.distributed as dist
-
-    from repro_torch.launch.mesh import MeshAxis, ServingMesh, make_host_mesh
-
-    d, m = layout
-    if d * m == world:
-        return make_host_mesh(d, m, device=dev)
-    lines = dict(data=[[c0 * m + c1 for c0 in range(d)] for c1 in range(m)],
-                 model=[[c0 * m + c1 for c1 in range(m)] for c0 in range(d)])
-    groups = {}
-    for name, size in (("data", d), ("model", m)):
-        for ranks in lines[name] if size > 1 else ():
-            g = dist.new_group(ranks)
-            if rank in ranks:
-                groups[name] = g
-    everyone = dist.new_group(list(range(d * m)))
-    if rank >= d * m:
-        return None
-    axes = dict(data=MeshAxis("data", d, rank // m, groups.get("data")),
-                model=MeshAxis("model", m, rank % m, groups.get("model")))
-    return ServingMesh(("data", "model"), rank, dev, axes,
-                       MeshAxis("everyone", d * m, rank, everyone))
-
-
 def mesh_rank(rank: int, world: int, init: str, backend: str, p: dict) -> None:
     """One rank of phase 21 (spawned): the runs in turn, each on its own
-    mesh (``run_mesh``). Every check raises on failure, which ends the rank
+    mesh (``make_host_mesh(..., first=True)``: a run on fewer ranks takes
+    the first ones). Every check raises on failure, which ends the rank
     non-zero and the parent's phase with it; each rank logs its own
     lines."""
     import datetime
 
     import torch.distributed as dist
 
-    from repro_torch.launch.mesh import collective_census
+    from repro_torch.launch.mesh import collective_census, make_host_mesh
     from repro_torch.train.step import build_steps
 
     on_card = p["device_type"] == "cuda"
@@ -4618,7 +4628,7 @@ def mesh_rank(rank: int, world: int, init: str, backend: str, p: dict) -> None:
         ref, pred = p["refs"][arch], p["pred"][part]
         cfg = ref["cfg"]
         B, S = ref["tokens"].shape
-        mesh = run_mesh(rank, world, layout, dev)
+        mesh = make_host_mesh(*layout, device=dev, first=True)
         if mesh is None:  # a run on the first ranks: wait for it
             dist.barrier()
             continue
@@ -4693,7 +4703,342 @@ def mesh_rank(rank: int, world: int, init: str, backend: str, p: dict) -> None:
         say(f"peak device memory {peak} B above the start ({base} B)")
         del params, steps, logits
         dist.barrier()
+    if "train" in p:  # (f)-(i): training over the ranks
+        rank_train_f(rank, dev, p["train"], on_card, sync)
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        dist.barrier()
+        rank_train_gh(rank, world, dev, p["train"], p["ckpt_dir"], on_card, sync)
+        dist.barrier()
     dist.destroy_process_group()
+
+
+# ------------------------------------- (f)-(i): training over the ranks (phase 21)
+def ranks_train_config(which: str):
+    """(f)'s config (published widths, ``RANKS_TRAIN_DEPTH`` layers) or
+    (g)'s (``reduced()``)."""
+    from repro_torch.configs import get_config
+
+    if which == "f":
+        return dataclasses.replace(get_config(RANKS_TRAIN_ARCH), n_layers=RANKS_TRAIN_DEPTH,
+                                   remat="full")
+    return get_config(RANKS_ADAFACTOR_ARCH).reduced()
+
+
+def shard_step(steps, state, batch, n_dp: int, keep_logs: bool = True):
+    """One step of a single device as the mesh computes it: each data
+    shard's rows alone (their own MoE capacity), the loss over ``n_dp``
+    backpropagated, the gradients summed, then ``clip_and_update`` with
+    ``build_steps``' schedule, clip and optimizer. Returns the mean loss,
+    the norm, the learning rate and each shard's routing (kept)."""
+    from repro_torch.optim.optimizers import cosine_schedule, get_optimizer
+    from repro_torch.train.step import clip_and_update, loss_and_grads
+    from repro_torch.tree import leaves
+
+    rows = batch["tokens"].shape[0] // n_dp
+    loss, grads, logs = 0.0, None, []
+    for i in range(n_dp):
+        part = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+        with RoutingLog(keep=keep_logs) as rl:
+            li, g = loss_and_grads(steps.bundle, state["params"], part, 1.0 / n_dp)
+        logs.append(_host_log(rl))
+        loss += float(li) / n_dp
+        g = leaves(g)
+        if grads is None:
+            grads = g
+        else:
+            for a, b in zip(grads, g):
+                a.add_(b)
+        del g
+    lr = cosine_schedule(3e-4, 100, 10_000)(state["step"])
+    gnorm = clip_and_update(state["params"], state["opt"], grads,
+                            get_optimizer(steps.cfg.optimizer)[1], lr, state["step"], 1.0)
+    state["step"] = state["step"] + 1
+    return loss, float(gnorm), float(lr), logs
+
+
+def train_census_prediction(arch: str, cfg, B: int, S: int) -> tuple:
+    """(i): the dry run's census of one ``train_step`` of ``cfg`` at (B, S)
+    on ``RANKS_LAYOUT``'s abstract mesh."""
+    from repro_torch.launch.dryrun import run_cell
+
+    d, m = RANKS_LAYOUT
+    rec = run_cell(arch, "train_4k", f"data={d},model={m}", seq=S, batch=B, cfg=cfg)
+    return rec["collective_bytes_by_axis"], rec["collective_counts_by_axis"]
+
+
+def ranks_train_refs(dev, card: str) -> dict:
+    """What (f)-(i) hold the ranks to, computed on the card before the
+    spawn: (f)'s and (g)'s single-device step from the ranks' seeded
+    weights (``shard_step``, the routing of each data shard kept for the
+    ranks to replay), (f)'s AdamW moments and (g)'s Adafactor factors on the
+    host ((f)'s in bf16: 7.3 GB instead of 14.6; the rounding, 2^-9 of a
+    value, is far inside TRAIN_REL), and (i)'s dry-run censuses."""
+    from repro_torch import full_f32_matmul
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.train.step import build_steps
+    from repro_torch.tree import leaves
+
+    out = {}
+    n_dp = RANKS_LAYOUT[0]
+    for which, arch, (B, S) in (("f", RANKS_TRAIN_ARCH, RANKS_TRAIN_SHAPE),
+                                ("g", RANKS_ADAFACTOR_ARCH, RANKS_ADAFACTOR_SHAPE)):
+        cfg = ranks_train_config(which)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        steps = build_steps(cfg, device=dev)
+        state = steps.init_state(torch.Generator(device=dev).manual_seed(RANKS_TRAIN_SEED))
+        n_params = sum(p.numel() for p in state["params"].parameters())
+        pipe = TokenPipeline(cfg.vocab, S, B, seed=0)
+        batch = pipe.next_batch(cfg, dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with full_f32_matmul() if which == "g" else contextlib.nullcontext():
+            start.record()
+            loss, gnorm, lr, logs = shard_step(steps, state, batch, n_dp)
+            end.record()
+            end.synchronize()
+        ref = dict(cfg=cfg, shape=(B, S), loss=loss, grad_norm=gnorm, lr=lr, logs=logs)
+        keep = torch.bfloat16 if which == "f" else torch.float32
+        for name in type(state["opt"])._fields:
+            # written once, into the shared memory the ranks map
+            ref[name] = [torch.empty(x.shape, dtype=keep).share_memory_().copy_(x)
+                         for x in leaves(getattr(state["opt"], name))]
+        t = time.perf_counter()
+        ref["census"] = train_census_prediction(arch, cfg, B, S)
+        log(f"({which}) {arch} single device ({card}): {cfg.n_layers} layers (a depth cut"
+            f"{'' if which == 'f' else ': reduced()'}), {cfg.dtype}, {cfg.optimizer}, remat="
+            f"{cfg.remat}, {n_params} parameters; one step at B={B} S={S} as {n_dp} data shards "
+            f"({cfg.moe_topk} of {cfg.n_experts} experts, capacity from a shard's tokens): loss "
+            f"{loss:.6f}, grad_norm {gnorm:.6f}, {start.elapsed_time(end):.3f} ms (CUDA events), "
+            f"peak device memory {torch.cuda.max_memory_allocated() - base} B above the start; "
+            f"the dry run's census of the step on {RANKS_LAYOUT} ({time.perf_counter() - t:.3f} "
+            f"s): {ref['census'][0]}")
+        out[which] = ref
+        del state, steps, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def leaf_digest(x: torch.Tensor) -> torch.Tensor:
+    """An int64 digest of ``x``'s bits (a weighted sum of its elements'
+    bit patterns, blocks of 2^24 elements): equal tensors, equal digests."""
+    bits = x.detach().reshape(-1).view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                                        8: torch.int64}[x.element_size()])
+    total = torch.zeros((), dtype=torch.int64, device=x.device)
+    for i in range(0, bits.numel(), 1 << 24):
+        b = bits[i:i + (1 << 24)].to(torch.int64)
+        w = torch.arange(i, i + b.numel(), dtype=torch.int64, device=x.device) % 65521 + 1
+        total += (b * w).sum()
+    return total
+
+
+def whole_leaves_agree(steps, state) -> int:
+    """Checks that every state leaf each rank holds whole is bit-identical
+    on every rank of the mesh (their digests all-gathered); returns how
+    many leaves."""
+    from repro_torch.tree import leaves
+
+    whole = [x for x, sh in zip(leaves(state), leaves(steps.state_shardings())) if not sh.split]
+    mine = torch.stack([leaf_digest(x) for x in whole])
+    got = steps.mesh.everyone.all_gather(mine)
+    bad = (got != got[0]).any(0).nonzero().flatten().tolist()
+    if bad:
+        raise AssertionError(f"whole leaves {bad} of {len(whole)} differ between the ranks")
+    return len(whole)
+
+
+def compare_blocks(steps, state, ref: dict, names, rel: dict) -> dict:
+    """Each optimizer-state field of ``names``: the largest error of the
+    rank's blocks against ``ref``'s whole leaves, over each block's
+    largest value; raises above ``rel``. A leaf every rank holds whole is
+    compared on rank 0 alone (``whole_leaves_agree`` holds the others to
+    its bits)."""
+    from repro_torch.tree import leaves
+
+    placed = steps.state_shardings()["opt"]
+    errs = {}
+    for name in names:
+        worst = 0.0
+        for x, want, sh in zip(leaves(getattr(state["opt"], name)), ref[name],
+                               leaves(getattr(placed, name))):
+            if not sh.split and steps.mesh.rank != 0:
+                continue
+            worst = max(worst, rel_err(x, want[sh.index(sh.global_shape(x.shape))]))
+        errs[name] = worst
+    for k, v in errs.items():
+        if not v <= rel[k]:
+            raise AssertionError(f"the ranks' {k} differs from one device's: {v} > {rel[k]}")
+    return errs
+
+
+def ranks_step(steps, state, batch, replay, on_card: bool, sync) -> tuple:
+    """One ``train_step`` on the mesh, timed (CUDA events on the card; the
+    host clock of the slowest rank), in a census, the routing replayed
+    where ``replay`` is given. Returns the state, its metrics, the census,
+    device ms, host ms, the slowest rank's host ms and the collectives'
+    share of this rank's host time."""
+    from repro_torch.launch.mesh import collective_census
+
+    box_out = []
+    routing = RoutingLog(replay=replay) if replay is not None else contextlib.nullcontext()
+    with routing, collective_census() as census:
+        ms, wall, box = timed_step(lambda: box_out.append(steps.train_step(state, batch)),
+                                   on_card, sync)
+    state, m = box_out.pop()
+    slowest = float(steps.mesh.everyone.pmax(torch.tensor([wall], dtype=torch.float64,
+                                                          device=steps.device))[0])
+    return state, m, census, ms, wall * 1e3, slowest * 1e3, 100 * box[0] / wall
+
+
+def _check_step(what: str, m, ref: dict, rel: dict) -> dict:
+    check_metrics(m, what)
+    errs = {k: abs(float(m[k]) - ref[k]) / abs(ref[k]) for k in ("loss", "grad_norm")}
+    for k, v in errs.items():
+        if not v <= rel[k]:
+            raise AssertionError(f"{what}: {k} {float(m[k])} off one device's {ref[k]} by {v}")
+    return errs
+
+
+def _check_census(what: str, census, pred) -> None:
+    if (census.bytes, census.counts) != pred:
+        raise AssertionError(f"{what}: the step's census {census.bytes} {census.counts} is not "
+                             f"the dry run's {pred}")
+
+
+def rank_train_f(rank: int, dev, p: dict, on_card: bool, sync) -> None:
+    """(f) and (i) on this rank: ``RANKS_TRAIN_STEPS`` steps of qwen2-moe
+    over ``RANKS_LAYOUT``, step 1 held to one device's (``ranks_train_refs``;
+    the routing of this rank's data shard replayed), every step's census to
+    the dry run's, the whole leaves bit-identical after every step."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.step import build_steps
+    from repro_torch.tree import leaves
+
+    ref = p["f"]
+    cfg, (B, S) = ref["cfg"], ref["shape"]
+    say = lambda *a: log(f"(f) rank {rank} {RANKS_LAYOUT}:", *a)  # noqa: E731
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev) if on_card else 0
+    t = time.perf_counter()
+    steps = build_steps(cfg, mesh=make_host_mesh(*RANKS_LAYOUT, device=dev))
+    state = steps.init_state(torch.Generator(device=dev).manual_seed(RANKS_TRAIN_SEED))
+    sync()
+    say(f"drawn in {time.perf_counter() - t:.3f} s: {lm_bytes(state['params'])} B of weights and "
+        f"{sum(x.numel() * x.element_size() for x in leaves(state['opt']))} B of AdamW moments "
+        f"on this rank (the experts' block {tuple(state['params'].moe_blocks.moe.w_gate.shape)})")
+    pipe = TokenPipeline(cfg.vocab, S, B, seed=0)
+    d = steps.mesh.axis("data").index
+    for s in range(RANKS_TRAIN_STEPS):
+        batch = pipe.next_batch(cfg, dev)
+        state, m, census, ms, host, slowest, share = ranks_step(
+            steps, state, batch, ref["logs"][d] if s == 0 else None, on_card, sync)
+        _check_census(f"(f) rank {rank} step {s + 1}", census, ref["census"])
+        line = ""
+        if s == 0:
+            t = time.perf_counter()
+            errs = _check_step("(f)", m, ref, TRAIN_REL)
+            errs.update(compare_blocks(steps, state, ref, ("m", "v"), TRAIN_REL))
+            line = ("; against one device's step (routing replayed): " + ", ".join(
+                f"{k} {v:.3e} <= {TRAIN_REL[k]}" for k, v in errs.items())
+                + f" (compared in {time.perf_counter() - t:.3f} s)")
+        # a collective: the ranks also leave it together, so the next step's
+        # clock starts on every rank at once
+        n_whole = whole_leaves_agree(steps, state)
+        say(f"step {s + 1} B={B} S={S}: loss {float(m['loss']):.6f}, grad_norm "
+            f"{float(m['grad_norm']):.6f}; {ms:.3f} ms (CUDA events), {host:.3f} ms host "
+            f"clock, the slowest rank's {slowest:.3f} ms, collectives {share:.3f} % of it; "
+            f"census {census.bytes} calls {census.counts} = the dry run's (i); {n_whole} "
+            f"whole leaves bit-identical on every rank" + line)
+    peak = (torch.cuda.max_memory_allocated(dev) - base) if on_card else 0
+    say(f"peak device memory {peak} B above the start ({base} B)")
+
+
+def rank_train_gh(rank: int, world: int, dev, p: dict, ckpt_dir: str, on_card: bool,
+                  sync) -> None:
+    """(g), (h) and (i) on this rank: deepseek-v3 at ``reduced()`` over
+    ``RANKS_LAYOUT`` one step against one device's; its state checkpointed
+    (whole leaves, rank 0 writing); restored on ``plan_remesh(2)``'s mesh of
+    the first two ranks and stepped once more against one device's step
+    from the same checkpoint, which the last rank (one the plan drops) runs
+    and broadcasts (its routing replayed by the first two)."""
+    import torch.distributed as dist
+
+    from repro_torch import full_f32_matmul
+    from repro_torch.ckpt.checkpoint import AsyncCheckpointer, restore
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.resilience.elastic import plan_remesh
+    from repro_torch.train.step import build_steps
+    from repro_torch.tree import leaves
+
+    ref = p["g"]
+    cfg, (B, S) = ref["cfg"], ref["shape"]
+    rel = RANKS_ADAFACTOR_REL
+    steps = build_steps(cfg, mesh=make_host_mesh(*RANKS_LAYOUT, device=dev))
+    state = steps.init_state(torch.Generator(device=dev).manual_seed(RANKS_TRAIN_SEED))
+    pipe = TokenPipeline(cfg.vocab, S, B, seed=0)
+    batch = pipe.next_batch(cfg, dev)
+    with full_f32_matmul():
+        state, m, census, ms, host, slowest, share = ranks_step(
+            steps, state, batch, ref["logs"][steps.mesh.axis("data").index], on_card, sync)
+    _check_census(f"(g) rank {rank}", census, ref["census"])
+    errs = _check_step("(g)", m, ref, rel)
+    errs.update(compare_blocks(steps, state, ref, ("vr", "vc"), rel))
+    n_whole = whole_leaves_agree(steps, state)
+    log(f"(g) rank {rank} {RANKS_LAYOUT}: {RANKS_ADAFACTOR_ARCH} reduced() f32 Adafactor step B={B} S={S}: "
+        f"loss {float(m['loss']):.6f}; against one device's step (routing replayed): "
+        + ", ".join(f"{k} {v:.3e} <= {rel[k]}" for k, v in errs.items())
+        + f"; census = the dry run's (i); {n_whole} whole leaves bit-identical; {ms:.3f} ms "
+        f"(CUDA events), the slowest rank's host {slowest:.3f} ms")
+    ckpt = AsyncCheckpointer(ckpt_dir, shardings=steps.state_shardings())
+    t = time.perf_counter()
+    ckpt.submit(1, state)
+    ckpt.close()
+    t_save = time.perf_counter() - t
+    del state, steps
+    # (h): the plan's mesh over the first ranks; the last rank steps one
+    # device from the same checkpoint and hands its step to the others
+    plan = plan_remesh(2)
+    mesh = plan.make_mesh(device=dev)
+    batch = pipe.next_batch(cfg, dev)
+    box = [None]
+    if rank == world - 1:
+        one = build_steps(cfg, device=dev)
+        ostate, _ = restore(ckpt_dir, one.init_state(torch.Generator(device=dev)))
+        with full_f32_matmul():
+            loss, gnorm, lr, logs = shard_step(one, ostate, batch, 1)
+        box[0] = dict(loss=loss, grad_norm=gnorm, logs=logs[0], **{
+            k: [x.cpu() for x in leaves(getattr(ostate["opt"], k))] for k in ("vr", "vc")})
+    dist.broadcast_object_list(box, src=world - 1)
+    if mesh is None:
+        return
+    want = box[0]
+    steps = build_steps(cfg, mesh=mesh)
+    t = time.perf_counter()
+    state, step = restore(ckpt_dir, steps.init_state(torch.Generator(device=dev)),
+                          shardings=steps.state_shardings())
+    t_restore = time.perf_counter() - t
+    with full_f32_matmul():
+        state, m, census, ms, host, slowest, share = ranks_step(steps, state, batch,
+                                                                want["logs"], on_card, sync)
+    errs = _check_step("(h)", m, want, rel)
+    errs.update(compare_blocks(steps, state, want, ("vr", "vc"), rel))
+    n_whole = whole_leaves_agree(steps, state)
+    log(f"(h) rank {rank} {plan.shape} (plan_remesh(2).make_mesh(): the first 2 of {world} "
+        f"ranks): the "
+        f"checkpoint of (g) (saved in {t_save:.3f} s, whole leaves) restored at step {step} in "
+        f"{t_restore:.3f} s; one more step: loss {float(m['loss']):.6f}; against one device's "
+        f"step from the same checkpoint: " + ", ".join(
+            f"{k} {v:.3e} <= {rel[k]}" for k, v in errs.items())
+        + f"; {n_whole} whole leaves bit-identical; {ms:.3f} ms (CUDA events)")
 
 
 # (e)'s process: ``run_cell`` of each "arch:shape" argument in turn
@@ -4750,7 +5095,8 @@ def full_width_dryrun(started, out_dir: str) -> None:
         log(f"(e) {arch} {shape} on {rec['mesh']} ({rec['devices']} H100s): argument "
             f"{m['argument_bytes']} B (fits {rec['fits']['argument_bytes']}), by the rules "
             f"{m['rules_argument_bytes']} B (fits {rec['fits']['rules_argument_bytes']}), peak "
-            f"live {m['peak_live_bytes']} B; compute {terms[0] * 1e3:.6f} ms, memory "
+            f"live {m['peak_live_bytes']} B (argument plus peak fits "
+            f"{rec['fits']['with_peak_live_bytes']}); compute {terms[0] * 1e3:.6f} ms, memory "
             f"{terms[1] * 1e3:.6f} ms, collective {terms[2] * 1e3:.6f} ms per step and rank "
             + (f"(bound: {row.bottleneck}; useful {row.useful_ratio:.3f})" if row else "")
             + f"; collectives {rec['collective_bytes_by_axis']}; traced in "
@@ -4782,21 +5128,24 @@ def ranks_runs(dev, card: str) -> None:
     log(f"ranks: {world} on {min(cards, world)} card(s) of {cards}, backend {backend}: "
         f"{[(p, a, lay) for p, a, lay, _ in runs]}")
     payload = dict(runs=runs, refs=refs, pred=pred, device_type=dev.type)
+    if world == RANKS_LAYOUT[0] * RANKS_LAYOUT[1]:
+        payload["train"] = ranks_train_refs(dev, card)
     with tempfile.TemporaryDirectory() as d:
         t = time.perf_counter()
         payload["spawned"] = time.time()
+        payload["ckpt_dir"] = os.path.join(d, "ckpt")
         torch.multiprocessing.spawn(mesh_rank, args=(world, f"file://{d}/rendezvous", backend,
                                                      payload), nprocs=world, join=True)
     log(f"ranks: {time.perf_counter() - t:.3f} s from spawn to join")
 
 
 def lms_over_ranks(dev, card: str) -> None:
-    """Phase 21: LMs served over a mesh of ranks, and the dry run: (a)
-    qwen2-moe on four ranks ``(data=2, model=2)``, prefill and decode; then
-    on the first two ranks ``(1, 2)`` (b) qwen2-moe's and (c) deepseek-v3's
-    prefill;
-    (d) every rank's census equal to the dry run's (``ranks_runs``); (e)
-    the full-width dry run, in processes of its own from the start."""
+    """Phase 21: LMs served and trained over a mesh of ranks, and the dry
+    run: (a) qwen2-moe on four ranks ``(data=2, model=2)``, prefill and
+    decode; then on the first two ranks ``(1, 2)`` (b) qwen2-moe's and (c)
+    deepseek-v3's prefill; (d) every rank's census equal to the dry run's;
+    (f)-(i) training over the ranks (``ranks_runs``); (e) the full-width
+    dry run, in processes of its own from the phase's start."""
     with tempfile.TemporaryDirectory() as out_dir:
         dry = start_dryrun(out_dir)
         try:

@@ -13,8 +13,17 @@ written by either package restores in the other.
   * ``AsyncCheckpointer``: a writer thread, training continues while the
     previous step saves; ``submit`` copies the state to the host first;
   * ``restore`` places each leaf on its template leaf's device and dtype
-    (the one-device meaning of the reference's ``shardings``);
+    and, with ``shardings``, cuts this rank's block of it for a new mesh
+    (the reference's re-shard on load);
   * garbage collection of old steps (``keep_n``).
+
+Over a mesh of ranks a checkpoint still holds whole leaves, so one written
+on four ranks restores on one device, on two or on four. An
+``AsyncCheckpointer`` given the state's ``shardings``
+(``Steps.state_shardings``; the mesh is theirs) gathers in ``submit`` each
+leaf that is a rank's block, one leaf at a time, on the caller's thread and
+in the same order on every rank (the gathers are collectives); only rank 0
+keeps the whole leaves and only its writer thread writes.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..models.convert import to_block
 from ..tree import leaves, tree_map, unflatten
 
 # what numpy stores as it is; any other dtype (bf16) is stored widened to f32
@@ -87,10 +97,13 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, template: Any, step: Optional[int] = None):
+def restore(ckpt_dir: str, template: Any, step: Optional[int] = None, shardings: Any = None):
     """``(state, step)``: the checkpoint at ``step`` (default the latest)
     in ``template``'s structure, each leaf cast to its template leaf's
-    dtype on its device. A model in the template is loaded in place."""
+    dtype on its device. With ``shardings`` (a tree of ``sharding/rules.py``
+    ``Sharding``s mirroring the template, for the mesh restored onto: the
+    reference's ``NamedSharding``s) each leaf is this rank's block
+    (``Sharding.index``). A model in the template is loaded in place."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -100,15 +113,44 @@ def restore(ckpt_dir: str, template: Any, step: Optional[int] = None):
     t_leaves = leaves(template)
     if len(t_leaves) != meta["n_leaves"]:
         raise ValueError(f"checkpoint has {meta['n_leaves']} leaves, template {len(t_leaves)}")
+    sh_leaves = [None] * len(t_leaves) if shardings is None else leaves(shardings)
+    if len(sh_leaves) != len(t_leaves):
+        raise ValueError(f"{len(sh_leaves)} shardings for {len(t_leaves)} leaves")
     out = []
-    for i, tl in enumerate(t_leaves):
+    for i, (tl, sh) in enumerate(zip(t_leaves, sh_leaves)):
         with np.load(d / f"leaf_{i}.npz") as z:
             arr = z["a"]
         if isinstance(tl, torch.Tensor):
-            out.append(torch.from_numpy(np.array(arr)).to(tl.device, tl.dtype))
+            block = to_block(arr, sh)
+            if tuple(block.shape) != tuple(tl.shape):
+                raise ValueError(f"leaf {i}: the block {tuple(block.shape)} of {arr.shape} is "
+                                 f"not the template's {tuple(tl.shape)}")
+            out.append(block.to(tl.device, tl.dtype))
         else:
             out.append(arr)
     return unflatten(template, out), step
+
+
+def _whole_leaf(x: torch.Tensor, sh):
+    """The whole leaf of which ``x`` is this rank's block by ``sh``, on
+    the host of rank 0 (None on the others); every rank holding a block
+    calls it (an all-gather over the axes ``sh`` splits)."""
+    mesh = sh.mesh
+    axis = mesh.over(sh.axes)
+    with torch.no_grad():
+        got = axis.all_gather(x.detach().contiguous())
+    if mesh.rank != 0:
+        return None
+    got = got.cpu()
+    mine = {n: mesh.axis(n).index for n in mesh.axis_names}
+    whole = torch.empty(sh.global_shape(x.shape), dtype=x.dtype)
+    for j in range(axis.size):  # the gather's order: row major over sh.axes
+        coords, rest = dict(mine), j
+        for n in reversed(sh.axes):
+            coords[n] = rest % mesh.axis(n).size
+            rest //= mesh.axis(n).size
+        whole[sh.index(whole.shape, coords)] = got[j]
+    return whole
 
 
 def _describe(tree: Any) -> str:
@@ -123,15 +165,25 @@ def _to_host(x):
 
 
 class AsyncCheckpointer:
-    """Background writer thread; ``wait()`` drains pending saves."""
+    """Background writer thread; ``wait()`` drains pending saves. With
+    ``shardings`` (a tree of ``Sharding``s mirroring the states that
+    ``submit`` takes) the state lives on their mesh: only its rank 0 writes
+    (see the module), and every rank calls ``submit`` and ``close``."""
 
-    def __init__(self, ckpt_dir: str, keep_n: int = 3):
+    def __init__(self, ckpt_dir: str, keep_n: int = 3, shardings: Any = None):
         self.ckpt_dir = ckpt_dir
         self.keep_n = keep_n
+        self.shardings = None if shardings is None else leaves(shardings)
+        meshes = {id(s.mesh): s.mesh for s in self.shardings or () if s is not None}
+        if len(meshes) > 1:
+            raise ValueError("the shardings lie on more than one mesh")
+        self.mesh = next(iter(meshes.values()), None)
         self._q: "queue.Queue" = queue.Queue(maxsize=2)
         self._err: Optional[BaseException] = None
-        self._t = threading.Thread(target=self._worker, daemon=True)
-        self._t.start()
+        self._t = None
+        if self.mesh is None or self.mesh.rank == 0:
+            self._t = threading.Thread(target=self._worker, daemon=True)
+            self._t.start()
 
     def _worker(self):
         while True:
@@ -149,17 +201,44 @@ class AsyncCheckpointer:
     def submit(self, step: int, state: Any):
         """Queue a save of ``state`` at ``step``. Every tensor is copied to
         the host before this returns, so later in-place steps cannot reach
-        the pending save."""
+        the pending save. Over a mesh each leaf that is a rank's block is
+        gathered whole to rank 0 first, a leaf at a time, and only rank 0
+        queues the save."""
         if self._err:
             raise self._err
-        self._q.put((step, tree_map(_to_host, state)))
+        if self.shardings is None:
+            host = tree_map(_to_host, state)
+        else:
+            flat = leaves(state)
+            if len(self.shardings) != len(flat):
+                raise ValueError(f"{len(self.shardings)} shardings for {len(flat)} leaves")
+            out = []
+            for x, s in zip(flat, self.shardings):
+                if isinstance(x, torch.Tensor) and s is not None and s.split:
+                    out.append(_whole_leaf(x, s))
+                else:  # only the writing rank keeps a copy
+                    out.append(_to_host(x) if self._t is not None else None)
+            if self._t is None:
+                return
+            host = unflatten(_plain(state), out)
+        self._q.put((step, host))
 
     def wait(self):
-        self._q.join()
+        if self._t is not None:
+            self._q.join()
         if self._err:
             raise self._err
 
     def close(self):
         self.wait()
-        self._q.put(None)
-        self._t.join(timeout=10)
+        if self._t is not None:
+            self._q.put(None)
+            self._t.join(timeout=10)
+        if self.mesh is not None:  # the others wait for rank 0's last write
+            self.mesh.broadcast_object(None)
+
+
+def _plain(tree: Any) -> Any:
+    """``tree`` with any model in it as its parameter dict (so that the
+    host copy does not load into the live model)."""
+    return tree_map(lambda x: x, tree)

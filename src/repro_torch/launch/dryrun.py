@@ -8,11 +8,13 @@ port runs one rank's step of the cell on an abstract mesh
 nothing is allocated, and every op still runs through the dispatcher. A
 cell records:
 
-* ``memory.argument_bytes`` -- this rank's state, batch and cache as this
-  slice places them (dense weights whole, the expert stacks the rank's
-  block, the batch and cache rows the rank's);
-  ``memory.rules_argument_bytes`` -- the same leaves laid out wholly by the
-  sharding rules (the reference's layout, which ROADMAP A.13i brings);
+* ``memory.argument_bytes`` -- this rank's arguments as this slice
+  places them (dense weights whole, the expert stacks the rank's block,
+  the batch and cache rows the rank's): the parameters, batch and cache of
+  a serving step, the parameters, optimizer state, step and batch of a
+  ``train`` step; ``memory.rules_argument_bytes`` -- the same leaves laid
+  out wholly by the sharding rules (the reference's layout, which ROADMAP
+  A.13j brings);
   ``memory.peak_live_bytes`` -- the step's own allocations at their peak;
 * ``cost`` and ``op_census`` -- ``roofline/op_stats.py`` over the step
   (matmul flops, bytes every op reads and writes, aten calls);
@@ -20,7 +22,10 @@ cell records:
   ``collective_total_per_device`` -- the collective census by operation
   (the reference's keys: result bytes per device), and
   ``collective_bytes_by_axis`` / ``collective_counts_by_axis``;
-* ``fits`` -- each byte count against one H100's memory.
+* ``fits`` -- each byte count against one H100's memory, and
+  ``with_peak_live_bytes``: the arguments as placed plus the step's peak,
+  an overstatement (eager ops keep intermediates a fused step would not),
+  which for a ``train`` step is what decides whether it runs.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-moe-a2.7b --shape prefill_32k
@@ -30,8 +35,11 @@ Usage:
 The default meshes are ``data=32,model=8`` (256 H100s, ``model`` inside one
 8-GPU NVLink node) and ``pod=2,data=32,model=8`` (512); the reference's
 ``pod16x16`` is ``--mesh data=16,model=16``. ``--all`` runs each cell in a
-subprocess, on both default meshes. ``train_4k`` cells are recorded as
-skipped (training over a mesh is ROADMAP A.13i).
+subprocess, on both default meshes. A ``train_4k`` cell traces one
+``train_step`` (the forward, the ``remat`` recompute, the backward with its
+collectives, the gradient reductions and the optimizer) outside
+``torch.no_grad()``. A batch that does not split over the data ranks is
+recorded as skipped, as the reference's ``jit`` raises on it.
 """
 from __future__ import annotations
 
@@ -52,7 +60,6 @@ import torch
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
 DEFAULT_MESHES = ("data=32,model=8", "pod=2,data=32,model=8")
 WISK_SHAPES = ("serve", "serve2")
-TRAIN_SKIP = "training over a mesh: ROADMAP A.13i"
 # one H100's memory where no card is present: torch.cuda.get_device_properties(0)
 # .total_memory as chip_smoke.py read it on an NVIDIA H100 80GB HBM3
 H100_MEMORY_BYTES = 85_017_493_504
@@ -116,23 +123,40 @@ def _collectives(rec: Dict, by_axis: Dict, counts_by_axis: Dict) -> None:
     rec["collective_counts_by_axis"] = counts_by_axis
 
 
+def _named(tree, prefix: str = "") -> Dict:
+    """A tree of dicts and named tuples as a flat dict by dotted name."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        items = zip(tree._fields, tree)
+    else:
+        return {prefix[:-1]: tree}
+    return {n: v for k, t in items for n, v in _named(t, f"{prefix}{k}.").items()}
+
+
 def _lm_cell(rec: Dict, cfg, kind: str, seq: int, batch: int, mesh) -> None:
-    """Trace one rank's prefill or decode step of ``cfg`` on ``mesh``."""
+    """Trace one rank's train, prefill or decode step of ``cfg`` on ``mesh``."""
     from ..models.layers import split_params
-    from ..models.model import _flatten, build_model
+    from ..models.model import build_model
+    from ..optim.optimizers import get_optimizer
     from ..roofline.op_stats import OpStats
     from ..sharding.rules import dp_axes
-    from ..train.step import build_steps
+    from ..train.step import OPT_SPECS, build_steps
+    from ..tree import leaves
     from .mesh import collective_census
 
     steps = build_steps(cfg, mesh=mesh)
-    params = steps.bundle.init(torch.Generator(), "meta")
     n_dp = math.prod(mesh.axis(a).size for a in dp_axes(mesh))
     whole_values, whole_specs = split_params(build_model(cfg).init_tree(torch.Generator(),
                                                                           "meta"))
-    rules_bytes = _rules_bytes(dict(_flatten(whole_values)), dict(_flatten(whole_specs)), mesh,
-                               steps.rules)
-    if kind == "prefill":
+    if kind == "train":  # the whole state: parameters, optimizer state, step
+        whole_values = dict(params=whole_values,
+                            opt=get_optimizer(cfg.optimizer)[0](whole_values),
+                            step=_meta((), torch.int32))
+        whole_specs = dict(params=whole_specs, opt=OPT_SPECS[cfg.optimizer](whole_specs),
+                           step=())
+    rules_bytes = _rules_bytes(_named(whole_values), _named(whole_specs), mesh, steps.rules)
+    if kind in ("train", "prefill"):
         if batch % n_dp:
             rec["skipped"] = (f"batch {batch} does not split over the {n_dp} data ranks "
                               f"(a jit with the rules' batch sharding raises the same)")
@@ -140,10 +164,21 @@ def _lm_cell(rec: Dict, cfg, kind: str, seq: int, batch: int, mesh) -> None:
         sds, specs = steps.batch_spec(kind, seq, batch)
         inputs = {k: _meta(s.shape, s.dtype) for k, s in sds.items()}
         local = steps.local(inputs, specs)
-        with collective_census() as census, OpStats() as stats:
-            out = steps.prefill_step(params, inputs)
         rules_bytes += _rules_bytes(inputs, specs, mesh, steps.rules)
+    if kind == "train":
+        state = steps.init_state(torch.Generator())
+        args = _nbytes(leaves(state))
+        with collective_census() as census, OpStats() as stats:
+            _, metrics = steps.train_step(state, inputs)
+        out = metrics["loss"]
+    elif kind == "prefill":
+        params = steps.bundle.init(torch.Generator(), "meta")
+        args = _nbytes(params.parameters())
+        with torch.no_grad(), collective_census() as census, OpStats() as stats:
+            out = steps.prefill_step(params, inputs)
     else:
+        params = steps.bundle.init(torch.Generator(), "meta")
+        args = _nbytes(params.parameters())
         long_ctx = batch < n_dp
         rec["long_ctx"] = long_ctx
         sds, specs = steps.cache_spec(batch, seq, long_ctx)
@@ -152,13 +187,13 @@ def _lm_cell(rec: Dict, cfg, kind: str, seq: int, batch: int, mesh) -> None:
         tokens = dict(tokens=_meta((batch, 1), torch.int32))
         pos = _meta((), torch.int32)
         local = dict(cache, **steps.local(tokens, tok_specs), pos=pos)
-        with collective_census() as census, OpStats() as stats:
+        with torch.no_grad(), collective_census() as census, OpStats() as stats:
             out, _ = steps.decode_step(params, cache, tokens["tokens"], pos, long_ctx)
         whole_cache = {k: _meta(s.shape, s.dtype) for k, s in sds.items()}
         rules_bytes += _rules_bytes(whole_cache, specs, mesh, steps.rules)
         rules_bytes += _rules_bytes(tokens, tok_specs, mesh, steps.rules) + 4
     rec["output_shape"] = list(out.shape)
-    rec["memory"] = dict(argument_bytes=_nbytes(params.parameters()) + _nbytes(local.values()),
+    rec["memory"] = dict(argument_bytes=args + _nbytes(local.values()),
                          rules_argument_bytes=rules_bytes,
                          peak_live_bytes=stats.peak_live_bytes)
     rec["op_census"] = stats.as_dict()
@@ -200,17 +235,15 @@ def run_cell(arch: str, shape: str, mesh: str = DEFAULT_MESHES[0], out_dir: Opti
             seq_d, batch_d, kind = SHAPES[shape]
             seq, batch = seq or seq_d, batch or batch_d
             rec.update(kind=kind, seq=seq, batch=batch, n_layers=cfg.n_layers)
-            if kind == "train":
-                rec["skipped"] = TRAIN_SKIP
-            else:
-                with torch.no_grad():
-                    _lm_cell(rec, cfg, kind, seq, batch, amesh)
+            _lm_cell(rec, cfg, kind, seq, batch, amesh)
     if "op_census" in rec:
         rec["cost"] = {"flops": float(rec["op_census"]["flops"]),
                        "bytes accessed": float(rec["op_census"]["bytes"])}
         mem = device_memory()
         rec["fits"] = dict(argument_bytes=rec["memory"]["argument_bytes"] <= mem["bytes"],
                            rules_argument_bytes=rec["memory"]["rules_argument_bytes"] <= mem["bytes"],
+                           with_peak_live_bytes=rec["memory"]["argument_bytes"]
+                           + rec["memory"]["peak_live_bytes"] <= mem["bytes"],
                            device_memory_bytes=mem["bytes"], source=mem["source"])
     rec["trace_s"] = round(time.perf_counter() - t0, 3)
     if out_dir is not None:
@@ -284,9 +317,17 @@ def main() -> int:
         print("SKIP:", rec["skipped"])
     else:
         print("memory:", rec["memory"], "fits:", {k: rec["fits"][k] for k in
-                                                   ("argument_bytes", "rules_argument_bytes")})
+                                                   ("argument_bytes", "rules_argument_bytes",
+                                                   "with_peak_live_bytes")})
         print("cost: flops=%.3e bytes=%.3e" % (rec["cost"]["flops"], rec["cost"]["bytes accessed"]))
         print("collectives (B/device):", rec["collective_bytes_by_axis"])
+        if args.arch != "wisk":
+            from ..roofline.analysis import roofline_from_record
+
+            row = roofline_from_record(rec)
+            print("roofline (ms a step and rank): compute %.3f memory %.3f collective %.3f, "
+                  "bound: %s" % (row.compute_s * 1e3, row.memory_s * 1e3,
+                                 row.collective_s * 1e3, row.bottleneck))
     print("PASS", f"{args.arch}_{args.shape}_{rec['mesh']}.json", f"{rec['trace_s']} s")
     return 0
 

@@ -25,12 +25,37 @@ is ``make_abstract_mesh``: named axes with sizes and this rank's
 coordinates but no process group, whose collectives return ``meta``
 tensors of the right shapes.
 
-Every collective of a ``MeshAxis``, real or abstract, adds its result
-bytes per device to the ``CollectiveCensus`` that ``collective_census()``
-opens, by axis and by operation (``all-reduce`` for ``psum`` / ``pmax``,
-``all-gather`` for ``all_gather``: the names and the byte count of the
-reference dry run's ``parse_collective_bytes``). A real run and a dry run
-of the same program therefore count the same integers.
+Autograd passes through ``psum``, ``pvary`` and ``all_gather`` with the
+transposes JAX gives them in the reference's ``shard_map(...,
+check_vma=False)``, where an output's cotangent is divided by the axes its
+``out_specs`` leave out and an input's cotangent summed over the axes its
+``in_specs`` leave out:
+
+=====================  ===========================  =========================
+collective             forward                      backward
+=====================  ===========================  =========================
+``psum``               all-reduce                   the cotangent as it is
+                                                    (it is the same on every
+                                                    rank of the axis)
+``pvary``              the tensor as it is (one     all-reduce: a value
+                       replicated over the axis     replicated over the axis
+                       enters a per-rank region)    sums its ranks' cotangents
+``all_gather``         all-gather                   ``psum_scatter``
+                                                    (reduce-scatter): each
+                                                    rank keeps the sum of its
+                                                    own block
+=====================  ===========================  =========================
+
+Every collective of a ``MeshAxis``, real or abstract, forward or
+backward, adds its result bytes per device to the ``CollectiveCensus``
+that ``collective_census()`` opens, by axis and by operation
+(``all-reduce`` for ``psum`` / ``pmax``, ``all-gather`` for
+``all_gather``, ``reduce-scatter`` for ``psum_scatter``: the names and the
+byte count of the reference dry run's ``parse_collective_bytes``). A real
+run and a dry run of the same program therefore count the same integers.
+The census is one per process, not per thread: the backward of CUDA
+tensors (and a ``remat`` recompute inside it) runs on autograd's device
+thread.
 
 The caller starts the process group (``init_process_group`` with its
 address, world size and rank); a mesh of one rank needs none. NCCL takes
@@ -41,7 +66,6 @@ GPU); no collective is copied through the host.
 from __future__ import annotations
 
 import contextlib
-import contextvars
 import dataclasses
 import math
 import os
@@ -80,8 +104,7 @@ class CollectiveCensus:
         return sum(self.by_op().values())
 
 
-_CENSUS: contextvars.ContextVar[Optional[CollectiveCensus]] = contextvars.ContextVar(
-    "collective_census", default=None)
+_CENSUS: list = [None]  # the open census of this process (any thread)
 
 
 @contextlib.contextmanager
@@ -89,11 +112,11 @@ def collective_census() -> Iterator[CollectiveCensus]:
     """A fresh ``CollectiveCensus`` that every ``MeshAxis`` collective adds
     to until the block ends (the census open before it is restored)."""
     census = CollectiveCensus()
-    token = _CENSUS.set(census)
+    before, _CENSUS[0] = _CENSUS[0], census
     try:
         yield census
     finally:
-        _CENSUS.reset(token)
+        _CENSUS[0] = before
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -124,7 +147,7 @@ class MeshAxis:
         return self.group is not None
 
     def _count(self, op: str, nbytes: int) -> None:
-        census = _CENSUS.get()
+        census = _CENSUS[0]
         if census is not None:
             census.add(self.name, op, nbytes)
 
@@ -135,29 +158,90 @@ class MeshAxis:
             dist.all_reduce(out, op=op, group=self.group)
         return out
 
-    def psum(self, t: torch.Tensor) -> torch.Tensor:
-        """Elementwise sum over the axis (``lax.psum``)."""
-        if not self._active(t):
-            return t
-        return self._reduce(t, dist.ReduceOp.SUM)
-
-    def pmax(self, t: torch.Tensor) -> torch.Tensor:
-        """Elementwise maximum over the axis (``lax.pmax``)."""
-        if not self._active(t):
-            return t
-        return self._reduce(t, dist.ReduceOp.MAX)
-
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """(size, *t.shape): every rank's ``t`` stacked in axis order
-        (``lax.all_gather``)."""
-        if not self._active(t):
-            return t[None]
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
         out = torch.empty((self.size,) + tuple(t.shape), dtype=t.dtype, device=t.device)
         self._count("all-gather", _nbytes(out))
         if not self.abstract:
             x = t.reshape((1,) + tuple(t.shape)).contiguous()
             dist.all_gather_into_tensor(out, x, group=self.group)
         return out
+
+    def _scatter(self, t: torch.Tensor) -> torch.Tensor:
+        out = torch.empty(tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
+        self._count("reduce-scatter", _nbytes(out))
+        if not self.abstract:
+            dist.reduce_scatter_tensor(out.view(-1), t.contiguous().view(-1),
+                                       op=dist.ReduceOp.SUM, group=self.group)
+        return out
+
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        """Elementwise sum over the axis (``lax.psum``); its backward passes
+        the cotangent through (see the module's table)."""
+        if not self._active(t):
+            return t
+        return _Psum.apply(t, self)
+
+    def pmax(self, t: torch.Tensor) -> torch.Tensor:
+        """Elementwise maximum over the axis (``lax.pmax``; no gradient)."""
+        if not self._active(t):
+            return t
+        return self._reduce(t, dist.ReduceOp.MAX)
+
+    def pvary(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``, replicated over the axis, as each rank's own: the identity,
+        whose backward sums the ranks' cotangents (``lax.psum``)."""
+        if not self._active(t):
+            return t
+        return _Pvary.apply(t, self)
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """(size, *t.shape): every rank's ``t`` stacked in axis order
+        (``lax.all_gather``); its backward is ``psum_scatter``."""
+        if not self._active(t):
+            return t[None]
+        return _AllGather.apply(t, self)
+
+    def psum_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """(size, *rest) -> rest: the sum over the axis of every rank's
+        ``t``, of which this rank keeps block ``index`` of the leading
+        dimension (``lax.psum_scatter``; no gradient)."""
+        if not self._active(t):
+            return t[0]
+        if t.shape[0] != self.size:
+            raise ValueError(f"psum_scatter over {self.size} ranks of a leading {t.shape[0]}")
+        return self._scatter(t)
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis):
+        return axis._reduce(t, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Pvary(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis):
+        ctx.axis = axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis._reduce(g, dist.ReduceOp.SUM), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis):
+        ctx.axis = axis
+        return axis._gather(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.psum_scatter(g), None
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -203,6 +287,17 @@ class ServingMesh:
             index = index * a.size + a.index
         return MeshAxis(",".join(names), math.prod(a.size for a in axes), index, None, True)
 
+    def over(self, names) -> Optional[MeshAxis]:
+        """One axis over the mesh axes ``names`` (any order): None for none,
+        ``everyone`` for all of them, else ``group_axis`` in the mesh's
+        order."""
+        names = set(names)
+        if not names:
+            return None
+        if names >= set(self.axis_names):
+            return self.everyone
+        return self.group_axis([n for n in self.axis_names if n in names])
+
     def broadcast_object(self, obj, src: int = 0):
         """``obj`` from mesh rank ``src`` on every rank (pickled; only
         objects this program made)."""
@@ -230,34 +325,42 @@ def _default_device(rank: int) -> torch.device:
     return resolve_device(f"cuda:{local % n}" if n else "cuda")
 
 
-def _make_mesh(axis_names: Tuple[str, str], n0: int, n1: int, device) -> ServingMesh:
+def _make_mesh(axis_names: Tuple[str, str], n0: int, n1: int, device,
+               first: bool = False) -> Optional[ServingMesh]:
+    """The mesh over the ranks of the process group; with ``first``, over
+    its first ``n0 * n1`` ranks (None on the others)."""
     if n0 < 1 or n1 < 1:
         raise ValueError(f"mesh axes must have at least one rank, got {n0} x {n1}")
     initialized = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if initialized else 1
-    if n0 * n1 != world:
+    n = n0 * n1
+    if n != world and not (first and n < world):
         raise ValueError(
-            f"a {n0} x {n1} mesh needs {n0 * n1} ranks; the process group has {world}"
+            f"a {n0} x {n1} mesh needs {n} ranks; the process group has {world}"
             + ("" if initialized else " (call torch.distributed.init_process_group first)")
         )
     rank = dist.get_rank() if initialized else 0
-    dev = _default_device(rank) if device is None else resolve_device(device)
     # every rank creates every group, in the same order (new_group is collective)
     lines = {
         axis_names[0]: [[c0 * n1 + c1 for c0 in range(n0)] for c1 in range(n1)],
         axis_names[1]: [[c0 * n1 + c1 for c1 in range(n1)] for c0 in range(n0)],
     }
-    coord = {axis_names[0]: rank // n1, axis_names[1]: rank % n1}
-    axes = {}
+    groups = {}
     for name, size in ((axis_names[0], n0), (axis_names[1], n1)):
-        mine = None
-        if size > 1:
-            for ranks in lines[name]:
-                g = dist.new_group(ranks)
-                if rank in ranks:
-                    mine = g
-        axes[name] = MeshAxis(name, size, coord[name], mine)
-    everyone = MeshAxis("everyone", world, rank, dist.group.WORLD if world > 1 else None)
+        for ranks in lines[name] if size > 1 else ():
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                groups[name] = g
+    whole = None
+    if n > 1:
+        whole = dist.group.WORLD if n == world else dist.new_group(list(range(n)))
+    if rank >= n:
+        return None
+    dev = _default_device(rank) if device is None else resolve_device(device)
+    coord = {axis_names[0]: rank // n1, axis_names[1]: rank % n1}
+    axes = {name: MeshAxis(name, size, coord[name], groups.get(name))
+            for name, size in ((axis_names[0], n0), (axis_names[1], n1))}
+    everyone = MeshAxis("everyone", n, rank, whole)
     return ServingMesh(axis_names, rank, dev, axes, everyone)
 
 
@@ -294,10 +397,14 @@ def make_serving_mesh(query: int = 1, index: int = 1, device=None) -> ServingMes
     return _make_mesh(("data", "index"), int(query), int(index), device)
 
 
-def make_host_mesh(data: int = 1, model: int = 1, device=None) -> ServingMesh:
+def make_host_mesh(data: int = 1, model: int = 1, device=None,
+                   first: bool = False) -> Optional[ServingMesh]:
     """A ``("data", "model")`` mesh over the ranks, as the reference's host
-    mesh: ``data`` and ``model`` clamped to the ranks there are."""
+    mesh: ``data`` and ``model`` clamped to the ranks there are. With
+    ``first``, the mesh takes the first ``data * model`` ranks of a larger
+    group and the others get None (ranks an elastic plan dropped); every
+    rank of the group calls it."""
     n = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
     data = min(int(data), n)
     model = min(int(model), max(n // data, 1))
-    return _make_mesh(("data", "model"), data, model, device)
+    return _make_mesh(("data", "model"), data, model, device, first)

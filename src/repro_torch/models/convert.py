@@ -1,9 +1,11 @@
 """Weights carried across from the JAX package: the reference's parameter
 values (``state["params"]`` as numpy arrays) as a ``state_dict`` of the
-port's model module (``DecoderOnlyLM``, ``EncDecLM`` or ``XLSTMLM``)."""
+port's model module (``DecoderOnlyLM``, ``EncDecLM`` or ``XLSTMLM``), whole
+or, over a mesh of ranks, as this rank's blocks (``to_block``, which
+``ckpt/checkpoint.py:restore`` also cuts a whole checkpoint leaf with)."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -18,13 +20,29 @@ def _tensor(arr) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def params_from_reference(values_tree: Dict, prefix: str = "") -> Dict[str, torch.Tensor]:
+def to_block(arr, sharding=None) -> torch.Tensor:
+    """A whole array (numpy, any dtype JAX writes) as a CPU tensor with its
+    dtype and bits: this rank's block of it by ``sharding`` (a
+    ``sharding/rules.py`` ``Sharding``; None: the whole array)."""
+    arr = np.asarray(arr)
+    if sharding is not None:
+        arr = arr[sharding.index(arr.shape)]
+    return _tensor(arr)
+
+
+def params_from_reference(values_tree: Dict, prefix: str = "",
+                          shardings: Optional[Callable[[str], object]] = None
+                          ) -> Dict[str, torch.Tensor]:
     """The nested values dict flattened to ``"dense_blocks.attn.wq"``-style
-    keys, each a CPU tensor with the array's dtype and bits."""
+    keys, each a CPU tensor with the array's dtype and bits; with
+    ``shardings`` (a parameter's dotted name -> its ``Sharding``, e.g. a
+    model's ``specs`` through ``Steps.placement``), each is this rank's
+    block (``to_block``)."""
     out: Dict[str, torch.Tensor] = {}
     for k, v in values_tree.items():
         if isinstance(v, dict):
-            out.update(params_from_reference(v, f"{prefix}{k}."))
+            out.update(params_from_reference(v, f"{prefix}{k}.", shardings))
         else:
-            out[f"{prefix}{k}"] = _tensor(v)
+            name = f"{prefix}{k}"
+            out[name] = to_block(v, None if shardings is None else shardings(name))
     return out

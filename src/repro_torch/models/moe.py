@@ -34,7 +34,12 @@ tokens, routed over all experts, capacity from the data shard's token
 count, its experts' share computed with their weights all-gathered over
 the data axes, then summed over ``model``; no all-to-all, since every model
 rank holds its data group's tokens. ``moe_ffn`` takes it exactly where the
-reference's does. Elsewhere (and in decode) the MoE is the reference's
+reference's does. Its backward is the reference's ``shard_map`` transpose
+(``launch/mesh.py``): the sum over ``model`` passes the cotangent through,
+the tokens' and the router's cotangents are summed over ``model`` where
+they enter (``pvary``), and the gathered stacks' cotangents are
+reduce-scattered over the data axes, so each rank's expert block gets the
+whole batch's gradient. Elsewhere (and in decode) the MoE is the reference's
 ``moe_ffn_dense`` over the whole batch, whose capacity counts every token:
 a rank gathers the batch's rows over the data axes, computes its experts'
 share with their ``d`` left split over the data axes (``_d_split_compute``),
@@ -243,11 +248,15 @@ def _experts_out(params: Dict, x2d: torch.Tensor, cfg: ArchConfig, mesh, cap: in
     else with ``d`` split over them (``_d_split_compute``: a few tokens'
     activations move instead of the weights) -- and the shares are summed
     over ``model``."""
-    probs, top_idx = _route(x2d, params["w_router"], cfg)
-    wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
+    wr, wg, wu, wd = params["w_router"], params["w_gate"], params["w_up"], params["w_down"]
     if not ep_sharded(cfg, mesh):
+        probs, top_idx = _route(x2d, wr, cfg)
         return _select_and_apply(x2d, probs, top_idx, wg, wu, wd, cfg, 0, wg.shape[0], cap)
     model, dp = mesh.axis("model"), mesh.group_axis(dp_axes(mesh))
+    # the tokens and the router enter replicated over model: each model rank
+    # uses them for its own experts, so their cotangents sum over model
+    x2d, wr = model.pvary(x2d), model.pvary(wr)
+    probs, top_idx = _route(x2d, wr, cfg)
     e_n = n_experts_padded(cfg) // model.size
     n_dp = dp.size if dp is not None else 1
     if (wg.shape[0], wg.shape[1] * n_dp) != (e_n, cfg.d_model) or wd.shape[2] != wg.shape[1]:

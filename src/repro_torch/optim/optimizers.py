@@ -22,6 +22,14 @@ fused into the update so that no f32 copy of every gradient exists at
 once. Adafactor makes a leaf's f32 temporaries, and ``global_norm`` its
 squares, ``CHUNK`` elements at a time (a stacked expert weight is many
 such blocks; most leaves are one).
+
+Over a mesh of ranks ``update`` takes a leaf's ``block``: the
+``sharding/rules.py`` ``Sharding`` of a leaf that is this rank's block of
+the whole (None for a leaf every rank holds whole). AdamW and SGD are
+elementwise and ignore it. Adafactor's factors and its update's RMS are
+means over whole rows, columns and leaves: it sums each partial sum over
+the ranks that hold the leaf's other blocks along the reduced dimensions
+(``Sharding.psum``) and divides by the whole leaf's extent.
 """
 from __future__ import annotations
 
@@ -42,9 +50,21 @@ def _sq_sum(x: torch.Tensor) -> torch.Tensor:
                         for b in x.reshape(-1).split(CHUNK)]).sum()
 
 
-def global_norm(tree) -> torch.Tensor:
-    sq = [_sq_sum(x) for x in leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sq)))
+def global_norm(tree, blocks=None) -> torch.Tensor:
+    """The f32 norm of every leaf. Over a mesh, ``blocks`` (a list in
+    ``leaves(tree)``'s order) gives each leaf that is a rank's block its
+    ``Sharding`` (None: whole on every rank): the whole leaves' squares
+    count once, the blocks' are summed over every rank (each block once)."""
+    xs = leaves(tree)
+    if blocks is None or not any(b is not None for b in blocks):
+        return torch.sqrt(torch.sum(torch.stack([_sq_sum(x) for x in xs])))
+    whole = [_sq_sum(x) for x, b in zip(xs, blocks) if b is None]
+    parts = [_sq_sum(x) / b.holders() for x, b in zip(xs, blocks) if b is not None]
+    mesh = next(b for b in blocks if b is not None).mesh
+    total = mesh.everyone.psum(torch.stack(parts).sum())
+    if whole:
+        total = torch.sum(torch.stack(whole)) + total
+    return torch.sqrt(total)
 
 
 def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -96,7 +116,7 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8, wd: float = 0.1)
         return AdamWState(m=tree_map(_f32_zeros, params), v=tree_map(_f32_zeros, params))
 
     @torch.no_grad()
-    def update(grads, state, params, lr, step, scale=None):
+    def update(grads, state, params, lr, step, scale=None, block=None):
         t = step.float() + 1.0
         c1, c2 = 1 - b1**t, 1 - b2**t
 
@@ -139,21 +159,33 @@ def adafactor(eps: float = 1e-30, clip_thresh: float = 1.0, decay_pow: float = 0
 
         return AdafactorState(vr=tree_map(vr_init, params), vc=tree_map(vc_init, params))
 
-    def factored(g, vr, vc, p, lr, beta, scale):
+    def factored(g, vr, vc, p, lr, beta, scale, block):
         """The update of a leaf of two or more dims, a block of rows (the
         second-to-last axis) of at most ``CHUNK`` elements at a time: the
         row factors and the column sums in one pass, then the update's RMS,
-        then the update. A leaf of one block makes its ``u`` once."""
+        then the update. A leaf of one block makes its ``u`` once. With a
+        ``block`` the means are the whole leaf's (see the module)."""
         r = g.shape[-2]
         n = max(1, CHUNK // max(g.numel() // max(r, 1), 1))
         blocks = [(i, min(i + n, r)) for i in range(0, r, n)]
+        nd = g.ndim
         col = torch.zeros_like(vc)
         for i, j in blocks:
             g2 = torch.square(_f32(g[..., i:j, :], scale)) + eps
-            vr[..., i:j].mul_(beta).add_((1 - beta) * torch.mean(g2, dim=-1))
+            if block is None:
+                row = torch.mean(g2, dim=-1)
+            else:
+                row = block.psum(torch.sum(g2, dim=-1), (-1,), nd) / block.global_shape(g.shape)[-1]
+            vr[..., i:j].mul_(beta).add_((1 - beta) * row)
             col += torch.sum(g2, dim=-2)
-        vc.mul_(beta).add_((1 - beta) * (col / r))
-        denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=eps)
+        if block is None:
+            vc.mul_(beta).add_((1 - beta) * (col / r))
+            denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=eps)
+        else:
+            rows = block.global_shape(g.shape)[-2]
+            vc.mul_(beta).add_((1 - beta) * (block.psum(col, (-2,), nd) / rows))
+            denom = torch.clamp(block.psum(torch.sum(vr, dim=-1, keepdim=True), (-2,), nd)
+                                / rows, min=eps)
 
         def u(i, j):
             pre = (vr[..., i:j] / denom)[..., None] * vc[..., None, :]
@@ -165,7 +197,7 @@ def adafactor(eps: float = 1e-30, clip_thresh: float = 1.0, decay_pow: float = 0
             sums.append(torch.sum(torch.square(x)))
             kept = x if len(blocks) == 1 else None
         # update clipping (RMS <= clip_thresh)
-        rms = torch.sqrt(torch.stack(sums).sum() / g.numel() + 1e-12)
+        rms = torch.sqrt(_whole_sum(torch.stack(sums).sum(), block, g) / _numel(block, g) + 1e-12)
         div = torch.clamp(rms / clip_thresh, min=1.0)
         if kept is not None:
             return ((-lr) * (kept / div)).to(p.dtype)
@@ -175,24 +207,37 @@ def adafactor(eps: float = 1e-30, clip_thresh: float = 1.0, decay_pow: float = 0
         return out
 
     @torch.no_grad()
-    def update(grads, state, params, lr, step, scale=None):
+    def update(grads, state, params, lr, step, scale=None, block=None):
         t = step.float() + 1.0
         beta = 1.0 - t ** (-decay_pow)
 
         def one(g, vr, vc, p):
             if p.ndim >= 2:
-                return factored(g, vr, vc, p, lr, beta, scale)
+                return factored(g, vr, vc, p, lr, beta, scale, block)
             g = _f32(g, scale)
             vr.mul_(beta).add_((1 - beta) * (torch.square(g) + eps))
             u = g / torch.sqrt(vr + eps)
             # update clipping (RMS <= clip_thresh)
-            rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
+            if block is None:
+                rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
+            else:
+                rms = torch.sqrt(_whole_sum(torch.sum(torch.square(u)), block, u)
+                                 / _numel(block, u) + 1e-12)
             u = u / torch.clamp(rms / clip_thresh, min=1.0)
             return ((-lr) * u).to(p.dtype)
 
         return tree_map(one, grads, state.vr, state.vc, params), state
 
     return init, update
+
+
+def _whole_sum(t: torch.Tensor, block, leaf: torch.Tensor) -> torch.Tensor:
+    """A sum over a leaf's elements, over the whole leaf where it is a block."""
+    return t if block is None else block.psum(t, range(leaf.ndim), leaf.ndim)
+
+
+def _numel(block, leaf: torch.Tensor) -> int:
+    return leaf.numel() if block is None else math.prod(block.global_shape(leaf.shape))
 
 
 # ----------------------------------------------------------------------- sgd
@@ -205,7 +250,7 @@ def sgd(momentum: float = 0.9):
         return SGDState(mom=tree_map(_f32_zeros, params))
 
     @torch.no_grad()
-    def update(grads, state, params, lr, step, scale=None):
+    def update(grads, state, params, lr, step, scale=None, block=None):
         def one(g, m, p):
             m.mul_(momentum).add_(_f32(g, scale))
             return ((-lr) * m).to(p.dtype)

@@ -3,15 +3,17 @@
 ``plan_remesh(n_devices)`` picks the largest (data, model) grid that fits
 the surviving devices while keeping the model-parallel degree where
 possible (changing it would change head and expert shard divisibility);
-the checkpoint layer then restores the latest step
-(``ckpt/checkpoint.py:restore``). The deterministic token pipeline skips
-to ``global_step * global_batch`` examples, so a restart sees the batches
-it would have seen.
+the checkpoint layer then restores the latest step onto the plan's mesh
+(``ckpt/checkpoint.py:restore(..., shardings=)`` with the new mesh's
+``Steps.state_shardings``): train on ``(2, 2)``, ``plan_remesh(2)``,
+restore on ``(1, 2)``. The deterministic token pipeline skips to
+``global_step * global_batch`` examples, so a restart sees the batches it
+would have seen.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 from ..launch.mesh import ServingMesh, make_host_mesh
 
@@ -22,12 +24,14 @@ class RemeshPlan:
     axes: Tuple[str, ...]
     dropped_devices: int
 
-    def make_mesh(self, device=None) -> ServingMesh:
-        """The plan's ``("data", "model")`` mesh over the started ranks
+    def make_mesh(self, device=None) -> Optional[ServingMesh]:
+        """The plan's ``("data", "model")`` mesh over the first ``data *
+        model`` ranks of the started process group
         (``launch/mesh.py:make_host_mesh``, which clamps to the ranks
         there are), on ``device`` (``cuda`` unless the caller names
-        another)."""
-        return make_host_mesh(*self.shape, device=device)
+        another). Every rank of the group calls it; a rank the plan drops
+        gets None."""
+        return make_host_mesh(*self.shape, device=device, first=True)
 
 
 def plan_remesh(n_devices: int, prefer_model: int = 16) -> RemeshPlan:

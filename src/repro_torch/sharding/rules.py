@@ -143,9 +143,11 @@ class Sharding:
             out.append(n // k)
         return tuple(out)
 
-    def index(self, global_shape: Sequence[int]) -> Tuple[slice, ...]:
-        """The slices of this rank's block: on each split dimension, the
-        block at the rank's coordinates on its axes, row major."""
+    def index(self, global_shape: Sequence[int],
+              coords: Optional[Dict[str, int]] = None) -> Tuple[slice, ...]:
+        """The slices of this rank's block (of the rank at mesh coordinates
+        ``coords`` where given): on each split dimension, the block at the
+        rank's coordinates on its axes, row major."""
         block = self.shard_shape(global_shape)
         spec = self.spec + (None,) * (len(block) - len(self.spec))
         out = []
@@ -153,9 +155,37 @@ class Sharding:
             at = 0
             for a in _axes_of(part):
                 ax = self.mesh.axis(a)
-                at = at * ax.size + ax.index
+                at = at * ax.size + (ax.index if coords is None else coords[a])
             out.append(slice(at * n, (at + 1) * n))
         return tuple(out)
+
+    @property
+    def split(self) -> bool:
+        """Whether any dimension is split (else every rank holds it whole)."""
+        return any(p is not None for p in self.spec)
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        """The mesh axes the dimensions split over, in the mesh's order."""
+        used = {a for p in self.spec for a in _axes_of(p)}
+        return tuple(a for a in self.mesh.axis_names if a in used)
+
+    def global_shape(self, block_shape: Sequence[int]) -> Tuple[int, ...]:
+        """The whole array's shape, of which ``block_shape`` is a block."""
+        return tuple(int(n) * k for n, k in zip(block_shape, self.tiles(len(block_shape))))
+
+    def holders(self) -> int:
+        """How many ranks hold each block (the ranks of the axes no
+        dimension is split over)."""
+        return self.mesh.size // math.prod(self.tiles(len(self.spec)))
+
+    def psum(self, t, dims: Sequence[int], ndim: int):
+        """``t`` summed over the ranks that hold the other blocks along
+        ``dims`` of a rank-``ndim`` array (the axes those dimensions split
+        over): a partial sum along ``dims`` becomes the whole array's."""
+        spec = self.spec + (None,) * (ndim - len(self.spec))
+        axis = self.mesh.over({a for d in dims for a in _axes_of(spec[d])})
+        return t if axis is None else axis.psum(t)
 
 
 def named_sharding(mesh: ServingMesh, names: Sequence[Optional[str]],

@@ -16,17 +16,31 @@ With a ``mesh`` (``launch/mesh.py``: a ``("data", "model")`` mesh of ranks,
 or an abstract one for the dry run) the steps are one rank's: the rules
 are the mesh's ``default_rules`` with ``cfg.logical_overrides`` merged in,
 as the reference's; the model's expert stacks are the rank's block (where
-``moe.ep_sharded``); ``prefill_step`` and ``decode_step`` take the whole
-batch, the same on every rank, and compute this rank's rows of it (its
-block by ``placement_rules``: the batch split over the data axes, every
-other dimension whole), returning those rows' logits; the cache is the
-rank's own (``init_cache``; ``local`` cuts a whole one). Training over
-ranks is ROADMAP A.13i.
+``moe.ep_sharded``); every step takes the whole batch, the same on every
+rank, and computes this rank's rows of it (its block by
+``placement_rules``: the batch split over the data axes, every other
+dimension whole); ``prefill_step`` and ``decode_step`` return those rows'
+logits; the cache is the rank's own (``init_cache``; ``local`` cuts a
+whole one). Each state leaf is stored as ``Steps.placement`` says: an
+expert stack (a spec naming ``experts``) as the rank's block by the
+rules, every other leaf whole.
+
+``train_step`` on a mesh is the reference's step on its global batch
+(``step_gradients``): each rank backpropagates its rows' mean loss over the
+number of data ranks (the global mean is the mean of the data shards'
+means); the backward runs through ``moe_ffn_sharded``'s collectives (the
+expert blocks' gradients come out of it summed over the data axes); every
+other gradient is then summed over the mesh axes its leaf's placement
+does not split. The global norm counts a whole leaf's squares once and
+sums the blocks' over the ranks; Adafactor's means over a block are the
+whole leaf's (``optim/optimizers.py``). The loss reported is the global
+mean, the same on every rank.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, NamedTuple
+import math
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -34,7 +48,8 @@ from .. import resolve_device
 from ..configs.base import ArchConfig
 from ..models.layers import split_params
 from ..models.model import ModelBundle, build_model
-from ..sharding.rules import default_rules, shard_tensor
+from ..models.moe import ep_sharded
+from ..sharding.rules import Sharding, default_rules, dp_axes, named_sharding, shard_tensor
 from ..optim.optimizers import (AdafactorState, AdamWState, SGDState, clip_scale,
                                 cosine_schedule, get_optimizer, global_norm)
 from ..tree import leaves, module_tree, unflatten
@@ -45,8 +60,11 @@ def _is_spec(x) -> bool:
 
 
 def _map_specs(fn, specs):
+    """``fn`` over the spec tuples of a tree of dicts and named tuples."""
     if _is_spec(specs):
         return fn(specs)
+    if isinstance(specs, tuple) and hasattr(specs, "_fields"):
+        return type(specs)(*(_map_specs(fn, v) for v in specs))
     return {k: _map_specs(fn, v) for k, v in specs.items()}
 
 
@@ -113,6 +131,28 @@ class Steps:
     param_specs: Any  # logical-name tree mirroring the parameters
     mesh: Any = None  # this rank's mesh (None: one device)
     rules: Any = None  # the mesh's rules, overrides merged
+    blocks: Optional[List[Optional[Sharding]]] = None  # param_blocks() on a mesh
+
+    def placement(self, spec) -> Sharding:
+        """Where this slice keeps a state leaf of logical ``spec`` on the
+        mesh: an expert stack (a spec naming ``experts``) as the rank's
+        block by the rules where the experts are sharded
+        (``moe.ep_sharded``); any other leaf whole on every rank."""
+        if "experts" in spec and ep_sharded(self.cfg, self.mesh):
+            return named_sharding(self.mesh, spec, self.rules)
+        return Sharding(self.mesh, (None,) * len(spec))
+
+    def state_shardings(self):
+        """The ``placement`` of every state leaf, in the state's tree (the
+        ``shardings`` that ``ckpt.checkpoint.restore`` cuts a whole
+        checkpoint by)."""
+        return _map_specs(self.placement, self.state_specs)
+
+    def param_blocks(self) -> List[Optional[Sharding]]:
+        """Per parameter leaf (``leaves(model)``'s order): its placement
+        where it is this rank's block, None where it is whole."""
+        out = leaves(_map_specs(self.placement, self.param_specs))
+        return [s if s.split else None for s in out]
 
     def local(self, tree, specs):
         """This rank's block of a tree of whole tensors (a batch or a
@@ -167,29 +207,65 @@ class Steps:
                 for k, s in sds.items()}
 
 
-def loss_and_grads(bundle: ModelBundle, model, batch):
-    """``(loss, grads)``: the loss (detached) and its gradients with
-    autograd, in the parameters' dict shape and dtypes."""
+def loss_and_grads(bundle: ModelBundle, model, batch, scale: Optional[float] = None):
+    """``(loss, grads)``: the loss (detached) and the gradients of ``loss *
+    scale`` (of the loss without one) with autograd, in the parameters'
+    dict shape and dtypes."""
     params = module_tree(model)
     with torch.enable_grad():
         loss = bundle.loss(model, batch)
-        grads = torch.autograd.grad(loss, leaves(params))
+        grads = torch.autograd.grad(loss if scale is None else loss * scale, leaves(params))
     return loss.detach(), unflatten(params, grads)
 
 
-def clip_and_update(model, opt, grads, opt_update, lr, step, max_norm: float) -> torch.Tensor:
+def step_gradients(steps: "Steps", model, batch):
+    """``(loss, grads)`` of one training step, ``grads`` a list in
+    ``leaves(model)``'s order. On one device the batch's; on a mesh (see
+    the module) the global mean loss, the same on every rank, and each
+    gradient the whole batch's: the rank's rows' loss over the number of
+    data ranks backpropagated, then each leaf's gradient summed over the
+    mesh axes its placement does not split and divided by the ranks of
+    those that are not data axes (their copies are equal: the same rows). A
+    whole leaf's gradient is all-reduced over every rank, so its copies
+    stay bit-identical."""
+    mesh = steps.mesh
+    if mesh is None:
+        loss, grads = loss_and_grads(steps.bundle, model, batch)
+        return loss, leaves(grads)
+    dp = dp_axes(mesh)
+    n_dp = math.prod(mesh.axis(a).size for a in dp)
+    rows = steps.local(batch, {k: ("batch",) for k in batch})
+    loss, grads = loss_and_grads(steps.bundle, model, rows, 1.0 / n_dp)
+    grads = leaves(grads)
+    for i, block in enumerate(steps.blocks):
+        rest = [a for a in mesh.axis_names if block is None or a not in block.axes]
+        axis = mesh.over(rest)
+        if axis is None:
+            continue
+        copies = math.prod(mesh.axis(a).size for a in rest if a not in dp)
+        g = axis.psum(grads[i])
+        grads[i] = g.div_(copies) if copies > 1 else g
+    loss = mesh.everyone.psum(loss / n_dp) / (mesh.size // n_dp)
+    return loss, grads
+
+
+def clip_and_update(model, opt, grads, opt_update, lr, step, max_norm: float,
+                    blocks=None) -> torch.Tensor:
     """Clip ``grads`` (a list in ``leaves(model)``'s order, emptied as it
     goes) by their global norm and add ``opt_update``'s updates to the
     parameters in place, one leaf at a time: the clip is fused into each
     leaf's update and each gradient is dropped once its update is added.
-    ``opt``'s tensors are updated in place. Returns the unclipped norm."""
-    gnorm = global_norm(grads)
+    ``opt``'s tensors are updated in place. ``blocks`` (``Steps.blocks``)
+    says which leaves are a rank's block of a mesh. Returns
+    the unclipped norm."""
+    gnorm = global_norm(grads, blocks)
     scale = clip_scale(gnorm, max_norm)
     fields = [leaves(f) for f in opt]  # each mirrors the parameters
     with torch.no_grad():
         for i, p in enumerate(leaves(model)):
             g, grads[i] = grads[i], None
-            u, _ = opt_update(g, type(opt)(*(f[i] for f in fields)), p, lr, step, scale)
+            b = blocks[i] if blocks is not None else None
+            u, _ = opt_update(g, type(opt)(*(f[i] for f in fields)), p, lr, step, scale, block=b)
             del g
             p.add_(u.to(p.dtype))
             del u
@@ -221,14 +297,14 @@ def build_steps(cfg: ArchConfig, device=None, mesh=None, lr: float = 3e-4, warmu
     def train_step(state, batch):
         """One step: ``(state, {"loss", "grad_norm", "lr"})``. The
         parameters and the optimizer state are updated in place; the
-        returned state holds them and the next step count."""
-        if mesh is not None and mesh.size > 1:
-            raise NotImplementedError("training over a mesh of ranks is ROADMAP A.13i")
+        returned state holds them and the next step count. On a mesh
+        ``batch`` is the whole batch (see the module)."""
         model, opt = state["params"], state["opt"]
-        loss, grads = loss_and_grads(bundle, model, batch)
-        grads = leaves(grads)  # the list is all that holds them: each goes as it lands
+        # the list is all that holds the gradients: each goes as it lands
+        loss, grads = step_gradients(steps, model, batch)
         lr_t = sched(state["step"])
-        gnorm = clip_and_update(model, opt, grads, opt_update, lr_t, state["step"], grad_clip)
+        gnorm = clip_and_update(model, opt, grads, opt_update, lr_t, state["step"], grad_clip,
+                                steps.blocks)
         return (dict(params=model, opt=opt, step=state["step"] + 1),
                 dict(loss=loss, grad_norm=gnorm, lr=lr_t))
 
@@ -255,4 +331,6 @@ def build_steps(cfg: ArchConfig, device=None, mesh=None, lr: float = 3e-4, warmu
     steps = Steps(cfg=cfg, bundle=bundle, device=dev, init_state=init_state,
                   train_step=train_step, prefill_step=prefill_step, decode_step=decode_step,
                   state_specs=state_specs, param_specs=pspecs, mesh=mesh, rules=rules)
+    if mesh is not None:
+        steps.blocks = steps.param_blocks()
     return steps

@@ -5,8 +5,9 @@
   ``reduced()`` (small ``seq`` / ``batch``, mesh ``data=2,model=2``) on
   meta tensors, allocating nothing, and every record has the reference's
   keys (and the port's ``rules_argument_bytes``, ``op_census`` and
-  ``fits``); ``train_4k`` cells are skipped for ROADMAP A.13i; a batch
-  smaller than the data ranks takes the long-context layout;
+  ``fits``); ``train_4k`` cells are traced (``fits`` and a roofline row);
+  a batch smaller than the data ranks takes the long-context layout and an
+  uneven one is skipped;
 * ``param_counts`` and ``model_flops`` equal the reference's for every
   arch and shape, and ``descent_bytes``, ``filter_level_bytes``,
   ``verify_bytes`` and ``remap_bytes`` give the reference's integers over a
@@ -20,7 +21,8 @@
   a forced 8-device host platform, in one subprocess);
 * ``build_steps(cfg, device="meta")`` gives deepseek-v3-671b's published
   state (61 layers, 671 B parameters) on meta, drawing nothing, and
-  ``train_step`` over a mesh of ranks raises (ROADMAP A.13i).
+  ``train_step`` runs on an abstract mesh of ranks: the rank's state
+  shapes, the backward's reduce-scatters in its census.
 """
 import dataclasses
 import itertools
@@ -41,7 +43,7 @@ from repro_torch.configs import ARCH_IDS, SHAPES, applicable_shapes, get_config 
 from repro_torch.configs.wisk import WiskServeConfig  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.flat_legacy import trace_wisk_serve  # noqa: E402
-from repro_torch.launch.mesh import make_abstract_mesh  # noqa: E402
+from repro_torch.launch.mesh import collective_census, make_abstract_mesh  # noqa: E402
 from repro_torch.roofline import analysis, descent_bytes  # noqa: E402
 from repro_torch.roofline.op_stats import OpStats  # noqa: E402
 from repro_torch.train.step import build_steps  # noqa: E402
@@ -134,10 +136,38 @@ def test_run_cell_traces_every_serving_cell(arch, shape, tmp_path):
     assert row.compute_s > 0 and row.memory_s > 0 and (row.collective_s > 0) == moe
 
 
+def test_a_train_cell_fits_only_with_its_peak_beside_its_state(monkeypatch, tmp_path):
+    """``fits.with_peak_live_bytes`` adds the step's peak to the arguments:
+    a card that holds the state but not the step's peak beside it fails it."""
+    cfg = get_config("tinyllama-1.1b").reduced()
+    rec = dryrun.run_cell("tinyllama-1.1b", "train_4k", MESH, tmp_path, cfg=cfg, **CELL)
+    mem = rec["memory"]
+    assert rec["fits"]["with_peak_live_bytes"] and mem["peak_live_bytes"] > 0
+    need = mem["argument_bytes"] + mem["peak_live_bytes"]
+    monkeypatch.setattr(dryrun, "device_memory", lambda: dict(bytes=need - 1, source="test"))
+    rec = dryrun.run_cell("tinyllama-1.1b", "train_4k", MESH, tmp_path, cfg=cfg, **CELL)
+    assert rec["fits"]["argument_bytes"] and not rec["fits"]["with_peak_live_bytes"]
+    monkeypatch.setattr(dryrun, "device_memory", lambda: dict(bytes=need, source="test"))
+    rec = dryrun.run_cell("tinyllama-1.1b", "train_4k", MESH, tmp_path, cfg=cfg, **CELL)
+    assert rec["fits"]["with_peak_live_bytes"]
+
+
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "jamba-v0.1-52b"])
-def test_train_cells_are_skipped_and_small_batches_take_long_context(arch, tmp_path):
-    rec = dryrun.run_cell(arch, "train_4k", MESH, tmp_path, cfg=get_config(arch).reduced())
-    assert rec["skipped"] == dryrun.TRAIN_SKIP
+def test_train_cells_are_traced_and_small_batches_take_long_context(arch, tmp_path):
+    cfg = get_config(arch).reduced()
+    rec = dryrun.run_cell(arch, "train_4k", MESH, tmp_path, cfg=cfg, **CELL)
+    assert "skipped" not in rec, rec.get("skipped")
+    assert rec["kind"] == "train" and rec["output_shape"] == []
+    assert rec["fits"]["argument_bytes"] and rec["fits"]["rules_argument_bytes"]
+    mem = rec["memory"]
+    assert 0 < mem["rules_argument_bytes"] < mem["argument_bytes"]
+    # every whole leaf's gradient is summed over every rank
+    assert rec["collective_counts_by_axis"]["everyone"]["all-reduce"] > 0
+    row = analysis.roofline_from_record(rec, cfg)
+    assert row.compute_s > 0 and row.memory_s > 0 and row.collective_s > 0
+    assert row.model_flops == analysis.model_flops(cfg, "train_4k")
+    rec = dryrun.run_cell(arch, "train_4k", MESH, tmp_path, cfg=cfg, seq=32, batch=3)
+    assert "does not split" in rec["skipped"]
     rec = dryrun.run_cell(arch, "decode_32k", MESH, tmp_path, cfg=get_config(arch).reduced(),
                           seq=32, batch=1)
     assert rec["long_ctx"] and rec["output_shape"][0] == 1
@@ -235,15 +265,30 @@ def test_trace_wisk_serve_equals_xla(forced_reference):
         assert {k: v for k, v in want[str(two)]["coll"].items() if v} == by_op
 
 
-def test_train_step_over_a_mesh_raises():
-    """Training over ranks is ROADMAP A.13i: ``train_step`` on a mesh of
-    more than one rank raises, on one rank it runs."""
+def test_train_step_over_an_abstract_mesh():
+    """``train_step`` on a mesh of ranks runs on the abstract mesh: the
+    state keeps the rank's expert blocks, the census has the backward's
+    reduce-scatter of every gathered expert stack."""
     cfg = get_config("qwen2-moe-a2.7b").reduced()
     steps = build_steps(cfg, mesh=make_abstract_mesh(data=2, model=2))
     state = steps.init_state(torch.Generator())
+    shapes = [tuple(p.shape) for p in state["params"].parameters()]
     batch = dict(tokens=torch.empty((4, 16), dtype=torch.int32, device="meta"))
-    with pytest.raises(NotImplementedError, match="A.13i"):
-        steps.train_step(state, batch)
+    with collective_census() as census:
+        state, metrics = steps.train_step(state, batch)
+    assert [tuple(p.shape) for p in state["params"].parameters()] == shapes
+    moe = state["params"].moe_blocks.moe
+    E, d, f = 16, cfg.d_model, cfg.d_expert
+    assert tuple(moe.w_gate.shape) == (cfg.n_layers, E // 2, d // 2, f)
+    assert tuple(moe.w_down.shape) == (cfg.n_layers, E // 2, f, d // 2)
+    m, v = (getattr(state["opt"], k)["moe_blocks"]["moe"]["w_gate"] for k in ("m", "v"))
+    assert tuple(m.shape) == tuple(v.shape) == tuple(moe.w_gate.shape)
+    assert metrics["loss"].shape == () and int(state["step"].numel()) == 1
+    gathered = census.bytes["data"]["all-gather"]
+    assert census.counts["data"]["reduce-scatter"] == census.counts["data"]["all-gather"] == 3 * (
+        cfg.n_layers)
+    # each reduce-scatter returns the rank's block: half of what its gather made
+    assert census.bytes["data"]["reduce-scatter"] * 2 == gathered
     assert steps.rules["experts"] == "model" and steps.rules["batch"] == ("data",)
 
 

@@ -251,3 +251,183 @@ def lm_steps(ctx, layout, cfg, seed, tokens, n_decode):
                                           torch.tensor(t, dtype=torch.int32))
         dec.append(lo.numpy())
     return logits.numpy(), dec, pre.bytes, step.bytes
+
+
+def _carry(steps, model, values):
+    """Load this rank's blocks of the whole numpy parameters ``values``
+    (the reference's nested tree) into ``model``."""
+    from repro_torch.models.convert import params_from_reference
+
+    model.load_state_dict(params_from_reference(
+        values, shardings=lambda name: steps.placement(model.specs[name])))
+
+
+def _names(tree, prefix=""):
+    """The dotted names of ``tree.leaves(tree)``, in its order."""
+    from torch import nn
+
+    from repro_torch.tree import module_tree
+
+    if isinstance(tree, nn.Module):
+        tree = module_tree(tree)
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in _names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [n for f, v in zip(tree._fields, tree) for n in _names(v, f"{prefix}{f}.")]
+    return [prefix[:-1]]
+
+
+def _state_blocks(steps, state):
+    """The state's leaves (``tree.leaves`` order) as ``(name, numpy,
+    slices)``: each with the slices of the whole leaf it is this rank's
+    block of."""
+    from repro_torch.tree import leaves
+
+    out = []
+    for name, x, sh in zip(_names(state), leaves(state), leaves(steps.state_shardings())):
+        x = x.detach()
+        out.append((name, x.cpu().numpy().copy(), sh.index(sh.global_shape(x.shape))))
+    return out
+
+
+def lm_train(ctx, layout, cfg, values, batches):
+    """``build_steps(cfg, mesh=...)`` on the layout's mesh, its parameters
+    this rank's blocks of ``values``, one ``train_step`` per whole batch of
+    ``batches``. Returns each step's ``(loss, grad_norm)``, each step's
+    census ``(bytes, counts)`` and the final state's blocks."""
+    from repro_torch.launch.mesh import collective_census
+    from repro_torch.train.step import build_steps
+
+    steps = build_steps(cfg, mesh=ctx.host_mesh(*layout))
+    state = steps.init_state(torch.Generator().manual_seed(0))
+    _carry(steps, state["params"], values)
+    metrics, censuses = [], []
+    for b in batches:
+        b = {k: torch.from_numpy(v).to(steps.device) for k, v in b.items()}
+        with collective_census() as census:
+            state, m = steps.train_step(state, b)
+        metrics.append((float(m["loss"]), float(m["grad_norm"]), float(m["lr"])))
+        censuses.append((census.bytes, census.counts))
+    return metrics, censuses, _state_blocks(steps, state)
+
+
+def moe_grads(ctx, layout, cfg, params, x, c):
+    """The gradients of ``sum(moe_ffn(params, x, cfg, mesh) * c)`` on the
+    layout's mesh, each input this rank's block (``moe_layer``'s): with
+    respect to its rows of ``x``, the router (summed over the data ranks,
+    as ``train_step`` sums a whole leaf's gradient) and its expert
+    blocks."""
+    from repro_torch.models import moe
+    from repro_torch.sharding.rules import default_rules, shard_tensor
+
+    mesh = ctx.host_mesh(*layout)
+    rules = default_rules(mesh)
+    names = dict(w_gate=("experts", "wembed", "expert_mlp"),
+                 w_up=("experts", "wembed", "expert_mlp"),
+                 w_down=("experts", "expert_mlp", "wembed"))
+    t = torch.from_numpy
+    p = {k: t(v) if not isinstance(v, dict) else {n: t(a) for n, a in v.items()}
+         for k, v in params.items()}
+    p.update({k: shard_tensor(p[k], n, mesh, rules).contiguous() for k, n in names.items()})
+    for k in ("w_router", *names):
+        p[k].requires_grad_(True)
+    x_loc = shard_tensor(t(x), ("batch", None, None), mesh, rules).contiguous().requires_grad_()
+    c_loc = shard_tensor(t(c), ("batch", None, None), mesh, rules)
+    y = moe.moe_ffn(p, x_loc, cfg, mesh)
+    got = torch.autograd.grad((y * c_loc).sum(), [x_loc, p["w_router"], *(p[k] for k in names)])
+    out = dict(zip(["x", "w_router", *names], (g.numpy() for g in got)))
+    out["w_router"] = mesh.axis("data").psum(torch.from_numpy(out["w_router"])).numpy()
+    return out
+
+
+def ckpt_save(ctx, layout, cfg, values, batches, ckpt_dir):
+    """``lm_train``'s steps on the layout's mesh, then the state saved to
+    ``ckpt_dir`` through ``AsyncCheckpointer(shardings=...)`` (whole leaves,
+    rank 0 writing). Returns the saved state's blocks."""
+    from repro_torch.ckpt.checkpoint import AsyncCheckpointer
+    from repro_torch.train.step import build_steps
+
+    steps = build_steps(cfg, mesh=ctx.host_mesh(*layout))
+    state = steps.init_state(torch.Generator().manual_seed(0))
+    _carry(steps, state["params"], values)
+    for b in batches:
+        state, _ = steps.train_step(state, {k: torch.from_numpy(v) for k, v in b.items()})
+    ckpt = AsyncCheckpointer(ckpt_dir, shardings=steps.state_shardings())
+    ckpt.submit(len(batches), state)
+    ckpt.close()
+    return _state_blocks(steps, state)
+
+
+def ckpt_submits(ctx, layout, cfg, ckpt_dir, n):
+    """``n`` submits of the initial state at steps 1..n through one
+    ``AsyncCheckpointer(shardings=...)`` on the layout's mesh (more than
+    its queue holds), then ``close``. Returns the rank."""
+    from repro_torch.ckpt.checkpoint import AsyncCheckpointer
+    from repro_torch.train.step import build_steps
+
+    steps = build_steps(cfg, mesh=ctx.host_mesh(*layout))
+    state = steps.init_state(torch.Generator().manual_seed(0))
+    ckpt = AsyncCheckpointer(ckpt_dir, shardings=steps.state_shardings())
+    for step in range(1, n + 1):
+        ckpt.submit(step, state)
+    ckpt.close()
+    return steps.mesh.rank
+
+
+def ckpt_restore_remeshed(ctx, n_devices, cfg, ckpt_dir, batch):
+    """``plan_remesh(n_devices).make_mesh()`` over the first ranks (the
+    others return None): the latest checkpoint restored onto it with
+    ``restore(..., shardings=)``, then one ``train_step`` on ``batch``.
+    Returns the plan's shape, the restored blocks, the step's metrics and
+    the stepped blocks."""
+    from repro_torch.ckpt.checkpoint import restore
+    from repro_torch.resilience.elastic import plan_remesh
+    from repro_torch.train.step import build_steps
+
+    plan = plan_remesh(n_devices)
+    mesh = plan.make_mesh(device=ctx.device)
+    if mesh is None:
+        return None
+    steps = build_steps(cfg, mesh=mesh)
+    state, step = restore(ckpt_dir, steps.init_state(torch.Generator()),
+                          shardings=steps.state_shardings())
+    restored = _state_blocks(steps, state)
+    state, m = steps.train_step(state, {k: torch.from_numpy(v) for k, v in batch.items()})
+    return plan.shape, step, restored, (float(m["loss"]), float(m["grad_norm"])), _state_blocks(
+        steps, state)
+
+
+def lm_loop(ctx, layout, cfg, tc_kw):
+    """``train(cfg, TrainConfig(**tc_kw), mesh=...)`` on the layout's mesh:
+    its losses, the step it restored from and its step times."""
+    from repro_torch.train.loop import TrainConfig, train
+
+    r = train(cfg, TrainConfig(**tc_kw), mesh=ctx.host_mesh(*layout))
+    return r.losses, r.restored_from, r.step_times
+
+
+def collective_grads(ctx, layout):
+    """The collectives' backward on the layout's mesh, at inputs that
+    name their rank: ``psum`` over ``model`` (its cotangent passes
+    through), ``pvary`` (its cotangents summed), ``all_gather`` over
+    ``model`` (reduce-scattered). Returns each result and gradient on the
+    host, and the census."""
+    from repro_torch.launch.mesh import collective_census
+
+    mesh = ctx.host_mesh(*layout)
+    model = mesh.axis("model")
+    dev = mesh.device
+    r = float(mesh.rank + 1)
+    x = torch.full((3, 4), r, device=dev, requires_grad=True)
+    c = torch.arange(12.0, device=dev).reshape(3, 4) * r
+    with collective_census() as census:
+        y = model.psum(x)
+        gp, = torch.autograd.grad((y * c).sum(), [x])
+        v = model.pvary(x)
+        gv, = torch.autograd.grad((v * c).sum(), [x])
+        g = model.all_gather(x)
+        cg = torch.arange(float(g.numel()), device=dev).reshape(g.shape) * r
+        ga, = torch.autograd.grad((g * cg).sum(), [x])
+    host = lambda t: t.detach().cpu().numpy()  # noqa: E731
+    return dict(y=host(y), gp=host(gp), gv=host(gv), g=host(g), ga=host(ga),
+                census=(census.bytes, census.counts))
