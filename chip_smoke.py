@@ -322,15 +322,20 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    grad_norm) and 1e-4 (each Adafactor factor);
 21. LMs served and trained over a mesh of ranks, and the dry run
    (``lms_over_ranks``),
-   no kernel on its path: the single-device runs first (prefill of the
-   whole batch and of each data shard's rows, decode steps, routing kept),
-   the dry run's collective census of each rank's cell at the same depth,
-   batch and mesh, then ranks spawned as in phase 15 (gloo on one card,
-   NCCL with a card a rank): (a) ``qwen2-moe-a2.7b`` at its published
+   no kernel on its path. The models are laid out as the reference's rules
+   place them (every leaf, batch and cache the rank's block: ZeRO-3
+   ``wembed`` over data, ``heads`` / ``mlp`` / ``vocab`` / ``experts``
+   over model, the cache's slots over model). The ranks are spawned first
+   as in phase 15 (gloo on one card, NCCL with a card a rank) and take
+   their inputs from a queue once the parent has them, so that their
+   start overlaps the single-device runs (prefill of the whole batch and
+   of each data shard's rows, decode steps, routing kept), the dry run's
+   collective census of each rank's cell at the same depth, batch and
+   mesh, and the training references: (a) ``qwen2-moe-a2.7b`` at its published
    widths cut to 4 layers (bf16, seeded weights) on four ranks ``(data=2,
    model=2)``: ``prefill_step`` at B = 8, S = 2048 (``moe_ffn_sharded``),
    each rank's logits within 5e-2 of the single-device prefill of its data
-   shard's rows alone (the same capacity), routing replayed, then 16 decode
+   shard's rows alone (the same capacity), routing replayed, then 8 decode
    steps into 2,048 slots against the single-device decode of the whole
    batch; (b) the same model on two ranks ``(1, 2)`` (the first two of the
    same spawn; the others wait), against the single-device prefill of the
@@ -348,7 +353,7 @@ profile at 1,000,000 objects (STR R-tree, leaf 128, fanout 8) with the
    ``fits`` and its three roofline terms. Then, in the same spawn, training
    over the ranks (``ranks_train_refs`` before it, on one device): (f)
    qwen2-moe at published widths cut to 2 layers (bf16, AdamW,
-   ``remat="full"``) on ``(2, 2)``, three ``train_step``s at B = 4, S =
+   ``remat="full"``) on ``(2, 2)``, two ``train_step``s at B = 4, S =
    512 on the ``TokenPipeline`` of seed 0, step 1 within phase 17(b)'s
    bounds of one device stepping each data shard's rows alone (routing
    replayed); each step's ms (CUDA events; the host clock of the slowest
@@ -4452,7 +4457,9 @@ def hybrid_family(dev, card: str) -> None:
 # experts); bf16, seeded weights (recorded as cuts)
 RANKS_DEPTH = {"qwen2-moe-a2.7b": 4, "deepseek-v3-671b": 4}
 RANKS_PREFILL = {"qwen2-moe-a2.7b": (8, 2048), "deepseek-v3-671b": (1, 2048)}  # (B, S)
-RANKS_DECODE = 16  # (a): decode steps at the prefill's B, into S slots
+# (a): decode steps at the prefill's B, into S slots; 8 since every step
+# gathers the dense weights over data (ZeRO-3, about 1.1 s a step on gloo)
+RANKS_DECODE = 8
 # (part, arch, (data, model), decode steps): the runs of the phase, in turn
 # on one spawn of ranks (a run on fewer ranks than the spawn's takes the
 # first ones, the rest wait)
@@ -4471,13 +4478,14 @@ DRYRUN_CELLS = (("qwen2-moe-a2.7b", "prefill_32k"), ("qwen2-moe-a2.7b", "decode_
                 ("qwen2-moe-a2.7b", "train_4k"), ("wisk", "serve"))
 # (f): qwen2-moe at its published widths cut to 2 layers (bf16, AdamW,
 # remat="full", seeded weights) trained on four ranks (data=2, model=2) at
-# B = 4, S = 512 on the TokenPipeline of seed 0, step 1 held to a single
+# B = 4, S = 512 on the TokenPipeline of seed 0, two steps (a warm one
+# after the first), step 1 held to a single
 # device stepping each data shard's rows alone, gradients averaged, routing
 # replayed, within phase 17(b)'s bounds (TRAIN_REL)
 RANKS_TRAIN_ARCH = "qwen2-moe-a2.7b"
 RANKS_TRAIN_DEPTH = 2
 RANKS_TRAIN_SHAPE = (4, 512)
-RANKS_TRAIN_STEPS = 3
+RANKS_TRAIN_STEPS = 2
 RANKS_TRAIN_SEED = SEED + 31
 # (g) and (h): deepseek-v3 at reduced() (f32, Adafactor, the MTP block) on
 # (2, 2), one step against the same kind of single-device run; (h) its state
@@ -4599,12 +4607,13 @@ def timed_step(fn, on_card: bool, sync):
     return (start.elapsed_time(end) if on_card else wall * 1e3), wall, box
 
 
-def mesh_rank(rank: int, world: int, init: str, backend: str, p: dict) -> None:
-    """One rank of phase 21 (spawned): the runs in turn, each on its own
-    mesh (``make_host_mesh(..., first=True)``: a run on fewer ranks takes
-    the first ones). Every check raises on failure, which ends the rank
-    non-zero and the parent's phase with it; each rank logs its own
-    lines."""
+def mesh_rank(rank: int, world: int, init: str, backend: str, head: dict, inbox) -> None:
+    """One rank of phase 21 (spawned): it joins the group, takes its inputs
+    from ``inbox[rank]`` once the parent has made them (``ranks_runs``),
+    then runs the runs in turn, each on its own mesh (``make_host_mesh(...,
+    first=True)``: a run on fewer ranks takes the first ones). Every check
+    raises on failure, which ends the rank non-zero and the parent's phase
+    with it; each rank logs its own lines."""
     import datetime
 
     import torch.distributed as dist
@@ -4612,7 +4621,7 @@ def mesh_rank(rank: int, world: int, init: str, backend: str, p: dict) -> None:
     from repro_torch.launch.mesh import collective_census, make_host_mesh
     from repro_torch.train.step import build_steps
 
-    on_card = p["device_type"] == "cuda"
+    on_card = head["device_type"] == "cuda"
     dev = torch.device(f"cuda:{rank % torch.cuda.device_count()}" if on_card else "cpu")
     sync = (lambda: torch.cuda.synchronize(dev)) if on_card else (lambda: None)
     if on_card:
@@ -4622,8 +4631,11 @@ def mesh_rank(rank: int, world: int, init: str, backend: str, p: dict) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     if rank == 0:
-        log(f"ranks: rank 0 up, its group joined: {time.time() - p['spawned']:.3f} s after the "
+        log(f"ranks: rank 0 up, its group joined: {time.time() - head['spawned']:.3f} s after the "
             f"spawn")
+    p = inbox[rank].get()
+    if rank == 0:
+        log(f"ranks: rank 0 has its inputs: {time.time() - head['spawned']:.3f} s after the spawn")
     for part, arch, layout, n_dec in p["runs"]:
         ref, pred = p["refs"][arch], p["pred"][part]
         cfg = ref["cfg"]
@@ -4644,8 +4656,12 @@ def mesh_rank(rank: int, world: int, init: str, backend: str, p: dict) -> None:
         sync()
         i, n_rows = mesh.axis("data").index, B // layout[0]
         rows = (i * n_rows, (i + 1) * n_rows)
-        say(f"{lm_bytes(params)} B of weights on this rank (the experts' block "
-            f"{tuple(params.tree()['moe_blocks']['moe']['w_gate'].shape)}), drawn in "
+        tree = params.tree()
+        attn = tree.get("dense_blocks", tree["moe_blocks"])["attn"]
+        wq = "wq" if "wq" in attn else "wq_b"
+        say(f"{lm_bytes(params)} B of weights on this rank, the rules' blocks (the experts' "
+            f"{tuple(tree['moe_blocks']['moe']['w_gate'].shape)}, the embedding's "
+            f"{tuple(tree['embed']['table'].shape)}, {wq} {tuple(attn[wq].shape)}), drawn in "
             f"{time.perf_counter() - t:.3f} s; its rows {rows[0]}:{rows[1]} of {B}")
         batch = dict(tokens=ref["tokens"].to(dev))
         want, replay = ref["prefill"][rows]
@@ -5107,35 +5123,51 @@ def full_width_dryrun(started, out_dir: str) -> None:
 
 
 def ranks_runs(dev, card: str) -> None:
-    """(a)-(d): the single-device runs (``single_device_runs``, one model
-    on the card at a time), the dry run's census of each rank's cell
-    (``dryrun_prediction``), then ``RANKS_RUNS`` on one spawn of ranks
-    (``mesh_rank``)."""
+    """(a)-(d) and (f)-(i): ``RANKS_RUNS`` and the training runs on one
+    spawn of ranks (``mesh_rank``), spawned first; while they start, the
+    single-device runs (``single_device_runs``, one model on the card at a
+    time), the dry run's census of each rank's cell
+    (``dryrun_prediction``) and the training references
+    (``ranks_train_refs``), which then go to every rank through its
+    queue."""
     runs = RANKS_RUNS
-    refs, pred = {}, {}
-    for arch in dict.fromkeys(a for _, a, _, _ in runs):
-        layouts = [lay for _, a, lay, _ in runs if a == arch]
-        refs[arch] = single_device_runs(dev, card, arch, layouts)
-    for part, arch, layout, n_dec in runs:
-        B, S = RANKS_PREFILL[arch]
-        pred[part] = dryrun_prediction(arch, layout, B, S, n_dec)
-        log(f"({part}) {arch} on {layout}: the dry run's census, prefill "
-            f"{pred[part]['prefill'][0]}" + (f", a decode step {pred[part]['decode'][0]}"
-                                               if n_dec else ""))
     cards = torch.cuda.device_count()
     world = max(lay[0] * lay[1] for _, _, lay, _ in runs)
     backend = "nccl" if dev.type == "cuda" and cards >= world else "gloo"
     log(f"ranks: {world} on {min(cards, world)} card(s) of {cards}, backend {backend}: "
         f"{[(p, a, lay) for p, a, lay, _ in runs]}")
-    payload = dict(runs=runs, refs=refs, pred=pred, device_type=dev.type)
-    if world == RANKS_LAYOUT[0] * RANKS_LAYOUT[1]:
-        payload["train"] = ranks_train_refs(dev, card)
+    mp = torch.multiprocessing.get_context("spawn")
+    inbox = [mp.SimpleQueue() for _ in range(world)]
     with tempfile.TemporaryDirectory() as d:
         t = time.perf_counter()
-        payload["spawned"] = time.time()
-        payload["ckpt_dir"] = os.path.join(d, "ckpt")
-        torch.multiprocessing.spawn(mesh_rank, args=(world, f"file://{d}/rendezvous", backend,
-                                                     payload), nprocs=world, join=True)
+        head = dict(spawned=time.time(), device_type=dev.type)
+        ranks = torch.multiprocessing.spawn(
+            mesh_rank, args=(world, f"file://{d}/rendezvous", backend, head, inbox),
+            nprocs=world, join=False)
+        try:
+            refs, pred = {}, {}
+            for arch in dict.fromkeys(a for _, a, _, _ in runs):
+                layouts = [lay for _, a, lay, _ in runs if a == arch]
+                refs[arch] = single_device_runs(dev, card, arch, layouts)
+            for part, arch, layout, n_dec in runs:
+                B, S = RANKS_PREFILL[arch]
+                pred[part] = dryrun_prediction(arch, layout, B, S, n_dec)
+                log(f"({part}) {arch} on {layout}: the dry run's census, prefill "
+                    f"{pred[part]['prefill'][0]}" + (f", a decode step {pred[part]['decode'][0]}"
+                                                       if n_dec else ""))
+            payload = dict(runs=runs, refs=refs, pred=pred, ckpt_dir=os.path.join(d, "ckpt"))
+            if world == RANKS_LAYOUT[0] * RANKS_LAYOUT[1]:
+                payload["train"] = ranks_train_refs(dev, card)
+            log(f"ranks: the inputs made {time.perf_counter() - t:.3f} s after the spawn")
+            for box in inbox:
+                box.put(payload)
+            while not ranks.join():
+                pass
+        finally:
+            for proc in ranks.processes:
+                if proc.is_alive():
+                    proc.terminate()
+                    proc.join(timeout=10)
     log(f"ranks: {time.perf_counter() - t:.3f} s from spawn to join")
 
 

@@ -8,13 +8,16 @@ port runs one rank's step of the cell on an abstract mesh
 nothing is allocated, and every op still runs through the dispatcher. A
 cell records:
 
-* ``memory.argument_bytes`` -- this rank's arguments as this slice
-  places them (dense weights whole, the expert stacks the rank's block,
-  the batch and cache rows the rank's): the parameters, batch and cache of
-  a serving step, the parameters, optimizer state, step and batch of a
-  ``train`` step; ``memory.rules_argument_bytes`` -- the same leaves laid
-  out wholly by the sharding rules (the reference's layout, which ROADMAP
-  A.13j brings);
+* ``memory.argument_bytes`` -- this rank's arguments as the port places
+  them: the parameters, batch and cache of a serving step, the
+  parameters, optimizer state, step and batch of a ``train`` step;
+  ``memory.rules_argument_bytes`` -- the same leaves laid out wholly by the
+  sharding rules (the reference's layout). The decoder-only families
+  (``train/step.py:RULES_FAMILIES``) are placed by the rules, so the two
+  are equal; the enc-dec, xLSTM and hybrid families still keep every
+  weight but the expert stacks whole (the batch and cache rows the
+  rank's), so theirs are more than the rules' until their layout is
+  ported (ROADMAP A.13k);
   ``memory.peak_live_bytes`` -- the step's own allocations at their peak;
 * ``cost`` and ``op_census`` -- ``roofline/op_stats.py`` over the step
   (matmul flops, bytes every op reads and writes, aten calls);

@@ -17,6 +17,8 @@ reference             port (``MeshAxis``)
 ``lax.psum``          ``psum``: ``all_reduce(SUM)``
 ``lax.pmax``          ``pmax``: ``all_reduce(MAX)``
 ``lax.all_gather``    ``all_gather``: ``all_gather_into_tensor``
+(``tiled=True``)      ``all_gather_dim``: the blocks joined along
+                      one dimension
 ====================  ==========================================
 
 ``make_production_mesh`` (the TPU pod shapes) has no counterpart; its
@@ -44,6 +46,8 @@ collective             forward                      backward
                                                     (reduce-scatter): each
                                                     rank keeps the sum of its
                                                     own block
+``all_gather_dim``     all-gather, joined along     reduce-scatter along the
+                       ``dim``                      same dimension
 =====================  ===========================  =========================
 
 Every collective of a ``MeshAxis``, real or abstract, forward or
@@ -201,6 +205,18 @@ class MeshAxis:
             return t[None]
         return _AllGather.apply(t, self)
 
+    def all_gather_dim(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's block ``t`` joined along dimension ``dim`` in axis
+        order (``lax.all_gather(..., axis=dim, tiled=True)``): the whole
+        tensor of which ``t`` is this rank's block along ``dim``. Its
+        backward reduce-scatters along ``dim``: each rank keeps the sum
+        over the axis of its own block's cotangent. The census counts an
+        ``all-gather`` of the whole tensor's bytes, and a
+        ``reduce-scatter`` of the block's in the backward."""
+        if not self._active(t):
+            return t
+        return _AllGatherDim.apply(t, self, dim % t.dim())
+
     def psum_scatter(self, t: torch.Tensor) -> torch.Tensor:
         """(size, *rest) -> rest: the sum over the axis of every rank's
         ``t``, of which this rank keeps block ``index`` of the leading
@@ -242,6 +258,22 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.axis.psum_scatter(g), None
+
+
+class _AllGatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        g = axis._gather(t)  # (size, *t.shape)
+        if dim == 0:
+            return g.reshape((-1,) + tuple(t.shape[1:]))
+        return g.movedim(0, dim).reshape(t.shape[:dim] + (-1,) + t.shape[dim + 1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, dim = ctx.axis, ctx.dim
+        blocks = g.unflatten(dim, (axis.size, -1)).movedim(dim, 0)
+        return axis.psum_scatter(blocks), None, None
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

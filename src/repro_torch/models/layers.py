@@ -15,7 +15,23 @@ multiplies an f32 operand by a bf16 one (the enc-dec family's f32 frames
 against bf16 weights), JAX promotes both to f32; ``_matmul`` and
 ``_einsum`` do the same, in full f32 on the card, and leave a product of
 one dtype as it was. The reference's ``constrain`` calls pin shardings on
-a mesh and compute nothing, so this single-device port has none.
+a mesh and compute nothing, so the port has none.
+
+Over a mesh of ranks the decoder-only families' layers take a ``Layout``
+(``sharding/rules.py``; ``WHOLE``, the default, is one device) and their
+weights as this rank's blocks by the rules, drawn whole and cut
+(``init_*(..., lay=)``). Each weight's ``wembed`` dimension is gathered
+over the data axes where the layer uses it (ZeRO-3; the backward
+reduce-scatters its gradient). The layers are Megatron's tensor-parallel
+ones over ``model``: the embedding and the head split the vocabulary
+(``embed_lookup`` sums one nonzero row over the blocks; ``softmax_xent``
+combines the blocks' log-sum-exp), attention splits the query heads (each
+rank reads the kv heads its heads map to, ``kv_heads`` being unsplit) and
+the FFN its hidden width; a column-parallel product's input enters through
+``Layout.enter`` (``pvary``: its cotangent summed over ``model``) and a
+row-parallel product's output is summed over ``model``. Decode splits the
+cache's slots (``kv_seq`` over ``model``, ``kv_seq_all`` over every axis)
+and combines the blocks' softmax flash-decoding style.
 """
 from __future__ import annotations
 
@@ -25,6 +41,7 @@ import torch
 
 from .. import full_f32_matmul
 from ..configs.base import ArchConfig
+from ..sharding.rules import WHOLE, Layout
 
 NEG_INF = -1e30  # the reference's score mask
 
@@ -74,6 +91,11 @@ def zeros(shape, spec, dtype=torch.float32, device=None) -> Param:
 
 def ones(shape, spec, dtype=torch.float32, device=None) -> Param:
     return Param(torch.ones(tuple(shape), dtype=dtype, device=device), tuple(spec))
+
+
+def cut(p: Param, lay: Layout) -> Param:
+    """This rank's block of a whole ``Param`` by ``lay``'s rules."""
+    return Param(lay.cut(p.value, p.spec), p.spec)
 
 
 # ---------------------------------------------------------------- products
@@ -148,40 +170,67 @@ def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
 
 
 # -------------------------------------------------------------- embeddings
-def init_embedding(gen, cfg: ArchConfig, device=None) -> Dict:
-    return dict(table=make(gen, (cfg.vocab, cfg.d_model), ("vocab", "wembed"), 1.0,
-                           _dtype(cfg), device))
+def init_embedding(gen, cfg: ArchConfig, device=None, lay: Layout = WHOLE) -> Dict:
+    return dict(table=cut(make(gen, (cfg.vocab, cfg.d_model), ("vocab", "wembed"), 1.0,
+                               _dtype(cfg), device), lay))
 
 
-def embed_lookup(params: Dict, ids: torch.Tensor) -> torch.Tensor:
+def _vocab_rows(ids: torch.Tensor, n: int, lay: Layout):
+    """``(local, inside)``: ``ids`` as rows of this rank's block of ``n``
+    vocabulary entries (clamped into it), and where they fall inside it."""
+    local = ids.long() - lay.start("vocab", n)
+    return local.clamp(0, n - 1), (local >= 0) & (local < n)
+
+
+def embed_lookup(params: Dict, ids: torch.Tensor, lay: Layout = WHOLE) -> torch.Tensor:
     """Rows of the table. The reference multiplies a one-hot by the table;
     every output element there is one nonzero product, so a row gather
-    gives the same bits without the (B, S, vocab) one-hot."""
-    return params["table"][ids.long()]
+    gives the same bits without the (B, S, vocab) one-hot. Over a mesh
+    (vocab-parallel) each rank looks up the ids of its block of the
+    vocabulary, writes zeros for the others and the blocks are summed over
+    ``model``: one nonzero term an element, so the bits are one device's."""
+    table = lay.whole(params["table"], 1)
+    if lay.axis("vocab") is None:
+        return table[ids.long()]
+    local, inside = _vocab_rows(ids, table.shape[0], lay)
+    return lay.psum("vocab", torch.where(inside[..., None], table[local], 0.0))
 
 
-def init_lm_head(gen, cfg: ArchConfig, device=None) -> Dict:
-    return dict(w=make(gen, (cfg.d_model, cfg.vocab), ("wembed", "vocab"), 1.0, _dtype(cfg),
-                       device))
+def init_lm_head(gen, cfg: ArchConfig, device=None, lay: Layout = WHOLE) -> Dict:
+    return dict(w=cut(make(gen, (cfg.d_model, cfg.vocab), ("wembed", "vocab"), 1.0, _dtype(cfg),
+                           device), lay))
 
 
-def lm_logits(params: Dict, x: torch.Tensor) -> torch.Tensor:
-    return x @ params["w"]
+def lm_logits(params: Dict, x: torch.Tensor, lay: Layout = WHOLE) -> torch.Tensor:
+    """``x @ w``: over a mesh, this rank's block of the vocabulary
+    (column-parallel; ``lay.gather("vocab", ..., -1)`` joins the blocks)."""
+    return lay.enter("vocab", x) @ lay.whole(params["w"], 0)
 
 
-def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, lay: Layout = WHOLE) -> torch.Tensor:
     """Mean cross entropy over all positions: logsumexp in f32 minus the
     gold logit. The reference sums the logits against an f32 one-hot; each
     row has one nonzero term there, so a gather of the gold logit gives the
-    same bits without the (B, S, vocab) one-hot."""
+    same bits without the (B, S, vocab) one-hot. Over a mesh ``logits`` is
+    this rank's block of the vocabulary: the log-sum-exp takes the largest
+    logit over the blocks (``pmax``, no gradient) and sums the blocks'
+    exponentials over ``model``; the gold logit comes from the block that
+    holds it (a sum of one nonzero term)."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    if lay.axis("vocab") is None:
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+        return torch.mean(lse - gold)
+    top = lay.pmax("vocab", torch.amax(lf.detach(), dim=-1, keepdim=True))
+    lse = torch.log(lay.psum("vocab", torch.sum(torch.exp(lf - top), dim=-1))) + top[..., 0]
+    local, inside = _vocab_rows(labels, lf.shape[-1], lay)
+    gold = torch.gather(lf, -1, local[..., None])[..., 0]
+    gold = lay.psum("vocab", torch.where(inside, gold, 0.0))
     return torch.mean(lse - gold)
 
 
 # --------------------------------------------------------------- attention
-def init_attention(gen, cfg: ArchConfig, device=None) -> Dict:
+def init_attention(gen, cfg: ArchConfig, device=None, lay: Layout = WHOLE) -> Dict:
     d, KV, hd = cfg.d_model, cfg.n_kv_heads, cfg.head_dim
     H = cfg.pad_heads_to or cfg.n_heads
     dt = _dtype(cfg)
@@ -201,7 +250,7 @@ def init_attention(gen, cfg: ArchConfig, device=None) -> Dict:
         mask = (torch.arange(H, device=p["wq"].value.device) % g_pad) < g
         p["wq"] = Param(p["wq"].value * mask[None, :, None].to(dt), p["wq"].spec)
         p["wo"] = Param(p["wo"].value * mask[:, None, None].to(dt), p["wo"].spec)
-    return p
+    return {k: cut(v, lay) for k, v in p.items()}
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -210,9 +259,17 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _matmul(x, w.reshape(d, h * k)).unflatten(-1, (h, k))
 
 
-def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """(B, S, KV, D) -> (B, S, H, D) by repeating each kv head H/KV times."""
+def _expand_kv(k: torch.Tensor, n_heads: int, h0: int = 0,
+               n_loc: Optional[int] = None) -> torch.Tensor:
+    """(B, S, KV, D) -> (B, S, H, D) by repeating each kv head H/KV times;
+    with ``h0`` / ``n_loc``, the kv heads of query heads ``h0 .. h0 +
+    n_loc`` alone (a rank's block of the heads): head ``h`` reads kv head
+    ``h // (H / KV)``, which keeps ``pad_heads_to``'s per-group padding."""
     B, S, KV, D = k.shape
+    n_loc = n_heads if n_loc is None else n_loc
+    if n_loc < n_heads:
+        idx = torch.arange(h0, h0 + n_loc, device=k.device) // (n_heads // KV)
+        return k.index_select(2, idx)
     if KV == n_heads:
         return k
     g = n_heads // KV
@@ -294,37 +351,70 @@ def attention(
     positions: Optional[torch.Tensor] = None,
     causal: bool = True,
     kv_x: Optional[torch.Tensor] = None,  # cross-attention source
+    lay: Layout = WHOLE,
 ) -> torch.Tensor:
     """Self-attention over the sequence (causal, or bidirectional with
     ``causal=False``), or cross attention from ``x`` to ``kv_x``: k and v
     are then projected from the source, take no rope, and every source
-    position is attended."""
+    position is attended. Over a mesh (``lay``) q is this rank's block of
+    the heads, k and v every kv head (the same on every rank) of which each
+    rank reads those its heads map to, and ``wo``'s product is summed over
+    ``model``."""
     B, S, _ = x.shape
     src = x if kv_x is None else kv_x
-    q = _proj(x, params["wq"])
-    k = _proj(src, params["wk"])
-    v = _proj(src, params["wv"])
+    wq, wo = lay.whole(params["wq"], 0), lay.whole(params["wo"], 2)
+    q = _proj(lay.enter("heads", x), wq)
+    k = _proj(src, lay.whole(params["wk"], 0))
+    v = _proj(src, lay.whole(params["wv"], 0))
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q = apply_rope(q, positions, cfg.rope_theta)
     if kv_x is None:
         k = apply_rope(k, positions, cfg.rope_theta)
-    n_heads = params["wq"].shape[1]
-    k = _expand_kv(k, n_heads)
-    v = _expand_kv(v, n_heads)
+    n_loc = wq.shape[1]
+    n_heads, h0 = n_loc * lay.size("heads"), lay.start("heads", n_loc)
+    k = _expand_kv(lay.enter("heads", k), n_heads, h0, n_loc)
+    v = _expand_kv(lay.enter("heads", v), n_heads, h0, n_loc)
     out = _chunked_causal_attn(q, k, v, cfg.attn_chunk, causal and kv_x is None,
                                cfg.causal_impl)
-    H, hd, d = params["wo"].shape
-    return _matmul(out.reshape(B, S, H * hd), params["wo"].reshape(H * hd, d))
+    H, hd, d = wo.shape
+    return lay.psum("heads", _matmul(out.reshape(B, S, H * hd), wo.reshape(H * hd, d)))
 
 
-def write_cache(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> None:
+def write_cache(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor, start: int = 0,
+                total: Optional[int] = None) -> None:
     """``cache[:, pos] = new`` in place, with the reference's
     ``dynamic_update_slice`` clamp: a start past the end writes the last
-    slot. ``pos`` stays a device tensor (no host sync)."""
+    slot. ``pos`` stays a device tensor (no host sync). A cache that is a
+    rank's block, slots ``start ..`` of ``total``, is written only where
+    the clamped position falls inside it (the last block's rank takes a
+    position past the end)."""
     S = cache.shape[1]
-    idx = torch.clamp(pos.reshape(1).long(), 0, S - 1)
-    cache.index_copy_(1, idx, new.to(cache.dtype))
+    if total is None or (start == 0 and total == S):
+        idx = torch.clamp(pos.reshape(1).long(), 0, S - 1)
+        cache.index_copy_(1, idx, new.to(cache.dtype))
+        return
+    idx = torch.clamp(torch.as_tensor(pos, device=cache.device).reshape(1).long(), 0,
+                      total - 1) - start
+    inside = (idx >= 0) & (idx < S)
+    idx = idx.clamp(0, S - 1)
+    cache.index_copy_(1, idx, torch.where(inside, new.to(cache.dtype), cache.index_select(1, idx)))
+
+
+def _combine_slots(s: torch.Tensor, v_of, lay: Layout, seq: str, dtype) -> torch.Tensor:
+    """The softmax of scores ``s`` (f32, the cache's slots last) applied to
+    the values, whose products ``v_of(p)`` gives: over one device the
+    reference's ``softmax`` cast to the cache's ``dtype``; where the slots
+    are split over ``seq``'s axis (flash-decoding), each block's
+    exponentials are taken at the largest score over the blocks (``pmax``:
+    a block of masked slots adds exactly 0), the sums and the products
+    (in f32, of the probabilities cast to ``dtype``) summed over the axis,
+    and the result cast to ``dtype`` once."""
+    if lay.axis(seq) is None:
+        return v_of(torch.softmax(s, dim=-1).to(dtype))
+    e = torch.exp(s - lay.pmax(seq, torch.amax(s, dim=-1, keepdim=True)))
+    p = (e / lay.psum(seq, torch.sum(e, dim=-1, keepdim=True))).to(dtype)
+    return lay.psum(seq, v_of(p.float())).to(dtype)
 
 
 def decode_attention(
@@ -336,40 +426,54 @@ def decode_attention(
     cfg: ArchConfig,
     update_cache: bool = True,
     rope: bool = True,
+    lay: Layout = WHOLE,
+    seq: str = "kv_seq",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token decode against the whole cache (every slot scored, slots
     past ``pos`` masked). With ``update_cache`` the port writes the new k/v
     into ``cache_k`` / ``cache_v`` in place and returns them, where the
     reference returns updated copies; without it (the enc-dec family's
     cross attention) the cache is only read. ``rope=False`` leaves q and
-    the new k unrotated."""
+    the new k unrotated. Over a mesh the cache is this rank's block of the
+    slots on the axis of ``seq`` (``kv_seq``, or ``kv_seq_all`` for
+    long-context decode): q of the rank's heads is gathered over ``model``
+    so that every head meets the rank's slots, the blocks are combined by
+    ``_combine_slots``, and the rank's heads go through the row-parallel
+    ``wo``."""
     B, S, KV, hd = cache_k.shape
-    H = params["wq"].shape[1]
-    q = _proj(x, params["wq"])[:, 0]  # (B, H, hd)
+    wq, wo = lay.whole(params["wq"], 0), lay.whole(params["wo"], 2)
+    q = _proj(lay.enter("heads", x), wq)[:, 0]  # (B, H of the rank, hd)
     if rope:
         q = apply_rope(q[:, None], pos[None, None], cfg.rope_theta)[:, 0]
+    q = lay.gather("heads", q, 1)  # (B, H, hd)
+    H = q.shape[1]
+    s0, n_slots = lay.start(seq, S), S * lay.size(seq)
     if update_cache:
-        k_new = _proj(x, params["wk"])  # (B, 1, KV, hd)
+        k_new = _proj(x, lay.whole(params["wk"], 0))  # (B, 1, KV, hd)
         if rope:
             k_new = apply_rope(k_new, pos[None, None], cfg.rope_theta)
-        write_cache(cache_k, k_new, pos)
-        write_cache(cache_v, _proj(x, params["wv"]), pos)
+        write_cache(cache_k, k_new, pos, s0, n_slots)
+        write_cache(cache_v, _proj(x, lay.whole(params["wv"], 0)), pos, s0, n_slots)
     g = H // KV
     qg = q.reshape(B, KV, g, hd)
     # per kv head, so that the (B, S, hd) cache slice is read in place
     s = torch.stack([_matmul(qg[:, j], cache_k[:, :, j].transpose(1, 2))
                      for j in range(KV)], dim=1).float() / hd**0.5  # (B, KV, g, S)
-    mask = torch.arange(S, device=x.device)[None, None, None, :] <= pos
+    mask = torch.arange(s0, s0 + S, device=x.device)[None, None, None, :] <= pos
     s = torch.where(mask, s, NEG_INF)
-    p = torch.softmax(s, dim=-1).to(cache_v.dtype)
-    out = torch.stack([p[:, j] @ cache_v[:, :, j] for j in range(KV)], dim=1)  # (B, KV, g, hd)
-    y = _matmul(out.reshape(B, 1, H * hd), params["wo"].reshape(H * hd, -1))
-    return y, cache_k, cache_v
+    out = _combine_slots(s, lambda p: torch.stack(
+        [p[:, j] @ cache_v[:, :, j].to(p.dtype) for j in range(KV)], dim=1),  # (B, KV, g, hd)
+        lay, seq, cache_v.dtype)
+    n_loc = wq.shape[1]
+    h0 = lay.start("heads", n_loc)
+    out = out.reshape(B, H, hd)[:, h0:h0 + n_loc]
+    y = _matmul(out.reshape(B, 1, n_loc * hd), wo.reshape(n_loc * hd, -1))
+    return lay.psum("heads", y), cache_k, cache_v
 
 
 # --------------------------------------------------------------------- FFN
 def init_ffn(gen, cfg: ArchConfig, d_ff: Optional[int] = None, gelu: bool = False,
-             device=None) -> Dict:
+             device=None, lay: Layout = WHOLE) -> Dict:
     d = cfg.d_model
     f = d_ff or cfg.d_ff
     dt = _dtype(cfg)
@@ -378,13 +482,16 @@ def init_ffn(gen, cfg: ArchConfig, d_ff: Optional[int] = None, gelu: bool = Fals
         p["w_gate"] = make(gen, (d, f), ("wembed", "mlp"), 1.0, dt, device)
     p["w_up"] = make(gen, (d, f), ("wembed", "mlp"), 1.0, dt, device)
     p["w_out"] = make(gen, (f, d), ("mlp", "wembed"), 1.0, dt, device)
-    return p
+    return {k: cut(v, lay) for k, v in p.items()}
 
 
-def ffn(params: Dict, x: torch.Tensor) -> torch.Tensor:
-    up = _matmul(x, params["w_up"])
+def ffn(params: Dict, x: torch.Tensor, lay: Layout = WHOLE) -> torch.Tensor:
+    """SwiGLU (GELU without ``w_gate``); over a mesh column-parallel over
+    ``mlp`` into ``w_out``'s row-parallel product, summed over ``model``."""
+    x = lay.enter("mlp", x)
+    up = _matmul(x, lay.whole(params["w_up"], 0))
     if "w_gate" in params:
-        h = torch.nn.functional.silu(_matmul(x, params["w_gate"])) * up
+        h = torch.nn.functional.silu(_matmul(x, lay.whole(params["w_gate"], 0))) * up
     else:
         h = torch.nn.functional.gelu(up, approximate="tanh")
-    return _matmul(h, params["w_out"])
+    return lay.psum("mlp", _matmul(h, lay.whole(params["w_out"], 1)))

@@ -31,12 +31,20 @@ module. The parameters are registered without gradients; the training
 steps turn them on.
 
 A model built with a ``mesh`` (``build_model(cfg, mesh, rules)``) runs as
-one rank of it: its batch rows are this rank's, its expert stacks this
-rank's block where ``moe.ep_sharded``, and prefill's MoE layers call
-``moe_ffn(..., mesh)`` where the reference does (decode's call
-``moe_ffn_dense`` over the whole batch). Every other weight is whole on
-every rank and computed there: the reference's values, not its
-tensor-parallel layout.
+one rank of it: its batch rows are this rank's, and prefill's MoE layers
+call ``moe_ffn(..., mesh)`` where the reference does (decode's call
+``moe_ffn_dense`` over the whole batch). The decoder-only families
+(``dense``, ``vlm``, ``moe``, ``mla_moe``) are laid out as the reference's
+rules place them (a ``Layout``; ``layers.py`` says how each layer computes
+on its blocks): every leaf is this rank's block, drawn whole from the
+single-device stream and cut; each layer's ``wembed`` blocks are gathered
+over the data axes inside the layer, used and dropped (under
+``remat="full"`` the recompute gathers them again; without remat autograd
+keeps what the backward reads); the embedding, the head, the MTP block's
+``proj`` and the final norm likewise. The other families keep every weight
+but the expert stacks whole on every rank (their expert stacks are the
+rank's block where ``moe.ep_sharded``) until their tensor-parallel layout
+is ported.
 """
 from __future__ import annotations
 
@@ -48,7 +56,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
-from ..sharding.rules import default_rules
+from ..sharding.rules import WHOLE, Layout, default_rules
 from ..tree import module_tree
 from . import layers as L
 from . import mla as MLA
@@ -91,50 +99,56 @@ def _norm(w, x):
 
 
 # ------------------------------------------------ decoder block (attn+ffn)
-def _init_block(gen, cfg: ArchConfig, kind: str = "dense", device=None, mesh=None, rules=None):
-    """kind: dense | moe | mla_dense | mla_moe, as the reference's."""
+def _norm_param(cfg: ArchConfig, dev, lay: Layout = WHOLE) -> Param:
+    return L.cut(L.ones((cfg.d_model,), ("embed",), device=dev), lay)
+
+
+def _init_block(gen, cfg: ArchConfig, kind: str = "dense", device=None, lay: Layout = WHOLE):
+    """kind: dense | moe | mla_dense | mla_moe, as the reference's; each
+    leaf ``lay``'s block."""
     dev = device or gen.device
-    p = dict(ln1=L.ones((cfg.d_model,), ("embed",), device=dev),
-             ln2=L.ones((cfg.d_model,), ("embed",), device=dev))
+    p = dict(ln1=_norm_param(cfg, dev, lay), ln2=_norm_param(cfg, dev, lay))
     if kind.startswith("mla"):
-        p["attn"] = MLA.init_mla(gen, cfg, device)
+        p["attn"] = MLA.init_mla(gen, cfg, device, lay)
     else:
-        p["attn"] = L.init_attention(gen, cfg, device)
+        p["attn"] = L.init_attention(gen, cfg, device, lay)
     if kind.endswith("moe"):
-        p["moe"] = MOE.init_moe(gen, cfg, device, mesh, rules)
+        p["moe"] = MOE.init_moe(gen, cfg, device, lay=lay)
     else:
-        p["ffn"] = L.init_ffn(gen, cfg, device=device)
+        p["ffn"] = L.init_ffn(gen, cfg, device=device, lay=lay)
     return p
 
 
-def _apply_block(p, x, cfg: ArchConfig, kind: str = "dense", positions=None, mesh=None):
+def _apply_block(p, x, cfg: ArchConfig, kind: str = "dense", positions=None, mesh=None,
+                 lay: Layout = WHOLE):
     h = _norm(p["ln1"], x)
     if kind.startswith("mla"):
-        a = MLA.mla_attention(p["attn"], h, cfg, positions)
+        a = MLA.mla_attention(p["attn"], h, cfg, positions, lay)
     else:
-        a = L.attention(p["attn"], h, cfg, positions)
+        a = L.attention(p["attn"], h, cfg, positions, lay=lay)
     x = x + a
     h = _norm(p["ln2"], x)
     if kind.endswith("moe"):
-        f = MOE.moe_ffn(p["moe"], h, cfg, mesh)
+        f = MOE.moe_ffn(p["moe"], h, cfg, mesh, lay)
     else:
-        f = L.ffn(p["ffn"], h)
+        f = L.ffn(p["ffn"], h, lay)
     return x + f
 
 
 def _decode_block(p, x, cache_k, cache_v, pos, cfg, kind: str = "dense", mesh=None,
-                  rows_split: bool = True):
+                  rows_split: bool = True, lay: Layout = WHOLE, seq: str = "kv_seq"):
     h = _norm(p["ln1"], x)
     if kind.startswith("mla"):
-        a, ck, cv = MLA.mla_decode(p["attn"], h, cache_k, cache_v, pos, cfg)
+        a, ck, cv = MLA.mla_decode(p["attn"], h, cache_k, cache_v, pos, cfg, lay, seq)
     else:
-        a, ck, cv = L.decode_attention(p["attn"], h, cache_k, cache_v, pos, cfg)
+        a, ck, cv = L.decode_attention(p["attn"], h, cache_k, cache_v, pos, cfg, lay=lay,
+                                       seq=seq)
     x = x + a
     h = _norm(p["ln2"], x)
-    if kind.endswith("moe"):
-        f = MOE.moe_ffn_dense(p["moe"], h, cfg, mesh, rows_split)  # decode: a token a row
+    if kind.endswith("moe"):  # decode: a token a row
+        f = MOE.moe_ffn_dense(p["moe"], h, cfg, mesh, rows_split, lay)
     else:
-        f = L.ffn(p["ffn"], h)
+        f = L.ffn(p["ffn"], h, lay)
     return x + f, ck, cv
 
 
@@ -180,10 +194,11 @@ class _TreeLM(nn.Module):
     ``specs`` under the parameter's dotted name; with a ``mesh``, one rank
     of it (the tree then holds the rank's expert blocks)."""
 
-    def __init__(self, cfg: ArchConfig, tree: Dict, mesh=None):
+    def __init__(self, cfg: ArchConfig, tree: Dict, mesh=None, lay: Layout = WHOLE):
         super().__init__()
         self.cfg = cfg
         self.mesh = mesh
+        self.lay = lay
         values, spec_tree = split_params(tree)
         self.specs: Dict[str, tuple] = dict(_flatten(spec_tree))
         for name, value in _flatten(values):
@@ -221,8 +236,8 @@ class DecoderOnlyLM(_TreeLM):
     without experts), ``moe_blocks`` (the MoE layers) and, with
     ``cfg.mtp_depth``, the ``mtp`` block."""
 
-    def __init__(self, cfg: ArchConfig, tree: Dict, mesh=None):
-        super().__init__(cfg, tree, mesh)
+    def __init__(self, cfg: ArchConfig, tree: Dict, mesh=None, lay: Layout = WHOLE):
+        super().__init__(cfg, tree, mesh, lay)
         self.dense_kind, self.moe_kind, _, _ = block_kinds(cfg)
 
     def _layers(self):
@@ -238,7 +253,7 @@ class DecoderOnlyLM(_TreeLM):
     def embed_inputs(self, batch: Dict):
         """The embedded inputs and where the text region starts (the
         patches' count for ``vlm``, else 0)."""
-        x = L.embed_lookup(dict(table=self.embed.table), batch["tokens"])
+        x = L.embed_lookup(dict(table=self.embed.table), batch["tokens"], self.lay)
         loss_start = 0
         if self.cfg.family == "vlm" and "patches" in batch:
             x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
@@ -248,11 +263,9 @@ class DecoderOnlyLM(_TreeLM):
     def backbone(self, x: torch.Tensor) -> torch.Tensor:
         remat = self._remat()
         for kind, lp in self._layers():
-            if remat:
-                x = checkpoint(_apply_block, lp, x, self.cfg, kind, None, self.mesh,
-                               use_reentrant=False)
-            else:
-                x = _apply_block(lp, x, self.cfg, kind, None, self.mesh)
+            args = (lp, x, self.cfg, kind, None, self.mesh, self.lay)
+            x = checkpoint(_apply_block, *args, use_reentrant=False) if remat else \
+                _apply_block(*args)
         return x
 
     def loss(self, batch: Dict) -> torch.Tensor:
@@ -260,50 +273,56 @@ class DecoderOnlyLM(_TreeLM):
         patches, over the text region only: the final norm and the head see
         ``x[:, loss_start:]``, as the reference. With ``cfg.mtp_depth``,
         plus ``0.3`` times the MTP block's cross entropy two tokens ahead."""
+        lay = self.lay
         x, loss_start = self.embed_inputs(batch)
         x = self.backbone(x)
         tok = batch["tokens"]
-        if loss_start:
-            h = _norm(self.final_norm, x[:, loss_start:])
-            logits = L.lm_logits(dict(w=self.head.w), h)
-            loss = L.softmax_xent(logits[:, :-1], tok[:, 1:])
-        else:
-            loss = _lm_losses(self, x, tok)
+        loss = _lm_losses(self, x[:, loss_start:], tok, lay)
         if self.cfg.mtp_depth and hasattr(self, "mtp"):
             mtp = self.tree()["mtp"]
-            emb_next = L.embed_lookup(dict(table=self.embed.table), torch.roll(tok, -1, 1))
+            emb_next = L.embed_lookup(dict(table=self.embed.table), torch.roll(tok, -1, 1), lay)
             hcat = torch.cat([_norm(mtp["norm"], x[:, loss_start:]), emb_next], dim=-1)
-            h2 = _apply_block(mtp["block"], hcat @ mtp["proj"], self.cfg, self.dense_kind)
-            logits2 = L.lm_logits(dict(w=self.head.w), _norm(self.final_norm, h2))
-            loss = loss + 0.3 * L.softmax_xent(logits2[:, :-2], tok[:, 2:])
+            h2 = _apply_block(mtp["block"], hcat @ lay.whole(mtp["proj"], 0), self.cfg,
+                              self.dense_kind, lay=lay)
+            logits2 = L.lm_logits(dict(w=self.head.w), _norm(self.final_norm, h2), lay)
+            loss = loss + 0.3 * L.softmax_xent(logits2[:, :-2], tok[:, 2:], lay)
         return loss
 
+    def logits(self, h: torch.Tensor) -> torch.Tensor:
+        """The head's logits of the final-normed ``h``, the whole
+        vocabulary: over a mesh each rank's block of it gathered over
+        ``model`` here (what a caller compares with one device)."""
+        return self.lay.gather("vocab", L.lm_logits(dict(w=self.head.w), h, self.lay), -1)
+
     def prefill(self, batch: Dict) -> torch.Tensor:
-        """The last position's logits (B, 1, vocab); fills no cache."""
+        """The last position's logits (B, 1, vocab), the whole vocabulary
+        (``logits``); fills no cache."""
         x = self.backbone(self.embed_inputs(batch)[0])
-        h = _norm(self.final_norm, x[:, -1:])
-        return L.lm_logits(dict(w=self.head.w), h)
+        return self.logits(_norm(self.final_norm, x[:, -1:]))
 
     def decode(self, cache: Dict, tokens: torch.Tensor, pos: torch.Tensor,
                long_ctx: bool = False):
         """One token per row at position ``pos`` (a 0-d tensor): logits
-        (B, 1, vocab) and the cache, layer ``i`` of it written in place
-        (the dense layers first, as the reference concatenates them). On a
-        mesh, ``long_ctx`` says the rows are the whole batch on every rank
-        (else this rank's rows of it), which the MoE layers' capacity
-        reads."""
+        (B, 1, vocab), the whole vocabulary (``logits``), and the cache,
+        layer ``i`` of it written in place (the dense layers first, as the
+        reference concatenates them). On a mesh, ``long_ctx`` says the rows
+        are the whole batch on every rank (else this rank's rows of it),
+        which the MoE layers' capacity reads, and that the cache's slots
+        split over every axis (``kv_seq_all``; else ``kv_seq``)."""
         a, b = cache_names(self.cfg)
-        x = L.embed_lookup(dict(table=self.embed.table), tokens)
+        seq = "kv_seq_all" if long_ctx else "kv_seq"
+        x = L.embed_lookup(dict(table=self.embed.table), tokens, self.lay)
         for i, (kind, lp) in enumerate(self._layers()):
             x, _, _ = _decode_block(lp, x, cache[a][i], cache[b][i], pos, self.cfg, kind,
-                                    self.mesh, not long_ctx)
-        h = _norm(self.final_norm, x)
-        return L.lm_logits(dict(w=self.head.w), h), cache
+                                    self.mesh, not long_ctx, self.lay, seq)
+        return self.logits(_norm(self.final_norm, x)), cache
 
 
-def _lm_losses(model: _TreeLM, x, tokens):
-    logits = L.lm_logits(dict(w=model.head.w), _norm(model.final_norm, x))
-    return L.softmax_xent(logits[:, :-1], tokens[:, 1:])
+def _lm_losses(model: _TreeLM, x, tokens, lay: Layout = WHOLE):
+    """The next-token cross entropy of the backbone's output ``x`` over
+    ``tokens`` (the text region's, aligned with ``x``)."""
+    logits = L.lm_logits(dict(w=model.head.w), _norm(model.final_norm, x), lay)
+    return L.softmax_xent(logits[:, :-1], tokens[:, 1:], lay)
 
 
 def _unbind(v):
@@ -512,8 +531,8 @@ class HybridLM(_TreeLM):
     SwiGLU elsewhere. Prefill and the loss route the MoE with capacity;
     decode runs ``moe_ffn_dense``, a token a row, as the reference."""
 
-    def __init__(self, cfg: ArchConfig, tree: Dict, mesh=None):
-        super().__init__(cfg, tree, mesh)
+    def __init__(self, cfg: ArchConfig, tree: Dict, mesh=None, lay: Layout = WHOLE):
+        super().__init__(cfg, tree, mesh, lay)
         self.attn_pos = hybrid_attn_position(cfg)
         self.moe_pos = hybrid_moe_positions(cfg)
 
@@ -576,29 +595,46 @@ class ModelBundle:
     cache_shape: Callable  # (batch, seq) -> {name: (shape, dtype, logical names)}
 
 
+def decoder_only_layout(cfg: ArchConfig, mesh=None, rules=None) -> Layout:
+    """The ``Layout`` of a decoder-only model on ``mesh`` by ``rules``
+    (default: the mesh's ``default_rules``); ``WHOLE`` without a mesh.
+    Raises where the rules split a dimension these layers keep whole."""
+    if mesh is None:
+        return WHOLE
+    lay = Layout(mesh, rules)
+    split = [n for n in ("embed", "kv_heads", "head_dim", "lora", "expert_mlp", "layers")
+             if lay.axis(n) is not None]
+    if split:
+        raise NotImplementedError(f"the decoder-only layers keep {split} whole; the rules split "
+                                  f"them")
+    return lay
+
+
 def build_decoder_only(cfg: ArchConfig, mesh=None, rules=None) -> ModelBundle:
-    """The ``dense``, ``vlm``, ``moe`` and ``mla_moe`` families."""
+    """The ``dense``, ``vlm``, ``moe`` and ``mla_moe`` families; on a
+    ``mesh``, one rank laid out by ``rules`` (``decoder_only_layout``)."""
     dense_kind, moe_kind, n_dense, n_moe = block_kinds(cfg)
+    lay = decoder_only_layout(cfg, mesh, rules)
 
     def init_tree(gen: torch.Generator, device=None) -> Dict:
         dev = device or gen.device
         p = dict(
-            embed=L.init_embedding(gen, cfg, device),
-            head=L.init_lm_head(gen, cfg, device),
-            final_norm=L.ones((cfg.d_model,), ("embed",), device=dev),
+            embed=L.init_embedding(gen, cfg, device, lay),
+            head=L.init_lm_head(gen, cfg, device, lay),
+            final_norm=_norm_param(cfg, dev, lay),
         )
         if n_dense:
-            p["dense_blocks"] = stack_init(lambda: _init_block(gen, cfg, dense_kind, device),
-                                           n_dense)
+            p["dense_blocks"] = stack_init(
+                lambda: _init_block(gen, cfg, dense_kind, device, lay), n_dense)
         if n_moe:
             p["moe_blocks"] = stack_init(
-                lambda: _init_block(gen, cfg, moe_kind, device, mesh, rules), n_moe)
+                lambda: _init_block(gen, cfg, moe_kind, device, lay), n_moe)
         if cfg.mtp_depth:
             p["mtp"] = dict(
-                proj=L.make(gen, (2 * cfg.d_model, cfg.d_model), ("wembed", None), 1.0,
-                            L._dtype(cfg), device),
-                block=_init_block(gen, cfg, dense_kind, device),
-                norm=L.ones((cfg.d_model,), ("embed",), device=dev),
+                proj=L.cut(L.make(gen, (2 * cfg.d_model, cfg.d_model), ("wembed", None), 1.0,
+                                  L._dtype(cfg), device), lay),
+                block=_init_block(gen, cfg, dense_kind, device, lay),
+                norm=_norm_param(cfg, dev, lay),
             )
         return p
 
@@ -612,11 +648,11 @@ def build_decoder_only(cfg: ArchConfig, mesh=None, rules=None) -> ModelBundle:
         shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.head_dim)
         return dict(k=(shape, torch.bfloat16, names), v=(shape, torch.bfloat16, names))
 
-    return _bundle(cfg, DecoderOnlyLM, init_tree, cache_shape, mesh)
+    return _bundle(cfg, DecoderOnlyLM, init_tree, cache_shape, mesh, lay)
 
 
 def _bundle(cfg: ArchConfig, module, init_tree: Callable, cache_shape: Callable,
-            mesh=None) -> ModelBundle:
+            mesh=None, lay: Layout = WHOLE) -> ModelBundle:
     """The bundle of a family's module class and its tree and cache."""
 
     def init(gen: torch.Generator, device=None):
@@ -624,8 +660,8 @@ def _bundle(cfg: ArchConfig, module, init_tree: Callable, cache_shape: Callable,
         ``device`` (default: the generator's); on ``meta`` nothing is
         drawn."""
         if device is not None and torch.device(device).type == "meta":
-            return module(cfg, init_tree(gen, "meta"), mesh)
-        model = module(cfg, init_tree(gen), mesh)
+            return module(cfg, init_tree(gen, "meta"), mesh, lay)
+        model = module(cfg, init_tree(gen), mesh, lay)
         return model if device is None else model.to(device)
 
     def loss(params, batch: Dict) -> torch.Tensor:

@@ -44,6 +44,15 @@ whole batch's gradient. Elsewhere (and in decode) the MoE is the reference's
 a rank gathers the batch's rows over the data axes, computes its experts'
 share with their ``d`` left split over the data axes (``_d_split_compute``),
 sums over ``model`` and keeps its own rows.
+
+A decoder-only model over a mesh (``models/model.py``) stores every MoE
+weight by the rules and passes its ``Layout``: the router ``("wembed",
+None)`` is then a block of ``d`` gathered over the data axes where it is
+used (still f32 in full precision), the shared experts are tensor-parallel
+over ``mlp`` as ``layers.ffn``, and the expert stacks keep ``d`` split over
+the data axes whether or not the experts split over ``model``. Without a
+``Layout`` the router and the shared experts are whole (the hybrid
+family's placement) and the stacks are blocks only where ``ep_sharded``.
 """
 from __future__ import annotations
 
@@ -54,8 +63,8 @@ import torch.nn.functional as F
 
 from .. import full_f32_matmul
 from ..configs.base import ArchConfig
-from ..sharding.rules import dp_axes, named_sharding
-from .layers import NEG_INF, Param, _dtype, make
+from ..sharding.rules import WHOLE, Layout, dp_axes, named_sharding
+from .layers import NEG_INF, Param, _dtype, cut, make
 
 EP_PAD = 16
 
@@ -96,15 +105,20 @@ def _make_experts(gen, shape, spec, dtype, device=None, mesh=None, rules=None) -
     return Param(out, tuple(spec))
 
 
-def init_moe(gen, cfg: ArchConfig, device=None, mesh=None, rules=None) -> Dict:
+def init_moe(gen, cfg: ArchConfig, device=None, mesh=None, rules=None,
+             lay: Layout = WHOLE) -> Dict:
     """The MoE's parameters; on a ``mesh`` where ``ep_sharded``, the expert
-    stacks as this rank's block by their specs under ``rules``."""
+    stacks as this rank's block by their specs under ``rules``. With a
+    ``lay`` over a mesh, every leaf is this rank's block by its rules."""
     d, f = cfg.d_model, cfg.d_expert or cfg.d_ff
     E = n_experts_padded(cfg)
     dt = _dtype(cfg)
-    ep = dict(mesh=mesh, rules=rules) if ep_sharded(cfg, mesh) else {}
+    if lay.mesh is not None:
+        ep = dict(mesh=lay.mesh, rules=lay.rules)
+    else:
+        ep = dict(mesh=mesh, rules=rules) if ep_sharded(cfg, mesh) else {}
     p = dict(
-        w_router=make(gen, (d, E), ("wembed", None), 1.0, torch.float32, device),
+        w_router=cut(make(gen, (d, E), ("wembed", None), 1.0, torch.float32, device), lay),
         w_gate=_make_experts(gen, (E, d, f), ("experts", "wembed", "expert_mlp"), dt, device,
                              **ep),
         w_up=_make_experts(gen, (E, d, f), ("experts", "wembed", "expert_mlp"), dt, device,
@@ -115,9 +129,9 @@ def init_moe(gen, cfg: ArchConfig, device=None, mesh=None, rules=None) -> Dict:
     if cfg.n_shared_experts:
         fs = cfg.n_shared_experts * f
         p["shared"] = dict(
-            w_gate=make(gen, (d, fs), ("wembed", "mlp"), 1.0, dt, device),
-            w_up=make(gen, (d, fs), ("wembed", "mlp"), 1.0, dt, device),
-            w_down=make(gen, (fs, d), ("mlp", "wembed"), 1.0, dt, device),
+            w_gate=cut(make(gen, (d, fs), ("wembed", "mlp"), 1.0, dt, device), lay),
+            w_up=cut(make(gen, (d, fs), ("wembed", "mlp"), 1.0, dt, device), lay),
+            w_down=cut(make(gen, (fs, d), ("mlp", "wembed"), 1.0, dt, device), lay),
         )
     return p
 
@@ -129,10 +143,13 @@ def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return val[..., :k], idx[..., :k]
 
 
-def _shared_ffn(p: Dict, x: torch.Tensor) -> torch.Tensor:
-    g = x @ p["w_gate"]
-    u = x @ p["w_up"]
-    return (F.silu(g) * u) @ p["w_down"]
+def _shared_ffn(p: Dict, x: torch.Tensor, lay: Layout = WHOLE) -> torch.Tensor:
+    """The shared experts' SwiGLU; over a mesh tensor-parallel over ``mlp``
+    (``layers.ffn``'s layout)."""
+    x = lay.enter("mlp", x)
+    g = x @ lay.whole(p["w_gate"], 0)
+    u = x @ lay.whole(p["w_up"], 0)
+    return lay.psum("mlp", (F.silu(g) * u) @ lay.whole(p["w_down"], 1))
 
 
 def _route(x2d: torch.Tensor, w_router: torch.Tensor, cfg: ArchConfig):
@@ -219,8 +236,7 @@ def _gathered(w: torch.Tensor, axis, dim: int) -> torch.Tensor:
     axis order (``lax.all_gather(..., tiled=True)``)."""
     if axis is None or axis.size == 1:
         return w
-    g = axis.all_gather(w)  # (n, *w.shape)
-    return g.movedim(0, dim).reshape(w.shape[:dim] + (-1,) + w.shape[dim + 1:])
+    return axis.all_gather_dim(w, dim)
 
 
 def _d_split_compute(dp):
@@ -240,80 +256,86 @@ def _d_split_compute(dp):
 
 
 def _experts_out(params: Dict, x2d: torch.Tensor, cfg: ArchConfig, mesh, cap: int,
-                 gather_weights: bool = True):
+                 gather_weights: bool = True, lay: Layout = WHOLE):
     """(T, d): the routed experts' output for the tokens ``x2d``, routed
     over every expert. Where ``ep_sharded`` on ``mesh``, this rank's
-    experts ``[e_lo, e_lo + e_n)`` compute -- with their weights gathered
-    over the data axes (``gather_weights``, the reference's sharded path),
-    else with ``d`` split over them (``_d_split_compute``: a few tokens'
-    activations move instead of the weights) -- and the shares are summed
-    over ``model``."""
+    experts ``[e_lo, e_lo + e_n)`` compute and the shares are summed over
+    ``model``. Stacks whose ``d`` is this rank's block over the data axes
+    compute with their weights gathered over them (``gather_weights``, the
+    reference's sharded path), else with ``d`` split
+    (``_d_split_compute``: a few tokens' activations move instead of the
+    weights). A router stored as a block of ``d`` (``lay``) is gathered."""
     wr, wg, wu, wd = params["w_router"], params["w_gate"], params["w_up"], params["w_down"]
-    if not ep_sharded(cfg, mesh):
-        probs, top_idx = _route(x2d, wr, cfg)
-        return _select_and_apply(x2d, probs, top_idx, wg, wu, wd, cfg, 0, wg.shape[0], cap)
-    model, dp = mesh.axis("model"), mesh.group_axis(dp_axes(mesh))
-    # the tokens and the router enter replicated over model: each model rank
-    # uses them for its own experts, so their cotangents sum over model
-    x2d, wr = model.pvary(x2d), model.pvary(wr)
-    probs, top_idx = _route(x2d, wr, cfg)
-    e_n = n_experts_padded(cfg) // model.size
-    n_dp = dp.size if dp is not None else 1
+    ep = ep_sharded(cfg, mesh)
+    model = mesh.axis("model") if ep else None
+    dp = mesh.group_axis(dp_axes(mesh)) if mesh is not None else None
+    if model is not None:
+        # the tokens and the router enter replicated over model: each model
+        # rank uses them for its own experts, so their cotangents sum over model
+        x2d, wr = model.pvary(x2d), model.pvary(wr)
+    probs, top_idx = _route(x2d, lay.whole(wr, 0), cfg)
+    e_n = n_experts_padded(cfg) // (model.size if ep else 1)
+    n_dp = 1 if wg.shape[1] == cfg.d_model else (dp.size if dp is not None else 0)
     if (wg.shape[0], wg.shape[1] * n_dp) != (e_n, cfg.d_model) or wd.shape[2] != wg.shape[1]:
         raise ValueError(f"expert stacks {tuple(wg.shape)} / {tuple(wd.shape)} are not this "
                          f"rank's block of {e_n} experts (build the model with the mesh)")
     compute = _expert_compute
-    if n_dp == 1 or gather_weights:
+    if n_dp > 1 and gather_weights:
         wg, wu, wd = _gathered(wg, dp, 1), _gathered(wu, dp, 1), _gathered(wd, dp, 2)
-    else:
+    elif n_dp > 1:
         compute = _d_split_compute(dp)
-    y = _select_and_apply(x2d, probs, top_idx, wg, wu, wd, cfg, model.index * e_n, e_n, cap,
-                          compute)
-    return model.psum(y)
+    y = _select_and_apply(x2d, probs, top_idx, wg, wu, wd, cfg, model.index * e_n if ep else 0,
+                          e_n, cap, compute)
+    return model.psum(y) if ep else y
 
 
-def _with_shared(params: Dict, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def _with_shared(params: Dict, y: torch.Tensor, x: torch.Tensor,
+                 lay: Layout = WHOLE) -> torch.Tensor:
     out = y.reshape(x.shape).to(x.dtype)
     if "shared" in params:
-        out = out + _shared_ffn(params["shared"], x)
+        out = out + _shared_ffn(params["shared"], x, lay)
     return out
 
 
 def moe_ffn_dense(params: Dict, x: torch.Tensor, cfg: ArchConfig, mesh=None,
-                  rows_split: bool = True) -> torch.Tensor:
+                  rows_split: bool = True, lay: Layout = WHOLE) -> torch.Tensor:
     """The reference's MoE over the whole batch: every expert, the capacity
     from every token. On a ``mesh`` with ``rows_split`` (``x`` is this
     rank's rows of a batch split over the data axes), the rows are gathered
     over the data axes and this rank's rows of the output kept; without it
-    ``x`` is the whole batch on every rank (long-context decode). The
-    experts' ``d`` stays split over the data axes (``_d_split_compute``):
-    at decode's few tokens their activations are far smaller than their
-    weights."""
+    ``x`` is the whole batch on every rank (long-context decode). Serving,
+    the experts' ``d`` stays split over the data axes
+    (``_d_split_compute``): at decode's few tokens their activations are
+    far smaller than their weights. Under autograd the stacks are gathered
+    instead, so that their gradients come reduce-scattered over the data
+    axes as the sharded path's do."""
     B, S, d = x.shape
     dp = mesh.group_axis(dp_axes(mesh)) if mesh is not None and rows_split else None
     x_all = _gathered(x, dp, 0)
     x2d = x_all.reshape(-1, d)
     y = _experts_out(params, x2d, cfg, mesh, _capacity(x2d.shape[0], cfg, cfg.n_experts),
-                     gather_weights=False)
+                     gather_weights=torch.is_grad_enabled(), lay=lay)
     if dp is not None and dp.size > 1:
         y = y.reshape(dp.size, B * S, d)[dp.index]
-    return _with_shared(params, y, x)
+    return _with_shared(params, y, x, lay)
 
 
-def moe_ffn_sharded(params: Dict, x: torch.Tensor, cfg: ArchConfig, mesh) -> torch.Tensor:
+def moe_ffn_sharded(params: Dict, x: torch.Tensor, cfg: ArchConfig, mesh,
+                    lay: Layout = WHOLE) -> torch.Tensor:
     """The reference's expert-parallel MoE on this rank: ``x`` is its rows
     (split over the data axes), the capacity that of its data shard's
     ``t_loc`` tokens, its experts' share summed over ``model``."""
     B_loc, S, d = x.shape
     t_loc = max(1, B_loc * S)  # (B * S) // n_dp of the reference
     y = _experts_out(params, x.reshape(-1, d), cfg, mesh,
-                     _capacity(t_loc, cfg, cfg.n_experts))
-    return _with_shared(params, y, x)
+                     _capacity(t_loc, cfg, cfg.n_experts), lay=lay)
+    return _with_shared(params, y, x, lay)
 
 
-def moe_ffn(params: Dict, x: torch.Tensor, cfg: ArchConfig, mesh=None) -> torch.Tensor:
+def moe_ffn(params: Dict, x: torch.Tensor, cfg: ArchConfig, mesh=None,
+            lay: Layout = WHOLE) -> torch.Tensor:
     """``moe_ffn_sharded`` where ``ep_sharded`` on ``mesh``, else
     ``moe_ffn_dense`` (over the whole batch), as the reference's."""
     if ep_sharded(cfg, mesh):
-        return moe_ffn_sharded(params, x, cfg, mesh)
-    return moe_ffn_dense(params, x, cfg, mesh)
+        return moe_ffn_sharded(params, x, cfg, mesh, lay)
+    return moe_ffn_dense(params, x, cfg, mesh, lay=lay)

@@ -17,9 +17,11 @@ Terms (seconds, per step, per rank):
 
 The traced FLOPs are each rank's own program's (``roofline/op_stats.py``):
 eager code runs every op, so there is no while-body undercount to correct.
-Dense weights are whole on every rank in this slice, so a ``model`` axis
-of n ranks computes its dense layers n times: ``useful`` (MODEL_FLOPS over
-the traced FLOPs of every rank) shows it. MODEL_FLOPS uses 6*N*D (dense) /
+The decoder-only families compute each dense layer's share on each
+``model`` rank (the rules' layout); the enc-dec, xLSTM and hybrid families
+still keep dense weights whole, so a ``model`` axis of n ranks computes
+their dense layers n times: ``useful`` (MODEL_FLOPS over the traced FLOPs
+of every rank) shows either. MODEL_FLOPS uses 6*N*D (dense) /
 6*N_active*D (MoE), as the reference.
 """
 from __future__ import annotations
@@ -222,6 +224,26 @@ def to_markdown(rows: List[RooflineRow]) -> str:
     return "".join(out)
 
 
+def memory_markdown(dryrun_dir: str, mesh: str = "data32xmodel8") -> str:
+    """Each LM cell's bytes a rank (GB): its arguments as placed and by the
+    rules, the step's eager peak, and whether the arguments fit one card
+    alone and with the peak beside them (the records' ``fits``)."""
+    out = ["| arch | shape | as placed (GB) | by the rules (GB) | equal | peak live (GB) | "
+           "fits | fits with peak |\n|---|---|---|---|---|---|---|---|\n"]
+    for f in sorted(Path(dryrun_dir).glob(f"*_{mesh}.json")):
+        rec = json.loads(f.read_text())
+        if rec.get("mesh") != mesh or "memory" not in rec or rec.get("arch") == "wisk":
+            continue
+        m, fits = rec["memory"], rec["fits"]
+        out.append(
+            f"| {rec['arch']} | {rec['shape']} | {m['argument_bytes'] / 1e9:.2f} | "
+            f"{m['rules_argument_bytes'] / 1e9:.2f} | "
+            f"{m['argument_bytes'] == m['rules_argument_bytes']} | "
+            f"{m['peak_live_bytes'] / 1e9:.2f} | {fits['argument_bytes']} | "
+            f"{fits['with_peak_live_bytes']} |\n")
+    return "".join(out)
+
+
 def main():
     import argparse
 
@@ -230,6 +252,7 @@ def main():
     ap.add_argument("--mesh", default="data32xmodel8")
     args = ap.parse_args()
     print(to_markdown(load_rows(args.dir, args.mesh)))
+    print(memory_markdown(args.dir, args.mesh))
 
 
 if __name__ == "__main__":

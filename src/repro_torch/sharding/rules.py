@@ -24,7 +24,9 @@ and ``shard_shape``, the per-device block shape of a global shape (JAX's
 a host array or tensor on every split dimension, which is what placing it
 with the reference's ``NamedSharding`` leaves on each device; ``shard_rows``
 is its one-dimension case. There is no ``constrain``: each rank runs its
-own program, so nothing pins an activation's layout.
+own program, so nothing pins an activation's layout. A ``Layout`` is what
+the tensor-parallel layers of ``models/`` ask of the rules: the axis a
+logical name splits over, and the collectives over it.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ import dataclasses
 import math
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
-from ..launch.mesh import ServingMesh
+from ..launch.mesh import MeshAxis, ServingMesh
 
 Axis = Union[None, str, Tuple[str, ...]]
 
@@ -229,3 +231,82 @@ def shard_rows(a, name: Optional[str], mesh: ServingMesh):
     """This rank's block of ``a`` along its first dimension, whose logical
     name is ``name`` (``shard_tensor``'s one-dimension case)."""
     return shard_tensor(a, (name,), mesh)
+
+
+class Layout:
+    """A model's weights and activations on ``mesh`` as ``rules`` place
+    them, for the layers that compute on blocks (``models/layers.py``,
+    ``mla.py``, ``moe.py``): ``axis(name)`` is the axis a logical name
+    splits over (None where it is unsplit or has one rank), and each method
+    is a collective over the axis of a name, the identity where there is
+    none. ``WHOLE`` (no mesh) is the single-device layout: every method is
+    the identity, so the layers compute as on one device.
+
+    * ``whole(w, dim)`` -- ZeRO-3: a weight stored as this rank's block of
+      its ``wembed`` dimension ``dim``, gathered whole along it over the
+      data axes (``MeshAxis.all_gather_dim``, whose backward reduce-scatters
+      the gradient: each rank's block gets the sum over the data ranks);
+    * ``enter(name, x)`` -- ``x``, the same on every rank of ``name``'s
+      axis, entering a region where each rank computes its own block
+      (``pvary``: the cotangents of the ranks are summed in the backward);
+    * ``psum`` / ``pmax`` / ``gather`` -- the row-parallel sums, the
+      combines and the joins of blocks over ``name``'s axis;
+    * ``start(name, n)`` -- where this rank's block of ``n`` entries starts
+      on a dimension ``name`` splits.
+    """
+
+    def __init__(self, mesh: Optional[ServingMesh] = None,
+                 rules: Optional[Dict[str, Axis]] = None) -> None:
+        self.mesh = mesh
+        self.rules = rules if rules is not None or mesh is None else default_rules(mesh)
+        self._axes: Dict[str, Optional[MeshAxis]] = {}
+
+    def axis(self, name: str) -> Optional[MeshAxis]:
+        if self.mesh is None:
+            return None
+        if name not in self._axes:
+            ax = self.mesh.over(_axes_of(spec_for((name,), self.rules)[0]))
+            self._axes[name] = ax if ax is not None and ax.size > 1 else None
+        return self._axes[name]
+
+    def place(self, spec: Sequence[Optional[str]]) -> Sharding:
+        """The ``Sharding`` of a tensor of logical ``spec``."""
+        return named_sharding(self.mesh, spec, self.rules)
+
+    def cut(self, t, spec: Sequence[Optional[str]]):
+        """This rank's block of the whole ``t`` of logical ``spec`` (a copy
+        of its own, so that the whole can go)."""
+        if self.mesh is None:
+            return t
+        return t[self.place(spec).index(t.shape)].clone()
+
+    def size(self, name: str) -> int:
+        """How many blocks a dimension ``name`` splits into."""
+        ax = self.axis(name)
+        return 1 if ax is None else ax.size
+
+    def start(self, name: str, n: int) -> int:
+        ax = self.axis(name)
+        return 0 if ax is None else ax.index * int(n)
+
+    def gather(self, name: str, t, dim: int):
+        ax = self.axis(name)
+        return t if ax is None else ax.all_gather_dim(t, dim)
+
+    def whole(self, w, dim: int):
+        return self.gather("wembed", w, dim)
+
+    def enter(self, name: str, x):
+        ax = self.axis(name)
+        return x if ax is None else ax.pvary(x)
+
+    def psum(self, name: str, y):
+        ax = self.axis(name)
+        return y if ax is None else ax.psum(y)
+
+    def pmax(self, name: str, y):
+        ax = self.axis(name)
+        return y if ax is None else ax.pmax(y)
+
+
+WHOLE = Layout()

@@ -15,26 +15,35 @@ serving steps run under ``torch.no_grad()``.
 With a ``mesh`` (``launch/mesh.py``: a ``("data", "model")`` mesh of ranks,
 or an abstract one for the dry run) the steps are one rank's: the rules
 are the mesh's ``default_rules`` with ``cfg.logical_overrides`` merged in,
-as the reference's; the model's expert stacks are the rank's block (where
-``moe.ep_sharded``); every step takes the whole batch, the same on every
-rank, and computes this rank's rows of it (its block by
-``placement_rules``: the batch split over the data axes, every other
-dimension whole); ``prefill_step`` and ``decode_step`` return those rows'
-logits; the cache is the rank's own (``init_cache``; ``local`` cuts a
-whole one). Each state leaf is stored as ``Steps.placement`` says: an
-expert stack (a spec naming ``experts``) as the rank's block by the
-rules, every other leaf whole.
+as the reference's. Every step takes the whole batch, the same on every
+rank, and computes this rank's rows of it; ``prefill_step`` and
+``decode_step`` return those rows' logits, the whole vocabulary; the cache
+is the rank's own (``init_cache``; ``local`` cuts a whole one).
+
+The decoder-only families (``RULES_FAMILIES``) are placed as the
+reference's rules place them: every state leaf, batch and cache is this
+rank's block by the rules (``Steps.placement`` is the rules' sharding):
+the batch over the data axes, ``wembed`` over the data axes (ZeRO-3: each
+layer gathers its weights, ``models/layers.py``), ``heads``, ``mlp``,
+``vocab`` and ``experts`` over ``model``, the cache's ``kv_seq`` over
+``model`` (``kv_seq_all`` over every axis with ``long_ctx``). The other
+families (enc-dec, xLSTM, hybrid) keep ``placement_rules``' layout until
+theirs is ported: the batch split over the data axes, the expert stacks
+the rank's block where ``moe.ep_sharded``, every other leaf whole.
 
 ``train_step`` on a mesh is the reference's step on its global batch
 (``step_gradients``): each rank backpropagates its rows' mean loss over the
 number of data ranks (the global mean is the mean of the data shards'
-means); the backward runs through ``moe_ffn_sharded``'s collectives (the
-expert blocks' gradients come out of it summed over the data axes); every
-other gradient is then summed over the mesh axes its leaf's placement
-does not split. The global norm counts a whole leaf's squares once and
-sums the blocks' over the ranks; Adafactor's means over a block are the
-whole leaf's (``optim/optimizers.py``). The loss reported is the global
-mean, the same on every rank.
+means); the backward runs through the collectives' transposes
+(``launch/mesh.py``): a gathered block's gradient comes out reduce-scattered
+over the data axes, and a value the same on every ``model`` rank that
+enters a per-rank region sums its cotangents there, so that every
+gradient of a leaf whole over ``model`` is whole and the same on every
+``model`` rank. What is left is summed in ``step_gradients`` (see there).
+The global norm counts a whole leaf's squares once and sums the blocks'
+over the ranks; Adafactor's means over a block are the whole leaf's
+(``optim/optimizers.py``). The loss reported is the global mean, the same
+on every rank.
 """
 from __future__ import annotations
 
@@ -109,10 +118,14 @@ def mesh_rules(cfg: ArchConfig, mesh) -> Dict[str, Any]:
     return rules
 
 
+# the families laid out by the rules over a mesh
+RULES_FAMILIES = ("dense", "vlm", "moe", "mla_moe")
+
+
 def placement_rules(rules: Dict[str, Any]) -> Dict[str, Any]:
-    """Where this slice places activations and caches: the batch as
-    ``rules`` split it, every other dimension whole (no tensor or sequence
-    parallelism yet)."""
+    """Where the families outside ``RULES_FAMILIES`` place batches and
+    caches over a mesh: the batch as ``rules`` split it, every other
+    dimension whole."""
     return {k: (v if k == "batch" else None) for k, v in rules.items()}
 
 
@@ -133,12 +146,18 @@ class Steps:
     rules: Any = None  # the mesh's rules, overrides merged
     blocks: Optional[List[Optional[Sharding]]] = None  # param_blocks() on a mesh
 
+    @property
+    def by_rules(self) -> bool:
+        """Whether the state, batches and caches are the rules' blocks."""
+        return self.cfg.family in RULES_FAMILIES
+
     def placement(self, spec) -> Sharding:
-        """Where this slice keeps a state leaf of logical ``spec`` on the
-        mesh: an expert stack (a spec naming ``experts``) as the rank's
-        block by the rules where the experts are sharded
-        (``moe.ep_sharded``); any other leaf whole on every rank."""
-        if "experts" in spec and ep_sharded(self.cfg, self.mesh):
+        """Where a state leaf of logical ``spec`` lies on the mesh: for
+        ``RULES_FAMILIES`` the rank's block by the rules; for the others an
+        expert stack (a spec naming ``experts``) as the rank's block by the
+        rules where the experts are sharded (``moe.ep_sharded``), any other
+        leaf whole on every rank."""
+        if self.by_rules or ("experts" in spec and ep_sharded(self.cfg, self.mesh)):
             return named_sharding(self.mesh, spec, self.rules)
         return Sharding(self.mesh, (None,) * len(spec))
 
@@ -156,11 +175,12 @@ class Steps:
 
     def local(self, tree, specs):
         """This rank's block of a tree of whole tensors (a batch or a
-        cache) by its logical ``specs`` and ``placement_rules``; the tree
+        cache) by its logical ``specs``: by the rules for
+        ``RULES_FAMILIES``, by ``placement_rules`` for the others; the tree
         itself without a mesh."""
         if self.mesh is None:
             return tree
-        place = placement_rules(self.rules)
+        place = self.rules if self.by_rules else placement_rules(self.rules)
         return {k: shard_tensor(v, specs[k], self.mesh, place) for k, v in tree.items()}
 
     def batch_spec(self, kind: str, seq: int, batch: int):
@@ -223,11 +243,19 @@ def step_gradients(steps: "Steps", model, batch):
     ``leaves(model)``'s order. On one device the batch's; on a mesh (see
     the module) the global mean loss, the same on every rank, and each
     gradient the whole batch's: the rank's rows' loss over the number of
-    data ranks backpropagated, then each leaf's gradient summed over the
-    mesh axes its placement does not split and divided by the ranks of
-    those that are not data axes (their copies are equal: the same rows). A
-    whole leaf's gradient is all-reduced over every rank, so its copies
-    stay bit-identical."""
+    data ranks backpropagated, then
+
+    * for ``RULES_FAMILIES``: a leaf split over the data axes was gathered
+      and its gradient came reduce-scattered (summed) over them; any other
+      leaf's is summed over the data axes. Over ``model`` nothing is left
+      to sum: a block's gradient is its own, and a leaf whole over
+      ``model`` has its whole gradient on every ``model`` rank (see the
+      module), so it is neither summed again (that would count it twice)
+      nor averaged;
+    * for the other families: each leaf's gradient summed over the mesh
+      axes its placement does not split and divided by the ranks of those
+      that are not data axes (their copies are equal: the same rows), so
+      a whole leaf's copies stay bit-identical."""
     mesh = steps.mesh
     if mesh is None:
         loss, grads = loss_and_grads(steps.bundle, model, batch)
@@ -238,7 +266,8 @@ def step_gradients(steps: "Steps", model, batch):
     loss, grads = loss_and_grads(steps.bundle, model, rows, 1.0 / n_dp)
     grads = leaves(grads)
     for i, block in enumerate(steps.blocks):
-        rest = [a for a in mesh.axis_names if block is None or a not in block.axes]
+        unsplit = [a for a in mesh.axis_names if block is None or a not in block.axes]
+        rest = [a for a in unsplit if a in dp] if steps.by_rules else unsplit
         axis = mesh.over(rest)
         if axis is None:
             continue

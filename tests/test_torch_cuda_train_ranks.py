@@ -91,3 +91,43 @@ def test_train_step_over_two_ranks_on_the_card_matches_one_device(pool):
     for j, (name, block, index) in enumerate(got[0][2]):
         if not any(s.start for s in index) and not any(s.start for s in got[1][2][j][2]):
             np.testing.assert_array_equal(got[1][2][j][1], block, err_msg=name)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "deepseek-v3-671b"])
+def test_rules_layout_serves_over_two_ranks_on_the_card(pool, arch):
+    """``(1, 2)`` in the rules' layout (tensor-parallel heads, mlp and
+    vocab; the cache's slots split over model) on the card: the prefill and
+    each decode step (f32 caches, positions across the slot blocks, one at
+    the clamp past the end; then long-context steps) within 1e-4 of the
+    largest of one device's logits on the card, the embedding bit-equal."""
+    import dataclasses
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch).reduced(), n_layers=2)
+    rng = np.random.default_rng(7)
+    B, S, n_slots, n_long = 4, 32, 8, 8
+    toks = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    dec = rng.integers(0, cfg.vocab, (B, 7)).astype(np.int32)
+    long = rng.integers(0, cfg.vocab, (1, 5)).astype(np.int32)
+    got = pool.run("layout_serve", (1, 2), cfg, 0, dict(tokens=toks), dec, n_slots, long, n_long)
+    one = build_steps(cfg, device="cuda:0")
+    model = one.init_state(torch.Generator().manual_seed(0))["params"]
+    want = one.prefill_step(model, dict(tokens=torch.from_numpy(toks).cuda())).cpu().numpy()
+    steps = {}
+    for name, t_, n in (("decode", dec, n_slots), ("long", long, n_long)):
+        cache = {k: v.float() for k, v in one.init_cache(t_.shape[0], n).items()}
+        steps[name] = []
+        for t in range(t_.shape[1]):
+            pos = n if (name == "decode" and t == t_.shape[1] - 1) else t
+            lo, cache = one.decode_step(model, cache, torch.from_numpy(t_[:, t:t + 1]).cuda(),
+                                        torch.tensor(pos, dtype=torch.int32, device="cuda:0"))
+            steps[name].append(lo.cpu().numpy())
+    table = model.embed.table.detach().cpu().numpy()
+    for r, g in enumerate(got):
+        scale = float(np.max(np.abs(want)))
+        assert float(np.max(np.abs(g["prefill"] - want))) <= LEAF_REL * scale, (arch, r)
+        assert np.array_equal(g["embed"], table[toks]), (arch, r)
+        for name in ("decode", "long"):
+            for a, b in zip(g[name], steps[name]):
+                assert float(np.max(np.abs(a - b))) <= LEAF_REL * float(np.max(np.abs(b))), (
+                    arch, r, name)

@@ -7,7 +7,8 @@
   keys (and the port's ``rules_argument_bytes``, ``op_census`` and
   ``fits``); ``train_4k`` cells are traced (``fits`` and a roofline row);
   a batch smaller than the data ranks takes the long-context layout and an
-  uneven one is skipped;
+  uneven one is skipped; a decoder-only cell's arguments as placed are the
+  rules' bytes, the other families' more;
 * ``param_counts`` and ``model_flops`` equal the reference's for every
   arch and shape, and ``descent_bytes``, ``filter_level_bytes``,
   ``verify_bytes`` and ``remap_bytes`` give the reference's integers over a
@@ -22,7 +23,8 @@
 * ``build_steps(cfg, device="meta")`` gives deepseek-v3-671b's published
   state (61 layers, 671 B parameters) on meta, drawing nothing, and
   ``train_step`` runs on an abstract mesh of ranks: the rank's state
-  shapes, the backward's reduce-scatters in its census.
+  shapes (the rules' blocks), the backward's reduce-scatters in its
+  census, one for each ZeRO-3 gather.
 """
 import dataclasses
 import itertools
@@ -46,7 +48,7 @@ from repro_torch.launch.flat_legacy import trace_wisk_serve  # noqa: E402
 from repro_torch.launch.mesh import collective_census, make_abstract_mesh  # noqa: E402
 from repro_torch.roofline import analysis, descent_bytes  # noqa: E402
 from repro_torch.roofline.op_stats import OpStats  # noqa: E402
-from repro_torch.train.step import build_steps  # noqa: E402
+from repro_torch.train.step import RULES_FAMILIES, build_steps  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 MESH = "data=2,model=2"
@@ -119,12 +121,17 @@ def test_run_cell_traces_every_serving_cell(arch, shape, tmp_path):
     assert rec["devices"] == 4 and rec["mesh"] == "data2xmodel2"
     assert rec["kind"] == SHAPES[shape][2]
     mem = rec["memory"]
-    assert 0 < mem["rules_argument_bytes"] < mem["argument_bytes"]
+    by_rules = cfg.family in RULES_FAMILIES
+    if by_rules:  # placed as the rules place it
+        assert 0 < mem["rules_argument_bytes"] == mem["argument_bytes"]
+    else:
+        assert 0 < mem["rules_argument_bytes"] < mem["argument_bytes"]
     assert rec["op_census"]["flops"] > 0 and rec["cost"]["flops"] == rec["op_census"]["flops"]
     assert rec["fits"]["argument_bytes"] and rec["fits"]["device_memory_bytes"] > 0
     assert rec["output_shape"] == [CELL["batch"] // 2, 1, cfg.vocab]
-    # the experts split over model and are gathered over data
-    moe = bool(cfg.n_experts)
+    # the experts split over model and are gathered over data; the decoder-only
+    # families' weights are gathered over data and their layers sum over model
+    moe = bool(cfg.n_experts) or by_rules
     assert bool(rec["collective_total_per_device"]) == moe
     if moe:
         assert set(rec["collective_bytes_by_axis"]) == {"data", "model"}
@@ -160,8 +167,12 @@ def test_train_cells_are_traced_and_small_batches_take_long_context(arch, tmp_pa
     assert rec["kind"] == "train" and rec["output_shape"] == []
     assert rec["fits"]["argument_bytes"] and rec["fits"]["rules_argument_bytes"]
     mem = rec["memory"]
-    assert 0 < mem["rules_argument_bytes"] < mem["argument_bytes"]
-    # every whole leaf's gradient is summed over every rank
+    if cfg.family in RULES_FAMILIES:
+        assert 0 < mem["rules_argument_bytes"] == mem["argument_bytes"]
+    else:
+        assert 0 < mem["rules_argument_bytes"] < mem["argument_bytes"]
+    # the loss and the global norm are summed over every rank (and, outside
+    # the decoder-only families, every whole leaf's gradient)
     assert rec["collective_counts_by_axis"]["everyone"]["all-reduce"] > 0
     row = analysis.roofline_from_record(rec, cfg)
     assert row.compute_s > 0 and row.memory_s > 0 and row.collective_s > 0
@@ -184,6 +195,10 @@ def test_roofline_table_and_cli(tmp_path):
     assert [r.shape for r in rows] == ["decode_32k", "prefill_32k"]
     table = analysis.to_markdown(rows)
     assert table.count("\n") == 4 and "qwen2-moe-a2.7b" in table
+    # the bytes a rank: as placed equal to the rules' (the decoder-only layout)
+    mem = analysis.memory_markdown(str(tmp_path), "data2xmodel2")
+    assert mem.count("\n") == 4
+    assert all(row.split(" | ")[4] == "True" for row in mem.splitlines()[2:])
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "wisk",
                         "--shape", "serve2", "--mesh", "data=2,model=4", "--out", str(tmp_path)],
@@ -267,8 +282,10 @@ def test_trace_wisk_serve_equals_xla(forced_reference):
 
 def test_train_step_over_an_abstract_mesh():
     """``train_step`` on a mesh of ranks runs on the abstract mesh: the
-    state keeps the rank's expert blocks, the census has the backward's
-    reduce-scatter of every gathered expert stack."""
+    state keeps the rank's blocks by the rules, the census has the
+    backward's reduce-scatter of every weight gathered over data (a layer's
+    attention, router, expert stacks and shared experts; the embedding and
+    the head)."""
     cfg = get_config("qwen2-moe-a2.7b").reduced()
     steps = build_steps(cfg, mesh=make_abstract_mesh(data=2, model=2))
     state = steps.init_state(torch.Generator())
@@ -281,12 +298,18 @@ def test_train_step_over_an_abstract_mesh():
     E, d, f = 16, cfg.d_model, cfg.d_expert
     assert tuple(moe.w_gate.shape) == (cfg.n_layers, E // 2, d // 2, f)
     assert tuple(moe.w_down.shape) == (cfg.n_layers, E // 2, f, d // 2)
+    attn = state["params"].moe_blocks.attn
+    H, hd = cfg.n_heads, cfg.head_dim
+    assert tuple(attn.wq.shape) == (cfg.n_layers, d // 2, H // 2, hd)
+    assert tuple(attn.wk.shape) == (cfg.n_layers, d // 2, cfg.n_kv_heads, hd)
+    assert tuple(state["params"].embed.table.shape) == (cfg.vocab // 2, d // 2)
     m, v = (getattr(state["opt"], k)["moe_blocks"]["moe"]["w_gate"] for k in ("m", "v"))
     assert tuple(m.shape) == tuple(v.shape) == tuple(moe.w_gate.shape)
     assert metrics["loss"].shape == () and int(state["step"].numel()) == 1
     gathered = census.bytes["data"]["all-gather"]
-    assert census.counts["data"]["reduce-scatter"] == census.counts["data"]["all-gather"] == 3 * (
-        cfg.n_layers)
+    # a layer: wq, wk, wv, wo, the router, three expert stacks, three shared
+    assert census.counts["data"]["reduce-scatter"] == census.counts["data"]["all-gather"] == 11 * (
+        cfg.n_layers) + 2
     # each reduce-scatter returns the rank's block: half of what its gather made
     assert census.bytes["data"]["reduce-scatter"] * 2 == gathered
     assert steps.rules["experts"] == "model" and steps.rules["batch"] == ("data",)

@@ -431,3 +431,102 @@ def collective_grads(ctx, layout):
     host = lambda t: t.detach().cpu().numpy()  # noqa: E731
     return dict(y=host(y), gp=host(gp), gv=host(gv), g=host(g), ga=host(ga),
                 census=(census.bytes, census.counts))
+
+
+# ------------------------------------ the rules' layout (tests/test_torch_layout_*)
+def _first_mesh(ctx, layout):
+    """The ``("data", "model")`` mesh of ``layout`` over the pool's first
+    ranks (None on the others; creating it is collective, so every rank
+    calls this)."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    key = ("first", *layout)
+    if key not in ctx.meshes:
+        ctx.meshes[key] = make_host_mesh(*layout, device=ctx.device, first=True)
+    return ctx.meshes[key]
+
+
+def _f32_cache(cache):
+    """A cache in f32 (the decode then rounds nothing to bf16 on the way)."""
+    return {k: v.float() for k, v in cache.items()}
+
+
+def layout_serve(ctx, layout, cfg, seed, tokens, dec_tokens, n_slots, long_tokens, n_long):
+    """``build_steps(cfg, mesh=...)`` on the pool's first ranks in
+    ``layout``, the parameters drawn from ``seed`` on the CPU: the prefill
+    of ``tokens`` (a dict: the whole batch), the embedding of its tokens
+    through the model's ``embed_lookup``, decode steps of ``dec_tokens``'
+    columns at positions 0, 1, ... into an f32 cache of ``n_slots`` slots
+    and one more at position ``n_slots`` (the clamp past the end), and
+    long-context decode steps of ``long_tokens`` (one row) into ``n_long``
+    slots over every rank. Returns this rank's outputs (the logits of its
+    rows, whole vocabulary), the censuses of the prefill and of each decode
+    step, and its parameter bytes; None on the ranks outside the mesh."""
+    from repro_torch.launch.mesh import collective_census
+    from repro_torch.models import layers as L
+    from repro_torch.train.step import build_steps
+
+    mesh = _first_mesh(ctx, layout)
+    if mesh is None:
+        return None
+    steps = build_steps(cfg, mesh=mesh)
+    dev = steps.device
+    model = steps.init_state(torch.Generator().manual_seed(seed))["params"]
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in tokens.items()}
+    with collective_census() as pre:
+        logits = steps.prefill_step(model, batch)
+    rows = steps.local(dict(tokens=batch["tokens"]), dict(tokens=("batch", None)))["tokens"]
+    with torch.no_grad():
+        emb = L.embed_lookup(dict(table=model.embed.table), rows, model.lay)
+    host = lambda t: t.detach().cpu().numpy()  # noqa: E731
+    out = dict(prefill=host(logits), prefill_census=(pre.bytes, pre.counts),
+               embed=host(emb), param_bytes=sum(p.numel() * p.element_size()
+                                                for p in model.parameters()))
+    dec = torch.from_numpy(dec_tokens).to(dev)
+    B = dec.shape[0]
+    for name, toks, n, long_ctx in (("decode", dec, n_slots, False),
+                                    ("long", torch.from_numpy(long_tokens).to(dev), n_long,
+                                     True)):
+        cache = _f32_cache(steps.init_cache(toks.shape[0], n, long_ctx))
+        positions = list(range(toks.shape[1]))
+        if not long_ctx:
+            positions[-1] = n  # past the end: the last slot
+        got, censuses = [], []
+        for t, pos in enumerate(positions):
+            with collective_census() as step:
+                lo, cache = steps.decode_step(model, cache, toks[:, t:t + 1],
+                                              torch.tensor(pos, dtype=torch.int32, device=dev),
+                                              long_ctx)
+            got.append(host(lo))
+            censuses.append((step.bytes, step.counts))
+        out[name] = got
+        out[f"{name}_census"] = censuses
+        out[f"{name}_cache"] = {k: host(v) for k, v in cache.items()}
+    out["rows"] = B // layout[0]
+    return out
+
+
+def layout_grads(ctx, layout, cfg, values, batch):
+    """The gradients of one training step (``step_gradients``: the global
+    batch's mean loss) on the pool's first ranks in ``layout``, the
+    parameters this rank's blocks of ``values``: the loss and each
+    parameter's gradient block ``(name, numpy, slices)``; and the rank's
+    state and batch bytes. None outside the mesh."""
+    from repro_torch.train.step import build_steps, step_gradients
+    from repro_torch.tree import leaves
+
+    mesh = _first_mesh(ctx, layout)
+    if mesh is None:
+        return None
+    steps = build_steps(cfg, mesh=mesh)
+    state = steps.init_state(torch.Generator().manual_seed(0))
+    _carry(steps, state["params"], values)
+    b = {k: torch.as_tensor(v) for k, v in batch.items()}
+    loss, grads = step_gradients(steps, state["params"], b)
+    out = []
+    for name, g, sh in zip(_names(state["params"]), grads,
+                           leaves(steps.state_shardings()["params"])):
+        out.append((name, g.detach().numpy().copy(), sh.index(sh.global_shape(g.shape))))
+    local = steps.local(b, {k: ("batch",) for k in b})
+    nbytes = sum(x.numel() * x.element_size() for x in leaves(state) + list(local.values()))
+    return float(loss), out, nbytes

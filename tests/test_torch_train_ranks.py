@@ -24,8 +24,10 @@ the whole batch on every rank. Every arch runs at ``reduced()`` (f32).
   each update, so a leaf that starts at zero holds nothing but its updates
   (jamba's (2, 256) Mamba leaves), whose relative rounding one device's
   port already shows at 4.3e-4 of the largest value after one step;
-* every leaf a rank holds whole is bit-identical on every rank after the
-  steps;
+* every block of a leaf is bit-identical on every rank that holds it after
+  the steps (a leaf every rank holds whole included: the norms, and every
+  leaf of jamba but its expert stacks; a decoder-only leaf split over the
+  data axes alone is held by each ``model`` rank of its data group);
 * ``moe_ffn_sharded``'s gradients with respect to ``x``, the router and
   each expert block equal ``jax.grad`` of the reference's within 1e-4;
 * each step's collective census on every rank equals the abstract mesh's
@@ -44,7 +46,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch.mesh import collective_census, make_abstract_mesh  # noqa: E402
-from repro_torch.train.step import build_steps  # noqa: E402
+from repro_torch.train.step import RULES_FAMILIES, build_steps  # noqa: E402
 from repro_torch.tree import module_tree  # noqa: E402
 
 from test_torch_moe_sharded import moe_case  # noqa: E402
@@ -261,14 +263,21 @@ def test_train_step_over_ranks_matches_reference(pools, values, forced_reference
 def test_whole_leaves_are_bit_identical_across_ranks(pools, values, key):
     got = _run(pools, values, key)
     blocks = [b for _, _, b in got]
-    whole = 0
-    for j, (name, first, _) in enumerate(blocks[0]):
-        if any(s.start for b in blocks for s in b[j][2]):
-            continue  # a block of a split leaf
-        whole += 1
-        for r, b in enumerate(blocks[1:], 1):
-            assert np.array_equal(b[j][1], first), f"{key}: {name} differs on rank {r}"
+    whole = shared = 0
+    for j, (name, _, _) in enumerate(blocks[0]):
+        holders = {}
+        for r, b in enumerate(blocks):
+            holders.setdefault(tuple((s.start, s.stop) for s in b[j][2]), []).append(r)
+        whole += len(holders) == 1
+        for index, ranks in holders.items():
+            shared += len(ranks) > 1
+            first = blocks[ranks[0]][j][1]
+            for r in ranks[1:]:
+                assert np.array_equal(blocks[r][j][1], first), f"{key}: {name} differs on rank {r}"
     assert whole > 0
+    arch, (d, m) = TRAIN_CASES[key]
+    if get_config(arch).family in RULES_FAMILIES and d > 1 and m > 1:
+        assert shared > whole  # blocks over data alone, held by both model ranks
 
 
 @pytest.mark.parametrize("key", list(GRAD_CASES))

@@ -5,12 +5,13 @@ over a mesh of ranks, and the dry run.
     python3 tools/mesh_phase.py
 
 It runs ``chip_smoke.lms_over_ranks``: the same code, sizes, seeds and
-checks as the smoke's phase 21 (qwen2-moe at its published widths cut to
-4 layers served on four ranks ``(data=2, model=2)`` and on two ``(1, 2)``,
-deepseek-v3 cut to 4 layers on two; each rank's logits against the
-single-device run's, each rank's collective census against the dry run's;
-then, in the same spawn, (f) qwen2-moe cut to 2 layers trained three
-steps on ``(2, 2)``, (g) deepseek-v3's ``reduced()`` step with Adafactor,
+checks as the smoke's phase 21, every model laid out as the reference's
+rules place it (qwen2-moe at its published widths cut to 4 layers served
+on four ranks ``(data=2, model=2)`` and on two ``(1, 2)``, deepseek-v3 cut
+to 4 layers on two; each rank's logits against the single-device run's,
+each rank's collective census against the dry run's; then, in the same
+spawn, (f) qwen2-moe cut to 2 layers trained two steps on ``(2, 2)``,
+(g) deepseek-v3's ``reduced()`` step with Adafactor,
 (h) its checkpoint restored on ``plan_remesh(2)``'s ``(1, 2)`` and stepped
 on, each against one device's step, (i) every training census against the
 dry run's; the full-width dry run of eight cells on the 256-GPU mesh),
