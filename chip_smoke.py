@@ -380,6 +380,7 @@ import dataclasses
 import gc
 import json
 import os
+import queue
 import subprocess
 import sys
 import tempfile
@@ -4454,28 +4455,57 @@ def hybrid_family(dev, card: str) -> None:
 # (a) and (b): qwen2-moe at its published widths (60 experts padded to 64,
 # d_expert 1408, 4 shared, vocab 151,936) cut to 4 layers; (c): deepseek-v3
 # at its published widths cut to 4 layers (3 dense, one MoE layer of 256
+# experts); (j): whisper-base and (k): xlstm-125m at their published widths
+# and depth; (l): jamba-v0.1-52b at its published widths cut to one
+# superblock of 8 layers (7 Mamba, 1 attention, 4 MoE layers of 16
 # experts); bf16, seeded weights (recorded as cuts)
-RANKS_DEPTH = {"qwen2-moe-a2.7b": 4, "deepseek-v3-671b": 4}
-RANKS_PREFILL = {"qwen2-moe-a2.7b": (8, 2048), "deepseek-v3-671b": (1, 2048)}  # (B, S)
-# (a): decode steps at the prefill's B, into S slots; 8 since every step
-# gathers the dense weights over data (ZeRO-3, about 1.1 s a step on gloo)
-RANKS_DECODE = 8
+RANKS_DEPTH = {"qwen2-moe-a2.7b": 4, "deepseek-v3-671b": 4, "jamba-v0.1-52b": 8}
+RANKS_PREFILL = {"qwen2-moe-a2.7b": (8, 2048), "deepseek-v3-671b": (1, 2048),
+                 "whisper-base": (8, 2048), "xlstm-125m": (8, 2048),
+                 "jamba-v0.1-52b": (2, 2048)}  # (B, S); whisper: 512 frames
+# (a): decode steps at the prefill's B, into S slots; 4 since every step
+# gathers the dense weights over data (ZeRO-3, 1.1-2.0 s a step on gloo)
+RANKS_DECODE = 4
 # (part, arch, (data, model), decode steps): the runs of the phase, in turn
 # on one spawn of ranks (a run on fewer ranks than the spawn's takes the
-# first ones, the rest wait)
+# first ones, the rest wait). (l) on (1, 2): with one data rank there are
+# no ZeRO-3 gathers; at (2, 2) a jamba superblock's forward would move about
+# 6.65 GB a rank through gloo (its (2, 2) layout runs in (m) at reduced())
 RANKS_RUNS = [("a", "qwen2-moe-a2.7b", (2, 2), RANKS_DECODE),
-              ("b", "qwen2-moe-a2.7b", (1, 2), 0), ("c", "deepseek-v3-671b", (1, 2), 0)]
+              ("b", "qwen2-moe-a2.7b", (1, 2), 0), ("c", "deepseek-v3-671b", (1, 2), 0),
+              ("j", "whisper-base", (2, 2), 2), ("k", "xlstm-125m", (2, 2), 2),
+              ("l", "jamba-v0.1-52b", (1, 2), 2)]
+# (k) and (l): one long-context decode step at B = 1 after the decode steps,
+# its cache's slots over every axis (kv_seq_all; xLSTM's state has no
+# slots): jamba's at long_500k's 524,288 slots, written at the last one
+RANKS_LONG = {"xlstm-125m": 2048, "jamba-v0.1-52b": 524_288}
+# the weights' dtype where it is not the config's: an arch's served runs
+# (RANKS_DTYPE) and (m)'s steps (RANKS_TRAIN_DTYPE). xLSTM's exponential
+# gates amplify the bf16 roundings in which four ranks and one device
+# differ (tools/seq_noise_floor.py; phase 19 holds its decode in f32 for
+# the same reason): in bf16 (k)'s logits, (m)'s xLSTM step and whisper's
+# step's AdamW m are past their bounds (PERF.md §6: the readings of
+# tools/mesh_phase.py --readings on the H100); in f32 they hold
+RANKS_DTYPE = {"xlstm-125m": "float32"}
+RANKS_TRAIN_DTYPE = {"m1": "float32", "m2": "float32"}
+# set (tools/mesh_phase.py --readings) to log a tolerance check that fails
+# as a reading instead of raising (each rank takes it from its inputs)
+RANKS_READINGS = False
 # every rank's logits within this share of the single-device run's largest
 # logit: the bf16 bound of tests/test_torch_moe_sharded.py (and LM_REL); the
-# two runs differ by the order of the experts' sums in bf16 (a rank's
-# experts first, then the sum over model), the routing replayed
+# two runs differ by the order of the row-parallel sums in bf16 (a rank's
+# share first, then the sum over model), the routing replayed
 RANKS_REL = 5e-2
 # (e): the dry run at full width on the 256-GPU mesh
 DRYRUN_MESH = "data=32,model=8"
-DRYRUN_CELLS = (("qwen2-moe-a2.7b", "prefill_32k"), ("qwen2-moe-a2.7b", "decode_32k"),
-                ("deepseek-v3-671b", "prefill_32k"), ("deepseek-v3-671b", "decode_32k"),
-                ("jamba-v0.1-52b", "decode_32k"), ("jamba-v0.1-52b", "long_500k"),
-                ("qwen2-moe-a2.7b", "train_4k"), ("wisk", "serve"))
+# ... in three host processes, a group each, balanced by the cells' trace
+# seconds in a dry run --all on the GPU machine's host (deepseek-v3's
+# prefill 40 s, jamba's cells 26 s, wisk's 16 s)
+DRYRUN_GROUPS = ((("deepseek-v3-671b", "prefill_32k"), ("jamba-v0.1-52b", "long_500k"),
+                  ("wisk", "serve")),
+                 (("qwen2-moe-a2.7b", "prefill_32k"), ("jamba-v0.1-52b", "decode_32k"),
+                  ("qwen2-moe-a2.7b", "decode_32k")),
+                 (("qwen2-moe-a2.7b", "train_4k"), ("deepseek-v3-671b", "decode_32k")))
 # (f): qwen2-moe at its published widths cut to 2 layers (bf16, AdamW,
 # remat="full", seeded weights) trained on four ranks (data=2, model=2) at
 # B = 4, S = 512 on the TokenPipeline of seed 0, two steps (a warm one
@@ -4497,12 +4527,50 @@ RANKS_ADAFACTOR_ARCH = "deepseek-v3-671b"
 RANKS_ADAFACTOR_SHAPE = (4, 64)
 RANKS_ADAFACTOR_REL = dict(loss=1e-5, grad_norm=1e-5, vr=1e-4, vc=1e-4)
 RANKS_LAYOUT = (2, 2)
+# (m): one train_step of each on (2, 2) against one device stepping each
+# data shard: whisper-base and xlstm-125m at their published widths and
+# depth (AdamW, remat="full", f32 weights by RANKS_TRAIN_DTYPE; B = 4,
+# S = 512, whisper's frames bf16 as the batch spec's) within (f)'s bounds,
+# jamba's reduced() cut to one superblock of 4 (f32, Adafactor) at (g)'s
+# shape within (g)'s bounds
+RANKS_FAMILY_TRAIN = (("m1", "whisper-base", (4, 512)), ("m2", "xlstm-125m", (4, 512)),
+                      ("m3", "jamba-v0.1-52b", RANKS_ADAFACTOR_SHAPE))
+RANKS_FAMILY_REL = {"m1": TRAIN_REL, "m2": TRAIN_REL, "m3": RANKS_ADAFACTOR_REL}
+
+
+def ranks_bound(ok: bool, msg: str) -> None:
+    """A tolerance check: raises ``msg`` where it failed, or with
+    ``RANKS_READINGS`` logs it as a reading past the bound."""
+    if ok:
+        return
+    if RANKS_READINGS:
+        log(f"reading past the bound: {msg}")
+        return
+    raise AssertionError(msg)
 
 
 def ranks_config(arch: str):
     from repro_torch.configs import get_config
 
-    return dataclasses.replace(get_config(arch), n_layers=RANKS_DEPTH[arch])
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=RANKS_DEPTH.get(arch, cfg.n_layers),
+                               dtype=RANKS_DTYPE.get(arch, cfg.dtype))
+
+
+def ranks_batch(cfg, B: int, S: int, gen, dev) -> dict:
+    """A prefill batch of the batch spec's shapes and dtypes from ``gen``:
+    the tokens, and enc-dec's frames (bf16, as the spec's)."""
+    from repro_torch.train.step import build_steps
+
+    sds, _ = build_steps(cfg, device="meta").batch_spec("prefill", S, B)
+    out = {}
+    for k, s in sds.items():
+        if s.dtype == torch.int32:
+            out[k] = torch.randint(0, cfg.vocab, s.shape, generator=gen, device=gen.device,
+                                   dtype=torch.int32).to(dev)
+        else:
+            out[k] = torch.randn(s.shape, generator=gen, device=gen.device).to(dev, s.dtype)
+    return out
 
 
 def _host_log(log_):
@@ -4514,11 +4582,12 @@ def _host_log(log_):
 
 def single_device_runs(dev, card: str, arch: str, layouts) -> dict:
     """The single-device runs the ranks are held to, on the card: prefill of
-    the whole batch and of each data shard's rows alone (the same
-    ``t_loc``), and the decode steps of the whole batch, each with its
-    routing kept for the ranks to replay; their times (CUDA events) and peak
-    memory. Returns the outputs on the host."""
-    from repro_torch.models.moe import n_experts_padded
+    each data shard's rows alone (the same ``t_loc``), the decode steps of
+    the whole batch (enc-dec's cross cache filled from the encoder, kept on
+    the host for the ranks) and, for ``RANKS_LONG``, one long-context step
+    of one row, each with its routing kept for the ranks to replay; their
+    times (CUDA events: each prefill the call checked, its routing kept; a
+    decode step warm) and peak memory. Returns the outputs on the host."""
     from repro_torch.train.step import build_steps
 
     cfg = ranks_config(arch)
@@ -4532,26 +4601,30 @@ def single_device_runs(dev, card: str, arch: str, layouts) -> dict:
     t = time.perf_counter()
     params = steps.bundle.init(torch.Generator(device=dev).manual_seed(SEED), dev)
     torch.cuda.synchronize()
-    log(f"{arch} single device ({card}): n_layers={cfg.n_layers} (a depth cut) d_model="
-        f"{cfg.d_model} experts={cfg.n_experts} padded to {n_experts_padded(cfg)} top-"
-        f"{cfg.moe_topk} shared={cfg.n_shared_experts} d_expert={cfg.d_expert} vocab={cfg.vocab}"
-        f" {cfg.dtype}: {lm_bytes(params)} B of weights ({time.perf_counter() - t:.3f} s)")
+    log(f"{arch} single device ({card}): n_layers={cfg.n_layers}"
+        f"{' (a depth cut)' if arch in RANKS_DEPTH else ''} d_model={cfg.d_model} experts="
+        f"{cfg.n_experts} d_expert={cfg.d_expert} vocab={cfg.vocab} {cfg.dtype}: "
+        f"{lm_bytes(params)} B of weights ({time.perf_counter() - t:.3f} s)")
     g = torch.Generator(device=dev).manual_seed(SEED + 21)
-    toks = torch.randint(0, cfg.vocab, (B, S), generator=g, device=dev, dtype=torch.int32)
+    batch = ranks_batch(cfg, B, S, g, dev)
     dec = torch.randint(0, cfg.vocab, (B, max(n_dec, 1)), generator=g, device=dev,
                         dtype=torch.int32)
-    out = dict(cfg=cfg, tokens=toks.cpu(), dec_tokens=dec.cpu(), prefill={}, times={})
-    row_sets = {(0, B)} | {(i * B // d, (i + 1) * B // d) for d, _ in layouts
-                           for i in range(d)}
+    out = dict(cfg=cfg, batch={k: v.cpu() for k, v in batch.items()}, dec_tokens=dec.cpu(),
+               prefill={}, times={})
+    row_sets = {(i * B // d, (i + 1) * B // d) for d, _ in layouts for i in range(d)}
     for lo, hi in sorted(row_sets):
-        batch = dict(tokens=toks[lo:hi])
+        rows = {k: v[lo:hi] for k, v in batch.items()}
+        box = []
         with RoutingLog(keep=True) as rl:
-            logits = steps.prefill_step(params, batch)
-        ms = time_ms(lambda: steps.prefill_step(params, batch), iters=2, warmup=1)
+            ms = time_ms(lambda: box.append(steps.prefill_step(params, rows)), iters=1, warmup=0)
+        logits = box.pop()
         out["prefill"][(lo, hi)] = (logits.cpu(), _host_log(rl))
         out["times"][f"prefill rows {lo}:{hi}"] = ms
     if n_dec:
         cache = steps.init_cache(B, S)
+        if cfg.family == "encdec":
+            fill_cross_cache(params, cache, params.encode(batch["frames"]))
+            out["cross"] = {k: cache[k].cpu() for k in ("xk", "xv")}
         logs, step_logits = [], []
         for i in range(n_dec):
             with RoutingLog(keep=True) as rl:
@@ -4564,6 +4637,17 @@ def single_device_runs(dev, card: str, arch: str, layouts) -> dict:
             lambda: steps.decode_step(params, cache, dec[:, -1:], pos), iters=3, warmup=1)
         out["decode"] = (step_logits, logs)
         del cache
+    if arch in RANKS_LONG:
+        n_long = RANKS_LONG[arch]
+        cache = steps.init_cache(1, n_long)
+        tok = torch.randint(0, cfg.vocab, (1, 1), generator=g, device=dev, dtype=torch.int32)
+        pos = torch.tensor(n_long - 1, dtype=torch.int32, device=dev)
+        with RoutingLog(keep=True) as rl:
+            lo_, cache = steps.decode_step(params, cache, tok, pos)
+        out["long"] = (tok.cpu(), n_long - 1, lo_.cpu(), _host_log(rl))
+        out["times"]["long step"] = time_ms(
+            lambda: steps.decode_step(params, cache, tok, pos), iters=1, warmup=0)
+        del cache
     out["peak"] = torch.cuda.max_memory_allocated() - base
     log(f"{arch} single device: " + ", ".join(f"{k} {v:.6f} ms" for k, v in out["times"].items())
         + f" (CUDA events); peak device memory {out['peak']} B above the start")
@@ -4573,21 +4657,108 @@ def single_device_runs(dev, card: str, arch: str, layouts) -> dict:
     return out
 
 
-def dryrun_prediction(arch: str, layout, B: int, S: int, n_dec: int) -> dict:
-    """The dry run's census of the cell the ranks run: prefill at (B, S)
-    and one decode step at B into S slots, on the abstract mesh of
-    ``layout``, at the same depth."""
-    from repro_torch.launch.dryrun import run_cell
+def abstract_census(cfg, layout, kind: str, B: int, S: int, long_ctx: bool = False) -> tuple:
+    """The collective census ``(bytes, counts)`` of one step of ``cfg`` on
+    the abstract mesh of ``layout`` -- the dry run's trace (``run_cell``'s
+    census, without its op count): ``kind`` "prefill" at (B, S), "decode"
+    one step at B into S slots (``long_ctx``: one row, the slots over
+    every axis, which ``run_cell`` takes only where the batch is smaller
+    than the data ranks), "train" one ``train_step`` at (B, S)."""
+    from repro_torch.launch.mesh import collective_census, make_abstract_mesh
+    from repro_torch.train.step import build_steps
 
-    mesh = f"data={layout[0]},model={layout[1]}"
-    cfg = ranks_config(arch)
-    out = {}
-    for kind, shape in (("prefill", "prefill_32k"), ("decode", "decode_32k")):
-        if kind == "decode" and not n_dec:
-            continue
-        rec = run_cell(arch, shape, mesh, seq=S, batch=B, cfg=cfg)
-        out[kind] = (rec["collective_bytes_by_axis"], rec["collective_counts_by_axis"])
-    return out
+    steps = build_steps(cfg, mesh=make_abstract_mesh(data=layout[0], model=layout[1]))
+    meta = lambda shape, dtype: torch.empty(shape, dtype=dtype, device="meta")  # noqa: E731
+    if kind == "train":
+        state = steps.init_state(torch.Generator())
+        sds, _ = steps.batch_spec("train", S, B)
+        with collective_census() as census:
+            steps.train_step(state, {k: meta(v.shape, v.dtype) for k, v in sds.items()})
+        return census.bytes, census.counts
+    params = steps.bundle.init(torch.Generator(), "meta")
+    with torch.no_grad(), collective_census() as census:
+        if kind == "prefill":
+            sds, _ = steps.batch_spec("prefill", S, B)
+            steps.prefill_step(params, {k: meta(v.shape, v.dtype) for k, v in sds.items()})
+        else:
+            steps.decode_step(params, steps.init_cache(B, S, long_ctx),
+                              meta((B, 1), torch.int32), meta((), torch.int32), long_ctx)
+    return census.bytes, census.counts
+
+
+def prediction_jobs(runs, train: bool) -> list:
+    """``(key, abstract_census arguments)`` of every census the phase's
+    runs are held to, in the order the parent hands the runs out: each
+    served run's prefill, decode step and long-context step, then the
+    training runs' steps."""
+    jobs = []
+    for part, arch, layout, n_dec in runs:
+        cfg = ranks_config(arch)
+        B, S = RANKS_PREFILL[arch]
+        jobs.append((f"{part}/prefill", (cfg, layout, "prefill", B, S)))
+        if n_dec:
+            jobs.append((f"{part}/decode", (cfg, layout, "decode", B, S)))
+        if arch in RANKS_LONG:
+            jobs.append((f"{part}/long", (cfg, layout, "decode", 1, RANKS_LONG[arch], True)))
+    if train:
+        for which, _, (B, S) in ranks_train_runs():
+            jobs.append((f"{which}/train", (ranks_train_config(which), RANKS_LAYOUT, "train",
+                                            B, S)))
+    return jobs
+
+
+def write_predictions(out_dir: str) -> None:
+    """The jobs of ``out_dir/jobs.pkl`` in turn, each census written to
+    ``out_dir/<key>.pkl`` once it is whole (the predictions' process)."""
+    import pickle
+
+    with open(os.path.join(out_dir, "jobs.pkl"), "rb") as f:
+        jobs = pickle.load(f)
+    for key, args in jobs:
+        t = time.perf_counter()
+        census = abstract_census(*args)
+        path = os.path.join(out_dir, key.replace("/", "_") + ".pkl")
+        with open(path + ".tmp", "wb") as f:
+            pickle.dump((census, time.perf_counter() - t), f)
+        os.replace(path + ".tmp", path)
+
+
+# the predictions' process: ``write_predictions`` of the directory given
+PREDICT_SCRIPT = """
+import sys
+sys.path[:0] = [sys.argv[1], sys.argv[1] + "/src"]
+import chip_smoke
+chip_smoke.write_predictions(sys.argv[2])
+"""
+
+
+def start_predictions(out_dir: str, jobs: list):
+    """The censuses of ``jobs`` traced in a host process of their own (no
+    card visible), from the phase's start, while the parent makes the
+    single-device references: the xLSTM traces take tens of seconds (its
+    sLSTM's time loop on meta tensors)."""
+    import pickle
+
+    with open(os.path.join(out_dir, "jobs.pkl"), "wb") as f:
+        pickle.dump(jobs, f)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, "-c", PREDICT_SCRIPT, str(ROOT), out_dir], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def prediction(out_dir: str, proc, key: str) -> tuple:
+    """The census of job ``key``, once the predictions' process wrote it
+    (raises if the process ended without it)."""
+    import pickle
+
+    path = os.path.join(out_dir, key.replace("/", "_") + ".pkl")
+    while not os.path.exists(path):
+        if proc.poll() is not None and not os.path.exists(path):
+            _, err = proc.communicate()
+            raise AssertionError(f"the predictions' process ended without {key}:\n{err[-3000:]}")
+        time.sleep(0.05)
+    with open(path, "rb") as f:
+        return pickle.load(f)[0]
 
 
 def timed_step(fn, on_card: bool, sync):
@@ -4607,19 +4778,170 @@ def timed_step(fn, on_card: bool, sync):
     return (start.elapsed_time(end) if on_card else wall * 1e3), wall, box
 
 
-def mesh_rank(rank: int, world: int, init: str, backend: str, head: dict, inbox) -> None:
-    """One rank of phase 21 (spawned): it joins the group, takes its inputs
-    from ``inbox[rank]`` once the parent has made them (``ranks_runs``),
-    then runs the runs in turn, each on its own mesh (``make_host_mesh(...,
-    first=True)``: a run on fewer ranks takes the first ones). Every check
-    raises on failure, which ends the rank non-zero and the parent's phase
-    with it; each rank logs its own lines."""
-    import datetime
+def leaf_shapes(params) -> str:
+    """A few of a model's leaves and their shapes on this rank (one of each
+    kind the rules split)."""
+    from repro_torch.tree import module_tree
 
+    flat = {}
+
+    def walk(t, prefix=""):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}.")
+            else:
+                flat[f"{prefix}{k}"] = tuple(v.shape)
+
+    walk(module_tree(params))
+    want = ("embed.table", "moe.w_gate", "attn.wq", "attn.wq_b", "ffn.w_up", "mix.in_proj",
+            "mix.A_log", "ffn.w_gate", "core.up", "core.wq", "core.w_rec")
+    picked = {}
+    for name, shape in flat.items():
+        tail = next((w for w in want if name.endswith(w)), None)
+        if tail is not None and tail not in picked:
+            picked[tail] = f"{name} {shape}"
+    return ", ".join(picked.values())
+
+
+def rank_serve_run(rank: int, dev, run, ref: dict, pred: dict, on_card: bool, sync) -> None:
+    """One of ``RANKS_RUNS`` on this rank, if it is one of the run's
+    (``make_host_mesh(..., first=True)``; the others wait at the barrier):
+    the rules' blocks of the seeded weights, the prefill of the whole batch
+    (this rank's rows against the single-device prefill of them, routing
+    replayed), the decode steps of the whole batch (enc-dec: the rank's
+    blocks of the single-device cross cache) and the long-context step,
+    each within ``RANKS_REL`` and its census equal to the dry run's; the
+    prefill checked is the one timed (``mesh_rank`` warms the rank up)."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import collective_census, make_host_mesh
     from repro_torch.train.step import build_steps
+
+    part, arch, layout, n_dec = run
+    cfg = ref["cfg"]
+    B, S = ref["batch"]["tokens"].shape
+    mesh = make_host_mesh(*layout, device=dev, first=True)
+    if mesh is None:  # a run on the first ranks: wait for it
+        dist.barrier()
+        return
+    say = lambda *a: log(f"({part}) rank {rank} {layout}:", *a)  # noqa: E731
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev) if on_card else 0
+    steps = build_steps(cfg, mesh=mesh)
+    t = time.perf_counter()
+    params = steps.bundle.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    sync()
+    i, n_rows = mesh.axis("data").index, B // layout[0]
+    rows = (i * n_rows, (i + 1) * n_rows)
+    say(f"{arch}: {lm_bytes(params)} B of weights on this rank, the rules' blocks "
+        f"({leaf_shapes(params)}), drawn in {time.perf_counter() - t:.3f} s; its rows "
+        f"{rows[0]}:{rows[1]} of {B}")
+    batch = {k: v.to(dev) for k, v in ref["batch"].items()}
+    want, replay = ref["prefill"][rows]
+    box_out = []
+    with RoutingLog(replay=replay), collective_census() as census:
+        ms, wall, box = timed_step(lambda: box_out.append(steps.prefill_step(params, batch)),
+                                   on_card, sync)
+    logits = box_out.pop()
+    if logits.shape != want.shape:
+        raise AssertionError(f"({part}) rank {rank}: prefill logits {tuple(logits.shape)}")
+    err = rel_err(logits, want)
+    ranks_bound(err <= RANKS_REL, f"({part}) rank {rank}: prefill logits off the single-device "
+                f"run's by {err} > {RANKS_REL}")
+    if (census.bytes, census.counts) != pred["prefill"]:
+        raise AssertionError(f"({part}) rank {rank}: the prefill's census {census.bytes} "
+                             f"{census.counts} is not the dry run's {pred['prefill']}")
+    say(f"prefill B={B} S={S}: max |err| / max |logit| {err:.6f} <= {RANKS_REL} against "
+        f"the single-device prefill of rows {rows[0]}:{rows[1]} (routing replayed); "
+        f"census {census.bytes} calls {census.counts} = the dry run's; "
+        f"{ms:.6f} ms (CUDA events; single device "
+        f"{ref['times'][f'prefill rows {rows[0]}:{rows[1]}']:.6f} ms), collectives "
+        f"{100 * box[0] / wall:.3f} % of a {wall * 1e3:.3f} ms prefill (host clock)")
+    del logits
+    if n_dec:
+        dec_logits, dec_logs = ref["decode"]
+        cache = steps.init_cache(B, S)
+        if "cross" in ref:  # the rank's blocks of the single-device cross cache
+            _, specs = steps.cache_spec(B, S)
+            for k, whole in ref["cross"].items():
+                cache[k].copy_(steps.local({k: whole}, specs)[k])
+        dec = ref["dec_tokens"].to(dev)
+        box_out = []
+        worst, t = 0.0, time.perf_counter()
+        for s in range(n_dec):
+            pos = torch.tensor(s, dtype=torch.int32, device=dev)
+
+            def step():
+                return steps.decode_step(params, cache, dec[:, s:s + 1], pos)
+
+            with RoutingLog(replay=dec_logs[s]), collective_census() as census:
+                if s < n_dec - 1:
+                    lo_, cache = step()
+                else:  # the last step is the warm one timed
+                    step_ms, _, _ = timed_step(lambda: box_out.append(step()), on_card, sync)
+                    lo_, cache = box_out.pop()
+            worst = max(worst, rel_err(lo_, dec_logits[s][rows[0]:rows[1]]))
+            if (census.bytes, census.counts) != pred["decode"]:
+                raise AssertionError(f"({part}) rank {rank}: decode census {census.bytes} "
+                                     f"is not the dry run's {pred['decode']}")
+        sync()
+        t_dec = time.perf_counter() - t
+        ranks_bound(worst <= RANKS_REL, f"({part}) rank {rank}: decode off by {worst} > "
+                    f"{RANKS_REL}")
+        filled = " (the cross cache filled)" if "cross" in ref else ""
+        say(f"{n_dec} decode steps into {S} slots{filled}: "
+            f"{t_dec:.3f} s (host clock), max |err| / max |logit| {worst:.6f} <= {RANKS_REL} "
+            f"against the single-device decode of the whole batch (routing replayed); census a "
+            f"step {census.bytes} = the dry run's; a warm step {step_ms:.6f} ms (CUDA events; "
+            f"single device {ref['times']['decode step']:.6f} ms)")
+        del cache
+    if "long" in ref:  # one row, its slots over every axis
+        tok, pos, want, replay = ref["long"]
+        n_long = pos + 1
+        cache = steps.init_cache(1, n_long, long_ctx=True)
+        box_out = []
+        with RoutingLog(replay=replay), collective_census() as census:
+            ms, wall, box = timed_step(lambda: box_out.append(steps.decode_step(
+                params, cache, tok.to(dev), torch.tensor(pos, dtype=torch.int32, device=dev),
+                True)), on_card, sync)
+        lo_, cache = box_out.pop()
+        err = rel_err(lo_, want)
+        ranks_bound(err <= RANKS_REL, f"({part}) rank {rank}: the long-context step off by "
+                    f"{err} > {RANKS_REL}")
+        if (census.bytes, census.counts) != pred["long"]:
+            raise AssertionError(f"({part}) rank {rank}: long-context census {census.bytes} "
+                                 f"is not the abstract mesh's {pred['long']}")
+        cache_bytes = sum(v.numel() * v.element_size() for v in cache.values())
+        say(f"one long-context step (B=1, {n_long} slots over every axis, at slot {pos}): "
+            f"max |err| / max |logit| {err:.6f} <= {RANKS_REL}; {cache_bytes} B of cache on "
+            f"this rank; census {census.bytes} = the abstract mesh's; {ms:.6f} ms (CUDA "
+            f"events, its first call; single device {ref['times']['long step']:.6f} ms), "
+            f"collectives {100 * box[0] / wall:.3f} % (host clock)")
+        del cache
+    peak = (torch.cuda.max_memory_allocated(dev) - base) if on_card else 0
+    say(f"peak device memory {peak} B above the start ({base} B)")
+    del params, steps
+    if on_card:  # the card's memory back before the run is reported done
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+
+def mesh_rank(rank: int, world: int, init: str, backend: str, head: dict, inbox,
+              done) -> None:
+    """One rank of phase 21 (spawned): it joins the group, then takes its
+    work from ``inbox[rank]`` as the parent makes it (``ranks_runs``): a
+    served run of ``RANKS_RUNS`` with its references (``rank_serve_run``;
+    rank 0 puts the run's letter on ``done`` once every rank has finished
+    it), then the training runs, until ``None``. Every check raises on
+    failure, which ends the rank non-zero and the parent's phase with it;
+    each rank logs its own lines."""
+    import datetime
+
+    import torch.distributed as dist
 
     on_card = head["device_type"] == "cuda"
     dev = torch.device(f"cuda:{rank % torch.cuda.device_count()}" if on_card else "cpu")
@@ -4630,96 +4952,29 @@ def mesh_rank(rank: int, world: int, init: str, backend: str, head: dict, inbox)
                             timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    # warmed up while the parent makes the first run's references: the
+    # products' and the collectives' first calls, so that every run's first
+    # prefill is the one timed
+    x = torch.ones((256, 256), dtype=torch.bfloat16, device=dev)
+    dist.all_reduce(x @ x)
+    sync()
     if rank == 0:
         log(f"ranks: rank 0 up, its group joined: {time.time() - head['spawned']:.3f} s after the "
             f"spawn")
-    p = inbox[rank].get()
-    if rank == 0:
-        log(f"ranks: rank 0 has its inputs: {time.time() - head['spawned']:.3f} s after the spawn")
-    for part, arch, layout, n_dec in p["runs"]:
-        ref, pred = p["refs"][arch], p["pred"][part]
-        cfg = ref["cfg"]
-        B, S = ref["tokens"].shape
-        mesh = make_host_mesh(*layout, device=dev, first=True)
-        if mesh is None:  # a run on the first ranks: wait for it
-            dist.barrier()
+    global RANKS_READINGS
+    first = True
+    while (p := inbox[rank].get()) is not None:
+        RANKS_READINGS = p["readings"]
+        if first and rank == 0:
+            log(f"ranks: rank 0 has its first inputs: {time.time() - head['spawned']:.3f} s after "
+                f"the spawn")
+        if "run" in p:
+            rank_serve_run(rank, dev, p["run"], p["ref"], p["pred"], on_card, sync)
+            first = False
+            if rank == 0:
+                done.put(p["run"][0])
             continue
-        say = lambda *a: log(f"({part}) rank {rank} {layout}:", *a)  # noqa: E731
-        if on_card:
-            gc.collect()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats(dev)
-        base = torch.cuda.memory_allocated(dev) if on_card else 0
-        steps = build_steps(cfg, mesh=mesh)
-        t = time.perf_counter()
-        params = steps.bundle.init(torch.Generator(device=dev).manual_seed(SEED), dev)
-        sync()
-        i, n_rows = mesh.axis("data").index, B // layout[0]
-        rows = (i * n_rows, (i + 1) * n_rows)
-        tree = params.tree()
-        attn = tree.get("dense_blocks", tree["moe_blocks"])["attn"]
-        wq = "wq" if "wq" in attn else "wq_b"
-        say(f"{lm_bytes(params)} B of weights on this rank, the rules' blocks (the experts' "
-            f"{tuple(tree['moe_blocks']['moe']['w_gate'].shape)}, the embedding's "
-            f"{tuple(tree['embed']['table'].shape)}, {wq} {tuple(attn[wq].shape)}), drawn in "
-            f"{time.perf_counter() - t:.3f} s; its rows {rows[0]}:{rows[1]} of {B}")
-        batch = dict(tokens=ref["tokens"].to(dev))
-        want, replay = ref["prefill"][rows]
-        with RoutingLog(replay=replay), collective_census() as census:
-            logits = steps.prefill_step(params, batch)
-        err = rel_err(logits, want)
-        if logits.shape != want.shape or err > RANKS_REL:
-            raise AssertionError(f"({part}) rank {rank}: prefill logits {tuple(logits.shape)} "
-                                 f"off the single-device run's by {err}")
-        if (census.bytes, census.counts) != pred["prefill"]:
-            raise AssertionError(f"({part}) rank {rank}: the prefill's census {census.bytes} "
-                                 f"{census.counts} is not the dry run's {pred['prefill']}")
-        # a second prefill, warm, timed (the first ran this process's first products)
-        ms, wall, box = timed_step(lambda: steps.prefill_step(params, batch), on_card, sync)
-        say(f"prefill B={B} S={S}: max |err| / max |logit| {err:.6f} <= {RANKS_REL} against "
-            f"the single-device prefill of rows {rows[0]}:{rows[1]} (routing replayed); "
-            f"census {census.bytes} calls {census.counts} = the dry run's; "
-            f"{ms:.6f} ms (CUDA events; single device "
-            f"{ref['times'][f'prefill rows {rows[0]}:{rows[1]}']:.6f} ms), collectives "
-            f"{100 * box[0] / wall:.3f} % of a {wall * 1e3:.3f} ms prefill (host clock)")
-        if n_dec:
-            dec_logits, dec_logs = ref["decode"]
-            cache = steps.init_cache(B, S)
-            dec = ref["dec_tokens"].to(dev)
-            box_out = []
-            worst, t = 0.0, time.perf_counter()
-            for s in range(n_dec):
-                pos = torch.tensor(s, dtype=torch.int32, device=dev)
-
-                def step():
-                    return steps.decode_step(params, cache, dec[:, s:s + 1], pos)
-
-                with RoutingLog(replay=dec_logs[s]), collective_census() as census:
-                    if s < n_dec - 1:
-                        lo_, cache = step()
-                    else:  # the last step is the warm one timed
-                        step_ms, _, _ = timed_step(lambda: box_out.append(step()), on_card, sync)
-                        lo_, cache = box_out.pop()
-                worst = max(worst, rel_err(lo_, dec_logits[s][rows[0]:rows[1]]))
-                if (census.bytes, census.counts) != pred["decode"]:
-                    raise AssertionError(f"({part}) rank {rank}: decode census {census.bytes} "
-                                         f"is not the dry run's {pred['decode']}")
-            sync()
-            t_dec = time.perf_counter() - t
-            if worst > RANKS_REL:
-                raise AssertionError(f"({part}) rank {rank}: decode off by {worst}")
-            say(f"{n_dec} decode steps (moe_ffn_dense over the whole batch, its rows gathered "
-                f"over data) into {S} slots: {t_dec:.3f} s (host clock), max |err| / max "
-                f"|logit| {worst:.6f} <= {RANKS_REL} against the single-device decode of the "
-                f"whole batch (routing replayed); census a step {census.bytes} = the dry run's; "
-                f"a warm step {step_ms:.6f} ms (CUDA events; single device "
-                f"{ref['times']['decode step']:.6f} ms)")
-            del cache
-        peak = (torch.cuda.max_memory_allocated(dev) - base) if on_card else 0
-        say(f"peak device memory {peak} B above the start ({base} B)")
-        del params, steps, logits
-        dist.barrier()
-    if "train" in p:  # (f)-(i): training over the ranks
+        # (f)-(i) and (m): training over the ranks
         rank_train_f(rank, dev, p["train"], on_card, sync)
         gc.collect()
         if on_card:
@@ -4727,19 +4982,42 @@ def mesh_rank(rank: int, world: int, init: str, backend: str, head: dict, inbox)
         dist.barrier()
         rank_train_gh(rank, world, dev, p["train"], p["ckpt_dir"], on_card, sync)
         dist.barrier()
+        for which, _, _ in RANKS_FAMILY_TRAIN:
+            rank_train_m(rank, dev, which, p["train"][which], on_card, sync)
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+            dist.barrier()
     dist.destroy_process_group()
 
 
-# ------------------------------------- (f)-(i): training over the ranks (phase 21)
+# ------------------------------------- (f)-(i) and (m): training over the ranks (phase 21)
 def ranks_train_config(which: str):
-    """(f)'s config (published widths, ``RANKS_TRAIN_DEPTH`` layers) or
-    (g)'s (``reduced()``)."""
+    """(f)'s config (published widths, ``RANKS_TRAIN_DEPTH`` layers), (g)'s
+    (``reduced()``) or one of (m)'s (``RANKS_FAMILY_TRAIN``)."""
     from repro_torch.configs import get_config
 
     if which == "f":
         return dataclasses.replace(get_config(RANKS_TRAIN_ARCH), n_layers=RANKS_TRAIN_DEPTH,
                                    remat="full")
-    return get_config(RANKS_ADAFACTOR_ARCH).reduced()
+    if which == "g":
+        return get_config(RANKS_ADAFACTOR_ARCH).reduced()
+    arch = dict((w, a) for w, a, _ in RANKS_FAMILY_TRAIN)[which]
+    cfg = get_config(arch)
+    if cfg.family == "hybrid":  # reduced(), one superblock
+        return dataclasses.replace(cfg.reduced(), n_layers=cfg.reduced().attn_every)
+    return dataclasses.replace(cfg, dtype=RANKS_TRAIN_DTYPE.get(which, cfg.dtype))
+
+
+def ranks_train_batch(cfg, B: int, S: int, dev) -> dict:
+    """The TokenPipeline's batch of seed 0 at (B, S); enc-dec's frames in
+    the batch spec's bf16 (the dry run's census counts them so)."""
+    from repro_torch.data.tokens import TokenPipeline
+
+    batch = TokenPipeline(cfg.vocab, S, B, seed=0).next_batch(cfg, dev)
+    if "frames" in batch:
+        batch["frames"] = batch["frames"].to(torch.bfloat16)
+    return batch
 
 
 def shard_step(steps, state, batch, n_dp: int, keep_logs: bool = True):
@@ -4774,33 +5052,31 @@ def shard_step(steps, state, batch, n_dp: int, keep_logs: bool = True):
     return loss, float(gnorm), float(lr), logs
 
 
-def train_census_prediction(arch: str, cfg, B: int, S: int) -> tuple:
-    """(i): the dry run's census of one ``train_step`` of ``cfg`` at (B, S)
-    on ``RANKS_LAYOUT``'s abstract mesh."""
-    from repro_torch.launch.dryrun import run_cell
-
-    d, m = RANKS_LAYOUT
-    rec = run_cell(arch, "train_4k", f"data={d},model={m}", seq=S, batch=B, cfg=cfg)
-    return rec["collective_bytes_by_axis"], rec["collective_counts_by_axis"]
+def ranks_train_runs() -> list:
+    """``(which, arch, (B, S))`` of every training run: (f), (g), then (m)'s."""
+    return [("f", RANKS_TRAIN_ARCH, RANKS_TRAIN_SHAPE),
+            ("g", RANKS_ADAFACTOR_ARCH, RANKS_ADAFACTOR_SHAPE), *RANKS_FAMILY_TRAIN]
 
 
-def ranks_train_refs(dev, card: str) -> dict:
-    """What (f)-(i) hold the ranks to, computed on the card before the
-    spawn: (f)'s and (g)'s single-device step from the ranks' seeded
-    weights (``shard_step``, the routing of each data shard kept for the
-    ranks to replay), (f)'s AdamW moments and (g)'s Adafactor factors on the
-    host ((f)'s in bf16: 7.3 GB instead of 14.6; the rounding, 2^-9 of a
-    value, is far inside TRAIN_REL), and (i)'s dry-run censuses."""
+def ranks_train_refs(dev, card: str, census_of, whiches=None) -> dict:
+    """What (f)-(i) and (m) hold the ranks to, computed on the card: each
+    run's single-device step from the ranks' seeded weights
+    (``shard_step``, the routing of each data shard kept for the ranks to
+    replay), its optimizer state on the host (a bf16 model's AdamW moments
+    in bf16: (f)'s 7.3 GB instead of 14.6; the rounding, 2^-9 of a value,
+    is far inside TRAIN_REL), and (i)'s dry-run census of each step
+    (``census_of(which)``); of the runs ``whiches`` (default: every one)."""
     from repro_torch import full_f32_matmul
-    from repro_torch.data.tokens import TokenPipeline
     from repro_torch.train.step import build_steps
     from repro_torch.tree import leaves
 
     out = {}
     n_dp = RANKS_LAYOUT[0]
-    for which, arch, (B, S) in (("f", RANKS_TRAIN_ARCH, RANKS_TRAIN_SHAPE),
-                                ("g", RANKS_ADAFACTOR_ARCH, RANKS_ADAFACTOR_SHAPE)):
+    for which, arch, (B, S) in ranks_train_runs():
+        if whiches is not None and which not in whiches:
+            continue
         cfg = ranks_train_config(which)
+        f32 = cfg.dtype == "float32"
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -4808,30 +5084,28 @@ def ranks_train_refs(dev, card: str) -> dict:
         steps = build_steps(cfg, device=dev)
         state = steps.init_state(torch.Generator(device=dev).manual_seed(RANKS_TRAIN_SEED))
         n_params = sum(p.numel() for p in state["params"].parameters())
-        pipe = TokenPipeline(cfg.vocab, S, B, seed=0)
-        batch = pipe.next_batch(cfg, dev)
+        batch = ranks_train_batch(cfg, B, S, dev)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        with full_f32_matmul() if which == "g" else contextlib.nullcontext():
+        with full_f32_matmul() if f32 else contextlib.nullcontext():
             start.record()
             loss, gnorm, lr, logs = shard_step(steps, state, batch, n_dp)
             end.record()
             end.synchronize()
         ref = dict(cfg=cfg, shape=(B, S), loss=loss, grad_norm=gnorm, lr=lr, logs=logs)
-        keep = torch.bfloat16 if which == "f" else torch.float32
+        keep = torch.float32 if f32 else torch.bfloat16
         for name in type(state["opt"])._fields:
-            # written once, into the shared memory the ranks map
-            ref[name] = [torch.empty(x.shape, dtype=keep).share_memory_().copy_(x)
+            # rounded on the card, written once into the shared memory the ranks map
+            ref[name] = [torch.empty(x.shape, dtype=keep).share_memory_().copy_(x.to(keep))
                          for x in leaves(getattr(state["opt"], name))]
         t = time.perf_counter()
-        ref["census"] = train_census_prediction(arch, cfg, B, S)
-        log(f"({which}) {arch} single device ({card}): {cfg.n_layers} layers (a depth cut"
-            f"{'' if which == 'f' else ': reduced()'}), {cfg.dtype}, {cfg.optimizer}, remat="
-            f"{cfg.remat}, {n_params} parameters; one step at B={B} S={S} as {n_dp} data shards "
-            f"({cfg.moe_topk} of {cfg.n_experts} experts, capacity from a shard's tokens): loss "
-            f"{loss:.6f}, grad_norm {gnorm:.6f}, {start.elapsed_time(end):.3f} ms (CUDA events), "
-            f"peak device memory {torch.cuda.max_memory_allocated() - base} B above the start; "
-            f"the dry run's census of the step on {RANKS_LAYOUT} ({time.perf_counter() - t:.3f} "
-            f"s): {ref['census'][0]}")
+        ref["census"] = census_of(which)
+        log(f"({which}) {arch} single device ({card}): {cfg.n_layers} layers, {cfg.dtype}, "
+            f"{cfg.optimizer}, remat={cfg.remat}, {n_params} parameters; one step at B={B} "
+            f"S={S} as {n_dp} data shards: loss {loss:.6f}, grad_norm {gnorm:.6f}, "
+            f"{start.elapsed_time(end):.3f} ms (CUDA events), peak device memory "
+            f"{torch.cuda.max_memory_allocated() - base} B above the start; the dry run's "
+            f"census of the step on {RANKS_LAYOUT} (waited {time.perf_counter() - t:.3f} s): "
+            f"{ref['census'][0]}")
         out[which] = ref
         del state, steps, batch
     gc.collect()
@@ -4886,8 +5160,7 @@ def compare_blocks(steps, state, ref: dict, names, rel: dict) -> dict:
             worst = max(worst, rel_err(x, want[sh.index(sh.global_shape(x.shape))]))
         errs[name] = worst
     for k, v in errs.items():
-        if not v <= rel[k]:
-            raise AssertionError(f"the ranks' {k} differs from one device's: {v} > {rel[k]}")
+        ranks_bound(v <= rel[k], f"the ranks' {k} differs from one device's: {v} > {rel[k]}")
     return errs
 
 
@@ -4914,8 +5187,8 @@ def _check_step(what: str, m, ref: dict, rel: dict) -> dict:
     check_metrics(m, what)
     errs = {k: abs(float(m[k]) - ref[k]) / abs(ref[k]) for k in ("loss", "grad_norm")}
     for k, v in errs.items():
-        if not v <= rel[k]:
-            raise AssertionError(f"{what}: {k} {float(m[k])} off one device's {ref[k]} by {v}")
+        ranks_bound(v <= rel[k], f"{what}: {k} {float(m[k])} off one device's {ref[k]} by {v} "
+                    f"> {rel[k]}")
     return errs
 
 
@@ -5057,6 +5330,53 @@ def rank_train_gh(rank: int, world: int, dev, p: dict, ckpt_dir: str, on_card: b
         + f"; {n_whole} whole leaves bit-identical; {ms:.3f} ms (CUDA events)")
 
 
+def rank_train_m(rank: int, dev, which: str, ref: dict, on_card: bool, sync) -> None:
+    """One of (m)'s runs on this rank: a ``train_step`` over
+    ``RANKS_LAYOUT`` from the seeded weights against one device's step
+    (``ranks_train_refs``; the routing of this rank's data shard replayed):
+    loss, grad_norm and the optimizer state's blocks within
+    ``RANKS_FAMILY_REL`` ((f)'s bounds, or (g)'s for jamba's f32
+    Adafactor), the census the dry run's, the whole leaves bit-identical on
+    every rank."""
+    from repro_torch import full_f32_matmul
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.step import build_steps
+    from repro_torch.tree import leaves
+
+    cfg, (B, S) = ref["cfg"], ref["shape"]
+    f32 = cfg.dtype == "float32"
+    rel = RANKS_FAMILY_REL[which]
+    names = ("vr", "vc") if cfg.optimizer == "adafactor" else ("m", "v")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev) if on_card else 0
+    t = time.perf_counter()
+    steps = build_steps(cfg, mesh=make_host_mesh(*RANKS_LAYOUT, device=dev))
+    state = steps.init_state(torch.Generator(device=dev).manual_seed(RANKS_TRAIN_SEED))
+    sync()
+    drawn = time.perf_counter() - t
+    batch = ranks_train_batch(cfg, B, S, dev)
+    with full_f32_matmul() if f32 else contextlib.nullcontext():
+        state, m, census, ms, host, slowest, share = ranks_step(
+            steps, state, batch, ref["logs"][steps.mesh.axis("data").index], on_card, sync)
+    _check_census(f"({which}) rank {rank}", census, ref["census"])
+    errs = _check_step(f"({which})", m, ref, rel)
+    errs.update(compare_blocks(steps, state, ref, names, rel))
+    n_whole = whole_leaves_agree(steps, state)
+    peak = (torch.cuda.max_memory_allocated(dev) - base) if on_card else 0
+    log(f"({which}) rank {rank} {RANKS_LAYOUT}: {cfg.name} {cfg.n_layers} layers {cfg.dtype} "
+        f"{cfg.optimizer}, {lm_bytes(state['params'])} B of weights and "
+        f"{sum(x.numel() * x.element_size() for x in leaves(state['opt']))} B of optimizer "
+        f"state on this rank (drawn in {drawn:.3f} s); one step B={B} S={S}: loss "
+        f"{float(m['loss']):.6f}; against one device's step: "
+        + ", ".join(f"{k} {v:.3e} <= {rel[k]}" for k, v in errs.items())
+        + f"; census {census.bytes} calls {census.counts} = the dry run's; {n_whole} whole "
+        f"leaves bit-identical; {ms:.3f} ms (CUDA events), the slowest rank's host "
+        f"{slowest:.3f} ms, collectives {share:.3f} % of it; peak device memory {peak} B "
+        f"above the start")
+    del state, steps
+
+
 # (e)'s process: ``run_cell`` of each "arch:shape" argument in turn
 DRYRUN_SCRIPT = """
 import sys
@@ -5067,20 +5387,17 @@ for cell in sys.argv[3:]:
 
 
 def start_dryrun(out_dir: str):
-    """(e), started: the dry run of ``DRYRUN_CELLS`` at full width on
-    ``DRYRUN_MESH`` in two processes of their own, the prefill cells in one
-    and the rest in the other, a cell after another (host work on meta
-    tensors, no card visible; two processes, so that they take two cores
-    from the gloo ranks), while the phase runs on."""
+    """(e), started: the dry run of the cells of ``DRYRUN_GROUPS`` at full
+    width on ``DRYRUN_MESH`` in a process of its own for each group, a cell
+    after another (host work on meta tensors, no card visible), while the
+    phase runs on."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src")] + [
         v for v in [env.get("PYTHONPATH")] if v])
-    groups = [[c for c in DRYRUN_CELLS if c[1].startswith("prefill") == first]
-              for first in (True, False)]
     return time.perf_counter(), [subprocess.Popen(
         [sys.executable, "-c", DRYRUN_SCRIPT, DRYRUN_MESH, out_dir,
          *[f"{arch}:{shape}" for arch, shape in cells]], env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for cells in groups if cells]
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for cells in DRYRUN_GROUPS]
 
 
 def full_width_dryrun(started, out_dir: str) -> None:
@@ -5095,10 +5412,10 @@ def full_width_dryrun(started, out_dir: str) -> None:
         if proc.returncode:
             raise AssertionError(f"(e) the dry run failed:\n{err[-3000:]}")
     log(f"(e) the dry run's processes: {time.perf_counter() - t:.3f} s from their start to the "
-        f"end of their {len(DRYRUN_CELLS)} cells")
+        f"end of their {sum(map(len, DRYRUN_GROUPS))} cells")
     mem = device_memory()
     log(f"(e) one card's memory: {mem['bytes']} B ({mem['source']})")
-    for arch, shape in DRYRUN_CELLS:
+    for arch, shape in (c for g in DRYRUN_GROUPS for c in g):
         f = Path(out_dir) / f"{arch}_{shape}_{mesh_name(parse_mesh(DRYRUN_MESH))}.json"
         rec = json.loads(f.read_text())
         if "skipped" in rec:
@@ -5122,14 +5439,30 @@ def full_width_dryrun(started, out_dir: str) -> None:
                 f"({rec['fits']['source']}) is not this card's")
 
 
+# the order the parent makes the references in (an arch's served runs', or
+# a training run's by its letter), and the large ones: a large reference
+# (tens of GB on the card) waits until the ranks have finished every large
+# run handed out before it, so that no two large models share the card
+# (deepseek-v3's two 16 GB ranks beside (f)'s 26.5 GB reference ran out of
+# the card's 80 GB)
+RANKS_REF_ORDER = ("qwen2-moe-a2.7b", "f", "deepseek-v3-671b", "whisper-base", "xlstm-125m",
+                   "g", "m1", "m3", "jamba-v0.1-52b", "m2")
+RANKS_LARGE_REFS = ("deepseek-v3-671b", "jamba-v0.1-52b", "f")
+RANKS_LARGE_RUNS = ("c", "l")
+
+
 def ranks_runs(dev, card: str) -> None:
-    """(a)-(d) and (f)-(i): ``RANKS_RUNS`` and the training runs on one
-    spawn of ranks (``mesh_rank``), spawned first; while they start, the
-    single-device runs (``single_device_runs``, one model on the card at a
-    time), the dry run's census of each rank's cell
-    (``dryrun_prediction``) and the training references
-    (``ranks_train_refs``), which then go to every rank through its
-    queue."""
+    """(a)-(d), (j)-(l), (f)-(i) and (m) on one spawn of ranks
+    (``mesh_rank``), spawned first. The parent makes the single-device
+    references (``single_device_runs``, one model at a time, and
+    ``ranks_train_refs``) in ``RANKS_REF_ORDER``, takes the dry run's census
+    of each cell from the predictions' process (``start_predictions``,
+    started first), and hands each run to every rank's queue as soon as it
+    and the runs before it have theirs, the training last: the ranks run
+    while the parent makes what the later runs need, so the single-device
+    times and the ranks' share the card with each other's work (never two
+    large models: ``RANKS_LARGE_REFS`` wait for ``RANKS_LARGE_RUNS``, which
+    rank 0 reports done)."""
     runs = RANKS_RUNS
     cards = torch.cuda.device_count()
     world = max(lay[0] * lay[1] for _, _, lay, _ in runs)
@@ -5138,29 +5471,69 @@ def ranks_runs(dev, card: str) -> None:
         f"{[(p, a, lay) for p, a, lay, _ in runs]}")
     mp = torch.multiprocessing.get_context("spawn")
     inbox = [mp.SimpleQueue() for _ in range(world)]
+    done = mp.Queue()
     with tempfile.TemporaryDirectory() as d:
         t = time.perf_counter()
         head = dict(spawned=time.time(), device_type=dev.type)
         ranks = torch.multiprocessing.spawn(
-            mesh_rank, args=(world, f"file://{d}/rendezvous", backend, head, inbox),
+            mesh_rank, args=(world, f"file://{d}/rendezvous", backend, head, inbox, done),
             nprocs=world, join=False)
+        train = world == RANKS_LAYOUT[0] * RANKS_LAYOUT[1]
+        predicting = start_predictions(d, prediction_jobs(runs, train))
+        finished = set()
+
+        def wait_large():
+            """Until the ranks have finished every large run handed out."""
+            want = {r[0] for r in runs[:sent] if r[0] in RANKS_LARGE_RUNS}
+            t0 = time.perf_counter()
+            while not want <= finished:
+                try:
+                    finished.add(done.get(timeout=5))
+                except queue.Empty:
+                    if any(p.exitcode not in (None, 0) for p in ranks.processes):
+                        ranks.join()  # raises with the failed rank's error
+            if want:
+                log(f"ranks: waited {time.perf_counter() - t0:.3f} s for runs {sorted(want)}")
+
         try:
-            refs, pred = {}, {}
-            for arch in dict.fromkeys(a for _, a, _, _ in runs):
+            refs, sent, train_refs = {}, 0, {}
+            whiches = [w for w, _, _ in ranks_train_runs()] if train else []
+            order = [a for a in RANKS_REF_ORDER if a in whiches or any(a == r[1] for r in runs)]
+            order += [a for a in dict.fromkeys(r[1] for r in runs) if a not in order]
+            order += [w for w in whiches if w not in order]
+            for arch in order:
+                if arch in RANKS_LARGE_REFS:
+                    wait_large()
+                if arch in whiches:
+                    train_refs.update(ranks_train_refs(
+                        dev, card, lambda w: prediction(d, predicting, f"{w}/train"), [arch]))
+                    continue
                 layouts = [lay for _, a, lay, _ in runs if a == arch]
                 refs[arch] = single_device_runs(dev, card, arch, layouts)
-            for part, arch, layout, n_dec in runs:
-                B, S = RANKS_PREFILL[arch]
-                pred[part] = dryrun_prediction(arch, layout, B, S, n_dec)
-                log(f"({part}) {arch} on {layout}: the dry run's census, prefill "
-                    f"{pred[part]['prefill'][0]}" + (f", a decode step {pred[part]['decode'][0]}"
-                                                       if n_dec else ""))
-            payload = dict(runs=runs, refs=refs, pred=pred, ckpt_dir=os.path.join(d, "ckpt"))
-            if world == RANKS_LAYOUT[0] * RANKS_LAYOUT[1]:
-                payload["train"] = ranks_train_refs(dev, card)
-            log(f"ranks: the inputs made {time.perf_counter() - t:.3f} s after the spawn")
+                while sent < len(runs) and runs[sent][1] in refs:
+                    part, arch_, layout, n_dec = run = runs[sent]
+                    pred = {kind: prediction(d, predicting, f"{part}/{kind}")
+                            for kind in ("prefill", "decode", "long")
+                            if (kind != "decode" or n_dec)
+                            and (kind != "long" or arch_ in RANKS_LONG)}
+                    log(f"({part}) {arch_} on {layout}: the dry run's census, prefill "
+                        f"{pred['prefill'][0]}" + (f", a decode step {pred['decode'][0]}"
+                                                   if n_dec else "")
+                        + (f", the long-context step {pred['long'][0]}" if "long" in pred
+                           else "") + f"; handed to the ranks {time.perf_counter() - t:.3f} s "
+                        f"after the spawn")
+                    for box in inbox:
+                        box.put(dict(run=run, ref=refs[arch_], pred=pred,
+                                     readings=RANKS_READINGS))
+                    sent += 1
+            if train:
+                log(f"ranks: the training references made {time.perf_counter() - t:.3f} s "
+                    f"after the spawn")
+                for box in inbox:
+                    box.put(dict(train=train_refs, ckpt_dir=os.path.join(d, "ckpt"),
+                                 readings=RANKS_READINGS))
             for box in inbox:
-                box.put(payload)
+                box.put(None)
             while not ranks.join():
                 pass
         finally:
@@ -5168,16 +5541,23 @@ def ranks_runs(dev, card: str) -> None:
                 if proc.is_alive():
                     proc.terminate()
                     proc.join(timeout=10)
+            if predicting.poll() is None:
+                predicting.kill()
+            predicting.communicate()
     log(f"ranks: {time.perf_counter() - t:.3f} s from spawn to join")
 
 
 def lms_over_ranks(dev, card: str) -> None:
-    """Phase 21: LMs served and trained over a mesh of ranks, and the dry
-    run: (a) qwen2-moe on four ranks ``(data=2, model=2)``, prefill and
-    decode; then on the first two ranks ``(1, 2)`` (b) qwen2-moe's and (c)
-    deepseek-v3's prefill; (d) every rank's census equal to the dry run's;
-    (f)-(i) training over the ranks (``ranks_runs``); (e) the full-width
-    dry run, in processes of its own from the phase's start."""
+    """Phase 21: LMs served and trained over a mesh of ranks, every family
+    in the rules' layout, and the dry run: (a) qwen2-moe on four ranks
+    ``(data=2, model=2)``, prefill and decode; then on the first two ranks
+    ``(1, 2)`` (b) qwen2-moe's and (c) deepseek-v3's prefill; (j)
+    whisper-base and (k) xlstm-125m on ``(2, 2)``, prefill, decode and
+    (xLSTM) a long-context step; (l) jamba's superblock on ``(1, 2)``,
+    prefill, decode and a ``long_500k`` step; (d) every rank's census equal
+    to the dry run's; (f)-(i) and (m) training over the ranks
+    (``ranks_runs``); (e) the full-width dry run, in processes of its own
+    from the phase's start."""
     with tempfile.TemporaryDirectory() as out_dir:
         dry = start_dryrun(out_dir)
         try:

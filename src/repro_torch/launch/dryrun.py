@@ -12,12 +12,10 @@ cell records:
   them: the parameters, batch and cache of a serving step, the
   parameters, optimizer state, step and batch of a ``train`` step;
   ``memory.rules_argument_bytes`` -- the same leaves laid out wholly by the
-  sharding rules (the reference's layout). The decoder-only families
-  (``train/step.py:RULES_FAMILIES``) are placed by the rules, so the two
-  are equal; the enc-dec, xLSTM and hybrid families still keep every
-  weight but the expert stacks whole (the batch and cache rows the
-  rank's), so theirs are more than the rules' until their layout is
-  ported (ROADMAP A.13k);
+  sharding rules (the reference's layout), counted from the whole leaves'
+  logical names. Every family is placed by the rules
+  (``train/step.py:Steps.placement``), so the two are equal: the second
+  holds the first to the reference's layout;
   ``memory.peak_live_bytes`` -- the step's own allocations at their peak;
 * ``cost`` and ``op_census`` -- ``roofline/op_stats.py`` over the step
   (matmul flops, bytes every op reads and writes, aten calls);

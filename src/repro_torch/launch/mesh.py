@@ -48,6 +48,10 @@ collective             forward                      backward
                                                     own block
 ``all_gather_dim``     all-gather, joined along     reduce-scatter along the
                        ``dim``                      same dimension
+``all_gather_``        the same                     this rank's block of the
+``invariant``                                       cotangent, moving nothing
+                                                    (every rank computed the
+                                                    same whole one)
 =====================  ===========================  =========================
 
 Every collective of a ``MeshAxis``, real or abstract, forward or
@@ -217,6 +221,18 @@ class MeshAxis:
             return t
         return _AllGatherDim.apply(t, self, dim % t.dim())
 
+    def all_gather_invariant(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """``all_gather_dim``'s join (``lax.all_gather_invariant``) of a
+        block whose whole every rank of the axis then uses alike (a weight
+        gathered once so that a recurrence runs the same on every rank).
+        Every rank then holds the same whole cotangent, so the backward
+        keeps this rank's block of it and moves nothing, where
+        ``all_gather_dim``'s reduce-scatter would sum ``size`` equal
+        copies. The census counts the forward's ``all-gather``."""
+        if not self._active(t):
+            return t
+        return _AllGatherInvariant.apply(t, self, dim % t.dim())
+
     def psum_scatter(self, t: torch.Tensor) -> torch.Tensor:
         """(size, *rest) -> rest: the sum over the axis of every rank's
         ``t``, of which this rank keeps block ``index`` of the leading
@@ -274,6 +290,18 @@ class _AllGatherDim(torch.autograd.Function):
         axis, dim = ctx.axis, ctx.dim
         blocks = g.unflatten(dim, (axis.size, -1)).movedim(dim, 0)
         return axis.psum_scatter(blocks), None, None
+
+
+class _AllGatherInvariant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis, dim):
+        return _AllGatherDim.forward(ctx, t, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, dim = ctx.axis, ctx.dim
+        n = g.shape[dim] // axis.size
+        return g.narrow(dim, axis.index * n, n), None, None
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -17,7 +17,7 @@ against bf16 weights), JAX promotes both to f32; ``_matmul`` and
 one dtype as it was. The reference's ``constrain`` calls pin shardings on
 a mesh and compute nothing, so the port has none.
 
-Over a mesh of ranks the decoder-only families' layers take a ``Layout``
+Over a mesh of ranks every family's layers take a ``Layout``
 (``sharding/rules.py``; ``WHOLE``, the default, is one device) and their
 weights as this rank's blocks by the rules, drawn whole and cut
 (``init_*(..., lay=)``). Each weight's ``wembed`` dimension is gathered
@@ -379,6 +379,36 @@ def attention(
                                cfg.causal_impl)
     H, hd, d = wo.shape
     return lay.psum("heads", _matmul(out.reshape(B, S, H * hd), wo.reshape(H * hd, d)))
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor, lay: Layout, name: str) -> torch.Tensor:
+    """``x @ w`` for a weight split by rows over ``name``'s axis (``x`` the
+    rank's columns of the input), summed over the axis. Each rank's partial
+    product is taken in f32 (in full f32 on the card), the partials are
+    summed in f32 and the sum is rounded once to the product's dtype, as one
+    device's product accumulates in f32 and rounds once: a bf16 partial
+    rounded before the sum would add a rounding per rank. On one device,
+    ``_matmul``."""
+    if lay.axis(name) is None:
+        return _matmul(x, w)
+    with full_f32_matmul():
+        part = x.float() @ w.float()
+    return lay.psum(name, part).to(torch.promote_types(x.dtype, w.dtype))
+
+
+def fused_halves(xz: torch.Tensor, lay: Layout = WHOLE) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two halves of a fused projection's output, each as this rank's
+    channels: ``xz`` is the product with a ``(d, 2 * inner)`` weight named
+    ``("wembed", "inner")`` (Mamba's ``in_proj``, the mLSTM's ``up``), of
+    which a rank stores a contiguous block of the columns -- over two
+    ``model`` ranks the whole first half on one and the second on the
+    other. Over a mesh the ranks' blocks of ``xz`` are gathered over
+    ``inner``'s axis and each rank keeps its own channels of each half (the
+    gather's reduce-scatter is the backward: each rank's cotangent is
+    nonzero on its own channels alone)."""
+    x, z = torch.chunk(lay.gather("inner", xz, -1), 2, dim=-1)
+    n = x.shape[-1] // lay.size("inner")
+    return lay.own("inner", x, n), lay.own("inner", z, n)
 
 
 def write_cache(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor, start: int = 0,

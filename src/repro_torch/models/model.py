@@ -31,20 +31,17 @@ module. The parameters are registered without gradients; the training
 steps turn them on.
 
 A model built with a ``mesh`` (``build_model(cfg, mesh, rules)``) runs as
-one rank of it: its batch rows are this rank's, and prefill's MoE layers
-call ``moe_ffn(..., mesh)`` where the reference does (decode's call
-``moe_ffn_dense`` over the whole batch). The decoder-only families
-(``dense``, ``vlm``, ``moe``, ``mla_moe``) are laid out as the reference's
-rules place them (a ``Layout``; ``layers.py`` says how each layer computes
-on its blocks): every leaf is this rank's block, drawn whole from the
-single-device stream and cut; each layer's ``wembed`` blocks are gathered
+one rank of it, laid out as the reference's rules place it (a ``Layout``
+from ``rules_layout``; ``layers.py``, ``moe.py``, ``ssm.py`` and
+``xlstm.py`` say how each layer computes on its blocks): every leaf is
+this rank's block, drawn whole from the single-device stream and cut, and
+its batch rows are this rank's. Each layer's ``wembed`` blocks are gathered
 over the data axes inside the layer, used and dropped (under
 ``remat="full"`` the recompute gathers them again; without remat autograd
 keeps what the backward reads); the embedding, the head, the MTP block's
-``proj`` and the final norm likewise. The other families keep every weight
-but the expert stacks whole on every rank (their expert stacks are the
-rank's block where ``moe.ep_sharded``) until their tensor-parallel layout
-is ported.
+``proj`` and the final norm likewise. The MoE layers call ``moe_ffn(...,
+mesh)`` where the reference does (decode's call ``moe_ffn_dense`` over the
+whole batch).
 """
 from __future__ import annotations
 
@@ -56,7 +53,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
-from ..sharding.rules import WHOLE, Layout, default_rules
+from ..sharding.rules import WHOLE, Layout
 from ..tree import module_tree
 from . import layers as L
 from . import mla as MLA
@@ -191,13 +188,13 @@ class _Node(nn.Module):
 class _TreeLM(nn.Module):
     """A model whose parameters are a Param tree's values under its paths
     (``tree`` is a Param tree, ``bundle.init_tree``'s), each spec in
-    ``specs`` under the parameter's dotted name; with a ``mesh``, one rank
-    of it (the tree then holds the rank's expert blocks)."""
+    ``specs`` under the parameter's dotted name; with a ``lay`` over a
+    mesh, one rank of it (the tree then holds the rank's blocks)."""
 
-    def __init__(self, cfg: ArchConfig, tree: Dict, mesh=None, lay: Layout = WHOLE):
+    def __init__(self, cfg: ArchConfig, tree: Dict, lay: Layout = WHOLE):
         super().__init__()
         self.cfg = cfg
-        self.mesh = mesh
+        self.mesh = lay.mesh
         self.lay = lay
         values, spec_tree = split_params(tree)
         self.specs: Dict[str, tuple] = dict(_flatten(spec_tree))
@@ -218,6 +215,12 @@ class _TreeLM(nn.Module):
         # remat only where a backward will run: serving keeps no activations
         return self.cfg.remat == "full" and torch.is_grad_enabled()
 
+    def logits(self, h: torch.Tensor) -> torch.Tensor:
+        """The head's logits of the final-normed ``h``, the whole
+        vocabulary: over a mesh each rank's block of it gathered over
+        ``model`` here (what a caller compares with one device)."""
+        return self.lay.gather("vocab", L.lm_logits(dict(w=self.head.w), h, self.lay), -1)
+
 
 def _stack(tree: Dict) -> list:
     """A stacked Param-values tree as one tree per layer, each leaf a view
@@ -236,8 +239,8 @@ class DecoderOnlyLM(_TreeLM):
     without experts), ``moe_blocks`` (the MoE layers) and, with
     ``cfg.mtp_depth``, the ``mtp`` block."""
 
-    def __init__(self, cfg: ArchConfig, tree: Dict, mesh=None, lay: Layout = WHOLE):
-        super().__init__(cfg, tree, mesh, lay)
+    def __init__(self, cfg: ArchConfig, tree: Dict, lay: Layout = WHOLE):
+        super().__init__(cfg, tree, lay)
         self.dense_kind, self.moe_kind, _, _ = block_kinds(cfg)
 
     def _layers(self):
@@ -288,12 +291,6 @@ class DecoderOnlyLM(_TreeLM):
             loss = loss + 0.3 * L.softmax_xent(logits2[:, :-2], tok[:, 2:], lay)
         return loss
 
-    def logits(self, h: torch.Tensor) -> torch.Tensor:
-        """The head's logits of the final-normed ``h``, the whole
-        vocabulary: over a mesh each rank's block of it gathered over
-        ``model`` here (what a caller compares with one device)."""
-        return self.lay.gather("vocab", L.lm_logits(dict(w=self.head.w), h, self.lay), -1)
-
     def prefill(self, batch: Dict) -> torch.Tensor:
         """The last position's logits (B, 1, vocab), the whole vocabulary
         (``logits``); fills no cache."""
@@ -310,7 +307,7 @@ class DecoderOnlyLM(_TreeLM):
         which the MoE layers' capacity reads, and that the cache's slots
         split over every axis (``kv_seq_all``; else ``kv_seq``)."""
         a, b = cache_names(self.cfg)
-        seq = "kv_seq_all" if long_ctx else "kv_seq"
+        seq = _seq_name(long_ctx)
         x = L.embed_lookup(dict(table=self.embed.table), tokens, self.lay)
         for i, (kind, lp) in enumerate(self._layers()):
             x, _, _ = _decode_block(lp, x, cache[a][i], cache[b][i], pos, self.cfg, kind,
@@ -352,20 +349,26 @@ def _lnorm(w, b, x):
     return L.layer_norm(x, w, b)
 
 
-def _enc_layer(lp, x, cfg: ArchConfig):
+def _enc_layer(lp, x, cfg: ArchConfig, lay: Layout = WHOLE):
     h = _lnorm(lp["ln1"], lp["ln1b"], x)
-    x = x + L.attention(lp["attn"], h, cfg, causal=False)
+    x = x + L.attention(lp["attn"], h, cfg, causal=False, lay=lay)
     h = _lnorm(lp["ln2"], lp["ln2b"], x)
-    return x + L.ffn(lp["ffn"], h)
+    return x + L.ffn(lp["ffn"], h, lay)
 
 
-def _dec_layer(lp, x, enc_out, cfg: ArchConfig):
+def _dec_layer(lp, x, enc_out, cfg: ArchConfig, lay: Layout = WHOLE):
     h = _lnorm(lp["ln1"], lp["ln1b"], x)
-    x = x + L.attention(lp["self_attn"], h, cfg, causal=True)
+    x = x + L.attention(lp["self_attn"], h, cfg, causal=True, lay=lay)
     h = _lnorm(lp["ln2"], lp["ln2b"], x)
-    x = x + L.attention(lp["cross_attn"], h, cfg, causal=False, kv_x=enc_out)
+    x = x + L.attention(lp["cross_attn"], h, cfg, causal=False, kv_x=enc_out, lay=lay)
     h = _lnorm(lp["ln3"], lp["ln3b"], x)
-    return x + L.ffn(lp["ffn"], h)
+    return x + L.ffn(lp["ffn"], h, lay)
+
+
+def _seq_name(long_ctx: bool) -> str:
+    """The logical name of a decode cache's slots: split over every axis
+    for long-context decode, else over ``model``."""
+    return "kv_seq_all" if long_ctx else "kv_seq"
 
 
 class EncDecLM(_TreeLM):
@@ -380,9 +383,9 @@ class EncDecLM(_TreeLM):
         remat = self._remat()
         for lp in _stack(self.tree()[stack]):
             if remat:
-                x = checkpoint(layer, lp, x, *args, self.cfg, use_reentrant=False)
+                x = checkpoint(layer, lp, x, *args, self.cfg, self.lay, use_reentrant=False)
             else:
-                x = layer(lp, x, *args, self.cfg)
+                x = layer(lp, x, *args, self.cfg, self.lay)
         return x
 
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
@@ -395,20 +398,20 @@ class EncDecLM(_TreeLM):
         """The decoder's final-normed output for ``tokens`` at positions
         ``pos0`` on."""
         S = tokens.shape[1]
-        x = L.embed_lookup(dict(table=self.embed.table), tokens)
+        x = L.embed_lookup(dict(table=self.embed.table), tokens, self.lay)
         pe = L.sinusoidal_positions(pos0 + S, self.cfg.d_model, x.device)[pos0:]
         x = self._run(_dec_layer, "dec_blocks", x + pe.to(x.dtype), enc_out)
         return _lnorm(self.final_norm, self.final_norm_b, x)
 
     def loss(self, batch: Dict) -> torch.Tensor:
         x = self.run_decoder(batch["tokens"], self.encode(batch["frames"]))
-        logits = L.lm_logits(dict(w=self.head.w), x)
-        return L.softmax_xent(logits[:, :-1], batch["tokens"][:, 1:])
+        logits = L.lm_logits(dict(w=self.head.w), x, self.lay)
+        return L.softmax_xent(logits[:, :-1], batch["tokens"][:, 1:], self.lay)
 
     def prefill(self, batch: Dict) -> torch.Tensor:
         """The last position's logits (B, 1, vocab); fills no cache."""
         x = self.run_decoder(batch["tokens"], self.encode(batch["frames"]))
-        return L.lm_logits(dict(w=self.head.w), x[:, -1:])
+        return self.logits(x[:, -1:])
 
     def decode(self, cache: Dict, tokens: torch.Tensor, pos: torch.Tensor,
                long_ctx: bool = False):
@@ -417,11 +420,14 @@ class EncDecLM(_TreeLM):
         written in place at ``pos``; the cross cache ``xk`` / ``xv`` is
         read (every slot) and returned unchanged. The position embedding is
         the table's row at ``pos`` clamped into the cache, as the
-        reference's ``dynamic_slice``. ``long_ctx`` is read by MoE layers
-        only (none here)."""
-        cfg = self.cfg
-        x = L.embed_lookup(dict(table=self.embed.table), tokens)
-        S = cache["k"].shape[2]
+        reference's ``dynamic_slice``. Over a mesh every cache entry is the
+        rank's block of the slots (``kv_seq``; ``kv_seq_all`` with
+        ``long_ctx``): the table and the cross attention's last position
+        are the cache's whole number of slots'."""
+        cfg, lay = self.cfg, self.lay
+        seq = _seq_name(long_ctx)
+        x = L.embed_lookup(dict(table=self.embed.table), tokens, lay)
+        S = cache["k"].shape[2] * lay.size(seq)
         idx = torch.clamp(pos.reshape(1).long(), 0, S - 1)
         pe = L.sinusoidal_positions(S, cfg.d_model, x.device).index_select(0, idx)
         x = x + pe[None].to(x.dtype)
@@ -429,28 +435,28 @@ class EncDecLM(_TreeLM):
             xk, xv = cache["xk"][i], cache["xv"][i]
             h = _lnorm(lp["ln1"], lp["ln1b"], x)
             a, _, _ = L.decode_attention(lp["self_attn"], h, cache["k"][i], cache["v"][i], pos,
-                                         cfg, rope=False)
+                                         cfg, rope=False, lay=lay, seq=seq)
             x = x + a
             h = _lnorm(lp["ln2"], lp["ln2b"], x)
-            a, _, _ = L.decode_attention(lp["cross_attn"], h, xk, xv, xk.shape[1] - 1, cfg,
-                                         update_cache=False, rope=False)
+            a, _, _ = L.decode_attention(lp["cross_attn"], h, xk, xv,
+                                         xk.shape[1] * lay.size(seq) - 1, cfg,
+                                         update_cache=False, rope=False, lay=lay, seq=seq)
             x = x + a
             h = _lnorm(lp["ln3"], lp["ln3b"], x)
-            x = x + L.ffn(lp["ffn"], h)
-        x = _lnorm(self.final_norm, self.final_norm_b, x)
-        return L.lm_logits(dict(w=self.head.w), x), cache
+            x = x + L.ffn(lp["ffn"], h, lay)
+        return self.logits(_lnorm(self.final_norm, self.final_norm_b, x)), cache
 
 
 # ------------------------------------------------------------------- xlstm
-def _unit_apply(up, x, cfg: ArchConfig):
+def _unit_apply(up, x, cfg: ArchConfig, lay: Layout = WHOLE):
     unit = cfg.slstm_every
     for i in range(unit):
         if i == unit - 1:
             p = up[f"s{i}"]
-            x = x + XL.slstm_mixer(p["core"], _norm(p["ln"], x), cfg)
+            x = x + XL.slstm_mixer(p["core"], _norm(p["ln"], x), cfg, lay)
         else:
             p = up[f"m{i}"]
-            x = x + XL.mlstm_mixer(p["core"], _norm(p["ln"], x), cfg)
+            x = x + XL.mlstm_mixer(p["core"], _norm(p["ln"], x), cfg, lay)
     return x
 
 
@@ -461,42 +467,44 @@ class XLSTMLM(_TreeLM):
     pre-norm residual."""
 
     def backbone(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = L.embed_lookup(dict(table=self.embed.table), tokens)
+        x = L.embed_lookup(dict(table=self.embed.table), tokens, self.lay)
         remat = self._remat()
         for up in _stack(self.tree()["units"]):
             if remat:
-                x = checkpoint(_unit_apply, up, x, self.cfg, use_reentrant=False)
+                x = checkpoint(_unit_apply, up, x, self.cfg, self.lay, use_reentrant=False)
             else:
-                x = _unit_apply(up, x, self.cfg)
+                x = _unit_apply(up, x, self.cfg, self.lay)
         return x
 
     def loss(self, batch: Dict) -> torch.Tensor:
-        return _lm_losses(self, self.backbone(batch["tokens"]), batch["tokens"])
+        return _lm_losses(self, self.backbone(batch["tokens"]), batch["tokens"], self.lay)
 
     def prefill(self, batch: Dict) -> torch.Tensor:
         """The last position's logits (B, 1, vocab); fills no state."""
         x = self.backbone(batch["tokens"])
-        return L.lm_logits(dict(w=self.head.w), _norm(self.final_norm, x[:, -1:]))
+        return self.logits(_norm(self.final_norm, x[:, -1:]))
 
     def decode(self, cache: Dict, tokens: torch.Tensor, pos: torch.Tensor,
                long_ctx: bool = False):
         """One token per row: logits (B, 1, vocab) and the cache, every
         layer's recurrent state (``C``, ``N``, ``m`` of the mLSTM layers;
-        ``sc``, ``sn``, ``sh``, ``sm`` of the sLSTM's) updated in place.
-        ``pos`` is not read (the state carries the position); ``long_ctx``
-        is read by MoE layers only (none here)."""
-        cfg = self.cfg
+        ``sc``, ``sn``, ``sh``, ``sm`` of the sLSTM's) updated in place,
+        whole over ``model`` (over a mesh every ``model`` rank updates it
+        alike). ``pos`` is not read (the state carries the position);
+        ``long_ctx`` says the rows are the whole batch on every rank (the
+        cache's batch is then whole)."""
+        cfg, lay = self.cfg, self.lay
         last = cfg.slstm_every - 1
-        x = L.embed_lookup(dict(table=self.embed.table), tokens)
+        x = L.embed_lookup(dict(table=self.embed.table), tokens, lay)
         for r, up in enumerate(_stack(self.tree()["units"])):
             for i in range(last):
                 p = up[f"m{i}"]
                 st = dict(C=cache["C"][r, i], N=cache["N"][r, i], m=cache["m"][r, i])
-                x = x + XL.mlstm_decode(p["core"], _norm(p["ln"], x), st, cfg)[0]
+                x = x + XL.mlstm_decode(p["core"], _norm(p["ln"], x), st, cfg, lay)[0]
             p = up[f"s{last}"]
             st = dict(c=cache["sc"][r], n=cache["sn"][r], h=cache["sh"][r], m=cache["sm"][r])
-            x = x + XL.slstm_decode(p["core"], _norm(p["ln"], x), st, cfg)[0]
-        return L.lm_logits(dict(w=self.head.w), _norm(self.final_norm, x)), cache
+            x = x + XL.slstm_decode(p["core"], _norm(p["ln"], x), st, cfg, lay)[0]
+        return self.logits(_norm(self.final_norm, x)), cache
 
 
 # ------------------------------------------------------------------ hybrid
@@ -515,11 +523,13 @@ def hybrid_moe_positions(cfg: ArchConfig) -> tuple:
     return tuple(i for i in range(cfg.attn_every) if i % cfg.moe_every == cfg.moe_every - 1)
 
 
-def _hybrid_block(bp, x, cfg: ArchConfig, attn: bool, moe: bool, mesh=None):
+def _hybrid_block(bp, x, cfg: ArchConfig, attn: bool, moe: bool, mesh=None,
+                  lay: Layout = WHOLE):
     h = _norm(bp["ln1"], x)
-    x = x + (L.attention(bp["mix"], h, cfg) if attn else SSM.mamba_mixer(bp["mix"], h, cfg))
+    x = x + (L.attention(bp["mix"], h, cfg, lay=lay) if attn
+             else SSM.mamba_mixer(bp["mix"], h, cfg, lay))
     h = _norm(bp["ln2"], x)
-    return x + (MOE.moe_ffn(bp["ffn"], h, cfg, mesh) if moe else L.ffn(bp["ffn"], h))
+    return x + (MOE.moe_ffn(bp["ffn"], h, cfg, mesh, lay) if moe else L.ffn(bp["ffn"], h, lay))
 
 
 class HybridLM(_TreeLM):
@@ -531,29 +541,29 @@ class HybridLM(_TreeLM):
     SwiGLU elsewhere. Prefill and the loss route the MoE with capacity;
     decode runs ``moe_ffn_dense``, a token a row, as the reference."""
 
-    def __init__(self, cfg: ArchConfig, tree: Dict, mesh=None, lay: Layout = WHOLE):
-        super().__init__(cfg, tree, mesh, lay)
+    def __init__(self, cfg: ArchConfig, tree: Dict, lay: Layout = WHOLE):
+        super().__init__(cfg, tree, lay)
         self.attn_pos = hybrid_attn_position(cfg)
         self.moe_pos = hybrid_moe_positions(cfg)
 
     def backbone(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = L.embed_lookup(dict(table=self.embed.table), tokens)
+        x = L.embed_lookup(dict(table=self.embed.table), tokens, self.lay)
         remat = self._remat()
         for up in _stack(self.tree()["units"]):
             for i in range(self.cfg.attn_every):
                 args = (up[f"b{i}"], x, self.cfg, i == self.attn_pos, i in self.moe_pos,
-                        self.mesh)
+                        self.mesh, self.lay)
                 x = checkpoint(_hybrid_block, *args, use_reentrant=False) if remat else \
                     _hybrid_block(*args)
         return x
 
     def loss(self, batch: Dict) -> torch.Tensor:
-        return _lm_losses(self, self.backbone(batch["tokens"]), batch["tokens"])
+        return _lm_losses(self, self.backbone(batch["tokens"]), batch["tokens"], self.lay)
 
     def prefill(self, batch: Dict) -> torch.Tensor:
         """The last position's logits (B, 1, vocab); fills no cache."""
         x = self.backbone(batch["tokens"])
-        return L.lm_logits(dict(w=self.head.w), _norm(self.final_norm, x[:, -1:]))
+        return self.logits(_norm(self.final_norm, x[:, -1:]))
 
     def decode(self, cache: Dict, tokens: torch.Tensor, pos: torch.Tensor,
                long_ctx: bool = False):
@@ -562,8 +572,9 @@ class HybridLM(_TreeLM):
         layer's ``k`` / ``v`` at ``pos``, each Mamba layer's ``h`` and
         ``conv`` (the zero cache is the mixer's own start: ``h = 0`` and
         the conv's zero padding). ``long_ctx`` as ``DecoderOnlyLM``'s."""
-        cfg = self.cfg
-        x = L.embed_lookup(dict(table=self.embed.table), tokens)
+        cfg, lay = self.cfg, self.lay
+        seq = _seq_name(long_ctx)
+        x = L.embed_lookup(dict(table=self.embed.table), tokens, lay)
         for r, up in enumerate(_stack(self.tree()["units"])):
             mi = 0
             for i in range(cfg.attn_every):
@@ -571,16 +582,16 @@ class HybridLM(_TreeLM):
                 h = _norm(bp["ln1"], x)
                 if i == self.attn_pos:
                     y = L.decode_attention(bp["mix"], h, cache["k"][r], cache["v"][r], pos,
-                                           cfg)[0]
+                                           cfg, lay=lay, seq=seq)[0]
                 else:
                     st = dict(h=cache["h"][r, mi], conv=cache["conv"][r, mi])
-                    y = SSM.mamba_decode(bp["mix"], h, st, cfg)[0]
+                    y = SSM.mamba_decode(bp["mix"], h, st, cfg, lay)[0]
                     mi += 1
                 x = x + y
                 h = _norm(bp["ln2"], x)
-                x = x + (MOE.moe_ffn_dense(bp["ffn"], h, cfg, self.mesh, not long_ctx)
-                         if i in self.moe_pos else L.ffn(bp["ffn"], h))
-        return L.lm_logits(dict(w=self.head.w), _norm(self.final_norm, x)), cache
+                x = x + (MOE.moe_ffn_dense(bp["ffn"], h, cfg, self.mesh, not long_ctx, lay)
+                         if i in self.moe_pos else L.ffn(bp["ffn"], h, lay))
+        return self.logits(_norm(self.final_norm, x)), cache
 
 
 # ---------------------------------------------------------------- Bundle
@@ -595,26 +606,33 @@ class ModelBundle:
     cache_shape: Callable  # (batch, seq) -> {name: (shape, dtype, logical names)}
 
 
-def decoder_only_layout(cfg: ArchConfig, mesh=None, rules=None) -> Layout:
-    """The ``Layout`` of a decoder-only model on ``mesh`` by ``rules``
-    (default: the mesh's ``default_rules``); ``WHOLE`` without a mesh.
-    Raises where the rules split a dimension these layers keep whole."""
+# dimensions the layers compute whole: a rules table that splits one of
+# them is refused (``rules_layout``)
+KEPT_WHOLE = ("embed", "kv_heads", "head_dim", "lora", "expert_mlp", "layers", "repeat",
+              "conv", "state")
+
+
+def rules_layout(cfg: ArchConfig, mesh=None, rules=None) -> Layout:
+    """The ``Layout`` of ``cfg``'s model on ``mesh`` by ``rules`` (default:
+    the mesh's ``default_rules``); ``WHOLE`` without a mesh. Raises where
+    the rules split a dimension the family's layers keep whole
+    (``KEPT_WHOLE``; for xLSTM also ``heads``: its recurrence runs over the
+    whole heads on every rank)."""
     if mesh is None:
         return WHOLE
     lay = Layout(mesh, rules)
-    split = [n for n in ("embed", "kv_heads", "head_dim", "lora", "expert_mlp", "layers")
-             if lay.axis(n) is not None]
+    kept = KEPT_WHOLE + (("heads",) if cfg.family == "xlstm" else ())
+    split = [n for n in kept if lay.axis(n) is not None]
     if split:
-        raise NotImplementedError(f"the decoder-only layers keep {split} whole; the rules split "
+        raise NotImplementedError(f"the {cfg.family} layers keep {split} whole; the rules split "
                                   f"them")
     return lay
 
 
-def build_decoder_only(cfg: ArchConfig, mesh=None, rules=None) -> ModelBundle:
-    """The ``dense``, ``vlm``, ``moe`` and ``mla_moe`` families; on a
-    ``mesh``, one rank laid out by ``rules`` (``decoder_only_layout``)."""
+def build_decoder_only(cfg: ArchConfig, lay: Layout = WHOLE) -> ModelBundle:
+    """The ``dense``, ``vlm``, ``moe`` and ``mla_moe`` families, laid out
+    by ``lay``."""
     dense_kind, moe_kind, n_dense, n_moe = block_kinds(cfg)
-    lay = decoder_only_layout(cfg, mesh, rules)
 
     def init_tree(gen: torch.Generator, device=None) -> Dict:
         dev = device or gen.device
@@ -648,20 +666,21 @@ def build_decoder_only(cfg: ArchConfig, mesh=None, rules=None) -> ModelBundle:
         shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.head_dim)
         return dict(k=(shape, torch.bfloat16, names), v=(shape, torch.bfloat16, names))
 
-    return _bundle(cfg, DecoderOnlyLM, init_tree, cache_shape, mesh, lay)
+    return _bundle(cfg, DecoderOnlyLM, init_tree, cache_shape, lay)
 
 
 def _bundle(cfg: ArchConfig, module, init_tree: Callable, cache_shape: Callable,
-            mesh=None, lay: Layout = WHOLE) -> ModelBundle:
-    """The bundle of a family's module class and its tree and cache."""
+            lay: Layout = WHOLE) -> ModelBundle:
+    """The bundle of a family's module class and its tree and cache, one
+    rank of ``lay``'s mesh."""
 
     def init(gen: torch.Generator, device=None):
         """Parameters drawn from ``gen`` on its device, then moved to
         ``device`` (default: the generator's); on ``meta`` nothing is
         drawn."""
         if device is not None and torch.device(device).type == "meta":
-            return module(cfg, init_tree(gen, "meta"), mesh, lay)
-        model = module(cfg, init_tree(gen), mesh, lay)
+            return module(cfg, init_tree(gen, "meta"), lay)
+        model = module(cfg, init_tree(gen), lay)
         return model if device is None else model.to(device)
 
     def loss(params, batch: Dict) -> torch.Tensor:
@@ -676,37 +695,40 @@ def _bundle(cfg: ArchConfig, module, init_tree: Callable, cache_shape: Callable,
     return ModelBundle(cfg, init, init_tree, loss, prefill, decode, cache_shape)
 
 
-def _norm_params(cfg: ArchConfig, dev, *names) -> Dict:
+def _norm_params(cfg: ArchConfig, dev, *names, lay: Layout = WHOLE) -> Dict:
     """Layer-norm weights (ones) and biases (zeros, names ending in
-    ``b``) of width ``d_model``."""
-    return {n: (L.zeros if n.endswith("b") else L.ones)((cfg.d_model,), ("embed",), device=dev)
+    ``b``) of width ``d_model``, each ``lay``'s block."""
+    return {n: L.cut((L.zeros if n.endswith("b") else L.ones)((cfg.d_model,), ("embed",),
+                                                              device=dev), lay)
             for n in names}
 
 
-def build_encdec(cfg: ArchConfig, mesh=None, rules=None) -> ModelBundle:
-    """The ``encdec`` family (whisper-base)."""
+def build_encdec(cfg: ArchConfig, lay: Layout = WHOLE) -> ModelBundle:
+    """The ``encdec`` family (whisper-base), laid out by ``lay``."""
 
     def enc_block(gen, device):
         dev = device or gen.device
-        return dict(**_norm_params(cfg, dev, "ln1", "ln1b", "ln2", "ln2b"),
-                    attn=L.init_attention(gen, cfg, device),
-                    ffn=L.init_ffn(gen, cfg, gelu=True, device=device))
+        return dict(**_norm_params(cfg, dev, "ln1", "ln1b", "ln2", "ln2b", lay=lay),
+                    attn=L.init_attention(gen, cfg, device, lay),
+                    ffn=L.init_ffn(gen, cfg, gelu=True, device=device, lay=lay))
 
     def dec_block(gen, device):
         dev = device or gen.device
-        return dict(**_norm_params(cfg, dev, "ln1", "ln1b", "ln2", "ln2b", "ln3", "ln3b"),
-                    self_attn=L.init_attention(gen, cfg, device),
-                    cross_attn=L.init_attention(gen, cfg, device),
-                    ffn=L.init_ffn(gen, cfg, gelu=True, device=device))
+        return dict(**_norm_params(cfg, dev, "ln1", "ln1b", "ln2", "ln2b", "ln3", "ln3b",
+                                   lay=lay),
+                    self_attn=L.init_attention(gen, cfg, device, lay),
+                    cross_attn=L.init_attention(gen, cfg, device, lay),
+                    ffn=L.init_ffn(gen, cfg, gelu=True, device=device, lay=lay))
 
     def init_tree(gen: torch.Generator, device=None) -> Dict:
         dev = device or gen.device
         return dict(
-            embed=L.init_embedding(gen, cfg, device),
-            head=L.init_lm_head(gen, cfg, device),
+            embed=L.init_embedding(gen, cfg, device, lay),
+            head=L.init_lm_head(gen, cfg, device, lay),
             enc_blocks=stack_init(lambda: enc_block(gen, device), cfg.enc_layers),
             dec_blocks=stack_init(lambda: dec_block(gen, device), cfg.n_layers),
-            **_norm_params(cfg, dev, "enc_norm", "enc_norm_b", "final_norm", "final_norm_b"),
+            **_norm_params(cfg, dev, "enc_norm", "enc_norm_b", "final_norm", "final_norm_b",
+                           lay=lay),
         )
 
     def cache_shape(batch: int, seq: int):
@@ -718,11 +740,11 @@ def build_encdec(cfg: ArchConfig, mesh=None, rules=None) -> ModelBundle:
         return dict(k=(kv, torch.bfloat16, spec), v=(kv, torch.bfloat16, spec),
                     xk=(xkv, torch.bfloat16, spec), xv=(xkv, torch.bfloat16, spec))
 
-    return _bundle(cfg, EncDecLM, init_tree, cache_shape, mesh)
+    return _bundle(cfg, EncDecLM, init_tree, cache_shape, lay)
 
 
-def build_xlstm(cfg: ArchConfig, mesh=None, rules=None) -> ModelBundle:
-    """The ``xlstm`` family (xlstm-125m)."""
+def build_xlstm(cfg: ArchConfig, lay: Layout = WHOLE) -> ModelBundle:
+    """The ``xlstm`` family (xlstm-125m), laid out by ``lay``."""
     unit = cfg.slstm_every  # layers per repeating unit; the last one is the sLSTM
     if cfg.n_layers % unit:
         raise ValueError(f"{cfg.n_layers} layers are not whole units of {unit}")
@@ -732,20 +754,20 @@ def build_xlstm(cfg: ArchConfig, mesh=None, rules=None) -> ModelBundle:
         dev = device or gen.device
         p = {}
         for i in range(unit):
-            ln = L.ones((cfg.d_model,), ("embed",), device=dev)
+            ln = _norm_param(cfg, dev, lay)
             if i == unit - 1:
-                p[f"s{i}"] = dict(ln=ln, core=XL.init_slstm(gen, cfg, device))
+                p[f"s{i}"] = dict(ln=ln, core=XL.init_slstm(gen, cfg, device, lay))
             else:
-                p[f"m{i}"] = dict(ln=ln, core=XL.init_mlstm(gen, cfg, device))
+                p[f"m{i}"] = dict(ln=ln, core=XL.init_mlstm(gen, cfg, device, lay))
         return p
 
     def init_tree(gen: torch.Generator, device=None) -> Dict:
         dev = device or gen.device
         return dict(
-            embed=L.init_embedding(gen, cfg, device),
-            head=L.init_lm_head(gen, cfg, device),
+            embed=L.init_embedding(gen, cfg, device, lay),
+            head=L.init_lm_head(gen, cfg, device, lay),
             units=stack_init(lambda: init_unit(gen, device), n_rep, "repeat"),
-            final_norm=L.ones((cfg.d_model,), ("embed",), device=dev),
+            final_norm=_norm_param(cfg, dev, lay),
         )
 
     def cache_shape(batch: int, seq: int):
@@ -763,11 +785,11 @@ def build_xlstm(cfg: ArchConfig, mesh=None, rules=None) -> ModelBundle:
             sm=((n_rep, batch, d), f32, ("repeat", "batch", None)),
         )
 
-    return _bundle(cfg, XLSTMLM, init_tree, cache_shape, mesh)
+    return _bundle(cfg, XLSTMLM, init_tree, cache_shape, lay)
 
 
-def build_hybrid(cfg: ArchConfig, mesh=None, rules=None) -> ModelBundle:
-    """The ``hybrid`` family (jamba-v0.1-52b)."""
+def build_hybrid(cfg: ArchConfig, lay: Layout = WHOLE) -> ModelBundle:
+    """The ``hybrid`` family (jamba-v0.1-52b), laid out by ``lay``."""
     unit = cfg.attn_every
     if not unit or cfg.n_layers % unit:
         raise ValueError(f"{cfg.n_layers} layers are not whole superblocks of {unit}")
@@ -776,12 +798,12 @@ def build_hybrid(cfg: ArchConfig, mesh=None, rules=None) -> ModelBundle:
 
     def init_block(gen, device, i: int):
         dev = device or gen.device
-        mix = (L.init_attention(gen, cfg, device) if i == attn_pos
-               else SSM.init_mamba(gen, cfg, device))
-        ffn = (MOE.init_moe(gen, cfg, device, mesh, rules) if i in moe_pos
-               else L.init_ffn(gen, cfg, device=device))
-        return dict(ln1=L.ones((cfg.d_model,), ("embed",), device=dev),
-                    ln2=L.ones((cfg.d_model,), ("embed",), device=dev), mix=mix, ffn=ffn)
+        mix = (L.init_attention(gen, cfg, device, lay) if i == attn_pos
+               else SSM.init_mamba(gen, cfg, device, lay))
+        ffn = (MOE.init_moe(gen, cfg, device, lay) if i in moe_pos
+               else L.init_ffn(gen, cfg, device=device, lay=lay))
+        return dict(ln1=_norm_param(cfg, dev, lay), ln2=_norm_param(cfg, dev, lay), mix=mix,
+                    ffn=ffn)
 
     def init_tree(gen: torch.Generator, device=None) -> Dict:
         dev = device or gen.device
@@ -790,11 +812,11 @@ def build_hybrid(cfg: ArchConfig, mesh=None, rules=None) -> ModelBundle:
         # alive beside the stacks instead of a superblock's (13.3 B
         # parameters at jamba's published widths)
         return dict(
-            embed=L.init_embedding(gen, cfg, device),
-            head=L.init_lm_head(gen, cfg, device),
+            embed=L.init_embedding(gen, cfg, device, lay),
+            head=L.init_lm_head(gen, cfg, device, lay),
             units={f"b{i}": stack_init(lambda i=i: init_block(gen, device, i), n_rep, "repeat")
                    for i in range(unit)},
-            final_norm=L.ones((cfg.d_model,), ("embed",), device=dev),
+            final_norm=_norm_param(cfg, dev, lay),
         )
 
     def cache_shape(batch: int, seq: int):
@@ -810,22 +832,20 @@ def build_hybrid(cfg: ArchConfig, mesh=None, rules=None) -> ModelBundle:
                   ("repeat", None, "batch", None, "inner")),
         )
 
-    return _bundle(cfg, HybridLM, init_tree, cache_shape, mesh)
+    return _bundle(cfg, HybridLM, init_tree, cache_shape, lay)
 
 
 # ---------------------------------------------------------------- factory
 def build_model(cfg: ArchConfig, mesh=None, rules=None) -> ModelBundle:
-    """``cfg``'s bundle; with a ``mesh``, one rank of it: its expert stacks
-    drawn as the rank's block by ``rules`` (default: the mesh's
-    ``default_rules``) where ``moe.ep_sharded``."""
-    if mesh is not None and rules is None:
-        rules = default_rules(mesh)
+    """``cfg``'s bundle; with a ``mesh``, one rank of it laid out by
+    ``rules`` (default: the mesh's ``default_rules``; ``rules_layout``)."""
+    lay = rules_layout(cfg, mesh, rules)
     if cfg.family in ("dense", "vlm", "moe", "mla_moe"):
-        return build_decoder_only(cfg, mesh, rules)
+        return build_decoder_only(cfg, lay)
     if cfg.family == "encdec":
-        return build_encdec(cfg, mesh, rules)
+        return build_encdec(cfg, lay)
     if cfg.family == "xlstm":
-        return build_xlstm(cfg, mesh, rules)
+        return build_xlstm(cfg, lay)
     if cfg.family == "hybrid":
-        return build_hybrid(cfg, mesh, rules)
+        return build_hybrid(cfg, lay)
     raise ValueError(f"unknown family {cfg.family}")

@@ -27,7 +27,7 @@ Three points keep the reference's semantics exactly:
 Over a ``("data", "model")`` mesh of ranks (``launch/mesh.py``) each rank
 holds its rows of the batch (split over the data axes) and, where
 ``ep_sharded``, its block of the expert stacks: experts over ``model``,
-``d`` over the data axes (``init_moe(..., mesh)`` draws every expert and
+``d`` over the data axes (``init_moe(..., lay)`` draws every expert and
 keeps the block, so the values are the single-device draw's).
 ``moe_ffn_sharded`` is the reference's expert-parallel path: the rank's
 tokens, routed over all experts, capacity from the data shard's token
@@ -45,14 +45,14 @@ a rank gathers the batch's rows over the data axes, computes its experts'
 share with their ``d`` left split over the data axes (``_d_split_compute``),
 sums over ``model`` and keeps its own rows.
 
-A decoder-only model over a mesh (``models/model.py``) stores every MoE
-weight by the rules and passes its ``Layout``: the router ``("wembed",
-None)`` is then a block of ``d`` gathered over the data axes where it is
-used (still f32 in full precision), the shared experts are tensor-parallel
-over ``mlp`` as ``layers.ffn``, and the expert stacks keep ``d`` split over
-the data axes whether or not the experts split over ``model``. Without a
-``Layout`` the router and the shared experts are whole (the hybrid
-family's placement) and the stacks are blocks only where ``ep_sharded``.
+A model over a mesh (``models/model.py``) stores every MoE weight by the
+rules and passes its ``Layout``: the router ``("wembed", None)`` is then a
+block of ``d`` gathered over the data axes where it is used (still f32 in
+full precision), the shared experts are tensor-parallel over ``mlp`` as
+``layers.ffn``, and the expert stacks keep ``d`` split over the data axes
+whether or not the experts split over ``model``. Without a ``Layout`` the
+router and the shared experts are whole; stacks a caller cut to a rank's
+block (``_experts_out`` checks their shapes) compute as above.
 """
 from __future__ import annotations
 
@@ -105,18 +105,13 @@ def _make_experts(gen, shape, spec, dtype, device=None, mesh=None, rules=None) -
     return Param(out, tuple(spec))
 
 
-def init_moe(gen, cfg: ArchConfig, device=None, mesh=None, rules=None,
-             lay: Layout = WHOLE) -> Dict:
-    """The MoE's parameters; on a ``mesh`` where ``ep_sharded``, the expert
-    stacks as this rank's block by their specs under ``rules``. With a
-    ``lay`` over a mesh, every leaf is this rank's block by its rules."""
+def init_moe(gen, cfg: ArchConfig, device=None, lay: Layout = WHOLE) -> Dict:
+    """The MoE's parameters, each ``lay``'s block by its rules (over a
+    mesh)."""
     d, f = cfg.d_model, cfg.d_expert or cfg.d_ff
     E = n_experts_padded(cfg)
     dt = _dtype(cfg)
-    if lay.mesh is not None:
-        ep = dict(mesh=lay.mesh, rules=lay.rules)
-    else:
-        ep = dict(mesh=mesh, rules=rules) if ep_sharded(cfg, mesh) else {}
+    ep = dict(mesh=lay.mesh, rules=lay.rules) if lay.mesh is not None else {}
     p = dict(
         w_router=cut(make(gen, (d, E), ("wembed", None), 1.0, torch.float32, device), lay),
         w_gate=_make_experts(gen, (E, d, f), ("experts", "wembed", "expert_mlp"), dt, device,

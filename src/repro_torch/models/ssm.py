@@ -21,6 +21,21 @@ contraction with ``C``, decode's conv window) run in full f32 on the card
 ``conv``, views of the model's cache in ``HybridLM.decode``) and returns
 it, where the reference returns a new state; the values are the
 reference's.
+
+Over a mesh of ranks (a ``Layout``) every leaf is this rank's block by
+the rules: ``inner`` (``d_inner``) splits over ``model`` and ``wembed``
+over the data axes. ``in_proj``'s stored block is a contiguous block of
+its ``2 * d_inner`` columns, so the product's blocks are gathered and each
+rank keeps both halves of its own channels (``layers.fused_halves``). The
+conv, ``dt``, the scan and the state (``h`` and ``conv``, the cache's
+``inner`` blocks) then work on the rank's ``d_inner / model`` channels:
+``x_proj`` is row-parallel (its ``dt_rank + 2 * d_state`` outputs summed
+over ``model``, entering the channel-local region again through
+``Layout.enter``), ``dt_proj`` column-parallel and ``out_proj``
+row-parallel, summed over ``model``; both row-parallel sums are
+``layers.row_parallel``'s (f32 partials summed in f32 and rounded once,
+as one device rounds its product once: ``dt``'s path through softplus and
+the scan's decay is where a bf16 rounding per rank shows most).
 """
 from __future__ import annotations
 
@@ -31,16 +46,18 @@ import torch.nn.functional as F
 
 from .. import full_f32_matmul
 from ..configs.base import ArchConfig
-from .layers import Param, _dtype, _matmul, make, zeros
+from ..sharding.rules import WHOLE, Layout
+from .layers import Param, _dtype, _matmul, cut, fused_halves, make, row_parallel, zeros
 
 
-def init_mamba(gen, cfg: ArchConfig, device=None) -> Dict:
+def init_mamba(gen, cfg: ArchConfig, device=None, lay: Layout = WHOLE) -> Dict:
+    """The mixer's parameters, each ``lay``'s block (drawn whole and cut)."""
     d, di, ds, dc, dtr = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.d_conv, cfg.dt_rank
     dt = _dtype(cfg)
     dev = device or gen.device
     f32 = torch.float32
     a = torch.log(torch.arange(1, ds + 1, dtype=f32, device=dev)).expand(di, ds).contiguous()
-    return dict(
+    p = dict(
         in_proj=make(gen, (d, 2 * di), ("wembed", "inner"), 1.0, dt, device),
         conv_w=make(gen, (dc, di), ("conv", "inner"), 1.0, f32, device),
         conv_b=zeros((di,), ("inner",), device=dev),
@@ -51,6 +68,7 @@ def init_mamba(gen, cfg: ArchConfig, device=None) -> Dict:
         D=Param(torch.ones((di,), dtype=f32, device=dev), ("inner",)),
         out_proj=make(gen, (di, d), ("inner", "wembed"), 1.0, dt, device),
     )
+    return {k: cut(v, lay) for k, v in p.items()}
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -115,13 +133,32 @@ def _ssm_scan(dA: torch.Tensor, dBx: torch.Tensor,
     return h, h[:, -1]
 
 
-def mamba_mixer(params: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def _in_proj(params: Dict, x: torch.Tensor, lay: Layout):
+    """``(x_in, z)``: the rank's channels of both halves of ``x @ in_proj``
+    (``x`` the same on every ``model`` rank, entering the rank's columns)."""
+    return fused_halves(_matmul(lay.enter("inner", x), lay.whole(params["in_proj"], 0)), lay)
+
+
+def _x_proj(params: Dict, x_c: torch.Tensor, lay: Layout) -> torch.Tensor:
+    """``x_c @ x_proj``: row-parallel over the rank's channels, summed over
+    ``model``; every rank then reads the whole of it for its own channels
+    (``enter``: their cotangents are summed)."""
+    return lay.enter("inner", row_parallel(x_c, params["x_proj"], lay, "inner"))
+
+
+def _out_proj(params: Dict, y: torch.Tensor, lay: Layout) -> torch.Tensor:
+    return row_parallel(y, lay.whole(params["out_proj"], 1), lay, "inner")
+
+
+def mamba_mixer(params: Dict, x: torch.Tensor, cfg: ArchConfig,
+                lay: Layout = WHOLE) -> torch.Tensor:
     """The full-sequence (training and prefill) mixer. x: (B, S, d)."""
     B, S, d = x.shape
-    di, ds, dtr = cfg.d_inner, cfg.d_state, cfg.dt_rank
-    x_in, z = torch.chunk(_matmul(x, params["in_proj"]), 2, dim=-1)
+    ds, dtr = cfg.d_state, cfg.dt_rank
+    di = params["D"].shape[0]  # the rank's channels
+    x_in, z = _in_proj(params, x, lay)
     x_c = F.silu(_causal_conv(x_in.float(), params["conv_w"], params["conv_b"]))
-    bcdt = _matmul(x_c.to(x.dtype), params["x_proj"])
+    bcdt = _x_proj(params, x_c.to(x.dtype), lay)
     dt_in, Bm, Cm = bcdt[..., :dtr], bcdt[..., dtr:dtr + ds], bcdt[..., dtr + ds:]
     with full_f32_matmul():
         dt = softplus(dt_in.float() @ params["dt_proj"] + params["dt_bias"])  # (B, S, di)
@@ -144,7 +181,7 @@ def mamba_mixer(params: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         del hs
     y = torch.cat(ys, dim=1) + params["D"] * x_c
     y = (y * F.silu(z.float())).to(x.dtype)
-    return _matmul(y, params["out_proj"])
+    return _out_proj(params, y, lay)
 
 
 def init_mamba_state(cfg: ArchConfig, batch: int, device=None) -> Dict[str, torch.Tensor]:
@@ -156,16 +193,18 @@ def init_mamba_state(cfg: ArchConfig, batch: int, device=None) -> Dict[str, torc
 
 
 def mamba_decode(params: Dict, x: torch.Tensor, state: Dict[str, torch.Tensor],
-                 cfg: ArchConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                 cfg: ArchConfig, lay: Layout = WHOLE
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One recurrent step. x: (B, 1, d). Returns ``(y, state)``, ``state``'s
-    ``h`` and ``conv`` written in place."""
+    ``h`` and ``conv`` written in place (over a mesh the rank's channels of
+    them)."""
     ds, dtr = cfg.d_state, cfg.dt_rank
-    x_in, z = torch.chunk(_matmul(x[:, 0], params["in_proj"]), 2, dim=-1)
+    x_in, z = _in_proj(params, x[:, 0], lay)
     window = torch.cat([state["conv"], x_in.float()[:, None]], dim=1)  # (B, dc, di)
     with full_f32_matmul():
         conv_out = torch.einsum("bcd,cd->bd", window, params["conv_w"]) + params["conv_b"]
     x_c = F.silu(conv_out)
-    bcdt = _matmul(x_c.to(x.dtype), params["x_proj"])
+    bcdt = _x_proj(params, x_c.to(x.dtype), lay)
     dt_in, Bm, Cm = bcdt[..., :dtr], bcdt[..., dtr:dtr + ds], bcdt[..., dtr + ds:]
     with full_f32_matmul():
         dt = softplus(dt_in.float() @ params["dt_proj"] + params["dt_bias"])  # (B, di)
@@ -178,4 +217,4 @@ def mamba_decode(params: Dict, x: torch.Tensor, state: Dict[str, torch.Tensor],
     with full_f32_matmul():
         y = torch.einsum("bds,bs->bd", h, Cm.float()) + params["D"] * x_c
     y = (y * F.silu(z.float())).to(x.dtype)
-    return _matmul(y, params["out_proj"])[:, None], state
+    return _out_proj(params, y, lay)[:, None], state

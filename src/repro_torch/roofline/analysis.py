@@ -17,11 +17,11 @@ Terms (seconds, per step, per rank):
 
 The traced FLOPs are each rank's own program's (``roofline/op_stats.py``):
 eager code runs every op, so there is no while-body undercount to correct.
-The decoder-only families compute each dense layer's share on each
-``model`` rank (the rules' layout); the enc-dec, xLSTM and hybrid families
-still keep dense weights whole, so a ``model`` axis of n ranks computes
-their dense layers n times: ``useful`` (MODEL_FLOPS over the traced FLOPs
-of every rank) shows either. MODEL_FLOPS uses 6*N*D (dense) /
+Every family computes each tensor-parallel layer's share on each
+``model`` rank (the rules' layout); what the layout runs alike on every
+``model`` rank (whisper's attention, xLSTM's recurrences) counts n times
+over a ``model`` axis of n ranks, which ``useful`` (MODEL_FLOPS over the
+traced FLOPs of every rank) shows. MODEL_FLOPS uses 6*N*D (dense) /
 6*N_active*D (MoE), as the reference.
 """
 from __future__ import annotations

@@ -251,6 +251,12 @@ class Layout:
       (``pvary``: the cotangents of the ranks are summed in the backward);
     * ``psum`` / ``pmax`` / ``gather`` -- the row-parallel sums, the
       combines and the joins of blocks over ``name``'s axis;
+    * ``gather_invariant(name, w, dim)`` -- a weight's blocks over
+      ``name``'s axis joined whole for a computation every rank of the
+      axis then runs alike (``MeshAxis.all_gather_invariant``: the backward
+      keeps the rank's block of the same whole gradient);
+    * ``own(name, t, n)`` -- this rank's block of ``n`` entries of the last
+      dimension of ``t``, whole on every rank of the axis (a plain slice);
     * ``start(name, n)`` -- where this rank's block of ``n`` entries starts
       on a dimension ``name`` splits.
     """
@@ -295,6 +301,14 @@ class Layout:
 
     def whole(self, w, dim: int):
         return self.gather("wembed", w, dim)
+
+    def gather_invariant(self, name: str, w, dim: int):
+        ax = self.axis(name)
+        return w if ax is None else ax.all_gather_invariant(w, dim)
+
+    def own(self, name: str, t, n: int):
+        lo = self.start(name, n)
+        return t if self.axis(name) is None else t[..., lo:lo + n]
 
     def enter(self, name: str, x):
         ax = self.axis(name)

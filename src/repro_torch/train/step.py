@@ -20,16 +20,14 @@ rank, and computes this rank's rows of it; ``prefill_step`` and
 ``decode_step`` return those rows' logits, the whole vocabulary; the cache
 is the rank's own (``init_cache``; ``local`` cuts a whole one).
 
-The decoder-only families (``RULES_FAMILIES``) are placed as the
-reference's rules place them: every state leaf, batch and cache is this
-rank's block by the rules (``Steps.placement`` is the rules' sharding):
-the batch over the data axes, ``wembed`` over the data axes (ZeRO-3: each
-layer gathers its weights, ``models/layers.py``), ``heads``, ``mlp``,
-``vocab`` and ``experts`` over ``model``, the cache's ``kv_seq`` over
-``model`` (``kv_seq_all`` over every axis with ``long_ctx``). The other
-families (enc-dec, xLSTM, hybrid) keep ``placement_rules``' layout until
-theirs is ported: the batch split over the data axes, the expert stacks
-the rank's block where ``moe.ep_sharded``, every other leaf whole.
+Every family is placed as the reference's rules place it: every state
+leaf, batch and cache is this rank's block by the rules
+(``Steps.placement`` is the rules' sharding): the batch over the data
+axes, ``wembed`` over the data axes (ZeRO-3: each layer gathers its
+weights, ``models/layers.py``), ``heads``, ``mlp``, ``vocab``,
+``experts`` and ``inner`` over ``model``, the cache's ``kv_seq`` over
+``model`` (``kv_seq_all`` over every axis with ``long_ctx``) and its
+``inner`` (the Mamba state) over ``model``.
 
 ``train_step`` on a mesh is the reference's step on its global batch
 (``step_gradients``): each rank backpropagates its rows' mean loss over the
@@ -57,7 +55,6 @@ from .. import resolve_device
 from ..configs.base import ArchConfig
 from ..models.layers import split_params
 from ..models.model import ModelBundle, build_model
-from ..models.moe import ep_sharded
 from ..sharding.rules import Sharding, default_rules, dp_axes, named_sharding, shard_tensor
 from ..optim.optimizers import (AdafactorState, AdamWState, SGDState, clip_scale,
                                 cosine_schedule, get_optimizer, global_norm)
@@ -118,17 +115,6 @@ def mesh_rules(cfg: ArchConfig, mesh) -> Dict[str, Any]:
     return rules
 
 
-# the families laid out by the rules over a mesh
-RULES_FAMILIES = ("dense", "vlm", "moe", "mla_moe")
-
-
-def placement_rules(rules: Dict[str, Any]) -> Dict[str, Any]:
-    """Where the families outside ``RULES_FAMILIES`` place batches and
-    caches over a mesh: the batch as ``rules`` split it, every other
-    dimension whole."""
-    return {k: (v if k == "batch" else None) for k, v in rules.items()}
-
-
 @dataclasses.dataclass
 class Steps:
     cfg: ArchConfig
@@ -146,20 +132,10 @@ class Steps:
     rules: Any = None  # the mesh's rules, overrides merged
     blocks: Optional[List[Optional[Sharding]]] = None  # param_blocks() on a mesh
 
-    @property
-    def by_rules(self) -> bool:
-        """Whether the state, batches and caches are the rules' blocks."""
-        return self.cfg.family in RULES_FAMILIES
-
     def placement(self, spec) -> Sharding:
-        """Where a state leaf of logical ``spec`` lies on the mesh: for
-        ``RULES_FAMILIES`` the rank's block by the rules; for the others an
-        expert stack (a spec naming ``experts``) as the rank's block by the
-        rules where the experts are sharded (``moe.ep_sharded``), any other
-        leaf whole on every rank."""
-        if self.by_rules or ("experts" in spec and ep_sharded(self.cfg, self.mesh)):
-            return named_sharding(self.mesh, spec, self.rules)
-        return Sharding(self.mesh, (None,) * len(spec))
+        """Where a state leaf of logical ``spec`` lies on the mesh: the
+        rank's block by the rules."""
+        return named_sharding(self.mesh, spec, self.rules)
 
     def state_shardings(self):
         """The ``placement`` of every state leaf, in the state's tree (the
@@ -175,13 +151,11 @@ class Steps:
 
     def local(self, tree, specs):
         """This rank's block of a tree of whole tensors (a batch or a
-        cache) by its logical ``specs``: by the rules for
-        ``RULES_FAMILIES``, by ``placement_rules`` for the others; the tree
-        itself without a mesh."""
+        cache) by its logical ``specs`` and the rules; the tree itself
+        without a mesh."""
         if self.mesh is None:
             return tree
-        place = self.rules if self.by_rules else placement_rules(self.rules)
-        return {k: shard_tensor(v, specs[k], self.mesh, place) for k, v in tree.items()}
+        return {k: shard_tensor(v, specs[k], self.mesh, self.rules) for k, v in tree.items()}
 
     def batch_spec(self, kind: str, seq: int, batch: int):
         """(abstract batch dict, logical specs) for a shape kind."""
@@ -243,19 +217,13 @@ def step_gradients(steps: "Steps", model, batch):
     ``leaves(model)``'s order. On one device the batch's; on a mesh (see
     the module) the global mean loss, the same on every rank, and each
     gradient the whole batch's: the rank's rows' loss over the number of
-    data ranks backpropagated, then
-
-    * for ``RULES_FAMILIES``: a leaf split over the data axes was gathered
-      and its gradient came reduce-scattered (summed) over them; any other
-      leaf's is summed over the data axes. Over ``model`` nothing is left
-      to sum: a block's gradient is its own, and a leaf whole over
-      ``model`` has its whole gradient on every ``model`` rank (see the
-      module), so it is neither summed again (that would count it twice)
-      nor averaged;
-    * for the other families: each leaf's gradient summed over the mesh
-      axes its placement does not split and divided by the ranks of those
-      that are not data axes (their copies are equal: the same rows), so
-      a whole leaf's copies stay bit-identical."""
+    data ranks backpropagated, then: a leaf split over the data axes was
+    gathered and its gradient came reduce-scattered (summed) over them; any
+    other leaf's is summed over the data axes. Over ``model`` nothing is
+    left to sum: a block's gradient is its own, and a leaf whole over
+    ``model`` has its whole gradient on every ``model`` rank (see the
+    module), so it is neither summed again (that would count it twice)
+    nor averaged."""
     mesh = steps.mesh
     if mesh is None:
         loss, grads = loss_and_grads(steps.bundle, model, batch)
@@ -266,14 +234,9 @@ def step_gradients(steps: "Steps", model, batch):
     loss, grads = loss_and_grads(steps.bundle, model, rows, 1.0 / n_dp)
     grads = leaves(grads)
     for i, block in enumerate(steps.blocks):
-        unsplit = [a for a in mesh.axis_names if block is None or a not in block.axes]
-        rest = [a for a in unsplit if a in dp] if steps.by_rules else unsplit
-        axis = mesh.over(rest)
-        if axis is None:
-            continue
-        copies = math.prod(mesh.axis(a).size for a in rest if a not in dp)
-        g = axis.psum(grads[i])
-        grads[i] = g.div_(copies) if copies > 1 else g
+        axis = mesh.over([a for a in dp if block is None or a not in block.axes])
+        if axis is not None:
+            grads[i] = axis.psum(grads[i])
     loss = mesh.everyone.psum(loss / n_dp) / (mesh.size // n_dp)
     return loss, grads
 

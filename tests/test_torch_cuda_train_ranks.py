@@ -9,7 +9,9 @@ takes one card a rank), against one device.
   ``train_step``s, each rank's loss and grad_norm within 1e-5 of one
   device's on the card (one data rank: the capacity is the whole batch's
   either way), each rank's block of every state leaf within 1e-4 of the
-  leaf's largest value, every whole leaf bit-identical on both ranks.
+  leaf's largest value, every whole leaf bit-identical on both ranks;
+* tinyllama, deepseek-v3, xlstm-125m and jamba at ``reduced()`` served on
+  ``(1, 2)`` in the rules' layout against one device on the card.
 
 Every test here needs an NVIDIA GPU and skips elsewhere. The file imports
 no JAX:
@@ -93,17 +95,20 @@ def test_train_step_over_two_ranks_on_the_card_matches_one_device(pool):
             np.testing.assert_array_equal(got[1][2][j][1], block, err_msg=name)
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "deepseek-v3-671b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "deepseek-v3-671b", "xlstm-125m",
+                                  "jamba-v0.1-52b"])
 def test_rules_layout_serves_over_two_ranks_on_the_card(pool, arch):
-    """``(1, 2)`` in the rules' layout (tensor-parallel heads, mlp and
-    vocab; the cache's slots split over model) on the card: the prefill and
-    each decode step (f32 caches, positions across the slot blocks, one at
-    the clamp past the end; then long-context steps) within 1e-4 of the
-    largest of one device's logits on the card, the embedding bit-equal."""
+    """``(1, 2)`` in the rules' layout (tensor-parallel heads, mlp, vocab
+    and ``inner``, the Mamba state split with it; the cache's slots split
+    over model) on the card: the prefill and each decode step (f32 caches,
+    positions across the slot blocks, one at the clamp past the end; then
+    long-context steps) within 1e-4 of the largest of one device's logits
+    on the card, the embedding bit-equal. jamba at one superblock of 4."""
     import dataclasses
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(arch).reduced(), n_layers=2)
+    reduced = get_config(arch).reduced()
+    cfg = dataclasses.replace(reduced, n_layers=reduced.attn_every or 2)
     rng = np.random.default_rng(7)
     B, S, n_slots, n_long = 4, 32, 8, 8
     toks = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)

@@ -7,8 +7,8 @@
   keys (and the port's ``rules_argument_bytes``, ``op_census`` and
   ``fits``); ``train_4k`` cells are traced (``fits`` and a roofline row);
   a batch smaller than the data ranks takes the long-context layout and an
-  uneven one is skipped; a decoder-only cell's arguments as placed are the
-  rules' bytes, the other families' more;
+  uneven one is skipped; every cell's arguments as placed are the rules'
+  bytes;
 * ``param_counts`` and ``model_flops`` equal the reference's for every
   arch and shape, and ``descent_bytes``, ``filter_level_bytes``,
   ``verify_bytes`` and ``remap_bytes`` give the reference's integers over a
@@ -48,7 +48,7 @@ from repro_torch.launch.flat_legacy import trace_wisk_serve  # noqa: E402
 from repro_torch.launch.mesh import collective_census, make_abstract_mesh  # noqa: E402
 from repro_torch.roofline import analysis, descent_bytes  # noqa: E402
 from repro_torch.roofline.op_stats import OpStats  # noqa: E402
-from repro_torch.train.step import RULES_FAMILIES, build_steps  # noqa: E402
+from repro_torch.train.step import build_steps  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 MESH = "data=2,model=2"
@@ -121,26 +121,19 @@ def test_run_cell_traces_every_serving_cell(arch, shape, tmp_path):
     assert rec["devices"] == 4 and rec["mesh"] == "data2xmodel2"
     assert rec["kind"] == SHAPES[shape][2]
     mem = rec["memory"]
-    by_rules = cfg.family in RULES_FAMILIES
-    if by_rules:  # placed as the rules place it
-        assert 0 < mem["rules_argument_bytes"] == mem["argument_bytes"]
-    else:
-        assert 0 < mem["rules_argument_bytes"] < mem["argument_bytes"]
+    assert 0 < mem["rules_argument_bytes"] == mem["argument_bytes"]  # placed by the rules
     assert rec["op_census"]["flops"] > 0 and rec["cost"]["flops"] == rec["op_census"]["flops"]
     assert rec["fits"]["argument_bytes"] and rec["fits"]["device_memory_bytes"] > 0
     assert rec["output_shape"] == [CELL["batch"] // 2, 1, cfg.vocab]
-    # the experts split over model and are gathered over data; the decoder-only
-    # families' weights are gathered over data and their layers sum over model
-    moe = bool(cfg.n_experts) or by_rules
-    assert bool(rec["collective_total_per_device"]) == moe
-    if moe:
-        assert set(rec["collective_bytes_by_axis"]) == {"data", "model"}
+    # every family's weights are gathered over data and its layers sum over model
+    assert rec["collective_total_per_device"] > 0
+    assert set(rec["collective_bytes_by_axis"]) == {"data", "model"}
     saved = json.loads((tmp_path / f"{arch}_{shape}_data2xmodel2.json").read_text())
     assert saved == rec
     if torch.cuda.is_available():
         assert torch.cuda.memory_allocated() == before
     row = analysis.roofline_from_record(rec, cfg)
-    assert row.compute_s > 0 and row.memory_s > 0 and (row.collective_s > 0) == moe
+    assert row.compute_s > 0 and row.memory_s > 0 and row.collective_s > 0
 
 
 def test_a_train_cell_fits_only_with_its_peak_beside_its_state(monkeypatch, tmp_path):
@@ -167,12 +160,8 @@ def test_train_cells_are_traced_and_small_batches_take_long_context(arch, tmp_pa
     assert rec["kind"] == "train" and rec["output_shape"] == []
     assert rec["fits"]["argument_bytes"] and rec["fits"]["rules_argument_bytes"]
     mem = rec["memory"]
-    if cfg.family in RULES_FAMILIES:
-        assert 0 < mem["rules_argument_bytes"] == mem["argument_bytes"]
-    else:
-        assert 0 < mem["rules_argument_bytes"] < mem["argument_bytes"]
-    # the loss and the global norm are summed over every rank (and, outside
-    # the decoder-only families, every whole leaf's gradient)
+    assert 0 < mem["rules_argument_bytes"] == mem["argument_bytes"]
+    # the loss and the global norm are summed over every rank
     assert rec["collective_counts_by_axis"]["everyone"]["all-reduce"] > 0
     row = analysis.roofline_from_record(rec, cfg)
     assert row.compute_s > 0 and row.memory_s > 0 and row.collective_s > 0
@@ -195,7 +184,7 @@ def test_roofline_table_and_cli(tmp_path):
     assert [r.shape for r in rows] == ["decode_32k", "prefill_32k"]
     table = analysis.to_markdown(rows)
     assert table.count("\n") == 4 and "qwen2-moe-a2.7b" in table
-    # the bytes a rank: as placed equal to the rules' (the decoder-only layout)
+    # the bytes a rank: as placed equal to the rules' (every family's layout)
     mem = analysis.memory_markdown(str(tmp_path), "data2xmodel2")
     assert mem.count("\n") == 4
     assert all(row.split(" | ")[4] == "True" for row in mem.splitlines()[2:])

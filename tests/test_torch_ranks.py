@@ -530,3 +530,70 @@ def layout_grads(ctx, layout, cfg, values, batch):
     local = steps.local(b, {k: ("batch",) for k in b})
     nbytes = sum(x.numel() * x.element_size() for x in leaves(state) + list(local.values()))
     return float(loss), out, nbytes
+
+
+def layout_family(ctx, layout, cfg, values, batch, decodes):
+    """Every step of ``build_steps(cfg, mesh=...)`` on the pool's first
+    ranks in ``layout``, the parameters this rank's blocks of ``values``
+    (the reference's nested tree, whole): the prefill of ``batch`` (whole
+    tensors); for each ``(name, cache, tokens, positions, n_slots,
+    long_ctx)`` of ``decodes`` (``cache`` whole, of ``n_slots`` slots, taken
+    as this rank's blocks) a decode step of each column of ``tokens`` at
+    its position; the gradients of ``step_gradients`` on ``batch``; then
+    one ``train_step`` on it. Returns this rank's logits, the census of
+    each step, the final cache blocks, the gradient blocks ``(name, numpy,
+    slices)`` with the loss, and the bytes the dry run counts: the state's,
+    and per decode the parameters', the cache's as ``init_cache`` makes it
+    and the token rows'. None outside the mesh."""
+    from repro_torch.launch.mesh import collective_census
+    from repro_torch.train.step import build_steps, step_gradients
+    from repro_torch.tree import leaves
+
+    mesh = _first_mesh(ctx, layout)
+    if mesh is None:
+        return None
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+    host = lambda t: t.detach().cpu().numpy()  # noqa: E731
+    steps = build_steps(cfg, mesh=mesh)
+    state = steps.init_state(torch.Generator().manual_seed(0))
+    model = state["params"]
+    _carry(steps, model, values)
+    b = {k: torch.as_tensor(v) for k, v in batch.items()}
+    with collective_census() as pre:
+        logits = steps.prefill_step(model, b)
+    out = dict(prefill=host(logits), prefill_census=(pre.bytes, pre.counts),
+               param_bytes=nbytes(model.parameters()), rows=b["tokens"].shape[0] // layout[0])
+    for name, whole, tokens, positions, n_slots, long_ctx in decodes:
+        toks = torch.from_numpy(tokens)
+        B = toks.shape[0]
+        _, specs = steps.cache_spec(B, n_slots, long_ctx)
+        native = steps.init_cache(B, n_slots, long_ctx)
+        cache = {k: v.clone() for k, v in steps.local(
+            {k: torch.from_numpy(v) for k, v in whole.items()}, specs).items()}
+        assert all(cache[k].shape == native[k].shape for k in native), name
+        got, censuses = [], []
+        for t, pos in enumerate(positions):
+            with collective_census() as step:
+                lo, cache = steps.decode_step(model, cache, toks[:, t:t + 1],
+                                              torch.tensor(pos, dtype=torch.int32), long_ctx)
+            got.append(host(lo))
+            censuses.append((step.bytes, step.counts))
+        step_toks = toks[:, :1]
+        tok_rows = step_toks if long_ctx else steps.local(dict(t=step_toks),
+                                                          dict(t=("batch", None)))["t"]
+        out[name] = dict(logits=got, censuses=censuses,
+                         cache={k: host(v) for k, v in cache.items()},
+                         bytes=(out["param_bytes"], nbytes(native.values()), nbytes([tok_rows])))
+    with collective_census() as census:
+        loss, grads = step_gradients(steps, model, b)
+    out["grads_census"] = (census.bytes, census.counts)
+    out["loss"] = float(loss)
+    out["grads"] = [(name, host(g).copy(), sh.index(sh.global_shape(g.shape)))
+                    for name, g, sh in zip(_names(model), grads,
+                                           leaves(steps.state_shardings()["params"]))]
+    out["state_bytes"] = nbytes(leaves(state))
+    del grads
+    with collective_census() as census:
+        steps.train_step(state, b)
+    out["train_census"] = (census.bytes, census.counts)
+    return out
